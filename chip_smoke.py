@@ -14,16 +14,31 @@ Phases, in order (any failed check raises and the script exits non-zero):
    64), plus one small fp32 case each: max error against the stated
    tolerance, CUDA-event times (median of 20 after warm-up, L2 flushed
    before each launch), the plain version's time, one library yardstick
-   (never used by the port) and the bound.
-4. Main path at full width: llama3.2-1b, 16 layers, random weights from a
-   seeded generator, packed at keep 0.25 / block 128, served through the
-   paged engine (8 slots, page 16, capacity 640): 16 greedy requests with
-   prompts from {32, 128, 512} and 32 new tokens each. The launch counters
-   are zeroed just before and read just after; then one direct
-   ``prefill_append`` on a live pool, held to a cold prefill.
-5. Engine against the naive ``generate`` oracle: fp32, full width, 2
-   layers, 4 requests, greedy tokens equal up to near-ties.
-6. The card's line, the ``kernels`` JSON line, and the contract line.
+   (never used by the port) and the bound. Every form: the fp and int8
+   forms of ``bcr_spmm``, ``bcr_spmm_grouped`` and paged attention, and the
+   fused flash attention (B·H = 8·32, S in {128, 512}, causal, non-causal
+   and a ``q_offset`` case).
+4. bf16 main path at full width: llama3.2-1b, 16 layers, random weights
+   from a seeded generator, packed at keep 0.25 / block 128, served through
+   the paged engine (8 slots, page 16, capacity 640): 16 greedy requests
+   with prompts from {32, 128, 512} and 32 new tokens each. The launch
+   counters are zeroed just before and read just after; a profiled window
+   of decode steps; then one direct ``prefill_append`` on a live pool, held
+   to a cold prefill.
+5. Quantized main path, the same weights and traffic: int8 tiles
+   (``pack_params(weight_dtype="int8")``), int8 KV pages
+   (``EngineConfig(kv_dtype="int8")``) and cold prefill through the fused
+   flash kernel (``attn_impl="pallas"``). The int8 and flash counters must
+   move and the fp counters stay 0, with 16 flash launches per cold
+   prefill; the same profile and live-pool ``prefill_append`` check; and
+   the teacher-forced flip rate of the int8 path against the bf16 path on
+   the bf16 path's trajectories (printed, not gated: random weights have
+   near-ties).
+6. Engines against the naive ``generate`` oracle, fp32, full width, 2
+   layers, 4 requests: the bf16-config engine, then the quantized one
+   (int8 tiles, int8 KV, flash prefill); greedy tokens equal up to
+   near-ties.
+7. The card's line, the ``kernels`` JSON line, and the contract line.
 """
 
 from __future__ import annotations
@@ -43,13 +58,33 @@ BF16_TOL, FP32_TOL = 2e-2, 1e-4  # × max(1, max |plain|)
 
 REPO = "src/repro"               # the reference package, for "replaces"
 PORT = "src/repro_torch/kernels/csrc"
+# launch-counter key → (CUDA source, the TPU kernel it replaces, the case
+# its row in the kernels line reports: its decode- or prefill-step shape)
 KERNELS = {
-    "bcr_spmm": (f"{PORT}/bcr_spmm.cu", f"{REPO}/kernels/bcr_spmm.py:158"),
+    "bcr_spmm": (f"{PORT}/bcr_spmm.cu", f"{REPO}/kernels/bcr_spmm.py:158",
+                 "lm_head 128256x2048 M=8"),
     "bcr_spmm_grouped": (f"{PORT}/bcr_spmm.cu",
-                         f"{REPO}/kernels/bcr_spmm.py:311"),
+                         f"{REPO}/kernels/bcr_spmm.py:311",
+                         "wgi 2x8192x2048 M=8"),
     "paged_attention": (f"{PORT}/paged_attention.cu",
-                        f"{REPO}/kernels/paged_decode_attention.py:126"),
+                        f"{REPO}/kernels/paged_decode_attention.py:126",
+                        "decode B=8 lens 1..512"),
+    "bcr_spmm_int8": (f"{PORT}/bcr_spmm.cu",
+                      f"{REPO}/kernels/bcr_spmm.py:158",
+                      "lm_head 128256x2048 M=8"),
+    "bcr_spmm_grouped_int8": (f"{PORT}/bcr_spmm.cu",
+                              f"{REPO}/kernels/bcr_spmm.py:311",
+                              "wgi 2x8192x2048 M=8"),
+    "paged_attention_int8": (f"{PORT}/paged_attention.cu",
+                             f"{REPO}/kernels/paged_decode_attention.py:126",
+                             "decode B=8 lens 1..512"),
+    "flash_attention_fused": (f"{PORT}/flash_attention.cu",
+                              f"{REPO}/kernels/flash_attention.py:83",
+                              "causal BH=256 S=512"),
 }
+FP_KERNELS = ("bcr_spmm", "bcr_spmm_grouped", "paged_attention")
+INT8_KERNELS = ("bcr_spmm_int8", "bcr_spmm_grouped_int8",
+                "paged_attention_int8")
 
 
 def log(*a):
@@ -111,15 +146,34 @@ def _library_dense_matmul(x, w_dense):
     return x @ w_dense.T
 
 
-def _library_sdpa(torch, q, k, v, mask):
+def _library_sdpa(torch, q, k, v, mask, is_causal=False):
     return torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, attn_mask=mask)
+        q, k, v, attn_mask=mask, is_causal=is_causal)
+
+
+def counters():
+    """The launch counters of every kernel wrapper, by module."""
+    from repro_torch.kernels import bcr_spmm as K
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import paged_decode_attention as PA
+    return (K.LAUNCHES, PA.LAUNCHES, FA.LAUNCHES)
+
+
+def zero_counters():
+    for c in counters():
+        for key in c:
+            c[key] = 0
+
+
+def read_counters():
+    return {k: v for c in counters() for k, v in c.items()}
 
 
 def phase_kernels(torch, timer):
     from repro_torch.core.bcr import BCRSpec
     from repro_torch.core.bcrc import tbcrc_pack, tbcrc_unpack
     from repro_torch.kernels import bcr_spmm as K
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import paged_decode_attention as PA
     from repro_torch.kernels import ref
     from repro_torch.kernels.plan import pack_group
@@ -304,40 +358,230 @@ def phase_kernels(torch, timer):
                 PA.paged_prefill_append_attention(q, kp, vp, bt, pl, tl),
                 ref.paged_prefill_append_ref(q, kp, vp, bt, pl, tl),
                 FP32_TOL)
+    del kp, vp
+
+    # -- int8 forms ----------------------------------------------------------
+    from repro_torch.kernels.plan import quantize_grouped, quantize_packed
+    from repro_torch.kernels.quant import dequantize_rows, quantize_rows
+
+    def scale_bytes(p):
+        return p.plan.block_scales.numel() * 4
+
+    log("bcr_spmm int8 tiles (bf16 x, block 128, keep 0.25)")
+    for wname, n, k in (("wq", 2048, 2048), ("mlp_wo", 2048, 8192),
+                        ("lm_head", 128256, 2048)):
+        p = quantize_packed(pack(n, k, torch.float32))
+        w_dense = tbcrc_unpack(p).to(torch.bfloat16)
+        for m in (1, 8, 2048):
+            x = randn(m, k)
+            got = K.bcr_spmm(x, p)
+            want = ref.bcr_spmm_packed_ref(x, p)
+            torch.cuda.synchronize()
+            err = check_close(f"int8 {wname} {n}x{k} M={m}", got, want,
+                              BF16_TOL)
+            nb_r, nb_c, r, c = p.vals.shape
+            record("bcr_spmm_int8", f"{wname} {n}x{k} M={m}", err,
+                   timer.ms(lambda: K.bcr_spmm(x, p)),
+                   timer.ms(lambda: ref.bcr_spmm_packed_ref(x, p)),
+                   tile_bytes(p) + scale_bytes(p) + (m * k + m * n) * 2,
+                   2 * m * nb_r * nb_c * r * c, torch.bfloat16,
+                   timer.ms(lambda: _library_dense_matmul(x, w_dense)))
+        del p, w_dense
+    p = quantize_packed(pack(256, 384, torch.float32))
+    x = randn(5, 384, dtype=torch.float32)
+    check_close("int8 tiles, fp32 x 256x384 M=5", K.bcr_spmm(x, p),
+                ref.bcr_spmm_packed_ref(x, p), FP32_TOL)
+
+    log("bcr_spmm_grouped int8 tiles (bf16 x, block 128, keep 0.25)")
+    for wname, n, k, epi in (("wkv", 512, 2048, None),
+                             ("wgi", 8192, 2048, "swiglu")):
+        grouped = quantize_grouped(pack_group(
+            [pack(n, k, torch.float32) for _ in range(2)]))
+        w_cat = torch.cat([tbcrc_unpack(dataclasses.replace(
+            grouped, vals=grouped.vals[g], row_idx=grouped.row_idx[g],
+            col_idx=grouped.col_idx[g], plan=dataclasses.replace(
+                grouped.plan, block_scales=grouped.plan.block_scales[g])))
+            for g in range(2)]).to(torch.bfloat16)
+        for m in (1, 8, 2048):
+            x = randn(m, k)
+            got = K.bcr_spmm_grouped(x, grouped, epilogue=epi)
+            want = ref.bcr_spmm_grouped_ref(x, grouped, epilogue=epi)
+            if epi is None:
+                want = want.transpose(0, 1)
+            torch.cuda.synchronize()
+            err = check_close(f"int8 {wname} 2x{n}x{k} M={m}", got, want,
+                              BF16_TOL)
+            _, nb_r, nb_c, r, c = grouped.vals.shape
+            out_n = n if epi else 2 * n
+            record("bcr_spmm_grouped_int8", f"{wname} 2x{n}x{k} M={m}", err,
+                   timer.ms(lambda: K.bcr_spmm_grouped(x, grouped,
+                                                       epilogue=epi)),
+                   timer.ms(lambda: ref.bcr_spmm_grouped_ref(
+                       x, grouped, epilogue=epi)),
+                   tile_bytes(grouped) + scale_bytes(grouped)
+                   + (m * k + m * out_n) * 2,
+                   2 * m * 2 * nb_r * nb_c * r * c, torch.bfloat16,
+                   timer.ms(lambda: _library_dense_matmul(x, w_cat)))
+        del grouped, w_cat
+    grouped = quantize_grouped(pack_group(
+        [pack(256, 384, torch.float32) for _ in range(2)]))
+    x = randn(5, 384, dtype=torch.float32)
+    bias = randn(2, 256, dtype=torch.float32)
+    check_close("int8 tiles, fp32 x 2x256x384 M=5 swiglu+bias",
+                K.bcr_spmm_grouped(x, grouped, bias=bias, epilogue="swiglu"),
+                ref.bcr_spmm_grouped_ref(x, grouped, bias=bias,
+                                         epilogue="swiglu"), FP32_TOL)
+
+    log("paged attention int8 pages (bf16 q, 32/8 heads, head_dim 64, "
+        "page 16)")
+
+    def int8_pages(tlens):
+        kp, vp, bt = pages(tlens, torch.float32)
+        kc, ks = quantize_rows(kp)
+        vc, vs = quantize_rows(vp)
+        deq = (dequantize_rows(kc, ks, torch.bfloat16),
+               dequantize_rows(vc, vs, torch.bfloat16))
+        return kc, vc, ks, vs, bt, deq
+
+    kc, vc, ks, vs, bt, deq = int8_pages(lens.tolist())
+    q = randn(8, 1, h, d)
+    got = PA.paged_decode_attention(q, kc, vc, bt, lens, k_scale=ks,
+                                    v_scale=vs)
+    want = ref.paged_decode_attention_ref(q, kc, vc, bt, lens, k_scale=ks,
+                                          v_scale=vs)
+    torch.cuda.synchronize()
+    err = check_close("int8 decode B=8 lens 1..512 + inactive", got[live],
+                      want[live], BF16_TOL)
+    if not (bool(torch.isfinite(got).all())
+            and int(torch.count_nonzero(got[~live])) == 0):
+        raise AssertionError("inactive slot output is not finite zeros")
+    record("paged_attention_int8", "decode B=8 lens 1..512", err,
+           timer.ms(lambda: PA.paged_decode_attention(
+               q, kc, vc, bt, lens, k_scale=ks, v_scale=vs)),
+           timer.ms(lambda: ref.paged_decode_attention_ref(
+               q, kc, vc, bt, lens, k_scale=ks, v_scale=vs)),
+           PA.paged_kv_bytes(lens.cpu().numpy(), ps, hkv, d, 1, 4)
+           + 2 * q.numel() * 2 + bt.numel() * 4,
+           4 * int(lens.sum()) * h * d, torch.bfloat16,
+           gathered_sdpa(q, *deq, bt, (lens - 1)[:, None]))
+
+    kc, vc, ks, vs, bt, deq = int8_pages(tlen.tolist())
+    q = randn(8, 16, h, d)
+    got = PA.paged_prefill_append_attention(q, kc, vc, bt, plen, tlen,
+                                            k_scale=ks, v_scale=vs)
+    want = ref.paged_prefill_append_ref(q, kc, vc, bt, plen, tlen,
+                                        k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    err = check_close("int8 prefill-append B=8 S=16 over 100", got, want,
+                      BF16_TOL)
+    record("paged_attention_int8", "prefill-append B=8 S=16 prefix 100", err,
+           timer.ms(lambda: PA.paged_prefill_append_attention(
+               q, kc, vc, bt, plen, tlen, k_scale=ks, v_scale=vs)),
+           timer.ms(lambda: ref.paged_prefill_append_ref(
+               q, kc, vc, bt, plen, tlen, k_scale=ks, v_scale=vs)),
+           PA.paged_kv_bytes(tlen.cpu().numpy(), ps, hkv, d, 1, 4)
+           + 2 * q.numel() * 2, 4 * 8 * 16 * 108 * h * d, torch.bfloat16,
+           gathered_sdpa(q, *deq, bt, qpos))
+
+    kc, vc, ks, vs, bt, _ = int8_pages([5, 1, 23])
+    q = randn(3, 1, h, d, dtype=torch.float32)
+    check_close("int8 pages, fp32 q decode B=3",
+                PA.paged_decode_attention(q, kc, vc, bt, small, k_scale=ks,
+                                          v_scale=vs)[small > 0],
+                ref.paged_decode_attention_ref(q, kc, vc, bt, small,
+                                               k_scale=ks,
+                                               v_scale=vs)[small > 0],
+                FP32_TOL)
+    kc, vc, ks, vs, bt, _ = int8_pages(tl.tolist())
+    q = randn(3, 4, h, d, dtype=torch.float32)
+    check_close("int8 pages, fp32 q prefill-append B=3 S=4",
+                PA.paged_prefill_append_attention(q, kc, vc, bt, pl, tl,
+                                                  k_scale=ks, v_scale=vs),
+                ref.paged_prefill_append_ref(q, kc, vc, bt, pl, tl,
+                                             k_scale=ks, v_scale=vs),
+                FP32_TOL)
+    del kc, vc, ks, vs, deq
+
+    # -- fused flash attention -----------------------------------------------
+    log("flash_attention_fused (bf16, B*H = 8*32, head_dim 64)")
+    bh = 8 * h
+    for name, sq, skv, causal, q_off in (
+            ("causal BH=256 S=128", 128, 128, True, 0),
+            ("causal BH=256 S=512", 512, 512, True, 0),
+            ("non-causal BH=256 S=512", 512, 512, False, 0),
+            ("q_offset 384 BH=256 Sq=128 Skv=512", 128, 512, True, 384)):
+        q, k, v = randn(bh, sq, d), randn(bh, skv, d), randn(bh, skv, d)
+        kw = dict(causal=causal, q_chunk=512, kv_chunk=1024, q_offset=q_off)
+        got = FA.flash_attention_fused(q, k, v, **kw)
+        want = ref.flash_attention_ref(q, k, v, causal=causal,
+                                       q_offset=q_off)
+        torch.cuda.synchronize()
+        err = check_close(f"flash {name}", got, want, BF16_TOL)
+        # (q, k) pairs the function needs: under causal, row i sees keys
+        # 0 .. q_offset + i
+        pairs = (sum(min(skv, q_off + i + 1) for i in range(sq)) if causal
+                 else sq * skv)
+        q4, k4, v4 = (t.reshape(8, h, t.shape[1], d) for t in (q, k, v))
+        if causal and q_off:
+            mask = (torch.arange(skv, device="cuda")[None, :]
+                    <= q_off + torch.arange(sq, device="cuda")[:, None])
+            lib = timer.ms(lambda: _library_sdpa(torch, q4, k4, v4, mask))
+        else:
+            lib = timer.ms(lambda: _library_sdpa(torch, q4, k4, v4, None,
+                                                 is_causal=causal))
+        record("flash_attention_fused", name, err,
+               timer.ms(lambda: FA.flash_attention_fused(q, k, v, **kw)),
+               timer.ms(lambda: ref.flash_attention_ref(
+                   q, k, v, causal=causal, q_offset=q_off)),
+               (2 * bh * sq * d + 2 * bh * skv * d) * 2,
+               4 * bh * pairs * d, torch.bfloat16, lib)
+        del q, k, v, got, want
+    q, k, v = (randn(4, 77, d, dtype=torch.float32) for _ in range(3))
+    check_close("flash fp32 BH=4 S=77 causal",
+                FA.flash_attention_fused(q, k, v, q_chunk=77, kv_chunk=77),
+                ref.flash_attention_ref(q, k, v), FP32_TOL)
     return rows
 
 
-def phase_main_path(torch, np):
+def build_main_params(torch):
+    """The full-width, full-depth llama3.2-1b of phases 4 and 5: one set of
+    random weights (seed 0), packed at keep 0.25 / block 128 twice — bf16
+    tiles, and int8 tiles quantized from the same fp32 packs."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import bcr_spmm as K
-    from repro_torch.kernels import paged_decode_attention as PA
     from repro_torch.launch.serve import packed_fraction, pack_params
     from repro_torch.models import causal_lm
-    from repro_torch.serving import FINISHED, EngineConfig, InferenceEngine
 
     cfg = dataclasses.replace(get_config("llama3.2-1b"), num_layers=16,
                               bcr_keep_frac=0.25, bcr_block=(128, 128))
     t0 = time.perf_counter()
     dense = causal_lm.init_params(cfg, 0, device="cuda")
     params = pack_params(cfg, dense)
-    frac = packed_fraction(dense, params)
+    params_q = pack_params(cfg, dense, weight_dtype="int8")
+    fracs = (packed_fraction(dense, params), packed_fraction(dense, params_q))
     del dense
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    log(f"init + pack {time.perf_counter() - t0:.1f} s; packed-weight "
-        f"fraction {frac:.4f} of the dense fp32 tree")
-    ec = EngineConfig(n_slots=8, capacity=640, page_size=16, seed=0)
+    log(f"init + pack (bf16 and int8) {time.perf_counter() - t0:.1f} s; "
+        f"packed-weight fraction of the dense fp32 tree: bf16 "
+        f"{fracs[0]:.4f}, int8 {fracs[1]:.4f}")
+    return cfg, params, params_q, fracs
+
+
+def serve_main_path(torch, np, cfg, params, ec, label, frac):
+    """Serve the phase's 16 requests with the launch counters zeroed just
+    before and read just after; then a profiled decode window and one
+    direct ``prefill_append`` on a live pool, held to a cold prefill."""
+    from repro_torch.models import causal_lm
+    from repro_torch.serving import FINISHED, InferenceEngine
+
     engine = InferenceEngine(cfg, params, ec, device="cuda")
+    cfg = engine.cfg                  # kv_dtype from the engine config
     rng = np.random.default_rng(0)
     plens = rng.choice([32, 128, 512], size=16)
-    for n in plens:
-        engine.submit(rng.integers(0, cfg.vocab_size, size=int(n)),
-                      max_new_tokens=32)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)) for n in plens]
+    rids = [engine.submit(p, max_new_tokens=32) for p in prompts]
 
-    counters = (K.LAUNCHES, PA.LAUNCHES)
-    for c in counters:
-        for key in c:
-            c[key] = 0
+    zero_counters()
     done, decode_ms = [], []
     t0 = time.perf_counter()
     while engine.sched.has_work():
@@ -348,17 +592,15 @@ def phase_main_path(torch, np):
             decode_ms.append((time.perf_counter() - ts) * 1e3)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {**K.LAUNCHES, **PA.LAUNCHES}
-    log(f"main path launches: {launches}")
-    if not all(v > 0 for v in launches.values()):
-        raise AssertionError(f"a kernel of the main path never launched: "
-                             f"{launches}")
+    launches = read_counters()
+    log(f"{label} launches: {launches}")
     if len(done) != 16 or any(r.status != FINISHED or len(r.generated) != 32
                               for r in done):
-        raise AssertionError("not every request FINISHED with 32 tokens")
+        raise AssertionError(f"{label}: not every request FINISHED with 32 "
+                             f"tokens")
     if engine.stats["nonfinite_rows"]:
-        raise AssertionError(f"{engine.stats['nonfinite_rows']} sampled "
-                             f"logit rows were not finite")
+        raise AssertionError(f"{label}: {engine.stats['nonfinite_rows']} "
+                             f"sampled logit rows were not finite")
     ttft = [(r.first_token_time - r.submit_time) * 1e3 for r in done]
     stats = dict(
         tokens_per_s=engine.stats["tokens_generated"] / wall,
@@ -368,9 +610,10 @@ def phase_main_path(torch, np):
         prefills=engine.stats["prefills"], ttft_ms_p50=statistics.median(ttft),
         wall_s=wall, packed_fraction=frac,
         kv_bytes_read_live=engine.stats["kv_bytes_read_live"],
+        kv_row_bytes=engine._kv_row_bytes,
         packed_weight_bytes=_weight_bytes(params),
         step_bound_ms=_weight_bytes(params) / HBM_BYTES_PER_S * 1e3)
-    log("main path: " + json.dumps(stats))
+    log(f"{label}: " + json.dumps(stats))
     stats["decode_profile"] = profile_decode(torch, engine, rng, cfg)
 
     # one direct prefill_append on a live pool: a 100-token prefix seated by
@@ -384,40 +627,120 @@ def phase_main_path(torch, np):
     pool.insert_rows(pc, np.asarray([0]), np.asarray([100]))
     pool.ensure(0, 116)
     bt = pool.device_tables(pool.max_pages)[:1].contiguous()
-    for c in counters:
-        for key in c:
-            c[key] = 0
+    zero_counters()
     got, _ = causal_lm.prefill_append(
         cfg, params, toks[:, 100:], pool.cache,
         torch.tensor([100], dtype=torch.int32, device="cuda"), bt)
     torch.cuda.synchronize()
-    append_launches = dict(PA.LAUNCHES)
-    if append_launches["paged_attention"] <= 0:
+    append_launches = {k: v for k, v in read_counters().items() if v}
+    if not any(k.startswith("paged_attention") for k in append_launches):
         raise AssertionError("prefill_append did not reach paged attention")
     want, _ = causal_lm.prefill(cfg, params, toks)
     err = float((got.float() - want.float()).abs().max())
     scale = float(want.float().abs().max())
     same_top = bool(torch.equal(got.argmax(-1), want.argmax(-1)))
-    log(f"prefill_append over a live pool: launches {append_launches}, "
-        f"max |append - cold| {err:.3e} of {scale:.3g}, argmax equal "
-        f"{same_top}")
+    log(f"{label} prefill_append over a live pool: launches "
+        f"{append_launches}, max |append - cold| {err:.3e} of {scale:.3g}, "
+        f"argmax equal {same_top}")
     if not (bool(torch.isfinite(got).all()) and err <= 5e-2 * scale):
         raise AssertionError("prefill_append disagrees with a cold prefill")
+    stats["append_vs_cold_max_abs"] = err
     pool.release(0)
     pool.check_consistency()
-    return stats, launches
+    trajectories = [(prompts[i], r.generated) for i, r in
+                    sorted(((rids.index(r.rid), r) for r in done),
+                           key=lambda t: t[0])]
+    return stats, launches, trajectories
+
+
+def phase_main_path(torch, np, cfg, params, frac):
+    from repro_torch.serving import EngineConfig
+
+    ec = EngineConfig(n_slots=8, capacity=640, page_size=16, seed=0)
+    stats, launches, traj = serve_main_path(torch, np, cfg, params, ec,
+                                            "bf16 main path", frac)
+    if not all(launches[k] > 0 for k in FP_KERNELS):
+        raise AssertionError(f"a kernel of the bf16 main path never "
+                             f"launched: {launches}")
+    return stats, launches, traj
+
+
+def phase_quantized_path(torch, np, cfg, params_q, frac):
+    from repro_torch.serving import EngineConfig
+
+    cfg = dataclasses.replace(cfg, attn_impl="pallas")
+    ec = EngineConfig(n_slots=8, capacity=640, page_size=16, seed=0,
+                      kv_dtype="int8", weight_dtype="int8")
+    stats, launches, traj = serve_main_path(torch, np, cfg, params_q, ec,
+                                            "quantized main path", frac)
+    if not all(launches[k] > 0 for k in INT8_KERNELS):
+        raise AssertionError(f"an int8 kernel of the quantized path never "
+                             f"launched: {launches}")
+    if any(launches[k] for k in FP_KERNELS):
+        raise AssertionError(f"the quantized path ran an fp-form kernel: "
+                             f"{launches}")
+    want = cfg.num_layers * stats["prefills"]
+    if launches["flash_attention_fused"] != want:
+        raise AssertionError(f"flash launches {launches['flash_attention_fused']}"
+                             f" != {cfg.num_layers} per cold prefill x "
+                             f"{stats['prefills']} prefills")
+    log(f"flash_attention_fused: {launches['flash_attention_fused']} launches"
+        f" = {cfg.num_layers} per cold prefill x {stats['prefills']}")
+    return stats, launches, traj
+
+
+def forced_flip_rate(torch, np, cfg, params, params_q, trajectories):
+    """Teacher-forced flip rate of the quantized path against the bf16
+    path: both replay the bf16 engine's trajectories (prompt + generated
+    tokens) through the naive oracle, and at every generated position the
+    two greedy picks are compared. Pinning the context to one trajectory
+    keeps a single early flip from counting every later token."""
+    from repro_torch.launch.serve import generate
+
+    cfg_q = dataclasses.replace(cfg, attn_impl="pallas", kv_dtype="int8")
+    flips = total = 0
+    by_len = {}
+    for prompt, gen in trajectories:
+        by_len.setdefault(len(prompt), []).append((prompt, gen))
+    for group in by_len.values():
+        prompts = torch.as_tensor(np.stack([p for p, _ in group]))
+        forced = torch.as_tensor(np.asarray([g for _, g in group],
+                                            np.int32))
+        picks = [generate(c, p, prompts, gen_tokens=forced.shape[1],
+                          forced=forced)["tokens"]
+                 for c, p in ((cfg, params), (cfg_q, params_q))]
+        flips += int((picks[0] != picks[1]).sum())
+        total += picks[0].numel()
+    rate = flips / max(total, 1)
+    log(f"teacher-forced flip rate, int8 path vs bf16 path (same weights, "
+        f"bf16 trajectories): {flips}/{total} = {rate:.4f} (not gated)")
+    return rate
+
+
+# the port's functions whose host time the decode profile reports
+HOST_FUNCTIONS = ("step", "decode_step", "layer_apply", "attention_apply",
+                  "_qkv", "_paged_write", "quantize_rows", "swiglu_apply",
+                  "rmsnorm", "apply_rope", "bcr_spmm", "bcr_spmm_grouped",
+                  "_paged_attention", "_sample")
 
 
 def profile_decode(torch, engine, rng, cfg, steps=5):
     """Device time of steady decode steps (8 live slots) under
     ``torch.profiler``: the sum of kernel time per step, by kernel family,
     against the wall time of the same number of unprofiled steps just
-    before (the profiler slows the host) — the device's busy share."""
+    before (the profiler slows the host) — the device's busy share. Then
+    the host side under ``cProfile``: the cumulative time per step of the
+    port's functions (``HOST_FUNCTIONS``); cProfile slows every Python
+    call, so these rank where the host's time goes, they are not the
+    unprofiled wall."""
+    import cProfile
+    import pstats
+
     from torch.profiler import ProfilerActivity, profile
 
     for n in (32, 128, 512, 128, 32, 512, 128, 32):
         engine.submit(rng.integers(0, cfg.vocab_size, size=n),
-                      max_new_tokens=2 * steps + 4)
+                      max_new_tokens=3 * steps + 4)
     engine.step()                     # admission + first decode
     engine.step()
     torch.cuda.synchronize()
@@ -431,7 +754,17 @@ def profile_decode(torch, engine, rng, cfg, steps=5):
         for _ in range(steps):
             engine.step()
         torch.cuda.synchronize()
+    pr = cProfile.Profile()
+    pr.enable()
+    for _ in range(steps):
+        engine.step()
+    torch.cuda.synchronize()
+    pr.disable()
     engine.run()
+    host_fn_ms = dict.fromkeys(HOST_FUNCTIONS, 0.0)
+    for (path, _, fn), (_, _, _, cum, _) in pstats.Stats(pr).stats.items():
+        if "repro_torch" in path and fn in host_fn_ms:
+            host_fn_ms[fn] += cum * 1e3 / steps
     by_name = {}
     for ev in prof.key_averages():
         # device-side kernel and copy events only: a CPU op's own entry
@@ -443,23 +776,49 @@ def profile_decode(torch, engine, rng, cfg, steps=5):
             us = getattr(ev, "self_cuda_time_total", 0)
         if us > 0:
             by_name[ev.key] = by_name.get(ev.key, 0.0) + us / 1e3 / steps
-    families = {"bcr_spmm": 0.0, "bcr_spmm_grouped": 0.0,
-                "paged_attention": 0.0, "other": 0.0}
+    # host side: the PyTorch ops of the step by self CPU time (the profiler
+    # slows each op, so these rank the host's costs, they do not add up to
+    # the unprofiled wall)
+    host = sorted(((ev.self_cpu_time_total / 1e3 / steps, ev.count // steps,
+                    ev.key[:60]) for ev in prof.key_averages()
+                   if getattr(ev, "device_type", None)
+                   == torch.autograd.DeviceType.CPU),
+                  reverse=True)[:8]
+    families = {}
     for name, ms in by_name.items():
-        fam = ("bcr_spmm_grouped" if "bcr_spmm_grouped" in name else
-               "bcr_spmm" if "bcr_spmm" in name else
-               "paged_attention" if "paged_attention" in name else "other")
-        families[fam] += ms
+        fam = kernel_family(name)
+        families[fam] = families.get(fam, 0.0) + ms
     device_ms = sum(families.values())
     out = dict(step_wall_ms=wall_ms, device_ms=device_ms,
                busy_share=device_ms / wall_ms if wall_ms else None,
                by_family_ms=families,
                top_other=sorted(((ms, n[:80]) for n, ms in by_name.items()
-                                 if "bcr_spmm" not in n
-                                 and "paged_attention" not in n),
-                                reverse=True)[:5])
+                                 if kernel_family(n) == "other"),
+                                reverse=True)[:5],
+               host_fn_ms_cprofile=host_fn_ms,
+               host_ops_per_step=sum(ev.count for ev in prof.key_averages()
+                                     if getattr(ev, "device_type", None)
+                                     == torch.autograd.DeviceType.CPU)
+               // steps,
+               top_host_ms=host)
     log("decode profile (per step): " + json.dumps(out))
     return out
+
+
+def kernel_family(name: str) -> str:
+    """A profiler kernel name → its launch-counter key (or "other"); the
+    int8 forms are the instantiations on int8 (``signed char``) tiles or
+    pages."""
+    int8 = "_int8" if "signed char" in name else ""
+    if "flash_attention" in name:
+        return "flash_attention_fused"
+    if "bcr_spmm_grouped" in name:
+        return "bcr_spmm_grouped" + int8
+    if "bcr_spmm" in name:
+        return "bcr_spmm" + int8
+    if "paged_attention" in name:
+        return "paged_attention" + int8
+    return "other"
 
 
 def _weight_bytes(params) -> int:
@@ -469,22 +828,31 @@ def _weight_bytes(params) -> int:
     return tree_bytes({k: v for k, v in params.items() if k != "embed"})
 
 
-def phase_engine_vs_naive(torch, np):
+def phase_engine_vs_naive(torch, np, quantized=False):
+    """The engine's greedy tokens against the naive ``generate`` oracle on
+    the same params, fp32 activations, full width, 2 layers. Quantized:
+    int8 tiles, int8 KV and the flash cold prefill on both sides; a near-tie
+    there is 1e-3 relative (one K/V code at a rounding boundary moves a
+    logit by about that much), else 1e-4."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import build_params, generate
     from repro_torch.serving import EngineConfig, InferenceEngine
 
+    over = (dict(attn_impl="pallas", kv_dtype="int8") if quantized else {})
     cfg = dataclasses.replace(get_config("llama3.2-1b"), num_layers=2,
                               dtype="float32", bcr_keep_frac=0.25,
-                              bcr_block=(128, 128))
-    params = build_params(cfg, seed=1, device="cuda")
+                              bcr_block=(128, 128), **over)
+    params = build_params(cfg, seed=1, device="cuda",
+                          weight_dtype="int8" if quantized else "")
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
                for n in (32, 77, 128, 300)]
     gen = 16
     engine = InferenceEngine(cfg, params, EngineConfig(
-        n_slots=2, capacity=640, page_size=16, seed=0), device="cuda")
+        n_slots=2, capacity=640, page_size=16, seed=0,
+        kv_dtype=cfg.kv_dtype), device="cuda")
     got = engine.generate(prompts, max_new_tokens=gen)
+    tie = 1e-3 if quantized else 1e-4
     near_ties = 0
     for p, toks in zip(prompts, got):
         naive = generate(cfg, params, torch.as_tensor(p)[None],
@@ -495,13 +863,14 @@ def phase_engine_vs_naive(torch, np):
                 continue
             la = float(naive["logits"][0, i, a])
             lb = float(naive["logits"][0, i, b])
-            if abs(la - lb) < 1e-4 * max(abs(la), abs(lb)):
+            if abs(la - lb) < tie * max(abs(la), abs(lb)):
                 near_ties += 1     # later tokens follow another history
                 break
             raise AssertionError(f"engine token {a} != naive {b} at step {i} "
                                  f"(logits {la} vs {lb})")
-    log(f"engine vs naive generate (fp32, 2 layers, 4 requests): tokens "
-        f"equal, near-ties {near_ties}")
+    what = "int8 tiles + int8 KV + flash prefill" if quantized else "bf16 cfg"
+    log(f"engine vs naive generate ({what}, fp32, 2 layers, 4 requests): "
+        f"tokens equal, near-ties {near_ties}")
     return near_ties
 
 
@@ -535,30 +904,50 @@ def main() -> int:
         log(f"  {name}: ptxas {regs}; spills {spills or 'none'}")
 
     log("phase 3, kernels against their plain versions")
+    t0 = time.perf_counter()
     timer = Timer(torch)
     rows = phase_kernels(torch, timer)
     log("kernel cases: " + json.dumps(rows))
     del timer
     torch.cuda.empty_cache()
+    log(f"phase 3: {time.perf_counter() - t0:.1f} s")
 
-    log("phase 4, main path")
-    stats, launches = phase_main_path(torch, np)
+    log("phase 4, bf16 main path")
+    t0 = time.perf_counter()
+    cfg, params, params_q, fracs = build_main_params(torch)
+    _, launches, traj = phase_main_path(torch, np, cfg, params, fracs[0])
     torch.cuda.empty_cache()
+    log(f"phase 4: {time.perf_counter() - t0:.1f} s")
 
-    log("phase 5, engine against naive generate")
+    log("phase 5, quantized main path (int8 tiles, int8 KV, flash prefill)")
+    t0 = time.perf_counter()
+    _, q_launches, _ = phase_quantized_path(torch, np, cfg, params_q,
+                                            fracs[1])
+    forced_flip_rate(torch, np, cfg, params, params_q, traj)
+    del params, params_q
+    torch.cuda.empty_cache()
+    log(f"phase 5: {time.perf_counter() - t0:.1f} s")
+
+    log("phase 6, engines against naive generate")
+    t0 = time.perf_counter()
     phase_engine_vs_naive(torch, np)
+    phase_engine_vs_naive(torch, np, quantized=True)
+    log(f"phase 6: {time.perf_counter() - t0:.1f} s")
 
-    # one entry per kernel at its decode-step shape (M = 8 slots)
-    rep = {"bcr_spmm": "lm_head 128256x2048 M=8",
-           "bcr_spmm_grouped": "wgi 2x8192x2048 M=8",
-           "paged_attention": "decode B=8 lens 1..512"}
+    # one entry per kernel form at its decode-step shape (M = 8 slots) or,
+    # for flash, the largest cold-prefill bucket; launches from the main
+    # path that runs it
+    path_launches = {**{k: launches[k] for k in FP_KERNELS},
+                     **{k: q_launches[k] for k in INT8_KERNELS},
+                     "flash_attention_fused":
+                         q_launches["flash_attention_fused"]}
     kernels = []
-    for name, (source, replaces) in KERNELS.items():
+    for name, (source, replaces, shape) in KERNELS.items():
         row = next(r for r in rows if r["kernel"] == name
-                   and r["shape"] == rep[name])
+                   and r["shape"] == shape)
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches[name],
+            launches=path_launches[name],
             max_abs_err=max(r["max_abs_err"] for r in rows
                             if r["kernel"] == name),
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],

@@ -7,7 +7,8 @@ containers and swaps their leaves). It handles:
 
 * dense ``{"w", "b"}`` linears and every other plain array leaf;
 * ``{"w_packed": TBCRC}`` — vals and index planes, plus the plan's flat
-  gather/scatter vectors;
+  gather/scatter vectors and, for int8-quantized packs, its per-tile
+  ``block_scales``;
 * ``{"w_group": GroupedTBCRC[, "b": (G, N)]}`` — fused ``wkv`` / ``wqkv`` /
   ``wgi`` groups.
 
@@ -18,10 +19,10 @@ that axis into the port's ``params["layers"]`` list, in the reference's
 execution order (unscanned ``prefix`` layers first).
 
 The packed containers are recognised by their attributes, not their class:
-the port imports nothing of the reference. Packed ``vals`` are cast to the
-activation dtype, as the port's ``pack_params`` leaves them. The TPU
-dispatch knobs of a plan (one-hot planes, ``m_tile``, ``grid_order``) are
-dropped.
+the port imports nothing of the reference. fp packed ``vals`` are cast to
+the activation dtype, as the port's ``pack_params`` leaves them; int8 codes
+stay int8 and their scales fp32. The TPU dispatch knobs of a plan (one-hot
+planes, ``m_tile``, ``grid_order``) are dropped.
 """
 
 from __future__ import annotations
@@ -50,13 +51,12 @@ def _is_packed(node: Any) -> bool:
 
 
 def _plan(plan: Any, index: Optional[int], device) -> BCRPlan:
-    if getattr(plan, "block_scales", None) is not None:
-        raise NotImplementedError(
-            "int8 packed weights (plan.block_scales) come in the next slice "
-            "of the port")
+    scales = getattr(plan, "block_scales", None)
     return BCRPlan(
         gather_cols=_tensor(plan.gather_cols, index, device).to(torch.int32),
-        scatter_rows=_tensor(plan.scatter_rows, index, device).to(torch.int32))
+        scatter_rows=_tensor(plan.scatter_rows, index, device).to(torch.int32),
+        block_scales=(None if scales is None else
+                      _tensor(scales, index, device).to(torch.float32)))
 
 
 def _convert(node: Any, index: Optional[int], cfg: ModelConfig, device):
@@ -65,8 +65,9 @@ def _convert(node: Any, index: Optional[int], cfg: ModelConfig, device):
     if isinstance(node, (list, tuple)):
         return [_convert(v, index, cfg, device) for v in node]
     if _is_packed(node):
+        vals = _tensor(node.vals, index, device)
         common = dict(
-            vals=_tensor(node.vals, index, device).to(cfg.act_dtype),
+            vals=vals if vals.dtype == torch.int8 else vals.to(cfg.act_dtype),
             row_idx=_tensor(node.row_idx, index, device).to(torch.int32),
             col_idx=_tensor(node.col_idx, index, device).to(torch.int32),
             shape=tuple(int(d) for d in node.shape),

@@ -26,7 +26,8 @@ class TBCRC:
     ``col_idx``: (nb_r, nb_c, C_keep) int32    block-local surviving cols
     ``shape``/``block_shape`` reconstruct the dense layout.
     ``plan``:    :class:`repro_torch.kernels.plan.BCRPlan` — flat gather /
-                 scatter index vectors for the plain path.
+                 scatter index vectors for the plain path, and the per-tile
+                 scales when ``vals`` holds int8 codes.
     """
 
     vals: torch.Tensor
@@ -71,8 +72,15 @@ def tbcrc_pack(w: torch.Tensor, spec: BCRSpec) -> TBCRC:
 
 
 def tbcrc_unpack(packed: TBCRC) -> torch.Tensor:
-    """Dense reconstruction (the BCR projection of the packed weight)."""
+    """Dense reconstruction (the BCR projection of the packed weight).
+
+    An int8-quantized pack (``plan.block_scales`` set) reconstructs the
+    DEQUANTIZED fp32 weight, so the dense oracle sees what the kernels
+    compute with."""
     vals = packed.vals
+    scales = getattr(packed.plan, "block_scales", None)
+    if scales is not None:
+        vals = vals.float() * scales.float()[..., None, None]
     nb_r, nb_c, r_keep, c_keep = vals.shape
     br, bc = packed.block_shape
     rows = torch.zeros((nb_r, nb_c, r_keep, bc), dtype=vals.dtype,

@@ -12,8 +12,17 @@
 // over one x, adds a (G, N) fp32 bias, and either emits (G, M, N) or, for a
 // gate/up pair, silu(acc0) * acc1 as (M, N).
 //
+// Two forms of each, one template: the fp form streams tiles in x's dtype;
+// the int8 form (the reference's quantized serving, plan.block_scales)
+// streams int8 codes — 16 per 16-byte load — plus one fp32 scale per kept
+// tile ([G,] nb_r, nb_c), widens the codes to fp32 in shared memory, and
+// multiplies each block's fp32 partial by its tile's scale before the
+// scatter-add into the shared accumulator, as the reference's
+// _block_update does. Bias and SwiGLU stay in the emit step.
+//
 // What bounds it on this card: at decode (M = 1..8) the bytes of the packed
-// tiles it streams (keep_frac of the dense weight, read once); at prefill
+// tiles it streams (keep_frac of the dense weight, read once; half as many
+// under int8, plus 4 bytes of scale per tile); at prefill
 // (M in the thousands) fp32 FMA throughput, since this version does its
 // tile products on the CUDA cores, not on the tensor cores.
 //
@@ -36,8 +45,9 @@
 // next phase's tiles, x columns and indices are loaded with 16-byte loads
 // into registers while the current phase is multiplied (a two-stage register
 // pipeline); JB (4, 2 or 1) is the most blocks those registers and shared
-// memory hold. Shapes whose rows are not 16-byte multiples take the same
-// loop one block per phase with plain loads and no overlap. At small M the
+// memory hold. Shapes whose rows are not 16-byte multiples (an int8 tile
+// row of C_keep < 16 codes, at smoke sizes) take the same loop one block
+// per phase with plain loads and no overlap. At small M the
 // C_keep sum of one output is split over up to 4 lanes.
 //
 // Known limit: the grid has nb_r × ceil(M / M_t) CTAs — 16 for a 2048-row
@@ -48,6 +58,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -63,6 +75,9 @@ template <typename T> __device__ __forceinline__ float to_f(T v);
 template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
 template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
   return __bfloat162float(v);
+}
+template <> __device__ __forceinline__ float to_f<int8_t>(int8_t v) {
+  return (float)v;
 }
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
@@ -86,44 +101,54 @@ __host__ __device__ inline int padded_c(int C) {
 }
 
 // Shared-memory layout, in 4-byte words, float4-aligned parts first: kept
-// tiles, gathered x tiles, accumulator, raw x columns, indices.
+// tiles, gathered x tiles, accumulator, raw x columns, indices, tile scales.
 __host__ __device__ inline size_t smem_words(const SpmmShape& s) {
   const size_t cp = padded_c(s.C);
   return (size_t)s.jb * s.G * s.R * cp + (size_t)s.jb * s.G * s.m_tile * cp +
          (size_t)s.G * s.m_tile * s.br +
          (size_t)s.m_tile * (s.jb * s.bc + 1) +
-         (size_t)s.jb * s.G * (s.C + s.R);
+         (size_t)s.jb * s.G * (s.C + s.R) + (size_t)s.jb * s.G;
 }
 
-template <typename T>
 struct Stage {   // one phase's loads, held in registers between phases
   uint4 tile[kTileVecs];
   uint4 x[kXVecs];
   int idx[kIdx];
+  float sc;      // int8 form: one tile scale (thread g·jb + jj)
 };
+
+// Index of member g's tile (i, j) in vals' leading (G, nb_r, nb_c) grid,
+// which block_scales shares.
+__device__ __forceinline__ size_t tile_id(const SpmmShape& s, int g, int i,
+                                          int j) {
+  return ((size_t)g * s.nb_r + i) * s.nb_c + j;
+}
 
 // Loads of phase j0 .. j0+jb-1. For member g the jb tiles (and index rows)
 // of block-row i are contiguous in memory, as are the x columns of a row.
-template <typename T>
-__device__ __forceinline__ void prefetch(Stage<T>& st, const T* __restrict__ x,
-                                         const T* __restrict__ vals,
+template <typename T, typename TW>
+__device__ __forceinline__ void prefetch(Stage& st, const T* __restrict__ x,
+                                         const TW* __restrict__ vals,
+                                         const float* __restrict__ scales,
                                          const int* __restrict__ row_idx,
                                          const int* __restrict__ col_idx,
                                          const SpmmShape& s, int i, int j0,
                                          int m0, int mt) {
   const int tid = threadIdx.x;
-  constexpr int kEPV = 16 / sizeof(T);           // elements per vector
-  const int per_g = s.jb * s.R * s.C / kEPV;     // vectors per member
+  constexpr int kEPV = 16 / sizeof(T);           // x elements per vector
+  constexpr int kEPW = 16 / sizeof(TW);          // tile elements per vector
+  const int per_g = s.jb * s.R * s.C / kEPW;     // vectors per member
 #pragma unroll
   for (int u = 0; u < kTileVecs; ++u) {
     const int v = tid + u * kThreads;
     if (v < s.G * per_g) {
       const int g = v / per_g, w = v - g * per_g;
-      const T* base = vals + (((size_t)g * s.nb_r + i) * s.nb_c + j0) *
-                                 (size_t)(s.R * s.C);
+      const TW* base = vals + tile_id(s, g, i, j0) * (size_t)(s.R * s.C);
       st.tile[u] = __ldg(reinterpret_cast<const uint4*>(base) + w);
     }
   }
+  if (std::is_same<TW, int8_t>::value && tid < s.jb * s.G)
+    st.sc = __ldg(scales + tile_id(s, tid / s.jb, i, j0 + tid % s.jb));
   const int xr = s.jb * s.bc / kEPV;             // vectors per x row
 #pragma unroll
   for (int u = 0; u < kXVecs; ++u) {
@@ -151,28 +176,31 @@ __device__ __forceinline__ void prefetch(Stage<T>& st, const T* __restrict__ x,
 }
 
 // Registers → shared memory: kept tile rows at ((jj·G + g)·R + r)·Cp, raw x
-// columns at m·(jb·bc + 1), indices as loaded (cols, then rows).
-template <typename T>
-__device__ __forceinline__ void commit(const Stage<T>& st, float* xs,
-                                       float* ws, int* idx, const SpmmShape& s,
-                                       int cp) {
+// columns at m·(jb·bc + 1), indices as loaded (cols, then rows), tile
+// scales at g·jb + jj.
+template <typename T, typename TW>
+__device__ __forceinline__ void commit(const Stage& st, float* xs,
+                                       float* ws, int* idx, float* bsc,
+                                       const SpmmShape& s, int cp) {
   const int tid = threadIdx.x;
   constexpr int kEPV = 16 / sizeof(T);
-  const int vpt = s.R * s.C / kEPV, per_g = s.jb * vpt;
+  constexpr int kEPW = 16 / sizeof(TW);
+  const int vpt = s.R * s.C / kEPW, per_g = s.jb * vpt;
 #pragma unroll
   for (int u = 0; u < kTileVecs; ++u) {
     const int v = tid + u * kThreads;
     if (v < s.G * per_g) {
       const int g = v / per_g, v2 = v - g * per_g;
       const int jj = v2 / vpt, w = v2 - jj * vpt;
-      const int e0 = w * kEPV;                     // C_keep % kEPV == 0:
+      const int e0 = w * kEPW;                     // C_keep % kEPW == 0:
       const int r = e0 / s.C, c0 = e0 - r * s.C;   // a vector is in one row
       float* dst = ws + ((jj * s.G + g) * s.R + r) * cp + c0;
-      const T* e = reinterpret_cast<const T*>(&st.tile[u]);
+      const TW* e = reinterpret_cast<const TW*>(&st.tile[u]);
 #pragma unroll
-      for (int q = 0; q < kEPV; ++q) dst[q] = to_f(e[q]);
+      for (int q = 0; q < kEPW; ++q) dst[q] = to_f(e[q]);
     }
   }
+  if (std::is_same<TW, int8_t>::value && tid < s.jb * s.G) bsc[tid] = st.sc;
   const int xr = s.jb * s.bc / kEPV;
 #pragma unroll
   for (int u = 0; u < kXVecs; ++u) {
@@ -194,12 +222,13 @@ __device__ __forceinline__ void commit(const Stage<T>& st, float* xs,
 
 // Plain loads straight into shared memory (one block per phase), for shapes
 // the register pipeline skips.
-template <typename T>
-__device__ void load_plain(const T* __restrict__ x, const T* __restrict__ vals,
+template <typename T, typename TW>
+__device__ void load_plain(const T* __restrict__ x, const TW* __restrict__ vals,
+                           const float* __restrict__ scales,
                            const int* __restrict__ row_idx,
                            const int* __restrict__ col_idx, float* xs,
-                           float* ws, int* idx, const SpmmShape& s, int cp,
-                           int i, int j, int m0, int mt) {
+                           float* ws, int* idx, float* bsc, const SpmmShape& s,
+                           int cp, int i, int j, int m0, int mt) {
   const int tid = threadIdx.x;
   for (int v = tid; v < s.m_tile * s.bc; v += kThreads) {
     const int m = v / s.bc, c = v - m * s.bc;
@@ -210,9 +239,11 @@ __device__ void load_plain(const T* __restrict__ x, const T* __restrict__ vals,
   for (int v = tid; v < s.G * tile; v += kThreads) {
     const int g = v / tile, rc = v - g * tile;
     const int r = rc / s.C, c = rc - r * s.C;
-    ws[(g * s.R + r) * cp + c] =
-        to_f(vals[(((size_t)g * s.nb_r + i) * s.nb_c + j) * tile + rc]);
+    ws[(g * s.R + r) * cp + c] = to_f(vals[tile_id(s, g, i, j) * tile + rc]);
   }
+  if (std::is_same<TW, int8_t>::value)
+    for (int g = tid; g < s.G; g += kThreads)
+      bsc[g] = scales[tile_id(s, g, i, j)];
   for (int e = tid; e < s.G * (s.C + s.R); e += kThreads) {
     if (e < s.G * s.C) {
       const int g = e / s.C, c = e - g * s.C;
@@ -229,8 +260,9 @@ __device__ __forceinline__ float dot4(const float4 a, const float4 b) {
   return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
 }
 
-template <typename T, bool SWIGLU>
-__device__ void spmm_body(const T* __restrict__ x, const T* __restrict__ vals,
+template <typename T, typename TW, bool SWIGLU>
+__device__ void spmm_body(const T* __restrict__ x, const TW* __restrict__ vals,
+                          const float* __restrict__ scales,
                           const int* __restrict__ row_idx,
                           const int* __restrict__ col_idx,
                           const float* __restrict__ bias, T* __restrict__ y,
@@ -250,6 +282,7 @@ __device__ void spmm_body(const T* __restrict__ x, const T* __restrict__ vals,
   float* xs = acc + (size_t)s.G * s.m_tile * s.br;         // raw x columns
   int* cols = reinterpret_cast<int*>(xs + (size_t)s.m_tile * xs_stride);
   int* rows = cols + s.jb * s.G * s.C;
+  float* bsc = reinterpret_cast<float*>(rows + s.jb * s.G * s.R);
 
   for (int v = tid; v < s.G * s.m_tile * s.br; v += kThreads) acc[v] = 0.f;
   // the pad columns C..cp of the tile and gathered rows stay zero: the
@@ -269,20 +302,21 @@ __device__ void spmm_body(const T* __restrict__ x, const T* __restrict__ vals,
   int S = 1;
   while (S < 4 && items * S * 2 <= kThreads && S * 2 <= nq) S *= 2;
 
-  Stage<T> st;
+  Stage st;
   const int n_phase = s.nb_c / s.jb;
-  if (s.vec) prefetch(st, x, vals, row_idx, col_idx, s, i, 0, m0, mt);
+  if (s.vec) prefetch(st, x, vals, scales, row_idx, col_idx, s, i, 0, m0, mt);
   for (int ph = 0; ph < n_phase; ++ph) {
     const int j0 = ph * s.jb;
     if (s.vec) {
-      commit(st, xs, ws, cols, s, cp);
+      commit<T, TW>(st, xs, ws, cols, bsc, s, cp);
     } else {
-      load_plain(x, vals, row_idx, col_idx, xs, ws, cols, s, cp, i, j0, m0,
-                 mt);
+      load_plain(x, vals, scales, row_idx, col_idx, xs, ws, cols, bsc, s, cp,
+                 i, j0, m0, mt);
     }
     __syncthreads();
     if (s.vec && ph + 1 < n_phase)   // in flight while this phase multiplies
-      prefetch(st, x, vals, row_idx, col_idx, s, i, j0 + s.jb, m0, mt);
+      prefetch(st, x, vals, scales, row_idx, col_idx, s, i, j0 + s.jb, m0,
+               mt);
 
     // gather each member's kept x columns into dense (M_t, C_keep) tiles
     const int ng = s.jb * s.G * s.m_tile * s.C;
@@ -334,6 +368,13 @@ __device__ void spmm_body(const T* __restrict__ x, const T* __restrict__ vals,
           const int g = gr / s.R, r = gr - g * s.R;
           float* ac = acc + ((size_t)g * s.m_tile) * s.br +
                       rows[(g * s.jb + jj) * s.R + r];
+          if (std::is_same<TW, int8_t>::value) {
+            // int8 tile: its scale multiplies the fp32 partial before the
+            // scatter-add (the reference's _block_update)
+            const float sc = bsc[g * s.jb + jj];
+#pragma unroll
+            for (int u = 0; u < kRowsPerThread; ++u) a[u] *= sc;
+          }
 #pragma unroll
           for (int u = 0; u < kRowsPerThread; ++u)
             if (ma + u < mt) ac[(ma + u) * s.br] += a[u];
@@ -371,38 +412,39 @@ __device__ void spmm_body(const T* __restrict__ x, const T* __restrict__ vals,
   }
 }
 
-template <typename T>
+template <typename T, typename TW>
 __global__ void __launch_bounds__(kThreads)
-bcr_spmm_kernel(const T* x, const T* vals, const int* row_idx,
-                const int* col_idx, T* y, SpmmShape s) {
-  spmm_body<T, false>(x, vals, row_idx, col_idx, nullptr, y, s);
+bcr_spmm_kernel(const T* x, const TW* vals, const float* scales,
+                const int* row_idx, const int* col_idx, T* y, SpmmShape s) {
+  spmm_body<T, TW, false>(x, vals, scales, row_idx, col_idx, nullptr, y, s);
 }
 
-template <typename T, bool SWIGLU>
+template <typename T, typename TW, bool SWIGLU>
 __global__ void __launch_bounds__(kThreads)
-bcr_spmm_grouped_kernel(const T* x, const T* vals, const int* row_idx,
-                        const int* col_idx, const float* bias, T* y,
-                        SpmmShape s) {
-  spmm_body<T, SWIGLU>(x, vals, row_idx, col_idx, bias, y, s);
+bcr_spmm_grouped_kernel(const T* x, const TW* vals, const float* scales,
+                        const int* row_idx, const int* col_idx,
+                        const float* bias, T* y, SpmmShape s) {
+  spmm_body<T, TW, SWIGLU>(x, vals, scales, row_idx, col_idx, bias, y, s);
 }
 
 // Blocks per phase: the register pipeline needs 16-byte rows (a vector
 // never straddles a kept row) and a phase small enough for the per-thread
 // prefetch registers and for shared memory; else one block, plain loads.
-void plan_phases(SpmmShape& s, int elem, const void* x, const void* vals) {
-  const int epv = 16 / elem;
+void plan_phases(SpmmShape& s, int elem_x, int elem_w, const void* x,
+                 const void* vals) {
+  const int epv = 16 / elem_x, epw = 16 / elem_w;
   const bool aligned = ((uintptr_t)x % 16 == 0) && ((uintptr_t)vals % 16 == 0);
   s.vec = 0;
   s.jb = 1;
-  if (!(aligned && s.C % epv == 0 && s.bc % epv == 0 && s.K % epv == 0))
+  if (!(aligned && s.C % epw == 0 && s.bc % epv == 0 && s.K % epv == 0))
     return;
   for (int jb = kMaxJB; jb >= 1; jb /= 2) {
     SpmmShape t = s;
     t.jb = jb;
     if (s.nb_c % jb == 0 &&
-        s.G * jb * s.R * s.C / epv <= kTileVecs * kThreads &&
+        s.G * jb * s.R * s.C / epw <= kTileVecs * kThreads &&
         s.m_tile * jb * s.bc / epv <= kXVecs * kThreads &&
-        s.G * jb * (s.C + s.R) <= kIdx * kThreads &&
+        s.G * jb * (s.C + s.R) <= kIdx * kThreads && s.G * jb <= kThreads &&
         smem_words(t) * 4 <= kSmemLimit) {
       s.vec = 1;
       s.jb = jb;
@@ -434,6 +476,33 @@ SpmmShape make_shape(int M, int K, int N, int G, int nb_r, int nb_c, int br,
   return s;
 }
 
+// Instantiates the kernel for x dtype T (0 = float32, 1 = bfloat16) and
+// tiles in T (int8_tiles = 0) or int8 codes with fp32 tile scales (1).
+template <bool GROUPED, bool SWIGLU>
+int dispatch(int dtype, int int8_tiles, const SpmmShape& s, cudaStream_t st,
+             void** args) {
+  if (dtype == 0 && !int8_tiles)
+    return GROUPED ? launch(bcr_spmm_grouped_kernel<float, float, SWIGLU>, s,
+                            st, args)
+                   : launch(bcr_spmm_kernel<float, float>, s, st, args);
+  if (dtype == 0 && int8_tiles)
+    return GROUPED ? launch(bcr_spmm_grouped_kernel<float, int8_t, SWIGLU>, s,
+                            st, args)
+                   : launch(bcr_spmm_kernel<float, int8_t>, s, st, args);
+  if (dtype == 1 && !int8_tiles)
+    return GROUPED
+               ? launch(bcr_spmm_grouped_kernel<__nv_bfloat16, __nv_bfloat16,
+                                                SWIGLU>, s, st, args)
+               : launch(bcr_spmm_kernel<__nv_bfloat16, __nv_bfloat16>, s, st,
+                        args);
+  if (dtype == 1 && int8_tiles)
+    return GROUPED
+               ? launch(bcr_spmm_grouped_kernel<__nv_bfloat16, int8_t, SWIGLU>,
+                        s, st, args)
+               : launch(bcr_spmm_kernel<__nv_bfloat16, int8_t>, s, st, args);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -447,41 +516,40 @@ long long bcr_spmm_smem_bytes(int G, int br, int bc, int R, int C,
   return (long long)smem_words(s) * 4;
 }
 
-// dtype: 0 = float32, 1 = bfloat16 (x, vals and y share it).
-int bcr_spmm_launch(int dtype, const void* x, const void* vals,
-                    const int* row_idx, const int* col_idx, void* y, int M,
-                    int K, int N, int nb_r, int nb_c, int br, int bc, int R,
-                    int C, int m_tile, void* stream) {
+// dtype: 0 = float32, 1 = bfloat16 (x and y share it). int8_tiles = 0: vals
+// in x's dtype, scales unused; 1: int8 vals with (nb_r, nb_c) fp32 scales.
+int bcr_spmm_launch(int dtype, int int8_tiles, const void* x,
+                    const void* vals, const float* scales, const int* row_idx,
+                    const int* col_idx, void* y, int M, int K, int N,
+                    int nb_r, int nb_c, int br, int bc, int R, int C,
+                    int m_tile, void* stream) {
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   SpmmShape s = make_shape(M, K, N, 1, nb_r, nb_c, br, bc, R, C, m_tile);
-  plan_phases(s, dtype == 0 ? 4 : 2, x, vals);
-  void* args[] = {(void*)&x, (void*)&vals, (void*)&row_idx, (void*)&col_idx,
-                  (void*)&y, (void*)&s};
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) return launch(bcr_spmm_kernel<float>, s, st, args);
-  if (dtype == 1) return launch(bcr_spmm_kernel<__nv_bfloat16>, s, st, args);
-  return (int)cudaErrorInvalidValue;
+  plan_phases(s, dtype == 0 ? 4 : 2, int8_tiles ? 1 : (dtype == 0 ? 4 : 2),
+              x, vals);
+  void* args[] = {(void*)&x, (void*)&vals, (void*)&scales, (void*)&row_idx,
+                  (void*)&col_idx, (void*)&y, (void*)&s};
+  return dispatch<false, false>(dtype, int8_tiles, s, (cudaStream_t)stream,
+                                args);
 }
 
-int bcr_spmm_grouped_launch(int dtype, int swiglu, const void* x,
-                            const void* vals, const int* row_idx,
+// As bcr_spmm_launch for G members; scales (G, nb_r, nb_c) under int8.
+int bcr_spmm_grouped_launch(int dtype, int int8_tiles, int swiglu,
+                            const void* x, const void* vals,
+                            const float* scales, const int* row_idx,
                             const int* col_idx, const float* bias, void* y,
                             int M, int K, int N, int G, int nb_r, int nb_c,
                             int br, int bc, int R, int C, int m_tile,
                             void* stream) {
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   SpmmShape s = make_shape(M, K, N, G, nb_r, nb_c, br, bc, R, C, m_tile);
-  plan_phases(s, dtype == 0 ? 4 : 2, x, vals);
-  void* args[] = {(void*)&x, (void*)&vals, (void*)&row_idx, (void*)&col_idx,
-                  (void*)&bias, (void*)&y, (void*)&s};
+  plan_phases(s, dtype == 0 ? 4 : 2, int8_tiles ? 1 : (dtype == 0 ? 4 : 2),
+              x, vals);
+  void* args[] = {(void*)&x, (void*)&vals, (void*)&scales, (void*)&row_idx,
+                  (void*)&col_idx, (void*)&bias, (void*)&y, (void*)&s};
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0 && !swiglu)
-    return launch(bcr_spmm_grouped_kernel<float, false>, s, st, args);
-  if (dtype == 0 && swiglu)
-    return launch(bcr_spmm_grouped_kernel<float, true>, s, st, args);
-  if (dtype == 1 && !swiglu)
-    return launch(bcr_spmm_grouped_kernel<__nv_bfloat16, false>, s, st, args);
-  if (dtype == 1 && swiglu)
-    return launch(bcr_spmm_grouped_kernel<__nv_bfloat16, true>, s, st, args);
-  return (int)cudaErrorInvalidValue;
+  return swiglu ? dispatch<true, true>(dtype, int8_tiles, s, st, args)
+                : dispatch<true, false>(dtype, int8_tiles, s, st, args);
 }
 
 }  // extern "C"

@@ -13,8 +13,19 @@
 // pos <= its own, read through the slot's block table, with the scale
 // D**-0.5 and fp32 online softmax; the result is acc / max(l, 1e-30).
 //
+// Two forms, one template: the fp form reads pages in q's dtype; the int8
+// form (the reference's quantized serving, kv_dtype="int8") reads int8
+// codes plus the per-row, per-kv-head fp32 scales of the sibling
+// (n_pages, page_size, Hkv) pools. As in the reference's kernel, q stays
+// floating, the logits are formed on the codes and each logit column is
+// multiplied by its row's k_scale; each probability column is multiplied
+// by its row's v_scale before the P·V sum (the softmax denominator uses
+// the unscaled probabilities); accumulation stays fp32 and the output is
+// in q's dtype.
+//
 // What bounds it on this card: the K/V page bytes of the live pages (each
-// read once per kv-head and row tile); at decode there are only G = 4 query
+// read once per kv-head and row tile: Hkv·D·2 bytes per row per K or V in
+// bf16, Hkv·(D + 4) under int8); at decode there are only G = 4 query
 // rows per page read, so it is far below the tensor cores' balance point.
 //
 // Design: one CTA per (slot, kv-head, row tile). The CTA reads its slot's
@@ -39,6 +50,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -49,6 +62,9 @@ template <typename T> __device__ __forceinline__ float to_f(T v);
 template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
 template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
   return __bfloat162float(v);
+}
+template <> __device__ __forceinline__ float to_f<int8_t>(int8_t v) {
+  return (float)v;
 }
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
@@ -62,12 +78,14 @@ struct AttnShape {
   int vec;   // 1: registers-pipelined 16-byte page loads; 0: plain loads
 };
 
-// q tile, K page (rows padded by one word), V page, logits, accumulator and
-// the per-row m / l / alpha, in 4-byte words
+// q tile, K page (rows padded by one word), V page, logits, accumulator,
+// the per-row m / l / alpha and the page's K and V row scales (int8 form),
+// in 4-byte words
 __host__ __device__ inline size_t smem_words(const AttnShape& s) {
   return (size_t)s.row_tile * s.D + (size_t)s.page_size * (s.D + 1) +
          (size_t)s.page_size * s.D + (size_t)s.row_tile * s.page_size +
-         (size_t)s.row_tile * s.D + 3 * (size_t)s.row_tile;
+         (size_t)s.row_tile * s.D + 3 * (size_t)s.row_tile +
+         2 * (size_t)s.page_size;
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -82,14 +100,17 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <typename T>
+template <typename T, typename TP>
 __global__ void __launch_bounds__(kThreads)
-paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
-                       const T* __restrict__ v_pages,
+paged_attention_kernel(const T* __restrict__ q, const TP* __restrict__ k_pages,
+                       const TP* __restrict__ v_pages,
+                       const float* __restrict__ k_scale,
+                       const float* __restrict__ v_scale,
                        const int* __restrict__ block_tables,
                        const int* __restrict__ prefix_len,
                        const int* __restrict__ total_len, T* __restrict__ out,
                        const AttnShape s) {
+  constexpr bool kQuant = std::is_same<TP, int8_t>::value;
   extern __shared__ float smem[];
   const int b = blockIdx.x, h = blockIdx.y;
   const int G = s.H / s.Hkv;
@@ -108,6 +129,8 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   float* m_s = acc + (size_t)s.row_tile * D;
   float* l_s = m_s + s.row_tile;
   float* al_s = l_s + s.row_tile;
+  float* ksc = al_s + s.row_tile;             // int8 form: the page's row
+  float* vsc = ksc + ps;                      // scales of kv-head h
 
   for (int idx = tid; idx < nr * D; idx += kThreads) {
     const int rr = idx / D, d = idx - rr * D;
@@ -126,10 +149,12 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   const size_t row_stride = (size_t)s.Hkv * D;
 
   // register pipeline: the next live page's K and V rows of this kv-head
-  // are loaded (16-byte vectors) while the current page is used
-  constexpr int kEPV = 16 / sizeof(T);
+  // (and, int8 form, their scales) are loaded (16-byte vectors) while the
+  // current page is used
+  constexpr int kEPV = 16 / sizeof(TP);
   const int dv = D / kEPV;                     // vectors per page row
   uint4 kreg[kPageVecs], vreg[kPageVecs];
+  float kscr = 0.f, vscr = 0.f;
   auto fetch = [&](int p) {
     const size_t page = (size_t)block_tables[(size_t)b * s.n_cols + p];
 #pragma unroll
@@ -142,6 +167,11 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
         kreg[u] = __ldg(reinterpret_cast<const uint4*>(k_pages) + off);
         vreg[u] = __ldg(reinterpret_cast<const uint4*>(v_pages) + off);
       }
+    }
+    if (kQuant && tid < ps) {
+      const size_t so = (page * ps + tid) * s.Hkv + h;
+      kscr = __ldg(k_scale + so);
+      vscr = __ldg(v_scale + so);
     }
   };
   if (s.vec && live > 0) fetch(0);
@@ -158,14 +188,18 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
         const int v = tid + u * kThreads;
         if (v < ps * dv) {
           const int t = v / dv, w = v - t * dv;
-          const T* ke = reinterpret_cast<const T*>(&kreg[u]);
-          const T* ve = reinterpret_cast<const T*>(&vreg[u]);
+          const TP* ke = reinterpret_cast<const TP*>(&kreg[u]);
+          const TP* ve = reinterpret_cast<const TP*>(&vreg[u]);
 #pragma unroll
           for (int q = 0; q < kEPV; ++q) {
             ks[t * kd + w * kEPV + q] = to_f(ke[q]);
             vs[t * D + w * kEPV + q] = to_f(ve[q]);
           }
         }
+      }
+      if (kQuant && tid < ps) {
+        ksc[tid] = kscr;
+        vsc[tid] = vscr;
       }
     } else {
       const size_t page = (size_t)block_tables[(size_t)b * s.n_cols + p];
@@ -175,6 +209,12 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
         ks[t * kd + d] = to_f(k_pages[off]);
         vs[idx] = to_f(v_pages[off]);
       }
+      if (kQuant)
+        for (int t = tid; t < ps; t += kThreads) {
+          const size_t so = (page * ps + t) * s.Hkv + h;
+          ksc[t] = k_scale[so];
+          vsc[t] = v_scale[so];
+        }
     }
     __syncthreads();
     if (s.vec && p + 1 < live) fetch(p + 1);
@@ -196,6 +236,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
         dot += __shfl_xor_sync(0xffffffffu, dot, o);
       if (valid && part == 0) {
         const int qpos = plen + (r0 + rr) / G;
+        if (kQuant) dot *= ksc[t];    // the K scale folds into the column
         sc[item] = (p * ps + t <= qpos) ? dot * s.scale : kNegInf;
       }
     }
@@ -216,6 +257,8 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
         sum += e;
       }
       sum = warp_sum(sum);
+      if (kQuant)   // V scale into the probability column, after the sum
+        for (int t = lane; t < ps; t += 32) srow[t] *= vsc[t];
       if (lane == 0) {
         const float alpha = expf(m_prev - m_new);
         al_s[rr] = alpha;
@@ -243,16 +286,16 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   }
 }
 
-template <typename T>
+template <typename T, typename TP>
 int launch(const AttnShape& s, void** args, cudaStream_t stream) {
   const size_t smem = smem_words(s) * 4;
   cudaError_t err = cudaFuncSetAttribute(
-      paged_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      paged_attention_kernel<T, TP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int rows = s.S * (s.H / s.Hkv);
   dim3 grid(s.B, s.Hkv, (rows + s.row_tile - 1) / s.row_tile);
-  err = cudaLaunchKernel((const void*)paged_attention_kernel<T>, grid,
+  err = cudaLaunchKernel((const void*)paged_attention_kernel<T, TP>, grid,
                          dim3(kThreads), args, smem, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
@@ -267,11 +310,12 @@ AttnShape make_shape(int B, int S, int H, int Hkv, int D, int page_size,
 }
 
 // The register pipeline needs 16-byte page rows and pages small enough for
-// the per-thread prefetch registers.
+// the per-thread prefetch registers (one scale per thread, int8 form).
 int pipelined(const AttnShape& s, int elem, const void* k, const void* v) {
   const int epv = 16 / elem;
   return ((uintptr_t)k % 16 == 0) && ((uintptr_t)v % 16 == 0) &&
-         s.D % epv == 0 && s.page_size * s.D / epv <= kPageVecs * kThreads;
+         s.D % epv == 0 && s.page_size * s.D / epv <= kPageVecs * kThreads &&
+         s.page_size <= kThreads;
 }
 
 }  // namespace
@@ -283,21 +327,30 @@ long long paged_attention_smem_bytes(int D, int page_size, int row_tile) {
   return (long long)smem_words(s) * 4;
 }
 
-// dtype: 0 = float32, 1 = bfloat16 (q, pages and out share it).
-int paged_attention_launch(int dtype, const void* q, const void* k_pages,
-                           const void* v_pages, const int* block_tables,
-                           const int* prefix_len, const int* total_len,
-                           void* out, int B, int S, int H, int Hkv, int D,
-                           int page_size, int n_cols, int row_tile,
-                           float scale, void* stream) {
+// dtype: 0 = float32, 1 = bfloat16 (q and out share it). int8_pages = 0:
+// pages in q's dtype, scales unused; 1: int8 pages with (n_pages,
+// page_size, Hkv) fp32 k_scale / v_scale pools.
+int paged_attention_launch(int dtype, int int8_pages, const void* q,
+                           const void* k_pages, const void* v_pages,
+                           const float* k_scale, const float* v_scale,
+                           const int* block_tables, const int* prefix_len,
+                           const int* total_len, void* out, int B, int S,
+                           int H, int Hkv, int D, int page_size, int n_cols,
+                           int row_tile, float scale, void* stream) {
   AttnShape s = make_shape(B, S, H, Hkv, D, page_size, n_cols, row_tile, scale);
-  s.vec = pipelined(s, dtype == 0 ? 4 : 2, k_pages, v_pages);
+  s.vec = pipelined(s, int8_pages ? 1 : (dtype == 0 ? 4 : 2), k_pages,
+                    v_pages);
   void* args[] = {(void*)&q, (void*)&k_pages, (void*)&v_pages,
-                  (void*)&block_tables, (void*)&prefix_len,
-                  (void*)&total_len, (void*)&out, (void*)&s};
+                  (void*)&k_scale, (void*)&v_scale, (void*)&block_tables,
+                  (void*)&prefix_len, (void*)&total_len, (void*)&out,
+                  (void*)&s};
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) return launch<float>(s, args, st);
-  if (dtype == 1) return launch<__nv_bfloat16>(s, args, st);
+  if (dtype == 0 && !int8_pages) return launch<float, float>(s, args, st);
+  if (dtype == 1 && !int8_pages)
+    return launch<__nv_bfloat16, __nv_bfloat16>(s, args, st);
+  if (dtype == 0 && int8_pages) return launch<float, int8_t>(s, args, st);
+  if (dtype == 1 && int8_pages)
+    return launch<__nv_bfloat16, int8_t>(s, args, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -4,7 +4,9 @@
 hand the 2-D activation to the kernel wrappers, which dispatch on the
 tensor's device alone: the CUDA kernel on the card, the plain version on the
 CPU. The reference pads M to the TPU sublane granule; the CUDA kernels mask
-the M edge instead, so no padding happens here.
+the M edge instead, so no padding happens here. int8-quantized packs carry
+their per-tile scales on ``plan.block_scales`` and reach the kernels' int8
+form through the same calls.
 """
 
 from __future__ import annotations

@@ -9,9 +9,13 @@ pack time and carried beside the packed weight:
 * ``scatter_rows`` — flat int32 ``(nb_r·nb_c·R_keep,)`` global output rows,
   ``i·br + row_idx[i, j, r]``: one scatter-add places the partial products.
 
-The CUDA kernels read ``row_idx``/``col_idx`` directly; the vectors serve the
-plain path. The reference's one-hot planes, ``m_tile`` and ``grid_order``
-are dispatch knobs of its TPU kernel and are not ported.
+* ``block_scales`` — for int8-quantized vals, one fp32 scale per kept
+  ``(R_keep, C_keep)`` tile, ``([G,] nb_r, nb_c)``; ``None`` for fp vals.
+
+The CUDA kernels read ``row_idx``/``col_idx`` (and ``block_scales``)
+directly; the vectors serve the plain path. The reference's one-hot planes,
+``m_tile`` and ``grid_order`` are dispatch knobs of its TPU kernel and are
+not ported.
 
 :class:`GroupedTBCRC` stacks projections that share one activation (Q/K/V,
 gate/up) for a single kernel launch. The reference fuses a group only when
@@ -36,9 +40,16 @@ class BCRPlan:
 
     gather_cols: torch.Tensor                 # (L_c,) int32 flat global cols
     scatter_rows: torch.Tensor                # (L_r,) int32 flat global rows
+    # per-tile fp32 dequant scales of int8 vals, ([G,] nb_r, nb_c), applied
+    # to each block's fp32 partial before the scatter (None: fp vals)
+    block_scales: Optional[torch.Tensor] = None
 
     def nbytes(self) -> int:
-        return self.gather_cols.numel() * 4 + self.scatter_rows.numel() * 4
+        tot = self.gather_cols.numel() * 4 + self.scatter_rows.numel() * 4
+        if self.block_scales is not None:
+            tot += (self.block_scales.numel()
+                    * self.block_scales.element_size())
+        return tot
 
 
 def _index_vectors(row_idx: torch.Tensor, col_idx: torch.Tensor,
@@ -115,8 +126,12 @@ def pack_group(members: Sequence[TBCRC]) -> GroupedTBCRC:
         gc, sr = _index_vectors(mem.row_idx, mem.col_idx, mem.block_shape)
         gcols_parts.append(gc)
         srows_parts.append(sr + g * n)
+    mem_scales = [m.plan.block_scales if m.plan is not None else None
+                  for m in members]
+    bscales = (torch.stack(mem_scales).contiguous()
+               if all(sc is not None for sc in mem_scales) else None)
     plan = BCRPlan(gather_cols=torch.cat(gcols_parts),
-                   scatter_rows=torch.cat(srows_parts))
+                   scatter_rows=torch.cat(srows_parts), block_scales=bscales)
     return GroupedTBCRC(
         vals=torch.stack([m.vals for m in members]).contiguous(),
         row_idx=torch.stack([m.row_idx for m in members]).contiguous(),
@@ -171,4 +186,66 @@ def fuse_packed_projections(tree: Any) -> Any:
         return out
     if isinstance(tree, list):
         return [fuse_packed_projections(v) for v in tree]
+    return tree
+
+
+# ---------------------------------------------------------------------------
+# Per-tile int8 quantization: the layout the kernels stream — the kept
+# (R_keep, C_keep) tiles — with one scale per tile on the plan
+# ---------------------------------------------------------------------------
+
+
+def _scale_bytes(packed) -> int:
+    """Itemsize of the per-tile scale the spmm streams beside a quantized
+    tile (0 for an unquantized pack)."""
+    plan = packed.plan
+    if plan is None or plan.block_scales is None:
+        return 0
+    return plan.block_scales.element_size()
+
+
+def quantize_packed(packed: TBCRC) -> TBCRC:
+    """int8-quantize a packed weight's kept tiles, one symmetric fp32 scale
+    per tile, stored on the plan. Idempotent."""
+    from repro_torch.kernels.quant import quantize_blocks
+    if packed.vals.dtype == torch.int8:
+        return packed
+    plan = packed.plan
+    if plan is None:
+        plan = default_plan(packed.row_idx, packed.col_idx,
+                            packed.block_shape)
+    codes, scales = quantize_blocks(packed.vals)
+    return dataclasses.replace(
+        packed, vals=codes.contiguous(),
+        plan=dataclasses.replace(plan, block_scales=scales.contiguous()))
+
+
+def quantize_grouped(grouped: GroupedTBCRC) -> GroupedTBCRC:
+    """int8-quantize a fused projection group (the scales gain the leading
+    member axis the grouped kernels expect). Idempotent."""
+    from repro_torch.kernels.quant import quantize_blocks
+    if grouped.vals.dtype == torch.int8:
+        return grouped
+    codes, scales = quantize_blocks(grouped.vals)
+    return dataclasses.replace(
+        grouped, vals=codes.contiguous(),
+        plan=dataclasses.replace(grouped.plan,
+                                 block_scales=scales.contiguous()))
+
+
+def quantize_packed_params(tree: Any) -> Any:
+    """Walk a params tree and int8-quantize every packed linear and every
+    fused group. Returns a new tree; other leaves are shared."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            if k == "w_packed" and isinstance(v, TBCRC):
+                out[k] = quantize_packed(v)
+            elif k == "w_group" and isinstance(v, GroupedTBCRC):
+                out[k] = quantize_grouped(v)
+            else:
+                out[k] = quantize_packed_params(v)
+        return out
+    if isinstance(tree, list):
+        return [quantize_packed_params(v) for v in tree]
     return tree

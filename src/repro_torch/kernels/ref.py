@@ -9,7 +9,13 @@ They mirror the reference package's ``kernels/ref.py`` line for line:
 * ``bcr_spmm_packed_ref`` / ``bcr_spmm_grouped_ref`` — reconstruction-free
   gather → blockwise einsum → scatter-add off the pack-time plan;
 * ``paged_decode_attention_ref`` / ``paged_prefill_append_ref`` — gather each
-  slot's table pages, then masked attention.
+  slot's table pages (dequantizing int8 pages off their scale pools), then
+  masked attention;
+* ``flash_attention_ref`` — dense attention on the merged-head ``(B·H, S,
+  D)`` layout (the reference's ``kernels/flash_attention.py`` oracle).
+
+int8 packed vals carry per-tile scales on ``plan.block_scales``; the plain
+spmm applies each to its block's fp32 partial before the scatter-add.
 """
 
 from __future__ import annotations
@@ -57,6 +63,8 @@ def bcr_spmm_packed_ref(x: torch.Tensor, packed: TBCRC) -> torch.Tensor:
         xg = x[lo:hi].index_select(1, cols).float()
         xg = xg.reshape(hi - lo, nb_r, nb_c, c_keep)
         part = torch.einsum("mijc,ijrc->mijr", xg, vals)
+        if plan.block_scales is not None:
+            part = part * plan.block_scales.float()[None, :, :, None]
         y[lo:hi].index_add_(1, rows, part.reshape(hi - lo, -1))
     return y.to(x.dtype)
 
@@ -94,30 +102,41 @@ def bcr_spmm_grouped_ref(x: torch.Tensor, grouped, bias=None,
         xg = x[lo:hi].index_select(1, cols).float()
         xg = xg.reshape(hi - lo, g, nb_r, nb_c, c_keep)
         part = torch.einsum("mgijc,gijrc->mgijr", xg, vals)
+        if plan.block_scales is not None:
+            part = part * plan.block_scales.float()[None, :, :, :, None]
         y[lo:hi].index_add_(1, rows, part.reshape(hi - lo, -1))
     return grouped_epilogue(y.reshape(m, g, n), bias, epilogue, x.dtype)
 
 
-def _gather_pages(pages: torch.Tensor, block_tables: torch.Tensor,
-                  b: int, l: int, hkv: int, d: int) -> torch.Tensor:
-    """Table pages → a contiguous (B, L, Hkv, D) history."""
-    return pages[block_tables.long()].reshape(b, l, hkv, d)
+def _gather_dequant(pages: torch.Tensor, scale: Optional[torch.Tensor],
+                    block_tables: torch.Tensor, b: int, l: int, hkv: int,
+                    d: int) -> torch.Tensor:
+    """Table pages → a contiguous (B, L, Hkv, D) history, dequantized off
+    the sibling ``(n_pages, page_size, Hkv)`` scale pool when the pages
+    hold int8 codes."""
+    bt = block_tables.long()
+    k = pages[bt].reshape(b, l, hkv, d)
+    if scale is not None:
+        k = k.float() * scale[bt].reshape(b, l, hkv).float()[..., None]
+    return k
 
 
 def paged_decode_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
                                v_pages: torch.Tensor,
                                block_tables: torch.Tensor,
-                               cache_len: torch.Tensor) -> torch.Tensor:
+                               cache_len: torch.Tensor, k_scale=None,
+                               v_scale=None) -> torch.Tensor:
     """Plain paged decode: q ``(B, 1, H, D)``; pages ``(n_pages, page_size,
     Hkv, D)``; tables ``(B, n_cols)``; cache_len ``(B,)`` counts valid
-    positions including the step's new token."""
+    positions including the step's new token. With ``k_scale``/``v_scale``
+    the pages hold int8 codes."""
     b, s, h, d = q.shape
     assert s == 1
     _, page_size, hkv, _ = k_pages.shape
     g = h // hkv
     l = block_tables.shape[1] * page_size
-    k = _gather_pages(k_pages, block_tables, b, l, hkv, d)
-    v = _gather_pages(v_pages, block_tables, b, l, hkv, d)
+    k = _gather_dequant(k_pages, k_scale, block_tables, b, l, hkv, d)
+    v = _gather_dequant(v_pages, v_scale, block_tables, b, l, hkv, d)
     qg = q.reshape(b, hkv, g, d).to(k.dtype)
     logits = torch.einsum("bhgd,bkhd->bhgk", qg.float(), k.float()) * d ** -0.5
     valid = (torch.arange(l, device=q.device)[None]
@@ -133,7 +152,8 @@ def paged_prefill_append_ref(q: torch.Tensor, k_pages: torch.Tensor,
                              v_pages: torch.Tensor,
                              block_tables: torch.Tensor,
                              prefix_len: torch.Tensor,
-                             total_len: torch.Tensor) -> torch.Tensor:
+                             total_len: torch.Tensor, k_scale=None,
+                             v_scale=None) -> torch.Tensor:
     """Plain paged prefill-append: an S-row query block per slot whose row
     ``i`` sits at absolute position ``prefix_len[b] + i``, causally masked
     against the slot's table pages (the suffix K/V are already in them).
@@ -142,8 +162,8 @@ def paged_prefill_append_ref(q: torch.Tensor, k_pages: torch.Tensor,
     _, page_size, hkv, _ = k_pages.shape
     g = h // hkv
     l = block_tables.shape[1] * page_size
-    k = _gather_pages(k_pages, block_tables, b, l, hkv, d)
-    v = _gather_pages(v_pages, block_tables, b, l, hkv, d)
+    k = _gather_dequant(k_pages, k_scale, block_tables, b, l, hkv, d)
+    v = _gather_dequant(v_pages, v_scale, block_tables, b, l, hkv, d)
     qg = q.reshape(b, s, hkv, g, d).to(k.dtype)
     logits = torch.einsum("bshgd,bkhd->bhgsk", qg.float(),
                           k.float()) * d ** -0.5
@@ -158,3 +178,21 @@ def paged_prefill_append_ref(q: torch.Tensor, k_pages: torch.Tensor,
     p = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bhgsk,bkhd->bshgd", p.float(), v.float())
     return out.reshape(b, s, h, d).to(q.dtype)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, q_offset: int = 0
+                        ) -> torch.Tensor:
+    """Dense attention on the merged-head layout: q ``(B·H, Sq, D)``, k/v
+    ``(B·H, Skv, D)``, fp32 softmax with scale ``D**-0.5``; with ``causal``
+    query row ``i`` sits at position ``q_offset + i``. Returns q's dtype."""
+    sq, d = q.shape[1], q.shape[2]
+    skv = k.shape[1]
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * d ** -0.5
+    if causal:
+        qpos = q_offset + torch.arange(sq, device=q.device)
+        kpos = torch.arange(skv, device=q.device)
+        s = torch.where((qpos[:, None] >= kpos[None, :])[None], s,
+                        torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)

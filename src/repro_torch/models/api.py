@@ -27,7 +27,7 @@ class ModelFns:
 
 
 def model_fns(cfg: ModelConfig) -> ModelFns:
-    causal_lm._check_family(cfg)
+    causal_lm._check_cfg(cfg)
     return ModelFns(
         init_params=functools.partial(causal_lm.init_params, cfg),
         prefill=lambda p, b: causal_lm.prefill(

@@ -13,17 +13,21 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.sparse_linear import linear_apply, linear_init
+from repro_torch.kernels.quant import quantize_rows
 from repro_torch.models import layers as L
 
 Params = Dict[str, Any]
 Cache = List[Dict[str, torch.Tensor]]
 
 
-def _check_family(cfg: ModelConfig) -> None:
+def _check_cfg(cfg: ModelConfig) -> None:
     if cfg.family != "dense":
         raise NotImplementedError(
             f"family {cfg.family!r}: only the dense family is ported so far; "
             f"the other families come in a later slice of the port")
+    if cfg.kv_dtype not in ("", "int8"):
+        raise ValueError(f"unsupported kv_dtype {cfg.kv_dtype!r}")
+    L.check_attn_impl(cfg.attn_impl)
 
 
 def _head_logits(cfg: ModelConfig, params: Params,
@@ -47,7 +51,7 @@ def layer_init(generator: torch.Generator, cfg: ModelConfig) -> Params:
 def init_params(cfg: ModelConfig, seed: int = 0, *,
                 device="cuda") -> Params:
     """Random weights from a seeded ``torch.Generator`` on ``device``."""
-    _check_family(cfg)
+    _check_cfg(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -64,20 +68,30 @@ def init_cache(cfg: ModelConfig, *, kv_pages: int, page_size: int,
                device="cuda") -> Cache:
     """Paged decode cache: one ``(kv_pages, page_size, Hkv, D)`` K and V pool
     per layer. Page 0 is the null page (pad and inactive writes land there;
-    no live table entry points at it)."""
-    _check_family(cfg)
+    no live table entry points at it). ``kv_dtype="int8"`` stores int8 codes
+    plus sibling fp32 ``k_scale``/``v_scale`` pools ``(kv_pages, page_size,
+    Hkv)`` in the same page index space."""
+    _check_cfg(cfg)
     if page_size <= 0:
         raise NotImplementedError(
             "unpaged (capacity-dense) caches come in a later slice of the "
             "port; use page_size > 0")
-    if cfg.kv_dtype == "int8":
-        raise NotImplementedError(
-            "int8 KV pages come in the next slice of the port")
     dev = resolve_device(device)
     shape = (kv_pages, page_size, cfg.num_kv_heads, cfg.head_dim)
-    return [{"k": torch.zeros(shape, dtype=cfg.c_dtype, device=dev),
-             "v": torch.zeros(shape, dtype=cfg.c_dtype, device=dev)}
-            for _ in range(cfg.num_layers)]
+    quant = cfg.kv_dtype == "int8"
+    kv_dt = torch.int8 if quant else cfg.c_dtype
+
+    def layer():
+        c = {"k": torch.zeros(shape, dtype=kv_dt, device=dev),
+             "v": torch.zeros(shape, dtype=kv_dt, device=dev)}
+        if quant:
+            c["k_scale"] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                       device=dev)
+            c["v_scale"] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                       device=dev)
+        return c
+
+    return [layer() for _ in range(cfg.num_layers)]
 
 
 def layer_apply(lp: Params, x: torch.Tensor, cfg: ModelConfig, *,
@@ -87,15 +101,22 @@ def layer_apply(lp: Params, x: torch.Tensor, cfg: ModelConfig, *,
                 suffix_len: Optional[torch.Tensor] = None,
                 ) -> Tuple[torch.Tensor, Params]:
     """One transformer layer; returns the layer's KV (fresh prefill K/V in
-    ``cache_dtype``, or the updated pages). ``rope_cs``/``kv_dest`` are the
-    per-forward tables every layer shares (see ``_step_tables``)."""
+    ``cache_dtype``, or under ``kv_dtype="int8"`` quantized on emission to
+    codes + scales, the leaves of :func:`init_cache`; or the updated
+    pages). ``rope_cs``/``kv_dest`` are the per-forward tables every layer
+    shares (see ``_step_tables``)."""
     h = L.rmsnorm(lp["norm1"], x, cfg.norm_eps)
     out, kv = L.attention_apply(
         lp["mixer"], h, n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads,
         head_dim=cfg.head_dim, rope_cs=rope_cs, cache=cache,
         cache_len=cache_len, block_tables=block_tables,
-        suffix_len=suffix_len, kv_dest=kv_dest)
-    if cache is None:
+        suffix_len=suffix_len, kv_dest=kv_dest, attn_impl=cfg.attn_impl,
+        q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+    if cache is None and cfg.kv_dtype == "int8":
+        kc, ks = quantize_rows(kv["k"])
+        vc, vs = quantize_rows(kv["v"])
+        kv = {"k": kc, "v": vc, "k_scale": ks, "v_scale": vs}
+    elif cache is None:
         kv = {"k": kv["k"].to(cfg.c_dtype), "v": kv["v"].to(cfg.c_dtype)}
     x = x + out
     h2 = L.rmsnorm(lp["norm2"], x, cfg.norm_eps)
@@ -130,7 +151,7 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     K/V ``(B, S, Hkv, D)``. ``length`` (B,) gives each row's true prompt
     length when ``tokens`` is right-padded: logits are taken at
     ``length - 1``; causality keeps the pads invisible to real positions."""
-    _check_family(cfg)
+    _check_cfg(cfg)
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
     x = _embed_tokens(cfg, params, tokens)
@@ -155,7 +176,7 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     """One serving step: tokens (B, 1) + paged cache → (logits (B, 1, V),
     cache). Slot b writes its K/V at position ``cache_len[b]`` and attends
     to its own history through ``block_tables`` (B, n_cols)."""
-    _check_family(cfg)
+    _check_cfg(cfg)
     if block_tables is None:
         raise NotImplementedError(
             "unpaged (capacity-dense) decode comes in a later slice of the "
@@ -186,7 +207,7 @@ def prefill_append(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     ``prefix_len + j`` and attends to prefix + suffix through the pages.
     Returns last-real-token logits (B, 1, V), or with ``all_logits`` the
     logits of every suffix position (B, S, V)."""
-    _check_family(cfg)
+    _check_cfg(cfg)
     b, s = tokens.shape
     dev = tokens.device
     prefix_len = prefix_len.to(dev)

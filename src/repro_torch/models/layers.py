@@ -4,7 +4,15 @@ MLP. Every projection goes through ``core.sparse_linear`` so BCR-packed
 weights run through the port's kernels.
 
 Page writes happen in place (``index_copy_`` into the pool); the reference's
-functional ``.at[].set`` returns a new pool instead.
+functional ``.at[].set`` returns a new pool instead. int8 pools quantize on
+store, writing codes and the sibling per-row scale at the same flat row.
+
+Cold-prefill attention follows ``cfg.attn_impl`` as in the reference:
+``"pallas"`` (and its CPU-validation twin ``"pallas_interpret"``) runs the
+fused flash kernel; ``"dense"``, ``"flash"`` (the reference's XLA chunked
+attention, the same function) and the paged-kernel settings ``"paged"`` /
+``"paged_interpret"`` run the plain product; anything else raises. Paged
+decode and prefill-append always run the paged attention kernel.
 """
 
 from __future__ import annotations
@@ -16,11 +24,24 @@ import torch.nn.functional as F
 
 from repro_torch.core.sparse_linear import (grouped_linear_apply,
                                             linear_apply, linear_init)
+from repro_torch.kernels.flash_attention import flash_attention_fused
 from repro_torch.kernels.paged_decode_attention import (
     paged_decode_attention, paged_prefill_append_attention)
+from repro_torch.kernels.quant import quantize_rows
 from repro_torch.kernels.ref import NEG_INF
 
 Params = Dict[str, Any]
+
+# the reference's attn_impl values: the fused flash kernel, or the plain
+# product for cold prefill
+FLASH_ATTN_IMPLS = ("pallas", "pallas_interpret")
+PLAIN_ATTN_IMPLS = ("dense", "flash", "paged", "paged_interpret")
+
+
+def check_attn_impl(attn_impl: str) -> None:
+    if attn_impl not in FLASH_ATTN_IMPLS + PLAIN_ATTN_IMPLS:
+        raise ValueError(f"unknown attn_impl {attn_impl!r}; known: "
+                         f"{FLASH_ATTN_IMPLS + PLAIN_ATTN_IMPLS}")
 
 
 # ---------------------------------------------------------------------------
@@ -138,14 +159,51 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(b, sq, h, d).to(q.dtype)
 
 
-def _paged_write(pages: torch.Tensor, dest: torch.Tensor, rows: torch.Tensor,
-                 n_kv: int, head_dim: int) -> torch.Tensor:
-    """Scatter K/V rows into a page pool at flat row positions ``dest``, in
-    place, cast to the pool dtype. Returns the pool."""
-    pages.view(-1, n_kv, head_dim).index_copy_(
-        0, dest.reshape(-1).long(),
-        rows.reshape(-1, n_kv, head_dim).to(pages.dtype))
-    return pages
+def _paged_write(cache: Params, dest: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor, n_kv: int, head_dim: int) -> None:
+    """Scatter K/V rows into the layer's page pools at flat row positions
+    ``dest``, in place. fp pools store the rows cast to their dtype; int8
+    pools (``k_scale``/``v_scale`` leaves) quantize on store: each row's
+    per-kv-head codes go into the pool and its fp32 scales into the sibling
+    ``(n_pages, page_size, Hkv)`` scale pool at the same flat position, so
+    the two never drift apart. K and V are quantized in one pass (half the
+    small launches of quantizing each)."""
+    dest = dest.reshape(-1).long()
+    rows = {"k": k.reshape(-1, n_kv, head_dim),
+            "v": v.reshape(-1, n_kv, head_dim)}
+    if "k_scale" not in cache:
+        for key, r in rows.items():
+            cache[key].view(-1, n_kv, head_dim).index_copy_(
+                0, dest, r.to(cache[key].dtype))
+        return
+    codes, scales = quantize_rows(torch.stack([rows["k"], rows["v"]]))
+    for i, key in enumerate(("k", "v")):
+        cache[key].view(-1, n_kv, head_dim).index_copy_(0, dest, codes[i])
+        cache[f"{key}_scale"].view(-1, n_kv).index_copy_(0, dest, scales[i])
+
+
+def cold_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   attn_impl: str, q_chunk: int, kv_chunk: int
+                   ) -> torch.Tensor:
+    """Causal cold-prefill attention, q ``(B, S, H, D)``, k/v ``(B, S, Hkv,
+    D)``. ``attn_impl="pallas"`` runs the fused flash kernel on the
+    merged-head layout with K/V repeated to all q heads (the reference's
+    trade: duplicated K/V reads for one fused pass); the plain settings run
+    :func:`dense_attention`."""
+    check_attn_impl(attn_impl)
+    if attn_impl not in FLASH_ATTN_IMPLS:
+        return dense_attention(q, k, v, causal=True)
+    b, s, h, d = q.shape
+    g = h // k.shape[2]
+
+    def merged(t):
+        return t.repeat_interleave(g, dim=2).transpose(1, 2).reshape(
+            b * h, t.shape[1], d)
+
+    out = flash_attention_fused(
+        q.transpose(1, 2).reshape(b * h, s, d), merged(k), merged(v),
+        causal=True, q_chunk=q_chunk, kv_chunk=kv_chunk)
+    return out.reshape(b, h, s, d).transpose(1, 2)
 
 
 def paged_write_rows(block_tables: torch.Tensor, cache_len: torch.Tensor,
@@ -175,6 +233,7 @@ def attention_apply(
     block_tables: Optional[torch.Tensor] = None,
     suffix_len: Optional[torch.Tensor] = None,
     kv_dest: Optional[torch.Tensor] = None,
+    attn_impl: str = "flash", q_chunk: int = 512, kv_chunk: int = 1024,
 ) -> Tuple[torch.Tensor, Params]:
     """Full attention block.
 
@@ -182,8 +241,8 @@ def attention_apply(
     cache, ``kv_dest`` (:func:`paged_write_rows`) are computed once per
     forward by the caller and shared by every layer.
 
-    * no ``cache`` — cold prefill (causal, plain fp32 softmax); returns the
-      fresh K/V as the cache.
+    * no ``cache`` — cold prefill (causal; :func:`cold_attention` by
+      ``attn_impl``); returns the fresh K/V as the cache.
     * ``cache`` + ``block_tables``, one token — paged decode: write K/V at
       ``table[b, len // ps] * ps + len % ps`` (inactive slots, with length
       0 and a zeroed table row, land in the reserved null page 0), then the
@@ -192,6 +251,9 @@ def attention_apply(
       counts the cached prefix, ``suffix_len`` the true suffix rows; the S
       suffix K/V rows are written at ``cache_len + i`` (pad rows to the null
       page) before attending through the pages.
+
+    A cache with ``k_scale``/``v_scale`` leaves holds int8 pages: writes
+    quantize on store and attention reads the codes with their scales.
     """
     b, s, _ = x.shape
     q, k, v = _qkv(params, x, n_heads, n_kv, head_dim, rope_cs)
@@ -202,17 +264,20 @@ def attention_apply(
             "port; pass block_tables")
     if cache is not None:
         kp, vp = cache["k"], cache["v"]
-        _paged_write(kp, kv_dest, k, n_kv, head_dim)
-        _paged_write(vp, kv_dest, v, n_kv, head_dim)
+        ks, vs = cache.get("k_scale"), cache.get("v_scale")
+        _paged_write(cache, kv_dest, k, v, n_kv, head_dim)
         if s > 1:
             out = paged_prefill_append_attention(
-                q, kp, vp, block_tables, cache_len, cache_len + suffix_len)
+                q, kp, vp, block_tables, cache_len, cache_len + suffix_len,
+                k_scale=ks, v_scale=vs)
         else:
             out = paged_decode_attention(q, kp, vp, block_tables,
-                                         cache_len + 1)
+                                         cache_len + 1, k_scale=ks,
+                                         v_scale=vs)
         new_cache = cache
     else:
-        out = dense_attention(q, k, v, causal=True)
+        out = cold_attention(q, k, v, attn_impl=attn_impl, q_chunk=q_chunk,
+                             kv_chunk=kv_chunk)
         new_cache = {"k": k, "v": v}
     y = linear_apply(params["wo"], out.reshape(b, s, n_heads * head_dim))
     return y, new_cache

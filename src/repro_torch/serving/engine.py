@@ -19,11 +19,15 @@ Each ``step()``:
 Free slots ride along as garbage rows: their length is 0 and their table row
 is zero, so their writes land in the null page and their output is dropped.
 
+Quantized serving: ``kv_dtype="int8"`` stores the pool as int8 codes with
+per-row, per-kv-head fp32 scales; ``weight_dtype="int8"`` quantizes the
+packed tiles to int8 codes with one fp32 scale per tile at engine build.
+
 Not ported yet (each raises ``NotImplementedError`` when asked for): the
-prefix cache, speculative decoding, int8 KV / weights, tensor parallelism
-and unpaged pools. The lifecycle machinery (deadlines, cancel, preemption,
-NaN containment, ``recover``), SLO admission and tenancy come in a later
-slice; a non-finite sampled row is counted in ``stats["nonfinite_rows"]``.
+prefix cache, speculative decoding, tensor parallelism and unpaged pools.
+The lifecycle machinery (deadlines, cancel, preemption, NaN containment,
+``recover``), SLO admission and tenancy come in a later slice; a non-finite
+sampled row is counted in ``stats["nonfinite_rows"]``.
 """
 
 from __future__ import annotations
@@ -37,7 +41,10 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention import chunks_fit
+from repro_torch.kernels.plan import quantize_packed_params
 from repro_torch.models.api import model_fns
+from repro_torch.models.layers import FLASH_ATTN_IMPLS
 from repro_torch.serving.kv_slots import PagedSlotPool
 from repro_torch.serving.scheduler import Request, Scheduler
 
@@ -84,11 +91,13 @@ class EngineConfig:
     # the engine is idle), then run ONE merged prefill for all of them
     backfill_chunk: int = 2
     backfill_max_defer: int = 2
+    # quantized serving: "int8" KV pages (codes + per-row scales) and/or
+    # int8 packed tiles (codes + per-tile scales)
+    kv_dtype: str = ""
+    weight_dtype: str = ""
     # reference options not ported yet: each raises NotImplementedError
     prefix_cache: bool = False
     spec_k: int = 0
-    kv_dtype: str = ""
-    weight_dtype: str = ""
     mesh_model: int = 1
 
     def __post_init__(self):
@@ -96,8 +105,6 @@ class EngineConfig:
             (self.page_size <= 0, "page_size=0 (unpaged pools)"),
             (self.prefix_cache, "prefix_cache"),
             (self.spec_k > 0, "spec_k (speculative decoding)"),
-            (self.kv_dtype == "int8", "kv_dtype='int8'"),
-            (self.weight_dtype == "int8", "weight_dtype='int8'"),
             (self.mesh_model > 1, "mesh_model > 1 (tensor parallelism)"),
         ]
         for bad, what in unported:
@@ -120,10 +127,21 @@ class InferenceEngine:
         if table.device.type != self.device.type:
             raise ValueError(f"params live on {table.device}, the engine on "
                              f"{self.device}")
+        if ec.kv_dtype:
+            cfg = dataclasses.replace(cfg, kv_dtype=ec.kv_dtype)
+        if ec.weight_dtype:
+            # idempotent: packs quantized by pack_params stay as they are
+            params = quantize_packed_params(params)
         self.cfg = cfg
         self.ec = ec
         self.params = params
         self.fns = model_fns(cfg)
+        if cfg.attn_impl in FLASH_ATTN_IMPLS:
+            bad = [b for b in self._buckets() if not self._chunks_fit(b)]
+            if bad:
+                raise ValueError(
+                    f"prefill buckets {bad} do not split into the flash "
+                    f"chunks q_chunk={cfg.q_chunk}, kv_chunk={cfg.kv_chunk}")
         self.pool = PagedSlotPool(self.fns.init_cache, ec.n_slots,
                                   ec.capacity, page_size=ec.page_size,
                                   n_pages=ec.kv_pages, device=self.device)
@@ -131,7 +149,8 @@ class InferenceEngine:
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(ec.seed)
         self._defer_steps = 0
-        # bytes one cache position costs to read across all layers (K + V)
+        # bytes one cache position costs to read across all layers: K + V
+        # (+ their fp32 scales under int8 KV)
         self._kv_row_bytes = sum(
             leaf[0, 0].numel() * leaf.element_size()
             for layer in self.pool.cache for leaf in layer.values())
@@ -174,10 +193,32 @@ class InferenceEngine:
     # -- internals ---------------------------------------------------------
 
     def _bucket(self, n: int) -> int:
+        """Prefill length for an n-token prompt: the next power of two from
+        ``min_bucket``, capped at the capacity — unless the fused flash
+        prefill (``attn_impl="pallas"``) could not split the capped length
+        into its chunks; the uncapped power of two is then kept (pad rows
+        past the capacity land in the null page)."""
         b = self.ec.min_bucket
         while b < n:
             b *= 2
-        return min(b, self.ec.capacity)
+        cap = self.ec.capacity
+        if b > cap and (self.cfg.attn_impl not in FLASH_ATTN_IMPLS
+                        or self._chunks_fit(cap)):
+            return cap
+        return b
+
+    def _chunks_fit(self, s: int) -> bool:
+        return chunks_fit(s, s, self.cfg.q_chunk, self.cfg.kv_chunk)
+
+    def _buckets(self) -> List[int]:
+        """Every prefill length :meth:`_bucket` can return."""
+        out, n = [], 1
+        while True:
+            b = self._bucket(n)
+            out.append(b)
+            if b >= self.ec.capacity:
+                return out
+            n = b + 1
 
     def _row_tiers(self) -> List[int]:
         """Admission-batch row counts: powers of two up to ``n_slots`` (plus

@@ -2,7 +2,9 @@
 
 Attention K/V live in a shared page pool per layer, ``(n_pages, page_size,
 Hkv, D)`` torch tensors on the engine's device, plus per-slot block tables
-(physical page ids) kept on the host. Pages are reserved at admission,
+(physical page ids) kept on the host. Under int8 KV each layer also holds
+fp32 ``k_scale``/``v_scale`` pools ``(n_pages, page_size, Hkv)`` in the same
+page index space; every write moves codes and scales together. Pages are reserved at admission,
 allocated lazily as a slot's length crosses page boundaries, and returned on
 retirement. Physical page 0 is reserved as the null sink for pad/inactive
 writes.
@@ -128,11 +130,13 @@ class PagedSlotPool:
         dest_t = torch.as_tensor(dest.reshape(-1), dtype=torch.long,
                                  device=self.device)
         for pool, new in zip(self.cache, prefill_cache):
-            for key in ("k", "v"):
-                p = pool[key]
-                p.view(-1, p.shape[2], p.shape[3]).index_copy_(
-                    0, dest_t,
-                    new[key].reshape(-1, p.shape[2], p.shape[3]).to(p.dtype))
+            if set(new) != set(pool):
+                raise ValueError(f"prefill cache leaves {sorted(new)} do not "
+                                 f"match the pool's {sorted(pool)}")
+            for key, p in pool.items():   # codes and scales move together
+                row = p.shape[2:]
+                p.view(-1, *row).index_copy_(
+                    0, dest_t, new[key].reshape(-1, *row).to(p.dtype))
         for s, l in zip(slots[:k], lengths):
             self.lens[s] = l
 
@@ -179,11 +183,39 @@ class PagedSlotPool:
     def idle_pages(self) -> int:
         return len(self._free)
 
+    def _check_scale_pools(self) -> None:
+        """int8 pools: each layer's ``k_scale``/``v_scale`` share the page
+        index space of its codes, and every live row of every slot carries
+        the positive scale its write stored (an fp pool has no scales)."""
+        live = [(slot, int(self.lens[slot])) for slot in range(self.n_slots)
+                if self.lens[slot] > 0]
+        rows = [int(self.table[slot, pos // self.page_size]) * self.page_size
+                + pos % self.page_size for slot, n in live for pos in range(n)]
+        idx = torch.as_tensor(rows, dtype=torch.long, device=self.device)
+        for li, layer in enumerate(self.cache):
+            quant = layer["k"].dtype == torch.int8
+            if quant != ("k_scale" in layer) or quant != ("v_scale" in layer):
+                raise AssertionError(f"layer {li}: int8 pools and scale "
+                                     f"pools must come together")
+            if not quant:
+                continue
+            for key in ("k", "v"):
+                sc = layer[f"{key}_scale"]
+                if tuple(sc.shape) != tuple(layer[key].shape[:3]) \
+                        or sc.dtype != torch.float32:
+                    raise AssertionError(f"layer {li}: {key}_scale is "
+                                         f"{sc.dtype} {tuple(sc.shape)}")
+                if rows and not bool((sc.view(-1, sc.shape[2])[idx] > 0)
+                                     .all()):
+                    raise AssertionError(f"layer {li}: a live {key} row has "
+                                         f"no scale")
+
     def check_consistency(self) -> None:
         """Audit the allocator's bookkeeping against the tables: each
         non-null page is either free or held by exactly one slot, tables are
-        zero past each slot's allocation, lengths fit their pages, and the
-        reservation total agrees with the per-slot reservations."""
+        zero past each slot's allocation, lengths fit their pages, the
+        reservation total agrees with the per-slot reservations, and int8
+        scale pools match their codes (``_check_scale_pools``)."""
         held = np.zeros((self.n_pages,), np.int64)
         for slot in range(self.n_slots):
             n = int(self._n_alloc[slot])
@@ -215,3 +247,4 @@ class PagedSlotPool:
                                  "per-slot reservations")
         if self._reserved_total > len(free):
             raise AssertionError("reservations exceed the free pages")
+        self._check_scale_pools()

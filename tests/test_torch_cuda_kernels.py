@@ -10,7 +10,11 @@ suite-wide conftest imports it, hence ``--noconftest``):
 Tolerances: fp32 1e-4 (the kernel sums in another order than the plain
 einsum); bf16 2e-2 relative to the output scale (both round one fp32 sum to
 bf16, which can differ by one bf16 ulp, ~0.4%, plus the order difference).
+The int8 forms take the same tolerances: both sides read the same codes and
+scales and differ only in where the scale multiplies.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -19,9 +23,12 @@ import torch
 from repro_torch.core.bcr import BCRSpec
 from repro_torch.core.bcrc import tbcrc_pack
 from repro_torch.kernels import bcr_spmm as K
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import paged_decode_attention as PA
 from repro_torch.kernels import ref
-from repro_torch.kernels.plan import pack_group
+from repro_torch.kernels.plan import (pack_group, quantize_grouped,
+                                      quantize_packed)
+from repro_torch.kernels.quant import quantize_rows
 
 pytestmark = pytest.mark.gpu
 
@@ -165,3 +172,144 @@ def test_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):
         K.bcr_spmm(torch.zeros((4, 128), dtype=torch.bfloat16,
                                device=cuda), p)
+
+
+# -- int8 forms ------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("m", [1, 8, 300])
+def test_int8_bcr_spmm_matches_plain(cuda, dtype, case, m):
+    rng = np.random.default_rng(5)
+    n, k, block, keep, align = case
+    p = quantize_packed(_packed(rng, n, k, block, keep, torch.float32, cuda,
+                                align))
+    x = torch.as_tensor(rng.normal(size=(m, k)), dtype=dtype, device=cuda)
+    before = dict(K.LAUNCHES)
+    got = K.bcr_spmm(x, p)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["bcr_spmm_int8"] == before["bcr_spmm_int8"] + 1
+    assert K.LAUNCHES["bcr_spmm"] == before["bcr_spmm"]
+    _close(got, ref.bcr_spmm_packed_ref(x, p), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,epilogue,bias", [
+    (2, None, False), (3, None, True), (2, "swiglu", True)])
+@pytest.mark.parametrize("m", [1, 8, 130])
+@pytest.mark.parametrize("block,keep", [((128, 128), 0.25), ((16, 16), 0.25)])
+def test_int8_bcr_spmm_grouped_matches_plain(cuda, dtype, g, epilogue, bias,
+                                             m, block, keep):
+    rng = np.random.default_rng(6)
+    grouped = quantize_grouped(pack_group(
+        [_packed(rng, 256, 256, block, keep, torch.float32, cuda, 4)
+         for _ in range(g)]))
+    x = torch.as_tensor(rng.normal(size=(m, 256)), dtype=dtype, device=cuda)
+    b = (torch.as_tensor(rng.normal(size=(g, 256)), dtype=torch.float32,
+                         device=cuda) if bias else None)
+    before = K.LAUNCHES["bcr_spmm_grouped_int8"]
+    got = K.bcr_spmm_grouped(x, grouped, bias=b, epilogue=epilogue)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["bcr_spmm_grouped_int8"] == before + 1
+    want = ref.bcr_spmm_grouped_ref(x, grouped, bias=b, epilogue=epilogue)
+    if epilogue is None:
+        want = want.transpose(0, 1)
+    _close(got, want, dtype)
+
+
+def _int8_pages(kp, vp):
+    kc, ks = quantize_rows(kp.float())
+    vc, vs = quantize_rows(vp.float())
+    return kc, vc, ks, vs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("d", [64, 16, 12])   # 12: rows not 16-byte multiples
+def test_int8_paged_decode_matches_plain(cuda, dtype, g, d):
+    rng = np.random.default_rng(7)
+    lens = [13, 1, 64, 0, 100]
+    hkv, ps = 2, 16
+    kp, vp, bt = _pages(rng, lens, ps, hkv, d, torch.float32, cuda)
+    kc, vc, ks, vs = _int8_pages(kp, vp)
+    q = torch.as_tensor(rng.normal(size=(len(lens), 1, hkv * g, d)),
+                        dtype=dtype, device=cuda)
+    cl = torch.as_tensor(lens, dtype=torch.int32, device=cuda)
+    before = PA.LAUNCHES["paged_attention_int8"]
+    got = PA.paged_decode_attention(q, kc, vc, bt, cl, k_scale=ks,
+                                    v_scale=vs)
+    torch.cuda.synchronize()
+    assert PA.LAUNCHES["paged_attention_int8"] == before + 1
+    assert got.dtype == dtype
+    want = ref.paged_decode_attention_ref(q, kc, vc, bt, cl, k_scale=ks,
+                                          v_scale=vs)
+    live = [i for i, l in enumerate(lens) if l > 0]
+    _close(got[live], want[live], dtype)
+    assert torch.count_nonzero(got[3]) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [3, 16, 40])
+def test_int8_paged_prefill_append_matches_plain(cuda, dtype, s):
+    rng = np.random.default_rng(8)
+    plens = [100, 0, 7]
+    slens = [s, s - 1, 2]
+    tlens = [p + l for p, l in zip(plens, slens)]
+    hkv, g, d, ps = 2, 4, 64, 16
+    kp, vp, bt = _pages(rng, tlens, ps, hkv, d, torch.float32, cuda)
+    kc, vc, ks, vs = _int8_pages(kp, vp)
+    q = torch.as_tensor(rng.normal(size=(3, s, hkv * g, d)), dtype=dtype,
+                        device=cuda)
+    pl = torch.as_tensor(plens, dtype=torch.int32, device=cuda)
+    tl = torch.as_tensor(tlens, dtype=torch.int32, device=cuda)
+    got = PA.paged_prefill_append_attention(q, kc, vc, bt, pl, tl,
+                                            k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    want = ref.paged_prefill_append_ref(q, kc, vc, bt, pl, tl, k_scale=ks,
+                                        v_scale=vs)
+    for b, sl in enumerate(slens):
+        _close(got[b, :sl], want[b, :sl], dtype)
+
+
+# -- fused flash attention -------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("causal,q_offset,sq,skv", [
+    (True, 0, 128, 128), (True, 0, 77, 77), (False, 0, 40, 200),
+    (True, 64, 64, 128), (True, 5, 30, 100)])
+def test_flash_attention_matches_plain(cuda, dtype, d, causal, q_offset, sq,
+                                       skv):
+    rng = np.random.default_rng(9)
+    q, k, v = (torch.as_tensor(rng.normal(size=(6, n, d)), dtype=dtype,
+                               device=cuda) for n in (sq, skv, skv))
+    kw = dict(causal=causal, q_chunk=sq, kv_chunk=skv, q_offset=q_offset)
+    before = FA.LAUNCHES["flash_attention_fused"]
+    got = FA.flash_attention_fused(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES["flash_attention_fused"] == before + 1
+    want = ref.flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset)
+    _close(got, want, dtype)
+
+
+def test_int8_wrappers_reject_bad_inputs(cuda):
+    rng = np.random.default_rng(10)
+    p = quantize_packed(_packed(rng, 256, 256, (128, 128), 0.25,
+                                torch.float32, cuda))
+    x = torch.zeros((4, 256), dtype=torch.bfloat16, device=cuda)
+    bad = dataclasses.replace(p, plan=dataclasses.replace(p.plan,
+                                                          block_scales=None))
+    with pytest.raises(ValueError):
+        K.bcr_spmm(x, bad)                    # int8 codes without scales
+    kp = torch.zeros((3, 16, 2, 64), dtype=torch.int8, device=cuda)
+    q = torch.zeros((1, 1, 4, 64), dtype=torch.bfloat16, device=cuda)
+    bt = torch.ones((1, 1), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        PA.paged_decode_attention(q, kp, kp, bt, torch.ones(
+            1, dtype=torch.int32, device=cuda))   # int8 pages, no scales
+    with pytest.raises(ValueError):
+        FA.flash_attention_fused(torch.zeros((1, 8, 48), device=cuda),
+                                 torch.zeros((1, 8, 48), device=cuda),
+                                 torch.zeros((1, 8, 48), device=cuda))

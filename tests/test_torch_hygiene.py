@@ -7,7 +7,8 @@
   kernel as its yardstick, only inside a ``_library_*`` function.
 * Entry points default to the card: without one visible they raise instead
   of running on the CPU.
-* Options not ported yet raise ``NotImplementedError``.
+* Options not ported yet raise ``NotImplementedError``; the quantized
+  serving options are accepted, and an unknown ``attn_impl`` raises.
 """
 
 import ast
@@ -119,7 +120,6 @@ def test_entry_points_default_to_the_card():
 
 
 @pytest.mark.parametrize("option", [
-    dict(kv_dtype="int8"), dict(weight_dtype="int8"),
     dict(prefix_cache=True), dict(spec_k=2), dict(page_size=0),
     dict(mesh_model=2)])
 def test_unported_engine_options_raise(option):
@@ -128,24 +128,72 @@ def test_unported_engine_options_raise(option):
 
 
 def test_unported_model_options_raise():
-    cfg = _smoke_cfg(bcr_keep_frac=0.25, bcr_block=(16, 16))
-    params = build_params(_smoke_cfg(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        pack_params(cfg, params, weight_dtype="int8")
     from repro_torch.models import causal_lm
-    with pytest.raises(NotImplementedError):
-        causal_lm.init_cache(_smoke_cfg(kv_dtype="int8"), kv_pages=4,
-                             page_size=4, device="cpu")
     with pytest.raises(NotImplementedError):
         causal_lm.init_params(tcfgs.ModelConfig(
             name="x", family="moe", num_layers=1, d_model=8, num_heads=2,
             num_kv_heads=2, d_ff=8, vocab_size=8), device="cpu")
+
+
+@pytest.mark.parametrize("option", ["kv_dtype", "weight_dtype"])
+def test_quantized_engine_options_are_served(option):
+    """``kv_dtype``/``weight_dtype="int8"`` build an engine that serves:
+    int8 pools with scale siblings, or int8 tiles with per-tile scales."""
+    cfg = _smoke_cfg(bcr_keep_frac=0.25, bcr_block=(16, 16))
+    params = build_params(cfg, log=lambda *_: None, device="cpu")
+    eng = InferenceEngine(cfg, params, EngineConfig(
+        n_slots=2, capacity=32, page_size=4, **{option: "int8"}),
+        device="cpu")
+    if option == "kv_dtype":
+        layer = eng.pool.cache[0]
+        assert layer["k"].dtype == torch.int8
+        assert tuple(layer["k_scale"].shape) == tuple(layer["k"].shape[:3])
+    else:
+        wg = eng.params["layers"][0]["ffn"]["wgi"]["w_group"]
+        assert wg.vals.dtype == torch.int8
+        assert tuple(wg.plan.block_scales.shape) == tuple(wg.vals.shape[:3])
+    out = eng.generate([[1, 2, 3], [4, 5]], max_new_tokens=3)
+    assert [len(o) for o in out] == [3, 3]
+    eng.pool.check_consistency()
+
+
+def test_int8_packing_and_pages_on_model_entry_points():
     from repro_torch.kernels.paged_decode_attention import \
         paged_decode_attention
+    from repro_torch.models import causal_lm
+    cfg = _smoke_cfg(bcr_keep_frac=0.25, bcr_block=(16, 16))
+    packed = pack_params(cfg, build_params(_smoke_cfg(), device="cpu"),
+                         weight_dtype="int8")
+    lm = packed["lm_head"]["w_packed"]
+    assert lm.vals.dtype == torch.int8 and lm.plan.block_scales is not None
+    cache = causal_lm.init_cache(_smoke_cfg(kv_dtype="int8"), kv_pages=4,
+                                 page_size=4, device="cpu")
+    assert set(cache[0]) == {"k", "v", "k_scale", "v_scale"}
     q = torch.zeros(1, 1, 2, 4)
-    with pytest.raises(NotImplementedError):
-        paged_decode_attention(q, torch.zeros(2, 4, 2, 4),
-                               torch.zeros(2, 4, 2, 4),
-                               torch.zeros(1, 1, dtype=torch.int32),
-                               torch.ones(1, dtype=torch.int32),
-                               k_scale=torch.zeros(2, 4, 2))
+    out = paged_decode_attention(
+        q, torch.ones(2, 4, 2, 4, dtype=torch.int8),
+        torch.ones(2, 4, 2, 4, dtype=torch.int8),
+        torch.zeros(1, 1, dtype=torch.int32), torch.ones(1, dtype=torch.int32),
+        k_scale=torch.ones(2, 4, 2), v_scale=torch.full((2, 4, 2), 0.5))
+    torch.testing.assert_close(out, torch.full((1, 1, 2, 4), 0.5))
+    with pytest.raises(ValueError):
+        pack_params(cfg, build_params(_smoke_cfg(), device="cpu"),
+                    weight_dtype="int4")
+
+
+def test_unknown_attn_impl_raises():
+    """No silent fallback: an ``attn_impl`` the reference does not know
+    raises at every model entry point, the engine and the cold prefill."""
+    from repro_torch.models import causal_lm, layers
+    bad = _smoke_cfg(attn_impl="triton")
+    with pytest.raises(ValueError):
+        causal_lm.init_params(bad, device="cpu")
+    params = build_params(_smoke_cfg(), device="cpu")
+    with pytest.raises(ValueError):
+        causal_lm.prefill(bad, params, torch.zeros(1, 4, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        InferenceEngine(bad, params, EngineConfig(), device="cpu")
+    q = torch.zeros(1, 4, 2, 8)
+    with pytest.raises(ValueError):
+        layers.cold_attention(q, q, q, attn_impl="ring", q_chunk=4,
+                              kv_chunk=4)
