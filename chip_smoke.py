@@ -17,7 +17,11 @@ Phases, in order (any failed check raises and the script exits non-zero):
    (never used by the port) and the bound. Every form: the fp and int8
    forms of ``bcr_spmm``, ``bcr_spmm_grouped`` and paged attention, and the
    fused flash attention (B·H = 8·32, S in {128, 512}, causal, non-causal
-   and a ``q_offset`` case).
+   and a ``q_offset`` case), and the block-skipping ``bcr_spmm_skip`` over
+   unbalanced-BCR tiles (wq, MLP wo and lm_head with lognormal block
+   scales, M = 8 and 2048; a zeroed block row; the output landing in a
+   freed NaN-filled block; a fully pruned W; a small fp32 case), each with
+   its surviving-tile share and empty block rows.
 4. bf16 main path at full width: llama3.2-1b, 16 layers, random weights
    from a seeded generator, packed at keep 0.25 / block 128, served through
    the paged engine (8 slots, page 16, capacity 640): 16 greedy requests
@@ -38,12 +42,27 @@ Phases, in order (any failed check raises and the script exits non-zero):
    layers, 4 requests: the bf16-config engine, then the quantized one
    (int8 tiles, int8 KV, flash prefill); greedy tokens equal up to
    near-ties.
-7. The card's line, the ``kernels`` JSON line, and the contract line.
+7. GRIM's pruning path at full width: llama3.2-1b, 16 layers, fp32 params,
+   bf16 activations, keep 0.25 / block 128, ``markov`` data (batch 8, seq
+   128) through ``launch.train.train_loop``: 2 dense steps, ADMM from step
+   2 (one Z/U dual update, at step 5), ``finalize`` and frozen-mask
+   retraining from step 6, 8 steps in all. Loss finite and lower at the end;
+   every pruned leaf a balanced-BCR member; step times and peak memory.
+   Then the retrained weights go through ``pack_params``: packed prefill
+   logits against ``forward`` on the dense finalized weights. Then the
+   trained lm_head, MLP wo and wq are projected onto the unbalanced BCR set,
+   packed by ``pack_skip`` and run by ``bcr_spmm_skip`` (its launch counter
+   for the kernels line) against the plain version.
+8. Checkpoint resume on the card: 2 layers (vocab cut to 8192), the same
+   phases; a run stopped at step 4 (mid-ADMM, ``save_async``) and resumed
+   must repeat the uninterrupted run's losses.
+9. The card's line, the ``kernels`` JSON line, and the contract line.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import json
 import statistics
 import subprocess
@@ -81,6 +100,9 @@ KERNELS = {
     "flash_attention_fused": (f"{PORT}/flash_attention.cu",
                               f"{REPO}/kernels/flash_attention.py:83",
                               "causal BH=256 S=512"),
+    "bcr_spmm_skip": (f"{PORT}/bcr_spmm_skip.cu",
+                      f"{REPO}/kernels/bcr_spmm_skip.py:120",
+                      "lm_head 128256x2048 M=8"),
 }
 FP_KERNELS = ("bcr_spmm", "bcr_spmm_grouped", "paged_attention")
 INT8_KERNELS = ("bcr_spmm_int8", "bcr_spmm_grouped_int8",
@@ -156,7 +178,8 @@ def counters():
     from repro_torch.kernels import bcr_spmm as K
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import paged_decode_attention as PA
-    return (K.LAUNCHES, PA.LAUNCHES, FA.LAUNCHES)
+    from repro_torch.kernels.bcr_spmm_skip import LAUNCHES as SKIP
+    return (K.LAUNCHES, PA.LAUNCHES, FA.LAUNCHES, SKIP)
 
 
 def zero_counters():
@@ -540,7 +563,114 @@ def phase_kernels(torch, timer):
     check_close("flash fp32 BH=4 S=77 causal",
                 FA.flash_attention_fused(q, k, v, q_chunk=77, kv_chunk=77),
                 ref.flash_attention_ref(q, k, v), FP32_TOL)
+    del q, k, v
+    skip_cases(torch, timer, gen, record)
     return rows
+
+
+def skip_pack(torch, w, block=128, keep=0.25, dtype=None):
+    """``pack_skip`` at unbalanced keep ``keep``; tiles cast to ``dtype``
+    (the activation dtype) once, as pack time would."""
+    from repro_torch.core.bcr import BCRSpec
+    from repro_torch.kernels.bcr_spmm_skip import pack_skip
+    p = pack_skip(w, BCRSpec(block_shape=(block, block), keep_frac=keep,
+                             align=8 if block >= 32 else 1, balanced=False))
+    if dtype is not None:
+        p = dataclasses.replace(p, tiles=p.tiles.to(dtype))
+    nb_r = p.shape[0] // p.block_shape[0]
+    nb_c = p.shape[1] // p.block_shape[1]
+    empty = int((p.row_start[1:] == p.row_start[:-1]).sum())
+    return p, p.tiles.shape[0] / (nb_r * nb_c), empty
+
+
+def skip_bytes_ops(p, m, elt=2):
+    """What the function must move and do for these inputs: the surviving
+    tiles, x once, y once, 12 bytes of indices per tile; 2·M·num_nz·br·bc
+    operations."""
+    n, k = p.shape
+    br, bc = p.block_shape
+    nz = p.tiles.shape[0]
+    return (nz * br * bc * elt + (m * k + m * n) * elt + 12 * nz,
+            2 * m * nz * br * bc)
+
+
+def skip_cases(torch, timer, gen, record):
+    """Phase 3's ``bcr_spmm_skip`` cases (see the module docstring); timed
+    rows go through ``record``."""
+    SK = importlib.import_module("repro_torch.kernels.bcr_spmm_skip")
+    from repro_torch.kernels import ref
+
+    def weight(n, k, block=128, skew=True):
+        w = torch.randn((n, k), generator=gen, device="cuda") * k ** -0.5
+        if skew:     # one lognormal (sigma 1) factor per block
+            f = torch.exp(torch.randn((n // block, 1, k // block, 1),
+                                      generator=gen, device="cuda"))
+            w = (w.view(n // block, block, k // block, block) * f).view(n, k)
+        return w
+
+    def x_of(m, k, dtype=torch.bfloat16):
+        return torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+
+    log("bcr_spmm_skip (bf16, block 128, unbalanced keep 0.25, lognormal "
+        "block scales)")
+    for wname, n, k in (("wq", 2048, 2048), ("mlp_wo", 2048, 8192),
+                        ("lm_head", 128256, 2048)):
+        p, share, empty = skip_pack(torch, weight(n, k),
+                                    dtype=torch.bfloat16)
+        log(f"  {wname}: {p.tiles.shape[0]} tiles, surviving-tile share "
+            f"{share:.4f}, empty block rows {empty} of {n // 128}")
+        w_dense = ref.skip_unpack(p)
+        for m in (8, 2048):
+            x = x_of(m, k)
+            got = SK.bcr_spmm_skip(x, p)
+            want = ref.bcr_spmm_skip_ref(x, p)
+            torch.cuda.synchronize()
+            err = check_close(f"skip {wname} {n}x{k} M={m}", got, want,
+                              BF16_TOL)
+            byts, ops = skip_bytes_ops(p, m)
+            record("bcr_spmm_skip", f"{wname} {n}x{k} M={m}", err,
+                   timer.ms(lambda: SK.bcr_spmm_skip(x, p)),
+                   timer.ms(lambda: ref.bcr_spmm_skip_ref(x, p)),
+                   byts, ops, torch.bfloat16,
+                   timer.ms(lambda: _library_dense_matmul(x, w_dense)))
+        del p, w_dense
+
+    # a whole block row zeroed before projection, and the output landing in
+    # a freed NaN-filled block: the empty rows must be exact zeros
+    w = weight(2048, 2048)
+    w[3 * 128:4 * 128] = 0.0
+    p, _, empty = skip_pack(torch, w, dtype=torch.bfloat16)
+    if int(p.row_start[3]) != int(p.row_start[4]):
+        raise AssertionError("the zeroed block row kept a tile")
+    x = x_of(8, 2048)
+    poison = torch.full((8, 2048), float("nan"), dtype=torch.bfloat16,
+                        device="cuda")
+    del poison                  # the allocator hands this block back next
+    got = SK.bcr_spmm_skip(x, p)
+    torch.cuda.synchronize()
+    rows_zero = got[:, 3 * 128:4 * 128]
+    if not (bool(torch.isfinite(got).all())
+            and int(torch.count_nonzero(rows_zero)) == 0):
+        raise AssertionError("empty block row is not exact zeros over a "
+                             "NaN-poisoned output buffer")
+    check_close("skip zeroed block row over a NaN-poisoned buffer", got,
+                ref.bcr_spmm_skip_ref(x, p), BF16_TOL)
+    log(f"  empty block rows {empty}: exact zeros (NaN-poisoned buffer)")
+    p, _, _ = skip_pack(torch, torch.zeros((2048, 2048), device="cuda"),
+                        dtype=torch.bfloat16)
+    if p.tiles.shape[0] != 1:
+        raise AssertionError("a fully pruned W must pack one zero tile")
+    got = SK.bcr_spmm_skip(x, p)
+    torch.cuda.synchronize()
+    if int(torch.count_nonzero(got)) != 0:
+        raise AssertionError("fully pruned W gave a nonzero y")
+    log("  fully pruned 2048x2048: one zero tile, y exact zeros")
+    p, share, empty = skip_pack(torch, weight(256, 512, 32, skew=False),
+                                block=32, keep=0.05)
+    x = x_of(8, 512, torch.float32)
+    check_close(f"skip fp32 256x512 block 32 keep 0.05 (share {share:.3f}, "
+                f"empty block rows {empty})", SK.bcr_spmm_skip(x, p),
+                ref.bcr_spmm_skip_ref(x, p), FP32_TOL)
 
 
 def build_main_params(torch):
@@ -874,6 +1004,249 @@ def phase_engine_vs_naive(torch, np, quantized=False):
     return near_ties
 
 
+def train_cfg(torch, num_layers=16, **over):
+    """llama3.2-1b at full width: fp32 params, bf16 activations, BCR keep
+    0.25 with 128x128 blocks."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("llama3.2-1b"),
+                               num_layers=num_layers, bcr_keep_frac=0.25,
+                               bcr_block=(128, 128), **over)
+
+
+def trainer_config(**over):
+    from repro_torch.launch.train import TrainerConfig
+    kw = dict(steps=8, batch=8, seq=128, admm_start=2, retrain_start=6,
+              data_kind="markov", log_every=1, seed=0, device="cuda")
+    kw.update(over)
+    return TrainerConfig(**kw)
+
+
+def phase_trainer(torch, np, smi, num_layers=16):
+    """GRIM's pruning path at full width through ``train_loop`` (see the
+    module docstring, phase 7). Returns the trainer's stats and the
+    ``bcr_spmm_skip`` launches of the trained-weight runs."""
+    from repro_torch.core.bcr import is_bcr_set_member
+    from repro_torch.data.pipeline import DataConfig, TokenSource
+    SK = importlib.import_module("repro_torch.kernels.bcr_spmm_skip")
+    from repro_torch.kernels import ref
+    from repro_torch.launch.serve import pack_params
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import causal_lm
+    from repro_torch.tree import flatten, tree_map
+
+    cfg = train_cfg(torch, num_layers)
+    tc = trainer_config()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = train_loop(cfg, tc, log=lambda *a: log(" ", *a))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    hist, phases, step_ms = out["history"], out["phases"], out["step_ms"]
+    specs, state = out["specs"], out["state"]
+    n_params = sum(p.numel() for _, p in flatten(state.params))
+    by_phase = {ph: [ms for ms, p in zip(step_ms, phases) if p == ph]
+                for ph in ("dense", "admm", "retrain")}
+    stats = dict(
+        params=n_params, pruned_leaves=len(specs), losses=hist,
+        phases=phases, step_ms=step_ms,
+        step_ms_p50={ph: statistics.median(v) for ph, v in by_phase.items()
+                     if v},
+        transition_ms=out["transition_ms"], wall_s=wall,
+        peak_bytes=peak)
+    log(f"trainer: {json.dumps(stats)}")
+    log(f"trainer peak memory {peak / 2**30:.2f} GiB "
+        f"(torch.cuda.max_memory_allocated) on {smi}; retrain step p50 "
+        f"{stats['step_ms_p50'].get('retrain', float('nan')):.1f} ms")
+    if phases != ["dense"] * 2 + ["admm"] * 4 + ["retrain"] * 2:
+        raise AssertionError(f"unexpected phases {phases}")
+    if len(out["transition_ms"]["dual_update"]) != 1:
+        raise AssertionError("expected one Z/U dual update (step 5)")
+    if not (all(np.isfinite(hist)) and hist[-1] < hist[0]):
+        raise AssertionError(f"loss not finite or not lower: {hist}")
+    stats["profile"] = profile_train_step(torch, cfg, tc, state, specs)
+    flat = dict(flatten(state.params))
+    bad = [path for path, spec in specs.items()
+           if not is_bcr_set_member(flat[path].detach(), spec)]
+    if bad:
+        raise AssertionError(f"{len(bad)} pruned leaves are not BCR members: "
+                             f"{bad[:3]}")
+    log(f"  every one of the {len(specs)} pruned leaves is a balanced-BCR "
+        f"member; loss {hist[0]:.4f} -> {hist[-1]:.4f}")
+
+    # the retrained weights through the serving path
+    dense = tree_map(lambda p: p.detach(), state.params)
+    del out, state, flat
+    torch.cuda.empty_cache()
+    packed = pack_params(cfg, dense)
+    toks = TokenSource(DataConfig(cfg.vocab_size, tc.seq, tc.batch,
+                                  seed=1, kind="markov")).device_batch(
+        0, "cuda")["tokens"]
+    zero_counters()
+    with torch.no_grad():
+        got, _ = causal_lm.prefill(cfg, packed, toks)
+        torch.cuda.synchronize()
+        serve_launches = {k: v for k, v in read_counters().items() if v}
+        want = causal_lm.forward(cfg, dense, toks)[:, -1:]
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    a, b = got.float().argmax(-1), want.float().argmax(-1)
+    ties = 0
+    for r in torch.nonzero(a != b).tolist():
+        la = float(want[r[0], r[1], a[r[0], r[1]]])
+        lb = float(want[r[0], r[1], b[r[0], r[1]]])
+        if abs(la - lb) > err:
+            raise AssertionError(f"packed argmax differs at row {r}: dense "
+                                 f"logits {la} vs {lb}, beyond the max "
+                                 f"difference {err}")
+        ties += 1
+    log(f"  packed prefill vs dense forward of the finalized weights "
+        f"(B={tc.batch}, S={tc.seq}): launches {serve_launches}, max |diff| "
+        f"{err:.3e} of {scale:.3g}, argmax equal on {tc.batch - ties}/"
+        f"{tc.batch} rows (near-ties {ties})")
+    if not (bool(torch.isfinite(got).all()) and err <= 5e-2 * scale):
+        raise AssertionError("packed prefill disagrees with the dense "
+                             "forward of the finalized weights")
+    if not serve_launches.get("bcr_spmm") or \
+            not serve_launches.get("bcr_spmm_grouped"):
+        raise AssertionError("packed prefill did not run the BCR kernels")
+    stats.update(serve_max_abs=err, serve_scale=scale, serve_near_ties=ties)
+    del packed, got, want
+    torch.cuda.empty_cache()
+
+    # the trained projections, paper-general form: unbalanced BCR, skip pack
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    zero_counters()
+    skip_rows = []
+    for name, w in (("lm_head", dense["lm_head"]["w"]),
+                    ("mlp_wo", dense["layers"][0]["ffn"]["wo"]["w"]),
+                    ("wq", dense["layers"][0]["mixer"]["wq"]["w"])):
+        p, share, empty = skip_pack(torch, w, dtype=cfg.act_dtype)
+        for m in (8, tc.batch * tc.seq):
+            x = torch.randn((m, w.shape[1]), generator=gen,
+                            device="cuda").to(cfg.act_dtype)
+            got = SK.bcr_spmm_skip(x, p)
+            want = ref.bcr_spmm_skip_ref(x, p)
+            torch.cuda.synchronize()
+            err = check_close(f"trained {name} {tuple(w.shape)} unbalanced "
+                              f"(share {share:.4f}, empty block rows "
+                              f"{empty}) M={m}", got, want, BF16_TOL)
+            skip_rows.append(dict(weight=name, m=m, share=share,
+                                  empty_block_rows=empty, max_abs_err=err))
+        del p
+    launches = read_counters()["bcr_spmm_skip"]
+    stats["trained_skip"] = skip_rows
+    log(f"  bcr_spmm_skip launches on the trained weights: {launches}")
+    if launches != len(skip_rows):
+        raise AssertionError("bcr_spmm_skip did not launch once per run")
+    del dense
+    torch.cuda.empty_cache()
+    return stats, launches
+
+
+def train_kernel_family(name: str) -> str:
+    """A profiler kernel name of a train step → a coarse family."""
+    low = name.lower()
+    if any(t in low for t in ("gemm", "xmma", "cutlass", "cublas", "sm90_",
+                              "nvjet")):      # nvjet: cuBLASLt's Hopper GEMMs
+        return "matmul"
+    if "reduce" in low or "norm" in low or "softmax" in low:
+        return "reduction"
+    if "elementwise" in low or "vectorized" in low or "foreach" in low:
+        return "elementwise"
+    if "memcpy" in low or "memset" in low:
+        return "copy"
+    return "other"
+
+
+def profile_train_step(torch, cfg, tc, state, specs):
+    """Where a retrain step's time goes: one more step (frozen masks, a
+    tiny learning rate) timed on the host, then one under
+    ``torch.profiler`` — device time by kernel family against the wall
+    (the busy share), and the markov batch's host time on its own. Run
+    after the 8 steps of ``train_loop``, on its final state."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data.pipeline import DataConfig, TokenSource
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.optim.adamw import AdamWConfig
+
+    data = TokenSource(DataConfig(cfg.vocab_size, tc.seq, tc.batch,
+                                  seed=tc.seed, kind=tc.data_kind))
+    t0 = time.perf_counter()
+    batch = data.device_batch(tc.steps, "cuda")
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    step = make_train_step(cfg, AdamWConfig(lr=1e-6, warmup_steps=0,
+                                            total_steps=1), None, specs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = step(state, batch)
+    float(m["loss"])
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, m = step(state, batch)
+        float(m["loss"])
+    fams, top = {}, []
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        if us > 0:
+            fam = train_kernel_family(ev.key)
+            fams[fam] = fams.get(fam, 0.0) + us / 1e3
+            top.append((us / 1e3, ev.count, ev.key[:70]))
+    device_ms = sum(fams.values())
+    launches = sum(ev.count for ev in prof.key_averages()
+                   if getattr(ev, "device_type", None)
+                   == torch.autograd.DeviceType.CUDA)
+    out = dict(step_wall_ms=wall_ms, markov_batch_host_ms=batch_ms,
+               device_ms=device_ms, busy_share=device_ms / wall_ms,
+               device_launches=launches, by_family_ms=fams,
+               top_kernels=sorted(top, reverse=True)[:8])
+    log("  retrain step profile: " + json.dumps(out))
+    return out
+
+
+def phase_resume(torch, np, tmp_dir):
+    """2 layers, vocab cut to 8192 (the checkpoint stays ~3 GB), the same
+    phases: a run stopped at step 4 (a ``save_async`` checkpoint inside the
+    ADMM phase) and resumed must repeat the uninterrupted run's losses.
+    fp32 tolerance 1e-4 relative: the embedding backward sums with atomics
+    in a run-dependent order."""
+    import shutil
+
+    from repro_torch.launch.train import train_loop
+    from repro_torch.optim.adamw import AdamWConfig
+
+    cfg = train_cfg(torch, num_layers=2, vocab_size=8192)
+    # the schedule of the 8-step run for all three (the loop's default
+    # would follow each run's own step count)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=8)
+    quiet = lambda *a: None                           # noqa: E731
+    whole = train_loop(cfg, trainer_config(), opt, log=quiet)["history"]
+    shutil.rmtree(tmp_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    first = train_loop(cfg, trainer_config(steps=4, ckpt_dir=str(tmp_dir),
+                                           ckpt_every=4), opt, log=quiet)
+    save_s = time.perf_counter() - t0
+    rest = train_loop(cfg, trainer_config(ckpt_dir=str(tmp_dir),
+                                          ckpt_every=100), opt, log=quiet)
+    shutil.rmtree(tmp_dir, ignore_errors=True)
+    got = first["history"] + rest["history"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, whole))
+    log(f"resume (2 layers, vocab 8192): uninterrupted {whole}; stopped at "
+        f"4 and resumed {got}; max relative difference {rel:.2e} (first run "
+        f"incl. its checkpoint {save_s:.1f} s)")
+    if rest["phases"] != ["admm"] * 2 + ["retrain"] * 2 or rel > 1e-4:
+        raise AssertionError("resumed losses disagree with the uninterrupted "
+                             "run")
+    return rel
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -932,15 +1305,31 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_engine_vs_naive(torch, np)
     phase_engine_vs_naive(torch, np, quantized=True)
+    torch.cuda.empty_cache()
     log(f"phase 6: {time.perf_counter() - t0:.1f} s")
+
+    log("phase 7, GRIM's pruning path at full width (train_loop, "
+        "pack_params, bcr_spmm_skip)")
+    t0 = time.perf_counter()
+    _, skip_launches = phase_trainer(torch, np, smi)
+    log(f"phase 7: {time.perf_counter() - t0:.1f} s")
+
+    log("phase 8, checkpoint resume on the card")
+    t0 = time.perf_counter()
+    phase_resume(torch, np, Path(__file__).resolve().parent / "build"
+                 / "chip_smoke_ckpt")
+    torch.cuda.empty_cache()
+    log(f"phase 8: {time.perf_counter() - t0:.1f} s")
 
     # one entry per kernel form at its decode-step shape (M = 8 slots) or,
     # for flash, the largest cold-prefill bucket; launches from the main
-    # path that runs it
+    # path that runs it (for bcr_spmm_skip, the trained-weight runs of the
+    # pruning path: the skip form is not on the serving path)
     path_launches = {**{k: launches[k] for k in FP_KERNELS},
                      **{k: q_launches[k] for k in INT8_KERNELS},
                      "flash_attention_fused":
-                         q_launches["flash_attention_fused"]}
+                         q_launches["flash_attention_fused"],
+                     "bcr_spmm_skip": skip_launches}
     kernels = []
     for name, (source, replaces, shape) in KERNELS.items():
         row = next(r for r in rows if r["kernel"] == name

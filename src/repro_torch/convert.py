@@ -18,6 +18,11 @@ plan vectors included — carry a leading repeat axis. The converter unstacks
 that axis into the port's ``params["layers"]`` list, in the reference's
 execution order (unscanned ``prefix`` layers first).
 
+``from_jax_train_state`` carries a reference ``TrainState`` across the same
+way: params, AdamW moments (nested like the params) and step, and the ADMM
+Z/U trees (None on unpruned leaves) or the retrain masks. ``from_jax_skip``
+converts a reference ``SkipPacked`` and computes the port's ``row_start``.
+
 The packed containers are recognised by their attributes, not their class:
 the port imports nothing of the reference. fp packed ``vals`` are cast to
 the activation dtype, as the port's ``pack_params`` leaves them; int8 codes
@@ -34,8 +39,13 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.admm import ADMMState
 from repro_torch.core.bcrc import TBCRC
+from repro_torch.kernels.bcr_spmm_skip import SkipPacked, row_start_from_bi
 from repro_torch.kernels.plan import BCRPlan, GroupedTBCRC
+from repro_torch.launch.train import TrainState
+from repro_torch.optim.adamw import AdamWState
+from repro_torch.tree import leaves
 
 
 def _tensor(a: Any, index: Optional[int], device) -> torch.Tensor:
@@ -81,17 +91,29 @@ def _convert(node: Any, index: Optional[int], cfg: ModelConfig, device):
     return _tensor(node, index, device)
 
 
+def _first_leaf(node: Any) -> Any:
+    """The first non-None leaf of a layer dict (None if it has none)."""
+    if _is_packed(node) or not isinstance(node, (dict, list, tuple)):
+        return node
+    items = node.values() if isinstance(node, dict) else node
+    for v in items:
+        leaf = _first_leaf(v)
+        if leaf is not None:
+            return leaf
+    return None
+
+
 def _repeats(stack_entry: Any) -> int:
     """Length of the leading (scanned) axis of a stacked layer dict."""
-    while isinstance(stack_entry, dict):
-        stack_entry = next(iter(stack_entry.values()))
-    if _is_packed(stack_entry):
-        return int(np.asarray(stack_entry.row_idx).shape[0])
-    return int(np.asarray(stack_entry).shape[0])
+    leaf = _first_leaf(stack_entry)
+    if _is_packed(leaf):
+        return int(np.asarray(leaf.row_idx).shape[0])
+    return int(np.asarray(leaf).shape[0])
 
 
 def from_jax_params(tree: Any, cfg: ModelConfig, device="cuda") -> dict:
-    """The port's params for a reference param tree of numpy leaves."""
+    """The port's params for a reference param tree of numpy leaves (also
+    any tree nested like it: AdamW moments, ADMM Z/U with None leaves)."""
     if cfg.family != "dense":
         raise NotImplementedError(
             f"family {cfg.family!r}: only the dense family is ported so far")
@@ -111,3 +133,45 @@ def from_jax_params(tree: Any, cfg: ModelConfig, device="cuda") -> dict:
         "lm_head": _convert(tree["lm_head"], None, cfg, dev),
         "layers": layers,
     }
+
+
+def from_jax_train_state(state: Any, cfg: ModelConfig, device="cuda"):
+    """The port's ``launch.train.TrainState`` for a reference ``TrainState``
+    of numpy leaves: params, ``AdamWState(m, v, step)``, ``ADMMState(z, u,
+    admm_iter)`` or None, masks or None — each tree unstacked like the
+    params. Step counters become int32 0-d CPU tensors."""
+    def tree(t):
+        return None if t is None else from_jax_params(t, cfg, device)
+
+    def counter(c):
+        return torch.tensor(int(np.asarray(c)), dtype=torch.int32)
+
+    params = tree(state.params)
+    for leaf in leaves(params):
+        leaf.requires_grad_(True)
+    opt = AdamWState(tree(state.opt.m), tree(state.opt.v),
+                     counter(state.opt.step))
+    admm = None
+    if state.admm is not None:
+        admm = ADMMState(tree(state.admm.z), tree(state.admm.u),
+                         counter(state.admm.admm_iter))
+    return TrainState(params, opt, admm, tree(state.masks))
+
+
+def from_jax_skip(packed: Any, device="cuda"):
+    """The port's ``SkipPacked`` for a reference one (numpy leaves): the
+    same tiles, ``bi``/``bj``/``last`` and ``row_mask``, plus ``row_start``
+    computed from ``bi``."""
+    dev = resolve_device(device)
+    bi = _tensor(packed.bi, None, dev).to(torch.int32)
+    n, br = int(packed.shape[0]), int(packed.block_shape[0])
+    row_mask = getattr(packed, "row_mask", None)
+    return SkipPacked(
+        tiles=_tensor(packed.tiles, None, dev), bi=bi,
+        bj=_tensor(packed.bj, None, dev).to(torch.int32),
+        last=_tensor(packed.last, None, dev).to(torch.int32),
+        shape=tuple(int(d) for d in packed.shape),
+        block_shape=tuple(int(d) for d in packed.block_shape),
+        row_mask=(None if row_mask is None
+                  else _tensor(row_mask, None, dev).to(torch.bool)),
+        row_start=row_start_from_bi(bi, n // br))

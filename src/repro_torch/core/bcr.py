@@ -1,15 +1,23 @@
 """Block-based Column-Row (BCR) pruning — the paper's fine-grained structured
-sparsity scheme (GRIM §3), balanced form.
+sparsity scheme (GRIM §3).
 
 A weight matrix ``W`` of shape ``(rows, cols)`` (rows = output, cols =
-input) is cut into an ``nb_r × nb_c`` grid of equal blocks. Each block keeps
-the same number of whole columns and whole rows, so the survivors of every
-block form a dense ``(R_keep, C_keep)`` tile.
+input) is cut into an ``nb_r × nb_c`` grid of equal blocks. Within each
+block whole columns and whole rows are pruned. Two projection modes:
 
-Survivors are picked by energy with ``torch.topk`` and then sorted. Where two
-energies tie, ``torch.topk`` and ``jax.lax.top_k`` may keep different
-members; on seeded normal weights ties do not occur, and the converter
-(``repro_torch.convert``) carries packed indices across unchanged.
+* ``balanced=True``: every block keeps the same number of whole columns and
+  whole rows, so the survivors of every block form a dense ``(R_keep,
+  C_keep)`` tile (what TBCRC packs).
+* ``balanced=False`` (paper-general): (block, column) stripes and then
+  (block, row) stripes compete globally by mean energy, so per-block kept
+  counts vary and whole blocks can vanish (what ``pack_skip`` packs).
+
+Balanced survivors are picked by energy with ``torch.topk`` and then sorted.
+Where two energies tie, ``torch.topk`` and ``jax.lax.top_k`` may keep
+different members; on seeded normal weights ties do not occur, and the
+converter (``repro_torch.convert``) carries packed indices across unchanged.
+The unbalanced form keeps the reference's threshold rule exactly
+(``sort(flat)[-k]`` with ``>=``, so ties keep more than ``k``).
 """
 
 from __future__ import annotations
@@ -18,6 +26,7 @@ import dataclasses
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 
@@ -35,7 +44,7 @@ class BCRSpec:
     ``block_shape`` is ``(block_rows, block_cols)``; ``keep_frac`` is the kept
     density. ``col_frac``/``row_frac`` override the per-axis split (default:
     symmetric ``sqrt(keep_frac)``). ``align`` rounds kept counts to a
-    multiple. Only ``balanced=True`` is ported.
+    multiple (balanced form only).
     """
 
     block_shape: Tuple[int, int] = (256, 256)
@@ -135,3 +144,107 @@ def bcr_indices(w: torch.Tensor, spec: BCRSpec
     row_idx = torch.topk(row_energy, r_keep, dim=-1).indices
     row_idx = torch.sort(row_idx, dim=-1).values
     return row_idx.to(torch.int32), col_idx.to(torch.int32)
+
+
+def mask_from_indices(row_idx: torch.Tensor, col_idx: torch.Tensor,
+                      shape: Tuple[int, int],
+                      block_shape: Tuple[int, int]) -> torch.Tensor:
+    """Rebuild the dense {0,1} fp32 mask from per-block surviving indices."""
+    nb_r, nb_c = block_grid(tuple(shape), block_shape)
+    br, bc = block_shape
+    dev = row_idx.device
+    row_mask = torch.zeros((nb_r, nb_c, br), device=dev).scatter_(
+        -1, row_idx.long(), 1.0)
+    col_mask = torch.zeros((nb_r, nb_c, bc), device=dev).scatter_(
+        -1, col_idx.long(), 1.0)
+    return _from_blocks(row_mask[:, :, :, None] * col_mask[:, :, None, :])
+
+
+def bcr_mask(w: torch.Tensor, spec: BCRSpec) -> torch.Tensor:
+    """Dense {0,1} fp32 mask of the BCR-projection support of ``w``."""
+    if spec.balanced:
+        row_idx, col_idx = bcr_indices(w, spec)
+        return mask_from_indices(row_idx, col_idx, tuple(w.shape),
+                                 spec.block_shape)
+    return _unbalanced_mask(w, spec)
+
+
+def bcr_project(w: torch.Tensor, spec: BCRSpec) -> torch.Tensor:
+    """Euclidean projection of ``w`` onto the BCR-sparse set (greedy support
+    selection by energy; exact once the support is fixed)."""
+    return w * bcr_mask(w, spec).to(w.dtype)
+
+
+def _kth_largest(flat: torch.Tensor, k: int) -> torch.Tensor:
+    """``sort(flat)[-k]``: the threshold a ``>=`` test keeps at least ``k``
+    entries with (all of a tie at the threshold survive)."""
+    return torch.sort(flat).values[-k]
+
+
+def _unbalanced_mask(w: torch.Tensor, spec: BCRSpec) -> torch.Tensor:
+    """Paper-general BCR: global ranking of block-columns and block-rows.
+
+    Every (block, column) stripe competes globally by MEAN energy (the
+    balanced form's ``bcr_indices`` ranks within a block by sum); the top
+    ``col_frac`` stripes survive, likewise rows among the surviving columns.
+    Per-block kept counts vary."""
+    blocks = _to_blocks(w.float(), spec.block_shape)
+    nb_r, nb_c, br, bc = blocks.shape
+    cf, rf = spec.fracs()
+    sq = blocks * blocks
+
+    col_energy = sq.mean(dim=2)                              # (nb_r, nb_c, bc)
+    k_cols = max(1, int(round(cf * nb_r * nb_c * bc)))
+    thresh = _kth_largest(col_energy.reshape(-1), k_cols)
+    col_mask = (col_energy >= thresh).float()
+
+    row_energy = (sq * col_mask[:, :, None, :]).mean(dim=3)  # (nb_r, nb_c, br)
+    k_rows = max(1, int(round(rf * nb_r * nb_c * br)))
+    thresh_r = _kth_largest(row_energy.reshape(-1), k_rows)
+    row_mask = (row_energy >= thresh_r).float()
+
+    return _from_blocks(row_mask[:, :, :, None] * col_mask[:, :, None, :])
+
+
+def bcr_mask_any(w: torch.Tensor, spec: BCRSpec) -> torch.Tensor:
+    """``bcr_mask`` over leading stacking dims: each trailing 2-D matrix is
+    masked on its own."""
+    if w.dim() == 2:
+        return bcr_mask(w, spec)
+    return torch.stack([bcr_mask_any(x, spec) for x in w])
+
+
+def bcr_project_any(w: torch.Tensor, spec: BCRSpec) -> torch.Tensor:
+    if w.dim() == 2:
+        return bcr_project(w, spec)
+    return torch.stack([bcr_project_any(x, spec) for x in w])
+
+
+def density(mask: torch.Tensor) -> torch.Tensor:
+    return mask.float().mean()
+
+
+def pruning_rate(mask: torch.Tensor) -> torch.Tensor:
+    return 1.0 / torch.clamp(density(mask), min=1e-12)
+
+
+def is_bcr_set_member(w, spec: BCRSpec, *, strict_counts: bool = True
+                      ) -> bool:
+    """Membership of ``w`` in the balanced BCR-sparse set S: no block has
+    more than ``R_keep`` nonzero rows or ``C_keep`` nonzero columns, and its
+    support lies in the cross product of its nonzero rows and columns (which
+    every support does: the reference checks it all the same). Takes a
+    tensor on any device, or a numpy array; all blocks are checked at once
+    instead of the reference's loop over blocks."""
+    if not isinstance(w, torch.Tensor):
+        w = torch.from_numpy(np.array(w))
+    nb_r, nb_c = block_grid(tuple(w.shape), spec.block_shape)
+    r_keep, c_keep = spec.kept_counts()
+    nz = _to_blocks(w, spec.block_shape) != 0            # (nb_r, nb_c, br, bc)
+    nz_rows = nz.any(dim=3)                               # (nb_r, nb_c, br)
+    nz_cols = nz.any(dim=2)                               # (nb_r, nb_c, bc)
+    if strict_counts and (int(nz_rows.sum(-1).max()) > r_keep
+                          or int(nz_cols.sum(-1).max()) > c_keep):
+        return False
+    cross = nz_rows[:, :, :, None] & nz_cols[:, :, None, :]
+    return not bool((nz & ~cross).any())

@@ -12,7 +12,10 @@ They mirror the reference package's ``kernels/ref.py`` line for line:
   slot's table pages (dequantizing int8 pages off their scale pools), then
   masked attention;
 * ``flash_attention_ref`` — dense attention on the merged-head ``(B·H, S,
-  D)`` layout (the reference's ``kernels/flash_attention.py`` oracle).
+  D)`` layout (the reference's ``kernels/flash_attention.py`` oracle);
+* ``bcr_spmm_skip_ref`` — dense oracle of the block-skipping matmul:
+  reconstruct W from the surviving tiles, then one matmul (the reference's
+  ``kernels/bcr_spmm_skip.py`` oracle).
 
 int8 packed vals carry per-tile scales on ``plan.block_scales``; the plain
 spmm applies each to its block's fp32 partial before the scatter-add.
@@ -25,6 +28,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.bcr import _from_blocks
 from repro_torch.core.bcrc import TBCRC, tbcrc_unpack
 
 NEG_INF = -1e30
@@ -196,3 +200,20 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+
+
+def skip_unpack(packed) -> torch.Tensor:
+    """The dense W ``(N, K)`` a ``SkipPacked`` holds, in the tiles' dtype:
+    its surviving tiles in place, every other block zero."""
+    n, k = packed.shape
+    br, bc = packed.block_shape
+    w = torch.zeros((n // br, k // bc, br, bc), dtype=packed.tiles.dtype,
+                    device=packed.tiles.device)
+    w[packed.bi.long(), packed.bj.long()] = packed.tiles
+    return _from_blocks(w)
+
+
+def bcr_spmm_skip_ref(x: torch.Tensor, packed) -> torch.Tensor:
+    """y[M, N] = x[M, K] @ W.T with W rebuilt from a ``SkipPacked``'s
+    surviving tiles, summed in fp32."""
+    return (x.float() @ skip_unpack(packed).float().T).to(x.dtype)

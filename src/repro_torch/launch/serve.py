@@ -27,36 +27,15 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.bcr import BCRSpec, choose_block_shape, kept_align
 from repro_torch.core.bcrc import TBCRC, tbcrc_pack
 from repro_torch.kernels.plan import (GroupedTBCRC, fuse_packed_projections,
                                      quantize_packed_params)
+from repro_torch.launch.train import default_prune_filter
 from repro_torch.models import causal_lm
 from repro_torch.models.layers import FLASH_ATTN_IMPLS, PLAIN_ATTN_IMPLS
 from repro_torch.serving import EngineConfig, InferenceEngine
 
 PyTree = Any
-
-
-def default_prune_filter(cfg: ModelConfig):
-    """BCR on every 2-D projection weight named 'w' (attention and MLP
-    projections + lm_head), excluding embeddings and norms — the paper's
-    FC/GEMM scope. A copy of the reference's ``launch/train.py`` filter."""
-    if cfg.bcr_keep_frac <= 0:
-        return lambda name, leaf: None
-
-    def fil(name: str, leaf: torch.Tensor) -> Optional[BCRSpec]:
-        if not name.endswith("['w']"):
-            return None
-        if "embed" in name:
-            return None
-        if leaf.dim() < 2 or min(leaf.shape[-2:]) < 2 * min(cfg.bcr_block):
-            return None
-        block = choose_block_shape(tuple(leaf.shape[-2:]), cfg.bcr_block)
-        return BCRSpec(block_shape=block, keep_frac=cfg.bcr_keep_frac,
-                       align=kept_align(block))
-
-    return fil
 
 
 def _cast_vals(tree: Any, dtype: torch.dtype) -> Any:

@@ -1,7 +1,7 @@
 """Uniform model API: the functions the engine and the launchers call.
 
-    fns = model_fns(cfg)   # init_params / prefill / decode_step / init_cache
-                           # / prefill_append
+    fns = model_fns(cfg)   # init_params / loss_fn / prefill / decode_step
+                           # / init_cache / prefill_append
 
 Batches are dicts of tensors, as in the reference package. Only the dense
 family is ported so far.
@@ -20,6 +20,7 @@ from repro_torch.models import causal_lm
 @dataclasses.dataclass(frozen=True)
 class ModelFns:
     init_params: Callable       # (seed, *, device) -> params
+    loss_fn: Callable           # (params, batch) -> scalar loss
     prefill: Callable           # (params, batch) -> (logits, cache)
     decode_step: Callable       # (params, batch, cache) -> (logits, cache)
     init_cache: Callable        # (*, kv_pages, page_size, device) -> cache
@@ -30,6 +31,7 @@ def model_fns(cfg: ModelConfig) -> ModelFns:
     causal_lm._check_cfg(cfg)
     return ModelFns(
         init_params=functools.partial(causal_lm.init_params, cfg),
+        loss_fn=functools.partial(causal_lm.loss_fn, cfg),
         prefill=lambda p, b: causal_lm.prefill(
             cfg, p, b["tokens"], length=b.get("length")),
         decode_step=lambda p, b, c: causal_lm.decode_step(

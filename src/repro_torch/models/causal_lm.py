@@ -1,7 +1,9 @@
-"""Causal LM, dense family: init, paged cache, prefill, decode step and
-prefill-append. A Python loop over ``params["layers"]`` replaces the
-reference's scanned stack (the converter unstacks the reference's layer
-axis). The other families come in a later slice of the port.
+"""Causal LM, dense family: init, the training forward and loss, paged
+cache, prefill, decode step and prefill-append. A Python loop over
+``params["layers"]`` replaces the reference's scanned stack (the converter
+unstacks the reference's layer axis); ``cfg.remat`` checkpoints each layer
+(``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` does its
+one-layer scan body. The other families come in a later slice of the port.
 """
 
 from __future__ import annotations
@@ -9,6 +11,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -94,17 +97,13 @@ def init_cache(cfg: ModelConfig, *, kv_pages: int, page_size: int,
     return [layer() for _ in range(cfg.num_layers)]
 
 
-def layer_apply(lp: Params, x: torch.Tensor, cfg: ModelConfig, *,
+def _layer_body(lp: Params, x: torch.Tensor, cfg: ModelConfig, *,
                 rope_cs, kv_dest=None, cache: Optional[Params] = None,
                 cache_len: Optional[torch.Tensor] = None,
                 block_tables: Optional[torch.Tensor] = None,
                 suffix_len: Optional[torch.Tensor] = None,
                 ) -> Tuple[torch.Tensor, Params]:
-    """One transformer layer; returns the layer's KV (fresh prefill K/V in
-    ``cache_dtype``, or under ``kv_dtype="int8"`` quantized on emission to
-    codes + scales, the leaves of :func:`init_cache`; or the updated
-    pages). ``rope_cs``/``kv_dest`` are the per-forward tables every layer
-    shares (see ``_step_tables``)."""
+    """One transformer layer: (x', the attention block's K/V or pages)."""
     h = L.rmsnorm(lp["norm1"], x, cfg.norm_eps)
     out, kv = L.attention_apply(
         lp["mixer"], h, n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads,
@@ -112,15 +111,31 @@ def layer_apply(lp: Params, x: torch.Tensor, cfg: ModelConfig, *,
         cache_len=cache_len, block_tables=block_tables,
         suffix_len=suffix_len, kv_dest=kv_dest, attn_impl=cfg.attn_impl,
         q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+    x = x + out
+    h2 = L.rmsnorm(lp["norm2"], x, cfg.norm_eps)
+    return x + L.swiglu_apply(lp["ffn"], h2), kv
+
+
+def layer_apply(lp: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                rope_cs, kv_dest=None, cache: Optional[Params] = None,
+                cache_len: Optional[torch.Tensor] = None,
+                block_tables: Optional[torch.Tensor] = None,
+                suffix_len: Optional[torch.Tensor] = None,
+                ) -> Tuple[torch.Tensor, Params]:
+    """One serving layer; returns the layer's KV (fresh prefill K/V in
+    ``cache_dtype``, or under ``kv_dtype="int8"`` quantized on emission to
+    codes + scales, the leaves of :func:`init_cache`; or the updated
+    pages). ``rope_cs``/``kv_dest`` are the per-forward tables every layer
+    shares (see ``_step_tables``)."""
+    x, kv = _layer_body(lp, x, cfg, rope_cs=rope_cs, kv_dest=kv_dest,
+                        cache=cache, cache_len=cache_len,
+                        block_tables=block_tables, suffix_len=suffix_len)
     if cache is None and cfg.kv_dtype == "int8":
         kc, ks = quantize_rows(kv["k"])
         vc, vs = quantize_rows(kv["v"])
         kv = {"k": kc, "v": vc, "k_scale": ks, "v_scale": vs}
     elif cache is None:
         kv = {"k": kv["k"].to(cfg.c_dtype), "v": kv["v"].to(cfg.c_dtype)}
-    x = x + out
-    h2 = L.rmsnorm(lp["norm2"], x, cfg.norm_eps)
-    x = x + L.swiglu_apply(lp["ffn"], h2)
     return x, kv
 
 
@@ -142,6 +157,38 @@ def _step_tables(cfg: ModelConfig, positions: torch.Tensor,
 def _embed_tokens(cfg: ModelConfig, params: Params,
                   tokens: torch.Tensor) -> torch.Tensor:
     return L.embed(params["embed"], tokens).to(cfg.act_dtype)
+
+
+def forward(cfg: ModelConfig, params: Params,
+            tokens: torch.Tensor) -> torch.Tensor:
+    """Full-sequence forward → logits ``(B, S, V)`` in the activation dtype
+    (train / eval). Differentiable; with ``cfg.remat`` each layer's
+    activations are recomputed in the backward pass instead of kept."""
+    _check_cfg(cfg)
+    b, s = tokens.shape
+    positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
+    x = _embed_tokens(cfg, params, tokens)
+    rope_cs = _step_tables(cfg, positions)["rope_cs"]
+
+    def run(lp, x):
+        return _layer_body(lp, x, cfg, rope_cs=rope_cs)[0]
+
+    for lp in params["layers"]:
+        if cfg.remat and torch.is_grad_enabled():
+            x = torch.utils.checkpoint.checkpoint(run, lp, x,
+                                                  use_reentrant=False)
+        else:
+            x = run(lp, x)
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return _head_logits(cfg, params, x)
+
+
+def loss_fn(cfg: ModelConfig, params: Params,
+            batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Token-mean fp32 cross entropy of ``forward`` on ``batch["tokens"]``
+    against ``batch["targets"]`` (``batch["mask"]`` optional)."""
+    logits = forward(cfg, params, batch["tokens"])
+    return L.cross_entropy(logits, batch["targets"], batch.get("mask"))
 
 
 def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,

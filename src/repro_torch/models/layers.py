@@ -1,7 +1,8 @@
-"""Serving subset of the neural-net substrate: RMSNorm, RoPE, embeddings,
-attention (cold prefill, paged decode, paged prefill-append) and the SwiGLU
-MLP. Every projection goes through ``core.sparse_linear`` so BCR-packed
-weights run through the port's kernels.
+"""The neural-net substrate of the dense family: RMSNorm, RoPE, embeddings,
+attention (full-sequence for training and cold prefill, paged decode, paged
+prefill-append), the SwiGLU MLP and the cross-entropy loss. Every projection
+goes through ``core.sparse_linear`` so BCR-packed weights run through the
+port's kernels.
 
 Page writes happen in place (``index_copy_`` into the pool); the reference's
 functional ``.at[].set`` returns a new pool instead. int8 pools quantize on
@@ -13,6 +14,12 @@ fused flash kernel; ``"dense"``, ``"flash"`` (the reference's XLA chunked
 attention, the same function) and the paged-kernel settings ``"paged"`` /
 ``"paged_interpret"`` run the plain product; anything else raises. Paged
 decode and prefill-append always run the paged attention kernel.
+
+Training differentiates the full-sequence path with autograd. The plain
+product stands in for the reference's XLA ``flash_attention`` (which
+``"flash"`` selects there); the fused flash kernel has no backward, as the
+reference's Pallas ``flash_attention_fused`` has none (its ``pallas_call``
+cannot be differentiated), so ``"pallas"`` under a gradient raises.
 """
 
 from __future__ import annotations
@@ -193,6 +200,11 @@ def cold_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     check_attn_impl(attn_impl)
     if attn_impl not in FLASH_ATTN_IMPLS:
         return dense_attention(q, k, v, causal=True)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            f"attn_impl={attn_impl!r} under a gradient: flash_attention_fused "
+            f"has no backward kernel (the reference's Pallas kernel cannot be "
+            f"differentiated either); train with attn_impl 'flash' or 'dense'")
     b, s, h, d = q.shape
     g = h // k.shape[2]
 
@@ -306,3 +318,22 @@ def swiglu_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
         h = F.silu(linear_apply(params["wg"], x)) * linear_apply(
             params["wi"], x)
     return linear_apply(params["wo"], h)
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token-mean cross entropy in fp32 (logsumexp); logits ``(..., V)``,
+    targets ``(...)``; with ``mask`` the mean over masked-in tokens."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        mask = mask.to(nll.dtype)
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

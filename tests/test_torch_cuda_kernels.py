@@ -11,10 +11,12 @@ Tolerances: fp32 1e-4 (the kernel sums in another order than the plain
 einsum); bf16 2e-2 relative to the output scale (both round one fp32 sum to
 bf16, which can differ by one bf16 ulp, ~0.4%, plus the order difference).
 The int8 forms take the same tolerances: both sides read the same codes and
-scales and differ only in where the scale multiplies.
+scales and differ only in where the scale multiplies. The block-skipping
+matmul too: the kernel and its plain version sum the same fp32 products.
 """
 
 import dataclasses
+import importlib
 
 import numpy as np
 import pytest
@@ -313,3 +315,81 @@ def test_int8_wrappers_reject_bad_inputs(cuda):
         FA.flash_attention_fused(torch.zeros((1, 8, 48), device=cuda),
                                  torch.zeros((1, 8, 48), device=cuda),
                                  torch.zeros((1, 8, 48), device=cuda))
+
+
+# -- block-skipping matmul (unbalanced BCR) ---------------------------------
+
+SKIP_CASES = [  # (N, K, block, keep)
+    (256, 512, (32, 32), 0.05),          # the reference tests' shape
+    (256, 384, (128, 128), 0.25),        # the serving block
+    (96, 80, (16, 16), 0.1),             # narrow blocks, ragged 64-row slice
+    (64, 96, (16, 32), 0.5),             # non-square blocks
+]
+
+
+def _skip_pack(rng, n, k, block, keep, dtype, dev, zero_rows=0):
+    from repro_torch.kernels.bcr_spmm_skip import pack_skip
+    w = rng.normal(size=(n, k)) * np.exp(rng.normal(
+        size=(n // block[0], 1, k // block[1], 1))).repeat(
+            block[0], 1).repeat(block[1], 3).reshape(n, k)
+    w[:zero_rows] = 0.0
+    p = pack_skip(torch.as_tensor(w, dtype=torch.float32, device=dev),
+                  BCRSpec(block_shape=block, keep_frac=keep, align=1,
+                          balanced=False))
+    return dataclasses.replace(p, tiles=p.tiles.to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SKIP_CASES)
+@pytest.mark.parametrize("m", [1, 8, 17, 300])
+def test_bcr_spmm_skip_matches_plain(cuda, dtype, case, m):
+    SK = importlib.import_module("repro_torch.kernels.bcr_spmm_skip")
+    n, k, block, keep = case
+    rng = np.random.default_rng(11)
+    p = _skip_pack(rng, n, k, block, keep, dtype, cuda)
+    x = torch.as_tensor(rng.normal(size=(m, k)), dtype=dtype, device=cuda)
+    before = SK.LAUNCHES["bcr_spmm_skip"]
+    got = SK.bcr_spmm_skip(x, p)
+    torch.cuda.synchronize()
+    assert SK.LAUNCHES["bcr_spmm_skip"] == before + 1
+    _close(got, ref.bcr_spmm_skip_ref(x, p), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bcr_spmm_skip_empty_rows_are_exact_zeros(cuda, dtype):
+    """A block row with no tile comes out exact zeros even where the
+    caching allocator hands back a NaN-filled block; a fully pruned W gives
+    an all-zero y."""
+    SK = importlib.import_module("repro_torch.kernels.bcr_spmm_skip")
+    rng = np.random.default_rng(12)
+    p = _skip_pack(rng, 256, 384, (64, 64), 0.25, dtype, cuda, zero_rows=64)
+    assert int(p.row_start[1]) == 0
+    x = torch.as_tensor(rng.normal(size=(40, 384)), dtype=dtype, device=cuda)
+    poison = torch.full((40, 256), float("nan"), dtype=dtype, device=cuda)
+    del poison
+    y = SK.bcr_spmm_skip(x, p)
+    torch.cuda.synchronize()
+    assert torch.equal(y[:, :64], torch.zeros_like(y[:, :64]))
+    _close(y, ref.bcr_spmm_skip_ref(x, p), dtype)
+    empty = _skip_pack(rng, 128, 128, (32, 32), 0.25, dtype, cuda,
+                       zero_rows=128)
+    assert empty.tiles.shape[0] == 1
+    y = SK.bcr_spmm_skip(x[:, :128].contiguous(), empty)
+    torch.cuda.synchronize()
+    assert torch.equal(y, torch.zeros_like(y))
+
+
+def test_bcr_spmm_skip_rejects_bad_inputs(cuda):
+    SK = importlib.import_module("repro_torch.kernels.bcr_spmm_skip")
+    rng = np.random.default_rng(13)
+    p = _skip_pack(rng, 128, 128, (32, 32), 0.5, torch.bfloat16, cuda)
+    x = torch.zeros((4, 128), dtype=torch.float32, device=cuda)
+    with pytest.raises(TypeError):
+        SK.bcr_spmm_skip(x, p)                     # tiles dtype != x dtype
+    with pytest.raises(ValueError):
+        SK.bcr_spmm_skip(torch.zeros((4, 64), dtype=torch.bfloat16,
+                                     device=cuda), p)
+    bad = dataclasses.replace(p, bi=p.bi.flip(0).contiguous(),
+                              row_mask=None, row_start=None)
+    with pytest.raises(ValueError):
+        SK.bcr_spmm_skip(x.bfloat16(), bad)        # unsorted bi

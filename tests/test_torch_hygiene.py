@@ -5,8 +5,8 @@
 * The port never calls ``scaled_dot_product_attention`` or
   ``torch.compile``. ``chip_smoke.py`` may time one library call beside a
   kernel as its yardstick, only inside a ``_library_*`` function.
-* Entry points default to the card: without one visible they raise instead
-  of running on the CPU.
+* Entry points (serving and training) default to the card: without one
+  visible they raise instead of running on the CPU.
 * Options not ported yet raise ``NotImplementedError``; the quantized
   serving options are accepted, and an unknown ``attn_impl`` raises.
 """
@@ -197,3 +197,29 @@ def test_unknown_attn_impl_raises():
     with pytest.raises(ValueError):
         layers.cold_attention(q, q, q, attn_impl="ring", q_chunk=4,
                               kv_chunk=4)
+
+
+@pytest.mark.parametrize("name", [
+    "core/admm.py", "kernels/bcr_spmm_skip.py", "optim/adamw.py",
+    "data/pipeline.py", "checkpoint/checkpointing.py",
+    "runtime/fault_tolerance.py", "launch/train.py", "tree.py"])
+def test_training_slice_files_are_scanned(name):
+    assert ROOT / "src" / "repro_torch" / name in PORT_FILES
+    assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+            / "bcr_spmm_skip.cu").exists()
+
+
+def test_train_entry_points_default_to_the_card(monkeypatch):
+    import sys
+    from repro_torch.launch import train
+    assert train.TrainerConfig().device == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a card is visible: the default device is usable")
+    with pytest.raises(RuntimeError):
+        train.train_loop(_smoke_cfg(), train.TrainerConfig(steps=1))
+    with pytest.raises(RuntimeError):
+        train.init_state(_smoke_cfg(), 0, "cuda")
+    monkeypatch.setattr(sys, "argv", ["train", "--arch", "llama3.2-1b",
+                                      "--smoke", "--steps", "1"])
+    with pytest.raises(RuntimeError):
+        train.main()
