@@ -2,12 +2,21 @@
 """Drive the PyTorch port on one NVIDIA card and check it end to end.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --bcr-ab TREE [TREE ...]
+
+The second form times phase 3's BCR cases for each checkout TREE (its own
+``src/repro_torch``, built into its own ``build/``), one process per TREE
+in the order given, and prints them side by side — e.g. ``build/parent . .
+build/parent`` after ``git archive HEAD~1 | tar -x -C build/parent``.
 
 Phases, in order (any failed check raises and the script exits non-zero):
 
 1. Device: the card's name and power limit (``nvidia-smi``).
 2. Build: every ``src/repro_torch/kernels/csrc/*.cu`` with ``nvcc`` for
-   ``sm_90a``, one process per source, all started together.
+   ``sm_90a``, one process per source, all started together; ptxas
+   registers and spills; from the built library's SASS, the instruction
+   each tensor-core BCR kernel runs (``mma.sync`` = HMMA for M tiles up to
+   64, ``wgmma`` = HGMMA for the 128 tile; none in the fp32-x body).
 3. Kernels against their plain PyTorch versions on the card, bf16 at the
    llama3.2-1b full-width shapes (d_model 2048, 32/8 heads, head_dim 64,
    d_ff 8192, vocab 128256, BCR block 128 at keep 0.25, so R_keep = C_keep =
@@ -15,7 +24,10 @@ Phases, in order (any failed check raises and the script exits non-zero):
    tolerance, CUDA-event times (median of 20 after warm-up, L2 flushed
    before each launch), the plain version's time, one library yardstick
    (never used by the port) and the bound. Every form: the fp and int8
-   forms of ``bcr_spmm``, ``bcr_spmm_grouped`` and paged attention, and the
+   forms of ``bcr_spmm``, ``bcr_spmm_grouped`` (plus the one-launch split
+   at decode: MLP wo and gate/up at M = 8, two launches bit-equal, output
+   and workspace in freed NaN-filled blocks, split counters back at 0)
+   and paged attention, and the
    fused flash attention (B·H = 8·32, S in {128, 512}, causal, non-causal
    and a ``q_offset`` case), and the block-skipping ``bcr_spmm_skip`` over
    unbalanced-BCR tiles (wq, MLP wo and lm_head with lognormal block
@@ -64,6 +76,8 @@ from __future__ import annotations
 import dataclasses
 import importlib
 import json
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -192,29 +206,9 @@ def read_counters():
     return {k: v for c in counters() for k, v in c.items()}
 
 
-def phase_kernels(torch, timer):
-    from repro_torch.core.bcr import BCRSpec
-    from repro_torch.core.bcrc import tbcrc_pack, tbcrc_unpack
-    from repro_torch.kernels import bcr_spmm as K
-    from repro_torch.kernels import flash_attention as FA
-    from repro_torch.kernels import paged_decode_attention as PA
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.plan import pack_group
-
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(0)
-    spec = BCRSpec(block_shape=(128, 128), keep_frac=0.25, align=8)
-    rows = []
-
-    def randn(*shape, dtype=torch.bfloat16, scale=1.0):
-        return (torch.randn(shape, generator=gen, device="cuda")
-                * scale).to(dtype)
-
-    def pack(n, k, dtype, block_spec=spec):
-        p = tbcrc_pack(randn(n, k, dtype=torch.float32, scale=k ** -0.5),
-                       block_spec)
-        p.vals = p.vals.to(dtype)
-        return p
+def recorder(torch, rows):
+    """``record(kernel, shape, err, ms, plain_ms, bytes, ops, dtype,
+    library_ms)``: appends one timed row, with its bound, to ``rows``."""
 
     def record(kernel, shape, err, ms, plain_ms, byts, ops, dtype, lib_ms):
         peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
@@ -228,9 +222,41 @@ def phase_kernels(torch, timer):
             f"{lib_ms if lib_ms is None else round(lib_ms, 4)} ms, bound "
             f"{max(t_bytes, t_ops):.4f} ms")
 
+    return record
+
+
+def bcr_cases(torch, timer, gen, record):
+    """Phase 3's timed ``bcr_spmm`` / ``bcr_spmm_grouped`` cases, fp and int8
+    tiles under bf16 x, at the llama3.2-1b projections and M in {1, 8,
+    2048}: each checked against its plain version, then timed beside the
+    plain version and the dense library product; rows go through
+    ``record``. It uses only the wrappers' public calls, so ``--bcr-ab``
+    runs it against an older tree's package too."""
+    from repro_torch.core.bcr import BCRSpec
+    from repro_torch.core.bcrc import tbcrc_pack, tbcrc_unpack
+    from repro_torch.kernels import bcr_spmm as K
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.plan import (pack_group, quantize_grouped,
+                                          quantize_packed)
+
+    spec = BCRSpec(block_shape=(128, 128), keep_frac=0.25, align=8)
+
+    def randn(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(dtype)
+
+    def pack(n, k, dtype):
+        p = tbcrc_pack(randn(n, k, dtype=torch.float32, scale=k ** -0.5),
+                       spec)
+        p.vals = p.vals.to(dtype)
+        return p
+
     def tile_bytes(p):
         return (p.vals.numel() * p.vals.element_size()
                 + (p.row_idx.numel() + p.col_idx.numel()) * 4)
+
+    def scale_bytes(p):
+        return p.plan.block_scales.numel() * 4
 
     # -- bcr_spmm ----------------------------------------------------------
     log("bcr_spmm (bf16, block 128, keep 0.25)")
@@ -252,11 +278,6 @@ def phase_kernels(torch, timer):
                    2 * m * nb_r * nb_c * r * c, torch.bfloat16,
                    timer.ms(lambda: _library_dense_matmul(x, w_dense)))
         del p, w_dense
-    p = pack(256, 384, torch.float32)
-    x = randn(5, 384, dtype=torch.float32)
-    err = check_close("fp32 256x384 M=5", K.bcr_spmm(x, p),
-                      ref.bcr_spmm_packed_ref(x, p), FP32_TOL)
-
     # -- bcr_spmm_grouped ----------------------------------------------------
     log("bcr_spmm_grouped (bf16, block 128, keep 0.25)")
     for wname, n, k, epi in (("wkv", 512, 2048, None),
@@ -285,6 +306,216 @@ def phase_kernels(torch, timer):
                    2 * m * 2 * nb_r * nb_c * r * c, torch.bfloat16,
                    timer.ms(lambda: _library_dense_matmul(x, w_cat)))
         del grouped, w_cat
+    log("bcr_spmm int8 tiles (bf16 x, block 128, keep 0.25)")
+    for wname, n, k in (("wq", 2048, 2048), ("mlp_wo", 2048, 8192),
+                        ("lm_head", 128256, 2048)):
+        p = quantize_packed(pack(n, k, torch.float32))
+        w_dense = tbcrc_unpack(p).to(torch.bfloat16)
+        for m in (1, 8, 2048):
+            x = randn(m, k)
+            got = K.bcr_spmm(x, p)
+            want = ref.bcr_spmm_packed_ref(x, p)
+            torch.cuda.synchronize()
+            err = check_close(f"int8 {wname} {n}x{k} M={m}", got, want,
+                              BF16_TOL)
+            nb_r, nb_c, r, c = p.vals.shape
+            record("bcr_spmm_int8", f"{wname} {n}x{k} M={m}", err,
+                   timer.ms(lambda: K.bcr_spmm(x, p)),
+                   timer.ms(lambda: ref.bcr_spmm_packed_ref(x, p)),
+                   tile_bytes(p) + scale_bytes(p) + (m * k + m * n) * 2,
+                   2 * m * nb_r * nb_c * r * c, torch.bfloat16,
+                   timer.ms(lambda: _library_dense_matmul(x, w_dense)))
+        del p, w_dense
+    log("bcr_spmm_grouped int8 tiles (bf16 x, block 128, keep 0.25)")
+    for wname, n, k, epi in (("wkv", 512, 2048, None),
+                             ("wgi", 8192, 2048, "swiglu")):
+        grouped = quantize_grouped(pack_group(
+            [pack(n, k, torch.float32) for _ in range(2)]))
+        w_cat = torch.cat([tbcrc_unpack(dataclasses.replace(
+            grouped, vals=grouped.vals[g], row_idx=grouped.row_idx[g],
+            col_idx=grouped.col_idx[g], plan=dataclasses.replace(
+                grouped.plan, block_scales=grouped.plan.block_scales[g])))
+            for g in range(2)]).to(torch.bfloat16)
+        for m in (1, 8, 2048):
+            x = randn(m, k)
+            got = K.bcr_spmm_grouped(x, grouped, epilogue=epi)
+            want = ref.bcr_spmm_grouped_ref(x, grouped, epilogue=epi)
+            if epi is None:
+                want = want.transpose(0, 1)
+            torch.cuda.synchronize()
+            err = check_close(f"int8 {wname} 2x{n}x{k} M={m}", got, want,
+                              BF16_TOL)
+            _, nb_r, nb_c, r, c = grouped.vals.shape
+            out_n = n if epi else 2 * n
+            record("bcr_spmm_grouped_int8", f"{wname} 2x{n}x{k} M={m}", err,
+                   timer.ms(lambda: K.bcr_spmm_grouped(x, grouped,
+                                                       epilogue=epi)),
+                   timer.ms(lambda: ref.bcr_spmm_grouped_ref(
+                       x, grouped, epilogue=epi)),
+                   tile_bytes(grouped) + scale_bytes(grouped)
+                   + (m * k + m * out_n) * 2,
+                   2 * m * 2 * nb_r * nb_c * r * c, torch.bfloat16,
+                   timer.ms(lambda: _library_dense_matmul(x, w_cat)))
+        del grouped, w_cat
+
+
+def sass_tensor_ops(lib_path: Path) -> dict:
+    """Tensor-core instructions per kernel of a built library, from
+    ``cuobjdump -sass``: {mangled kernel name: (HMMA count, HGMMA count)}.
+    HMMA is the warp-level ``mma.sync``; HGMMA is ``wgmma``."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([cuobjdump, "-sass", str(lib_path)],
+                         capture_output=True, text=True, check=True,
+                         timeout=300).stdout
+    ops, name = {}, None
+    for line in out.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ")[1].strip()
+            ops[name] = [0, 0]
+        elif name is not None:
+            if "HGMMA" in line:
+                ops[name][1] += 1
+            elif "HMMA" in line:
+                ops[name][0] += 1
+    return {k: tuple(v) for k, v in ops.items()}
+
+
+def bcr_instruction_check(lib_path: Path) -> None:
+    """Which instruction each BCR form runs, read from the built library:
+    every tensor-core kernel (bf16 x) of an M tile up to 64 issues
+    ``mma.sync`` (HMMA) and the 128 tile ``wgmma`` (HGMMA); the fp32-x
+    kernels issue neither (CUDA cores)."""
+    from repro_torch.kernels import bcr_spmm as K
+
+    ops = sass_tensor_ops(lib_path)
+    rows = {}
+    for name, (hmma, hgmma) in ops.items():
+        m = re.search(r"bcr_spmm(_grouped)?_tcILb([01])ELi(\d+)ELi\d+ELi(\d+)E",
+                      name)
+        if m:
+            form = ("bcr_spmm" + ("_grouped" if m.group(1) else "")
+                    + ("_int8" if m.group(2) == "1" else ""))
+            want = ("wgmma" if int(m.group(4)) == K.WGMMA_WARPS_M
+                    else "mma.sync")
+            got = ("wgmma" if hgmma and not hmma
+                   else "mma.sync" if hmma and not hgmma else None)
+            if got != want:
+                raise AssertionError(f"{name}: {hmma} HMMA, {hgmma} HGMMA; "
+                                     f"want {want}")
+            rows.setdefault(form, set()).add(
+                f"M tile {m.group(3)}: {want}")
+        elif "cuda_core" in name and (hmma or hgmma):
+            raise AssertionError(f"{name}: the fp32 body issued tensor-core "
+                                 f"instructions")
+    for form in sorted(rows):
+        log(f"  {form} (bf16 x): "
+            + ", ".join(sorted(rows[form], key=lambda t: int(t.split()[2][:-1]))))
+    log("  fp32 x (every form): CUDA-core FMAs, no HMMA/HGMMA")
+
+
+def bcr_split_checks(torch, gen) -> None:
+    """The one-launch split over contraction blocks at decode: MLP wo
+    (2048 x 8192) and the gate/up pair (2 x 8192 x 2048, SwiGLU) at M = 8,
+    fp and int8 tiles. Two launches give bit-equal y (the last split sums
+    the partials in split order); the output and the workspace land in
+    freed NaN-filled blocks and the result is still right; the split
+    counters are back at zero after the calls."""
+    from repro_torch.core.bcr import BCRSpec
+    from repro_torch.core.bcrc import tbcrc_pack
+    from repro_torch.kernels import bcr_spmm as K
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.plan import (pack_group, quantize_grouped,
+                                          quantize_packed)
+
+    spec = BCRSpec(block_shape=(128, 128), keep_frac=0.25, align=8)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for name, n, k, g in (("mlp_wo", 2048, 8192, 1), ("wgi", 8192, 2048, 2)):
+        for int8 in (False, True):
+            packs = []
+            for _ in range(g):
+                w = torch.randn((n, k), generator=gen, device="cuda") * k ** -0.5
+                p = tbcrc_pack(w, spec)
+                if not int8:
+                    p.vals = p.vals.to(torch.bfloat16)
+                packs.append(p)
+            if g == 2:
+                w = pack_group(packs)
+                w = quantize_grouped(w) if int8 else w
+            else:
+                w = quantize_packed(packs[0]) if int8 else packs[0]
+            x = torch.randn((8, k), generator=gen, device="cuda").to(
+                torch.bfloat16)
+            r, c = w.vals.shape[-2:]
+            plan = K.launch_plan(8, n, k, g, (128, 128), (r, c), sms, int8)
+            if plan.splits < 2:
+                raise AssertionError(f"{name} at M=8 did not split: {plan}")
+
+            def run():
+                if g == 2:
+                    return K.bcr_spmm_grouped(x, w, epilogue="swiglu")
+                return K.bcr_spmm(x, w)
+
+            want = (ref.bcr_spmm_grouped_ref(x, w, epilogue="swiglu")
+                    if g == 2 else ref.bcr_spmm_packed_ref(x, w))
+            poison = (torch.full((plan.workspace_floats,), float("nan"),
+                                 device="cuda"),
+                      torch.full((8, n), float("nan"), dtype=torch.bfloat16,
+                                 device="cuda"))
+            del poison           # the allocator hands these blocks back next
+            first = run()
+            second = run()
+            torch.cuda.synchronize()
+            form = f"{'int8 ' if int8 else ''}{name} {g}x{n}x{k} M=8"
+            if not bool(torch.isfinite(first).all()):
+                raise AssertionError(f"split {form}: non-finite output over "
+                                     f"NaN-filled buffers")
+            if not torch.equal(first, second):
+                raise AssertionError(f"split {form}: two launches differ")
+            check_close(f"split {form} (S={plan.splits}, grid {plan.grid}, "
+                        f"NaN-filled workspace and output)", first, want,
+                        BF16_TOL)
+            left = int(torch.count_nonzero(
+                K.split_counters(x.device, plan.tiles)[:plan.tiles]))
+            if left:
+                raise AssertionError(f"split {form}: {left} counters not "
+                                     f"back at zero")
+            log(f"  split {form}: two launches bit-equal, counters back at 0")
+
+
+def phase_kernels(torch, timer):
+    from repro_torch.core.bcr import BCRSpec
+    from repro_torch.core.bcrc import tbcrc_pack, tbcrc_unpack
+    from repro_torch.kernels import bcr_spmm as K
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import paged_decode_attention as PA
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.plan import pack_group
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    spec = BCRSpec(block_shape=(128, 128), keep_frac=0.25, align=8)
+    rows = []
+
+    def randn(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(dtype)
+
+    def pack(n, k, dtype, block_spec=spec):
+        p = tbcrc_pack(randn(n, k, dtype=torch.float32, scale=k ** -0.5),
+                       block_spec)
+        p.vals = p.vals.to(dtype)
+        return p
+
+    record = recorder(torch, rows)
+
+    bcr_cases(torch, timer, gen, record)
+    log("bcr_spmm split path (M=8, one launch)")
+    bcr_split_checks(torch, gen)
+    p = pack(256, 384, torch.float32)
+    x = randn(5, 384, dtype=torch.float32)
+    err = check_close("fp32 256x384 M=5", K.bcr_spmm(x, p),
+                      ref.bcr_spmm_packed_ref(x, p), FP32_TOL)
+
     grouped = pack_group([pack(256, 384, torch.float32) for _ in range(2)])
     x = randn(5, 384, dtype=torch.float32)
     bias = randn(2, 256, dtype=torch.float32)
@@ -387,65 +618,11 @@ def phase_kernels(torch, timer):
     from repro_torch.kernels.plan import quantize_grouped, quantize_packed
     from repro_torch.kernels.quant import dequantize_rows, quantize_rows
 
-    def scale_bytes(p):
-        return p.plan.block_scales.numel() * 4
-
-    log("bcr_spmm int8 tiles (bf16 x, block 128, keep 0.25)")
-    for wname, n, k in (("wq", 2048, 2048), ("mlp_wo", 2048, 8192),
-                        ("lm_head", 128256, 2048)):
-        p = quantize_packed(pack(n, k, torch.float32))
-        w_dense = tbcrc_unpack(p).to(torch.bfloat16)
-        for m in (1, 8, 2048):
-            x = randn(m, k)
-            got = K.bcr_spmm(x, p)
-            want = ref.bcr_spmm_packed_ref(x, p)
-            torch.cuda.synchronize()
-            err = check_close(f"int8 {wname} {n}x{k} M={m}", got, want,
-                              BF16_TOL)
-            nb_r, nb_c, r, c = p.vals.shape
-            record("bcr_spmm_int8", f"{wname} {n}x{k} M={m}", err,
-                   timer.ms(lambda: K.bcr_spmm(x, p)),
-                   timer.ms(lambda: ref.bcr_spmm_packed_ref(x, p)),
-                   tile_bytes(p) + scale_bytes(p) + (m * k + m * n) * 2,
-                   2 * m * nb_r * nb_c * r * c, torch.bfloat16,
-                   timer.ms(lambda: _library_dense_matmul(x, w_dense)))
-        del p, w_dense
     p = quantize_packed(pack(256, 384, torch.float32))
     x = randn(5, 384, dtype=torch.float32)
     check_close("int8 tiles, fp32 x 256x384 M=5", K.bcr_spmm(x, p),
                 ref.bcr_spmm_packed_ref(x, p), FP32_TOL)
 
-    log("bcr_spmm_grouped int8 tiles (bf16 x, block 128, keep 0.25)")
-    for wname, n, k, epi in (("wkv", 512, 2048, None),
-                             ("wgi", 8192, 2048, "swiglu")):
-        grouped = quantize_grouped(pack_group(
-            [pack(n, k, torch.float32) for _ in range(2)]))
-        w_cat = torch.cat([tbcrc_unpack(dataclasses.replace(
-            grouped, vals=grouped.vals[g], row_idx=grouped.row_idx[g],
-            col_idx=grouped.col_idx[g], plan=dataclasses.replace(
-                grouped.plan, block_scales=grouped.plan.block_scales[g])))
-            for g in range(2)]).to(torch.bfloat16)
-        for m in (1, 8, 2048):
-            x = randn(m, k)
-            got = K.bcr_spmm_grouped(x, grouped, epilogue=epi)
-            want = ref.bcr_spmm_grouped_ref(x, grouped, epilogue=epi)
-            if epi is None:
-                want = want.transpose(0, 1)
-            torch.cuda.synchronize()
-            err = check_close(f"int8 {wname} 2x{n}x{k} M={m}", got, want,
-                              BF16_TOL)
-            _, nb_r, nb_c, r, c = grouped.vals.shape
-            out_n = n if epi else 2 * n
-            record("bcr_spmm_grouped_int8", f"{wname} 2x{n}x{k} M={m}", err,
-                   timer.ms(lambda: K.bcr_spmm_grouped(x, grouped,
-                                                       epilogue=epi)),
-                   timer.ms(lambda: ref.bcr_spmm_grouped_ref(
-                       x, grouped, epilogue=epi)),
-                   tile_bytes(grouped) + scale_bytes(grouped)
-                   + (m * k + m * out_n) * 2,
-                   2 * m * 2 * nb_r * nb_c * r * c, torch.bfloat16,
-                   timer.ms(lambda: _library_dense_matmul(x, w_cat)))
-        del grouped, w_cat
     grouped = quantize_grouped(pack_group(
         [pack(256, 384, torch.float32) for _ in range(2)]))
     x = randn(5, 384, dtype=torch.float32)
@@ -938,8 +1115,9 @@ def profile_decode(torch, engine, rng, cfg, steps=5):
 def kernel_family(name: str) -> str:
     """A profiler kernel name → its launch-counter key (or "other"); the
     int8 forms are the instantiations on int8 (``signed char``) tiles or
-    pages."""
-    int8 = "_int8" if "signed char" in name else ""
+    pages, or the tensor-core BCR kernels' ``<true, ...>``."""
+    int8 = ("_int8" if "signed char" in name or "_tc<true" in name
+            else "")
     if "flash_attention" in name:
         return "flash_attention_fused"
     if "bcr_spmm_grouped" in name:
@@ -1247,7 +1425,78 @@ def phase_resume(torch, np, tmp_dir):
     return rel
 
 
+def bcr_worker(tree: str) -> int:
+    """``--bcr-worker TREE``: :func:`bcr_cases` against TREE's own
+    ``repro_torch`` (built into TREE's build directory); the rows come out
+    as one ``bcr rows:`` JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is visible", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(tree).resolve() / "src"))
+    from repro_torch.kernels import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.build_all(["bcr_spmm"])
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    rows = []
+    bcr_cases(torch, Timer(torch), gen, recorder(torch, rows))
+    print("bcr rows: " + json.dumps(rows), flush=True)
+    return 0
+
+
+def bcr_ab(trees) -> int:
+    """``--bcr-ab TREE...``: one :func:`bcr_worker` process per TREE, in the
+    order given (e.g. ``build/parent . . build/parent`` to compare a parent
+    checkout with this one on one card, in turns). Prints each run's
+    kernel times side by side and writes them to ``build/bcr_ab.json``."""
+    import torch
+
+    if not torch.cuda.is_available() or not trees:
+        print("chip_smoke: --bcr-ab needs a CUDA device and at least one "
+              "tree", file=sys.stderr)
+        return 2
+    smi = smi_line()
+    runs = []
+    for tree in trees:
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, __file__, "--bcr-worker", tree],
+                             capture_output=True, text=True, timeout=1500)
+        lines = [ln for ln in out.stdout.splitlines()
+                 if ln.startswith("bcr rows: ")]
+        if out.returncode != 0 or not lines:
+            print(out.stdout[-4000:], out.stderr[-4000:], file=sys.stderr)
+            raise RuntimeError(f"bcr worker for {tree} failed "
+                               f"({out.returncode})")
+        runs.append((tree, json.loads(lines[-1][len("bcr rows: "):])))
+        log(f"{tree}: {time.perf_counter() - t0:.1f} s")
+    log(smi)
+    log("kernel | shape | " + " | ".join(f"{t} ms" for t, _ in runs)
+        + " | bound ms | library ms")
+    for i, row in enumerate(runs[0][1]):
+        times = [r[i]["ms"] for _, r in runs]
+        log(f"{row['kernel']} | {row['shape']} | "
+            + " | ".join(f"{t:.4f}" for t in times)
+            + f" | {row['bound_ms']:.4f} | {row['library_ms']:.4f}")
+    out_dir = Path(__file__).resolve().parent / "build"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "bcr_ab.json").write_text(json.dumps(
+        {"device": smi, "runs": [{"tree": t, "rows": r} for t, r in runs]},
+        indent=1))
+    return 0
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--bcr-ab"]:
+        return bcr_ab(sys.argv[2:])
+    if sys.argv[1:2] == ["--bcr-worker"] and len(sys.argv) == 3:
+        return bcr_worker(sys.argv[2])
+    if len(sys.argv) > 1:
+        print("usage: chip_smoke.py [--bcr-ab TREE... | --bcr-worker TREE]",
+              file=sys.stderr)
+        return 2
     import numpy as np
     import torch
 
@@ -1275,6 +1524,8 @@ def main() -> int:
         spills = [ln.strip() for ln in log_text.splitlines()
                   if "spill" in ln and "0 bytes spill stores" not in ln]
         log(f"  {name}: ptxas {regs}; spills {spills or 'none'}")
+    log("BCR instructions (cuobjdump -sass of the built library)")
+    bcr_instruction_check(paths["bcr_spmm"])
 
     log("phase 3, kernels against their plain versions")
     t0 = time.perf_counter()

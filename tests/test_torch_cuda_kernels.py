@@ -11,7 +11,8 @@ Tolerances: fp32 1e-4 (the kernel sums in another order than the plain
 einsum); bf16 2e-2 relative to the output scale (both round one fp32 sum to
 bf16, which can differ by one bf16 ulp, ~0.4%, plus the order difference).
 The int8 forms take the same tolerances: both sides read the same codes and
-scales and differ only in where the scale multiplies. The block-skipping
+scales and differ in where the scale multiplies (under bf16 x the kernel
+rounds code × scale to bf16, at most 2^-9 relative per weight). The block-skipping
 matmul too: the kernel and its plain version sum the same fp32 products.
 """
 
@@ -66,11 +67,14 @@ CASES = [  # (N, K, block, keep, align)
     (64, 96, (16, 32), 0.25, 4),         # non-square blocks
     (48, 40, (8, 8), 0.05, 1),           # kept counts of 1..2
 ]
+# decode (1, 8), a ragged M tile (37), prefill tiles with a ragged edge
+# (300) and a full prefill (2048)
+MS = [1, 8, 37, 300, 2048]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", CASES)
-@pytest.mark.parametrize("m", [1, 8, 37, 300])
+@pytest.mark.parametrize("m", MS)
 def test_bcr_spmm_matches_plain(cuda, dtype, case, m):
     rng = np.random.default_rng(0)
     n, k, block, keep, align = case
@@ -89,14 +93,17 @@ def test_bcr_spmm_matches_plain(cuda, dtype, case, m):
 @pytest.mark.parametrize("g,epilogue,bias", [
     (2, None, False), (3, None, True), (2, "swiglu", True),
     (2, "swiglu", False)])
-@pytest.mark.parametrize("m", [1, 8, 130])
-def test_bcr_spmm_grouped_matches_plain(cuda, dtype, g, epilogue, bias, m):
+@pytest.mark.parametrize("m", MS)
+@pytest.mark.parametrize("case", CASES)
+def test_bcr_spmm_grouped_matches_plain(cuda, dtype, g, epilogue, bias, m,
+                                        case):
     rng = np.random.default_rng(1)
-    members = [_packed(rng, 256, 256, (128, 128), 0.25, dtype, cuda)
+    n, k, block, keep, align = case
+    members = [_packed(rng, n, k, block, keep, dtype, cuda, align)
                for _ in range(g)]
     grouped = pack_group(members)
-    x = torch.as_tensor(rng.normal(size=(m, 256)), dtype=dtype, device=cuda)
-    b = (torch.as_tensor(rng.normal(size=(g, 256)), dtype=torch.float32,
+    x = torch.as_tensor(rng.normal(size=(m, k)), dtype=dtype, device=cuda)
+    b = (torch.as_tensor(rng.normal(size=(g, n)), dtype=torch.float32,
                          device=cuda) if bias else None)
     got = K.bcr_spmm_grouped(x, grouped, bias=b, epilogue=epilogue)
     torch.cuda.synchronize()
@@ -181,7 +188,7 @@ def test_wrappers_reject_bad_inputs(cuda):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", CASES)
-@pytest.mark.parametrize("m", [1, 8, 300])
+@pytest.mark.parametrize("m", MS)
 def test_int8_bcr_spmm_matches_plain(cuda, dtype, case, m):
     rng = np.random.default_rng(5)
     n, k, block, keep, align = case
@@ -199,7 +206,7 @@ def test_int8_bcr_spmm_matches_plain(cuda, dtype, case, m):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("g,epilogue,bias", [
     (2, None, False), (3, None, True), (2, "swiglu", True)])
-@pytest.mark.parametrize("m", [1, 8, 130])
+@pytest.mark.parametrize("m", MS)
 @pytest.mark.parametrize("block,keep", [((128, 128), 0.25), ((16, 16), 0.25)])
 def test_int8_bcr_spmm_grouped_matches_plain(cuda, dtype, g, epilogue, bias,
                                              m, block, keep):
@@ -218,6 +225,83 @@ def test_int8_bcr_spmm_grouped_matches_plain(cuda, dtype, g, epilogue, bias,
     if epilogue is None:
         want = want.transpose(0, 1)
     _close(got, want, dtype)
+
+
+def _split_case(rng, dev, form):
+    """A (2048 x 8192) weight at M = 8 (MLP wo at decode: a split launch),
+    or the gate/up pair (2 x 8192 x 2048, SwiGLU), fp or int8 tiles."""
+    n, k = (8192, 2048) if form.startswith("wgi") else (2048, 8192)
+    int8 = form.endswith("int8")
+    dtype = torch.float32 if int8 else torch.bfloat16
+    packs = [_packed(rng, n, k, (128, 128), 0.25, dtype, dev)
+             for _ in range(2 if form.startswith("wgi") else 1)]
+    if form.startswith("wgi"):
+        w = pack_group(packs)
+        w = quantize_grouped(w) if int8 else w
+    else:
+        w = quantize_packed(packs[0]) if int8 else packs[0]
+    x = torch.as_tensor(rng.normal(size=(8, k)), dtype=torch.bfloat16,
+                        device=dev)
+    g = 2 if form.startswith("wgi") else 1
+    r, c = w.vals.shape[-2:]
+    plan = K.launch_plan(8, n, k, g, (128, 128), (r, c),
+                         torch.cuda.get_device_properties(
+                             dev).multi_processor_count, int8)
+
+    def run():
+        if g == 2:
+            return K.bcr_spmm_grouped(x, w, epilogue="swiglu")
+        return K.bcr_spmm(x, w)
+
+    def plain():
+        if g == 2:
+            return ref.bcr_spmm_grouped_ref(x, w, epilogue="swiglu")
+        return ref.bcr_spmm_packed_ref(x, w)
+
+    return plan, run, plain
+
+
+SPLIT_FORMS = ["wo", "wo_int8", "wgi", "wgi_int8"]
+
+
+@pytest.mark.parametrize("form", SPLIT_FORMS)
+def test_bcr_split_path_is_deterministic(cuda, form):
+    plan, run, plain = _split_case(np.random.default_rng(9), cuda, form)
+    assert plan.splits > 1
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    # the last split sums the partials in split order: bit-equal launches
+    assert torch.equal(first, second)
+    _close(first, plain(), torch.bfloat16)
+    if form.startswith("wo"):     # a 2048-row projection fills the card
+        assert plan.grid >= torch.cuda.get_device_properties(
+            cuda).multi_processor_count
+
+
+@pytest.mark.parametrize("form", SPLIT_FORMS)
+def test_bcr_split_path_over_nan_buffers(cuda, form):
+    plan, run, plain = _split_case(np.random.default_rng(10), cuda, form)
+    # freed NaN-filled blocks of the workspace's and the output's sizes: the
+    # allocator hands them back to the call
+    ws = torch.full((plan.workspace_floats,), float("nan"),
+                    dtype=torch.float32, device=cuda)
+    y = torch.full((8, 2048 if form.startswith("wo") else 8192),
+                   float("nan"), dtype=torch.bfloat16, device=cuda)
+    del ws, y
+    got = run()
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    _close(got, plain(), torch.bfloat16)
+
+
+@pytest.mark.parametrize("form", SPLIT_FORMS)
+def test_bcr_split_counters_back_at_zero(cuda, form):
+    plan, run, _ = _split_case(np.random.default_rng(11), cuda, form)
+    run()
+    run()
+    torch.cuda.synchronize()
+    counters = K.split_counters(cuda, plan.tiles)[:plan.tiles]
+    assert int(torch.count_nonzero(counters)) == 0
 
 
 def _int8_pages(kp, vp):
