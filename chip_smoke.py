@@ -4,19 +4,23 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --bcr-ab TREE [TREE ...]
 
-The second form times phase 3's BCR cases for each checkout TREE (its own
-``src/repro_torch``, built into its own ``build/``), one process per TREE
-in the order given, and prints them side by side — e.g. ``build/parent . .
-build/parent`` after ``git archive HEAD~1 | tar -x -C build/parent``.
+The second form times phase 3's ``bcr_spmm*``, ``bcr_spmm_skip`` and flash
+cases for each checkout TREE (its own ``src/repro_torch``, built into its
+own ``build/``), one process per TREE in the order given, and prints them
+side by side — e.g. ``build/parent . . build/parent`` after ``git archive
+HEAD~1 | tar -x -C build/parent``.
 
 Phases, in order (any failed check raises and the script exits non-zero):
 
 1. Device: the card's name and power limit (``nvidia-smi``).
 2. Build: every ``src/repro_torch/kernels/csrc/*.cu`` with ``nvcc`` for
    ``sm_90a``, one process per source, all started together; ptxas
-   registers and spills; from the built library's SASS, the instruction
-   each tensor-core BCR kernel runs (``mma.sync`` = HMMA for M tiles up to
-   64, ``wgmma`` = HGMMA for the 128 tile; none in the fp32-x body).
+   registers and spills; from the built libraries' SASS, the instruction
+   each tensor-core kernel runs (``mma.sync`` = HMMA, ``wgmma`` = HGMMA):
+   the BCR kernels by M tile (HMMA up to 64, HGMMA for 128), the bf16
+   ``bcr_spmm_skip`` kernels by M tile likewise, the bf16 flash kernels
+   HGMMA at head_dim 64 and HMMA at the others; none in any fp32
+   (CUDA-core) body.
 3. Kernels against their plain PyTorch versions on the card, bf16 at the
    llama3.2-1b full-width shapes (d_model 2048, 32/8 heads, head_dim 64,
    d_ff 8192, vocab 128256, BCR block 128 at keep 0.25, so R_keep = C_keep =
@@ -29,11 +33,14 @@ Phases, in order (any failed check raises and the script exits non-zero):
    and workspace in freed NaN-filled blocks, split counters back at 0)
    and paged attention, and the
    fused flash attention (B·H = 8·32, S in {128, 512}, causal, non-causal
-   and a ``q_offset`` case), and the block-skipping ``bcr_spmm_skip`` over
+   and a ``q_offset`` case; the heaviest-first CTA order bit-equal to the
+   B·H-major one), and the block-skipping ``bcr_spmm_skip`` over
    unbalanced-BCR tiles (wq, MLP wo and lm_head with lognormal block
    scales, M = 8 and 2048; a zeroed block row; the output landing in a
-   freed NaN-filled block; a fully pruned W; a small fp32 case), each with
-   its surviving-tile share and empty block rows.
+   freed NaN-filled block; a fully pruned W; a small fp32 case; the
+   one-launch split over a block row's tiles at M = 8 for wq and MLP wo,
+   checked as the BCR split is), each with its surviving-tile share and
+   empty block rows.
 4. bf16 main path at full width: llama3.2-1b, 16 layers, random weights
    from a seeded generator, packed at keep 0.25 / block 128, served through
    the paged engine (8 slots, page 16, capacity 640): 16 greedy requests
@@ -413,6 +420,41 @@ def bcr_instruction_check(lib_path: Path) -> None:
     log("  fp32 x (every form): CUDA-core FMAs, no HMMA/HGMMA")
 
 
+def tc_instruction_check(skip_lib: Path, flash_lib: Path) -> None:
+    """The same for the bf16 bodies of ``bcr_spmm_skip`` (mma.sync = HMMA
+    for M tiles 8..64, wgmma = HGMMA for the 128 tile) and
+    ``flash_attention_fused`` (HGMMA at head_dim 64, HMMA at the others);
+    their CUDA-core bodies issue neither."""
+    seen = {}
+    for lib, pat in ((skip_lib,
+                      r"bcr_spmm_skip_tcILi(\d+)ELi(\d+)ELb([01])E"),
+                     (flash_lib, r"flash_attention_tcILi(\d+)EE")):
+        for name, (hmma, hgmma) in sass_tensor_ops(lib).items():
+            m = re.search(pat, name)
+            if m:
+                wg = (m.group(3) == "1" if len(m.groups()) == 3
+                      else int(m.group(1)) == 64)
+                want = "wgmma" if wg else "mma.sync"
+                got = ("wgmma" if hgmma and not hmma
+                       else "mma.sync" if hmma and not hgmma else None)
+                if got != want:
+                    raise AssertionError(f"{name}: {hmma} HMMA, {hgmma} "
+                                         f"HGMMA; want {want}")
+                kind = ("bcr_spmm_skip M tile " if len(m.groups()) == 3
+                        else "flash_attention_fused head_dim ")
+                seen.setdefault(kind + m.group(1), set()).add(want)
+            elif "cuda_core" in name and (hmma or hgmma):
+                raise AssertionError(f"{name}: a CUDA-core body issued "
+                                     f"tensor-core instructions")
+    if not any(k.startswith("bcr_spmm_skip") for k in seen) or not any(
+            k.startswith("flash") for k in seen):
+        raise AssertionError(f"tensor-core kernels missing: {sorted(seen)}")
+    log("  " + "; ".join(f"{k}: {'/'.join(sorted(v))}"
+                         for k, v in sorted(seen.items())))
+    log("  bcr_spmm_skip and flash CUDA-core bodies (fp32, other blocks): "
+        "no HMMA/HGMMA")
+
+
 def bcr_split_checks(torch, gen) -> None:
     """The one-launch split over contraction blocks at decode: MLP wo
     (2048 x 8192) and the gate/up pair (2 x 8192 x 2048, SwiGLU) at M = 8,
@@ -486,7 +528,6 @@ def phase_kernels(torch, timer):
     from repro_torch.core.bcr import BCRSpec
     from repro_torch.core.bcrc import tbcrc_pack, tbcrc_unpack
     from repro_torch.kernels import bcr_spmm as K
-    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import paged_decode_attention as PA
     from repro_torch.kernels import ref
     from repro_torch.kernels.plan import pack_group
@@ -702,8 +743,29 @@ def phase_kernels(torch, timer):
                 FP32_TOL)
     del kc, vc, ks, vs, deq
 
-    # -- fused flash attention -----------------------------------------------
+    flash_cases(torch, timer, gen, record)
+    log("flash_attention_fused CTA order (heaviest q tiles first)")
+    flash_order_check(torch, gen)
+    skip_cases(torch, timer, gen, record)
+    log("bcr_spmm_skip split path (M=8, one launch)")
+    skip_split_checks(torch, gen)
+    return rows
+
+
+def flash_cases(torch, timer, gen, record):
+    """Phase 3's timed ``flash_attention_fused`` cases (bf16, B·H = 8·32,
+    head_dim 64: causal S in {128, 512}, non-causal 512, Sq = 128 over
+    Skv = 512 at ``q_offset`` 384) and one small fp32 case. It uses only
+    the wrapper's public call, so ``--bcr-ab`` runs it against an older
+    tree's package too."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
     log("flash_attention_fused (bf16, B*H = 8*32, head_dim 64)")
+    h, d = 32, 64
     bh = 8 * h
     for name, sq, skv, causal, q_off in (
             ("causal BH=256 S=128", 128, 128, True, 0),
@@ -740,9 +802,26 @@ def phase_kernels(torch, timer):
     check_close("flash fp32 BH=4 S=77 causal",
                 FA.flash_attention_fused(q, k, v, q_chunk=77, kv_chunk=77),
                 ref.flash_attention_ref(q, k, v), FP32_TOL)
-    del q, k, v
-    skip_cases(torch, timer, gen, record)
-    return rows
+
+
+def flash_order_check(torch, gen):
+    """Under ``causal`` the bf16 kernel launches the heaviest q tiles first
+    (q-tile-major, last tile first); that order and the B·H-major one give
+    bit-equal outputs at the serving shape."""
+    from repro_torch.kernels import flash_attention as FA
+
+    q, k, v = (torch.randn((256, 512, 64), generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in range(3))
+    outs = []
+    for bh_major in (False, True):
+        out = torch.empty_like(q)
+        FA._launch(q, k, v, out, True, 0, bh_major=bh_major)
+        outs.append(out)
+    torch.cuda.synchronize()
+    if not torch.equal(outs[0], outs[1]):
+        raise AssertionError("the CTA order changed the flash output")
+    log("  causal BH=256 S=512: heaviest-first order (q tile 3 of 4 of "
+        "every row first) bit-equal to the B*H-major order")
 
 
 def skip_pack(torch, w, block=128, keep=0.25, dtype=None):
@@ -848,6 +927,59 @@ def skip_cases(torch, timer, gen, record):
     check_close(f"skip fp32 256x512 block 32 keep 0.05 (share {share:.3f}, "
                 f"empty block rows {empty})", SK.bcr_spmm_skip(x, p),
                 ref.bcr_spmm_skip_ref(x, p), FP32_TOL)
+
+
+def skip_split_checks(torch, gen) -> None:
+    """The one-launch split over a block row's tiles at decode: wq (2048 x
+    2048) and MLP wo (2048 x 8192) at M = 8, lognormal block scales, two
+    block rows zeroed. The grid reaches the SM count; two launches give
+    bit-equal y (the last split sums the partials in split order); the
+    output and the workspace land in freed NaN-filled blocks and the empty
+    rows are still exact zeros; the split counters are back at zero."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bcr_spmm import split_counters
+    SK = importlib.import_module("repro_torch.kernels.bcr_spmm_skip")
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for name, n, k in (("wq", 2048, 2048), ("mlp_wo", 2048, 8192)):
+        w = torch.randn((n, k), generator=gen, device="cuda") * k ** -0.5
+        f = torch.exp(torch.randn((n // 128, 1, k // 128, 1), generator=gen,
+                                  device="cuda"))
+        w = (w.view(n // 128, 128, k // 128, 128) * f).view(n, k)
+        w[:256] = 0.0
+        p, share, empty = skip_pack(torch, w, dtype=torch.bfloat16)
+        x = torch.randn((8, k), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        plan = SK.skip_plan(tuple(p.row_start.tolist()), 8, (128, 128), sms)
+        if plan.grid < sms or not plan.parts:
+            raise AssertionError(f"{name} at M=8: grid {plan.grid}, "
+                                 f"{plan.parts} partials")
+        poison = (torch.full((plan.workspace_floats,), float("nan"),
+                             device="cuda"),
+                  torch.full((8, n), float("nan"), dtype=torch.bfloat16,
+                             device="cuda"))
+        del poison               # the allocator hands these blocks back next
+        first = SK.bcr_spmm_skip(x, p)
+        second = SK.bcr_spmm_skip(x, p)
+        torch.cuda.synchronize()
+        form = (f"{name} {n}x{k} M=8 (share {share:.4f}, empty block rows "
+                f"{empty}, {len(plan.units)} units of rows {plan.rows}, "
+                f"grid {plan.grid})")
+        if not bool(torch.isfinite(first).all()) or int(
+                torch.count_nonzero(first[:, :256])):
+            raise AssertionError(f"split {form}: empty rows are not exact "
+                                 f"zeros over NaN-filled buffers")
+        if not torch.equal(first, second):
+            raise AssertionError(f"split {form}: two launches differ")
+        check_close(f"skip split {form}, NaN-filled workspace and output",
+                    first, ref.bcr_spmm_skip_ref(x, p), BF16_TOL)
+        left = int(torch.count_nonzero(
+            split_counters(x.device, plan.counters)[:plan.counters]))
+        if left:
+            raise AssertionError(f"split {form}: {left} counters not back "
+                                 f"at zero")
+        log(f"  skip split {name}: two launches bit-equal, counters back "
+            f"at 0")
 
 
 def build_main_params(torch):
@@ -1120,6 +1252,8 @@ def kernel_family(name: str) -> str:
             else "")
     if "flash_attention" in name:
         return "flash_attention_fused"
+    if "bcr_spmm_skip" in name:
+        return "bcr_spmm_skip"
     if "bcr_spmm_grouped" in name:
         return "bcr_spmm_grouped" + int8
     if "bcr_spmm" in name:
@@ -1292,11 +1426,12 @@ def phase_trainer(torch, np, smi, num_layers=16):
     del packed, got, want
     torch.cuda.empty_cache()
 
-    # the trained projections, paper-general form: unbalanced BCR, skip pack
+    # the trained projections, paper-general form: unbalanced BCR, skip pack;
+    # the counted runs first, then the timed ones (not counted)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
     zero_counters()
-    skip_rows = []
+    skip_rows, runs = [], []
     for name, w in (("lm_head", dense["lm_head"]["w"]),
                     ("mlp_wo", dense["layers"][0]["ffn"]["wo"]["w"]),
                     ("wq", dense["layers"][0]["mixer"]["wq"]["w"])):
@@ -1312,12 +1447,22 @@ def phase_trainer(torch, np, smi, num_layers=16):
                               f"{empty}) M={m}", got, want, BF16_TOL)
             skip_rows.append(dict(weight=name, m=m, share=share,
                                   empty_block_rows=empty, max_abs_err=err))
+            runs.append((p, x))
         del p
     launches = read_counters()["bcr_spmm_skip"]
-    stats["trained_skip"] = skip_rows
     log(f"  bcr_spmm_skip launches on the trained weights: {launches}")
     if launches != len(skip_rows):
         raise AssertionError("bcr_spmm_skip did not launch once per run")
+    timer = Timer(torch)
+    for row, (p, x) in zip(skip_rows, runs):
+        byts, ops = skip_bytes_ops(p, x.shape[0])
+        row["ms"] = timer.ms(lambda: SK.bcr_spmm_skip(x, p))
+        row["bound_ms"] = max(byts / HBM_BYTES_PER_S,
+                              ops / BF16_OPS_PER_S) * 1e3
+        log(f"  trained {row['weight']} M={row['m']}: {row['ms']:.4f} ms "
+            f"(bound {row['bound_ms']:.4f} ms)")
+    stats["trained_skip"] = skip_rows
+    del runs, timer
     del dense
     torch.cuda.empty_cache()
     return stats, launches
@@ -1426,9 +1571,10 @@ def phase_resume(torch, np, tmp_dir):
 
 
 def bcr_worker(tree: str) -> int:
-    """``--bcr-worker TREE``: :func:`bcr_cases` against TREE's own
-    ``repro_torch`` (built into TREE's build directory); the rows come out
-    as one ``bcr rows:`` JSON line."""
+    """``--bcr-worker TREE``: :func:`bcr_cases`, :func:`skip_cases` and
+    :func:`flash_cases` against TREE's own ``repro_torch`` (built into
+    TREE's build directory); the rows come out as one ``bcr rows:`` JSON
+    line."""
     import torch
 
     if not torch.cuda.is_available():
@@ -1438,11 +1584,14 @@ def bcr_worker(tree: str) -> int:
     from repro_torch.kernels import build
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    build.build_all(["bcr_spmm"])
+    build.build_all(["bcr_spmm", "bcr_spmm_skip", "flash_attention"])
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     rows = []
-    bcr_cases(torch, Timer(torch), gen, recorder(torch, rows))
+    timer, record = Timer(torch), recorder(torch, rows)
+    bcr_cases(torch, timer, gen, record)
+    skip_cases(torch, timer, gen, record)
+    flash_cases(torch, timer, gen, record)
     print("bcr rows: " + json.dumps(rows), flush=True)
     return 0
 
@@ -1526,6 +1675,7 @@ def main() -> int:
         log(f"  {name}: ptxas {regs}; spills {spills or 'none'}")
     log("BCR instructions (cuobjdump -sass of the built library)")
     bcr_instruction_check(paths["bcr_spmm"])
+    tc_instruction_check(paths["bcr_spmm_skip"], paths["flash_attention"])
 
     log("phase 3, kernels against their plain versions")
     t0 = time.perf_counter()

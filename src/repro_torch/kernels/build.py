@@ -7,8 +7,10 @@ interface, compiled for Hopper only::
          -Xcompiler -fPIC -Xptxas=-v -o build/kernels/<name>-<hash>.so <name>.cu
 
 The libraries go under ``build/kernels/`` at the root of the checkout, keyed
-by a hash of the source and the flags, and are built at first use (or all
-at once, one ``nvcc`` per source started together, by :func:`build_all`).
+by a hash of the source, every ``csrc`` header it includes (``#include
+"*.cuh"``, followed through the headers) and the flags, and are built at
+first use (or all at once, one ``nvcc`` per source started together, by
+:func:`build_all`).
 ``ptxas``'s register and spill report is kept beside each library as
 ``.log``. No PyTorch header is compiled, so a build takes seconds.
 """
@@ -18,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -46,10 +49,32 @@ def sources() -> List[str]:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _sources_of(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and every ``csrc`` header it includes, directly or
+    through another header, in first-seen order."""
+    seen: List[Path] = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            dep = CSRC / inc.decode()
+            if dep.exists():
+                todo.append(dep)
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    digest = hashlib.sha256()
+    for path in _sources_of(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build_all(names: Optional[List[str]] = None) -> Dict[str, Path]:

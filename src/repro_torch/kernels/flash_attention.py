@@ -13,6 +13,13 @@ flash_attention_ref`. Each launch adds one to
 ``LAUNCHES["flash_attention_fused"]``. The kernel's own tiles do not depend
 on ``q_chunk``/``kv_chunk``; the wrapper keeps the reference's divisibility
 rule on them so both packages accept the same shapes.
+
+bf16 runs on the tensor cores (FlashAttention-2: 128 query rows a CTA, 64
+at head_dim 128, key tiles of 64, P kept in registers; both products on
+wgmma at head_dim 64, mma.sync at the others; the heaviest q tiles
+launched first under ``causal``); fp32 keeps the CUDA-core body (its 1e-4
+tolerance). The CUDA source chooses its tiles, shared memory and CTA order
+itself.
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    lib.flash_attention_launch.argtypes = ([_I] + [_P] * 4 + [_I] * 6
+    lib.flash_attention_launch.argtypes = ([_I] + [_P] * 4 + [_I] * 7
                                            + [ctypes.c_float, _P])
     lib.flash_attention_launch.restype = _I
 
@@ -81,11 +88,22 @@ def flash_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if bh == 0 or sq == 0:
         return out
+    _launch(q, k, v, out, causal, q_offset)
+    return out
+
+
+def _launch(q, k, v, out, causal: bool, q_offset: int,
+            bh_major: bool = False) -> None:
+    """One launch on checked, aligned operands. ``bh_major`` forces the
+    bf16 kernel's B·H-major CTA order where ``causal`` would launch the
+    heaviest q tiles first; the order changes no output, and only the
+    check of that sets it."""
+    bh, sq, d = q.shape
     lib = build.load("flash_attention", _declare)
     err = lib.flash_attention_launch(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), bh, sq, skv, d, int(causal), q_offset,
-        float(d ** -0.5), torch.cuda.current_stream(q.device).cuda_stream)
+        out.data_ptr(), bh, sq, k.shape[1], d, int(causal), q_offset,
+        int(bh_major), float(d ** -0.5),
+        torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "flash_attention launch")
     LAUNCHES["flash_attention_fused"] += 1
-    return out

@@ -380,6 +380,43 @@ def test_flash_attention_matches_plain(cuda, dtype, d, causal, q_offset, sq,
     _close(got, want, dtype)
 
 
+@pytest.mark.parametrize("causal,q_offset,sq,skv", [
+    (True, 0, 512, 512), (False, 0, 512, 512), (True, 0, 200, 200),
+    (True, 384, 128, 512), (False, 0, 77, 300)])
+def test_flash_attention_bf16_serving_shapes(cuda, causal, q_offset, sq,
+                                             skv):
+    """bf16 at the cold-prefill width (D = 64) and S = 512, and query
+    counts that are not a multiple of the 64-row q tile."""
+    rng = np.random.default_rng(14)
+    q, k, v = (torch.as_tensor(rng.normal(size=(16, n, 64)),
+                               dtype=torch.bfloat16, device=cuda)
+               for n in (sq, skv, skv))
+    got = FA.flash_attention_fused(q, k, v, causal=causal, q_chunk=sq,
+                                   kv_chunk=skv, q_offset=q_offset)
+    torch.cuda.synchronize()
+    want = ref.flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset)
+    _close(got, want, torch.bfloat16)
+
+
+def test_flash_attention_cta_order_changes_no_output(cuda):
+    """The heaviest-first CTA order (causal's) and the B·H-major one give
+    bit-equal outputs (each CTA owns its rows; the order only schedules
+    them), and each launch counts once."""
+    rng = np.random.default_rng(15)
+    q, k, v = (torch.as_tensor(rng.normal(size=(8, 300, 64)),
+                               dtype=torch.bfloat16, device=cuda)
+               for _ in range(3))
+    before = FA.LAUNCHES["flash_attention_fused"]
+    outs = []
+    for bh_major in (False, True):
+        out = torch.empty_like(q)
+        FA._launch(q, k, v, out, True, 0, bh_major=bh_major)
+        outs.append(out)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    assert FA.LAUNCHES["flash_attention_fused"] == before + 2
+
+
 def test_int8_wrappers_reject_bad_inputs(cuda):
     rng = np.random.default_rng(10)
     p = quantize_packed(_packed(rng, 256, 256, (128, 128), 0.25,
@@ -461,6 +498,77 @@ def test_bcr_spmm_skip_empty_rows_are_exact_zeros(cuda, dtype):
     y = SK.bcr_spmm_skip(x[:, :128].contiguous(), empty)
     torch.cuda.synchronize()
     assert torch.equal(y, torch.zeros_like(y))
+
+
+def test_bcr_spmm_skip_prefill_at_block_128(cuda):
+    """bf16 M = 2048 at the serving block (the wgmma body)."""
+    SK = importlib.import_module("repro_torch.kernels.bcr_spmm_skip")
+    rng = np.random.default_rng(16)
+    p = _skip_pack(rng, 1024, 512, (128, 128), 0.25, torch.bfloat16, cuda)
+    x = torch.as_tensor(rng.normal(size=(2048, 512)), dtype=torch.bfloat16,
+                        device=cuda)
+    plan = SK.skip_plan(tuple(p.row_start.tolist()), 2048, (128, 128),
+                        torch.cuda.get_device_properties(
+                            cuda).multi_processor_count)
+    assert plan.wgmma and plan.m_tile == 128
+    got = SK.bcr_spmm_skip(x, p)
+    torch.cuda.synchronize()
+    _close(got, ref.bcr_spmm_skip_ref(x, p), torch.bfloat16)
+
+
+def _skip_split_case(rng, dev, n, k, zero_rows=0):
+    """A full-width projection at M = 8 (wq 2048 x 2048, MLP wo 2048 x
+    8192): 16 block rows, so the plan splits them."""
+    SK = importlib.import_module("repro_torch.kernels.bcr_spmm_skip")
+    p = _skip_pack(rng, n, k, (128, 128), 0.25, torch.bfloat16, dev,
+                   zero_rows=zero_rows)
+    x = torch.as_tensor(rng.normal(size=(8, k)), dtype=torch.bfloat16,
+                        device=dev)
+    plan = SK.skip_plan(tuple(p.row_start.tolist()), 8, (128, 128),
+                        torch.cuda.get_device_properties(
+                            dev).multi_processor_count)
+    return SK, p, x, plan
+
+
+SKIP_SPLIT = [(2048, 2048), (2048, 8192)]
+
+
+@pytest.mark.parametrize("n,k", SKIP_SPLIT)
+def test_skip_split_path_is_deterministic(cuda, n, k):
+    SK, p, x, plan = _skip_split_case(np.random.default_rng(17), cuda, n, k)
+    assert plan.parts > 0 and plan.grid >= torch.cuda.get_device_properties(
+        cuda).multi_processor_count
+    first, second = SK.bcr_spmm_skip(x, p), SK.bcr_spmm_skip(x, p)
+    torch.cuda.synchronize()
+    # the last split of a row sums the partials in split order
+    assert torch.equal(first, second)
+    _close(first, ref.bcr_spmm_skip_ref(x, p), torch.bfloat16)
+
+
+@pytest.mark.parametrize("n,k", SKIP_SPLIT)
+def test_skip_split_path_over_nan_buffers(cuda, n, k):
+    SK, p, x, plan = _skip_split_case(np.random.default_rng(18), cuda, n, k,
+                                      zero_rows=256)
+    assert int(p.row_start[2]) == 0           # two empty block rows
+    ws = torch.full((plan.workspace_floats,), float("nan"),
+                    dtype=torch.float32, device=cuda)
+    y = torch.full((8, n), float("nan"), dtype=torch.bfloat16, device=cuda)
+    del ws, y              # the allocator hands these blocks back next
+    got = SK.bcr_spmm_skip(x, p)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got[:, :256], torch.zeros_like(got[:, :256]))
+    _close(got, ref.bcr_spmm_skip_ref(x, p), torch.bfloat16)
+
+
+@pytest.mark.parametrize("n,k", SKIP_SPLIT)
+def test_skip_split_counters_back_at_zero(cuda, n, k):
+    SK, p, x, plan = _skip_split_case(np.random.default_rng(19), cuda, n, k)
+    SK.bcr_spmm_skip(x, p)
+    SK.bcr_spmm_skip(x, p)
+    torch.cuda.synchronize()
+    counters = K.split_counters(cuda, plan.counters)[:plan.counters]
+    assert int(torch.count_nonzero(counters)) == 0
 
 
 def test_bcr_spmm_skip_rejects_bad_inputs(cuda):
