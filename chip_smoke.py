@@ -31,7 +31,10 @@ Phases, in order (any failed check raises and the script exits non-zero):
    forms of ``bcr_spmm``, ``bcr_spmm_grouped`` (plus the one-launch split
    at decode: MLP wo and gate/up at M = 8, two launches bit-equal, output
    and workspace in freed NaN-filled blocks, split counters back at 0)
-   and paged attention, and the
+   and paged attention (decode over lengths 1..512 and 1024..4096,
+   prefill-append of 16 rows; plus its one-launch split over pages at
+   decode and prefill-append, fp and int8 pages, checked as the BCR split
+   is, with an empty slot giving exact zeros), and the
    fused flash attention (B·H = 8·32, S in {128, 512}, causal, non-causal
    and a ``q_offset`` case; the heaviest-first CTA order bit-equal to the
    B·H-major one), and the block-skipping ``bcr_spmm_skip`` over
@@ -155,13 +158,15 @@ class Timer:
         self.flush = torch.empty(32 * 2 ** 20, dtype=torch.float32,
                                  device="cuda")
 
-    def ms(self, fn, reps=20, warmup=3) -> float:
+    def ms(self, fn, reps=20, warmup=3, flush=None) -> float:
+        """``flush``: what empties the L2 before each launch (default: the
+        128 MB write, which leaves the L2 full of dirty lines)."""
         torch = self.torch
         for _ in range(warmup):
             fn()
         times = []
         for _ in range(reps):
-            self.flush.zero_()
+            (flush or self.flush.zero_)()
             torch.cuda._sleep(1_000_000)       # ~0.5 ms of device time
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -420,39 +425,50 @@ def bcr_instruction_check(lib_path: Path) -> None:
     log("  fp32 x (every form): CUDA-core FMAs, no HMMA/HGMMA")
 
 
-def tc_instruction_check(skip_lib: Path, flash_lib: Path) -> None:
+def tc_instruction_check(skip_lib: Path, flash_lib: Path,
+                         paged_lib: Path) -> None:
     """The same for the bf16 bodies of ``bcr_spmm_skip`` (mma.sync = HMMA
-    for M tiles 8..64, wgmma = HGMMA for the 128 tile) and
-    ``flash_attention_fused`` (HGMMA at head_dim 64, HMMA at the others);
-    their CUDA-core bodies issue neither."""
+    for M tiles 8..64, wgmma = HGMMA for the 128 tile),
+    ``flash_attention_fused`` (HGMMA at head_dim 64, HMMA at the others)
+    and paged attention (HMMA over bf16 and over int8 pages, every head_dim
+    and row tile); their CUDA-core bodies run neither."""
+    kinds = (
+        (skip_lib, r"bcr_spmm_skip_tcILi(\d+)ELi(\d+)ELb([01])E",
+         lambda m: (f"bcr_spmm_skip M tile {m.group(1)}",
+                    m.group(3) == "1")),
+        (flash_lib, r"flash_attention_tcILi(\d+)EE",
+         lambda m: (f"flash_attention_fused head_dim {m.group(1)}",
+                    int(m.group(1)) == 64)),
+        (paged_lib, r"paged_attention_tcI(13__nv_bfloat16|a)Li(\d+)ELi(\d+)E",
+         lambda m: ("paged_attention "
+                    + ("int8" if m.group(1) == "a" else "bf16") + " pages",
+                    False)),
+    )
     seen = {}
-    for lib, pat in ((skip_lib,
-                      r"bcr_spmm_skip_tcILi(\d+)ELi(\d+)ELb([01])E"),
-                     (flash_lib, r"flash_attention_tcILi(\d+)EE")):
+    for lib, pat, kind_of in kinds:
         for name, (hmma, hgmma) in sass_tensor_ops(lib).items():
             m = re.search(pat, name)
             if m:
-                wg = (m.group(3) == "1" if len(m.groups()) == 3
-                      else int(m.group(1)) == 64)
+                kind, wg = kind_of(m)
                 want = "wgmma" if wg else "mma.sync"
                 got = ("wgmma" if hgmma and not hmma
                        else "mma.sync" if hmma and not hgmma else None)
                 if got != want:
                     raise AssertionError(f"{name}: {hmma} HMMA, {hgmma} "
                                          f"HGMMA; want {want}")
-                kind = ("bcr_spmm_skip M tile " if len(m.groups()) == 3
-                        else "flash_attention_fused head_dim ")
-                seen.setdefault(kind + m.group(1), set()).add(want)
+                seen.setdefault(kind, set()).add(want)
             elif "cuda_core" in name and (hmma or hgmma):
                 raise AssertionError(f"{name}: a CUDA-core body issued "
                                      f"tensor-core instructions")
-    if not any(k.startswith("bcr_spmm_skip") for k in seen) or not any(
-            k.startswith("flash") for k in seen):
-        raise AssertionError(f"tensor-core kernels missing: {sorted(seen)}")
+    for prefix in ("bcr_spmm_skip", "flash", "paged_attention bf16",
+                   "paged_attention int8"):
+        if not any(k.startswith(prefix) for k in seen):
+            raise AssertionError(f"tensor-core kernels missing ({prefix}): "
+                                 f"{sorted(seen)}")
     log("  " + "; ".join(f"{k}: {'/'.join(sorted(v))}"
                          for k, v in sorted(seen.items())))
-    log("  bcr_spmm_skip and flash CUDA-core bodies (fp32, other blocks): "
-        "no HMMA/HGMMA")
+    log("  bcr_spmm_skip, flash and paged CUDA-core bodies (fp32, other "
+        "blocks, head dims and page sizes): no HMMA/HGMMA")
 
 
 def bcr_split_checks(torch, gen) -> None:
@@ -528,7 +544,6 @@ def phase_kernels(torch, timer):
     from repro_torch.core.bcr import BCRSpec
     from repro_torch.core.bcrc import tbcrc_pack, tbcrc_unpack
     from repro_torch.kernels import bcr_spmm as K
-    from repro_torch.kernels import paged_decode_attention as PA
     from repro_torch.kernels import ref
     from repro_torch.kernels.plan import pack_group
 
@@ -565,7 +580,50 @@ def phase_kernels(torch, timer):
                 ref.bcr_spmm_grouped_ref(x, grouped, bias=bias,
                                          epilogue="swiglu"), FP32_TOL)
 
-    # -- paged attention -----------------------------------------------------
+    # -- int8 tiles ----------------------------------------------------------
+    from repro_torch.kernels.plan import quantize_grouped, quantize_packed
+
+    p = quantize_packed(pack(256, 384, torch.float32))
+    x = randn(5, 384, dtype=torch.float32)
+    check_close("int8 tiles, fp32 x 256x384 M=5", K.bcr_spmm(x, p),
+                ref.bcr_spmm_packed_ref(x, p), FP32_TOL)
+
+    grouped = quantize_grouped(pack_group(
+        [pack(256, 384, torch.float32) for _ in range(2)]))
+    x = randn(5, 384, dtype=torch.float32)
+    bias = randn(2, 256, dtype=torch.float32)
+    check_close("int8 tiles, fp32 x 2x256x384 M=5 swiglu+bias",
+                K.bcr_spmm_grouped(x, grouped, bias=bias, epilogue="swiglu"),
+                ref.bcr_spmm_grouped_ref(x, grouped, bias=bias,
+                                         epilogue="swiglu"), FP32_TOL)
+
+    paged_cases(torch, timer, gen, record)
+    log("paged attention split path (one launch)")
+    paged_split_checks(torch, gen)
+    flash_cases(torch, timer, gen, record)
+    log("flash_attention_fused CTA order (heaviest q tiles first)")
+    flash_order_check(torch, gen)
+    skip_cases(torch, timer, gen, record)
+    log("bcr_spmm_skip split path (M=8, one launch)")
+    skip_split_checks(torch, gen)
+    return rows
+
+
+def paged_cases(torch, timer, gen, record):
+    """Phase 3's paged attention cases (llama3.2-1b's attention: 32/8 heads,
+    head_dim 64, page 16), fp (bf16) and int8 pages under bf16 q: decode
+    over 8 slots of lengths 1..512 (one inactive) and 1024..4096,
+    prefill-append of 16 rows over a 100-token prefix, each checked against
+    its plain version and timed beside it and a gathered SDPA; plus small
+    fp32 cases. It uses only the wrappers' public calls, so ``--bcr-ab``
+    runs it against an older tree's package too."""
+    from repro_torch.kernels import paged_decode_attention as PA
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.quant import dequantize_rows, quantize_rows
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
     log("paged attention (bf16, 32/8 heads, head_dim 64, page 16)")
     hkv, h, d, ps = 8, 32, 64, 16
 
@@ -621,6 +679,42 @@ def phase_kernels(torch, timer):
            4 * int(lens.sum()) * h * d, torch.bfloat16,
            gathered_sdpa(q, kp, vp, bt, (lens - 1)[:, None]))
 
+    long_lens = torch.tensor([1024, 1500, 2000, 2500, 3000, 3500, 4000,
+                              4096], dtype=torch.int32, device="cuda")
+    kp, vp, bt = pages(long_lens.tolist(), torch.bfloat16)
+    q = randn(8, 1, h, d)
+    got = PA.paged_decode_attention(q, kp, vp, bt, long_lens)
+    want = ref.paged_decode_attention_ref(q, kp, vp, bt, long_lens)
+    torch.cuda.synchronize()
+    err = check_close("decode B=8 lens 1024..4096", got, want, BF16_TOL)
+    # what a plain read of the same bytes takes under the same timer, and
+    # both again with the L2 flushed by a read (clean lines, as in a decode
+    # step) instead of the write that leaves dirty lines to write back
+    pool = torch.cat([kp.flatten(), vp.flatten()])
+
+    def read_all():
+        return pool.sum(dtype=torch.float32)
+
+    def kernel():
+        return PA.paged_decode_attention(q, kp, vp, bt, long_lens)
+
+    clean = timer.flush.sum
+    log(f"    streaming yardstick ({pool.numel() * 2 / 1e6:.1f} MB K/V "
+        f"pool): torch sum {timer.ms(read_all):.4f} ms; flushed by a read: "
+        f"kernel {timer.ms(kernel, flush=clean):.4f} ms, torch sum "
+        f"{timer.ms(read_all, flush=clean):.4f} ms")
+    del pool
+    record("paged_attention", "decode B=8 lens 1024..4096", err,
+           timer.ms(lambda: PA.paged_decode_attention(q, kp, vp, bt,
+                                                      long_lens)),
+           timer.ms(lambda: ref.paged_decode_attention_ref(q, kp, vp, bt,
+                                                           long_lens)),
+           PA.paged_kv_bytes(long_lens.cpu().numpy(), ps, hkv, d, 2)
+           + 2 * q.numel() * 2 + bt.numel() * 4,
+           4 * int(long_lens.sum()) * h * d, torch.bfloat16,
+           gathered_sdpa(q, kp, vp, bt, (long_lens - 1)[:, None]))
+    del kp, vp, got, want
+
     plen = torch.full((8,), 100, dtype=torch.int32, device="cuda")
     tlen = plen + 16
     kp, vp, bt = pages(tlen.tolist(), torch.bfloat16)
@@ -655,24 +749,7 @@ def phase_kernels(torch, timer):
                 FP32_TOL)
     del kp, vp
 
-    # -- int8 forms ----------------------------------------------------------
-    from repro_torch.kernels.plan import quantize_grouped, quantize_packed
-    from repro_torch.kernels.quant import dequantize_rows, quantize_rows
-
-    p = quantize_packed(pack(256, 384, torch.float32))
-    x = randn(5, 384, dtype=torch.float32)
-    check_close("int8 tiles, fp32 x 256x384 M=5", K.bcr_spmm(x, p),
-                ref.bcr_spmm_packed_ref(x, p), FP32_TOL)
-
-    grouped = quantize_grouped(pack_group(
-        [pack(256, 384, torch.float32) for _ in range(2)]))
-    x = randn(5, 384, dtype=torch.float32)
-    bias = randn(2, 256, dtype=torch.float32)
-    check_close("int8 tiles, fp32 x 2x256x384 M=5 swiglu+bias",
-                K.bcr_spmm_grouped(x, grouped, bias=bias, epilogue="swiglu"),
-                ref.bcr_spmm_grouped_ref(x, grouped, bias=bias,
-                                         epilogue="swiglu"), FP32_TOL)
-
+    # -- int8 pages ----------------------------------------------------------
     log("paged attention int8 pages (bf16 q, 32/8 heads, head_dim 64, "
         "page 16)")
 
@@ -743,13 +820,85 @@ def phase_kernels(torch, timer):
                 FP32_TOL)
     del kc, vc, ks, vs, deq
 
-    flash_cases(torch, timer, gen, record)
-    log("flash_attention_fused CTA order (heaviest q tiles first)")
-    flash_order_check(torch, gen)
-    skip_cases(torch, timer, gen, record)
-    log("bcr_spmm_skip split path (M=8, one launch)")
-    skip_split_checks(torch, gen)
-    return rows
+
+def paged_split_checks(torch, gen) -> None:
+    """The one-launch split over pages at the serving shapes (8 slots, one
+    empty and one at 4096 positions), decode and prefill-append, fp and
+    int8 pages: the plan splits; two launches give bit-equal output (the
+    last split merges in split order); the output and the workspace land in
+    freed NaN-filled blocks and the result is still right, the empty slot
+    exact zeros; the split counters are back at zero after the calls."""
+    from repro_torch.kernels import bcr_spmm as K
+    from repro_torch.kernels import paged_decode_attention as PA
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.quant import quantize_rows
+
+    hkv, h, d, ps = 8, 32, 64, 16
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lens = [1, 37, 128, 200, 333, 511, 4096, 0]
+    per = [-(-n // ps) for n in lens]
+    n_pages = 1 + sum(per)
+    bt = torch.zeros((8, max(per)), dtype=torch.int32)
+    perm = torch.randperm(n_pages - 1, generator=gen, device="cuda").cpu() + 1
+    nxt = 0
+    for i, npg in enumerate(per):
+        bt[i, :npg] = perm[nxt:nxt + npg]
+        nxt += npg
+    bt = bt.cuda()
+    tl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    kf = torch.randn((n_pages, ps, hkv, d), generator=gen, device="cuda")
+    vf = torch.randn((n_pages, ps, hkv, d), generator=gen, device="cuda")
+    for int8 in (False, True):
+        if int8:
+            (kp, ks), (vp, vs) = quantize_rows(kf), quantize_rows(vf)
+            sc = dict(k_scale=ks, v_scale=vs)
+        else:
+            kp, vp, sc = kf.to(torch.bfloat16), vf.to(torch.bfloat16), {}
+        for s in (1, 16):
+            q = torch.randn((8, s, h, d), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            pl = torch.clamp(tl - s, min=0)
+            plan = PA.paged_plan(8, hkv, s * h // hkv, bt.shape[1], ps, sms)
+            if plan.splits < 2:
+                raise AssertionError(f"paged S={s} did not split: {plan}")
+
+            def run():
+                if s == 1:
+                    return PA.paged_decode_attention(q, kp, vp, bt, tl, **sc)
+                return PA.paged_prefill_append_attention(q, kp, vp, bt, pl,
+                                                         tl, **sc)
+
+            want = (ref.paged_decode_attention_ref(q, kp, vp, bt, tl, **sc)
+                    if s == 1 else
+                    ref.paged_prefill_append_ref(q, kp, vp, bt, pl, tl, **sc))
+            poison = (torch.full((plan.workspace_floats(d),), float("nan"),
+                                 device="cuda"),
+                      torch.full(q.shape, float("nan"), dtype=torch.bfloat16,
+                                 device="cuda"))
+            del poison           # the allocator hands these blocks back next
+            first = run()
+            second = run()
+            torch.cuda.synchronize()
+            form = ("int8 " if int8 else "") + (
+                "decode" if s == 1 else "prefill-append S=16")
+            if not bool(torch.isfinite(first).all()) \
+                    or int(torch.count_nonzero(first[-1])):
+                raise AssertionError(f"paged split {form}: non-finite output "
+                                     f"or a non-zero empty slot over "
+                                     f"NaN-filled buffers")
+            if not torch.equal(first, second):
+                raise AssertionError(f"paged split {form}: two launches "
+                                     f"differ")
+            check_close(f"paged split {form} (S={plan.splits}, grid "
+                        f"{plan.grid}, NaN-filled workspace and output)",
+                        first[:-1], want[:-1], BF16_TOL)
+            left = int(torch.count_nonzero(
+                K.split_counters(q.device, plan.units)[:plan.units]))
+            if left:
+                raise AssertionError(f"paged split {form}: {left} counters "
+                                     f"not back at zero")
+            log(f"  paged split {form}: two launches bit-equal, counters "
+                f"back at 0, empty slot zeros")
 
 
 def flash_cases(torch, timer, gen, record):
@@ -1571,10 +1720,10 @@ def phase_resume(torch, np, tmp_dir):
 
 
 def bcr_worker(tree: str) -> int:
-    """``--bcr-worker TREE``: :func:`bcr_cases`, :func:`skip_cases` and
-    :func:`flash_cases` against TREE's own ``repro_torch`` (built into
-    TREE's build directory); the rows come out as one ``bcr rows:`` JSON
-    line."""
+    """``--bcr-worker TREE``: :func:`bcr_cases`, :func:`paged_cases`,
+    :func:`skip_cases` and :func:`flash_cases` against TREE's own
+    ``repro_torch`` (built into TREE's build directory); the rows come out
+    as one ``bcr rows:`` JSON line."""
     import torch
 
     if not torch.cuda.is_available():
@@ -1584,12 +1733,14 @@ def bcr_worker(tree: str) -> int:
     from repro_torch.kernels import build
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    build.build_all(["bcr_spmm", "bcr_spmm_skip", "flash_attention"])
+    build.build_all(["bcr_spmm", "bcr_spmm_skip", "flash_attention",
+                     "paged_attention"])
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     rows = []
     timer, record = Timer(torch), recorder(torch, rows)
     bcr_cases(torch, timer, gen, record)
+    paged_cases(torch, timer, gen, record)
     skip_cases(torch, timer, gen, record)
     flash_cases(torch, timer, gen, record)
     print("bcr rows: " + json.dumps(rows), flush=True)
@@ -1675,7 +1826,8 @@ def main() -> int:
         log(f"  {name}: ptxas {regs}; spills {spills or 'none'}")
     log("BCR instructions (cuobjdump -sass of the built library)")
     bcr_instruction_check(paths["bcr_spmm"])
-    tc_instruction_check(paths["bcr_spmm_skip"], paths["flash_attention"])
+    tc_instruction_check(paths["bcr_spmm_skip"], paths["flash_attention"],
+                         paths["paged_attention"])
 
     log("phase 3, kernels against their plain versions")
     t0 = time.perf_counter()

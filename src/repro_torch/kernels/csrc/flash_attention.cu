@@ -349,33 +349,6 @@ __host__ __device__ constexpr bool wgmma_body() {
   return D == 64;
 }
 
-// Byte offset of 16-byte chunk c of row r in a tile of D-wide bf16 rows,
-// the chunk XOR-swizzled by row so 8 lanes reading one chunk column of 8
-// rows hit 8 distinct bank groups.
-template <int D>
-__device__ __forceinline__ uint32_t off(int r, int c) {
-  constexpr int RB = D * 2;
-  const int sw = RB >= 128 ? (r & 7) : RB == 64 ? ((r >> 1) & 3)
-                                                : ((r >> 2) & 1);
-  return r * RB + ((c ^ sw) << 4);
-}
-
-// 16 bytes global → shared, asynchronously; zeros when !ok.
-__device__ __forceinline__ void cp16(uint32_t dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // Rows [r0, r0 + R) of a (S, D) bf16 matrix into a swizzled tile.
 template <int D, int R>
 __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
@@ -445,22 +418,6 @@ __device__ __forceinline__ void fence_regs(float (&d)[A][B][4]) {
     for (int j = 0; j < B; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[i][j][e]));
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 // CTAs an SM, as the register bound asks: three at head_dim 64, else two

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels:
-// mbarriers, TMA and bulk copies, ldmatrix, mma.sync and wgmma, and the
-// host-side tensor-map encoder. Included by bcr_spmm.cu, bcr_spmm_skip.cu
-// and flash_attention.cu; kernels/build.py hashes it into each library's
-// key, so an edited header rebuilds every source that includes it.
+// mbarriers, TMA, bulk and cp.async copies, swizzled tile offsets,
+// ldmatrix, mma.sync and wgmma, the softmax's exp2 and quad reductions, and
+// the host-side tensor-map encoder. Included by every csrc/*.cu;
+// kernels/build.py hashes it into each library's key, so an edited header
+// rebuilds every source that includes it.
 
 #pragma once
 
@@ -71,6 +72,40 @@ __device__ __forceinline__ void tma2d(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
+// 16 bytes global → shared, asynchronously; zeros when !ok.
+__device__ __forceinline__ void cp16(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes global → shared, asynchronously; zeros when !ok.
+__device__ __forceinline__ void cp4(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Byte offset of 16-byte chunk c of row r in a tile of D-wide bf16 rows,
+// the chunk XOR-swizzled by row so 8 lanes reading one chunk column of 8
+// rows hit 8 distinct bank groups.
+template <int D>
+__device__ __forceinline__ uint32_t off(int r, int c) {
+  constexpr int RB = D * 2;
+  const int sw = RB >= 128 ? (r & 7) : RB == 64 ? ((r >> 1) & 3)
+                                                : ((r >> 2) & 1);
+  return r * RB + ((c ^ sw) << 4);
+}
+
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -133,6 +168,24 @@ __device__ __forceinline__ void wgmma_wait() {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// max / sum over the quad of lanes that holds one row of an m16n8
+// accumulator fragment
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 // Host side: tensor maps for the TMA copies, encoded through the driver

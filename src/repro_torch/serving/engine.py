@@ -56,8 +56,12 @@ def sample_tokens(logits: torch.Tensor, generator: torch.Generator,
                   use_topk: bool = True) -> torch.Tensor:
     """Per-slot sampling: temps==0 → greedy (first maximal index, as
     ``jnp.argmax``); topks>0 → top-k filtering. logits (B, V); temps (B,);
-    topks (B,). Sampled tokens come from ``generator``; they match the
-    reference only in distribution."""
+    topks (B,). Sampled rows take the Gumbel-max draw ``argmax(z + g)``,
+    ``g = -log(-log(u))`` with ``u`` uniform from ``generator`` — what the
+    reference's ``jax.random.categorical`` computes — so a NaN or ±inf row
+    still yields a token (the engine counts it in
+    ``stats["nonfinite_rows"]``) and never aborts the batch. Tokens match
+    the reference only in distribution."""
     logits = logits.float()
     v = logits.shape[-1]
     greedy = torch.argmax(logits, dim=-1)
@@ -69,8 +73,9 @@ def sample_tokens(logits: torch.Tensor, generator: torch.Generator,
         allow = (topks[:, None] <= 0) | (logits >= kth)
         z = torch.where(allow, logits, torch.full_like(logits, -float("inf")))
     z = z / torch.clamp(temps, min=1e-6)[:, None]
-    sampled = torch.multinomial(torch.softmax(z, dim=-1), 1,
-                                generator=generator)[:, 0]
+    u = torch.rand(z.shape, generator=generator, device=z.device)
+    gumbel = -torch.log(-torch.log(u.clamp_(min=torch.finfo(u.dtype).tiny)))
+    sampled = torch.argmax(z + gumbel, dim=-1)
     return torch.where(temps > 0, sampled, greedy).to(torch.int32)
 
 

@@ -585,3 +585,127 @@ def test_bcr_spmm_skip_rejects_bad_inputs(cuda):
                               row_mask=None, row_start=None)
     with pytest.raises(ValueError):
         SK.bcr_spmm_skip(x.bfloat16(), bad)        # unsorted bi
+
+
+# -- paged attention: the one-launch split over pages ----------------------
+
+
+SPLIT_LENS = [4096, 0, 1, 1000, 17, 2053]   # an empty slot; long and short
+
+
+def _paged_split_inputs(rng, dev, dtype, ps, d, g, int8, s=1, hkv=2,
+                        lens=SPLIT_LENS):
+    """Slots over ``lens`` cached positions (decode: ``s`` = 1 at
+    ``len - 1``; prefill-append: the last ``s`` positions of each slot are
+    the suffix), fp or int8 pages; returns the call's arguments and the
+    plan the wrapper takes for them."""
+    kp, vp, bt = _pages(rng, lens, ps, hkv, d,
+                        torch.float32 if int8 else dtype, dev)
+    scales = {}
+    if int8:
+        kp, vp, ks, vs = _int8_pages(kp, vp)
+        scales = dict(k_scale=ks, v_scale=vs)
+    q = torch.as_tensor(rng.normal(size=(len(lens), s, hkv * g, d)),
+                        dtype=dtype, device=dev)
+    tl = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+    pl = torch.clamp(tl - s, min=0)
+    plan = PA.paged_plan(
+        len(lens), hkv, s * g, bt.shape[1], ps,
+        torch.cuda.get_device_properties(dev).multi_processor_count,
+        row_tile=None if PA.tensor_core_body(
+            dtype if int8 else kp.dtype, kp.dtype, d, ps)
+        else PA.cuda_core_row_tile(s * g, d, ps))
+    return q, kp, vp, bt, pl, tl, scales, plan
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ps", [8, 16, 32])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("g", [1, 4, 8])
+def test_paged_split_decode_matches_plain(cuda, int8, dtype, ps, d, g):
+    """Lengths up to 4096 split over CTAs (tensor-core body at bf16 q and
+    pages of 16/32, CUDA-core body at fp32 or page 8)."""
+    q, kp, vp, bt, pl, tl, sc, plan = _paged_split_inputs(
+        np.random.default_rng(20), cuda, dtype, ps, d, g, int8)
+    assert plan.splits > 1
+    key = "paged_attention_int8" if int8 else "paged_attention"
+    before = PA.LAUNCHES[key]
+    got = PA.paged_decode_attention(q, kp, vp, bt, tl, **sc)
+    torch.cuda.synchronize()
+    assert PA.LAUNCHES[key] == before + 1
+    want = ref.paged_decode_attention_ref(q, kp, vp, bt, tl, **sc)
+    live = tl > 0
+    _close(got[live], want[live], dtype)
+    assert torch.count_nonzero(got[~live]) == 0
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("s", [16, 40])
+def test_paged_split_prefill_append_matches_plain(cuda, int8, s):
+    q, kp, vp, bt, pl, tl, sc, plan = _paged_split_inputs(
+        np.random.default_rng(21), cuda, torch.bfloat16, 16, 64, 4, int8,
+        s=s, lens=[4096, 100 + s, s, 2053])
+    assert plan.splits > 1
+    got = PA.paged_prefill_append_attention(q, kp, vp, bt, pl, tl, **sc)
+    torch.cuda.synchronize()
+    want = ref.paged_prefill_append_ref(q, kp, vp, bt, pl, tl, **sc)
+    _close(got, want, torch.bfloat16)
+
+
+def _serving_split_case(dev, int8, s):
+    """llama3.2-1b's attention (8 kv-heads, G = 4, head_dim 64, page 16) over
+    8 slots, one of them empty."""
+    return _paged_split_inputs(
+        np.random.default_rng(22 + s), dev, torch.bfloat16, 16, 64, 4, int8,
+        s=s, hkv=8, lens=[1, 37, 128, 200, 333, 511, 4096, 0])
+
+
+def _paged_call(q, kp, vp, bt, pl, tl, sc):
+    if q.shape[1] == 1:
+        return PA.paged_decode_attention(q, kp, vp, bt, tl, **sc)
+    return PA.paged_prefill_append_attention(q, kp, vp, bt, pl, tl, **sc)
+
+
+SPLIT_CALLS = [(False, 1), (True, 1), (False, 16), (True, 16)]
+
+
+@pytest.mark.parametrize("int8,s", SPLIT_CALLS)
+def test_paged_split_is_deterministic(cuda, int8, s):
+    *args, plan = _serving_split_case(cuda, int8, s)
+    assert plan.splits > 1
+    first, second = _paged_call(*args), _paged_call(*args)
+    torch.cuda.synchronize()
+    # the last split merges the partials in split order: bit-equal launches
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("int8,s", SPLIT_CALLS)
+def test_paged_split_over_nan_buffers(cuda, int8, s):
+    q, kp, vp, bt, pl, tl, sc, plan = _serving_split_case(cuda, int8, s)
+    # freed NaN-filled blocks of the workspace's and the output's sizes: the
+    # allocator hands them back to the call
+    ws = torch.full((plan.workspace_floats(64),), float("nan"),
+                    dtype=torch.float32, device=cuda)
+    out = torch.full(q.shape, float("nan"), dtype=torch.bfloat16,
+                     device=cuda)
+    del ws, out
+    got = _paged_call(q, kp, vp, bt, pl, tl, sc)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    # the empty slot: exact zeros
+    assert torch.count_nonzero(got[-1]) == 0
+    want = (ref.paged_decode_attention_ref(q, kp, vp, bt, tl, **sc)
+            if s == 1 else
+            ref.paged_prefill_append_ref(q, kp, vp, bt, pl, tl, **sc))
+    _close(got[:-1], want[:-1], torch.bfloat16)
+
+
+@pytest.mark.parametrize("int8,s", SPLIT_CALLS)
+def test_paged_split_counters_back_at_zero(cuda, int8, s):
+    *args, plan = _serving_split_case(cuda, int8, s)
+    _paged_call(*args)
+    _paged_call(*args)
+    torch.cuda.synchronize()
+    counters = K.split_counters(cuda, plan.units)[:plan.units]
+    assert int(torch.count_nonzero(counters)) == 0

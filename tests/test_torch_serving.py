@@ -152,6 +152,55 @@ def test_sample_tokens_greedy_and_topk():
         assert 0 <= tok[2] < 50
 
 
+@pytest.mark.parametrize("use_topk", [False, True])
+@pytest.mark.parametrize("nan_row", [0, 1])
+def test_sample_tokens_survives_nonfinite_rows(nan_row, use_topk):
+    """A batch mixing a sampled row (temperature 1) and a greedy one, where
+    one row holds a NaN and the other a +inf: every row still gets a token
+    in range, and the +inf row's token is the +inf index. (Gumbel-max, as
+    ``jax.random.categorical``; a softmax + multinomial raised here.)"""
+    g = torch.Generator().manual_seed(0)
+    logits = torch.as_tensor(np.random.default_rng(1).normal(size=(2, 16)),
+                             dtype=torch.float32)
+    logits[nan_row, 3] = float("nan")
+    logits[1 - nan_row, 5] = float("inf")
+    temps = torch.as_tensor([1.0, 0.0])
+    topks = torch.as_tensor([4, 0] if use_topk else [0, 0],
+                            dtype=torch.int32)
+    tok = sample_tokens(logits, g, temps, topks, use_topk=use_topk)
+    assert tok.dtype == torch.int32 and tok.shape == (2,)
+    assert all(0 <= int(t) < 16 for t in tok)
+    assert int(tok[1 - nan_row]) == 5
+
+
+def test_engine_counts_one_nonfinite_row():
+    """One decode step whose logits carry a NaN row, in a batch that samples
+    (one slot at temperature 1): every request still completes and the
+    engine counts exactly one non-finite row."""
+    cfg = _cfg(keep=0.0)
+    eng = InferenceEngine(cfg, build_params(cfg, device="cpu"),
+                          EngineConfig(n_slots=2, capacity=64, page_size=4),
+                          device="cpu")
+    inner, calls = eng.fns.decode_step, []
+
+    def poisoned(params, batch, cache):
+        logits, cache = inner(params, batch, cache)
+        calls.append(1)
+        if len(calls) == 1:
+            logits = logits.clone()
+            logits[1] = float("nan")
+        return logits, cache
+
+    eng.fns = dataclasses.replace(eng.fns, decode_step=poisoned)
+    prompts = _prompts(cfg.vocab_size)
+    eng.submit(prompts[0], max_new_tokens=GEN, temperature=1.0)
+    eng.submit(prompts[1], max_new_tokens=GEN)
+    done = eng.run()
+    assert len(calls) > 1
+    assert sorted(len(r.generated) for r in done) == [GEN, GEN]
+    assert eng.stats["nonfinite_rows"] == 1
+
+
 def test_engine_matches_reference_engine_tokens():
     """The reference engine and the port's, both paged, on the same packed
     weights (converted), give the same greedy tokens (fp32 KV pages)."""
