@@ -32,7 +32,8 @@ Phases, in order (any failed check raises and the script exits non-zero):
    at decode: MLP wo and gate/up at M = 8, two launches bit-equal, output
    and workspace in freed NaN-filled blocks, split counters back at 0)
    and paged attention (decode over lengths 1..512 and 1024..4096,
-   prefill-append of 16 rows; plus its one-launch split over pages at
+   prefill-append of 16 rows over 100 and of 64 rows over 384 (phase 9a's
+   append admission); plus its one-launch split over pages at
    decode and prefill-append, fp and int8 pages, checked as the BCR split
    is, with an empty slot giving exact zeros), and the
    fused flash attention (B·H = 8·32, S in {128, 512}, causal, non-causal
@@ -78,7 +79,25 @@ Phases, in order (any failed check raises and the script exits non-zero):
 8. Checkpoint resume on the card: 2 layers (vocab cut to 8192), the same
    phases; a run stopped at step 4 (mid-ADMM, ``save_async``) and resumed
    must repeat the uninterrupted run's losses.
-9. The card's line, the ``kernels`` JSON line, and the contract line.
+9. Prefix cache and lifecycle. (a) Full width and depth, the weights of
+   phases 4 and 5, 8 slots, page 16, capacity 640, ``prefix_cache=True``:
+   two 384-token system prompts (24 full pages each) served once each so
+   their pages park on the LRU, then 16 requests (a system prompt in turn
+   plus a unique 16..64-token suffix, 32 greedy tokens each) in two waves
+   of 8; exactly 6144 hit tokens over 384 adopted pages, no copy, fewer
+   pages allocated than the same traffic unshared, conservation after the
+   drain; TTFT p50 hit against cold, one append and one cold admission
+   profiled by kernel family, the paged kernel's prefill-append launches.
+   Once bf16, once over int8 tiles, int8 KV and the flash cold prefill.
+   (b) fp32, full width, 2 layers, phase 6's near-tie rule: shared =
+   unshared = naive on shared-prefix traffic, a full-prompt hit (a page
+   copied) and staggered sharing, over fp32 and int8 KV; preemption under
+   an oversubscribed pool and ``recover()`` mid-run give the naive tokens;
+   a seeded fault-injector chaos run over 32 requests fails exactly its
+   NaN victims and leaks no page.
+
+Then the card's line, the ``kernels`` JSON line (the paged entries with
+their prefill-append launches and time), and the contract line.
 """
 
 from __future__ import annotations
@@ -128,6 +147,8 @@ KERNELS = {
                       f"{REPO}/kernels/bcr_spmm_skip.py:120",
                       "lm_head 128256x2048 M=8"),
 }
+# phase 3's paged case at phase 9a's append admission
+APPEND_SHAPE = "prefill-append B=8 S=64 prefix 384"
 FP_KERNELS = ("bcr_spmm", "bcr_spmm_grouped", "paged_attention")
 INT8_KERNELS = ("bcr_spmm_int8", "bcr_spmm_grouped_int8",
                 "paged_attention_int8")
@@ -200,22 +221,25 @@ def _library_sdpa(torch, q, k, v, mask, is_causal=False):
 
 
 def counters():
-    """The launch counters of every kernel wrapper, by module."""
+    """The launch counters of every kernel wrapper, by module, each with the
+    suffix its keys take in :func:`read_counters` (the paged wrapper's
+    prefill-append launches are counted apart under ``*_append``)."""
     from repro_torch.kernels import bcr_spmm as K
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import paged_decode_attention as PA
     from repro_torch.kernels.bcr_spmm_skip import LAUNCHES as SKIP
-    return (K.LAUNCHES, PA.LAUNCHES, FA.LAUNCHES, SKIP)
+    return (("", K.LAUNCHES), ("", PA.LAUNCHES), ("", FA.LAUNCHES),
+            ("", SKIP), ("_append", PA.APPEND_LAUNCHES))
 
 
 def zero_counters():
-    for c in counters():
+    for _, c in counters():
         for key in c:
             c[key] = 0
 
 
 def read_counters():
-    return {k: v for c in counters() for k, v in c.items()}
+    return {k + suffix: v for suffix, c in counters() for k, v in c.items()}
 
 
 def recorder(torch, rows):
@@ -613,7 +637,8 @@ def paged_cases(torch, timer, gen, record):
     """Phase 3's paged attention cases (llama3.2-1b's attention: 32/8 heads,
     head_dim 64, page 16), fp (bf16) and int8 pages under bf16 q: decode
     over 8 slots of lengths 1..512 (one inactive) and 1024..4096,
-    prefill-append of 16 rows over a 100-token prefix, each checked against
+    prefill-append of 16 rows over a 100-token prefix and of 64 rows over
+    a 384-token prefix (phase 9a's append admission), each checked against
     its plain version and timed beside it and a gathered SDPA; plus small
     fp32 cases. It uses only the wrappers' public calls, so ``--bcr-ab``
     runs it against an older tree's package too."""
@@ -733,6 +758,28 @@ def paged_cases(torch, timer, gen, record):
            + 2 * q.numel() * 2, 4 * 8 * 16 * 108 * h * d, torch.bfloat16,
            gathered_sdpa(q, kp, vp, bt, qpos))
 
+    # the prefix cache's append admission at phase 9a's shape: a 64-row
+    # suffix bucket over a 384-token cached prefix (24 full pages), 8 rows
+    aplen = torch.full((8,), 384, dtype=torch.int32, device="cuda")
+    atlen = aplen + 64
+    kp, vp, bt = pages(atlen.tolist(), torch.bfloat16)
+    q = randn(8, 64, h, d)
+    got = PA.paged_prefill_append_attention(q, kp, vp, bt, aplen, atlen)
+    want = ref.paged_prefill_append_ref(q, kp, vp, bt, aplen, atlen)
+    torch.cuda.synchronize()
+    err = check_close("prefill-append B=8 S=64 over 384", got, want,
+                      BF16_TOL)
+    aqpos = aplen[:, None] + torch.arange(64, device="cuda")[None]
+    aops = 4 * 8 * (64 * 384 + 64 * 65 // 2) * h * d
+    record("paged_attention", APPEND_SHAPE, err,
+           timer.ms(lambda: PA.paged_prefill_append_attention(
+               q, kp, vp, bt, aplen, atlen)),
+           timer.ms(lambda: ref.paged_prefill_append_ref(q, kp, vp, bt,
+                                                         aplen, atlen)),
+           PA.paged_kv_bytes(atlen.cpu().numpy(), ps, hkv, d, 2)
+           + 2 * q.numel() * 2, aops, torch.bfloat16,
+           gathered_sdpa(q, kp, vp, bt, aqpos))
+
     small = torch.tensor([5, 0, 23], dtype=torch.int32, device="cuda")
     kp, vp, bt = pages([5, 1, 23], torch.float32)
     q = randn(3, 1, h, d, dtype=torch.float32)
@@ -800,6 +847,24 @@ def paged_cases(torch, timer, gen, record):
            PA.paged_kv_bytes(tlen.cpu().numpy(), ps, hkv, d, 1, 4)
            + 2 * q.numel() * 2, 4 * 8 * 16 * 108 * h * d, torch.bfloat16,
            gathered_sdpa(q, *deq, bt, qpos))
+
+    kc, vc, ks, vs, bt, deq = int8_pages(atlen.tolist())
+    q = randn(8, 64, h, d)
+    got = PA.paged_prefill_append_attention(q, kc, vc, bt, aplen, atlen,
+                                            k_scale=ks, v_scale=vs)
+    want = ref.paged_prefill_append_ref(q, kc, vc, bt, aplen, atlen,
+                                        k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    err = check_close("int8 prefill-append B=8 S=64 over 384", got, want,
+                      BF16_TOL)
+    record("paged_attention_int8", APPEND_SHAPE, err,
+           timer.ms(lambda: PA.paged_prefill_append_attention(
+               q, kc, vc, bt, aplen, atlen, k_scale=ks, v_scale=vs)),
+           timer.ms(lambda: ref.paged_prefill_append_ref(
+               q, kc, vc, bt, aplen, atlen, k_scale=ks, v_scale=vs)),
+           PA.paged_kv_bytes(atlen.cpu().numpy(), ps, hkv, d, 1, 4)
+           + 2 * q.numel() * 2, aops, torch.bfloat16,
+           gathered_sdpa(q, *deq, bt, aqpos))
 
     kc, vc, ks, vs, bt, _ = int8_pages([5, 1, 23])
     q = randn(3, 1, h, d, dtype=torch.float32)
@@ -1186,9 +1251,9 @@ def serve_main_path(torch, np, cfg, params, ec, label, frac):
                               for r in done):
         raise AssertionError(f"{label}: not every request FINISHED with 32 "
                              f"tokens")
-    if engine.stats["nonfinite_rows"]:
-        raise AssertionError(f"{label}: {engine.stats['nonfinite_rows']} "
-                             f"sampled logit rows were not finite")
+    if engine.stats["failed"]:
+        raise AssertionError(f"{label}: {engine.stats['failed']} requests "
+                             f"FAILED on non-finite logits")
     ttft = [(r.first_token_time - r.submit_time) * 1e3 for r in done]
     stats = dict(
         tokens_per_s=engine.stats["tokens_generated"] / wall,
@@ -1312,6 +1377,20 @@ HOST_FUNCTIONS = ("step", "decode_step", "layer_apply", "attention_apply",
                   "_paged_attention", "_sample")
 
 
+def device_events(torch, prof):
+    """``(name, count, ms)`` of each device-side kernel and copy event with
+    time in a ``torch.profiler`` window: a CPU op's own entry repeats the
+    device time of the kernels it launched, so only device events count."""
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        if us > 0:
+            yield ev.key, ev.count, us / 1e3
+
+
 def profile_decode(torch, engine, rng, cfg, steps=5):
     """Device time of steady decode steps (8 live slots) under
     ``torch.profiler``: the sum of kernel time per step, by kernel family,
@@ -1354,16 +1433,8 @@ def profile_decode(torch, engine, rng, cfg, steps=5):
         if "repro_torch" in path and fn in host_fn_ms:
             host_fn_ms[fn] += cum * 1e3 / steps
     by_name = {}
-    for ev in prof.key_averages():
-        # device-side kernel and copy events only: a CPU op's own entry
-        # repeats the device time of the kernels it launched
-        if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = getattr(ev, "self_cuda_time_total", 0)
-        if us > 0:
-            by_name[ev.key] = by_name.get(ev.key, 0.0) + us / 1e3 / steps
+    for name, _, ms in device_events(torch, prof):
+        by_name[name] = by_name.get(name, 0.0) + ms / steps
     # host side: the PyTorch ops of the step by self CPU time (the profiler
     # slows each op, so these rank the host's costs, they do not add up to
     # the unprofiled wall)
@@ -1419,20 +1490,56 @@ def _weight_bytes(params) -> int:
     return tree_bytes({k: v for k, v in params.items() if k != "embed"})
 
 
+def near_tie_check(torch, cfg, params, prompts, got, gen, tie, what):
+    """Hold each engine token list in ``got`` to the naive ``generate``
+    oracle's greedy tokens for its prompt: equal, except that a first
+    difference where the oracle's two logits lie within ``tie`` (relative)
+    of each other counts as a near-tie and ends that request's comparison
+    (later tokens follow another history). Returns the near-tie count."""
+    from repro_torch.launch.serve import generate
+
+    near_ties = 0
+    for p, toks in zip(prompts, got):
+        naive = generate(cfg, params, torch.as_tensor(p)[None],
+                         gen_tokens=gen, page_size=16)
+        want = naive["tokens"][0].tolist()
+        if len(toks) != len(want):
+            raise AssertionError(f"{what}: {len(toks)} tokens, the oracle "
+                                 f"{len(want)}")
+        for i, (a, b) in enumerate(zip(toks, want)):
+            if a == b:
+                continue
+            la = float(naive["logits"][0, i, a])
+            lb = float(naive["logits"][0, i, b])
+            if abs(la - lb) < tie * max(abs(la), abs(lb)):
+                near_ties += 1
+                break
+            raise AssertionError(f"{what}: engine token {a} != naive {b} at "
+                                 f"step {i} (logits {la} vs {lb})")
+    return near_ties
+
+
+def fp32_cfg(num_layers=2, **over):
+    """llama3.2-1b at full width, fp32 activations, BCR keep 0.25 with
+    128x128 blocks: the correctness configuration of phases 6 and 9b."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("llama3.2-1b"),
+                               num_layers=num_layers, dtype="float32",
+                               bcr_keep_frac=0.25, bcr_block=(128, 128),
+                               **over)
+
+
 def phase_engine_vs_naive(torch, np, quantized=False):
     """The engine's greedy tokens against the naive ``generate`` oracle on
     the same params, fp32 activations, full width, 2 layers. Quantized:
     int8 tiles, int8 KV and the flash cold prefill on both sides; a near-tie
     there is 1e-3 relative (one K/V code at a rounding boundary moves a
     logit by about that much), else 1e-4."""
-    from repro_torch.configs import get_config
-    from repro_torch.launch.serve import build_params, generate
+    from repro_torch.launch.serve import build_params
     from repro_torch.serving import EngineConfig, InferenceEngine
 
     over = (dict(attn_impl="pallas", kv_dtype="int8") if quantized else {})
-    cfg = dataclasses.replace(get_config("llama3.2-1b"), num_layers=2,
-                              dtype="float32", bcr_keep_frac=0.25,
-                              bcr_block=(128, 128), **over)
+    cfg = fp32_cfg(**over)
     params = build_params(cfg, seed=1, device="cuda",
                           weight_dtype="int8" if quantized else "")
     rng = np.random.default_rng(1)
@@ -1443,26 +1550,319 @@ def phase_engine_vs_naive(torch, np, quantized=False):
         n_slots=2, capacity=640, page_size=16, seed=0,
         kv_dtype=cfg.kv_dtype), device="cuda")
     got = engine.generate(prompts, max_new_tokens=gen)
-    tie = 1e-3 if quantized else 1e-4
-    near_ties = 0
-    for p, toks in zip(prompts, got):
-        naive = generate(cfg, params, torch.as_tensor(p)[None],
-                         gen_tokens=gen, page_size=16)
-        want = naive["tokens"][0].tolist()
-        for i, (a, b) in enumerate(zip(toks, want)):
-            if a == b:
-                continue
-            la = float(naive["logits"][0, i, a])
-            lb = float(naive["logits"][0, i, b])
-            if abs(la - lb) < tie * max(abs(la), abs(lb)):
-                near_ties += 1     # later tokens follow another history
-                break
-            raise AssertionError(f"engine token {a} != naive {b} at step {i} "
-                                 f"(logits {la} vs {lb})")
     what = "int8 tiles + int8 KV + flash prefill" if quantized else "bf16 cfg"
+    near_ties = near_tie_check(torch, cfg, params, prompts, got, gen,
+                               1e-3 if quantized else 1e-4, what)
     log(f"engine vs naive generate ({what}, fp32, 2 layers, 4 requests): "
         f"tokens equal, near-ties {near_ties}")
     return near_ties
+
+
+# -- phase 9: the prefix cache and the request lifecycle ---------------------
+
+SYSTEM_LEN = 384                  # 24 full pages of 16
+SUFFIX_LENS = (16, 32, 48, 64)
+
+
+def prefix_traffic(np, vocab, seed=9):
+    """Phase 9a's traffic: two system prompts of ``SYSTEM_LEN`` tokens, a
+    seed request for each (the system prompt alone), and 16 requests of a
+    system prompt in turn plus a unique suffix of 16..64 tokens."""
+    rng = np.random.default_rng(seed)
+    systems = [rng.integers(0, vocab, size=SYSTEM_LEN).astype(np.int32)
+               for _ in range(2)]
+    reqs = [np.concatenate([systems[i % 2], rng.integers(
+        0, vocab, size=SUFFIX_LENS[i % 4]).astype(np.int32)])
+        for i in range(16)]
+    return systems, reqs
+
+
+def profile_admission(torch, engine, prompts):
+    """Device time of the step that admits ``prompts`` (one batched
+    admission plus that step's decode) under ``torch.profiler``, by kernel
+    family, and the paged kernel's prefill-append launches in it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for p in prompts:
+        engine.submit(p, max_new_tokens=4)
+    torch.cuda.synchronize()
+    zero_counters()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        engine.step()
+        torch.cuda.synchronize()
+    counts = read_counters()
+    families = {}
+    for name, _, ms in device_events(torch, prof):
+        fam = kernel_family(name)
+        families[fam] = families.get(fam, 0.0) + ms
+    engine.run()
+    return dict(device_ms=sum(families.values()), by_family_ms=families,
+                append_launches=counts["paged_attention_append"]
+                + counts["paged_attention_int8_append"])
+
+
+def serve_prefix_traffic(torch, np, cfg, params, ec, systems, reqs):
+    """Seed requests first (their pages park on the LRU), then the 16
+    requests in two waves of 8, each drained before the next, so a TTFT
+    is an admission's latency, not queueing behind the first wave. Counters
+    are zeroed after the seeds and read after the waves."""
+    from repro_torch.serving import FINISHED, InferenceEngine
+
+    engine = InferenceEngine(cfg, params, ec, device="cuda")
+    for p in systems:
+        engine.submit(p, max_new_tokens=8)
+    engine.run()
+    torch.cuda.synchronize()
+    engine.reset_stats()
+    zero_counters()
+    done = []
+    t0 = time.perf_counter()
+    for wave in (reqs[:8], reqs[8:]):
+        for p in wave:
+            engine.submit(p, max_new_tokens=32)
+        done += engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    if len(done) != 16 or any(r.status != FINISHED or len(r.generated) != 32
+                              for r in done):
+        raise AssertionError("phase 9a: not every request FINISHED with 32 "
+                             "tokens")
+    engine.check_conservation()
+    ttft = [(r.first_token_time - r.submit_time) * 1e3 for r in done]
+    st = engine.stats
+    stats = dict(ttft_ms_p50=statistics.median(ttft), wall_s=wall,
+                 tokens_per_s=st["tokens_generated"] / wall,
+                 prefills=st["prefills"],
+                 **{k: st[k] for k in ("prefix_hit_tokens", "pages_shared",
+                                       "cow_copies", "evictions",
+                                       "pages_allocated")},
+                 append_launches=launches["paged_attention_append"]
+                 + launches["paged_attention_int8_append"])
+    return engine, stats, launches
+
+
+def phase_prefix_full_width(torch, np, cfg, params, quantized):
+    """Phase 9a: the prefix cache at full width and depth. The shared run
+    must hit exactly 16 x 384 tokens over 384 adopted pages, copy no page
+    (every hit is page-aligned) and allocate fewer pages than the same
+    traffic unshared; then one append admission and one cold admission of
+    8 requests are profiled."""
+    from repro_torch.serving import EngineConfig
+
+    label = "int8 tiles + int8 KV + flash prefill" if quantized else "bf16"
+    if quantized:
+        cfg = dataclasses.replace(cfg, attn_impl="pallas")
+    q = dict(kv_dtype="int8", weight_dtype="int8") if quantized else {}
+    systems, reqs = prefix_traffic(np, cfg.vocab_size)
+    runs = {}
+    for shared in (True, False):
+        ec = EngineConfig(n_slots=8, capacity=640, page_size=16, seed=0,
+                          prefix_cache=shared, **q)
+        runs[shared] = serve_prefix_traffic(torch, np, cfg, params, ec,
+                                            systems, reqs)
+    (hot, hs, hl), (cold, cs, _) = runs[True], runs[False]
+    want = dict(prefix_hit_tokens=16 * SYSTEM_LEN,
+                pages_shared=16 * SYSTEM_LEN // 16, cow_copies=0)
+    got = {k: hs[k] for k in want}
+    if got != want or hs["pages_allocated"] >= cs["pages_allocated"]:
+        raise AssertionError(f"phase 9a {label}: {got} (want {want}), pages "
+                             f"allocated {hs['pages_allocated']} shared vs "
+                             f"{cs['pages_allocated']} unshared")
+    key = "paged_attention_int8" if quantized else "paged_attention"
+    if not hl[key + "_append"]:
+        raise AssertionError(f"phase 9a {label}: the paged kernel's "
+                             f"prefill-append form never launched: {hl}")
+    rng = np.random.default_rng(11)
+    probe = [np.concatenate([systems[i % 2], rng.integers(
+        0, cfg.vocab_size, size=SUFFIX_LENS[i % 4]).astype(np.int32)])
+        for i in range(8)]
+    hs["append_admission"] = profile_admission(torch, hot, probe)
+    cs["cold_admission"] = profile_admission(torch, cold, probe)
+    hot.check_conservation()
+    cold.check_conservation()
+    log(f"phase 9a {label} shared: " + json.dumps(hs))
+    log(f"phase 9a {label} unshared: " + json.dumps(cs))
+    log(f"phase 9a {label}: prefix_hit_tokens {hs['prefix_hit_tokens']}, "
+        f"pages_shared {hs['pages_shared']}, cow_copies {hs['cow_copies']}, "
+        f"pages_allocated {hs['pages_allocated']} shared vs "
+        f"{cs['pages_allocated']} unshared; TTFT p50 "
+        f"{hs['ttft_ms_p50']:.2f} ms hit vs {cs['ttft_ms_p50']:.2f} ms cold; "
+        f"admission device {hs['append_admission']['device_ms']:.3f} ms "
+        f"append vs {cs['cold_admission']['device_ms']:.3f} ms cold; "
+        f"prefill-append launches {hl[key + '_append']}")
+    return hs, hl[key + "_append"]
+
+
+def phase_prefix_correctness(torch, np, kv_dtype):
+    """Phase 9b's token checks, fp32, full width, 2 layers: shared =
+    unshared = naive on the shared-prefix traffic, the full-prompt hit
+    (a strict prefix of a cached prompt: L-1 tokens hit through the partial
+    tail, so a page is copied) and staggered sharing while the owner
+    decodes, all under phase 6's near-tie rule."""
+    from repro_torch.launch.serve import build_params
+    from repro_torch.serving import EngineConfig, InferenceEngine
+
+    cfg = fp32_cfg(kv_dtype=kv_dtype)
+    params = build_params(cfg, seed=1, device="cuda")
+    tie = 1e-3 if kv_dtype else 1e-4
+    gen = 16
+    rng = np.random.default_rng(5)
+    system = rng.integers(0, cfg.vocab_size, size=41).astype(np.int32)
+    prompts = [np.concatenate([system, rng.integers(
+        0, cfg.vocab_size, size=n).astype(np.int32)]) for n in (5, 9, 2, 7)]
+
+    def engine(shared, **kw):
+        return InferenceEngine(cfg, params, EngineConfig(
+            n_slots=2, capacity=640, page_size=16, seed=0,
+            prefix_cache=shared, kv_dtype=kv_dtype, **kw), device="cuda")
+
+    label = f"phase 9b {kv_dtype or 'fp32'} KV"
+    cold, hot = engine(False), engine(True)
+    got_cold = cold.generate(prompts, max_new_tokens=gen)
+    got_hot = hot.generate(prompts, max_new_tokens=gen)
+    ties = near_tie_check(torch, cfg, params, prompts, got_cold, gen, tie,
+                          label + " unshared")
+    ties += near_tie_check(torch, cfg, params, prompts, got_hot, gen, tie,
+                           label + " shared")
+    if not (hot.stats["prefix_hit_tokens"] > 0
+            and hot.stats["pages_allocated"]
+            < cold.stats["pages_allocated"]):
+        raise AssertionError(f"{label}: no sharing: {hot.stats}")
+    hot.check_conservation()
+
+    long = rng.integers(0, cfg.vocab_size, size=48).astype(np.int32)
+    short = long[:40]
+    eng = engine(True)
+    [got_long] = eng.generate([long], max_new_tokens=gen)
+    rid = eng.submit(short, max_new_tokens=gen)
+    eng.step()
+    eng.pool.check_consistency()      # the copied page carries its scales
+    got_short = {r.rid: r for r in eng.run()}[rid].generated
+    ties += near_tie_check(torch, cfg, params, [long, short],
+                           [got_long, got_short], gen, tie,
+                           label + " full-prompt hit")
+    copies = eng.stats["cow_copies"]
+    if eng.stats["prefix_hit_tokens"] != 39 or copies < 1:
+        raise AssertionError(f"{label} full-prompt hit: "
+                             f"{eng.stats['prefix_hit_tokens']} hit tokens, "
+                             f"{copies} copies")
+    eng.check_conservation()
+
+    eng = engine(True)
+    ra = eng.submit(prompts[0], max_new_tokens=gen)
+    eng.step()
+    eng.step()
+    rb = eng.submit(prompts[1], max_new_tokens=gen)
+    done = {r.rid: r for r in eng.run()}
+    ties += near_tie_check(torch, cfg, params, prompts[:2],
+                           [done[ra].generated, done[rb].generated], gen,
+                           tie, label + " staggered")
+    if not eng.stats["prefix_hit_tokens"]:
+        raise AssertionError(f"{label} staggered: no hit")
+    eng.check_conservation()
+    log(f"{label}: shared = unshared = naive (traffic, full-prompt hit "
+        f"with {copies} page copied, staggered), near-ties {ties}")
+    return ties
+
+
+def phase_lifecycle(torch, np):
+    """Phase 9b's lifecycle checks, fp32, full width, 2 layers, prefix cache
+    on: preemption under an oversubscribed pool and ``recover()`` mid-run
+    give the naive tokens; a seeded chaos run over 32 requests fails
+    exactly its NaN victims and leaks nothing."""
+    from collections import Counter
+
+    from repro_torch.launch.serve import build_params
+    from repro_torch.serving import (FAILED, FINISHED, EngineConfig,
+                                     FakeClock, FaultInjector,
+                                     InferenceEngine)
+
+    cfg = fp32_cfg()
+    params = build_params(cfg, seed=1, device="cuda")
+    gen = 16
+    rng = np.random.default_rng(7)
+    pa, pb, pc = (rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+                  for n in (32, 48, 32))
+
+    def engine(**kw):
+        return InferenceEngine(cfg, params, EngineConfig(
+            n_slots=3, capacity=640, page_size=16, seed=0, prefix_cache=True,
+            **kw), device="cuda")
+
+    # A (3 pages) and B (4) fill 7 pages; C (3) stalls and B is evicted
+    eng = engine(kv_pages=8, preempt_after_stalls=1)
+    a = eng.submit(pa, max_new_tokens=gen)
+    b = eng.submit(pb, max_new_tokens=gen)
+    for _ in range(3):
+        eng.step()
+    c = eng.submit(pc, max_new_tokens=gen)
+    d = eng.submit(pa.copy(), max_new_tokens=gen)
+    done = {r.rid: r for r in eng.run()}
+    if eng.stats["preemptions"] < 1 or any(
+            done[r].status != FINISHED for r in (a, b, c, d)):
+        raise AssertionError(f"phase 9b preemption: {eng.stats}")
+    eng.check_conservation()
+    ties = near_tie_check(torch, cfg, params, [pa, pb, pc, pa],
+                          [done[r].generated for r in (a, b, c, d)], gen,
+                          1e-4, "phase 9b preemption")
+    preemptions = eng.stats["preemptions"]
+
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in (40, 17, 64, 23)]
+    eng = engine()
+    rids = [eng.submit(p, max_new_tokens=gen) for p in prompts]
+    for _ in range(4):
+        eng.step()
+    survivors = eng.recover()
+    done = {r.rid: r for r in eng.run()}
+    eng.check_conservation()
+    ties += near_tie_check(torch, cfg, params, prompts,
+                           [done[r].generated for r in rids], gen, 1e-4,
+                           "phase 9b recover")
+
+    clk = FakeClock()
+    faults = FaultInjector(seed=13, sleep=clk.sleep).random_schedule(
+        300, {"page_alloc": 0.06, "nan_logits": 0.02, "cancel": 0.03,
+              "slow_step": 0.02}, slow_s=0.3)
+    eng = InferenceEngine(cfg, params, EngineConfig(
+        n_slots=4, capacity=640, page_size=16, seed=0, prefix_cache=True,
+        fault_injector=faults, preempt_after_stalls=2, max_waiting=8),
+        device="cuda", clock=clk)
+    chaos = [np.concatenate([prompts[i % 2], rng.integers(
+        0, cfg.vocab_size, size=int(rng.integers(4, 40))).astype(np.int32)])
+        for i in range(32)]
+    rids, submitted = [], 0
+    for step in range(300):
+        if step % 3 == 0 and submitted < len(chaos):
+            rids.append(eng.submit(chaos[submitted], max_new_tokens=8,
+                                   deadline_s=2.0 if submitted % 4 == 0
+                                   else 0.0))
+            submitted += 1
+        if eng.sched.has_work():
+            eng.step()
+        clk.advance(0.01)
+    for _ in range(500):
+        if not eng.sched.has_work():
+            break
+        eng.step()
+        clk.advance(0.01)
+    finished = eng.sched.finished
+    statuses = Counter(r.status for r in finished)
+    nan_fired = sum(k == "nan_logits" for _, k, _ in faults.fired)
+    if (eng.sched.has_work()
+            or Counter(r.rid for r in finished) != Counter(rids)
+            or statuses[FAILED] != nan_fired or not nan_fired
+            or any(r.error != "non-finite logits at decode"
+                   for r in finished if r.status == FAILED)):
+        raise AssertionError(f"phase 9b chaos: {dict(statuses)}, NaN "
+                             f"injected {nan_fired}, fired {faults.fired}")
+    eng.check_conservation()
+    log(f"phase 9b lifecycle: preemption ({preemptions} preempted) and "
+        f"recover() ({survivors} requeued) give the naive tokens, near-ties "
+        f"{ties}; chaos over 32 requests: {dict(statuses)}, NaN injected "
+        f"{nan_fired}, {len(faults.fired)} faults fired, 0 leaked pages")
 
 
 def train_cfg(torch, num_layers=16, **over):
@@ -1661,16 +2061,10 @@ def profile_train_step(torch, cfg, tc, state, specs):
         state, m = step(state, batch)
         float(m["loss"])
     fams, top = {}, []
-    for ev in prof.key_averages():
-        if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = getattr(ev, "self_cuda_time_total", 0)
-        if us > 0:
-            fam = train_kernel_family(ev.key)
-            fams[fam] = fams.get(fam, 0.0) + us / 1e3
-            top.append((us / 1e3, ev.count, ev.key[:70]))
+    for name, count, ms in device_events(torch, prof):
+        fam = train_kernel_family(name)
+        fams[fam] = fams.get(fam, 0.0) + ms
+        top.append((ms, count, name[:70]))
     device_ms = sum(fams.values())
     launches = sum(ev.count for ev in prof.key_averages()
                    if getattr(ev, "device_type", None)
@@ -1874,6 +2268,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"phase 8: {time.perf_counter() - t0:.1f} s")
 
+    log("phase 9, prefix cache and lifecycle")
+    t0 = time.perf_counter()
+    # phases 4 and 5's weights again (same seed; freed before phase 7 so
+    # its peak memory is the trainer's own)
+    cfg, params, params_q, _ = build_main_params(torch)
+    _, append_launches = phase_prefix_full_width(torch, np, cfg, params,
+                                                 quantized=False)
+    _, append_launches_q = phase_prefix_full_width(torch, np, cfg, params_q,
+                                                   quantized=True)
+    del params, params_q
+    torch.cuda.empty_cache()
+    for kv_dtype in ("", "int8"):
+        phase_prefix_correctness(torch, np, kv_dtype)
+    phase_lifecycle(torch, np)
+    torch.cuda.empty_cache()
+    log(f"phase 9: {time.perf_counter() - t0:.1f} s")
+
     # one entry per kernel form at its decode-step shape (M = 8 slots) or,
     # for flash, the largest cold-prefill bucket; launches from the main
     # path that runs it (for bcr_spmm_skip, the trained-weight runs of the
@@ -1895,6 +2306,14 @@ def main() -> int:
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
             shape=row["shape"]))
+        if name in ("paged_attention", "paged_attention_int8"):
+            # the prefill-append form: its launches on phase 9a's shared
+            # run, its time at phase 9a's append admission (phase 3)
+            kernels[-1].update(
+                append_launches=append_launches if name == "paged_attention"
+                else append_launches_q,
+                append_ms=next(r["ms"] for r in rows if r["kernel"] == name
+                               and r["shape"] == APPEND_SHAPE))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

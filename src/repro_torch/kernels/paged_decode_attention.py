@@ -30,7 +30,9 @@ launch.
 A CUDA tensor goes through the kernel (or the wrapper raises); a CPU tensor
 goes through the plain version in :mod:`repro_torch.kernels.ref`. Each
 launch adds one to ``LAUNCHES["paged_attention"]`` (fp pages) or
-``LAUNCHES["paged_attention_int8"]``.
+``LAUNCHES["paged_attention_int8"]``; a launch through the prefill-append
+entry point also adds one to the same key of ``APPEND_LAUNCHES``, which
+counts the prefill-append form apart.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ from repro_torch.kernels import build, ref
 from repro_torch.kernels.bcr_spmm import _sm_count, split_counters
 
 LAUNCHES = {"paged_attention": 0, "paged_attention_int8": 0}
+APPEND_LAUNCHES = {"paged_attention": 0, "paged_attention_int8": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -280,8 +283,11 @@ def paged_prefill_append_attention(q: torch.Tensor, k_pages: torch.Tensor,
         return ref.paged_prefill_append_ref(q, k_pages, v_pages, block_tables,
                                             prefix_len, total_len,
                                             k_scale=k_scale, v_scale=v_scale)
-    return _paged_attention(q, k_pages, v_pages, block_tables, prefix_len,
-                            total_len, k_scale, v_scale)
+    out = _paged_attention(q, k_pages, v_pages, block_tables, prefix_len,
+                           total_len, k_scale, v_scale)
+    APPEND_LAUNCHES["paged_attention_int8" if k_scale is not None
+                    else "paged_attention"] += 1
+    return out
 
 
 def paged_kv_bytes(cache_len, page_size: int, hkv: int, d: int,

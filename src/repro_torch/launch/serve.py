@@ -9,7 +9,11 @@ runs on the card (``--device cuda``, the default); ``--device cpu --smoke``
 runs the plain PyTorch path at smoke size. ``--kv-dtype int8 --weight-dtype
 int8`` serves the quantized path (int8 KV pages, int8 packed tiles) and
 ``--attn-impl pallas`` runs cold prefill through the fused flash kernel.
-``generate`` is the naive oracle the engine is held to: one batched
+``--prefix-cache --system-prompts 2 --system-len 384`` serves a
+shared-prefix workload (each prompt is one of N system prompts plus a user
+suffix) through the prefix cache; ``--kv-pages``, ``--preempt-after-stalls``,
+``--max-waiting`` and ``--deadline-s`` drive the request lifecycle (an
+oversubscribed pool, preemption, shedding, deadlines). ``generate`` is the naive oracle the engine is held to: one batched
 exact-length prefill, then step-by-step greedy decode over a fixed page
 table.
 """
@@ -33,7 +37,8 @@ from repro_torch.kernels.plan import (GroupedTBCRC, fuse_packed_projections,
 from repro_torch.launch.train import default_prune_filter
 from repro_torch.models import causal_lm
 from repro_torch.models.layers import FLASH_ATTN_IMPLS, PLAIN_ATTN_IMPLS
-from repro_torch.serving import EngineConfig, InferenceEngine
+from repro_torch.serving import (CANCELLED, FAILED, FINISHED, REJECTED,
+                                 TIMEOUT, EngineConfig, InferenceEngine)
 
 PyTree = Any
 
@@ -175,6 +180,32 @@ def main() -> None:
     p.add_argument("--slots", type=int, default=8)
     p.add_argument("--capacity", type=int, default=128)
     p.add_argument("--page-size", type=int, default=16)
+    p.add_argument("--kv-pages", type=int, default=0,
+                   help="total KV pages per layer (0 → full provisioning); "
+                        "fewer oversubscribe the pool under page-budget "
+                        "admission control")
+    p.add_argument("--prefix-cache", action="store_true",
+                   help="share KV pages across requests: admissions adopt "
+                        "cached full-page prompt prefixes (refcounted, CoW) "
+                        "and prefill only the uncached suffix")
+    p.add_argument("--system-prompts", type=int, default=0,
+                   help="shared-prefix workload: N fixed system prompts; "
+                        "each request = one of them + a random user suffix "
+                        "(0 → fully random prompts)")
+    p.add_argument("--system-len", type=int, default=32,
+                   help="system-prompt length (tokens) for --system-prompts")
+    p.add_argument("--preempt-after-stalls", type=int, default=0,
+                   help="page-pressure preemption: after this many "
+                        "consecutive fully stalled admission steps, evict "
+                        "the youngest running request (0 → off)")
+    p.add_argument("--max-waiting", type=int, default=0,
+                   help="bound the waiting queue: beyond it submit sheds "
+                        "the earliest-deadline waiting request as REJECTED "
+                        "(0 → unbounded)")
+    p.add_argument("--deadline-s", type=float, default=0.0,
+                   help="per-request deadline (seconds from submit): past "
+                        "it requests retire as TIMEOUT, waiting or "
+                        "mid-decode (0 → no deadlines)")
     p.add_argument("--bcr-keep", type=float, default=0.0)
     p.add_argument("--bcr-block", type=int, default=0,
                    help="BCR block side; 0 → 16 for --smoke configs, else "
@@ -211,32 +242,58 @@ def main() -> None:
                           weight_dtype=args.weight_dtype)
     engine = InferenceEngine(cfg, params, EngineConfig(
         n_slots=args.slots, capacity=args.capacity,
-        page_size=args.page_size, seed=args.seed, kv_dtype=args.kv_dtype,
-        weight_dtype=args.weight_dtype), device=dev)
-    pmax = args.capacity - args.gen
+        page_size=args.page_size, kv_pages=args.kv_pages or None,
+        prefix_cache=args.prefix_cache, seed=args.seed,
+        kv_dtype=args.kv_dtype, weight_dtype=args.weight_dtype,
+        max_waiting=args.max_waiting or None,
+        preempt_after_stalls=args.preempt_after_stalls), device=dev)
+    sys_len = args.system_len if args.system_prompts else 0
+    pmax = args.capacity - args.gen - sys_len
     if pmax < 1:
         p.error(f"--capacity {args.capacity} leaves no room for prompts "
-                f"after --gen {args.gen}")
+                f"after --gen {args.gen}"
+                + (f" + --system-len {sys_len}" if sys_len else ""))
     plens = sorted({min(max(x, 1), pmax) for x in
                     (max(4, args.prompt_len // 2), args.prompt_len,
                      args.prompt_len * 2)})
     rng = np.random.default_rng(args.seed)
+    systems = [rng.integers(0, cfg.vocab_size, size=sys_len)
+               for _ in range(args.system_prompts)]
     for _ in range(args.requests):
-        n = int(rng.choice(plens))
-        engine.submit(rng.integers(0, cfg.vocab_size, size=n),
-                      max_new_tokens=args.gen)
+        user = rng.integers(0, cfg.vocab_size, size=int(rng.choice(plens)))
+        if systems:
+            user = np.concatenate(
+                [systems[int(rng.integers(len(systems)))], user])
+        engine.submit(user, max_new_tokens=args.gen,
+                      deadline_s=args.deadline_s)
     t0 = time.perf_counter()
-    done = engine.run()
+    engine.run()
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
-    ttft = np.array([r.first_token_time - r.submit_time for r in done])
-    toks = engine.stats["tokens_generated"]
+    done = engine.sched.finished          # rejected at submit ones too
+    fin = [r for r in done if r.status == FINISHED]
+    ttft = np.array([r.first_token_time - r.submit_time for r in fin])
+    st = engine.stats
+    toks = st["tokens_generated"]
+    counts = {s: sum(r.status == s for r in done)
+              for s in (FINISHED, TIMEOUT, CANCELLED, REJECTED, FAILED)}
     print(f"{len(done)} requests, {toks} tokens in {wall:.3f} s: "
-          f"{toks / wall:.1f} tokens/s; {engine.stats['decode_steps']} decode "
-          f"steps, {engine.stats['prefills']} prefills")
-    print(f"TTFT p50/p95: {np.percentile(ttft, 50) * 1e3:.1f}/"
-          f"{np.percentile(ttft, 95) * 1e3:.1f} ms")
+          f"{toks / wall:.1f} tokens/s; {st['decode_steps']} decode "
+          f"steps, {st['prefills']} prefills")
+    print(f"status: finished {counts[FINISHED]} / timeout {counts[TIMEOUT]} "
+          f"/ cancelled {counts[CANCELLED]} / rejected {counts[REJECTED]} / "
+          f"preempted {st['preemptions']} / failed {counts[FAILED]}; shed "
+          f"{st['shed']}, page stalls {st['page_stalls']}")
+    prompt_tokens = sum(r.prompt_len for r in done)
+    print(f"prefix_hit_rate "
+          f"{st['prefix_hit_tokens'] / max(prompt_tokens, 1):.2f} (hit "
+          f"tokens {st['prefix_hit_tokens']}/{prompt_tokens}); pages_shared "
+          f"{st['pages_shared']}; cow_copies {st['cow_copies']}; evictions "
+          f"{st['evictions']}; pages_allocated {st['pages_allocated']}")
+    if len(ttft):
+        print(f"TTFT p50/p95: {np.percentile(ttft, 50) * 1e3:.1f}/"
+              f"{np.percentile(ttft, 95) * 1e3:.1f} ms")
     print(f"KV bytes read over live pages: "
           f"{engine.stats['kv_bytes_read_live']} ({engine._kv_row_bytes} "
           f"bytes per cached position, all layers, K + V)")

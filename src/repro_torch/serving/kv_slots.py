@@ -1,41 +1,61 @@
-"""Block-paged KV pool for continuous batching — the allocator half.
+"""Block-paged KV pool for continuous batching, with a cross-request prefix
+cache.
 
 Attention K/V live in a shared page pool per layer, ``(n_pages, page_size,
 Hkv, D)`` torch tensors on the engine's device, plus per-slot block tables
 (physical page ids) kept on the host. Under int8 KV each layer also holds
 fp32 ``k_scale``/``v_scale`` pools ``(n_pages, page_size, Hkv)`` in the same
-page index space; every write moves codes and scales together. Pages are reserved at admission,
-allocated lazily as a slot's length crosses page boundaries, and returned on
-retirement. Physical page 0 is reserved as the null sink for pad/inactive
-writes.
+page index space; every write and every copy moves codes and scales
+together. Pages are reserved at admission, allocated lazily as a slot's
+length crosses page boundaries, and returned on retirement. Physical page 0
+is reserved as the null sink for pad/inactive writes.
 
-Page writes are in place (``index_copy_`` into the pool tensors); the
-reference's writes are functional. The prefix cache (refcounted sharing,
-the content-addressed index, LRU eviction, copy-on-write) comes in a later
-slice of the port.
+The pool is also a prefix cache, as in the reference: pages are
+refcounted, and full prompt pages can be published into a
+content-addressed index (a sha1 hash chain keyed by ``(parent_chain_hash,
+page_token_ids)``). Admission matches a prompt against the chain, adopts
+the shared pages (refcount bump) and only the uncached suffix needs
+prefill. Registered pages whose refcount drops to zero park on an LRU list
+instead of the free list and are evicted lazily when an allocation cannot
+be served from truly free pages. Registered pages are immutable: a slot
+whose write frontier sits in one copies it into a private page first
+(copy-on-write).
+
+Page writes and copies are in place (``index_copy_`` into the pool
+tensors); the reference's are functional.
 """
 
 from __future__ import annotations
 
+import hashlib
 from collections import deque
-from typing import Callable, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 Cache = List[dict]
 
+_CHAIN_ROOT = b"\x00" * 20
+
+
+def _chain_hash(parent: bytes, chunk) -> bytes:
+    """Content address of a token prefix: digest over (parent digest, this
+    page's token ids), as the reference computes it."""
+    return hashlib.sha1(
+        parent + np.asarray(chunk, "<i4").tobytes()).digest()
+
 
 class PagedSlotPool:
     """Block-paged decode cache: one page pool per attention leaf + per-slot
     block tables.
 
-    Allocator lifecycle: ``reserve`` claims a slot's worst-case page budget
-    at admission (so decode can never strand a running request without a
-    page — oversubscription is resolved by admission control); ``ensure``
-    allocates lazily from that budget as the length crosses page
-    boundaries; ``release`` returns every allocated page to the free list
-    and drops the remaining reservation.
+    Allocator lifecycle: ``reserve`` (or ``admit_prefix``) claims a slot's
+    worst-case page budget at admission (so decode can never strand a
+    running request without a page — oversubscription is resolved by
+    admission control or preemption); ``ensure`` allocates lazily from that
+    budget as the length crosses page boundaries; ``release`` drops one
+    reference to every page the slot holds and the remaining reservation.
     """
 
     def __init__(self, init_cache: Callable[..., Cache], n_slots: int,
@@ -62,13 +82,31 @@ class PagedSlotPool:
         self._free: deque[int] = deque(range(1, n_pages))   # 0 = null
         self._n_alloc = np.zeros((n_slots,), np.int32)
         self._reserved = np.zeros((n_slots,), np.int32)     # unallocated
+        # scalar mirror of _reserved.sum(): free_pages() runs per admission
         self._reserved_total = 0
+        # -- prefix cache state ---------------------------------------------
+        self._refcount = np.zeros((n_pages,), np.int32)
+        # chain hash -> first token -> {page_token_ids: page_id}: children
+        # bucketed by first token, so the partial-tail scan touches only
+        # the siblings that share the tail's first token
+        self._children: Dict[bytes, Dict[int, Dict[Tuple[int, ...], int]]] \
+            = {}
+        self._page_key: Dict[int, Tuple[bytes, Tuple[int, ...]]] = {}
+        # registered refcount-0 pages; insertion order is the LRU order
+        self._lru: Dict[int, None] = {}
+        self.stats: Dict[str, int] = {}
+        self.reset_stats()
+
+    def reset_stats(self) -> None:
+        self.stats.update(pages_allocated=0, evictions=0, cow_copies=0)
 
     # -- allocator ---------------------------------------------------------
 
     def free_pages(self) -> int:
-        """Pages allocatable right now: free minus outstanding reservations."""
-        return len(self._free) - self._reserved_total
+        """Pages allocatable right now: truly free plus lazily evictable
+        (registered, refcount-0 LRU) pages, minus outstanding reservations.
+        O(1) counters, no per-slot rescans."""
+        return len(self._free) + len(self._lru) - self._reserved_total
 
     def pages_needed(self, total_len: int) -> int:
         return -(-total_len // self.page_size)
@@ -86,12 +124,28 @@ class PagedSlotPool:
         self._set_reserved(slot, max(need, 0))
         return True
 
+    def _take_free_page(self) -> int:
+        """Pop a writable page: the free list first, else lazily evict the
+        least recently retired registered page (its index entry goes;
+        descendants become unreachable and age out of the LRU the same
+        way)."""
+        if self._free:
+            pid = self._free.popleft()
+        elif self._lru:
+            pid = next(iter(self._lru))
+            del self._lru[pid]
+            self._unregister(pid)
+            self.stats["evictions"] += 1
+        else:
+            raise RuntimeError("page pool exhausted past its reservations")
+        self._refcount[pid] = 1
+        self.stats["pages_allocated"] += 1
+        return pid
+
     def _alloc_page(self, slot: int) -> None:
         if self._n_alloc[slot] >= self.max_pages:
             raise RuntimeError(f"slot {slot} exceeds capacity {self.capacity}")
-        if not self._free:
-            raise RuntimeError("page pool exhausted past its reservations")
-        pid = self._free.popleft()
+        pid = self._take_free_page()
         self.table[slot, self._n_alloc[slot]] = pid
         self._n_alloc[slot] += 1
         self._set_reserved(slot, max(0, int(self._reserved[slot]) - 1))
@@ -100,6 +154,148 @@ class PagedSlotPool:
         """Alloc-on-advance: guarantee pages cover positions [0, length)."""
         while int(self._n_alloc[slot]) * self.page_size < length:
             self._alloc_page(slot)
+
+    # -- prefix cache ------------------------------------------------------
+
+    def _unregister(self, pid: int) -> None:
+        h, chunk = self._page_key.pop(pid)
+        bucket = self._children[h][chunk[0]]
+        del bucket[chunk]
+        if not bucket:
+            del self._children[h][chunk[0]]
+            if not self._children[h]:
+                del self._children[h]
+
+    def _drop_page_ref(self, pid: int) -> None:
+        """Decrement a page's refcount; at zero, registered pages park on
+        the LRU list (content kept: a hot prefix survives retirement),
+        private pages return to the free list."""
+        self._refcount[pid] -= 1
+        if self._refcount[pid] < 0:
+            raise AssertionError(f"refcount underflow on page {pid}")
+        if self._refcount[pid] == 0:
+            if pid in self._page_key:
+                self._lru[pid] = None
+            else:
+                self._free.append(pid)
+
+    def match_prefix(self, tokens: np.ndarray) -> Tuple[int, List[int]]:
+        """Longest cached prefix of ``tokens``: exact-match full pages down
+        the hash chain, then (if every full page matched) one partial tail
+        page — a cached FULL page whose token ids start with the remaining
+        sub-page tail. Read-only; returns (hit_tokens, page_ids)."""
+        toks = np.asarray(tokens, np.int32)
+        ps = self.page_size
+        h, hit, pages = _CHAIN_ROOT, 0, []
+        for i in range(len(toks) // ps):
+            chunk = tuple(int(t) for t in toks[i * ps:(i + 1) * ps])
+            pid = self._children.get(h, {}).get(chunk[0], {}).get(chunk)
+            if pid is None:
+                return hit, pages
+            pages.append(pid)
+            hit += ps
+            h = _chain_hash(h, chunk)
+        tail = tuple(int(t) for t in toks[hit:])
+        if tail:
+            for ctoks, pid in self._children.get(h, {}).get(
+                    tail[0], {}).items():
+                if ctoks[:len(tail)] == tail:
+                    pages.append(pid)
+                    hit += len(tail)
+                    break
+        return hit, pages
+
+    def admit_prefix(self, slot: int, tokens: np.ndarray,
+                     total_len: int) -> Optional[int]:
+        """Prefix-sharing admission: match ``tokens`` (the prompt; its final
+        token is always left for the suffix, so the prefill produces the
+        first sample's logits), adopt the shared pages into this slot's
+        table and reserve the fresh-page budget. Returns the hit length (0:
+        cold) or None when the pool cannot cover the request, in which case
+        nothing was adopted or reserved."""
+        if self._n_alloc[slot] or self._reserved[slot]:
+            raise AssertionError(f"slot {slot} admitted while still holding "
+                                 f"pages")
+        toks = np.asarray(tokens, np.int32)
+        hit, pages = self.match_prefix(toks[:-1])
+        n_keep = hit // self.page_size          # full pages kept as they are
+        # every page past the kept full ones is a fresh allocation: the
+        # boundary-crossing allocations plus the CoW copy of a partial tail
+        need = self.pages_needed(total_len) - n_keep
+        # adopted LRU pages leave the evictable set, so they cannot also
+        # back the reservation
+        n_from_lru = sum(1 for p in pages if p in self._lru)
+        if need + n_from_lru > self.free_pages():
+            return None
+        for j, pid in enumerate(pages):
+            self._refcount[pid] += 1
+            self._lru.pop(pid, None)
+            self.table[slot, j] = pid
+        self._n_alloc[slot] = len(pages)
+        self._set_reserved(slot, need)
+        return hit
+
+    def ensure_writable(self, slot: int, pos: int
+                        ) -> Optional[Tuple[int, int]]:
+        """Copy-on-write: the page covering ``pos`` must be privately owned
+        before this slot's K/V write at ``pos`` lands. A shared or
+        registered page gets a private copy (drawn from the slot's
+        reservation) swapped into the table. Returns (src, dst) page ids
+        for :meth:`copy_pages`, or None when the page is already private."""
+        col = pos // self.page_size
+        if col >= self._n_alloc[slot]:
+            raise AssertionError(f"slot {slot} position {pos} has no page "
+                                 f"(call ensure first)")
+        pid = int(self.table[slot, col])
+        if self._refcount[pid] == 1 and pid not in self._page_key:
+            return None
+        dst = self._take_free_page()
+        self.table[slot, col] = dst
+        self._drop_page_ref(pid)
+        self._set_reserved(slot, max(0, int(self._reserved[slot]) - 1))
+        self.stats["cow_copies"] += 1
+        return pid, dst
+
+    def register_prefix(self, slot: int, tokens: np.ndarray) -> None:
+        """Publish this slot's FULL prompt pages into the prefix index.
+        First writer wins: chunks already present (including pages this
+        slot adopted) are skipped, as are pages registered under another
+        key. The partial final page is never registered: it is the slot's
+        private write frontier."""
+        toks = np.asarray(tokens, np.int32)
+        ps = self.page_size
+        h = _CHAIN_ROOT
+        for i in range(len(toks) // ps):
+            chunk = tuple(int(t) for t in toks[i * ps:(i + 1) * ps])
+            kids = self._children.setdefault(h, {}).setdefault(chunk[0], {})
+            pid = int(self.table[slot, i])
+            if chunk not in kids and pid not in self._page_key and pid != 0:
+                kids[chunk] = pid
+                self._page_key[pid] = (h, chunk)
+            h = _chain_hash(h, chunk)
+
+    def reset_prefix(self) -> None:
+        """Drop the whole prefix index: refcount-0 registered pages return
+        to the free list; pages still adopted by live slots lose their
+        index entry and free on release."""
+        for pid in list(self._page_key):
+            self._unregister(pid)
+        self._free.extend(self._lru)
+        self._lru.clear()
+        self.reset_stats()
+
+    def copy_pages(self, src: np.ndarray, dst: np.ndarray) -> None:
+        """Copy-on-write on the device: page ``src[i]`` → ``dst[i]`` in every
+        page leaf of every layer (codes and, under int8 KV, their scales),
+        one gather and one in-place scatter per leaf, on the current
+        stream, so a later dispatch on it reads the copies."""
+        s = torch.as_tensor(np.asarray(src), dtype=torch.long,
+                            device=self.device)
+        d = torch.as_tensor(np.asarray(dst), dtype=torch.long,
+                            device=self.device)
+        for layer in self.cache:
+            for leaf in layer.values():
+                leaf.index_copy_(0, d, leaf.index_select(0, s))
 
     # -- cache writes ------------------------------------------------------
 
@@ -171,17 +367,46 @@ class PagedSlotPool:
     def advance(self, slot: int) -> None:
         self.lens[slot] += 1
 
-    def release(self, slot: int) -> None:
-        """Retire: every allocated page returns to the free list."""
+    def truncate(self, slot: int, length: int) -> None:
+        """Rewind a slot to ``length`` valid positions and return pages
+        wholly past the new frontier to the slot's reservation. Those pages
+        were allocated past the prompt, so they are private (never
+        registered or adopted) and go straight back to the free list."""
+        if not 0 <= length <= self.capacity:
+            raise ValueError(f"length {length} outside [0, {self.capacity}]")
+        keep = self.pages_needed(length)
         n = int(self._n_alloc[slot])
-        self._free.extend(int(p) for p in self.table[slot, :n])
+        if keep > n:
+            raise ValueError(f"slot {slot} holds {n} pages, fewer than the "
+                             f"{keep} that length {length} needs")
+        for col in range(keep, n):
+            pid = int(self.table[slot, col])
+            if pid in self._page_key or self._refcount[pid] != 1:
+                raise AssertionError(f"truncate hit a shared/registered page "
+                                     f"{pid} past the write frontier of "
+                                     f"slot {slot}")
+            self._drop_page_ref(pid)
+            self.table[slot, col] = 0
+        self._n_alloc[slot] = keep
+        self._set_reserved(slot, int(self._reserved[slot]) + (n - keep))
+        self.lens[slot] = length
+
+    def release(self, slot: int) -> None:
+        """Retire: drop one reference to every page the slot holds (shared
+        prefix pages stay live for their other owners, registered
+        refcount-0 pages park on the LRU) and the remaining reservation."""
+        n = int(self._n_alloc[slot])
+        for p in self.table[slot, :n]:
+            self._drop_page_ref(int(p))
         self.table[slot, :] = 0
         self._n_alloc[slot] = 0
         self._set_reserved(slot, 0)
         self.lens[slot] = 0
 
     def idle_pages(self) -> int:
-        return len(self._free)
+        """Non-null pages held by no slot: free list + LRU-parked prefix
+        pages; ``n_pages - 1`` on a drained pool."""
+        return len(self._free) + len(self._lru)
 
     def _check_scale_pools(self) -> None:
         """int8 pools: each layer's ``k_scale``/``v_scale`` share the page
@@ -211,19 +436,22 @@ class PagedSlotPool:
                                          f"no scale")
 
     def check_consistency(self) -> None:
-        """Audit the allocator's bookkeeping against the tables: each
-        non-null page is either free or held by exactly one slot, tables are
-        zero past each slot's allocation, lengths fit their pages, the
-        reservation total agrees with the per-slot reservations, and int8
-        scale pools match their codes (``_check_scale_pools``)."""
-        held = np.zeros((self.n_pages,), np.int64)
+        """Audit the allocator's bookkeeping against the tables: rebuild
+        every page's refcount from the slot tables and check that each
+        non-null page is in exactly one of {free list, LRU, live}, stored
+        refcounts match, LRU pages are indexed and free ones are not, tables
+        are zero past each slot's allocation, lengths fit their pages, the
+        reservations agree and fit, and int8 scale pools match their codes
+        (``_check_scale_pools``). Host-side ints (plus one scale read under
+        int8), so callable mid-run."""
+        ref = np.zeros((self.n_pages,), np.int64)
         for slot in range(self.n_slots):
             n = int(self._n_alloc[slot])
             for pid in self.table[slot, :n]:
                 if int(pid) == 0:
                     raise AssertionError(f"null page in live table of slot "
                                          f"{slot}")
-                held[int(pid)] += 1
+                ref[int(pid)] += 1
             if self.table[slot, n:].any():
                 raise AssertionError(f"slot {slot} table non-zero past its "
                                      f"{n} allocated pages")
@@ -235,16 +463,28 @@ class PagedSlotPool:
         free_set = set(free)
         if len(free) != len(free_set):
             raise AssertionError("duplicate pages on the free list")
-        if 0 in free_set:
-            raise AssertionError("null page entered the free list")
+        if 0 in free_set or 0 in self._lru:
+            raise AssertionError("null page entered the free/LRU lists")
         for pid in range(1, self.n_pages):
-            states = int(pid in free_set) + int(held[pid])
+            states = (int(pid in free_set) + int(pid in self._lru)
+                      + int(ref[pid] > 0))
             if states != 1:
-                raise AssertionError(f"page {pid} is free {pid in free_set} "
-                                     f"and held {int(held[pid])} times")
+                raise AssertionError(f"page {pid} in {states} of free/LRU/"
+                                     f"live (refs={int(ref[pid])})")
+            if int(self._refcount[pid]) != int(ref[pid]):
+                raise AssertionError(f"page {pid} refcount "
+                                     f"{int(self._refcount[pid])} != "
+                                     f"{int(ref[pid])} table references")
+            if pid in self._lru and pid not in self._page_key:
+                raise AssertionError(f"LRU page {pid} missing from the "
+                                     f"prefix index")
+            if pid in free_set and pid in self._page_key:
+                raise AssertionError(f"free page {pid} still registered in "
+                                     f"the prefix index")
         if self._reserved_total != int(self._reserved.sum()):
             raise AssertionError("reservation total out of sync with "
                                  "per-slot reservations")
-        if self._reserved_total > len(free):
-            raise AssertionError("reservations exceed the free pages")
+        if self._reserved_total > len(free) + len(self._lru):
+            raise AssertionError("reservations exceed the free and "
+                                 "evictable pages")
         self._check_scale_pools()

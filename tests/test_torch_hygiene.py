@@ -8,7 +8,8 @@
 * Entry points (serving and training) default to the card: without one
   visible they raise instead of running on the CPU.
 * Options not ported yet raise ``NotImplementedError``; the quantized
-  serving options are accepted, and an unknown ``attn_impl`` raises.
+  serving options and the prefix cache are accepted, and an unknown
+  ``attn_impl`` raises.
 """
 
 import ast
@@ -73,6 +74,9 @@ def _forbidden_uses(tree, allow_in=()):
 
 def test_port_files_exist():
     assert len(PORT_FILES) > 15 and SMOKE.exists()
+    # the port keeps its own copies of the reference's numpy-only modules
+    for name in ("scheduler.py", "faults.py"):
+        assert ROOT / "src" / "repro_torch" / "serving" / name in PORT_FILES
 
 
 @pytest.mark.parametrize("path", PORT_FILES + [SMOKE],
@@ -120,11 +124,26 @@ def test_entry_points_default_to_the_card():
 
 
 @pytest.mark.parametrize("option", [
-    dict(prefix_cache=True), dict(spec_k=2), dict(page_size=0),
-    dict(mesh_model=2)])
+    dict(spec_k=2), dict(page_size=0), dict(mesh_model=2)])
 def test_unported_engine_options_raise(option):
     with pytest.raises(NotImplementedError):
         EngineConfig(**option)
+
+
+def test_prefix_cache_engine_serves():
+    """``prefix_cache=True`` builds an engine that serves: a repeated prompt
+    is admitted through the suffix-only ``prefill_append`` over its adopted
+    pages and gives the same tokens as the cold admission."""
+    cfg = _smoke_cfg()
+    eng = InferenceEngine(cfg, build_params(cfg, device="cpu"), EngineConfig(
+        n_slots=2, capacity=32, page_size=4, prefix_cache=True),
+        device="cpu")
+    prompt = list(range(1, 11))
+    [cold] = eng.generate([prompt], max_new_tokens=3)
+    [hot] = eng.generate([prompt], max_new_tokens=3)
+    assert hot == cold and len(hot) == 3
+    assert eng.stats["prefix_hit_tokens"] == 8
+    eng.check_conservation()
 
 
 def test_unported_model_options_raise():

@@ -21,8 +21,8 @@ from repro_torch import configs as tcfgs  # noqa: E402
 from repro_torch.convert import from_jax_params  # noqa: E402
 from repro_torch.launch.serve import build_params, generate  # noqa: E402
 from repro_torch.models import causal_lm  # noqa: E402
-from repro_torch.serving import (EngineConfig, InferenceEngine,  # noqa: E402
-                                 sample_tokens)
+from repro_torch.serving import (FAILED, FINISHED,  # noqa: E402
+                                 EngineConfig, InferenceEngine, sample_tokens)
 from repro_torch.serving.kv_slots import PagedSlotPool  # noqa: E402
 
 torch.set_num_threads(2)
@@ -110,7 +110,7 @@ def test_engine_matches_naive_generate():
                           device="cpu")
     assert eng.generate(prompts, max_new_tokens=GEN) == want
     assert max(eng.stats["slot_occupancy"]) == 2
-    assert eng.stats["nonfinite_rows"] == 0
+    assert eng.stats["failed"] == 0
     assert eng.pool.idle_pages() == eng.pool.n_pages - 1
     eng.pool.check_consistency()
 
@@ -175,8 +175,11 @@ def test_sample_tokens_survives_nonfinite_rows(nan_row, use_topk):
 
 def test_engine_counts_one_nonfinite_row():
     """One decode step whose logits carry a NaN row, in a batch that samples
-    (one slot at temperature 1): every request still completes and the
-    engine counts exactly one non-finite row."""
+    (one slot at temperature 1): that row's request retires as FAILED with
+    no token past the poisoned step (only its prefill-sampled first token),
+    its slot and pages are released, and the other request completes. (On
+    the parent the row's garbage token was emitted and the request kept
+    decoding.)"""
     cfg = _cfg(keep=0.0)
     eng = InferenceEngine(cfg, build_params(cfg, device="cpu"),
                           EngineConfig(n_slots=2, capacity=64, page_size=4),
@@ -193,12 +196,15 @@ def test_engine_counts_one_nonfinite_row():
 
     eng.fns = dataclasses.replace(eng.fns, decode_step=poisoned)
     prompts = _prompts(cfg.vocab_size)
-    eng.submit(prompts[0], max_new_tokens=GEN, temperature=1.0)
-    eng.submit(prompts[1], max_new_tokens=GEN)
-    done = eng.run()
+    ra = eng.submit(prompts[0], max_new_tokens=GEN, temperature=1.0)
+    rb = eng.submit(prompts[1], max_new_tokens=GEN)
+    by = {r.rid: r for r in eng.run()}
     assert len(calls) > 1
-    assert sorted(len(r.generated) for r in done) == [GEN, GEN]
-    assert eng.stats["nonfinite_rows"] == 1
+    assert by[ra].status == FINISHED and len(by[ra].generated) == GEN
+    assert by[rb].status == FAILED and len(by[rb].generated) == 1
+    assert "non-finite" in by[rb].error
+    assert eng.stats["failed"] == 1
+    eng.check_conservation()
 
 
 def test_engine_matches_reference_engine_tokens():
