@@ -221,25 +221,22 @@ def _library_sdpa(torch, q, k, v, mask, is_causal=False):
 
 
 def counters():
-    """The launch counters of every kernel wrapper, by module, each with the
-    suffix its keys take in :func:`read_counters` (the paged wrapper's
-    prefill-append launches are counted apart under ``*_append``)."""
+    """The launch counters of every kernel wrapper, by module."""
     from repro_torch.kernels import bcr_spmm as K
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import paged_decode_attention as PA
     from repro_torch.kernels.bcr_spmm_skip import LAUNCHES as SKIP
-    return (("", K.LAUNCHES), ("", PA.LAUNCHES), ("", FA.LAUNCHES),
-            ("", SKIP), ("_append", PA.APPEND_LAUNCHES))
+    return K.LAUNCHES, PA.LAUNCHES, FA.LAUNCHES, SKIP
 
 
 def zero_counters():
-    for _, c in counters():
+    for c in counters():
         for key in c:
             c[key] = 0
 
 
 def read_counters():
-    return {k + suffix: v for suffix, c in counters() for k, v in c.items()}
+    return {k: v for c in counters() for k, v in c.items()}
 
 
 def recorder(torch, rows):

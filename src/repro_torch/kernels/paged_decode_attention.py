@@ -31,8 +31,8 @@ A CUDA tensor goes through the kernel (or the wrapper raises); a CPU tensor
 goes through the plain version in :mod:`repro_torch.kernels.ref`. Each
 launch adds one to ``LAUNCHES["paged_attention"]`` (fp pages) or
 ``LAUNCHES["paged_attention_int8"]``; a launch through the prefill-append
-entry point also adds one to the same key of ``APPEND_LAUNCHES``, which
-counts the prefill-append form apart.
+entry point also adds one to ``LAUNCHES["paged_attention_append"]`` or
+``LAUNCHES["paged_attention_int8_append"]``, which count that form apart.
 """
 
 from __future__ import annotations
@@ -46,8 +46,8 @@ import torch
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.bcr_spmm import _sm_count, split_counters
 
-LAUNCHES = {"paged_attention": 0, "paged_attention_int8": 0}
-APPEND_LAUNCHES = {"paged_attention": 0, "paged_attention_int8": 0}
+LAUNCHES = {"paged_attention": 0, "paged_attention_int8": 0,
+            "paged_attention_append": 0, "paged_attention_int8_append": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -166,7 +166,8 @@ def _declare(lib: ctypes.CDLL) -> None:
 
 
 def _paged_attention(q, k_pages, v_pages, block_tables, prefix_len,
-                     total_len, k_scale=None, v_scale=None) -> torch.Tensor:
+                     total_len, k_scale=None, v_scale=None,
+                     append=False) -> torch.Tensor:
     """Kernel launch: q (B, S, H, D), row ``i`` of slot ``b`` at absolute
     position ``prefix_len[b] + i`` (``prefix_len`` None: ``total_len[b] -
     S + i``, the slot's last S positions), over table pages covering
@@ -245,7 +246,10 @@ def _paged_attention(q, k_pages, v_pages, block_tables, prefix_len,
         plan.pages_per_split, plan.splits, float(d ** -0.5),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "paged_attention launch")
-    LAUNCHES["paged_attention_int8" if quant else "paged_attention"] += 1
+    key = "paged_attention_int8" if quant else "paged_attention"
+    LAUNCHES[key] += 1
+    if append:
+        LAUNCHES[key + "_append"] += 1
     return out.to(q.dtype)
 
 
@@ -283,11 +287,8 @@ def paged_prefill_append_attention(q: torch.Tensor, k_pages: torch.Tensor,
         return ref.paged_prefill_append_ref(q, k_pages, v_pages, block_tables,
                                             prefix_len, total_len,
                                             k_scale=k_scale, v_scale=v_scale)
-    out = _paged_attention(q, k_pages, v_pages, block_tables, prefix_len,
-                           total_len, k_scale, v_scale)
-    APPEND_LAUNCHES["paged_attention_int8" if k_scale is not None
-                    else "paged_attention"] += 1
-    return out
+    return _paged_attention(q, k_pages, v_pages, block_tables, prefix_len,
+                            total_len, k_scale, v_scale, append=True)
 
 
 def paged_kv_bytes(cache_len, page_size: int, hkv: int, d: int,

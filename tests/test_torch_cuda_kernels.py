@@ -653,6 +653,27 @@ def test_paged_split_prefill_append_matches_plain(cuda, int8, s):
     _close(got, want, torch.bfloat16)
 
 
+@pytest.mark.parametrize("int8", [False, True])
+def test_paged_counts_each_form_at_its_launch(cuda, int8):
+    """A decode launch adds one to its form's count only; a prefill-append
+    launch adds one to that count and one to its ``_append`` count; an
+    empty suffix launches nothing and counts nothing."""
+    q, kp, vp, bt, pl, tl, sc, _ = _paged_split_inputs(
+        np.random.default_rng(23), cuda, torch.bfloat16, 16, 64, 4, int8,
+        s=16, lens=[200, 116])
+    key = "paged_attention_int8" if int8 else "paged_attention"
+    before = dict(PA.LAUNCHES)
+    PA.paged_decode_attention(q[:, :1].contiguous(), kp, vp, bt, tl, **sc)
+    PA.paged_prefill_append_attention(q, kp, vp, bt, pl, tl, **sc)
+    PA.paged_prefill_append_attention(q[:, :0].contiguous(), kp, vp, bt, tl,
+                                      tl, **sc)
+    torch.cuda.synchronize()
+    want = dict(before)
+    want[key] += 2
+    want[key + "_append"] += 1
+    assert PA.LAUNCHES == want
+
+
 def _serving_split_case(dev, int8, s):
     """llama3.2-1b's attention (8 kv-heads, G = 4, head_dim 64, page 16) over
     8 slots, one of them empty."""

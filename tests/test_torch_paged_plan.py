@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import paged_decode_attention as PA
 from repro_torch.kernels import ref
 from repro_torch.kernels.paged_decode_attention import (
     MIN_SPLIT_KEYS, SPLIT_KEYS, TC_HEAD_DIMS, cuda_core_row_tile, paged_plan,
@@ -248,3 +249,41 @@ def test_split_merge_matches_plain_prefill_append(int8, pps):
     for b, sl in enumerate(slens):        # rows past a slot's suffix are
         torch.testing.assert_close(       # garbage the caller drops
             got[b, :sl], want[b, :sl], rtol=1e-5, atol=1e-5)
+
+
+# -- the launch counters -----------------------------------------------------
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("b,s", [(3, 0), (0, 4)])
+def test_empty_call_counts_no_launch(int8, b, s):
+    """An empty batch or suffix returns before any launch, so neither the
+    form's count nor its prefill-append count moves."""
+    rng = np.random.default_rng(7)
+    ps, hkv, g, d = 4, 2, 2, 16
+    kp, vp, bt = _pool(rng, [9, 4, 1][:max(b, 1)], 4, ps, hkv, d)
+    sc = {}
+    if int8:
+        kp, ks = quantize_rows(kp)
+        vp, vs = quantize_rows(vp)
+        sc = dict(k_scale=ks, v_scale=vs)
+    bt = bt[:b].contiguous()
+    q = torch.zeros(b, s, hkv * g, d)
+    lens = torch.full((b,), 4, dtype=torch.int32)
+    before = dict(PA.LAUNCHES)
+    out = PA._paged_attention(q, kp, vp, bt, lens - s, lens, append=True,
+                              **sc)
+    assert out.shape == q.shape
+    assert PA.LAUNCHES == before
+
+
+def test_cpu_calls_count_no_launch():
+    rng = np.random.default_rng(8)
+    ps, hkv, g, d = 4, 2, 2, 16
+    kp, vp, bt = _pool(rng, [9, 4], 4, ps, hkv, d)
+    lens = torch.as_tensor([9, 4], dtype=torch.int32)
+    before = dict(PA.LAUNCHES)
+    PA.paged_decode_attention(torch.zeros(2, 1, hkv * g, d), kp, vp, bt, lens)
+    PA.paged_prefill_append_attention(torch.zeros(2, 3, hkv * g, d), kp, vp,
+                                      bt, lens - 3, lens)
+    assert PA.LAUNCHES == before
