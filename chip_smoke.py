@@ -95,9 +95,39 @@ Phases, in order (any failed check raises and the script exits non-zero):
    an oversubscribed pool and ``recover()`` mid-run give the naive tokens;
    a seeded fault-injector chaos run over 32 requests fails exactly its
    NaN victims and leaks no page.
+10. Speculative decoding, the capacity-dense pool, SLO admission and
+   tenancy. (a) Phase 4's weights and traffic at full width and depth, 8
+   slots, page 16, capacity 640, ``spec_k`` = 3: the plain engine, an
+   ``OracleDraft`` fed the plain run's tokens, and ``build_draft``'s
+   drafter (2 layers, d_model 512, packed at keep 0.25); bf16, then int8
+   tiles + int8 KV + flash prefill. Gates: both speculative runs' tokens
+   equal plain's, a first difference allowed only at a near-tie of the
+   plain trajectory's logits (``BF16_TIE``, relative); the oracle accepts
+   every draft (when no near-tie moved a token) in fewer decode steps than
+   plain; every verify step launches the paged kernel's prefill-append
+   form once a layer and its decode form never; no page leaks. Logged:
+   tokens/s, decode steps, step-wall p50, acceptance, and a profiled
+   steady step of each run by kernel family. Then the same at fp32 over 2
+   layers and 4 requests against naive ``generate`` under phase 6's 1e-4
+   rule. (b) Phase 4's traffic on ``page_size=0`` (bf16): tokens equal
+   phase 4's under the near-tie rule, the paged kernel never launched
+   (decode attention is plain torch there, as the reference computes it
+   outside Pallas); step wall and a profiled step. (c) Phase 9b's
+   configuration on a fake clock with a pinned step time, paged and
+   ``page_size=0``: a doomed deadline rejected at submit with a computed
+   ``retry_after_s``, a victim tenant at goodput 1.0 under an aggressor,
+   the concurrent, rate and page quotas rejecting with a computed
+   ``retry_after_s``, one terminal status a request, nothing leaked.
+
+Phase 3 also holds the verify dispatch's shapes: paged prefill-append with
+4 rows a slot over lengths 1..512 (ragged real rows, bf16 and int8 pages)
+and every ``bcr_spmm*`` case at M = 32 = 8 slots x (``spec_k`` + 1).
 
 Then the card's line, the ``kernels`` JSON line (the paged entries with
-their prefill-append launches and time), and the contract line.
+their prefill-append launches and time; the ``bcr_spmm*``, paged and flash
+entries with their launches over phase 10a's model-drafter run,
+``verify_launches``, and the BCR and paged entries with their time at the
+verify shape, ``verify_ms``), and the contract line.
 """
 
 from __future__ import annotations
@@ -149,6 +179,18 @@ KERNELS = {
 }
 # phase 3's paged case at phase 9a's append admission
 APPEND_SHAPE = "prefill-append B=8 S=64 prefix 384"
+# phase 10a's verify dispatch: 8 slots x (spec_k + 1) = 4 rows, ragged
+# suffixes of 1..4 real rows over lengths 1..512; the projections then run
+# at M = 32 rows, beside the decode step's 8 and a cold prefill's 2048
+SPEC_K = 3
+VERIFY_SHAPE = "verify B=8 S=4 lens 1..512"
+VERIFY_MS = (1, 8, 8 * (SPEC_K + 1), 2048)
+VERIFY_ROWS = {"bcr_spmm": "lm_head 128256x2048 M=32",
+               "bcr_spmm_int8": "lm_head 128256x2048 M=32",
+               "bcr_spmm_grouped": "wgi 2x8192x2048 M=32",
+               "bcr_spmm_grouped_int8": "wgi 2x8192x2048 M=32",
+               "paged_attention": VERIFY_SHAPE,
+               "paged_attention_int8": VERIFY_SHAPE}
 FP_KERNELS = ("bcr_spmm", "bcr_spmm_grouped", "paged_attention")
 INT8_KERNELS = ("bcr_spmm_int8", "bcr_spmm_grouped_int8",
                 "paged_attention_int8")
@@ -260,9 +302,10 @@ def recorder(torch, rows):
 
 def bcr_cases(torch, timer, gen, record):
     """Phase 3's timed ``bcr_spmm`` / ``bcr_spmm_grouped`` cases, fp and int8
-    tiles under bf16 x, at the llama3.2-1b projections and M in {1, 8,
-    2048}: each checked against its plain version, then timed beside the
-    plain version and the dense library product; rows go through
+    tiles under bf16 x, at the llama3.2-1b projections and M in
+    ``VERIFY_MS`` (1, 8, the verify dispatch's 32, 2048): each checked
+    against its plain version, then timed beside the plain version and the
+    dense library product; rows go through
     ``record``. It uses only the wrappers' public calls, so ``--bcr-ab``
     runs it against an older tree's package too."""
     from repro_torch.core.bcr import BCRSpec
@@ -297,7 +340,7 @@ def bcr_cases(torch, timer, gen, record):
                         ("lm_head", 128256, 2048)):
         p = pack(n, k, torch.bfloat16)
         w_dense = tbcrc_unpack(p)
-        for m in (1, 8, 2048):
+        for m in VERIFY_MS:
             x = randn(m, k)
             got = K.bcr_spmm(x, p)
             want = ref.bcr_spmm_packed_ref(x, p)
@@ -319,7 +362,7 @@ def bcr_cases(torch, timer, gen, record):
         w_cat = torch.cat([tbcrc_unpack(dataclasses.replace(
             grouped, vals=grouped.vals[g], row_idx=grouped.row_idx[g],
             col_idx=grouped.col_idx[g])) for g in range(2)])
-        for m in (1, 8, 2048):
+        for m in VERIFY_MS:
             x = randn(m, k)
             got = K.bcr_spmm_grouped(x, grouped, epilogue=epi)
             want = ref.bcr_spmm_grouped_ref(x, grouped, epilogue=epi)
@@ -344,7 +387,7 @@ def bcr_cases(torch, timer, gen, record):
                         ("lm_head", 128256, 2048)):
         p = quantize_packed(pack(n, k, torch.float32))
         w_dense = tbcrc_unpack(p).to(torch.bfloat16)
-        for m in (1, 8, 2048):
+        for m in VERIFY_MS:
             x = randn(m, k)
             got = K.bcr_spmm(x, p)
             want = ref.bcr_spmm_packed_ref(x, p)
@@ -369,7 +412,7 @@ def bcr_cases(torch, timer, gen, record):
             col_idx=grouped.col_idx[g], plan=dataclasses.replace(
                 grouped.plan, block_scales=grouped.plan.block_scales[g])))
             for g in range(2)]).to(torch.bfloat16)
-        for m in (1, 8, 2048):
+        for m in VERIFY_MS:
             x = randn(m, k)
             got = K.bcr_spmm_grouped(x, grouped, epilogue=epi)
             want = ref.bcr_spmm_grouped_ref(x, grouped, epilogue=epi)
@@ -635,8 +678,9 @@ def paged_cases(torch, timer, gen, record):
     head_dim 64, page 16), fp (bf16) and int8 pages under bf16 q: decode
     over 8 slots of lengths 1..512 (one inactive) and 1024..4096,
     prefill-append of 16 rows over a 100-token prefix and of 64 rows over
-    a 384-token prefix (phase 9a's append admission), each checked against
-    its plain version and timed beside it and a gathered SDPA; plus small
+    a 384-token prefix (phase 9a's append admission) and of 4 ragged rows
+    over lengths 1..512 (phase 10a's verify), each checked against its
+    plain version and timed beside it and a gathered SDPA; plus small
     fp32 cases. It uses only the wrappers' public calls, so ``--bcr-ab``
     runs it against an older tree's package too."""
     from repro_torch.kernels import paged_decode_attention as PA
@@ -777,6 +821,34 @@ def paged_cases(torch, timer, gen, record):
            + 2 * q.numel() * 2, aops, torch.bfloat16,
            gathered_sdpa(q, kp, vp, bt, aqpos))
 
+    # the speculative verify dispatch: 4 rows a slot over lengths 1..512,
+    # ragged real rows (1..4; the last slot idle with none); rows past a
+    # slot's suffix are pads the engine discards, so only real rows are
+    # compared, and bound and ops count the real rows
+    vplen = torch.tensor([0, 36, 125, 197, 330, 508, 509, 0],
+                         dtype=torch.int32, device="cuda")
+    vslen = torch.tensor([1, 2, 3, 4, 4, 4, 3, 0], dtype=torch.int32,
+                         device="cuda")
+    vtlen = vplen + vslen
+    vreal = (torch.arange(4, device="cuda")[None] < vslen[:, None])
+    vqpos = vplen[:, None] + torch.arange(4, device="cuda")[None]
+    vops = 4 * int(((vqpos + 1) * vreal).sum()) * h * d
+    kp, vp, bt = pages(vtlen.clamp(min=1).tolist(), torch.bfloat16)
+    q = randn(8, 4, h, d)
+    got = PA.paged_prefill_append_attention(q, kp, vp, bt, vplen, vtlen)
+    want = ref.paged_prefill_append_ref(q, kp, vp, bt, vplen, vtlen)
+    torch.cuda.synchronize()
+    err = check_close("verify B=8 S=4 lens 1..512, real rows", got[vreal],
+                      want[vreal], BF16_TOL)
+    record("paged_attention", VERIFY_SHAPE, err,
+           timer.ms(lambda: PA.paged_prefill_append_attention(
+               q, kp, vp, bt, vplen, vtlen)),
+           timer.ms(lambda: ref.paged_prefill_append_ref(q, kp, vp, bt,
+                                                         vplen, vtlen)),
+           PA.paged_kv_bytes(vtlen.cpu().numpy(), ps, hkv, d, 2)
+           + 2 * int(vslen.sum()) * h * d * 2 + bt.numel() * 4, vops,
+           torch.bfloat16, gathered_sdpa(q, kp, vp, bt, vqpos))
+
     small = torch.tensor([5, 0, 23], dtype=torch.int32, device="cuda")
     kp, vp, bt = pages([5, 1, 23], torch.float32)
     q = randn(3, 1, h, d, dtype=torch.float32)
@@ -862,6 +934,24 @@ def paged_cases(torch, timer, gen, record):
            PA.paged_kv_bytes(atlen.cpu().numpy(), ps, hkv, d, 1, 4)
            + 2 * q.numel() * 2, aops, torch.bfloat16,
            gathered_sdpa(q, *deq, bt, aqpos))
+
+    kc, vc, ks, vs, bt, deq = int8_pages(vtlen.clamp(min=1).tolist())
+    q = randn(8, 4, h, d)
+    got = PA.paged_prefill_append_attention(q, kc, vc, bt, vplen, vtlen,
+                                            k_scale=ks, v_scale=vs)
+    want = ref.paged_prefill_append_ref(q, kc, vc, bt, vplen, vtlen,
+                                        k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    err = check_close("int8 verify B=8 S=4 lens 1..512, real rows",
+                      got[vreal], want[vreal], BF16_TOL)
+    record("paged_attention_int8", VERIFY_SHAPE, err,
+           timer.ms(lambda: PA.paged_prefill_append_attention(
+               q, kc, vc, bt, vplen, vtlen, k_scale=ks, v_scale=vs)),
+           timer.ms(lambda: ref.paged_prefill_append_ref(
+               q, kc, vc, bt, vplen, vtlen, k_scale=ks, v_scale=vs)),
+           PA.paged_kv_bytes(vtlen.cpu().numpy(), ps, hkv, d, 1, 4)
+           + 2 * int(vslen.sum()) * h * d * 2 + bt.numel() * 4, vops,
+           torch.bfloat16, gathered_sdpa(q, *deq, bt, vqpos))
 
     kc, vc, ks, vs, bt, _ = int8_pages([5, 1, 23])
     q = randn(3, 1, h, d, dtype=torch.float32)
@@ -1217,6 +1307,14 @@ def build_main_params(torch):
     return cfg, params, params_q, fracs
 
 
+def main_traffic(np, vocab):
+    """Phases 4, 5 and 10's traffic: 16 prompts of 32, 128 or 512 random
+    tokens (seed 0); returns the generator too, for what follows."""
+    rng = np.random.default_rng(0)
+    plens = rng.choice([32, 128, 512], size=16)
+    return rng, [rng.integers(0, vocab, size=int(n)) for n in plens]
+
+
 def serve_main_path(torch, np, cfg, params, ec, label, frac):
     """Serve the phase's 16 requests with the launch counters zeroed just
     before and read just after; then a profiled decode window and one
@@ -1226,9 +1324,7 @@ def serve_main_path(torch, np, cfg, params, ec, label, frac):
 
     engine = InferenceEngine(cfg, params, ec, device="cuda")
     cfg = engine.cfg                  # kv_dtype from the engine config
-    rng = np.random.default_rng(0)
-    plens = rng.choice([32, 128, 512], size=16)
-    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)) for n in plens]
+    rng, prompts = main_traffic(np, cfg.vocab_size)
     rids = [engine.submit(p, max_new_tokens=32) for p in prompts]
 
     zero_counters()
@@ -1489,31 +1585,15 @@ def _weight_bytes(params) -> int:
 
 def near_tie_check(torch, cfg, params, prompts, got, gen, tie, what):
     """Hold each engine token list in ``got`` to the naive ``generate``
-    oracle's greedy tokens for its prompt: equal, except that a first
-    difference where the oracle's two logits lie within ``tie`` (relative)
-    of each other counts as a near-tie and ends that request's comparison
-    (later tokens follow another history). Returns the near-tie count."""
+    oracle's greedy tokens for its prompt under
+    :func:`tie_check_against`'s near-tie rule. Returns the near-tie
+    count."""
     from repro_torch.launch.serve import generate
 
-    near_ties = 0
-    for p, toks in zip(prompts, got):
-        naive = generate(cfg, params, torch.as_tensor(p)[None],
-                         gen_tokens=gen, page_size=16)
-        want = naive["tokens"][0].tolist()
-        if len(toks) != len(want):
-            raise AssertionError(f"{what}: {len(toks)} tokens, the oracle "
-                                 f"{len(want)}")
-        for i, (a, b) in enumerate(zip(toks, want)):
-            if a == b:
-                continue
-            la = float(naive["logits"][0, i, a])
-            lb = float(naive["logits"][0, i, b])
-            if abs(la - lb) < tie * max(abs(la), abs(lb)):
-                near_ties += 1
-                break
-            raise AssertionError(f"{what}: engine token {a} != naive {b} at "
-                                 f"step {i} (logits {la} vs {lb})")
-    return near_ties
+    want = [generate(cfg, params, torch.as_tensor(p)[None], gen_tokens=gen,
+                     page_size=16)["tokens"][0].tolist() for p in prompts]
+    return tie_check_against(torch, cfg, params, prompts, got, want, tie,
+                             what)[0]
 
 
 def fp32_cfg(num_layers=2, **over):
@@ -1860,6 +1940,404 @@ def phase_lifecycle(torch, np):
         f"recover() ({survivors} requeued) give the naive tokens, near-ties "
         f"{ties}; chaos over 32 requests: {dict(statuses)}, NaN injected "
         f"{nan_fired}, {len(faults.fired)} faults fired, 0 leaked pages")
+
+# -- phase 10: speculative decoding, the capacity-dense pool, SLO admission --
+
+# a near-tie between two bf16 logits: within 2e-2 relative, about five of
+# bf16's 2^-8 relative steps (16 layers of bf16 activations summed in
+# another order by the verify form and at M = 32 move a logit by a few)
+BF16_TIE = 2e-2
+
+
+def serve_run(torch, cfg, params, ec, prompts, drafter=None,
+              draft_params=None, continuations=None):
+    """Serve ``prompts`` (32 greedy tokens each) on a fresh engine with the
+    launch counters zeroed just before and read just after. Returns the
+    tokens (submission order), the run's numbers and the counters."""
+    from repro_torch.serving import FINISHED, InferenceEngine
+
+    engine = InferenceEngine(cfg, params, ec, device="cuda",
+                             drafter=drafter, draft_params=draft_params)
+    rids = [engine.submit(p, max_new_tokens=32) for p in prompts]
+    if continuations is not None:
+        drafter.continuations.update(dict(zip(rids, continuations)))
+    zero_counters()
+    done, step_ms = [], []
+    t0 = time.perf_counter()
+    while engine.sched.has_work():
+        prefills = engine.stats["prefills"]
+        ts = time.perf_counter()
+        done.extend(engine.step())       # ends in a device→host copy
+        if engine.stats["prefills"] == prefills:
+            step_ms.append((time.perf_counter() - ts) * 1e3)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    by_rid = {r.rid: r for r in done}
+    if sorted(by_rid) != sorted(rids) or any(
+            r.status != FINISHED or len(r.generated) != 32 for r in done):
+        raise AssertionError("not every request FINISHED with 32 tokens")
+    engine.check_conservation()
+    st = engine.stats
+    stats = dict(tokens_per_s=st["tokens_generated"] / wall, wall_s=wall,
+                 decode_steps=st["decode_steps"], prefills=st["prefills"],
+                 step_ms_p50=statistics.median(step_ms),
+                 spec_steps=st["spec_steps"],
+                 draft_proposed=st["draft_proposed"],
+                 draft_accepted=st["draft_accepted"],
+                 acceptance=(st["draft_accepted"] / st["draft_proposed"]
+                             if st["draft_proposed"] else None),
+                 accepted_hist=st["accepted_hist"],
+                 drafter_failures=st["drafter_failures"],
+                 kv_bytes_read=st["kv_bytes_read"])
+    return [by_rid[r].generated for r in rids], stats, launches
+
+
+def profile_steps(torch, cfg, params, ec, prompts, drafter=None,
+                  draft_params=None, continuations=None, steps=3):
+    """Device time of steady steps by kernel family under
+    ``torch.profiler`` (8 live slots, after the admission step and one
+    more), beside the wall of as many unprofiled steps just before."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving import InferenceEngine
+
+    engine = InferenceEngine(cfg, params, ec, device="cuda",
+                             drafter=drafter, draft_params=draft_params)
+    rids = [engine.submit(p, max_new_tokens=32) for p in prompts]
+    if continuations is not None:
+        drafter.continuations.update(dict(zip(rids, continuations)))
+    engine.step()
+    engine.step()
+    torch.cuda.synchronize()
+    prefills = engine.stats["prefills"]
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        engine.step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            engine.step()
+        torch.cuda.synchronize()
+    if engine.stats["prefills"] != prefills:
+        raise AssertionError("an admission fell inside the profiled steps")
+    families = {}
+    for name, _, ms in device_events(torch, prof):
+        fam = kernel_family(name)
+        families[fam] = families.get(fam, 0.0) + ms / steps
+    device_ms = sum(families.values())
+    return dict(step_wall_ms=wall_ms, device_ms=device_ms,
+                busy_share=device_ms / wall_ms, by_family_ms=families)
+
+
+def tie_check_against(torch, cfg, params, prompts, got, want, tie, what):
+    """Hold each token list in ``got`` to ``want`` (the oracle's or the
+    plain engine's): equal, except that a first difference where the
+    ``want`` trajectory's teacher-forced logits (naive ``generate`` fed
+    ``want``) of the two tokens lie within ``tie`` (relative) counts as a
+    near-tie and ends that request's comparison (later tokens follow
+    another history). Returns (near-ties, largest relative gap)."""
+    from repro_torch.launch.serve import generate
+
+    near, gaps = 0, []
+    for p, g, w in zip(prompts, got, want):
+        if g == w:
+            continue
+        if len(g) != len(w):
+            raise AssertionError(f"{what}: {len(g)} tokens, plain {len(w)}")
+        i = next(j for j, (a, b) in enumerate(zip(g, w)) if a != b)
+        naive = generate(cfg, params, torch.as_tensor(p)[None],
+                         gen_tokens=len(w), forced=torch.as_tensor([w]))
+        la = float(naive["logits"][0, i, g[i]])
+        lb = float(naive["logits"][0, i, w[i]])
+        rel = abs(la - lb) / max(abs(la), abs(lb), 1e-30)
+        if rel >= tie:
+            raise AssertionError(f"{what}: token {g[i]} != plain {w[i]} at "
+                                 f"step {i} (logits {la} vs {lb}, relative "
+                                 f"gap {rel:.3e} >= {tie})")
+        near += 1
+        gaps.append(rel)
+    return near, max(gaps, default=0.0)
+
+
+def phase_speculative(torch, np, cfg, params, draft, quantized):
+    """Phase 10a at full width and depth: phase 4's traffic through the
+    plain engine, through ``spec_k`` = 3 with an ``OracleDraft`` fed the
+    plain run's tokens, and with ``build_draft``'s packed 2-layer drafter;
+    bf16, or int8 tiles + int8 KV + flash prefill (the drafter keeps bf16
+    tiles and a bf16 cache, and inherits the flash prefill)."""
+    from repro_torch.serving import EngineConfig, OracleDraft
+
+    label = ("phase 10a int8 tiles + int8 KV + flash prefill" if quantized
+             else "phase 10a bf16")
+    dcfg, dparams = draft
+    q = {}
+    if quantized:
+        cfg = dataclasses.replace(cfg, attn_impl="pallas")
+        dcfg = dataclasses.replace(dcfg, attn_impl="pallas")
+        q = dict(kv_dtype="int8", weight_dtype="int8")
+    base = dict(n_slots=8, capacity=640, page_size=16, seed=0, **q)
+    _, prompts = main_traffic(np, cfg.vocab_size)
+    plain_cfg = EngineConfig(**base)
+    oracle_cfg = EngineConfig(spec_k=SPEC_K, **base)
+    model_cfg = EngineConfig(spec_k=SPEC_K, draft_cfg=dcfg, **base)
+    # the plain trajectory's logits for the near-tie rule come from the
+    # naive oracle on the engine's own configuration (int8 KV included)
+    tcfg = dataclasses.replace(cfg, kv_dtype="int8") if quantized else cfg
+    want, plain, _ = serve_run(torch, cfg, params, plain_cfg, prompts)
+    got_o, oracle, o_l = serve_run(torch, cfg, params, oracle_cfg, prompts,
+                                   drafter=OracleDraft(),
+                                   continuations=want)
+    got_m, model, m_l = serve_run(torch, cfg, params, model_cfg, prompts,
+                                  draft_params=dparams)
+    ties_o = tie_check_against(torch, tcfg, params, prompts, got_o, want,
+                               BF16_TIE, label + " oracle")
+    ties_m = tie_check_against(torch, tcfg, params, prompts, got_m, want,
+                               BF16_TIE, label + " model drafter")
+    # with no near-tie the oracle's every proposal is the target's own pick
+    if (not ties_o[0] and oracle["draft_accepted"]
+            != oracle["draft_proposed"]) or not oracle["draft_proposed"]:
+        raise AssertionError(f"{label}: oracle acceptance {oracle}")
+    if oracle["decode_steps"] >= plain["decode_steps"]:
+        raise AssertionError(f"{label}: the oracle took "
+                             f"{oracle['decode_steps']} decode steps, plain "
+                             f"{plain['decode_steps']}")
+    key = "paged_attention_int8" if quantized else "paged_attention"
+    for name, st, l in (("oracle", oracle, o_l), ("model", model, m_l)):
+        append = l[key + "_append"]
+        if append != cfg.num_layers * st["spec_steps"] or l[key] != append:
+            raise AssertionError(
+                f"{label} {name}: {append} append-form launches for "
+                f"{st['spec_steps']} verify steps x {cfg.num_layers} layers, "
+                f"{l[key] - append} decode-form launches")
+    path = (INT8_KERNELS + ("flash_attention_fused",) if quantized
+            else FP_KERNELS)
+    if not all(m_l[k] > 0 for k in path):
+        raise AssertionError(f"{label}: a kernel of the path never "
+                             f"launched: {m_l}")
+    profiles = {
+        "plain": profile_steps(torch, cfg, params, plain_cfg, prompts),
+        "oracle": profile_steps(torch, cfg, params, oracle_cfg, prompts,
+                                drafter=OracleDraft(), continuations=want),
+        "model": profile_steps(torch, cfg, params, model_cfg, prompts,
+                               draft_params=dparams)}
+    out = dict(plain=plain, oracle=oracle, model=model,
+               near_ties=dict(oracle=ties_o, model=ties_m),
+               step_profile=profiles)
+    log(f"{label}: " + json.dumps(out))
+    for name, st in (("plain", plain), ("oracle", oracle), ("model", model)):
+        log(f"{label} {name}: {st['tokens_per_s']:.1f} tokens/s, "
+            f"{st['decode_steps']} decode steps, step wall p50 "
+            f"{st['step_ms_p50']:.2f} ms, acceptance {st['acceptance']}; "
+            f"profiled step: device {profiles[name]['device_ms']:.3f} ms "
+            f"of {profiles[name]['step_wall_ms']:.2f} ms wall")
+    log(f"{label}: tokens equal plain, near-ties oracle {ties_o[0]}, model "
+        f"{ties_m[0]} (tie {BF16_TIE}); append-form launches "
+        f"{m_l[key + '_append']} = {cfg.num_layers} x "
+        f"{model['spec_steps']} verify steps, decode form 0")
+    return out, m_l
+
+
+def phase_speculative_fp32(torch, np):
+    """Phase 10a's exactness check: fp32, full width, 2 layers (phase 6's
+    configuration), 4 requests, the packed ``build_draft`` drafter and the
+    oracle against the naive ``generate`` oracle under phase 6's 1e-4
+    near-tie rule; the oracle's acceptance 1.0 when no tie moved a
+    token."""
+    from repro_torch.launch.serve import build_draft, build_params
+    from repro_torch.serving import EngineConfig, InferenceEngine, OracleDraft
+
+    cfg = fp32_cfg()
+    params = build_params(cfg, seed=1, device="cuda")
+    dcfg, dparams = build_draft(cfg, bcr_keep=0.25, device="cuda",
+                                log=lambda *_: None)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in (32, 77, 128, 300)]
+    gen = 16
+    ec = dict(n_slots=2, capacity=640, page_size=16, seed=0, spec_k=SPEC_K)
+    eng = InferenceEngine(cfg, params, EngineConfig(draft_cfg=dcfg, **ec),
+                          device="cuda", draft_params=dparams)
+    got = eng.generate(prompts, max_new_tokens=gen)
+    ties = near_tie_check(torch, cfg, params, prompts, got, gen, 1e-4,
+                          "phase 10a fp32 model drafter")
+    eng.check_conservation()
+    plain = InferenceEngine(cfg, params, EngineConfig(
+        n_slots=2, capacity=640, page_size=16, seed=0), device="cuda")
+    want = plain.generate(prompts, max_new_tokens=gen)
+    oracle = OracleDraft()
+    eng = InferenceEngine(cfg, params, EngineConfig(**ec), device="cuda",
+                          drafter=oracle)
+    rids = [eng.submit(p, max_new_tokens=gen) for p in prompts]
+    oracle.continuations.update(dict(zip(rids, want)))
+    done = {r.rid: r for r in eng.run()}
+    got_o = [done[r].generated for r in rids]
+    ties += near_tie_check(torch, cfg, params, prompts, got_o, gen, 1e-4,
+                           "phase 10a fp32 oracle")
+    st = eng.stats
+    if got_o == want and st["draft_accepted"] != st["draft_proposed"]:
+        raise AssertionError(f"phase 10a fp32: oracle acceptance {st}")
+    eng.check_conservation()
+    log(f"phase 10a fp32 (2 layers, 4 requests): model drafter and oracle "
+        f"= naive, near-ties {ties}; oracle acceptance "
+        f"{st['draft_accepted']}/{st['draft_proposed']}, "
+        f"{st['decode_steps']} decode steps vs {plain.stats['decode_steps']}")
+
+
+def phase_unpaged(torch, np, cfg, params, traj):
+    """Phase 10b: phase 4's traffic through the capacity-dense pool
+    (``page_size=0``), bf16, full width and depth; tokens equal phase 4's
+    paged engine under the near-tie rule. Decode attention is the plain
+    ``decode_attention`` (the reference computes it outside Pallas), so
+    the paged kernel must not launch."""
+    from repro_torch.serving import EngineConfig
+
+    _, prompts = main_traffic(np, cfg.vocab_size)
+    ec = EngineConfig(n_slots=8, capacity=640, page_size=0, seed=0)
+    got, stats, launches = serve_run(torch, cfg, params, ec, prompts)
+    want = [g for _, g in traj]
+    ties = tie_check_against(torch, cfg, params, prompts, got, want,
+                             BF16_TIE, "phase 10b")
+    if launches["paged_attention"] or not (launches["bcr_spmm"]
+                                           and launches["bcr_spmm_grouped"]):
+        raise AssertionError(f"phase 10b launches {launches}")
+    stats["step_profile"] = profile_steps(torch, cfg, params, ec, prompts)
+    stats["near_ties"] = ties
+    log("phase 10b capacity-dense pool (decode attention: plain torch "
+        "decode_attention, as the reference runs it outside Pallas): "
+        + json.dumps(stats))
+    return stats
+
+
+def admission_scenarios(np, engine, clock, vocab, paged):
+    """Phase 10c's replay of the reference's engine scenarios
+    (``tests/test_admission.py``). Each returns ``(engine, rids)``."""
+    from repro_torch.serving import TenantQuota
+
+    def prompt(n=8, seed=0):
+        return np.random.default_rng(seed).integers(0, vocab, size=n)
+
+    def concurrent():
+        eng = engine(tenant_quotas={"acme": TenantQuota(max_concurrent=2)},
+                     slo_step_time=0.1)
+        return eng, [eng.submit(prompt(), max_new_tokens=4, tenant="acme")
+                     for _ in range(3)]
+
+    def rate():
+        eng = engine(tenant_quotas={"acme": TenantQuota(rate=1.0, burst=1)})
+        rids = [eng.submit(prompt(), max_new_tokens=2, tenant="acme")
+                for _ in range(2)]
+        clock.advance(1.0)
+        rids.append(eng.submit(prompt(), max_new_tokens=2, tenant="acme"))
+        return eng, rids
+
+    def pages():
+        # 24 + 8 tokens = 2 pages of 16 a request: the third exceeds 4
+        eng = engine(tenant_quotas={"acme": TenantQuota(max_pages=4)},
+                     slo_step_time=0.2)
+        return eng, [eng.submit(prompt(24, i), max_new_tokens=8,
+                                tenant="acme") for i in range(3)]
+
+    def doomed():
+        eng = engine(slo_admission=True, slo_step_time=1.0)
+        return eng, [eng.submit(prompt(), max_new_tokens=4, deadline_s=2.0),
+                     eng.submit(prompt(seed=1), max_new_tokens=4,
+                                deadline_s=30.0)]
+
+    def victim():
+        eng = engine(slo_step_time=0.1, tenant_quotas={
+            "aggressor": TenantQuota(rate=4.0, burst=2, max_concurrent=2),
+            "victim": TenantQuota(max_concurrent=4)})
+        rids = []
+        for i in range(12):
+            rids.append(eng.submit(prompt(seed=i), max_new_tokens=6,
+                                   tenant="aggressor"))
+            if i % 3 == 0:
+                rids.append(eng.submit(prompt(seed=50 + i),
+                                       max_new_tokens=6, tenant="victim"))
+            eng.step()
+            clock.advance(0.1)
+        return eng, rids
+
+    return dict(concurrent=concurrent, rate=rate, pages=pages,
+                doomed=doomed, victim=victim)
+
+
+def phase_admission(torch, np):
+    """Phase 10c: SLO admission and tenancy at phase 9b's configuration
+    (fp32, full width, 2 layers) on an injected clock with a pinned step
+    time, on a paged pool and on ``page_size=0``: a doomed deadline is
+    rejected at submit with a computed ``retry_after_s``; a victim tenant
+    keeps goodput 1.0 under an aggressor; the concurrent, rate and page
+    quotas reject with a computed ``retry_after_s`` (the page quota binds
+    on the paged pool only, as in the reference); every request reaches
+    exactly one terminal status; nothing leaks."""
+    from repro_torch.launch.serve import build_params
+    from repro_torch.serving import (EngineConfig, FakeClock,
+                                     InferenceEngine)
+
+    cfg = fp32_cfg()
+    params = build_params(cfg, seed=1, device="cuda")
+    summary = {}
+    for page_size in (16, 0):
+        clock = FakeClock()
+
+        def engine(**kw):
+            return InferenceEngine(cfg, params, EngineConfig(
+                n_slots=2, capacity=640, page_size=page_size, seed=0, **kw),
+                device="cuda", clock=clock)
+
+        for name, scenario in admission_scenarios(
+                np, engine, clock, cfg.vocab_size, page_size > 0).items():
+            eng, rids = scenario()
+            at_submit = {r.rid for r in eng.sched.finished
+                         if r.status == "REJECTED"}
+            while eng.sched.has_work():
+                eng.step()
+                clock.advance(0.01)
+            eng.check_conservation()
+            fin = {}
+            for r in eng.sched.finished:
+                if r.rid in fin:
+                    raise AssertionError(f"phase 10c {name}: rid {r.rid} "
+                                         f"reached two terminal states")
+                fin[r.rid] = r
+            if set(fin) != set(rids):
+                raise AssertionError(f"phase 10c {name}: a request never "
+                                     f"reached a terminal state")
+            statuses = [fin[r].status for r in rids]
+            rej = [fin[r] for r in rids if fin[r].status == "REJECTED"]
+            if {r.rid for r in rej} != at_submit or any(
+                    r.retry_after_s <= 0 for r in rej):
+                raise AssertionError(f"phase 10c {name}: rejections "
+                                     f"{[(r.error, r.retry_after_s) for r in rej]}")
+            tenants = eng.stats["tenants"]
+            want = dict(
+                concurrent=["FINISHED", "FINISHED", "REJECTED"],
+                rate=["FINISHED", "REJECTED", "FINISHED"],
+                pages=(["FINISHED", "FINISHED", "REJECTED"] if page_size
+                       else ["FINISHED"] * 3),
+                doomed=["REJECTED", "FINISHED"]).get(name)
+            if want is not None and statuses != want:
+                raise AssertionError(f"phase 10c {name}: {statuses}")
+            if name == "doomed" and not (
+                    "slo" in rej[0].error and eng.stats["slo_rejected"] == 1
+                    and eng.stats["wasted_prefill_tokens"] == 0):
+                raise AssertionError(f"phase 10c doomed: {rej[0].error}")
+            if name == "victim" and not (
+                    tenants["victim"]["finished"] == 4
+                    and tenants["victim"]["goodput_tokens"] == 24
+                    and tenants["aggressor"]["rejected"] > 0):
+                raise AssertionError(f"phase 10c victim: {tenants}")
+            summary[f"{name} page_size={page_size}"] = dict(
+                statuses=dict((s, statuses.count(s)) for s in set(statuses)),
+                retry_after_s=[round(r.retry_after_s, 4) for r in rej])
+    log("phase 10c SLO admission and tenancy (fp32, 2 layers, fake clock): "
+        + json.dumps(summary))
+    return summary
+
 
 
 def train_cfg(torch, num_layers=16, **over):
@@ -2282,6 +2760,25 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"phase 9: {time.perf_counter() - t0:.1f} s")
 
+    log("phase 10, speculative decoding, the capacity-dense pool, SLO "
+        "admission and tenancy")
+    t0 = time.perf_counter()
+    from repro_torch.launch.serve import build_draft
+    cfg, params, params_q, _ = build_main_params(torch)
+    draft = build_draft(cfg, bcr_keep=0.25, device="cuda", log=log)
+    _, verify_launches = phase_speculative(torch, np, cfg, params, draft,
+                                           quantized=False)
+    _, verify_launches_q = phase_speculative(torch, np, cfg, params_q,
+                                             draft, quantized=True)
+    del params_q
+    phase_unpaged(torch, np, cfg, params, traj)
+    del params, draft
+    torch.cuda.empty_cache()
+    phase_speculative_fp32(torch, np)
+    phase_admission(torch, np)
+    torch.cuda.empty_cache()
+    log(f"phase 10: {time.perf_counter() - t0:.1f} s")
+
     # one entry per kernel form at its decode-step shape (M = 8 slots) or,
     # for flash, the largest cold-prefill bucket; launches from the main
     # path that runs it (for bcr_spmm_skip, the trained-weight runs of the
@@ -2303,6 +2800,16 @@ def main() -> int:
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
             shape=row["shape"]))
+        if name in VERIFY_ROWS:
+            # phase 10a's path: launches over the model-drafter run (its
+            # form's run: bf16, or int8 + flash), time at the verify shape
+            kernels[-1].update(
+                verify_launches=(verify_launches_q if name in INT8_KERNELS
+                                 else verify_launches)[name],
+                verify_ms=next(r["ms"] for r in rows if r["kernel"] == name
+                               and r["shape"] == VERIFY_ROWS[name]))
+        if name == "flash_attention_fused":
+            kernels[-1]["verify_launches"] = verify_launches_q[name]
         if name in ("paged_attention", "paged_attention_int8"):
             # the prefill-append form: its launches on phase 9a's shared
             # run, its time at phase 9a's append admission (phase 3)

@@ -13,7 +13,13 @@ int8`` serves the quantized path (int8 KV pages, int8 packed tiles) and
 shared-prefix workload (each prompt is one of N system prompts plus a user
 suffix) through the prefix cache; ``--kv-pages``, ``--preempt-after-stalls``,
 ``--max-waiting`` and ``--deadline-s`` drive the request lifecycle (an
-oversubscribed pool, preemption, shedding, deadlines). ``generate`` is the naive oracle the engine is held to: one batched
+oversubscribed pool, preemption, shedding, deadlines). ``--page-size 0``
+serves from the capacity-dense slot pool; ``--spec-k 3 --draft-bcr-keep
+0.25`` decodes speculatively with a small drafter (``build_draft``);
+``--slo-admission`` rejects doomed deadlines at submit, and ``--tenants
+a,b`` tags requests round-robin under a per-tenant quota
+(``--tenant-rate``, ``--tenant-burst``, ``--tenant-max-concurrent``).
+``generate`` is the naive oracle the engine is held to: one batched
 exact-length prefill, then step-by-step greedy decode over a fixed page
 table.
 """
@@ -23,7 +29,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,7 +44,8 @@ from repro_torch.launch.train import default_prune_filter
 from repro_torch.models import causal_lm
 from repro_torch.models.layers import FLASH_ATTN_IMPLS, PLAIN_ATTN_IMPLS
 from repro_torch.serving import (CANCELLED, FAILED, FINISHED, REJECTED,
-                                 TIMEOUT, EngineConfig, InferenceEngine)
+                                 TIMEOUT, EngineConfig, InferenceEngine,
+                                 TenantQuota)
 
 PyTree = Any
 
@@ -127,6 +134,29 @@ def build_params(cfg: ModelConfig, log=print, *, seed: int = 0,
     return params
 
 
+def build_draft(cfg: ModelConfig, *, d_model: int = 0, layers: int = 2,
+                bcr_keep: float = 0.0, device="cuda", log=print
+                ) -> Tuple[ModelConfig, PyTree]:
+    """The drafter of ``--spec-k``, as the reference's ``build_draft``
+    builds it: the target's stack at ``d_model`` (0 → the target's // 4,
+    rounded down to a multiple of the head count so head_dim stays exact),
+    ``d_ff = 2 · d_model``, ``layers`` deep, sharing the target's vocab and
+    head counts; random weights from seed 1, BCR-packed at ``bcr_keep``
+    when > 0."""
+    dm = d_model or cfg.d_model // 4
+    dm = max(cfg.num_heads, dm // cfg.num_heads * cfg.num_heads)
+    if d_model and dm != d_model:
+        log(f"--draft-d-model {d_model} rounded to {dm} "
+            f"({cfg.num_heads} heads)")
+    draft_cfg = dataclasses.replace(
+        cfg, name=cfg.name + "-draft", num_layers=layers, d_model=dm,
+        head_dim=dm // cfg.num_heads, d_ff=max(8, dm * 2),
+        bcr_keep_frac=bcr_keep)
+    dparams = build_params(draft_cfg, log=log, seed=1, device=device)
+    log(f"drafter: {layers}L d_model={dm} (keep_frac={bcr_keep})")
+    return draft_cfg, dparams
+
+
 def generate(cfg: ModelConfig, params: PyTree, prompts: torch.Tensor, *,
              gen_tokens: int, page_size: int = 16,
              forced: Optional[torch.Tensor] = None
@@ -179,7 +209,9 @@ def main() -> None:
     p.add_argument("--smoke", action="store_true")
     p.add_argument("--slots", type=int, default=8)
     p.add_argument("--capacity", type=int, default=128)
-    p.add_argument("--page-size", type=int, default=16)
+    p.add_argument("--page-size", type=int, default=16,
+                   help="block-paged KV page size (tokens); 0 → the "
+                        "capacity-dense slot pool")
     p.add_argument("--kv-pages", type=int, default=0,
                    help="total KV pages per layer (0 → full provisioning); "
                         "fewer oversubscribe the pool under page-budget "
@@ -206,6 +238,36 @@ def main() -> None:
                    help="per-request deadline (seconds from submit): past "
                         "it requests retire as TIMEOUT, waiting or "
                         "mid-decode (0 → no deadlines)")
+    p.add_argument("--spec-k", type=int, default=0,
+                   help="speculative decoding: a small drafter proposes up "
+                        "to k tokens a slot and ONE prefill_append dispatch "
+                        "verifies them (needs --page-size > 0; 0 → plain "
+                        "decode)")
+    p.add_argument("--draft-d-model", type=int, default=0,
+                   help="drafter width (0 → target d_model // 4, rounded "
+                        "to the head count)")
+    p.add_argument("--draft-layers", type=int, default=2,
+                   help="drafter depth")
+    p.add_argument("--draft-bcr-keep", type=float, default=0.0,
+                   help="BCR-pack the drafter at this keep fraction (0 → "
+                        "dense drafter)")
+    p.add_argument("--slo-admission", action="store_true",
+                   help="reject at submit a deadline-carrying request the "
+                        "seat-time estimator says cannot finish in time")
+    p.add_argument("--slo-slack", type=float, default=1.0,
+                   help="admit while the estimated finish <= slack x "
+                        "deadline")
+    p.add_argument("--tenants", default="",
+                   help="comma-separated tenant names; requests are tagged "
+                        "round-robin, each tenant under the --tenant-* "
+                        "quota, and the per-tenant counters are printed")
+    p.add_argument("--tenant-rate", type=float, default=0.0,
+                   help="per-tenant sustained admits/s (token bucket; 0 → "
+                        "unlimited)")
+    p.add_argument("--tenant-burst", type=int, default=1,
+                   help="per-tenant token-bucket depth")
+    p.add_argument("--tenant-max-concurrent", type=int, default=0,
+                   help="per-tenant cap on live requests (0 → unlimited)")
     p.add_argument("--bcr-keep", type=float, default=0.0)
     p.add_argument("--bcr-block", type=int, default=0,
                    help="BCR block side; 0 → 16 for --smoke configs, else "
@@ -237,18 +299,33 @@ def main() -> None:
     if args.bcr_block or args.smoke:
         b = args.bcr_block or 16
         cfg = dataclasses.replace(cfg, bcr_block=(b, b))
+    if args.page_size <= 0 and (args.prefix_cache or args.spec_k):
+        p.error("--prefix-cache and --spec-k need --page-size > 0 (the "
+                "paged KV pool)")
     dev = resolve_device(args.device)
     params = build_params(cfg, seed=args.seed, device=dev,
                           weight_dtype=args.weight_dtype)
+    draft_cfg = draft_params = None
+    if args.spec_k:
+        draft_cfg, draft_params = build_draft(
+            cfg, d_model=args.draft_d_model, layers=args.draft_layers,
+            bcr_keep=args.draft_bcr_keep, device=dev)
+    tenants = [t for t in args.tenants.split(",") if t]
+    quota = TenantQuota(rate=args.tenant_rate, burst=args.tenant_burst,
+                        max_concurrent=args.tenant_max_concurrent)
     engine = InferenceEngine(cfg, params, EngineConfig(
         n_slots=args.slots, capacity=args.capacity,
         page_size=args.page_size, kv_pages=args.kv_pages or None,
         prefix_cache=args.prefix_cache, seed=args.seed,
         kv_dtype=args.kv_dtype, weight_dtype=args.weight_dtype,
         max_waiting=args.max_waiting or None,
-        preempt_after_stalls=args.preempt_after_stalls), device=dev)
+        preempt_after_stalls=args.preempt_after_stalls,
+        spec_k=args.spec_k, draft_cfg=draft_cfg,
+        slo_admission=args.slo_admission, slo_slack=args.slo_slack,
+        tenant_quotas={t: quota for t in tenants} or None), device=dev,
+        draft_params=draft_params)
     sys_len = args.system_len if args.system_prompts else 0
-    pmax = args.capacity - args.gen - sys_len
+    pmax = args.capacity - args.gen - args.spec_k - sys_len
     if pmax < 1:
         p.error(f"--capacity {args.capacity} leaves no room for prompts "
                 f"after --gen {args.gen}"
@@ -259,13 +336,14 @@ def main() -> None:
     rng = np.random.default_rng(args.seed)
     systems = [rng.integers(0, cfg.vocab_size, size=sys_len)
                for _ in range(args.system_prompts)]
-    for _ in range(args.requests):
+    for i in range(args.requests):
         user = rng.integers(0, cfg.vocab_size, size=int(rng.choice(plens)))
         if systems:
             user = np.concatenate(
                 [systems[int(rng.integers(len(systems)))], user])
         engine.submit(user, max_new_tokens=args.gen,
-                      deadline_s=args.deadline_s)
+                      deadline_s=args.deadline_s,
+                      tenant=tenants[i % len(tenants)] if tenants else "")
     t0 = time.perf_counter()
     engine.run()
     if dev.type == "cuda":
@@ -291,6 +369,16 @@ def main() -> None:
           f"tokens {st['prefix_hit_tokens']}/{prompt_tokens}); pages_shared "
           f"{st['pages_shared']}; cow_copies {st['cow_copies']}; evictions "
           f"{st['evictions']}; pages_allocated {st['pages_allocated']}")
+    if args.spec_k:
+        print(f"speculative: spec_steps {st['spec_steps']}, acceptance "
+              f"{st['draft_accepted'] / max(st['draft_proposed'], 1):.2f} "
+              f"({st['draft_accepted']}/{st['draft_proposed']} drafts), "
+              f"accepted_hist {st['accepted_hist']}, drafter_failures "
+              f"{st['drafter_failures']}")
+    if args.slo_admission or tenants:
+        print(f"admission: slo_rejected {st['slo_rejected']}, "
+              f"quota_rejected {st['quota_rejected']}; tenants "
+              f"{st['tenants']}")
     if len(ttft):
         print(f"TTFT p50/p95: {np.percentile(ttft, 50) * 1e3:.1f}/"
               f"{np.percentile(ttft, 95) * 1e3:.1f} ms")

@@ -23,7 +23,9 @@ class ModelFns:
     loss_fn: Callable           # (params, batch) -> scalar loss
     prefill: Callable           # (params, batch) -> (logits, cache)
     decode_step: Callable       # (params, batch, cache) -> (logits, cache)
-    init_cache: Callable        # (*, kv_pages, page_size, device) -> cache
+    # (batch, capacity, *, device) -> capacity-dense cache, or
+    # (*, kv_pages, page_size, device) -> paged cache
+    init_cache: Callable
     prefill_append: Callable    # (params, batch, cache) -> (logits, cache)
 
 

@@ -1,9 +1,10 @@
-"""Causal LM, dense family: init, the training forward and loss, paged
-cache, prefill, decode step and prefill-append. A Python loop over
-``params["layers"]`` replaces the reference's scanned stack (the converter
-unstacks the reference's layer axis); ``cfg.remat`` checkpoints each layer
-(``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` does its
-one-layer scan body. The other families come in a later slice of the port.
+"""Causal LM, dense family: init, the training forward and loss, paged and
+capacity-dense caches, prefill, decode step and prefill-append. A Python
+loop over ``params["layers"]`` replaces the reference's scanned stack (the
+converter unstacks the reference's layer axis); ``cfg.remat`` checkpoints
+each layer (``torch.utils.checkpoint``), as the reference's
+``jax.checkpoint`` does its one-layer scan body. The other families come
+in a later slice of the port.
 """
 
 from __future__ import annotations
@@ -67,20 +68,29 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     }
 
 
-def init_cache(cfg: ModelConfig, *, kv_pages: int, page_size: int,
+def init_cache(cfg: ModelConfig, batch: int = 0, capacity: int = 0, *,
+               kv_pages: int = 0, page_size: int = 0,
                device="cuda") -> Cache:
-    """Paged decode cache: one ``(kv_pages, page_size, Hkv, D)`` K and V pool
-    per layer. Page 0 is the null page (pad and inactive writes land there;
-    no live table entry points at it). ``kv_dtype="int8"`` stores int8 codes
-    plus sibling fp32 ``k_scale``/``v_scale`` pools ``(kv_pages, page_size,
-    Hkv)`` in the same page index space."""
+    """Decode cache, one dict of K/V leaves per layer.
+
+    ``page_size > 0``: a paged pool, one ``(kv_pages, page_size, Hkv, D)``
+    K and V pool per layer. Page 0 is the null page (pad and inactive
+    writes land there; no live table entry points at it). Otherwise
+    capacity-dense: ``(batch, capacity, Hkv, D)`` per layer, slot ``b``
+    owning row ``b`` (the batch axis is 0 in every leaf; the reference's
+    scanned stack puts its layer axis first instead). ``kv_dtype="int8"``
+    stores int8 codes plus sibling fp32 ``k_scale``/``v_scale`` leaves
+    shaped as the codes without their last axis."""
     _check_cfg(cfg)
-    if page_size <= 0:
-        raise NotImplementedError(
-            "unpaged (capacity-dense) caches come in a later slice of the "
-            "port; use page_size > 0")
     dev = resolve_device(device)
-    shape = (kv_pages, page_size, cfg.num_kv_heads, cfg.head_dim)
+    if page_size > 0:
+        lead = (kv_pages, page_size)
+    elif batch > 0 and capacity > 0:
+        lead = (batch, capacity)
+    else:
+        raise ValueError("init_cache needs page_size > 0 (paged) or batch "
+                         "and capacity > 0 (capacity-dense)")
+    shape = lead + (cfg.num_kv_heads, cfg.head_dim)
     quant = cfg.kv_dtype == "int8"
     kv_dt = torch.int8 if quant else cfg.c_dtype
 
@@ -220,19 +230,20 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                 cache: Cache, cache_len: torch.Tensor,
                 block_tables: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Cache]:
-    """One serving step: tokens (B, 1) + paged cache → (logits (B, 1, V),
-    cache). Slot b writes its K/V at position ``cache_len[b]`` and attends
-    to its own history through ``block_tables`` (B, n_cols)."""
+    """One serving step: tokens (B, 1) + cache → (logits (B, 1, V), cache).
+    ``cache_len`` is a scalar (uniform batch) or (B,): slot b writes its
+    K/V at position ``cache_len[b]`` and attends to its own history —
+    through ``block_tables`` (B, n_cols) over a paged cache, or in its own
+    rows of a capacity-dense cache (``block_tables`` None)."""
     _check_cfg(cfg)
-    if block_tables is None:
-        raise NotImplementedError(
-            "unpaged (capacity-dense) decode comes in a later slice of the "
-            "port; pass block_tables")
-    cache_len = cache_len.to(tokens.device)
+    b = tokens.shape[0]
+    cache_len = torch.as_tensor(cache_len, dtype=torch.int32,
+                                device=tokens.device).reshape(-1).expand(b)
     positions = cache_len[:, None]
     x = _embed_tokens(cfg, params, tokens)
-    shared = _step_tables(cfg, positions, block_tables, cache_len,
-                          page_size=cache[0]["k"].shape[1])
+    shared = (_step_tables(cfg, positions) if block_tables is None else
+              _step_tables(cfg, positions, block_tables, cache_len,
+                           page_size=cache[0]["k"].shape[1]))
     for lp, c in zip(params["layers"], cache):
         x, _ = layer_apply(lp, x, cfg, cache=c,
                            cache_len=cache_len, block_tables=block_tables,

@@ -1,6 +1,6 @@
 """The neural-net substrate of the dense family: RMSNorm, RoPE, embeddings,
-attention (full-sequence for training and cold prefill, paged decode, paged
-prefill-append), the SwiGLU MLP and the cross-entropy loss. Every projection
+attention (full-sequence for training and cold prefill, capacity-dense and
+paged decode, paged prefill-append), the SwiGLU MLP and the cross-entropy loss. Every projection
 goes through ``core.sparse_linear`` so BCR-packed weights run through the
 port's kernels.
 
@@ -13,7 +13,9 @@ Cold-prefill attention follows ``cfg.attn_impl`` as in the reference:
 fused flash kernel; ``"dense"``, ``"flash"`` (the reference's XLA chunked
 attention, the same function) and the paged-kernel settings ``"paged"`` /
 ``"paged_interpret"`` run the plain product; anything else raises. Paged
-decode and prefill-append always run the paged attention kernel.
+decode and prefill-append always run the paged attention kernel;
+capacity-dense decode runs the plain :func:`decode_attention`, as the
+reference runs it outside any Pallas kernel.
 
 Training differentiates the full-sequence path with autograd. The plain
 product stands in for the reference's XLA ``flash_attention`` (which
@@ -218,6 +220,55 @@ def cold_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(b, h, s, d).transpose(1, 2)
 
 
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cache_len: torch.Tensor,
+                     k_scale: Optional[torch.Tensor] = None,
+                     v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Single-step attention against capacity-dense caches.
+
+    q ``(B, 1, H, D)``; caches ``(B, L, Hkv, D)``; ``cache_len`` a scalar or
+    ``(B,)``: the valid positions of each slot, the step's new K/V already
+    written. Products in fp32 off the cache dtype, positions at or past a
+    slot's length masked before an fp32 softmax whose probabilities are
+    rounded to the cache dtype, as the reference's XLA ``decode_attention``
+    does (plain torch here: the reference runs no Pallas kernel on this
+    path). int8 caches (``k_scale``/``v_scale``, ``(B, L, Hkv)``) are
+    dequantized to fp32 first, the reference's correctness fallback."""
+    b, _, h, d = q.shape
+    l, hkv = k_cache.shape[1], k_cache.shape[2]
+    if k_scale is not None:
+        k_cache = k_cache.float() * k_scale.float()[..., None]
+        v_cache = v_cache.float() * v_scale.float()[..., None]
+    qg = q.reshape(b, hkv, h // hkv, d).to(k_cache.dtype)
+    logits = torch.einsum("bhgd,bkhd->bhgk", qg.float(),
+                          k_cache.float()) * d ** -0.5
+    lens = torch.as_tensor(cache_len, device=q.device).reshape(-1)
+    valid = (torch.arange(l, device=q.device)[None]
+             < lens.expand(b)[:, None])                       # (B, L)
+    logits = torch.where(valid[:, None, None, :], logits,
+                         torch.full_like(logits, NEG_INF))
+    p = torch.softmax(logits, dim=-1).to(v_cache.dtype)
+    out = torch.einsum("bhgk,bkhd->bhgd", p.float(), v_cache.float())
+    return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+def _dense_write(cache: Params, cache_len: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor) -> None:
+    """Write each slot's step K/V ``(B, 1, Hkv, D)`` at its own position
+    ``cache_len[b]`` of the capacity-dense cache, in place; int8 caches
+    store codes and the per-row, per-kv-head scales at the same position."""
+    rows = torch.arange(k.shape[0], device=k.device)
+    idx = (rows, cache_len.to(k.device).long())
+    if "k_scale" not in cache:
+        for key, new in (("k", k), ("v", v)):
+            cache[key].index_put_(idx, new[:, 0].to(cache[key].dtype))
+        return
+    codes, scales = quantize_rows(torch.stack([k[:, 0], v[:, 0]]))
+    for i, key in enumerate(("k", "v")):
+        cache[key].index_put_(idx, codes[i])
+        cache[f"{key}_scale"].index_put_(idx, scales[i])
+
+
 def paged_write_rows(block_tables: torch.Tensor, cache_len: torch.Tensor,
                      s: int, suffix_len: Optional[torch.Tensor],
                      page_size: int) -> torch.Tensor:
@@ -255,6 +306,10 @@ def attention_apply(
 
     * no ``cache`` — cold prefill (causal; :func:`cold_attention` by
       ``attn_impl``); returns the fresh K/V as the cache.
+    * ``cache`` without ``block_tables`` — capacity-dense decode, one
+      token: each slot writes its K/V at ``cache_len[b]`` of its own rows
+      (``(B, capacity, Hkv, D)`` leaves), then :func:`decode_attention`
+      over positions ``<= cache_len[b]``.
     * ``cache`` + ``block_tables``, one token — paged decode: write K/V at
       ``table[b, len // ps] * ps + len % ps`` (inactive slots, with length
       0 and a zeroed table row, land in the reserved null page 0), then the
@@ -271,10 +326,14 @@ def attention_apply(
     q, k, v = _qkv(params, x, n_heads, n_kv, head_dim, rope_cs)
 
     if cache is not None and block_tables is None:
-        raise NotImplementedError(
-            "unpaged (capacity-dense) caches come in a later slice of the "
-            "port; pass block_tables")
-    if cache is not None:
+        if s != 1:
+            raise ValueError("a capacity-dense cache takes one token a step")
+        _dense_write(cache, cache_len, k, v)
+        out = decode_attention(q, cache["k"], cache["v"], cache_len + 1,
+                               k_scale=cache.get("k_scale"),
+                               v_scale=cache.get("v_scale"))
+        new_cache = cache
+    elif cache is not None:
         kp, vp = cache["k"], cache["v"]
         ks, vs = cache.get("k_scale"), cache.get("v_scale")
         _paged_write(cache, kv_dest, k, v, n_kv, head_dim)

@@ -1,49 +1,69 @@
-"""InferenceEngine: continuous-batching serving over (BCR-packed) params on a
-block-paged KV pool — the subset of the reference engine that carries the
-main serving path.
+"""InferenceEngine: continuous-batching serving over (BCR-packed) params
+on a block-paged or a capacity-dense KV pool — the reference engine's
+single-device serving path.
 
 Each ``step()``:
 
-  1. admits waiting requests into free slots under the page budget (strict
-     FCFS: the first request the pool cannot cover requeues itself and
-     everything behind it). All admissions of a step share ONE batched
-     ``prefill`` (prompts right-padded to a power-of-two bucket, rows padded
-     to a power-of-two tier) whose KV is seated into each slot's pages;
-     steady-state backfills are chunked (``backfill_chunk``);
-  2. runs ONE ``decode_step`` over the whole ragged slot batch with per-slot
-     lengths and block tables sliced to the pow2-bucketed live width, so
-     the paged attention kernel reads each slot's live pages only;
+  1. admits waiting requests into free slots (under the page budget on a
+     paged pool; strict FCFS: the first request the pool cannot cover
+     requeues itself and everything behind it). All admissions of a step
+     share ONE batched ``prefill`` (prompts right-padded to a power-of-two
+     bucket, rows padded to a power-of-two tier) whose KV is seated into
+     each slot's pages or rows; steady-state backfills are chunked
+     (``backfill_chunk``);
+  2. runs ONE ``decode_step`` over the whole ragged slot batch with
+     per-slot lengths — over a paged pool with block tables sliced to the
+     pow2-bucketed live width, so the paged attention kernel reads each
+     slot's live pages only; over the capacity-dense pool
+     (``page_size=0``, the reference's default) through the plain
+     ``decode_attention`` over every slot's ``capacity`` rows;
   3. samples per slot (greedy / temperature / top-k), advances lengths and
      retires finished requests.
 
-Free slots ride along as garbage rows: their length is 0 and their table row
-is zero, so their writes land in the null page and their output is dropped.
+Free slots ride along as garbage rows: their length is 0 (and on a paged
+pool their table row is zero, so their writes land in the null page) and
+their output is dropped.
 
 Quantized serving: ``kv_dtype="int8"`` stores the pool as int8 codes with
 per-row, per-kv-head fp32 scales; ``weight_dtype="int8"`` quantizes the
 packed tiles to int8 codes with one fp32 scale per tile at engine build.
 
-Prefix cache (``prefix_cache=True``): admission matches each prompt against
-the pool's content-addressed index, adopts the shared full-page prefix
-(refcount bump, no recompute), copies a shared partial final page before
-the suffix writes into it (copy-on-write) and runs ONE bucketed
-``prefill_append`` for just the uncached suffixes, through the paged
-attention kernel's prefill-append form. A step may run that dispatch and
-one cold prefill.
+Prefix cache (``prefix_cache=True``, paged pools only): admission matches
+each prompt against the pool's content-addressed index, adopts the shared
+full-page prefix (refcount bump, no recompute), copies a shared partial
+final page before the suffix writes into it (copy-on-write) and runs ONE
+bucketed ``prefill_append`` for just the uncached suffixes, through the
+paged attention kernel's prefill-append form. A step may run that dispatch
+and one cold prefill.
+
+Speculative decoding (``spec_k > 0``, paged pools only): every decode step
+becomes a draft→verify→accept step. A drafter (``serving/speculative.py``:
+a small second model on its own capacity-dense pool, or a replaying
+oracle) proposes up to ``spec_k`` tokens a slot; ONE ``prefill_append``
+dispatch (``all_logits=True``, the paged kernel's prefill-append form with
+``spec_k + 1`` rows a slot and ragged suffix lengths) scores the pending
+token and every draft; host-side acceptance commits the longest agreeing
+prefix plus one token from the target's own row, and the pool truncates
+back to the commit frontier (the pages past it were drawn this step and
+never shared).
 
 Request lifecycle, as in the reference: per-request deadlines (TIMEOUT,
 waiting or mid-decode), ``cancel``, ``pause``/``resume``, bounded-queue
 shedding (``max_waiting``), page-pressure preemption
-(``preempt_after_stalls``: the victim's tokens fold into its prompt and it
-re-prefills), per-row NaN containment (a row whose sampled logits are not
-finite retires as FAILED and emits nothing), ``recover()`` after a failed
-step, an injectable clock, a step watchdog and a seeded fault injector
-(``serving/faults.py``). One reentrant lock serializes every public entry
-point, so other threads may submit and cancel against a stepping engine.
+(``preempt_after_stalls``, paged pools: the victim's tokens fold into its
+prompt and it re-prefills), per-row NaN containment (a row whose sampled
+logits are not finite retires as FAILED and emits nothing), ``recover()``
+after a failed step, an injectable clock, a step watchdog and a seeded
+fault injector (``serving/faults.py``). SLO admission (``slo_admission``)
+rejects at submit a deadline the occupancy simulation of
+``serving/admission.py`` proves unmakeable; per-tenant quotas
+(``tenant_quotas``: rate, concurrency, KV pages) reject over-quota submits
+with a computed ``retry_after_s`` and weight the scheduler's fair queue.
+One reentrant lock serializes every public entry point, so other threads
+may submit and cancel against a stepping engine.
 
-Not ported yet (each raises ``NotImplementedError`` when asked for):
-speculative decoding, tensor parallelism and unpaged pools. SLO admission
-and tenancy come in a later slice.
+Not ported yet: tensor parallelism (``mesh_model > 1`` raises
+``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -62,10 +82,17 @@ from repro_torch.kernels.flash_attention import chunks_fit
 from repro_torch.kernels.plan import quantize_packed_params
 from repro_torch.models.api import model_fns
 from repro_torch.models.layers import FLASH_ATTN_IMPLS
+from repro_torch.serving.admission import (TenantQuota, TokenBucket,
+                                           estimate_seat_steps,
+                                           request_work_steps)
 from repro_torch.serving.faults import StepWatchdog
-from repro_torch.serving.kv_slots import PagedSlotPool
-from repro_torch.serving.scheduler import (CANCELLED, FAILED, REJECTED,
-                                           TIMEOUT, Request, Scheduler)
+from repro_torch.serving.kv_slots import (PagedSlotPool, SlotPool,
+                                          prefill_bucket)
+from repro_torch.serving.scheduler import (CANCELLED, FAILED, FINISHED,
+                                           REJECTED, TIMEOUT, Request,
+                                           Scheduler)
+from repro_torch.serving.speculative import (DraftModel, accept_draft,
+                                             accept_greedy)
 
 PyTree = Any
 
@@ -105,21 +132,35 @@ class EngineConfig:
     seed: int = 0
     max_admit_per_step: Optional[int] = None  # None → fill every free slot
     min_bucket: int = 8
-    # block-paged KV (the only pool the port has so far): kv_pages None →
-    # full provisioning; fewer pages oversubscribe the pool and admission
-    # control requeues what the budget cannot cover
+    # block-paged KV: page_size > 0 keeps attention K/V in a shared page
+    # pool indexed by per-slot block tables (kv_pages None → full
+    # provisioning; fewer pages oversubscribe the pool and admission
+    # control requeues what the budget cannot cover); 0 → the
+    # capacity-dense SlotPool (every slot owns `capacity` rows)
     page_size: int = 16
     kv_pages: Optional[int] = None
     # prefix sharing over the paged pool: admissions adopt cached full-page
     # prompt prefixes (refcounted, CoW on a shared partial final page) and
     # prefill only the uncached suffix; admitted prompts publish their full
-    # pages into the pool's LRU-evicted prefix index
+    # pages into the pool's LRU-evicted prefix index. Paged pools only.
     prefix_cache: bool = False
     # chunked backfill: hold steady-state admissions until `backfill_chunk`
     # can be seated together (or `backfill_max_defer` decode steps pass, or
     # the engine is idle), then run ONE merged prefill for all of them
     backfill_chunk: int = 2
     backfill_max_defer: int = 2
+    # speculative decoding: spec_k > 0 makes every decode step a
+    # draft→verify→accept step (paged pools only) — a drafter proposes up
+    # to spec_k tokens a live slot and ONE prefill_append dispatch scores
+    # them plus the pending token, committing 1..spec_k+1 tokens a step.
+    # The drafter is draft_cfg (+ draft_params at engine build: a small
+    # causal LM sharing the target's vocab) or an explicit `drafter`
+    # object with serving/speculative.py's protocol. Requests then need
+    # spec_k tokens of slot headroom (prompt + max_new_tokens + spec_k
+    # must fit the capacity): the verify dispatch writes draft K/V past
+    # the commit frontier before acceptance rolls it back.
+    spec_k: int = 0
+    draft_cfg: Optional[ModelConfig] = None
     # quantized serving: "int8" KV pages (codes + per-row scales) and/or
     # int8 packed tiles (codes + per-tile scales)
     kv_dtype: str = ""
@@ -134,21 +175,28 @@ class EngineConfig:
     preempt_after_stalls: int = 0
     watchdog_threshold: float = 3.0
     fault_injector: Any = None
-    # reference options not ported yet: each raises NotImplementedError
-    spec_k: int = 0
+    # SLO-aware admission (serving/admission.py): submit() event-simulates
+    # slot turnover against the step-time estimate and rejects a
+    # deadline-carrying request whose finish is provably past
+    # deadline_s × slo_slack. slo_step_time pins the step-time estimate in
+    # seconds (0 → the engine's own EWMA of measured steps). Every reject
+    # and shed carries Request.retry_after_s from the same simulation.
+    slo_admission: bool = False
+    slo_slack: float = 1.0
+    slo_step_time: float = 0.0
+    # per-tenant isolation: tenant -> TenantQuota (rate/burst token
+    # bucket, concurrent-request cap, KV page budget, WFQ weight);
+    # default_tenant_quota covers tenants not listed (None → unlimited)
+    tenant_quotas: Optional[Dict[str, TenantQuota]] = None
+    default_tenant_quota: Optional[TenantQuota] = None
+    # tensor parallelism, not ported yet: > 1 raises NotImplementedError
     mesh_model: int = 1
 
     def __post_init__(self):
-        unported = [
-            (self.page_size <= 0, "page_size=0 (unpaged pools)"),
-            (self.spec_k > 0, "spec_k (speculative decoding)"),
-            (self.mesh_model > 1, "mesh_model > 1 (tensor parallelism)"),
-        ]
-        for bad, what in unported:
-            if bad:
-                raise NotImplementedError(
-                    f"{what} is not ported yet; it comes in a later slice of "
-                    f"the port (see ROADMAP.md)")
+        if self.mesh_model > 1:
+            raise NotImplementedError(
+                "mesh_model > 1 (tensor parallelism) is not ported yet; it "
+                "comes in a later slice of the port (see ROADMAP.md)")
         for name in ("kv_dtype", "weight_dtype"):
             if getattr(self, name) not in ("", "int8"):
                 raise ValueError(f"unsupported {name} "
@@ -158,6 +206,7 @@ class EngineConfig:
 class InferenceEngine:
     def __init__(self, cfg: ModelConfig, params: PyTree,
                  ec: Optional[EngineConfig] = None, *, device="cuda",
+                 draft_params: PyTree = None, drafter: Any = None,
                  clock: Optional[Callable[[], float]] = None):
         ec = ec or EngineConfig()
         self.device = resolve_device(device)
@@ -180,25 +229,65 @@ class InferenceEngine:
                 raise ValueError(
                     f"prefill buckets {bad} do not split into the flash "
                     f"chunks q_chunk={cfg.q_chunk}, kv_chunk={cfg.kv_chunk}")
-        self.pool = PagedSlotPool(self.fns.init_cache, ec.n_slots,
-                                  ec.capacity, page_size=ec.page_size,
-                                  n_pages=ec.kv_pages, device=self.device)
+        self.paged = ec.page_size > 0
+        if self.paged:
+            self.pool: Any = PagedSlotPool(
+                self.fns.init_cache, ec.n_slots, ec.capacity,
+                page_size=ec.page_size, n_pages=ec.kv_pages,
+                device=self.device)
+        else:
+            self.pool = SlotPool(self.fns.init_cache, ec.n_slots,
+                                 ec.capacity, device=self.device)
         self.sched = Scheduler(ec.n_slots)
-        self.prefix_cache = bool(ec.prefix_cache)
+        # prefix sharing and preemption read pages: paged pools only, as in
+        # the reference (which ignores prefix_cache on an unpaged pool)
+        self.prefix_cache = bool(ec.prefix_cache) and self.paged
+        # speculative decoding: verification is a prefill_append over the
+        # pages and rollback truncates them, so it needs the paged pool
+        self.spec = ec.spec_k > 0
+        if self.spec:
+            if not self.paged:
+                raise ValueError(
+                    "spec_k > 0 needs a block-paged pool (page_size > 0): "
+                    "verification runs through prefill_append and rollback "
+                    "rewinds pages")
+            if drafter is None:
+                if ec.draft_cfg is None or draft_params is None:
+                    raise ValueError(
+                        "spec_k > 0 needs a drafter: pass draft_cfg + "
+                        "draft_params, or a drafter object")
+                if ec.draft_cfg.vocab_size != cfg.vocab_size:
+                    raise ValueError(
+                        "drafter must share the target's token space")
+                drafter = DraftModel(ec.draft_cfg, draft_params, ec.n_slots,
+                                     ec.capacity, min_bucket=ec.min_bucket,
+                                     device=self.device)
+        self.drafter = drafter
+        # acceptance draws (sampled requests) come from a numpy generator,
+        # as in the reference, so one seed decides alike in both packages
+        self._rng = np.random.default_rng(ec.seed)
         # one reentrant lock around every scheduler/pool mutation; reentrant
         # because step() itself cancels (fault injection)
         self._elock = threading.RLock()
-        # deadlines, latency timestamps and the watchdog all read this
-        # clock, so tests drive time deterministically (FakeClock)
+        # deadlines, latency timestamps, quotas and the watchdog all read
+        # this clock, so tests drive time deterministically (FakeClock)
         self._clock: Callable[[], float] = clock or time.perf_counter
         self.faults = ec.fault_injector
         self._step_idx = -1      # engine step counter (fault schedule index)
         self._stall_steps = 0    # consecutive fully page-stalled steps
+        # the admission estimator's step time: an EWMA of measured steps
+        # that survives reset_stats (the watchdog's is renewed there)
+        self._step_time = 0.0
+        self._rate_buckets: Dict[str, TokenBucket] = {}
+        if ec.tenant_quotas:
+            self.sched.weights = {t: q.weight
+                                  for t, q in ec.tenant_quotas.items()}
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(ec.seed)
         self._defer_steps = 0
         # bytes one cache position costs to read across all layers: K + V
-        # (+ their fp32 scales under int8 KV)
+        # (+ their fp32 scales under int8 KV); leaves are (pages or slots,
+        # positions, ...) in both pools
         self._kv_row_bytes = sum(
             leaf[0, 0].numel() * leaf.element_size()
             for layer in self.pool.cache for leaf in layer.values())
@@ -208,13 +297,17 @@ class InferenceEngine:
         self._topks = np.zeros((ec.n_slots,), np.int32)
         self.stats: Dict[str, Any] = {}
         self.reset_stats()
+        # every terminal transition passes through the scheduler's hook, so
+        # per-tenant counters cannot drift from the finished list
+        self.sched.on_terminal = self._account_terminal
 
     # -- request intake ----------------------------------------------------
 
     def submit(self, prompt: Sequence[int], *, max_new_tokens: int = 16,
                temperature: float = 0.0, top_k: int = 0,
                eos_id: Optional[int] = None, arrival_time: float = 0.0,
-               deadline_s: float = 0.0, priority: int = 0) -> int:
+               deadline_s: float = 0.0, priority: int = 0,
+               tenant: str = "") -> int:
         """Enqueue a request; returns its rid. A request the engine can
         NEVER seat (slot capacity / page pool too small) is retired at once
         as REJECTED — the rid still comes back. ``deadline_s`` > 0 arms a
@@ -222,7 +315,11 @@ class InferenceEngine:
         the request retires as TIMEOUT, waiting or mid-decode.
         ``priority`` picks the QoS tier: higher tiers are admitted first
         (FCFS within a tier) and lower tiers are preferred as shedding and
-        preemption victims. Thread-safe."""
+        preemption victims. ``tenant`` names the quota and fair-queueing
+        bucket: an over-quota submit is REJECTED with a computed
+        ``retry_after_s``, and with ``slo_admission`` a deadline the
+        occupancy simulation proves unmakeable is rejected here.
+        Thread-safe."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size == 0:
             raise ValueError("empty prompt")
@@ -231,20 +328,40 @@ class InferenceEngine:
                           temperature=temperature, top_k=top_k,
                           eos_id=eos_id, arrival_time=arrival_time,
                           deadline_s=float(deadline_s),
-                          priority=int(priority), submit_time=self._clock())
-            total = prompt.size + max_new_tokens
+                          priority=int(priority), tenant=str(tenant),
+                          submit_time=self._clock())
+            self._tenant_stats(req.tenant)["submitted"] += 1
+            # speculative headroom: the verify dispatch writes up to spec_k
+            # draft K/V rows past the commit frontier before rollback
+            total = prompt.size + max_new_tokens + self._headroom()
             if total > self.ec.capacity:
                 self.stats["rejected"] += 1
                 return self.sched.reject(
                     req, f"prompt_len {prompt.size} + max_new_tokens "
-                         f"{max_new_tokens} exceeds slot capacity "
-                         f"{self.ec.capacity}")
-            need = self.pool.pages_needed(total)
-            if need > self.pool.n_pages - 1:
+                         f"{max_new_tokens}"
+                         + (f" + spec_k {self.ec.spec_k}" if self.spec
+                            else "")
+                         + f" exceeds slot capacity {self.ec.capacity}")
+            if self.paged:
+                need = self.pool.pages_needed(total)
+                if need > self.pool.n_pages - 1:
+                    self.stats["rejected"] += 1
+                    return self.sched.reject(
+                        req, f"request needs {need} KV pages but the pool "
+                             f"only has {self.pool.n_pages - 1} allocatable "
+                             f"pages")
+            reason = self._quota_check_locked(req)
+            if reason is not None:
                 self.stats["rejected"] += 1
-                return self.sched.reject(
-                    req, f"request needs {need} KV pages but the pool only "
-                         f"has {self.pool.n_pages - 1} allocatable pages")
+                self.stats["quota_rejected"] += 1
+                return self.sched.reject(req, reason)
+            if self.ec.slo_admission and req.deadline_s > 0:
+                reason = self._slo_check_locked(req)
+                if reason is not None:
+                    self.stats["rejected"] += 1
+                    self.stats["slo_rejected"] += 1
+                    req.retry_after_s = self._drain_estimate_locked()
+                    return self.sched.reject(req, reason)
             rid = self.sched.submit(req)
             if (self.ec.max_waiting
                     and len(self.sched.waiting) > self.ec.max_waiting):
@@ -257,10 +374,132 @@ class InferenceEngine:
                                    (r.submit_time + r.deadline_s)
                                    if r.deadline_s > 0 else float("inf"),
                                    r.rid))
+                victim.retry_after_s = self._drain_estimate_locked()
                 self.sched.drop_waiting(victim, REJECTED,
                                         "shed: waiting queue full")
                 self.stats["shed"] += 1
             return rid
+
+    # -- SLO-aware admission and per-tenant quotas -------------------------
+
+    def _quota(self, tenant: str) -> Optional[TenantQuota]:
+        if self.ec.tenant_quotas and tenant in self.ec.tenant_quotas:
+            return self.ec.tenant_quotas[tenant]
+        return self.ec.default_tenant_quota
+
+    def _tenant_stats(self, tenant: str) -> Dict[str, Any]:
+        key = tenant or "default"
+        ts = self.stats["tenants"].get(key)
+        if ts is None:
+            ts = self.stats["tenants"][key] = dict(
+                submitted=0, finished=0, rejected=0, timeout=0,
+                cancelled=0, failed=0, tokens=0, goodput_tokens=0)
+        return ts
+
+    def _account_terminal(self, req: Request) -> None:
+        """The scheduler's ``on_terminal`` hook: per-tenant counters and the
+        prompt tokens whose prefill was paid for a request that never
+        delivered (``wasted_prefill_tokens``)."""
+        ts = self._tenant_stats(req.tenant)
+        key = req.status.lower()
+        ts[key] = ts.get(key, 0) + 1
+        ts["tokens"] += len(req.generated)
+        if req.status == FINISHED:
+            ts["goodput_tokens"] += len(req.generated)
+        elif req.admit_time > 0 or req.status == FAILED:
+            self.stats["wasted_prefill_tokens"] += req.prompt_len
+
+    def _live_requests(self) -> List[Request]:
+        return (list(self.sched.active.values()) + list(self.sched.waiting)
+                + list(self.sched.paused.values()))
+
+    def _quota_check_locked(self, req: Request) -> Optional[str]:
+        """A rejection reason if the tenant is over quota (``req.
+        retry_after_s`` then holds the computed backoff), else None."""
+        quota = self._quota(req.tenant)
+        if quota is None:
+            return None
+        live = [r for r in self._live_requests() if r.tenant == req.tenant]
+        if quota.max_concurrent > 0 and len(live) >= quota.max_concurrent:
+            req.retry_after_s = self._drain_estimate_locked()
+            return (f"tenant {req.tenant or 'default'!r} at its concurrent-"
+                    f"request quota ({quota.max_concurrent})")
+        if quota.max_pages > 0 and self.paged:
+            held = sum(self.pool.pages_needed(
+                r.prompt_len - r.folded + r.max_new_tokens
+                + self._headroom()) for r in live)
+            need = self.pool.pages_needed(
+                req.prompt_len + req.max_new_tokens + self._headroom())
+            if held + need > quota.max_pages:
+                req.retry_after_s = self._drain_estimate_locked()
+                return (f"tenant {req.tenant or 'default'!r} over its KV "
+                        f"page budget ({held} held + {need} needed > "
+                        f"{quota.max_pages})")
+        bucket = self._rate_buckets.get(req.tenant)
+        if bucket is None:
+            bucket = self._rate_buckets[req.tenant] = TokenBucket(
+                quota.rate, quota.burst, clock=self._clock)
+        if not bucket.try_take():
+            req.retry_after_s = bucket.next_free_s()
+            return (f"tenant {req.tenant or 'default'!r} rate-limited "
+                    f"({quota.rate:g} req/s, burst {quota.burst})")
+        return None
+
+    def _admission_step_time(self) -> float:
+        return (self.ec.slo_step_time if self.ec.slo_step_time > 0
+                else self._step_time)
+
+    def _seat_steps_locked(self, ahead: List[Request]) -> float:
+        """Steps until a slot frees for a request behind ``ahead``, plus
+        the backfill-defer allowance."""
+        running = [request_work_steps(r.prompt_len, r.folded,
+                                      r.max_new_tokens, len(r.generated)) - 1
+                   for r in self.sched.active.values()]
+        costs = [request_work_steps(w.prompt_len, w.folded,
+                                    w.max_new_tokens, len(w.generated))
+                 for w in ahead]
+        seat = estimate_seat_steps(self.sched.free_slots(), running, costs)
+        return seat + self.ec.backfill_max_defer
+
+    def _drain_estimate_locked(self) -> float:
+        """Seconds until a NEW request at the back of the whole queue could
+        seat: the occupancy-derived Retry-After (0 while the step time is
+        uncalibrated)."""
+        st = self._admission_step_time()
+        if st <= 0:
+            return 0.0
+        return self._seat_steps_locked(list(self.sched.waiting)) * st
+
+    def _slo_check_locked(self, req: Request) -> Optional[str]:
+        """A rejection reason when the occupancy simulation proves ``req``
+        cannot finish inside ``deadline_s × slo_slack``, else None. An
+        uncalibrated step time admits everything; a prefix-cache hit
+        discounts the prefill term."""
+        st = self._admission_step_time()
+        if st <= 0:
+            return None
+        ahead = [w for w in self.sched.waiting
+                 if w.priority >= req.priority]
+        seat = self._seat_steps_locked(ahead)
+        prefill = 1.0
+        if self.prefix_cache:
+            hit, _ = self.pool.match_prefix(req.prompt)
+            if hit:
+                prefill = max(0.25, (req.prompt_len - hit)
+                              / max(1, req.prompt_len))
+        est_ttft = (seat + prefill) * st
+        est_finish = (seat + prefill + req.max_new_tokens) * st
+        if est_finish > req.deadline_s * max(self.ec.slo_slack, 1e-6):
+            return (f"slo: estimated finish {est_finish:.3f}s (ttft "
+                    f"{est_ttft:.3f}s) exceeds deadline "
+                    f"{req.deadline_s:g}s at current occupancy")
+        return None
+
+    def retry_after_estimate(self) -> float:
+        """Occupancy-derived drain estimate in seconds for an arriving
+        request (0 when uncalibrated). Thread-safe."""
+        with self._elock:
+            return self._drain_estimate_locked()
 
     def pause(self, rid: int) -> bool:
         """Park a live request: a running one folds its generated tokens
@@ -272,7 +511,7 @@ class InferenceEngine:
             for slot, req in list(self.sched.active.items()):
                 if req.rid == rid:
                     self._fold(req)
-                    self.pool.release(slot)
+                    self._release(slot)
                     self.sched.pause(slot)
                     self.stats["paused"] += 1
                     return True
@@ -305,7 +544,7 @@ class InferenceEngine:
         with self._elock:
             for slot, req in list(self.sched.active.items()):
                 if req.rid == rid:
-                    self.pool.release(slot)
+                    self._release(slot)
                     self.stats["cancelled"] += 1
                     return self.sched.retire(slot, CANCELLED)
             for req in list(self.sched.waiting):
@@ -321,8 +560,9 @@ class InferenceEngine:
 
     def stats_snapshot(self) -> Dict[str, Any]:
         """A consistent copy of ``stats`` for a concurrent reader, taken
-        under the engine lock; slot occupancy is summarized as its mean and
-        the live queue depths ride along."""
+        under the engine lock; slot occupancy is summarized as its mean,
+        per-tenant counters are copied, and the live queue depths and the
+        drain estimate (``retry_after_est_s``) ride along."""
         with self._elock:
             snap: Dict[str, Any] = {}
             for k, v in self.stats.items():
@@ -331,11 +571,14 @@ class InferenceEngine:
                         float(np.mean(v)) if v else 0.0)
                 elif isinstance(v, list):
                     snap[k] = list(v)
+                elif isinstance(v, dict):
+                    snap[k] = {kk: dict(vv) for kk, vv in v.items()}
                 else:
                     snap[k] = v
             snap["active"] = len(self.sched.active)
             snap["waiting"] = len(self.sched.waiting)
             snap["paused_now"] = len(self.sched.paused)
+            snap["retry_after_est_s"] = self._drain_estimate_locked()
             return snap
 
     def poll(self, cursor: int = 0, trim: bool = False
@@ -386,7 +629,7 @@ class InferenceEngine:
                                reverse=True)
             for slot, req in survivors:
                 self._fold(req)
-                self.pool.release(slot)
+                self._release(slot)
                 self.sched.requeue(slot)
             if self.prefix_cache:
                 self.pool.reset_prefix()
@@ -398,19 +641,8 @@ class InferenceEngine:
     # -- internals ---------------------------------------------------------
 
     def _bucket(self, n: int) -> int:
-        """Prefill length for an n-token prompt: the next power of two from
-        ``min_bucket``, capped at the capacity — unless the fused flash
-        prefill (``attn_impl="pallas"``) could not split the capped length
-        into its chunks; the uncapped power of two is then kept (pad rows
-        past the capacity land in the null page)."""
-        b = self.ec.min_bucket
-        while b < n:
-            b *= 2
-        cap = self.ec.capacity
-        if b > cap and (self.cfg.attn_impl not in FLASH_ATTN_IMPLS
-                        or self._chunks_fit(cap)):
-            return cap
-        return b
+        return prefill_bucket(n, self.ec.min_bucket, self.ec.capacity,
+                              self.cfg)
 
     def _chunks_fit(self, s: int) -> bool:
         return chunks_fit(s, s, self.cfg.q_chunk, self.cfg.kv_chunk)
@@ -461,12 +693,13 @@ class InferenceEngine:
         its prompt never enters the index. Returns the failed requests."""
         now = self._clock()
         failed: List[Request] = []
+        alive: List = []
         for i, (req, slot) in enumerate(group):
             self._temps[slot] = req.temperature
             self._topks[slot] = req.top_k
             if not ok[i]:
                 req.error = "non-finite logits at prefill"
-                self.pool.release(slot)
+                self._release(slot)
                 failed.append(self.sched.retire(slot, FAILED))
                 self.stats["failed"] += 1
                 continue
@@ -481,6 +714,11 @@ class InferenceEngine:
             self.stats["tokens_generated"] += 1
             if self.prefix_cache:
                 self.pool.register_prefix(slot, req.prompt)
+            alive.append((req, slot))
+        if self.spec and alive:
+            # the drafter has no prefix cache: prefix-hit admissions
+            # prefill their whole prompt on its side too
+            self.drafter.admit(alive)
         return failed
 
     def _admit_group(self, group: List) -> List[Request]:
@@ -620,7 +858,7 @@ class InferenceEngine:
         admitted = (self.sched.admit(self.ec.max_admit_per_step)
                     if self._should_admit() else [])
         stalled = False
-        if admitted:
+        if admitted and self.paged:
             # page-budget admission control, strict FCFS: the first request
             # that does not fit requeues itself and everything behind it,
             # even when a later prefix hit would fit the leftover budget
@@ -636,7 +874,7 @@ class InferenceEngine:
                     # max_new_tokens - folded generations remain: the total
                     # is invariant across folds
                     total = (req.prompt_len - req.folded
-                             + req.max_new_tokens)
+                             + req.max_new_tokens + self._headroom())
                     if self.prefix_cache:
                         hit = self.pool.admit_prefix(slot, req.prompt, total)
                         if hit is None:
@@ -676,16 +914,27 @@ class InferenceEngine:
         # requests whose first (prefill-sampled) token already completed them
         for slot, req in list(self.sched.active.items()):
             if req.is_finished():
-                self.pool.release(slot)
+                self._release(slot)
                 finished.append(self.sched.retire(slot))
         if not self.sched.active:
             self._finish_step(t_step)
             return finished
 
         self.stats["slot_occupancy"].append(len(self.sched.active))
-        bt = self._prepare_paged_writes(
-            {slot: int(self.pool.lens[slot]) + 1
-             for slot in self.sched.active}, extra=1)
+        if self.spec:
+            finished.extend(self._spec_step())
+            self._finish_step(t_step)
+            return finished
+        if self.paged:
+            bt = self._prepare_paged_writes(
+                {slot: int(self.pool.lens[slot]) + 1
+                 for slot in self.sched.active}, extra=1)
+        else:
+            # capacity-dense decode reads every slot's capacity rows
+            bt = None
+            rows = self.ec.n_slots * self.ec.capacity
+            self.stats["kv_bytes_read"] += rows * self._kv_row_bytes
+            self.stats["kv_bytes_read_live"] += rows * self._kv_row_bytes
         logits, self.pool.cache = self.fns.decode_step(
             self.params, {"tokens": self._tensor(self._tokens),
                           "cache_len": self._tensor(self.pool.lens),
@@ -703,7 +952,7 @@ class InferenceEngine:
                 # containment: fail only the poisoned row; its token is
                 # garbage, so nothing is emitted and the slot retires
                 req.error = "non-finite logits at decode"
-                self.pool.release(slot)
+                self._release(slot)
                 finished.append(self.sched.retire(slot, FAILED))
                 self.stats["failed"] += 1
                 continue
@@ -714,20 +963,37 @@ class InferenceEngine:
             self._tokens[slot, 0] = tok
             self.stats["tokens_generated"] += 1
             if req.is_finished():
-                self.pool.release(slot)
+                self._release(slot)
                 finished.append(self.sched.retire(slot))
         self._finish_step(t_step)
         return finished
 
     def _finish_step(self, t_start: float) -> None:
-        """End-of-step bookkeeping on every return path: mirror the pool's
-        counters and feed the step's duration to the watchdog."""
-        for key in ("evictions", "pages_allocated", "cow_copies"):
-            self.stats[key] = self.pool.stats[key]
+        """End-of-step bookkeeping on every return path: mirror the paged
+        pool's counters, feed the step's duration to the watchdog and to
+        the admission estimator's step-time EWMA."""
+        if self.paged:
+            for key in ("evictions", "pages_allocated", "cow_copies"):
+                self.stats[key] = self.pool.stats[key]
+        dt = self._clock() - t_start
         if self._watchdog is not None:
-            self._watchdog.record(self._clock() - t_start)
+            self._watchdog.record(dt)
             self.stats["watchdog_slow_steps"] = self._watchdog.slow_steps
             self.stats["step_time_ewma"] = self._watchdog.ewma
+        self._step_time = (dt if self._step_time <= 0
+                           else 0.8 * self._step_time + 0.2 * dt)
+
+    def _headroom(self) -> int:
+        return self.ec.spec_k if self.spec else 0
+
+    def _release(self, slot: int) -> None:
+        """Free a slot's pool rows or pages and, under speculation, the
+        drafter's row: every retire, cancel, pause, preemption, recovery
+        and failure path goes through here, so the slot's next tenant
+        finds the drafter at length 0."""
+        self.pool.release(slot)
+        if self.spec:
+            self.drafter.release(slot)
 
     def _prepare_paged_writes(self, write_lens: Dict[int, int],
                               extra: int) -> torch.Tensor:
@@ -749,9 +1015,132 @@ class InferenceEngine:
         if cow:
             src, dst = zip(*cow)
             self.pool.copy_pages(np.asarray(src), np.asarray(dst))
+        bt = self.pool.device_tables(self.pool.table_width(extra=extra))
+        self.stats["kv_bytes_read"] += (bt.shape[1] * self.ec.page_size
+                                        * self.ec.n_slots
+                                        * self._kv_row_bytes)
         self.stats["kv_bytes_read_live"] += (self.pool.live_page_rows()
                                              * self._kv_row_bytes)
-        return self.pool.device_tables(self.pool.table_width(extra=extra))
+        return bt
+
+    def _verify(self, toks: np.ndarray, plens: np.ndarray,
+                slens: np.ndarray, bt: torch.Tensor, greedy_only: bool
+                ) -> Tuple[np.ndarray, np.ndarray]:
+        """The verify dispatch: ONE ``prefill_append`` over the pages with
+        every suffix row's logits (row j: the target's distribution for the
+        token after suffix position j). The finite check covers each slot's
+        real rows only (rows past ``slens`` are pads). All-greedy steps
+        copy the ``(B, S)`` argmaxes to the host with the flags; sampled
+        steps copy the fp32 logit rows, which acceptance needs."""
+        logits, self.pool.cache = self.fns.prefill_append(
+            self.params, {"tokens": self._tensor(toks),
+                          "prefix_len": self._tensor(plens),
+                          "length": self._tensor(slens),
+                          "block_tables": bt, "all_logits": True},
+            self.pool.cache)
+        slen = self._tensor(slens)
+        pad = (torch.arange(logits.shape[1], device=self.device)[None, :]
+               >= slen[:, None])
+        ok = (torch.isfinite(logits).all(dim=2) | pad).all(dim=1)
+        if greedy_only:
+            amax = torch.argmax(logits.float(), dim=-1).to(torch.int32)
+            both = torch.cat([amax, ok.to(torch.int32)[:, None]],
+                             dim=1).cpu().numpy()
+            return both[:, :-1], both[:, -1].astype(bool)
+        return (logits.float().cpu().numpy(),
+                ok.cpu().numpy().astype(bool))
+
+    def _spec_step(self) -> List[Request]:
+        """One draft→verify→accept iteration over every live slot.
+
+        The drafter proposes up to ``spec_k`` tokens a slot; ONE verify
+        dispatch scores the pending token plus every draft against the
+        paged prefix; acceptance keeps the longest agreeing draft prefix
+        and emits one more token from the target's own row, so each step
+        commits 1..spec_k+1 tokens with plain decode's output
+        distribution. Rejected drafts roll back by truncating the pool to
+        the committed frontier: their pages were drawn this step and never
+        shared, so they return to the slot's reservation."""
+        active = sorted(self.sched.active.items())
+        tlens = self.pool.lens.copy()
+        faults = self.faults
+        try:
+            if faults is not None and faults.fires(self._step_idx,
+                                                   "drafter"):
+                faults.record(self._step_idx, "drafter")
+                raise RuntimeError("injected drafter failure")
+            proposals = self.drafter.propose(active, tlens, self.ec.spec_k,
+                                             self._rng)
+        except Exception:
+            # drafter containment: a failed propose degrades this round to
+            # a zero-draft verify, exactly a plain decode step; a drafter
+            # whose state desynced keeps failing here and the engine stays
+            # on 1-token steps instead of crashing. Output is unchanged.
+            self.stats["drafter_failures"] += 1
+            proposals = {slot: ([], None) for slot, _ in active}
+        s_max = self.ec.spec_k + 1
+        toks = np.zeros((self.ec.n_slots, s_max), np.int32)
+        plens = np.zeros((self.ec.n_slots,), np.int32)
+        slens = np.zeros((self.ec.n_slots,), np.int32)
+        for slot, req in active:
+            seq = [int(self._tokens[slot, 0])] + list(proposals[slot][0])
+            toks[slot, :len(seq)] = seq
+            plens[slot] = tlens[slot]
+            slens[slot] = len(seq)
+        bt = self._prepare_paged_writes(
+            {slot: int(tlens[slot]) + int(slens[slot])
+             for slot, _ in active}, extra=s_max)
+        greedy_only = all(req.temperature <= 0 for _, req in active)
+        out, ok = self._verify(toks, plens, slens, bt, greedy_only)
+        if faults is not None and faults.fires(self._step_idx, "nan_logits"):
+            victim = active[faults.choose(len(active))][0]
+            faults.record(self._step_idx, "nan_logits", victim)
+            ok[victim] = False
+        now = self._clock()
+        self.stats["decode_steps"] += 1
+        self.stats["spec_steps"] += 1
+
+        finished: List[Request] = []
+        for slot, req in active:
+            if not ok[slot]:
+                # containment: every token this verify scored for the slot
+                # is suspect — emit nothing, fail the request, release its
+                # pages (the draft rows past the frontier too)
+                req.error = "non-finite logits at verify"
+                self._release(slot)
+                finished.append(self.sched.retire(slot, FAILED))
+                self.stats["failed"] += 1
+                continue
+            props, qrows = proposals[slot]
+            n = len(props)
+            if greedy_only:
+                a, follow = accept_greedy(out[slot], props)
+            else:
+                a, follow = accept_draft(out[slot, :n + 1], props, qrows,
+                                         req.temperature, req.top_k,
+                                         self._rng)
+            committed = 0
+            for tok in props[:a] + [follow]:
+                req.generated.append(int(tok))
+                req.token_times.append(now)
+                self.stats["tokens_generated"] += 1
+                committed += 1
+                if req.is_finished():
+                    break
+            # acceptance counts the drafts actually emitted: a request
+            # finishing mid-block discards the accepted tail
+            a_committed = min(committed, a)
+            self.stats["draft_proposed"] += n
+            self.stats["draft_accepted"] += a_committed
+            self.stats["accepted_hist"][a_committed] += 1
+            self._tokens[slot, 0] = req.generated[-1]
+            new_len = int(tlens[slot]) + committed
+            self.pool.truncate(slot, new_len)
+            self.drafter.rollback(slot, new_len)
+            if req.is_finished():
+                self._release(slot)
+                finished.append(self.sched.retire(slot))
+        return finished
 
     def _expire_deadlines(self) -> List[Request]:
         """Retire every live request whose deadline has passed (TIMEOUT)."""
@@ -766,7 +1155,7 @@ class InferenceEngine:
         for slot, req in list(self.sched.active.items()):
             if req.deadline_s > 0 and now > req.submit_time + req.deadline_s:
                 req.error = "deadline expired mid-decode"
-                self.pool.release(slot)
+                self._release(slot)
                 out.append(self.sched.retire(slot, TIMEOUT))
                 self.stats["timeouts"] += 1
                 self.stats["timeouts_running"] += 1
@@ -799,25 +1188,34 @@ class InferenceEngine:
                         key=lambda kv: (-kv[1].priority, kv[1].admit_time,
                                         kv[1].rid))
         self._fold(req)
-        self.pool.release(slot)
+        self._release(slot)
         self.stats["preemptions"] += 1
         return self.sched.preempt(slot)
 
     def check_conservation(self) -> None:
         """Check that nothing leaked once the engine drained: every slot
-        free, no live request, every non-null page idle and the pool's
-        refcounts, index and reservations consistent."""
+        free, no live request; on a paged pool every non-null page idle and
+        the pool's refcounts, index and reservations consistent, on a
+        capacity-dense one every length 0; the drafter's lengths 0."""
         with self._elock:
             if self.sched.active or self.sched.waiting or self.sched.paused:
                 raise AssertionError("check_conservation() needs a drained "
                                      "engine")
             if self.sched.free_slots() != self.ec.n_slots:
                 raise AssertionError("leaked slots")
-            self.pool.check_consistency()
-            idle = self.pool.idle_pages()
-            if idle != self.pool.n_pages - 1:
-                raise AssertionError(f"leaked {self.pool.n_pages - 1 - idle} "
-                                     f"KV pages")
+            if self.paged:
+                self.pool.check_consistency()
+                idle = self.pool.idle_pages()
+                if idle != self.pool.n_pages - 1:
+                    raise AssertionError(f"leaked "
+                                         f"{self.pool.n_pages - 1 - idle} "
+                                         f"KV pages")
+            elif self.pool.lens.any():
+                raise AssertionError("leaked slot lengths")
+            drafter_pool = getattr(self.drafter, "pool", None)
+            if self.spec and drafter_pool is not None \
+                    and drafter_pool.lens.any():
+                raise AssertionError("leaked drafter slot lengths")
 
     # -- convenience -------------------------------------------------------
 
@@ -826,20 +1224,28 @@ class InferenceEngine:
             self.stats.clear()
             self.stats.update(decode_steps=0, prefills=0, prefill_rows=0,
                               deferred_admissions=0, tokens_generated=0,
-                              page_stalls=0, kv_bytes_read_live=0,
+                              page_stalls=0, kv_bytes_read=0,
+                              kv_bytes_read_live=0,
                               slot_occupancy=[], prefix_hit_tokens=0,
                               pages_shared=0, cow_copies=0, evictions=0,
-                              pages_allocated=0, preemptions=0, shed=0,
+                              pages_allocated=0, spec_steps=0,
+                              draft_proposed=0, draft_accepted=0,
+                              accepted_hist=[0] * (self.ec.spec_k + 1),
+                              preemptions=0, shed=0,
                               rejected=0, timeouts=0, cancelled=0, failed=0,
+                              drafter_failures=0,
                               recoveries=0, watchdog_slow_steps=0,
-                              step_time_ewma=0.0, timeouts_waiting=0,
-                              timeouts_running=0, paused=0, resumed=0)
+                              step_time_ewma=0.0, slo_rejected=0,
+                              quota_rejected=0, timeouts_waiting=0,
+                              timeouts_running=0, wasted_prefill_tokens=0,
+                              paused=0, resumed=0, tenants={})
             # a fresh watchdog per reset: earlier steps must not seed the
             # EWMA the next window is judged against
             self._watchdog = (
                 StepWatchdog(threshold=self.ec.watchdog_threshold)
                 if self.ec.watchdog_threshold > 0 else None)
-            self.pool.reset_stats()
+            if self.paged:
+                self.pool.reset_stats()
 
     def run(self) -> List[Request]:
         """Drain: step until queue and slots are empty; finished requests in

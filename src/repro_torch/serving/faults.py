@@ -14,11 +14,11 @@ Step indices count *engine* steps, i.e. every :meth:`InferenceEngine.step`
 call. Tests that want faults at precise points attach the injector to a
 fresh engine.
 
-The port's engine acts on ``page_alloc``, ``nan_logits``, ``slow_step`` and
-``cancel``. ``drafter`` and ``shard_skew`` wait for speculative decoding and
-tensor parallelism, and ``crash_step`` and ``slow_client`` for the HTTP
-layer: they stay in :data:`KINDS` so one schedule serves both packages, and
-the engine ignores them.
+The port's engine acts on ``page_alloc``, ``nan_logits``, ``slow_step``,
+``cancel`` and, under speculative decoding, ``drafter``. ``shard_skew``
+waits for tensor parallelism, and ``crash_step`` and ``slow_client`` for
+the HTTP layer: they stay in :data:`KINDS` so one schedule serves both
+packages, and the engine ignores them.
 
 Fault kinds
 -----------

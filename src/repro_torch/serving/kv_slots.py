@@ -1,7 +1,18 @@
-"""Block-paged KV pool for continuous batching, with a cross-request prefix
-cache.
+"""Slot pools of the decode cache for continuous batching: the
+capacity-dense :class:`SlotPool`, and the block-paged :class:`PagedSlotPool`
+with a cross-request prefix cache.
 
-Attention K/V live in a shared page pool per layer, ``(n_pages, page_size,
+One padded decode batch of ``n_slots`` rows serves requests of different
+ages. In the capacity-dense pool slot ``b`` owns row ``b`` of every cache
+leaf, ``(n_slots, capacity, Hkv, D)`` (plus ``(n_slots, capacity, Hkv)``
+scales under int8 KV), and a length; admission writes a prefill cache into
+the slot's rows, retirement only zeroes the length (stale K/V past a
+slot's length is never attended to). The dense family's layout puts the
+batch axis first in every leaf, so the pool takes that as fixed instead of
+finding it by probing ``init_cache`` as the reference's
+``cache_batch_axes`` does for its families.
+
+In the paged pool, attention K/V live in a shared page pool per layer, ``(n_pages, page_size,
 Hkv, D)`` torch tensors on the engine's device, plus per-slot block tables
 (physical page ids) kept on the host. Under int8 KV each layer also holds
 fp32 ``k_scale``/``v_scale`` pools ``(n_pages, page_size, Hkv)`` in the same
@@ -34,6 +45,10 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention import chunks_fit
+from repro_torch.models.layers import FLASH_ATTN_IMPLS
+
 Cache = List[dict]
 
 _CHAIN_ROOT = b"\x00" * 20
@@ -44,6 +59,109 @@ def _chain_hash(parent: bytes, chunk) -> bytes:
     page's token ids), as the reference computes it."""
     return hashlib.sha1(
         parent + np.asarray(chunk, "<i4").tobytes()).digest()
+
+
+def prefill_bucket(n: int, min_bucket: int, capacity: int,
+                   cfg: ModelConfig) -> int:
+    """Prefill length for an n-token prompt: the next power of two from
+    ``min_bucket``, capped at the capacity — unless the fused flash
+    prefill (``attn_impl="pallas"``) could not split the capped length
+    into its chunks; the uncapped power of two is then kept (a pool routes
+    the pad positions past the capacity to its null page or drops
+    them)."""
+    b = min_bucket
+    while b < n:
+        b *= 2
+    if b > capacity and (cfg.attn_impl not in FLASH_ATTN_IMPLS
+                         or chunks_fit(capacity, capacity, cfg.q_chunk,
+                                       cfg.kv_chunk)):
+        return capacity
+    return b
+
+
+def write_slot(pool: Cache, new: Cache, slot: int) -> None:
+    """Write a ``(k, seq <= capacity)`` cache into pool rows ``[slot, slot +
+    k)`` at positions ``[0, seq)``, in place (prefill K/V of a length-P
+    prompt fills ``[0, P)``)."""
+    for pool_layer, new_layer in zip(pool, new):
+        for key, leaf in pool_layer.items():
+            rows = new_layer[key]
+            leaf[slot:slot + rows.shape[0], :rows.shape[1]] = rows.to(
+                leaf.dtype)
+
+
+def seat_prefill(init_cache: Callable[..., Cache], prefill_cache: Cache,
+                 batch: int, capacity: int, device="cuda") -> Cache:
+    """Expand a whole-batch prefill cache (seq axis = prompt length) into a
+    capacity-dense decode cache: the uniform-batch ``generate`` path."""
+    pool = init_cache(batch, capacity, device=device)
+    write_slot(pool, prefill_cache, 0)
+    return pool
+
+
+class SlotPool:
+    """Capacity-dense decode cache + host-side per-slot lengths: the pool
+    owns the cache (``init_cache(n_slots, capacity)``), ``lens`` is the
+    ``(n_slots,)`` vector handed to ``decode_step`` each step."""
+
+    def __init__(self, init_cache: Callable[..., Cache], n_slots: int,
+                 capacity: int, *, device="cuda"):
+        self.n_slots = n_slots
+        self.capacity = capacity
+        self.device = torch.device(device)
+        self.cache = init_cache(n_slots, capacity, device=self.device)
+        self.lens = np.zeros((n_slots,), np.int32)
+
+    def insert(self, prefill_cache: Cache, slot: int, length: int) -> None:
+        """Seat a batch-1 prefill cache into one slot."""
+        if length > self.capacity:
+            raise ValueError(f"length {length} exceeds the slot capacity "
+                             f"{self.capacity}")
+        write_slot(self.cache, _clip_seq(prefill_cache, self.capacity), slot)
+        self.lens[slot] = length
+
+    def insert_rows(self, prefill_cache: Cache, slots: np.ndarray,
+                    lengths: np.ndarray) -> None:
+        """Grouped admission: row ``i`` of ``prefill_cache`` → slot
+        ``slots[i]``. ``lengths`` covers the real rows only; pad rows past
+        it alias ``slots[0]``. The reference writes the rows in reverse
+        order, so the real row 0 lands last over its pads; here, where a
+        slot appears more than once, only its lowest row is written, which
+        leaves the same cache in one scatter per leaf. Positions past the
+        capacity (a prefill bucket may be longer) are pads and dropped."""
+        if max(lengths, default=0) > self.capacity:
+            raise ValueError("prompt longer than the slot capacity")
+        slots = np.asarray(slots, np.int64)
+        uniq, first = np.unique(slots, return_index=True)
+        dst = torch.as_tensor(uniq, device=self.device)
+        src = torch.as_tensor(first, device=self.device)
+        for pool_layer, new_layer in zip(self.cache,
+                                         _clip_seq(prefill_cache,
+                                                   self.capacity)):
+            for key, leaf in pool_layer.items():
+                rows = new_layer[key].index_select(0, src)
+                leaf[:, :rows.shape[1]].index_copy_(0, dst,
+                                                    rows.to(leaf.dtype))
+        for s, l in zip(slots[:len(lengths)], lengths):
+            self.lens[s] = l
+
+    def advance(self, slot: int) -> None:
+        self.lens[slot] += 1
+
+    def truncate(self, slot: int, length: int) -> None:
+        """Rewind a slot to ``length`` valid positions (speculative
+        rollback). Stale K/V past the new frontier is never attended to,
+        so only the length moves."""
+        if not 0 <= length <= self.capacity:
+            raise ValueError(f"length {length} outside [0, {self.capacity}]")
+        self.lens[slot] = length
+
+    def release(self, slot: int) -> None:
+        self.lens[slot] = 0
+
+
+def _clip_seq(cache: Cache, capacity: int) -> Cache:
+    return [{k: v[:, :capacity] for k, v in layer.items()} for layer in cache]
 
 
 class PagedSlotPool:
@@ -62,9 +180,8 @@ class PagedSlotPool:
                  capacity: int, *, page_size: int,
                  n_pages: Optional[int] = None, device="cuda"):
         if page_size <= 0:
-            raise NotImplementedError(
-                "unpaged (capacity-dense) slot pools come in a later slice "
-                "of the port; use page_size > 0")
+            raise ValueError("a paged pool needs page_size > 0 (SlotPool "
+                             "is the capacity-dense one)")
         self.n_slots = n_slots
         self.capacity = capacity
         self.page_size = page_size

@@ -8,8 +8,8 @@
 * Entry points (serving and training) default to the card: without one
   visible they raise instead of running on the CPU.
 * Options not ported yet raise ``NotImplementedError``; the quantized
-  serving options and the prefix cache are accepted, and an unknown
-  ``attn_impl`` raises.
+  serving options, the prefix cache, speculative decoding and the
+  capacity-dense pool are accepted, and an unknown ``attn_impl`` raises.
 """
 
 import ast
@@ -75,7 +75,8 @@ def _forbidden_uses(tree, allow_in=()):
 def test_port_files_exist():
     assert len(PORT_FILES) > 15 and SMOKE.exists()
     # the port keeps its own copies of the reference's numpy-only modules
-    for name in ("scheduler.py", "faults.py"):
+    for name in ("scheduler.py", "faults.py", "admission.py",
+                 "speculative.py"):
         assert ROOT / "src" / "repro_torch" / "serving" / name in PORT_FILES
 
 
@@ -123,11 +124,27 @@ def test_entry_points_default_to_the_card():
         InferenceEngine(cfg, params, EngineConfig())
 
 
-@pytest.mark.parametrize("option", [
-    dict(spec_k=2), dict(page_size=0), dict(mesh_model=2)])
+@pytest.mark.parametrize("option", [dict(mesh_model=2)])
 def test_unported_engine_options_raise(option):
     with pytest.raises(NotImplementedError):
         EngineConfig(**option)
+
+
+@pytest.mark.parametrize("option", [dict(spec_k=2), dict(page_size=0)])
+def test_ported_engine_options_serve(option):
+    """Speculative decoding (with an oracle drafter) and the capacity-dense
+    pool build an engine that serves a request on the CPU."""
+    from repro_torch.serving import OracleDraft
+    cfg = _smoke_cfg()
+    ec = dict(n_slots=2, capacity=32, page_size=4)
+    ec.update(option)
+    eng = InferenceEngine(cfg, build_params(cfg, device="cpu"),
+                          EngineConfig(**ec), device="cpu",
+                          drafter=OracleDraft() if ec.get("spec_k") else None)
+    assert len(eng.generate([[1, 2, 3]], max_new_tokens=3)[0]) == 3
+    assert eng.paged == (ec["page_size"] > 0)
+    assert eng.stats["spec_steps"] == (2 if eng.spec else 0)
+    eng.check_conservation()
 
 
 def test_prefix_cache_engine_serves():
