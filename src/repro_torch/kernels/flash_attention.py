@@ -48,6 +48,23 @@ def chunks_fit(sq: int, skv: int, q_chunk: int, kv_chunk: int) -> bool:
     return sq % min(q_chunk, sq) == 0 and skv % min(kv_chunk, skv) == 0
 
 
+def prefill_bucket(n: int, min_bucket: int, capacity: int,
+                   chunks=None) -> int:
+    """Prefill length for an n-token prompt: the next power of two from
+    ``min_bucket``, capped at the capacity — unless this kernel runs the
+    prefill (``chunks`` = its ``(q_chunk, kv_chunk)``; None when it does
+    not) and could not split the capped length into them; the uncapped
+    power of two is then kept (a pool routes the pad positions past the
+    capacity to its null page or drops them)."""
+    b = min_bucket
+    while b < n:
+        b *= 2
+    if b > capacity and (chunks is None
+                         or chunks_fit(capacity, capacity, *chunks)):
+        return capacity
+    return b
+
+
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()

@@ -17,8 +17,8 @@ oversubscribed pool, preemption, shedding, deadlines). ``--page-size 0``
 serves from the capacity-dense slot pool; ``--spec-k 3 --draft-bcr-keep
 0.25`` decodes speculatively with a small drafter (``build_draft``);
 ``--slo-admission`` rejects doomed deadlines at submit, and ``--tenants
-a,b`` tags requests round-robin under a per-tenant quota
-(``--tenant-rate``, ``--tenant-burst``, ``--tenant-max-concurrent``).
+a,b`` tags requests round-robin for the per-tenant counters (quotas are set
+through ``EngineConfig.tenant_quotas``).
 ``generate`` is the naive oracle the engine is held to: one batched
 exact-length prefill, then step-by-step greedy decode over a fixed page
 table.
@@ -44,8 +44,7 @@ from repro_torch.launch.train import default_prune_filter
 from repro_torch.models import causal_lm
 from repro_torch.models.layers import FLASH_ATTN_IMPLS, PLAIN_ATTN_IMPLS
 from repro_torch.serving import (CANCELLED, FAILED, FINISHED, REJECTED,
-                                 TIMEOUT, EngineConfig, InferenceEngine,
-                                 TenantQuota)
+                                 TIMEOUT, EngineConfig, InferenceEngine)
 
 PyTree = Any
 
@@ -259,15 +258,8 @@ def main() -> None:
                         "deadline")
     p.add_argument("--tenants", default="",
                    help="comma-separated tenant names; requests are tagged "
-                        "round-robin, each tenant under the --tenant-* "
-                        "quota, and the per-tenant counters are printed")
-    p.add_argument("--tenant-rate", type=float, default=0.0,
-                   help="per-tenant sustained admits/s (token bucket; 0 → "
-                        "unlimited)")
-    p.add_argument("--tenant-burst", type=int, default=1,
-                   help="per-tenant token-bucket depth")
-    p.add_argument("--tenant-max-concurrent", type=int, default=0,
-                   help="per-tenant cap on live requests (0 → unlimited)")
+                        "round-robin and the per-tenant counters are "
+                        "printed")
     p.add_argument("--bcr-keep", type=float, default=0.0)
     p.add_argument("--bcr-block", type=int, default=0,
                    help="BCR block side; 0 → 16 for --smoke configs, else "
@@ -311,8 +303,6 @@ def main() -> None:
             cfg, d_model=args.draft_d_model, layers=args.draft_layers,
             bcr_keep=args.draft_bcr_keep, device=dev)
     tenants = [t for t in args.tenants.split(",") if t]
-    quota = TenantQuota(rate=args.tenant_rate, burst=args.tenant_burst,
-                        max_concurrent=args.tenant_max_concurrent)
     engine = InferenceEngine(cfg, params, EngineConfig(
         n_slots=args.slots, capacity=args.capacity,
         page_size=args.page_size, kv_pages=args.kv_pages or None,
@@ -321,9 +311,8 @@ def main() -> None:
         max_waiting=args.max_waiting or None,
         preempt_after_stalls=args.preempt_after_stalls,
         spec_k=args.spec_k, draft_cfg=draft_cfg,
-        slo_admission=args.slo_admission, slo_slack=args.slo_slack,
-        tenant_quotas={t: quota for t in tenants} or None), device=dev,
-        draft_params=draft_params)
+        slo_admission=args.slo_admission, slo_slack=args.slo_slack),
+        device=dev, draft_params=draft_params)
     sys_len = args.system_len if args.system_prompts else 0
     pmax = args.capacity - args.gen - args.spec_k - sys_len
     if pmax < 1:

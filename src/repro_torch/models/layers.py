@@ -47,6 +47,14 @@ FLASH_ATTN_IMPLS = ("pallas", "pallas_interpret")
 PLAIN_ATTN_IMPLS = ("dense", "flash", "paged", "paged_interpret")
 
 
+def flash_chunks(cfg) -> Optional[Tuple[int, int]]:
+    """``(q_chunk, kv_chunk)`` when cold prefill runs the fused flash
+    kernel, else None (the argument of ``prefill_bucket``)."""
+    if cfg.attn_impl in FLASH_ATTN_IMPLS:
+        return cfg.q_chunk, cfg.kv_chunk
+    return None
+
+
 def check_attn_impl(attn_impl: str) -> None:
     if attn_impl not in FLASH_ATTN_IMPLS + PLAIN_ATTN_IMPLS:
         raise ValueError(f"unknown attn_impl {attn_impl!r}; known: "

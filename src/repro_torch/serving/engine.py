@@ -78,16 +78,15 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.flash_attention import chunks_fit
+from repro_torch.kernels.flash_attention import chunks_fit, prefill_bucket
 from repro_torch.kernels.plan import quantize_packed_params
 from repro_torch.models.api import model_fns
-from repro_torch.models.layers import FLASH_ATTN_IMPLS
+from repro_torch.models.layers import FLASH_ATTN_IMPLS, flash_chunks
 from repro_torch.serving.admission import (TenantQuota, TokenBucket,
                                            estimate_seat_steps,
                                            request_work_steps)
 from repro_torch.serving.faults import StepWatchdog
-from repro_torch.serving.kv_slots import (PagedSlotPool, SlotPool,
-                                          prefill_bucket)
+from repro_torch.serving.kv_slots import PagedSlotPool, SlotPool
 from repro_torch.serving.scheduler import (CANCELLED, FAILED, FINISHED,
                                            REJECTED, TIMEOUT, Request,
                                            Scheduler)
@@ -642,7 +641,7 @@ class InferenceEngine:
 
     def _bucket(self, n: int) -> int:
         return prefill_bucket(n, self.ec.min_bucket, self.ec.capacity,
-                              self.cfg)
+                              flash_chunks(self.cfg))
 
     def _chunks_fit(self, s: int) -> bool:
         return chunks_fit(s, s, self.cfg.q_chunk, self.cfg.kv_chunk)

@@ -45,9 +45,6 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.flash_attention import chunks_fit
-from repro_torch.models.layers import FLASH_ATTN_IMPLS
 
 Cache = List[dict]
 
@@ -59,24 +56,6 @@ def _chain_hash(parent: bytes, chunk) -> bytes:
     page's token ids), as the reference computes it."""
     return hashlib.sha1(
         parent + np.asarray(chunk, "<i4").tobytes()).digest()
-
-
-def prefill_bucket(n: int, min_bucket: int, capacity: int,
-                   cfg: ModelConfig) -> int:
-    """Prefill length for an n-token prompt: the next power of two from
-    ``min_bucket``, capped at the capacity — unless the fused flash
-    prefill (``attn_impl="pallas"``) could not split the capped length
-    into its chunks; the uncapped power of two is then kept (a pool routes
-    the pad positions past the capacity to its null page or drops
-    them)."""
-    b = min_bucket
-    while b < n:
-        b *= 2
-    if b > capacity and (cfg.attn_impl not in FLASH_ATTN_IMPLS
-                         or chunks_fit(capacity, capacity, cfg.q_chunk,
-                                       cfg.kv_chunk)):
-        return capacity
-    return b
 
 
 def write_slot(pool: Cache, new: Cache, slot: int) -> None:
@@ -93,7 +72,9 @@ def write_slot(pool: Cache, new: Cache, slot: int) -> None:
 def seat_prefill(init_cache: Callable[..., Cache], prefill_cache: Cache,
                  batch: int, capacity: int, device="cuda") -> Cache:
     """Expand a whole-batch prefill cache (seq axis = prompt length) into a
-    capacity-dense decode cache: the uniform-batch ``generate`` path."""
+    capacity-dense decode cache: the reference's uniform-batch ``generate``
+    path. The port's engine does not call it; it is kept for parity with
+    the reference's ``kv_slots`` API, which the tests hold it to."""
     pool = init_cache(batch, capacity, device=device)
     write_slot(pool, prefill_cache, 0)
     return pool
@@ -113,7 +94,10 @@ class SlotPool:
         self.lens = np.zeros((n_slots,), np.int32)
 
     def insert(self, prefill_cache: Cache, slot: int, length: int) -> None:
-        """Seat a batch-1 prefill cache into one slot."""
+        """Seat a batch-1 prefill cache into one slot. The port's engine
+        and drafter seat through :meth:`insert_rows`; this is kept for
+        parity with the reference's ``SlotPool``, which the tests hold it
+        to."""
         if length > self.capacity:
             raise ValueError(f"length {length} exceeds the slot capacity "
                              f"{self.capacity}")

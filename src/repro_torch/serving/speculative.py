@@ -51,8 +51,10 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention import prefill_bucket
 from repro_torch.models.api import model_fns
-from repro_torch.serving.kv_slots import SlotPool, prefill_bucket
+from repro_torch.models.layers import flash_chunks
+from repro_torch.serving.kv_slots import SlotPool
 from repro_torch.serving.scheduler import Request
 
 
@@ -162,12 +164,12 @@ class DraftModel:
 
     def admit(self, group: List[Tuple[Request, int]]) -> None:
         """One drafter prefill for a batch of admissions: full prompts,
-        right-padded to the engine's shared bucket (``prefill_bucket``),
+        right-padded to the engine's bucket rule (``prefill_bucket``),
         one row a request (no pad rows: nothing here is compiled per row
         count)."""
         k = len(group)
         bucket = max(prefill_bucket(req.prompt_len, self.min_bucket,
-                                    self.capacity, self.cfg)
+                                    self.capacity, flash_chunks(self.cfg))
                      for req, _ in group)
         toks = np.zeros((k, bucket), np.int32)
         lens = np.ones((k,), np.int32)
