@@ -121,6 +121,29 @@ Phases, in order (any failed check raises and the script exits non-zero):
    ``retry_after_s``, a victim tenant at goodput 1.0 under an aggressor,
    the concurrent, rate and page quotas rejecting with a computed
    ``retry_after_s``, one terminal status a request, nothing leaked.
+11. The serving entry points on the card, over phase 4's weights and
+   engine configuration. (a) ``start_in_thread(engine, warmup_lens=[32,
+   128, 512])``: ``/readyz`` answers 503 during warmup and 200 after it,
+   and warmup has built and loaded the BCR and paged libraries (forgotten
+   first); no ``nvcc`` runs after. (b) Phase 4's 16 requests over loopback
+   at one moment, half SSE, half buffered: tokens equal phase 4's under
+   the near-tie rule; the fp kernels launched; client TTFT p50 (to the
+   first SSE token) against phase 4's engine TTFT, tokens/s, the engine
+   thread's decode step-wall p50, and one profiled window of steps on that
+   thread (device busy share). (c) The lifecycle over HTTP: a mid-stream
+   disconnect frees its slot and pages within a host step (``/metrics``);
+   one injected ``crash_step`` restarts the loop through ``recover()`` and
+   the stream completes under the near-tie rule; a burst of 14 past
+   ``max_waiting`` 2 gets 429s with ``Retry-After`` >= 1; drain flushes a
+   running stream's 64 tokens, answers 429 "server draining" to a queued
+   request and holds conservation; exactly one supervisor restart (the
+   injected one), never crashed. (d) ``run_traffic`` open loop on the same
+   engine: 32 requests at 8 req/s (prompts from {32, 128, 512}, 32 tokens
+   each), then ``examples/trace_heavy_tail.jsonl``: every request
+   FINISHED, no page leaked, percentiles logged. (e) ``python -m
+   repro_torch.launch.api`` as a subprocess at full width and 2 layers:
+   ready, one streamed and one buffered completion (the same tokens),
+   SIGTERM, exit 0 with ``drained; conservation ok``.
 
 Phase 3 also holds the verify dispatch's shapes: paged prefill-append with
 4 rows a slot over lengths 1..512 (ragged real rows, bf16 and int8 pages)
@@ -130,7 +153,8 @@ Then the card's line, the ``kernels`` JSON line (the paged entries with
 their prefill-append launches and time; the ``bcr_spmm*``, paged and flash
 entries with their launches over phase 10a's model-drafter run,
 ``verify_launches``, and the BCR and paged entries with their time at the
-verify shape, ``verify_ms``), and the contract line.
+verify shape, ``verify_ms``; every entry its launches over phase 11
+(a)–(d), ``serving_launches``), and the contract line.
 """
 
 from __future__ import annotations
@@ -1351,6 +1375,7 @@ def serve_main_path(torch, np, cfg, params, ec, label, frac):
         raise AssertionError(f"{label}: {engine.stats['failed']} requests "
                              f"FAILED on non-finite logits")
     ttft = [(r.first_token_time - r.submit_time) * 1e3 for r in done]
+    by_rid = {r.rid: r for r in done}
     stats = dict(
         tokens_per_s=engine.stats["tokens_generated"] / wall,
         decode_step_ms_mean=statistics.mean(decode_ms),
@@ -1361,7 +1386,10 @@ def serve_main_path(torch, np, cfg, params, ec, label, frac):
         kv_bytes_read_live=engine.stats["kv_bytes_read_live"],
         kv_row_bytes=engine._kv_row_bytes,
         packed_weight_bytes=_weight_bytes(params),
-        step_bound_ms=_weight_bytes(params) / HBM_BYTES_PER_S * 1e3)
+        step_bound_ms=_weight_bytes(params) / HBM_BYTES_PER_S * 1e3,
+        ttft_ms_by_request=[(by_rid[rid].first_token_time
+                             - by_rid[rid].submit_time) * 1e3
+                            for rid in rids])
     log(f"{label}: " + json.dumps(stats))
     stats["decode_profile"] = profile_decode(torch, engine, rng, cfg)
 
@@ -2376,6 +2404,407 @@ def phase_admission(torch, np):
 
 
 
+# -- phase 11: the serving entry points on the card ----------------------------
+
+WARMUP_LENS = (32, 128, 512)
+HOST = "127.0.0.1"
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind((HOST, 0))
+        return s.getsockname()[1]
+
+
+def wait_for(fn, timeout, interval=0.01):
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < timeout:
+        got = fn()
+        if got:
+            return got
+        time.sleep(interval)
+    raise AssertionError(f"timed out after {timeout} s waiting for {fn}")
+
+
+def readyz(port):
+    from repro_torch.serving import http_request
+    try:
+        return http_request(HOST, port, "GET", "/readyz", timeout=2)[0]
+    except OSError:
+        return None
+
+
+class StepRecorder:
+    """Wraps ``engine.step`` on the engine thread: each step's start, end
+    and whether it admitted (a prefill ran); steps ``profile`` (start,
+    count) run under ``torch.profiler`` on that thread, for the device time
+    of a window of steady steps."""
+
+    def __init__(self, torch, engine, profile):
+        self.torch, self.engine, self.inner = torch, engine, engine.step
+        self.rows, self.profile, self.prof = [], profile, None
+        engine.step = self
+
+    def __call__(self):
+        from torch.profiler import ProfilerActivity, profile
+        n = len(self.rows)
+        if n == self.profile[0]:
+            self.torch.cuda.synchronize()
+            self.prof = profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
+            self.prof.__enter__()
+        prefills = self.engine.stats["prefills"]
+        t0 = time.perf_counter()
+        out = self.inner()
+        self.rows.append((t0, time.perf_counter(),
+                          self.engine.stats["prefills"] != prefills))
+        if n == sum(self.profile) - 1:
+            self.torch.cuda.synchronize()
+            self.prof.__exit__(None, None, None)
+        return out
+
+    def detach(self):
+        self.engine.step = self.inner
+
+    def busy(self):
+        """Device ms a step over the profiled window, against the mean
+        start-to-start wall of as many unprofiled steps just before it (the
+        profiler slows the host)."""
+        start, count = self.profile
+        by_family = {}
+        for name, _, ms in device_events(self.torch, self.prof):
+            fam = kernel_family(name)
+            by_family[fam] = by_family.get(fam, 0.0) + ms / count
+        starts = [r[0] for r in self.rows[start - count:start + 1]]
+        wall = (starts[-1] - starts[0]) * 1e3 / count
+        window = self.rows[start - count:start + count]
+        device = sum(by_family.values())
+        return dict(step_wall_ms=wall, device_ms=device,
+                    busy_share=device / wall, by_family_ms=by_family,
+                    admissions_in_window=sum(r[2] for r in window))
+
+
+def http_burst(port, payloads, stream_flags):
+    """POST every payload at the same moment (one thread each, released by
+    a barrier); SSE for the flagged ones. Returns (results, send time)."""
+    import threading
+
+    from repro_torch.serving import http_request, stream_completion
+
+    results = [None] * len(payloads)
+    gate = threading.Barrier(len(payloads) + 1)
+
+    def client(i):
+        gate.wait()
+        try:
+            if stream_flags[i]:
+                results[i] = stream_completion(HOST, port, payloads[i],
+                                               timeout=60)
+            else:
+                results[i] = http_request(HOST, port, "POST",
+                                          "/v1/completions", payloads[i],
+                                          timeout=60)
+        except Exception as e:  # noqa: BLE001 — raised below
+            results[i] = e
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(payloads))]
+    for t in threads:
+        t.start()
+    gate.wait()
+    t_send = time.perf_counter()
+    for t in threads:
+        t.join(90)
+    for r in results:
+        if isinstance(r, Exception):
+            raise AssertionError(f"phase 11: a client failed: {r!r}")
+    return results, t_send
+
+
+def serving_tokens(results, flags):
+    out = []
+    for r, sse in zip(results, flags):
+        if sse:
+            if r.status != 200 or r.final["status"] != "FINISHED":
+                raise AssertionError(f"phase 11: SSE {r.status} {r.final}")
+            out.append(r.tokens)
+        else:
+            st, _, body = r
+            if st != 200 or body["status"] != "FINISHED":
+                raise AssertionError(f"phase 11: buffered {st} {body}")
+            out.append(body["tokens"])
+    return out
+
+
+def phase_serving(torch, np, cfg, params, traj, direct):
+    """Phase 11: the serving entry points on the card, over phase 4's
+    weights (see the module docstring). ``traj`` is phase 4's (prompt,
+    tokens) per request, ``direct`` phase 4's numbers. Returns the numbers
+    and the launch counters over (a)–(d)."""
+    import threading
+
+    from repro_torch.kernels import build
+    from repro_torch.launch.serve import TrafficConfig, load_trace, run_traffic
+    from repro_torch.serving import (EngineConfig, FaultInjector,
+                                     InferenceEngine, ServerConfig,
+                                     http_request, start_in_thread,
+                                     stream_completion)
+
+    out = {}
+    engine = InferenceEngine(cfg, params, EngineConfig(
+        n_slots=8, capacity=640, page_size=16, seed=0), device="cuda")
+    # (a) readiness follows warmup; warmup builds and loads the libraries
+    # (forgotten first, so this warmup must load them again)
+    build._LOADED.clear()
+    port = free_port()
+    zero_counters()
+    holder = {}
+    t0 = time.perf_counter()
+    starter = threading.Thread(target=lambda: holder.setdefault(
+        "h", start_in_thread(engine, ServerConfig(port=port),
+                             warmup_lens=list(WARMUP_LENS))))
+    starter.start()
+    during = wait_for(lambda: readyz(port), timeout=60)
+    starter.join(300)
+    if "h" not in holder:
+        raise AssertionError("phase 11a: the server did not start")
+    h = holder["h"]
+    warm_s = time.perf_counter() - t0
+    after = readyz(port)
+    loaded = sorted(build._LOADED)
+    if (during, after) != (503, 200) or loaded != ["bcr_spmm",
+                                                   "paged_attention"]:
+        raise AssertionError(f"phase 11a: readyz {during} during warmup, "
+                             f"{after} after; libraries loaded {loaded}")
+    builds = []
+    inner_build = build.build_all
+    build.build_all = lambda *a, **kw: builds.append(a) or inner_build(*a,
+                                                                        **kw)
+    out["a"] = dict(warmup_s=warm_s, readyz=[during, after],
+                    libraries_loaded=loaded)
+    log(f"phase 11a: readyz {during} during warmup, {after} after "
+        f"({warm_s:.1f} s from start, warmup lens {list(WARMUP_LENS)}); "
+        f"libraries built and loaded by warmup: {loaded}")
+
+    try:
+        # (b) phase 4's 16 requests at one moment, half SSE, half buffered
+        prompts = [p for p, _ in traj]
+        want = [g for _, g in traj]
+        flags = [i % 2 == 0 for i in range(16)]
+        rec = StepRecorder(torch, engine, profile=(12, 5))
+        before = read_counters()
+        results, t_send = http_burst(
+            port, [{"prompt": [int(t) for t in p], "max_tokens": 32}
+                   for p in prompts], flags)
+        wall = time.perf_counter() - t_send
+        rec.detach()
+        b_launches = {k: v - before[k] for k, v in read_counters().items()}
+        got = serving_tokens(results, flags)
+        ties = tie_check_against(torch, cfg, params, prompts, got, want,
+                                 BF16_TIE, "phase 11b")
+        if not all(b_launches[k] for k in FP_KERNELS) or builds:
+            raise AssertionError(f"phase 11b: launches {b_launches}, nvcc "
+                                 f"runs after warmup {builds}")
+        # client TTFT of the SSE requests, against phase 4's engine TTFT of
+        # the same requests (all 16 submitted at once there too)
+        ttft = [(r.t_first - t_send) * 1e3 for r, s in zip(results, flags)
+                if s]
+        same = [t for t, s in zip(direct["ttft_ms_by_request"], flags) if s]
+        decode = [(e - s) * 1e3 for s, e, adm in rec.rows if not adm]
+        out["b"] = dict(
+            ttft_ms_p50_sse=statistics.median(ttft),
+            direct_ttft_ms_p50_same_requests=statistics.median(same),
+            direct_ttft_ms_p50=direct["ttft_ms_p50"],
+            ttft_ms_sse=sorted(ttft), direct_ttft_ms_same=sorted(same),
+            tokens_per_s=sum(len(g) for g in got) / wall,
+            direct_tokens_per_s=direct["tokens_per_s"], wall_s=wall,
+            step_wall_ms_p50=statistics.median(decode),
+            direct_step_wall_ms_p50=direct["decode_step_ms_p50"],
+            steps=len(rec.rows), admitting_steps=sum(r[2] for r in rec.rows),
+            near_ties=ties[0], largest_gap=ties[1], held=ties[2],
+            profile=rec.busy(), launches={k: v for k, v in b_launches.items()
+                                          if v})
+        log("phase 11b: " + json.dumps(out["b"]))
+
+        # (c) the lifecycle over HTTP
+        host = h.server.host
+        pages = engine.pool.n_pages - 1
+        r = stream_completion(HOST, port, {"prompt": [int(t) for t in
+                                                      prompts[1]],
+                                           "max_tokens": 200},
+                              disconnect_after=3)
+        s0 = host._host_step
+        wait_for(lambda: http_request(HOST, port, "GET", "/metrics")[2]
+                 ["requests_in_flight"] == 0, timeout=30)
+        steps = host._host_step - s0
+        m = http_request(HOST, port, "GET", "/metrics")[2]
+        with engine._elock:
+            idle = engine.pool.idle_pages()
+        if not r.closed_early or steps > 1 or idle != pages or \
+                m["terminal"].get("cancelled") != 1 or m["disconnects"] != 1:
+            raise AssertionError(f"phase 11c disconnect: {steps} steps, "
+                                 f"idle pages {idle}/{pages}, {m}")
+        log(f"phase 11c disconnect after 3 tokens: slot and pages free "
+            f"{steps} host step(s) after the close ({idle} idle pages)")
+
+        i = 3
+        engine.faults = FaultInjector(seed=0).at(host._host_step + 4,
+                                                 "crash_step")
+        r = stream_completion(HOST, port, {"prompt": [int(t) for t in
+                                                      prompts[i]],
+                                           "max_tokens": 32})
+        engine.faults = None
+        crash_ties = tie_check_against(
+            torch, cfg, params, [prompts[i]], [r.tokens], [want[i]],
+            BF16_TIE, "phase 11c crash_step")
+        if r.final["status"] != "FINISHED" or host.restarts != 1 or \
+                engine.stats["recoveries"] != 1:
+            raise AssertionError(f"phase 11c crash_step: {r.final}, "
+                                 f"restarts {host.restarts}")
+        log(f"phase 11c crash_step: restarts 1, recover() folded and "
+            f"requeued the stream, 32 tokens, near-ties {crash_ties[0]}")
+
+        engine.ec.max_waiting = 2
+        flags = [False] * 14
+        results, _ = http_burst(
+            port, [{"prompt": [int(t) for t in prompts[j % 16]],
+                    "max_tokens": 64} for j in range(14)], flags)
+        engine.ec.max_waiting = None
+        codes = [st for st, _, _ in results]
+        shed = [(hdrs, body) for st, hdrs, body in results if st == 429]
+        if not shed or any(c not in (200, 429) for c in codes) or any(
+                "shed" not in b["error"] or int(hd["retry-after"]) < 1
+                for hd, b in shed):
+            raise AssertionError(f"phase 11c burst: {codes} {shed}")
+        retry = [int(hd["retry-after"]) for hd, _ in shed]
+        log(f"phase 11c burst of 14 past max_waiting 2: {codes.count(200)} "
+            f"x 200, {len(shed)} x 429 (Retry-After {retry} s)")
+
+        res = {}
+        fill = [threading.Thread(target=lambda j=j: res.setdefault(
+            j, http_request(HOST, port, "POST", "/v1/completions",
+                            {"prompt": [int(t) for t in prompts[j]],
+                             "max_tokens": 64}, timeout=120)))
+            for j in range(1, 8)]
+        stream = threading.Thread(target=lambda: res.setdefault(
+            "a", stream_completion(HOST, port, {"prompt": [
+                int(t) for t in prompts[0]], "max_tokens": 64})))
+        for t in fill + [stream]:
+            t.start()
+        wait_for(lambda: http_request(HOST, port, "GET", "/metrics")[2]
+                 ["engine"]["active"] == 8, timeout=30)
+        queued = threading.Thread(target=lambda: res.setdefault(
+            "b", http_request(HOST, port, "POST", "/v1/completions",
+                              {"prompt": [int(t) for t in prompts[8]],
+                               "max_tokens": 8}, timeout=120)))
+        queued.start()
+        wait_for(lambda: http_request(HOST, port, "GET", "/metrics")[2]
+                 ["engine"]["waiting"] == 1, timeout=30)
+        h.request_drain()
+        for t in fill + [stream, queued]:
+            t.join(120)
+        h.wait_closed(60)
+        a, b = res["a"], res["b"]
+        if a.final["status"] != "FINISHED" or len(a.tokens) != 64 or \
+                b[0] != 429 or "draining" not in b[2]["error"] or \
+                any(res[j][0] != 200 for j in range(1, 8)) or \
+                not h.server.conservation_ok:
+            raise AssertionError(f"phase 11c drain: stream {a.final}, "
+                                 f"{len(a.tokens)} tokens; queued {b}; "
+                                 f"conservation {h.server.conservation_ok}")
+        if host.restarts != 1 or host.crashed:
+            raise AssertionError(f"phase 11: {host.restarts} restarts (1 "
+                                 f"injected), crashed {host.crashed}")
+        log("phase 11c drain: the running stream flushed 64 tokens, the "
+            "queued request got 429 'server draining', 7 fillers 200, "
+            "conservation ok; supervisor restarts 1 (the injected one)")
+    finally:
+        build.build_all = inner_build
+        if not h.server.draining:
+            h.request_drain()
+            h.wait_closed(60)
+
+    # (d) open loop on the same engine (the host thread has stopped)
+    out["d"] = {}
+    for name, tc in (
+            ("poisson 8 req/s", TrafficConfig(
+                n_requests=32, rate=8.0, prompt_lens=(32, 128, 512),
+                gen_tokens=32)),
+            ("trace_heavy_tail", TrafficConfig(trace=load_trace(str(
+                Path(__file__).resolve().parent / "examples"
+                / "trace_heavy_tail.jsonl"))))):
+        # run_traffic warms the engine up (its prompts' buckets) first
+        m = run_traffic(engine, tc, log=lambda *a: None)
+        n = m["n_requests"]
+        if m["status_counts"]["finished"] != n:
+            raise AssertionError(f"phase 11d {name}: {m['status_counts']}")
+        engine.check_conservation()
+        keep = ("n_requests", "total_tokens", "elapsed_s",
+                "throughput_tok_s", "mean_slot_occupancy", "ttft_s",
+                "per_token_s", "decode_steps", "status_counts")
+        out["d"][name] = {k: m[k] for k in keep}
+        log(f"phase 11d {name}: " + json.dumps(out["d"][name]))
+    launches = read_counters()
+    return out, launches
+
+
+def phase_api_subprocess(torch, np):
+    """Phase 11e: ``python -m repro_torch.launch.api`` on the card at full
+    width and 2 layers: ready after warmup, one streamed and one buffered
+    completion (the same greedy tokens), then SIGTERM: exit 0 and
+    ``drained; conservation ok``."""
+    import os
+    import signal
+
+    from repro_torch.serving import http_request, stream_completion
+
+    port = free_port()
+    root = Path(__file__).resolve().parent
+    cmd = [sys.executable, "-m", "repro_torch.launch.api", "--arch",
+           "llama3.2-1b", "--num-layers", "2", "--bcr-keep", "0.25",
+           "--bcr-block", "128", "--slots", "8", "--capacity", "640",
+           "--page-size", "16", "--port", str(port), "--warmup-lens",
+           "32", "128"]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    try:
+        def up():
+            if proc.poll() is not None:
+                raise AssertionError(f"phase 11e: the API exited "
+                                     f"{proc.returncode}: "
+                                     f"{proc.stdout.read()[-3000:]}")
+            return readyz(port) == 200
+
+        wait_for(up, timeout=240, interval=0.2)
+        ready_s = time.perf_counter() - t0
+        rng = np.random.default_rng(11)
+        prompt = [int(t) for t in rng.integers(0, 128256, size=32)]
+        r = stream_completion(HOST, port, {"prompt": prompt,
+                                           "max_tokens": 16})
+        st, _, body = http_request(HOST, port, "POST", "/v1/completions",
+                                   {"prompt": prompt, "max_tokens": 16})
+        proc.send_signal(signal.SIGTERM)
+        text, _ = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    if r.status != 200 or r.final["status"] != "FINISHED" or st != 200 or \
+            body["tokens"] != r.tokens or len(r.tokens) != 16:
+        raise AssertionError(f"phase 11e: SSE {r.status} {r.final}, "
+                             f"buffered {st} {body}")
+    if proc.returncode != 0 or "drained; conservation ok" not in text:
+        raise AssertionError(f"phase 11e: exit {proc.returncode}: "
+                             f"{text[-3000:]}")
+    log(f"phase 11e: {' '.join(cmd[1:])}: ready {ready_s:.1f} s after "
+        f"launch; SSE and buffered gave the same 16 tokens; SIGTERM → exit "
+        f"0, '{text.strip().splitlines()[-1]}'")
+    return dict(ready_s=ready_s)
+
+
 def train_cfg(torch, num_layers=16, **over):
     """llama3.2-1b at full width: fp32 params, bf16 activations, BCR keep
     0.25 with 128x128 blocks."""
@@ -2746,7 +3175,8 @@ def main() -> int:
     log("phase 4, bf16 main path")
     t0 = time.perf_counter()
     cfg, params, params_q, fracs = build_main_params(torch)
-    _, launches, traj = phase_main_path(torch, np, cfg, params, fracs[0])
+    direct, launches, traj = phase_main_path(torch, np, cfg, params,
+                                             fracs[0])
     torch.cuda.empty_cache()
     log(f"phase 4: {time.perf_counter() - t0:.1f} s")
 
@@ -2808,12 +3238,21 @@ def main() -> int:
                                              draft, quantized=True)
     del params_q
     phase_unpaged(torch, np, cfg, params, traj)
-    del params, draft
+    del draft
     torch.cuda.empty_cache()
     phase_speculative_fp32(torch, np)
     phase_admission(torch, np)
     torch.cuda.empty_cache()
     log(f"phase 10: {time.perf_counter() - t0:.1f} s")
+
+    log("phase 11, the serving entry points on the card (HTTP server, "
+        "open-loop traffic, launch.api)")
+    t0 = time.perf_counter()
+    _, serving_launches = phase_serving(torch, np, cfg, params, traj, direct)
+    del params
+    torch.cuda.empty_cache()
+    phase_api_subprocess(torch, np)
+    log(f"phase 11: {time.perf_counter() - t0:.1f} s")
 
     # one entry per kernel form at its decode-step shape (M = 8 slots) or,
     # for flash, the largest cold-prefill bucket; launches from the main
@@ -2835,7 +3274,7 @@ def main() -> int:
                             if r["kernel"] == name),
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
-            shape=row["shape"]))
+            shape=row["shape"], serving_launches=serving_launches[name]))
         if name in VERIFY_ROWS:
             # phase 10a's path: launches over the model-drafter run (its
             # form's run: bf16, or int8 + flash), time at the verify shape

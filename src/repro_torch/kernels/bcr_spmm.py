@@ -222,7 +222,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.bcr_spmm_launch.restype = _I
 
 
-def _lib() -> ctypes.CDLL:
+def library() -> ctypes.CDLL:
+    """This kernel's library, built first if missing, and loaded."""
     return build.load("bcr_spmm", _declare)
 
 
@@ -314,7 +315,7 @@ def _launch(x, packed, scales, g, grouped, bias, swiglu, y, what) -> None:
             ws = torch.empty(plan.workspace_floats, dtype=torch.float32,
                              device=x.device)
             counters = split_counters(x.device, plan.tiles)
-    err = _lib().bcr_spmm_launch(
+    err = library().bcr_spmm_launch(
         _DTYPE_CODE[x.dtype], int(grouped), int(scales is not None),
         int(swiglu),
         x.data_ptr(), packed.vals.data_ptr(),

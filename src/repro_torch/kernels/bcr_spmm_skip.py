@@ -274,6 +274,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.bcr_spmm_skip_launch.restype = _I
 
 
+def library() -> ctypes.CDLL:
+    """This kernel's library, built first if missing, and loaded."""
+    return build.load("bcr_spmm_skip", _declare)
+
+
 def _checked_plan(packed: SkipPacked, device: torch.device) -> torch.Tensor:
     """Validate the pack's plan once per (pack, index tensors) and return
     its ``row_start``: ``bi`` sorted and within the grid, ``bj`` within
@@ -374,8 +379,7 @@ def bcr_spmm_skip(x: torch.Tensor, packed: SkipPacked) -> torch.Tensor:
             ws = torch.empty(plan.workspace_floats, dtype=torch.float32,
                              device=x.device)
             counters = split_counters(x.device, plan.counters)
-    lib = build.load("bcr_spmm_skip", _declare)
-    err = lib.bcr_spmm_skip_launch(
+    err = library().bcr_spmm_skip_launch(
         _DTYPE_CODE[x.dtype], x.data_ptr(), packed.tiles.data_ptr(),
         packed.bj.data_ptr(), row_start.data_ptr(),
         units.data_ptr() if units is not None else None, y.data_ptr(),

@@ -23,6 +23,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Callable, Dict, List, Optional
 
@@ -32,6 +33,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _LOADED: Dict[str, ctypes.CDLL] = {}   # ctypes libraries are process-wide
+# one check-build-load at a time: a server's warmup thread and its engine
+# thread must not build or load one library twice
+_LOAD_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -110,13 +114,18 @@ def build_all(names: Optional[List[str]] = None) -> Dict[str, Path]:
 
 def load(name: str, declare: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if missing;
-    ``declare`` sets its entry points' ``argtypes``/``restype`` once."""
-    if name not in _LOADED:
-        path = build_all([name])[name]
-        lib = ctypes.CDLL(str(path))
-        declare(lib)
-        _LOADED[name] = lib
-    return _LOADED[name]
+    ``declare`` sets its entry points' ``argtypes``/``restype`` once.
+    Thread-safe: concurrent first calls build and load the library once."""
+    lib = _LOADED.get(name)
+    if lib is not None:
+        return lib
+    with _LOAD_LOCK:
+        if name not in _LOADED:
+            path = build_all([name])[name]
+            lib = ctypes.CDLL(str(path))
+            declare(lib)
+            _LOADED[name] = lib
+        return _LOADED[name]
 
 
 def check(err: int, what: str) -> None:

@@ -43,6 +43,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.flash_attention_launch.restype = _I
 
 
+def library() -> ctypes.CDLL:
+    """This kernel's library, built first if missing, and loaded."""
+    return build.load("flash_attention", _declare)
+
+
 def chunks_fit(sq: int, skv: int, q_chunk: int, kv_chunk: int) -> bool:
     """The reference's rule: the (clamped) chunks divide the lengths."""
     return sq % min(q_chunk, sq) == 0 and skv % min(kv_chunk, skv) == 0
@@ -116,8 +121,7 @@ def _launch(q, k, v, out, causal: bool, q_offset: int,
     heaviest q tiles first; the order changes no output, and only the
     check of that sets it."""
     bh, sq, d = q.shape
-    lib = build.load("flash_attention", _declare)
-    err = lib.flash_attention_launch(
+    err = library().flash_attention_launch(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), bh, sq, k.shape[1], d, int(causal), q_offset,
         int(bh_major), float(d ** -0.5),

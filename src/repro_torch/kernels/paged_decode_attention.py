@@ -165,6 +165,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.paged_attention_launch.restype = _I
 
 
+def library() -> ctypes.CDLL:
+    """This kernel's library, built first if missing, and loaded."""
+    return build.load("paged_attention", _declare)
+
+
 def _paged_attention(q, k_pages, v_pages, block_tables, prefix_len,
                      total_len, k_scale=None, v_scale=None,
                      append=False) -> torch.Tensor:
@@ -232,8 +237,7 @@ def _paged_attention(q, k_pages, v_pages, block_tables, prefix_len,
         ws = torch.empty(plan.workspace_floats(d), dtype=torch.float32,
                          device=q.device)
         counters = split_counters(q.device, plan.units)
-    lib = build.load("paged_attention", _declare)
-    err = lib.paged_attention_launch(
+    err = library().paged_attention_launch(
         _DTYPE_CODE[qc.dtype], int(quant), int(tc), qc.data_ptr(),
         k_pages.data_ptr(), v_pages.data_ptr(),
         k_scale.data_ptr() if quant else None,

@@ -19,7 +19,12 @@ serves from the capacity-dense slot pool; ``--spec-k 3 --draft-bcr-keep
 ``--slo-admission`` rejects doomed deadlines at submit, and ``--tenants
 a,b`` tags requests round-robin for the per-tenant counters (quotas are set
 through ``EngineConfig.tenant_quotas``).
-``generate`` is the naive oracle the engine is held to: one batched
+``--rate R`` (Poisson arrivals at R req/s) or ``--trace FILE.jsonl`` (the
+reference's trace format, e.g. ``examples/trace_heavy_tail.jsonl``) drives
+the engine open loop through :func:`run_traffic` instead, paced by the wall
+clock, with ``--cancel-rate``, ``--temperature``, ``--top-k`` and
+``--json-out``; without either every request is submitted at once (closed
+loop). ``generate`` is the naive oracle the engine is held to: one batched
 exact-length prefill, then step-by-step greedy decode over a fixed page
 table.
 """
@@ -28,8 +33,9 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import time
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -202,6 +208,229 @@ def generate(cfg: ModelConfig, params: PyTree, prompts: torch.Tensor, *,
             "logits": torch.stack(step_logits, dim=1)}
 
 
+@dataclasses.dataclass
+class TrafficConfig:
+    """Open-loop traffic for :func:`run_traffic`, as the reference's."""
+
+    n_requests: int = 32
+    rate: float = 8.0                # mean arrivals per second
+    prompt_lens: tuple = (8, 16, 24)
+    gen_tokens: int = 16
+    temperature: float = 0.0
+    top_k: int = 0
+    seed: int = 0
+    warmup: bool = True
+    # shared-prefix workload: each prompt is one of `system_prompts` fixed
+    # system prompts of `system_len` tokens plus a user suffix drawn from
+    # prompt_lens (0 → fully random prompts)
+    system_prompts: int = 0
+    system_len: int = 32
+    # deadline_s > 0 arms a per-request deadline; cancel_rate > 0 cancels
+    # that fraction of requests at a random point after their arrival
+    deadline_s: float = 0.0
+    cancel_rate: float = 0.0
+    # trace replay: records from load_trace drive arrivals, prompt lengths,
+    # budgets, priorities, deadlines and tenants instead of Poisson
+    trace: Any = None
+    # Poisson requests are tagged round-robin from these (empty → none)
+    tenants: tuple = ()
+
+
+def load_trace(path: str) -> List[Dict[str, Any]]:
+    """Parse a jsonl request trace for :func:`run_traffic`: one object a
+    line, ``{"t": 0.12, "prompt_len": 16, "max_new_tokens": 16,
+    "priority": 1, "deadline_s": 2.0, "tenant": "acme"}``. ``t`` (arrival
+    offset in seconds from the run's start) is required and non-decreasing;
+    the rest default (prompt_len 16, the TrafficConfig's budget and
+    deadline, priority 0). Lines starting with ``#`` are comments."""
+    trace: List[Dict[str, Any]] = []
+    with open(path) as f:
+        for ln, line in enumerate(f, 1):
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            rec = json.loads(line)
+            if "t" not in rec:
+                raise ValueError(f"{path}:{ln}: trace record needs 't' "
+                                 f"(arrival offset in seconds)")
+            trace.append(rec)
+    if any(b["t"] < a["t"] for a, b in zip(trace, trace[1:])):
+        raise ValueError(f"{path}: arrival offsets must be non-decreasing")
+    return trace
+
+
+def _pct(a, q) -> float:
+    return float(np.percentile(a, q)) if len(a) else 0.0
+
+
+def run_traffic(engine: InferenceEngine, tc: TrafficConfig, log=print
+                ) -> Dict[str, Any]:
+    """Open-loop arrivals against a live engine, paced by the wall clock,
+    as the reference's ``run_traffic``: Poisson gaps at ``tc.rate`` (or a
+    trace's offsets, each record clamped to fit its slot), submissions as
+    they fall due, client-side cancels, one ``step`` at a time, and a sleep
+    only while the engine is idle ahead of the next arrival. Returns the
+    metrics dict (throughput, goodput, per-status counts, TTFT and
+    per-token p50/p95/p99 over FINISHED requests, mean occupancy, prefix,
+    speculative and admission counters)."""
+    rng = np.random.default_rng(tc.seed)
+    if tc.trace is not None:
+        n_requests = len(tc.trace)
+        arrivals = np.asarray([float(r["t"]) for r in tc.trace])
+        gens = [int(r.get("max_new_tokens", tc.gen_tokens))
+                for r in tc.trace]
+        prios = [int(r.get("priority", 0)) for r in tc.trace]
+        deadlines = [float(r.get("deadline_s", tc.deadline_s))
+                     for r in tc.trace]
+        tenants = [str(r.get("tenant", "")) for r in tc.trace]
+        # a trace is a workload shape, not a rejection test: no record may
+        # exceed its slot (prompt + budget + speculative headroom)
+        cap = engine.ec.capacity - engine._headroom()
+        plens = np.asarray([max(1, min(int(r.get("prompt_len", 16)), cap - g))
+                            for r, g in zip(tc.trace, gens)])
+    else:
+        n_requests = tc.n_requests
+        arrivals = np.cumsum(rng.exponential(1.0 / tc.rate, size=n_requests))
+        plens = rng.choice(tc.prompt_lens, size=n_requests)
+        gens = [tc.gen_tokens] * n_requests
+        prios = [0] * n_requests
+        deadlines = [tc.deadline_s] * n_requests
+        tenants = ([tc.tenants[i % len(tc.tenants)]
+                    for i in range(n_requests)] if tc.tenants
+                   else [""] * n_requests)
+    vocab = engine.cfg.vocab_size
+    if tc.system_prompts > 0:
+        systems = [rng.integers(0, vocab, size=tc.system_len).astype(np.int32)
+                   for _ in range(tc.system_prompts)]
+        prompts = [np.concatenate([
+            systems[int(rng.integers(tc.system_prompts))],
+            rng.integers(0, vocab, size=int(p)).astype(np.int32)])
+            for p in plens]
+    else:
+        prompts = [rng.integers(0, vocab, size=int(p)).astype(np.int32)
+                   for p in plens]
+    if tc.warmup:
+        # first launches outside the measured window; at a prefix hit the
+        # suffix is the user part plus up to a page of unmatched system
+        # tail (or 1 token on a full hit)
+        sfx = (tuple(int(p) + engine.ec.page_size for p in plens) + (1,)
+               if tc.system_prompts else None)
+        engine.warmup([len(p) for p in prompts], suffix_lens=sfx)
+
+    # each request independently gets a cancel at a random point after its
+    # arrival (within its deadline window when one is set); a cancel
+    # racing completion is a no-op
+    cancel_at = np.full(n_requests, np.inf)
+    if tc.cancel_rate > 0:
+        hit = rng.random(n_requests) < tc.cancel_rate
+        span = tc.deadline_s if tc.deadline_s > 0 else 0.5
+        cancel_at[hit] = arrivals[hit] + rng.uniform(
+            0.01, max(span, 0.02), size=int(hit.sum()))
+
+    t0 = time.perf_counter()
+    submitted = 0
+    rids: List[int] = []
+    while submitted < n_requests or engine.sched.has_work():
+        now = time.perf_counter() - t0
+        while submitted < n_requests and arrivals[submitted] <= now:
+            rids.append(engine.submit(
+                prompts[submitted], max_new_tokens=gens[submitted],
+                temperature=tc.temperature, top_k=tc.top_k,
+                arrival_time=arrivals[submitted],
+                deadline_s=deadlines[submitted], priority=prios[submitted],
+                tenant=tenants[submitted]))
+            submitted += 1
+        for i in np.nonzero(cancel_at <= now)[0]:
+            if i < submitted:
+                engine.cancel(rids[i])
+                cancel_at[i] = np.inf
+        if not engine.sched.has_work():
+            # idle until the next arrival (none left once a cancel has
+            # emptied the engine after the last submission)
+            if submitted < n_requests:
+                time.sleep(max(0.0, arrivals[submitted] - now))
+            continue
+        engine.step()                # ends in a device→host token copy
+    elapsed = time.perf_counter() - t0
+
+    reqs = engine.sched.finished
+    fin = [r for r in reqs if r.status == FINISHED]
+    # latency percentiles cover FINISHED requests only: a shed or timed-out
+    # request has no meaningful TTFT
+    ttft = [(r.first_token_time - t0) - r.arrival_time for r in fin]
+    itl: List[float] = []
+    for r in fin:
+        itl.extend(np.diff(r.token_times))
+    total_tokens = sum(len(r.generated) for r in reqs)
+    good_tokens = sum(len(r.generated) for r in fin)
+    prompt_tokens = sum(r.prompt_len for r in reqs)
+    status_counts = {s.lower(): sum(1 for r in reqs if r.status == s)
+                     for s in (FINISHED, TIMEOUT, CANCELLED, REJECTED,
+                               FAILED)}
+    st = engine.stats
+    occ = st["slot_occupancy"]
+    metrics = {
+        "n_requests": len(reqs),
+        "total_tokens": total_tokens,
+        "elapsed_s": elapsed,
+        "throughput_tok_s": total_tokens / elapsed,
+        "goodput_tok_s": good_tokens / elapsed,
+        "status_counts": status_counts,
+        "preempted": st["preemptions"],
+        "shed": st["shed"],
+        "decode_steps": st["decode_steps"],
+        # each request's first token is prefill-sampled, never a decode
+        # step's: with speculation this is the payoff figure
+        "decode_tokens_per_step": (max(total_tokens - len(reqs), 0)
+                                   / max(st["decode_steps"], 1)),
+        "mean_slot_occupancy": float(np.mean(occ)) if occ else 0.0,
+        "ttft_s": {f"p{q}": _pct(ttft, q) for q in (50, 95, 99)},
+        "per_token_s": {f"p{q}": _pct(itl, q) for q in (50, 95, 99)},
+        "page_stalls": st["page_stalls"],
+        "prefix_hit_rate": (st["prefix_hit_tokens"] / prompt_tokens
+                            if prompt_tokens else 0.0),
+        "prefix_hit_tokens": st["prefix_hit_tokens"],
+        "pages_shared": st["pages_shared"],
+        "cow_copies": st["cow_copies"],
+        "evictions": st["evictions"],
+        "spec_steps": st["spec_steps"],
+        "draft_proposed": st["draft_proposed"],
+        "draft_accepted": st["draft_accepted"],
+        "acceptance_rate": (st["draft_accepted"] / st["draft_proposed"]
+                            if st["draft_proposed"] else 0.0),
+        "slo_rejected": st["slo_rejected"],
+        "quota_rejected": st["quota_rejected"],
+        "timeouts_waiting": st["timeouts_waiting"],
+        "timeouts_running": st["timeouts_running"],
+        "wasted_prefill_tokens": st["wasted_prefill_tokens"],
+        "tenants": {t: dict(v) for t, v in st["tenants"].items()},
+    }
+    log(f"{len(reqs)} requests, {total_tokens} tokens in {elapsed:.2f}s "
+        f"→ {metrics['throughput_tok_s']:.1f} tok/s; mean occupancy "
+        f"{metrics['mean_slot_occupancy']:.2f}/{engine.ec.n_slots} slots")
+    log(f"status: finished {status_counts['finished']} / timeout "
+        f"{status_counts['timeout']} / cancelled "
+        f"{status_counts['cancelled']} / rejected "
+        f"{status_counts['rejected']} / preempted {st['preemptions']} / "
+        f"failed {status_counts['failed']}; goodput "
+        f"{metrics['goodput_tok_s']:.1f} tok/s (FINISHED only)")
+    t, pt = metrics["ttft_s"], metrics["per_token_s"]
+    log(f"TTFT p50/p95/p99: {t['p50'] * 1e3:.1f}/{t['p95'] * 1e3:.1f}/"
+        f"{t['p99'] * 1e3:.1f} ms; per-token p50/p95/p99: "
+        f"{pt['p50'] * 1e3:.2f}/{pt['p95'] * 1e3:.2f}/"
+        f"{pt['p99'] * 1e3:.2f} ms")
+    log(f"prefix_hit_rate {metrics['prefix_hit_rate']:.2f} (hit tokens "
+        f"{st['prefix_hit_tokens']}/{prompt_tokens}); pages_shared "
+        f"{st['pages_shared']}; cow_copies {st['cow_copies']}; evictions "
+        f"{st['evictions']}; page_stalls {st['page_stalls']}")
+    if st["spec_steps"]:
+        log(f"speculative: {metrics['acceptance_rate']:.2f} acceptance "
+            f"({st['draft_accepted']}/{st['draft_proposed']} drafts), "
+            f"{metrics['decode_tokens_per_step']:.2f} committed tokens/decode "
+            f"step; accepted-length histogram {st['accepted_hist']}")
+    return metrics
+
+
 def main() -> None:
     p = argparse.ArgumentParser()
     p.add_argument("--arch", required=True)
@@ -268,6 +497,22 @@ def main() -> None:
     p.add_argument("--prompt-len", type=int, default=16)
     p.add_argument("--gen", type=int, default=16)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--rate", type=float, default=None,
+                   help="open loop: Poisson arrivals at this many req/s, "
+                        "paced by the wall clock (absent: every request "
+                        "is submitted at once)")
+    p.add_argument("--trace", default=None, metavar="FILE.jsonl",
+                   help="open loop: replay a jsonl request trace (arrival "
+                        "offset 't', prompt_len, max_new_tokens, priority, "
+                        "deadline_s, tenant; see "
+                        "examples/trace_heavy_tail.jsonl)")
+    p.add_argument("--cancel-rate", type=float, default=0.0,
+                   help="open loop: fraction of requests cancelled "
+                        "client-side at a random point after arrival")
+    p.add_argument("--temperature", type=float, default=0.0)
+    p.add_argument("--top-k", type=int, default=0)
+    p.add_argument("--json-out", default=None,
+                   help="write the run's metrics here as JSON")
     p.add_argument("--device", default="cuda")
     p.add_argument("--kv-dtype", default="", choices=["", "int8"],
                    help="int8: KV pages as int8 codes + per-row, per-kv-head "
@@ -322,6 +567,19 @@ def main() -> None:
     plens = sorted({min(max(x, 1), pmax) for x in
                     (max(4, args.prompt_len // 2), args.prompt_len,
                      args.prompt_len * 2)})
+    if args.rate is not None or args.trace:
+        metrics = run_traffic(engine, TrafficConfig(
+            n_requests=args.requests, rate=args.rate or 8.0,
+            prompt_lens=tuple(plens), gen_tokens=args.gen,
+            temperature=args.temperature, top_k=args.top_k, seed=args.seed,
+            system_prompts=args.system_prompts, system_len=args.system_len,
+            deadline_s=args.deadline_s, cancel_rate=args.cancel_rate,
+            trace=load_trace(args.trace) if args.trace else None,
+            tenants=tuple(tenants)))
+        if args.json_out:
+            with open(args.json_out, "w") as f:
+                json.dump(metrics, f, indent=2)
+        return
     rng = np.random.default_rng(args.seed)
     systems = [rng.integers(0, cfg.vocab_size, size=sys_len)
                for _ in range(args.system_prompts)]
@@ -331,6 +589,7 @@ def main() -> None:
             user = np.concatenate(
                 [systems[int(rng.integers(len(systems)))], user])
         engine.submit(user, max_new_tokens=args.gen,
+                      temperature=args.temperature, top_k=args.top_k,
                       deadline_s=args.deadline_s,
                       tenant=tenants[i % len(tenants)] if tenants else "")
     t0 = time.perf_counter()

@@ -1246,6 +1246,137 @@ class InferenceEngine:
             if self.paged:
                 self.pool.reset_stats()
 
+    def _pow2_widths(self) -> List[int]:
+        """Every block-table width the pow2 bucketing can hand a paged
+        dispatch (decode, verify and prefill-append bucket alike)."""
+        widths, w = [], 1
+        while True:
+            widths.append(min(w, self.pool.max_pages))
+            if w >= self.pool.max_pages:
+                return widths
+            w *= 2
+
+    def _load_kernels(self) -> None:
+        """Build (one ``nvcc`` per missing source, all started together) and
+        load every kernel library this configuration launches: the BCR
+        matmuls always, paged attention on a paged pool, flash under a
+        flash ``attn_impl``."""
+        from repro_torch.kernels import (bcr_spmm, build, flash_attention,
+                                         paged_decode_attention)
+        libs = {"bcr_spmm": bcr_spmm.library}
+        if self.paged:
+            libs["paged_attention"] = paged_decode_attention.library
+        if self.cfg.attn_impl in FLASH_ATTN_IMPLS:
+            libs["flash_attention"] = flash_attention.library
+        build.build_all(sorted(libs))
+        for library in libs.values():
+            library()
+
+    def warmup(self, prompt_lens: Sequence[int], gen: int = 2,
+               suffix_lens: Optional[Sequence[int]] = None) -> None:
+        """Make every kernel library and dispatch shape live before measured
+        traffic, then wipe the bookkeeping, as the reference's ``warmup``
+        compiles its programs ahead. On the card the libraries this
+        configuration launches are built and loaded first; then throwaway
+        requests run every (prefill bucket × admission row tier) — under the
+        prefix cache the index is dropped after each, so every cold
+        combination runs — and, with the prefix cache, a ``prefill_append``
+        for every (suffix bucket × row tier × pow2 table width) over all-zero
+        tables (``suffix_lens`` narrows the suffix buckets; default: the
+        prompt buckets); on a paged pool the decode dispatch (or, under
+        ``spec_k``, the verify dispatch) runs at every pow2 table width with
+        both sample paths. All-zero tables route throwaway writes into the
+        null page, and the sampled paths draw from a throwaway generator, so
+        no later token changes. Each launching thread needs the engine's
+        card as its current device; this one sets it for its own calls."""
+        assert not self.sched.has_work(), "warmup() needs an idle engine"
+        if self.device.type != "cuda":
+            self._warmup(prompt_lens, gen, suffix_lens)
+            return
+        with torch.cuda.device(self.device):
+            self._load_kernels()
+            self._warmup(prompt_lens, gen, suffix_lens)
+            torch.cuda.synchronize(self.device)
+
+    def _warmup(self, prompt_lens: Sequence[int], gen: int,
+                suffix_lens: Optional[Sequence[int]]) -> None:
+        buckets = sorted({self._bucket(max(1, int(p))) for p in prompt_lens})
+        lens = [min(b, self.ec.capacity - gen - self._headroom())
+                for b in buckets]
+        for n in lens:
+            for tier in self._row_tiers():
+                self.generate([np.zeros((n,), np.int32)] * tier,
+                              max_new_tokens=gen)
+                if self.prefix_cache:
+                    # drop the throwaway prompts' index entries now: else
+                    # every later generate hits and takes the append path,
+                    # and the cold (bucket × tier) shapes never run
+                    self.pool.reset_prefix()
+        n = self.ec.n_slots
+        gen_throwaway = torch.Generator(device=self.device)
+        gen_throwaway.manual_seed(self.ec.seed)
+        temps = self._tensor(np.ones((n,), np.float32))
+        topks = self._tensor(np.ones((n,), np.int32))
+
+        def sample_both(logits: torch.Tensor) -> None:
+            for use_topk in (False, True):
+                rows = logits.shape[0]
+                sample_tokens(logits, gen_throwaway, temps[:rows],
+                              topks[:rows], use_topk=use_topk)
+
+        if self.prefix_cache:
+            if suffix_lens is None:
+                suffix_lens = buckets
+            # a hit can shrink a prompt to any suffix and a group's bucket
+            # is its widest member's: every pow2 bucket up to the largest
+            top = max(self._bucket(max(1, int(s))) for s in suffix_lens)
+            sbuckets, sb = [], self.ec.min_bucket
+            while sb <= top:
+                sbuckets.append(sb)
+                sb *= 2
+            for sb in sbuckets:
+                for tier in self._row_tiers():
+                    for w in self._pow2_widths():
+                        logits, self.pool.cache = self.fns.prefill_append(
+                            self.params,
+                            {"tokens": self._tensor(
+                                np.zeros((tier, sb), np.int32)),
+                             "prefix_len": self._tensor(
+                                 np.zeros((tier,), np.int32)),
+                             "length": self._tensor(
+                                 np.ones((tier,), np.int32)),
+                             "block_tables": self._tensor(
+                                 np.zeros((tier, w), np.int32))},
+                            self.pool.cache)
+                        self._sample(logits[:, -1], np.zeros((tier,),
+                                                             np.float32),
+                                     np.zeros((tier,), np.int32))
+            self.pool.reset_prefix()
+        if self.paged:
+            lens0 = np.zeros((n,), np.int32)
+            for w in self._pow2_widths():
+                bt = self._tensor(np.zeros((n, w), np.int32))
+                if self.spec:
+                    # every speculative step is a verify dispatch
+                    toks = np.zeros((n, self.ec.spec_k + 1), np.int32)
+                    for greedy_only in (True, False):
+                        self._verify(toks, lens0, lens0, bt, greedy_only)
+                    continue
+                logits, self.pool.cache = self.fns.decode_step(
+                    self.params, {"tokens": self._tensor(lens0[:, None]),
+                                  "cache_len": self._tensor(lens0),
+                                  "block_tables": bt}, self.pool.cache)
+                self._sample(logits[:, -1], np.zeros((n,), np.float32),
+                             lens0)
+                sample_both(logits[:, -1])
+            if hasattr(self.drafter, "warmup"):
+                self.drafter.warmup()
+        self.sched.finished.clear()
+        # warmup's steps paid first launches: worthless as the admission
+        # estimator's calibration, so its EWMA starts from measured traffic
+        self._step_time = 0.0
+        self.reset_stats()
+
     def run(self) -> List[Request]:
         """Drain: step until queue and slots are empty; finished requests in
         completion order."""

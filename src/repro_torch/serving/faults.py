@@ -15,10 +15,11 @@ call. Tests that want faults at precise points attach the injector to a
 fresh engine.
 
 The port's engine acts on ``page_alloc``, ``nan_logits``, ``slow_step``,
-``cancel`` and, under speculative decoding, ``drafter``. ``shard_skew``
-waits for tensor parallelism, and ``crash_step`` and ``slow_client`` for
-the HTTP layer: they stay in :data:`KINDS` so one schedule serves both
-packages, and the engine ignores them.
+``cancel`` and, under speculative decoding, ``drafter``; the HTTP layer
+(``serving/server.py``'s ``EngineHost``) acts on ``crash_step`` and
+``slow_client``, which the engine ignores. ``shard_skew`` waits for tensor
+parallelism: it stays in :data:`KINDS` so one schedule serves both
+packages.
 
 Fault kinds
 -----------

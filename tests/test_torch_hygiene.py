@@ -114,6 +114,15 @@ def _smoke_cfg(**kw):
 
 
 def test_entry_points_default_to_the_card():
+    """The model and engine default to the card, so do the HTTP entry
+    point's ``--device`` and the serving CLI's; ``start_in_thread`` takes no
+    device of its own but the engine's."""
+    import inspect
+
+    from repro_torch.launch import api
+    from repro_torch.serving import start_in_thread
+    assert api.parse_args(["--arch", "llama3.2-1b"]).device == "cuda"
+    assert "device" not in inspect.signature(start_in_thread).parameters
     if torch.cuda.is_available():
         pytest.skip("a card is visible: the default device is usable")
     cfg = _smoke_cfg()
@@ -122,6 +131,18 @@ def test_entry_points_default_to_the_card():
     params = build_params(cfg, device="cpu")
     with pytest.raises(RuntimeError):
         InferenceEngine(cfg, params, EngineConfig())
+    with pytest.raises(RuntimeError):
+        api.main(["--arch", "llama3.2-1b", "--smoke"])
+    eng = InferenceEngine(cfg, params, EngineConfig(n_slots=1, capacity=32,
+                                                    page_size=4),
+                          device="cpu")
+    h = start_in_thread(eng)
+    try:
+        assert h.server.engine.device == torch.device("cpu")
+    finally:
+        h.request_drain()
+        h.wait_closed(30)
+    assert h.server.conservation_ok
 
 
 @pytest.mark.parametrize("option", [dict(mesh_model=2)])
@@ -243,6 +264,16 @@ def test_training_slice_files_are_scanned(name):
     assert ROOT / "src" / "repro_torch" / name in PORT_FILES
     assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc"
             / "bcr_spmm_skip.cu").exists()
+
+
+@pytest.mark.parametrize("name", ["serving/server.py", "launch/api.py"])
+def test_serving_entry_point_files_are_scanned(name):
+    """The import scan globs every port file, the HTTP front end and its
+    CLI included."""
+    path = ROOT / "src" / "repro_torch" / name
+    assert path in PORT_FILES
+    tree = ast.parse(path.read_text(), filename=str(path))
+    assert not [n for n in _imports(tree) if _bad_import(n)]
 
 
 def test_train_entry_points_default_to_the_card(monkeypatch):
