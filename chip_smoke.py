@@ -20,7 +20,9 @@ Phases, in order (any failed check raises and the script exits non-zero):
    the BCR kernels by M tile (HMMA up to 64, HGMMA for 128), the bf16
    ``bcr_spmm_skip`` kernels by M tile likewise, the bf16 flash kernels
    HGMMA at head_dim 64 and HMMA at the others; none in any fp32
-   (CUDA-core) body.
+   (CUDA-core) body. The expert-batched BCR forms are the same bodies with
+   the expert on a grid axis: every BCR kernel's SASS must read it
+   (``SR_CTAID.Y`` on the tensor cores, ``SR_CTAID.Z`` on the CUDA cores).
 3. Kernels against their plain PyTorch versions on the card, bf16 at the
    llama3.2-1b full-width shapes (d_model 2048, 32/8 heads, head_dim 64,
    d_ff 8192, vocab 128256, BCR block 128 at keep 0.25, so R_keep = C_keep =
@@ -44,7 +46,15 @@ Phases, in order (any failed check raises and the script exits non-zero):
    freed NaN-filled block; a fully pruned W; a small fp32 case; the
    one-launch split over a block row's tiles at M = 8 for wq and MLP wo,
    checked as the BCR split is), each with its surviving-tile share and
-   empty block rows.
+   empty block rows. Then phase 12's new shapes: the expert-batched
+   ``bcr_spmm`` (deepseek-moe-16b's expert ``wo``, 64 x 2048 x 1408) and
+   ``bcr_spmm_grouped`` (its ``wgi``, 64 x 2 x 1408 x 2048, SwiGLU), fp and
+   int8 tiles, at M = 4 and 240 a expert, each one launch for all 64
+   experts against the plain version's loop over them, timed beside one
+   ``torch.bmm`` over the dense pruned expert weights; their one-launch
+   split at M = 4 over 4 experts (64 fill the card unsplit), checked as
+   the BCR split is; paged decode and prefill-append (bf16 and int8
+   pages) and flash at 16/16 heads, head_dim 128.
 4. bf16 main path at full width: llama3.2-1b, 16 layers, random weights
    from a seeded generator, packed at keep 0.25 / block 128, served through
    the paged engine (8 slots, page 16, capacity 640): 16 greedy requests
@@ -145,6 +155,20 @@ Phases, in order (any failed check raises and the script exits non-zero):
    ready, one streamed and one buffered completion (the same tokens),
    SIGTERM, exit 0 with ``drained; conservation ok``.
 
+12. The MoE family on the card: deepseek-moe-16b at full width, the depth
+   cut to 4 layers (1 dense, 3 MoE; printed). (a) bf16, packed at keep
+   0.25 / block 128, phase 4's engine configuration and traffic at the
+   config's capacity_factor 1.25 (exact-length cold prefill, grouped by
+   prompt length): tokens/s, TTFT p50, decode step-wall p50, a profiled
+   decode window (device time by kernel family, busy share, device
+   launches a step), resident weight bytes; exactly one expert-batched
+   ``bcr_spmm_grouped`` and one ``bcr_spmm`` launch per MoE layer per
+   forward, never 64. (b) fp32, 2 layers (1 dense + 1 MoE),
+   capacity_factor 8.0, 4 requests: engine tokens equal naive
+   ``generate`` under phase 6's 1e-4 near-tie rule. (c) 12a's weights
+   with int8 tiles, int8 KV and the flash cold prefill: the int8
+   expert-batched and flash counters move, every fp form stays at 0.
+
 Phase 3 also holds the verify dispatch's shapes: paged prefill-append with
 4 rows a slot over lengths 1..512 (ragged real rows, bf16 and int8 pages)
 and every ``bcr_spmm*`` case at M = 32 = 8 slots x (``spec_k`` + 1).
@@ -154,7 +178,9 @@ their prefill-append launches and time; the ``bcr_spmm*``, paged and flash
 entries with their launches over phase 10a's model-drafter run,
 ``verify_launches``, and the BCR and paged entries with their time at the
 verify shape, ``verify_ms``; every entry its launches over phase 11
-(a)–(d), ``serving_launches``), and the contract line.
+(a)–(d), ``serving_launches``; the BCR, paged and flash entries their
+launches on phase 12, ``moe_launches``; four entries for the
+expert-batched forms, launched on phase 12 only), and the contract line.
 """
 
 from __future__ import annotations
@@ -177,6 +203,19 @@ BF16_TOL, FP32_TOL = 2e-2, 1e-4  # × max(1, max |plain|)
 
 REPO = "src/repro"               # the reference package, for "replaces"
 PORT = "src/repro_torch/kernels/csrc"
+# phase 12's model: deepseek-moe-16b at full width, the depth cut to 4
+# layers (1 dense, 3 MoE). Its expert projections are the expert-batched
+# kernel forms' shapes: 64 experts of d_ff 1408 over d_model 2048 at block
+# 128 and keep 0.25; M a expert is decode's capacity (8 slots x top-6 x
+# 1.25 / 64 experts, at least 4) and a 4-row 512-token prefill's 4 groups x
+# 60
+MOE_ARCH, MOE_LAYERS = "deepseek-moe-16b", 4
+EXPERTS, EXPERT_MS = 64, (4, 240)
+EXPERT_FORMS = {"bcr_spmm_experts": "experts wo 64x2048x1408 M=4",
+                "bcr_spmm_int8_experts": "experts wo 64x2048x1408 M=4",
+                "bcr_spmm_grouped_experts": "experts wgi 64x2x1408x2048 M=4",
+                "bcr_spmm_grouped_int8_experts":
+                    "experts wgi 64x2x1408x2048 M=4"}
 # launch-counter key → (CUDA source, the TPU kernel it replaces, the case
 # its row in the kernels line reports: its decode- or prefill-step shape)
 KERNELS = {
@@ -203,6 +242,11 @@ KERNELS = {
     "bcr_spmm_skip": (f"{PORT}/bcr_spmm_skip.cu",
                       f"{REPO}/kernels/bcr_spmm_skip.py:120",
                       "lm_head 128256x2048 M=8"),
+    # the expert-batched forms (phase 12's MoE layers): vmap(pallas_call)
+    **{k: (f"{PORT}/bcr_spmm.cu",
+           f"{REPO}/kernels/bcr_spmm.py:" + ("311" if "grouped" in k
+                                             else "158"), shape)
+       for k, shape in EXPERT_FORMS.items()},
 }
 # phase 3's paged case at phase 9a's append admission
 APPEND_SHAPE = "prefill-append B=8 S=64 prefix 384"
@@ -462,25 +506,32 @@ def bcr_cases(torch, timer, gen, record):
         del grouped, w_cat
 
 
-def sass_tensor_ops(lib_path: Path) -> dict:
-    """Tensor-core instructions per kernel of a built library, from
-    ``cuobjdump -sass``: {mangled kernel name: (HMMA count, HGMMA count)}.
-    HMMA is the warp-level ``mma.sync``; HGMMA is ``wgmma``."""
+def sass_functions(lib_path: Path) -> dict:
+    """``cuobjdump -sass`` of a built library: {mangled kernel name: its
+    SASS lines}."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = subprocess.run([cuobjdump, "-sass", str(lib_path)],
                          capture_output=True, text=True, check=True,
                          timeout=300).stdout
-    ops, name = {}, None
+    fns, name = {}, None
     for line in out.splitlines():
         if "Function : " in line:
             name = line.split("Function : ")[1].strip()
-            ops[name] = [0, 0]
+            fns[name] = []
         elif name is not None:
-            if "HGMMA" in line:
-                ops[name][1] += 1
-            elif "HMMA" in line:
-                ops[name][0] += 1
-    return {k: tuple(v) for k, v in ops.items()}
+            fns[name].append(line)
+    return fns
+
+
+def sass_tensor_ops(lib_path: Path) -> dict:
+    """Tensor-core instructions per kernel of a built library, from
+    ``cuobjdump -sass``: {mangled kernel name: (HMMA count, HGMMA count)}.
+    HMMA is the warp-level ``mma.sync``; HGMMA is ``wgmma``."""
+    ops = {}
+    for name, lines in sass_functions(lib_path).items():
+        ops[name] = (sum("HMMA" in ln for ln in lines),
+                     sum("HGMMA" in ln for ln in lines))
+    return ops
 
 
 def bcr_instruction_check(lib_path: Path) -> None:
@@ -514,6 +565,23 @@ def bcr_instruction_check(lib_path: Path) -> None:
         log(f"  {form} (bf16 x): "
             + ", ".join(sorted(rows[form], key=lambda t: int(t.split()[2][:-1]))))
     log("  fp32 x (every form): CUDA-core FMAs, no HMMA/HGMMA")
+    # the expert-batched forms are these kernels with the expert on a grid
+    # axis: every BCR body reads it (tensor cores: blockIdx.y, CUDA cores:
+    # blockIdx.z), so one launch covers E experts
+    axes = {}
+    for name, lines in sass_functions(lib_path).items():
+        if "bcr_spmm" not in name:
+            continue
+        axis = "Z" if "cuda_core" in name else "Y"
+        if not any(f"SR_CTAID.{axis}" in ln for ln in lines):
+            raise AssertionError(f"{name}: no SR_CTAID.{axis} (the expert "
+                                 f"grid axis) in its SASS")
+        axes.setdefault(axis, 0)
+        axes[axis] += 1
+    log(f"  expert-batched forms: the same bodies, expert index read from "
+        f"SR_CTAID.Y in {axes.get('Y', 0)} tensor-core kernels (HMMA / "
+        f"HGMMA as above) and SR_CTAID.Z in {axes.get('Z', 0)} CUDA-core "
+        f"kernels")
 
 
 def tc_instruction_check(skip_lib: Path, flash_lib: Path,
@@ -562,13 +630,40 @@ def tc_instruction_check(skip_lib: Path, flash_lib: Path,
         "blocks, head dims and page sizes): no HMMA/HGMMA")
 
 
+def check_split(torch, form, plan, run, want, out_shape) -> None:
+    """One split launch form: two launches give bit-equal y (the last split
+    sums the partials in split order); the output and the workspace land
+    in freed NaN-filled blocks and the result is still right; the split
+    counters are back at zero after the calls."""
+    from repro_torch.kernels import bcr_spmm as K
+
+    poison = (torch.full((plan.workspace_floats,), float("nan"),
+                         device="cuda"),
+              torch.full(out_shape, float("nan"), dtype=torch.bfloat16,
+                         device="cuda"))
+    del poison           # the allocator hands these blocks back next
+    first = run()
+    second = run()
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(first).all()):
+        raise AssertionError(f"split {form}: non-finite output over "
+                             f"NaN-filled buffers")
+    if not torch.equal(first, second):
+        raise AssertionError(f"split {form}: two launches differ")
+    check_close(f"split {form} (S={plan.splits}, grid {plan.grid}, "
+                f"NaN-filled workspace and output)", first, want, BF16_TOL)
+    left = int(torch.count_nonzero(
+        K.split_counters(first.device, plan.tiles)[:plan.tiles]))
+    if left:
+        raise AssertionError(f"split {form}: {left} counters not back at "
+                             f"zero")
+    log(f"  split {form}: two launches bit-equal, counters back at 0")
+
+
 def bcr_split_checks(torch, gen) -> None:
     """The one-launch split over contraction blocks at decode: MLP wo
     (2048 x 8192) and the gate/up pair (2 x 8192 x 2048, SwiGLU) at M = 8,
-    fp and int8 tiles. Two launches give bit-equal y (the last split sums
-    the partials in split order); the output and the workspace land in
-    freed NaN-filled blocks and the result is still right; the split
-    counters are back at zero after the calls."""
+    fp and int8 tiles, each held by :func:`check_split`."""
     from repro_torch.core.bcr import BCRSpec
     from repro_torch.core.bcrc import tbcrc_pack
     from repro_torch.kernels import bcr_spmm as K
@@ -606,29 +701,8 @@ def bcr_split_checks(torch, gen) -> None:
 
             want = (ref.bcr_spmm_grouped_ref(x, w, epilogue="swiglu")
                     if g == 2 else ref.bcr_spmm_packed_ref(x, w))
-            poison = (torch.full((plan.workspace_floats,), float("nan"),
-                                 device="cuda"),
-                      torch.full((8, n), float("nan"), dtype=torch.bfloat16,
-                                 device="cuda"))
-            del poison           # the allocator hands these blocks back next
-            first = run()
-            second = run()
-            torch.cuda.synchronize()
-            form = f"{'int8 ' if int8 else ''}{name} {g}x{n}x{k} M=8"
-            if not bool(torch.isfinite(first).all()):
-                raise AssertionError(f"split {form}: non-finite output over "
-                                     f"NaN-filled buffers")
-            if not torch.equal(first, second):
-                raise AssertionError(f"split {form}: two launches differ")
-            check_close(f"split {form} (S={plan.splits}, grid {plan.grid}, "
-                        f"NaN-filled workspace and output)", first, want,
-                        BF16_TOL)
-            left = int(torch.count_nonzero(
-                K.split_counters(x.device, plan.tiles)[:plan.tiles]))
-            if left:
-                raise AssertionError(f"split {form}: {left} counters not "
-                                     f"back at zero")
-            log(f"  split {form}: two launches bit-equal, counters back at 0")
+            check_split(torch, f"{'int8 ' if int8 else ''}{name} {g}x{n}x{k} "
+                        f"M=8", plan, run, want, (8, n))
 
 
 def phase_kernels(torch, timer):
@@ -697,6 +771,10 @@ def phase_kernels(torch, timer):
     skip_cases(torch, timer, gen, record)
     log("bcr_spmm_skip split path (M=8, one launch)")
     skip_split_checks(torch, gen)
+    expert_cases(torch, timer, gen, record)
+    log("expert-batched split path (M=4, one launch)")
+    expert_split_checks(torch, gen)
+    moe_attention_cases(torch, timer, gen, record)
     return rows
 
 
@@ -1310,6 +1388,265 @@ def skip_split_checks(torch, gen) -> None:
             f"at 0")
 
 
+def _library_expert_bmm(torch, x, w_t):
+    return torch.bmm(x, w_t)
+
+
+def expert_packs(torch, gen, e, int8):
+    """deepseek-moe-16b's expert projections for ``e`` experts, random
+    weights from ``gen``, packed at block 128 / keep 0.25 in one batched
+    pass: the down projection ``wo`` (E x 2048 x 1408) and the fused
+    gate/up ``wgi`` (E x 2 x 1408 x 2048); bf16 tiles, or int8 tiles with
+    per-tile scales."""
+    from repro_torch.core.bcr import BCRSpec
+    from repro_torch.core.bcrc import tbcrc_pack
+    from repro_torch.kernels.plan import (pack_group, quantize_grouped,
+                                          quantize_packed)
+
+    spec = BCRSpec(block_shape=(128, 128), keep_frac=0.25, align=8)
+
+    def pack(n, k):
+        w = torch.randn((e, n, k), generator=gen, device="cuda") * k ** -0.5
+        return tbcrc_pack(w, spec)
+
+    wo = pack(2048, 1408)
+    wgi = pack_group([pack(1408, 2048) for _ in range(2)])
+    if int8:
+        return quantize_packed(wo), quantize_grouped(wgi)
+    for p in (wo, wgi):
+        p.vals = p.vals.to(torch.bfloat16)
+    return wo, wgi
+
+
+def expert_cases(torch, timer, gen, record):
+    """Phase 3's expert-batched ``bcr_spmm`` (``wo``) and
+    ``bcr_spmm_grouped`` (``wgi`` with the SwiGLU epilogue), fp and int8
+    tiles under bf16 x, at deepseek-moe-16b's 64 experts and M = 4 and 240
+    a expert: one launch for all 64 (the counters say so) against the
+    plain version's loop over the experts, timed beside it and beside one
+    ``torch.bmm`` over the dense pruned expert weights."""
+    from repro_torch.core.bcrc import tbcrc_unpack
+    from repro_torch.kernels import bcr_spmm as K
+    from repro_torch.kernels import ref
+
+    def nbytes(p):
+        scales = p.plan.block_scales
+        return (p.vals.numel() * p.vals.element_size()
+                + (p.row_idx.numel() + p.col_idx.numel()) * 4
+                + (0 if scales is None else scales.numel() * 4))
+
+    def one_launch(key, fn):
+        before = dict(K.LAUNCHES)
+        out = fn()
+        moved = {k: v - before[k] for k, v in K.LAUNCHES.items()
+                 if v != before[k]}
+        if moved != {key[:-len("_experts")]: 1, key: 1}:
+            raise AssertionError(f"{key}: launches {moved}, want one")
+        return out
+
+    e = EXPERTS
+    for int8 in (False, True):
+        wo, wgi = expert_packs(torch, gen, e, int8)
+        tag = "_int8" if int8 else ""
+        log(f"expert-batched bcr_spmm{tag} / bcr_spmm_grouped{tag} (bf16 x, "
+            f"{e} experts, block 128, keep 0.25)")
+        w_wo = tbcrc_unpack(wo).to(torch.bfloat16).transpose(1, 2)
+        w_gi = tbcrc_unpack(wgi).to(torch.bfloat16).reshape(
+            e, 2 * 1408, 2048).transpose(1, 2)
+        for m in EXPERT_MS:
+            for key, w, w_t, k, n, shape in (
+                    (f"bcr_spmm{tag}_experts", wo, w_wo, 1408, 2048,
+                     f"experts wo 64x2048x1408 M={m}"),
+                    (f"bcr_spmm_grouped{tag}_experts", wgi, w_gi, 2048,
+                     1408, f"experts wgi 64x2x1408x2048 M={m}")):
+                x = (torch.randn((e, m, k), generator=gen, device="cuda")
+                     .to(torch.bfloat16))
+                grouped = "grouped" in key
+                if grouped:
+                    def run():
+                        return K.bcr_spmm_grouped(x, w, epilogue="swiglu")
+
+                    def plain():
+                        return ref.bcr_spmm_grouped_ref(x, w,
+                                                        epilogue="swiglu")
+                else:
+                    def run():
+                        return K.bcr_spmm(x, w)
+
+                    def plain():
+                        return ref.bcr_spmm_packed_ref(x, w)
+                got = one_launch(key, run)
+                want = plain()
+                torch.cuda.synchronize()
+                err = check_close(f"{key} {shape}", got, want, BF16_TOL)
+                g = 2 if grouped else 1
+                nb_r, nb_c, r, c = w.vals.shape[-4:]
+                record(key, shape, err, timer.ms(run), timer.ms(plain),
+                       nbytes(w) + e * m * (k + n) * 2,
+                       2 * e * m * g * nb_r * nb_c * r * c, torch.bfloat16,
+                       timer.ms(lambda: _library_expert_bmm(torch, x, w_t)))
+        del wo, wgi, w_wo, w_gi
+
+
+def expert_split_checks(torch, gen) -> None:
+    """The one-launch split with experts on the grid: 4 experts of
+    deepseek's ``wo`` and ``wgi`` (SwiGLU) at M = 4 split their contraction
+    (64 experts fill the card unsplit: checked too), fp and int8 tiles,
+    each held by :func:`check_split`."""
+    from repro_torch.kernels import bcr_spmm as K
+    from repro_torch.kernels import ref
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for int8 in (False, True):
+        wo, wgi = expert_packs(torch, gen, 4, int8)
+        for name, w, n, k, g in (("wo", wo, 2048, 1408, 1),
+                                 ("wgi", wgi, 1408, 2048, 2)):
+            plan = K.launch_plan(4, n, k, g, (128, 128), (64, 64), sms, int8,
+                                 experts=4)
+            full = K.launch_plan(4, n, k, g, (128, 128), (64, 64), sms, int8,
+                                 experts=EXPERTS)
+            if plan.splits < 2 or full.splits != 1:
+                raise AssertionError(f"experts {name}: splits {plan.splits} "
+                                     f"at E=4, {full.splits} at E=64")
+            x = (torch.randn((4, 4, k), generator=gen, device="cuda")
+                 .to(torch.bfloat16))
+
+            def run():
+                if g == 2:
+                    return K.bcr_spmm_grouped(x, w, epilogue="swiglu")
+                return K.bcr_spmm(x, w)
+
+            want = (ref.bcr_spmm_grouped_ref(x, w, epilogue="swiglu")
+                    if g == 2 else ref.bcr_spmm_packed_ref(x, w))
+            check_split(torch, f"{'int8 ' if int8 else ''}experts {name} "
+                        f"4x{g}x{n}x{k} M=4 (E=64: grid {full.grid}, "
+                        f"unsplit)", plan, run, want, (4, 4, n))
+        del wo, wgi
+
+
+def moe_attention_cases(torch, timer, gen, record):
+    """deepseek-moe-16b's attention shape, new to the paged and flash
+    kernels: 16 query heads over 16 KV heads (G = 1: one query row a KV
+    head at decode) and head_dim 128, page 16. Paged decode over 8 slots of
+    lengths 1..512 (one inactive) and prefill-append of 16 rows over a
+    100-token prefix, bf16 and int8 pages; flash causal B*H = 8*16, S = 512.
+    Each against its plain version, timed beside it and SDPA."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import paged_decode_attention as PA
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.quant import dequantize_rows, quantize_rows
+
+    h = hkv = 16
+    d, ps = 128, 16
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def pages(tlens):
+        per = [-(-int(t) // ps) for t in tlens]
+        n_pages = 1 + sum(per) + 8
+        kp, vp = (randn(n_pages, ps, hkv, d, dtype=torch.float32)
+                  for _ in range(2))
+        perm = torch.randperm(n_pages - 1, generator=gen,
+                              device="cuda").cpu() + 1
+        bt = torch.zeros((len(tlens), max(per)), dtype=torch.int32)
+        nxt = 0
+        for i, npg in enumerate(per):
+            bt[i, :npg] = perm[nxt:nxt + npg]
+            nxt += npg
+        return kp, vp, bt.cuda()
+
+    def sdpa(q, kp, vp, bt, qpos):
+        b, l = q.shape[0], bt.shape[1] * ps
+        kk = kp[bt.long()].reshape(b, l, hkv, d)
+        vv = vp[bt.long()].reshape(b, l, hkv, d)
+        mask = (torch.arange(l, device="cuda")[None, None, :]
+                <= qpos[:, :, None])[:, None]
+        args = (q.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2),
+                mask)
+        return timer.ms(lambda: _library_sdpa(torch, *args))
+
+    log("paged attention at deepseek-moe-16b's head shape (16/16 heads, "
+        "head_dim 128, page 16), bf16 and int8 pages")
+    lens = torch.tensor([1, 37, 128, 200, 333, 511, 512, 0],
+                        dtype=torch.int32, device="cuda")
+    live = lens > 0
+    plen = torch.full((8,), 100, dtype=torch.int32, device="cuda")
+    tlen = plen + 16
+    qpos = plen[:, None] + torch.arange(16, device="cuda")[None]
+    for int8 in (False, True):
+        key = "paged_attention_int8" if int8 else "paged_attention"
+        for what, tl in (("decode", lens), ("append", tlen)):
+            kp, vp, bt = pages(tl.clamp(min=1).tolist())
+            if int8:
+                (kc, ks), (vc, vs) = quantize_rows(kp), quantize_rows(vp)
+                kw = dict(k_scale=ks, v_scale=vs)
+                kp, vp = kc, vc
+                deq = (dequantize_rows(kc, ks, torch.bfloat16),
+                       dequantize_rows(vc, vs, torch.bfloat16))
+                elt, sc = 1, 4
+            else:
+                kp, vp = kp.to(torch.bfloat16), vp.to(torch.bfloat16)
+                kw, deq, elt, sc = {}, (kp, vp), 2, 0
+            if what == "decode":
+                q = randn(8, 1, h, d)
+
+                def run():
+                    return PA.paged_decode_attention(q, kp, vp, bt, lens,
+                                                     **kw)
+
+                def plain():
+                    return ref.paged_decode_attention_ref(q, kp, vp, bt,
+                                                          lens, **kw)
+                shape = "decode B=8 lens 1..512 16/16 heads hd128"
+                ops, qp, rows = 4 * int(lens.sum()) * h * d, \
+                    (lens - 1)[:, None], live
+            else:
+                q = randn(8, 16, h, d)
+
+                def run():
+                    return PA.paged_prefill_append_attention(
+                        q, kp, vp, bt, plen, tlen, **kw)
+
+                def plain():
+                    return ref.paged_prefill_append_ref(q, kp, vp, bt, plen,
+                                                        tlen, **kw)
+                shape = "prefill-append B=8 S=16 prefix 100 16/16 heads hd128"
+                ops, qp, rows = 4 * 8 * 16 * 108 * h * d, qpos, \
+                    torch.ones(8, dtype=torch.bool, device="cuda")
+            got, want = run(), plain()
+            torch.cuda.synchronize()
+            err = check_close(f"{key} {shape}", got[rows], want[rows],
+                              BF16_TOL)
+            if what == "decode" and not (
+                    bool(torch.isfinite(got).all())
+                    and int(torch.count_nonzero(got[~live])) == 0):
+                raise AssertionError("inactive slot output is not finite "
+                                     "zeros")
+            record(key, shape, err, timer.ms(run), timer.ms(plain),
+                   PA.paged_kv_bytes(tl.cpu().numpy(), ps, hkv, d, elt, sc)
+                   + 2 * q.numel() * 2 + bt.numel() * 4, ops,
+                   torch.bfloat16, sdpa(q, *deq, bt, qp))
+
+    log("flash_attention_fused at head_dim 128 (bf16, B*H = 8*16)")
+    bh, sq = 8 * h, 512
+    q, k, v = (randn(bh, sq, d) for _ in range(3))
+    got = FA.flash_attention_fused(q, k, v, q_chunk=512, kv_chunk=1024)
+    want = ref.flash_attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    name = "causal BH=128 S=512 hd128"
+    err = check_close(f"flash {name}", got, want, BF16_TOL)
+    q4, k4, v4 = (t.reshape(8, h, sq, d) for t in (q, k, v))
+    record("flash_attention_fused", name, err,
+           timer.ms(lambda: FA.flash_attention_fused(q, k, v, q_chunk=512,
+                                                     kv_chunk=1024)),
+           timer.ms(lambda: ref.flash_attention_ref(q, k, v)),
+           4 * bh * sq * d * 2, 4 * bh * (sq * (sq + 1) // 2) * d,
+           torch.bfloat16,
+           timer.ms(lambda: _library_sdpa(torch, q4, k4, v4, None,
+                                          is_causal=True)))
+
+
 def build_main_params(torch):
     """The full-width, full-depth llama3.2-1b of phases 4 and 5: one set of
     random weights (seed 0), packed at keep 0.25 / block 128 twice — bf16
@@ -1342,10 +1679,12 @@ def main_traffic(np, vocab):
     return rng, [rng.integers(0, vocab, size=int(n)) for n in plens]
 
 
-def serve_main_path(torch, np, cfg, params, ec, label, frac):
+def serve_main_path(torch, np, cfg, params, ec, label, frac,
+                    append_check=True):
     """Serve the phase's 16 requests with the launch counters zeroed just
-    before and read just after; then a profiled decode window and one
-    direct ``prefill_append`` on a live pool, held to a cold prefill."""
+    before and read just after; then a profiled decode window and (with
+    ``append_check``) one direct ``prefill_append`` on a live pool, held to
+    a cold prefill."""
     from repro_torch.models import causal_lm
     from repro_torch.serving import FINISHED, InferenceEngine
 
@@ -1392,6 +1731,11 @@ def serve_main_path(torch, np, cfg, params, ec, label, frac):
                             for rid in rids])
     log(f"{label}: " + json.dumps(stats))
     stats["decode_profile"] = profile_decode(torch, engine, rng, cfg)
+    trajectories = [(prompts[i], r.generated) for i, r in
+                    sorted(((rids.index(r.rid), r) for r in done),
+                           key=lambda t: t[0])]
+    if not append_check:
+        return stats, launches, trajectories
 
     # one direct prefill_append on a live pool: a 100-token prefix seated by
     # a cold prefill, then a 16-token suffix through the pages, held to a
@@ -1424,9 +1768,6 @@ def serve_main_path(torch, np, cfg, params, ec, label, frac):
     stats["append_vs_cold_max_abs"] = err
     pool.release(0)
     pool.check_consistency()
-    trajectories = [(prompts[i], r.generated) for i, r in
-                    sorted(((rids.index(r.rid), r) for r in done),
-                           key=lambda t: t[0])]
     return stats, launches, trajectories
 
 
@@ -1497,6 +1838,7 @@ def forced_flip_rate(torch, np, cfg, params, params_q, trajectories):
 # the port's functions whose host time the decode profile reports
 HOST_FUNCTIONS = ("step", "decode_step", "layer_apply", "attention_apply",
                   "_qkv", "_paged_write", "quantize_rows", "swiglu_apply",
+                  "moe_apply", "route",
                   "rmsnorm", "apply_rope", "bcr_spmm", "bcr_spmm_grouped",
                   "_paged_attention", "_sample")
 
@@ -1556,9 +1898,10 @@ def profile_decode(torch, engine, rng, cfg, steps=5):
     for (path, _, fn), (_, _, _, cum, _) in pstats.Stats(pr).stats.items():
         if "repro_torch" in path and fn in host_fn_ms:
             host_fn_ms[fn] += cum * 1e3 / steps
-    by_name = {}
-    for name, _, ms in device_events(torch, prof):
+    by_name, kernels = {}, 0
+    for name, count, ms in device_events(torch, prof):
         by_name[name] = by_name.get(name, 0.0) + ms / steps
+        kernels += count
     # host side: the PyTorch ops of the step by self CPU time (the profiler
     # slows each op, so these rank the host's costs, they do not add up to
     # the unprofiled wall)
@@ -1574,6 +1917,7 @@ def profile_decode(torch, engine, rng, cfg, steps=5):
     device_ms = sum(families.values())
     out = dict(step_wall_ms=wall_ms, device_ms=device_ms,
                busy_share=device_ms / wall_ms if wall_ms else None,
+               device_launches_per_step=kernels / steps,
                by_family_ms=families,
                top_other=sorted(((ms, n[:80]) for n, ms in by_name.items()
                                  if kernel_family(n) == "other"),
@@ -2805,6 +3149,148 @@ def phase_api_subprocess(torch, np):
     return dict(ready_s=ready_s)
 
 
+# -- phase 12: the MoE family (deepseek-moe-16b) on the card ------------------
+
+
+def moe_cfg(**over):
+    """deepseek-moe-16b at full width (d_model 2048, 16/16 heads, head_dim
+    128, 64 experts top-6 of d_ff 1408 plus 2 shared, vocab 102400), the
+    depth cut to ``MOE_LAYERS`` unless ``over`` says otherwise, BCR keep
+    0.25 with 128x128 blocks."""
+    from repro_torch.configs import get_config
+    over.setdefault("num_layers", MOE_LAYERS)
+    return dataclasses.replace(get_config(MOE_ARCH), bcr_keep_frac=0.25,
+                               bcr_block=(128, 128), **over)
+
+
+def build_moe_params(torch):
+    """Phase 12a/c's weights: one random draw (seed 0), packed at keep 0.25
+    / block 128 twice, bf16 tiles and int8 tiles from the same packs."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import pack_params, packed_fraction
+    from repro_torch.models import causal_lm
+
+    cfg = moe_cfg()
+    plan = [ffn for _, ffn in causal_lm.layer_plan(cfg)]
+    log(f"{MOE_ARCH}: depth cut {get_config(MOE_ARCH).num_layers} -> "
+        f"{cfg.num_layers} layers (FFN {plan}); full width: d_model "
+        f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, head_dim "
+        f"{cfg.head_dim}, {cfg.num_experts} experts top-{cfg.top_k} of d_ff "
+        f"{cfg.moe_d_ff} + {cfg.num_shared_experts} shared, vocab "
+        f"{cfg.vocab_size}, capacity_factor {cfg.capacity_factor}")
+    t0 = time.perf_counter()
+    dense = causal_lm.init_params(cfg, 0, device="cuda")
+    params = pack_params(cfg, dense)
+    params_q = pack_params(cfg, dense, weight_dtype="int8")
+    fracs = (packed_fraction(dense, params), packed_fraction(dense, params_q))
+    del dense
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    wgi = params["layers"][1]["ffn"]["experts"]["wgi"]["w_group"]
+    log(f"init + pack (bf16 and int8) {time.perf_counter() - t0:.1f} s; "
+        f"experts' wgi vals {tuple(wgi.vals.shape)}; packed-weight fraction "
+        f"of the dense fp32 tree: bf16 {fracs[0]:.4f}, int8 {fracs[1]:.4f}")
+    return cfg, params, params_q, fracs
+
+
+def _expert_checks(cfg, stats, launches, label, int8):
+    """Exactly one gate/up and one down launch per MoE layer per forward
+    (each prefill dispatch and decode step) for all 64 experts, never E."""
+    from repro_torch.models.causal_lm import layer_plan
+
+    n_moe = sum(ffn == "moe" for _, ffn in layer_plan(cfg))
+    forwards = stats["prefills"] + stats["decode_steps"]
+    tag = "_int8" if int8 else ""
+    got = {k: launches[f"bcr_spmm{g}{tag}_experts"]
+           for k, g in (("wgi", "_grouped"), ("wo", ""))}
+    if got != {"wgi": n_moe * forwards, "wo": n_moe * forwards}:
+        raise AssertionError(f"{label}: expert launches {got}, want "
+                             f"{n_moe} x {forwards} forwards each")
+    log(f"{label}: expert-batched launches {got} = {n_moe} MoE layers x "
+        f"{forwards} forwards ({stats['prefills']} prefills + "
+        f"{stats['decode_steps']} decode steps): one per projection per "
+        f"layer, not {EXPERTS}")
+
+
+def phase_moe_serving(torch, np, cfg, params, frac, quantized):
+    """Phase 12a (bf16) / 12c (int8 tiles, int8 KV, flash cold prefill):
+    phase 4's traffic through the paged engine at the config's
+    capacity_factor."""
+    from repro_torch.launch.serve import tree_bytes
+    from repro_torch.serving import EngineConfig
+
+    kw = dict(kv_dtype="int8", weight_dtype="int8") if quantized else {}
+    if quantized:
+        cfg = dataclasses.replace(cfg, attn_impl="pallas")
+    ec = EngineConfig(n_slots=8, capacity=640, page_size=16, seed=0, **kw)
+    label = ("phase 12c int8 tiles + int8 KV + flash prefill" if quantized
+             else "phase 12a bf16")
+    stats, launches, traj = serve_main_path(torch, np, cfg, params, ec,
+                                            label, frac, append_check=False)
+    _expert_checks(cfg, stats, launches, label, quantized)
+    if quantized:
+        if not all(launches[k] > 0 for k in INT8_KERNELS):
+            raise AssertionError(f"{label}: an int8 kernel never launched: "
+                                 f"{launches}")
+        fp = {k: v for k, v in launches.items() if v and "int8" not in k
+              and k.startswith(("bcr_spmm", "paged"))}
+        if fp:
+            raise AssertionError(f"{label}: fp-form kernels launched: {fp}")
+        want = cfg.num_layers * stats["prefills"]
+        if launches["flash_attention_fused"] != want:
+            raise AssertionError(f"{label}: flash launches "
+                                 f"{launches['flash_attention_fused']} != "
+                                 f"{want}")
+    elif not all(launches[k] > 0 for k in FP_KERNELS):
+        raise AssertionError(f"{label}: a kernel never launched: {launches}")
+    prof = stats["decode_profile"]
+    summary = dict(
+        tokens_per_s=stats["tokens_per_s"], ttft_ms_p50=stats["ttft_ms_p50"],
+        decode_step_ms_p50=stats["decode_step_ms_p50"],
+        decode_steps=stats["decode_steps"], prefills=stats["prefills"],
+        device_ms_per_step=prof["device_ms"], busy_share=prof["busy_share"],
+        by_family_ms=prof["by_family_ms"],
+        device_launches_per_step=prof["device_launches_per_step"],
+        host_ops_per_step=prof["host_ops_per_step"],
+        moe_host_ms_cprofile={k: prof["host_fn_ms_cprofile"][k]
+                              for k in ("moe_apply", "route", "step")},
+        resident_weight_bytes=tree_bytes(params),
+        streamed_weight_bytes=stats["packed_weight_bytes"],
+        step_bound_ms=stats["step_bound_ms"],
+        launches={k: v for k, v in launches.items() if v})
+    log(f"{label} summary: " + json.dumps(summary))
+    return summary, launches, traj
+
+
+def phase_moe_engine_vs_naive(torch, np):
+    """Phase 12b: fp32, full width, 2 layers (1 dense + 1 MoE),
+    capacity_factor 8.0 (no token dropped, so batch composition cannot move
+    a token), 4 requests: the engine's greedy tokens against the naive
+    ``generate`` under phase 6's 1e-4 near-tie rule; the fp32 expert forms
+    (CUDA-core body, expert on blockIdx.z) launched."""
+    from repro_torch.launch.serve import build_params
+    from repro_torch.serving import EngineConfig, InferenceEngine
+
+    cfg = moe_cfg(num_layers=2, dtype="float32", capacity_factor=8.0)
+    params = build_params(cfg, seed=1, device="cuda", log=log)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in (32, 77, 128, 300)]
+    gen = 16
+    engine = InferenceEngine(cfg, params, EngineConfig(
+        n_slots=2, capacity=640, page_size=16, seed=0), device="cuda")
+    zero_counters()
+    got = engine.generate(prompts, max_new_tokens=gen)
+    launches = read_counters()
+    _expert_checks(cfg, engine.stats, launches, "phase 12b", False)
+    near_ties = near_tie_check(torch, cfg, params, prompts, got, gen, 1e-4,
+                               "phase 12b")
+    log(f"phase 12b engine vs naive generate ({MOE_ARCH}, fp32, 2 layers, "
+        f"capacity_factor 8.0, 4 requests): tokens equal, near-ties "
+        f"{near_ties}; {engine.stats['prefills']} exact-length prefills")
+    return near_ties
+
+
 def train_cfg(torch, num_layers=16, **over):
     """llama3.2-1b at full width: fp32 params, bf16 activations, BCR keep
     0.25 with 128x128 blocks."""
@@ -3254,6 +3740,20 @@ def main() -> int:
     phase_api_subprocess(torch, np)
     log(f"phase 11: {time.perf_counter() - t0:.1f} s")
 
+    log(f"phase 12, the MoE family on the card ({MOE_ARCH}: expert-batched "
+        f"bcr_spmm / bcr_spmm_grouped)")
+    t0 = time.perf_counter()
+    cfg, params, params_q, fracs = build_moe_params(torch)
+    _, moe_launches, _ = phase_moe_serving(torch, np, cfg, params, fracs[0],
+                                           quantized=False)
+    _, moe_launches_q, _ = phase_moe_serving(torch, np, cfg, params_q,
+                                             fracs[1], quantized=True)
+    del params, params_q
+    torch.cuda.empty_cache()
+    phase_moe_engine_vs_naive(torch, np)
+    torch.cuda.empty_cache()
+    log(f"phase 12: {time.perf_counter() - t0:.1f} s")
+
     # one entry per kernel form at its decode-step shape (M = 8 slots) or,
     # for flash, the largest cold-prefill bucket; launches from the main
     # path that runs it (for bcr_spmm_skip, the trained-weight runs of the
@@ -3262,7 +3762,10 @@ def main() -> int:
                      **{k: q_launches[k] for k in INT8_KERNELS},
                      "flash_attention_fused":
                          q_launches["flash_attention_fused"],
-                     "bcr_spmm_skip": skip_launches}
+                     "bcr_spmm_skip": skip_launches,
+                     # the expert-batched forms run on phase 12's path only
+                     **{k: (moe_launches_q if "int8" in k
+                            else moe_launches)[k] for k in EXPERT_FORMS}}
     kernels = []
     for name, (source, replaces, shape) in KERNELS.items():
         row = next(r for r in rows if r["kernel"] == name
@@ -3275,6 +3778,11 @@ def main() -> int:
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
             shape=row["shape"], serving_launches=serving_launches[name]))
+        if name in FP_KERNELS + INT8_KERNELS + ("flash_attention_fused",):
+            # phase 12's MoE path runs these too (deepseek's shapes)
+            kernels[-1]["moe_launches"] = (
+                moe_launches_q if "int8" in name or name.startswith("flash")
+                else moe_launches)[name]
         if name in VERIFY_ROWS:
             # phase 10a's path: launches over the model-drafter run (its
             # form's run: bf16, or int8 + flash), time at the verify shape

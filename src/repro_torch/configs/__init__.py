@@ -1,6 +1,6 @@
 """Architecture registry of the port: --arch <id> → (full CONFIG, SMOKE).
 
-Only the dense family is ported so far. The other architectures of the
+The dense and MoE families are ported. The other architectures of the
 reference registry raise ``NotImplementedError`` naming the later slice.
 """
 
@@ -18,11 +18,12 @@ _MODULES: Dict[str, str] = {
     "llama3.2-1b": "llama3_2_1b",
     "llama3-405b": "llama3_405b",
     "qwen1.5-4b": "qwen1_5_4b",
+    "deepseek-moe-16b": "deepseek_moe_16b",
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
 }
 
 # architectures of the reference registry whose families come later
-_LATER = ("pixtral-12b", "deepseek-moe-16b", "llama4-maverick-400b-a17b",
-          "jamba-v0.1-52b", "rwkv6-3b", "whisper-large-v3")
+_LATER = ("pixtral-12b", "jamba-v0.1-52b", "rwkv6-3b", "whisper-large-v3")
 
 ARCH_IDS: List[str] = list(_MODULES)
 
@@ -30,8 +31,8 @@ ARCH_IDS: List[str] = list(_MODULES)
 def _module(name: str):
     if name in _LATER:
         raise NotImplementedError(
-            f"{name}: only the dense family is ported so far; the other "
-            f"families come in a later slice of the port")
+            f"{name}: only the dense and MoE families are ported so far; "
+            f"the other families come in a later slice of the port")
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; available: {ARCH_IDS}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")

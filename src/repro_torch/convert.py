@@ -10,7 +10,11 @@ containers and swaps their leaves). It handles:
   gather/scatter vectors and, for int8-quantized packs, its per-tile
   ``block_scales``;
 * ``{"w_group": GroupedTBCRC[, "b": (G, N)]}`` — fused ``wkv`` / ``wqkv`` /
-  ``wgi`` groups.
+  ``wgi`` groups;
+* a MoE layer's ``{"router", "experts"[, "shared"]}``: the router and the
+  shared experts as above, the experts' packs (or dense ``w``) stacked on
+  their leading E axis, index planes, plan vectors and int8 scales with
+  it.
 
 The reference scans its layers: ``params["stack"]`` is a list (one entry per
 position of the repeating layer pattern) whose leaves — index planes and
@@ -44,6 +48,7 @@ from repro_torch.core.bcrc import TBCRC
 from repro_torch.kernels.bcr_spmm_skip import SkipPacked, row_start_from_bi
 from repro_torch.kernels.plan import BCRPlan, GroupedTBCRC
 from repro_torch.launch.train import TrainState
+from repro_torch.models.causal_lm import PORTED_FAMILIES
 from repro_torch.optim.adamw import AdamWState
 from repro_torch.tree import leaves
 
@@ -114,9 +119,10 @@ def _repeats(stack_entry: Any) -> int:
 def from_jax_params(tree: Any, cfg: ModelConfig, device="cuda") -> dict:
     """The port's params for a reference param tree of numpy leaves (also
     any tree nested like it: AdamW moments, ADMM Z/U with None leaves)."""
-    if cfg.family != "dense":
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r}: only the dense family is ported so far")
+            f"family {cfg.family!r}: only the {PORTED_FAMILIES} families are "
+            f"ported so far")
     dev = resolve_device(device)
     layers = [_convert(lp, None, cfg, dev) for lp in tree.get("prefix", [])]
     stack = tree.get("stack", [])

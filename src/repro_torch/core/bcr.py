@@ -113,16 +113,17 @@ def block_grid(shape: Tuple[int, int],
 
 
 def _to_blocks(w: torch.Tensor, block_shape: Tuple[int, int]) -> torch.Tensor:
-    """(rows, cols) -> (nb_r, nb_c, br, bc)."""
-    nb_r, nb_c = block_grid(tuple(w.shape), block_shape)
+    """(..., rows, cols) -> (..., nb_r, nb_c, br, bc)."""
+    *lead, rows, cols = w.shape
+    nb_r, nb_c = block_grid((rows, cols), block_shape)
     br, bc = block_shape
-    return w.reshape(nb_r, br, nb_c, bc).permute(0, 2, 1, 3)
+    return w.reshape(*lead, nb_r, br, nb_c, bc).transpose(-3, -2)
 
 
 def _from_blocks(blocks: torch.Tensor) -> torch.Tensor:
-    """(nb_r, nb_c, br, bc) -> (rows, cols)."""
-    nb_r, nb_c, br, bc = blocks.shape
-    return blocks.permute(0, 2, 1, 3).reshape(nb_r * br, nb_c * bc)
+    """(..., nb_r, nb_c, br, bc) -> (..., rows, cols)."""
+    *lead, nb_r, nb_c, br, bc = blocks.shape
+    return blocks.transpose(-3, -2).reshape(*lead, nb_r * br, nb_c * bc)
 
 
 def bcr_indices(w: torch.Tensor, spec: BCRSpec
@@ -131,16 +132,18 @@ def bcr_indices(w: torch.Tensor, spec: BCRSpec
 
     Returns ``(row_idx, col_idx)`` with shapes ``(nb_r, nb_c, R_keep)`` and
     ``(nb_r, nb_c, C_keep)`` (int32). Columns are selected by L2 energy of the
-    full block; rows by L2 energy restricted to surviving columns.
+    full block; rows by L2 energy restricted to surviving columns. Leading
+    stacking dims of ``w`` (experts) lead both outputs: every trailing 2-D
+    matrix is ranked on its own, in one batched pass.
     """
     blocks = _to_blocks(w.float(), spec.block_shape)
     r_keep, c_keep = spec.kept_counts()
     sq = blocks * blocks
-    col_energy = sq.sum(dim=2)                               # (nb_r, nb_c, bc)
+    col_energy = sq.sum(dim=-2)                        # (..., nb_r, nb_c, bc)
     col_idx = torch.topk(col_energy, c_keep, dim=-1).indices
     col_idx = torch.sort(col_idx, dim=-1).values
     col_mask = torch.zeros_like(col_energy).scatter_(-1, col_idx, 1.0)
-    row_energy = (sq * col_mask[:, :, None, :]).sum(dim=3)   # (nb_r, nb_c, br)
+    row_energy = (sq * col_mask[..., None, :]).sum(dim=-1)  # (..., br)
     row_idx = torch.topk(row_energy, r_keep, dim=-1).indices
     row_idx = torch.sort(row_idx, dim=-1).values
     return row_idx.to(torch.int32), col_idx.to(torch.int32)
@@ -149,22 +152,23 @@ def bcr_indices(w: torch.Tensor, spec: BCRSpec
 def mask_from_indices(row_idx: torch.Tensor, col_idx: torch.Tensor,
                       shape: Tuple[int, int],
                       block_shape: Tuple[int, int]) -> torch.Tensor:
-    """Rebuild the dense {0,1} fp32 mask from per-block surviving indices."""
-    nb_r, nb_c = block_grid(tuple(shape), block_shape)
+    """Rebuild the dense {0,1} fp32 mask from per-block surviving indices
+    (over the indices' leading stacking dims too)."""
+    block_grid(tuple(shape), block_shape)
     br, bc = block_shape
     dev = row_idx.device
-    row_mask = torch.zeros((nb_r, nb_c, br), device=dev).scatter_(
+    row_mask = torch.zeros((*row_idx.shape[:-1], br), device=dev).scatter_(
         -1, row_idx.long(), 1.0)
-    col_mask = torch.zeros((nb_r, nb_c, bc), device=dev).scatter_(
+    col_mask = torch.zeros((*col_idx.shape[:-1], bc), device=dev).scatter_(
         -1, col_idx.long(), 1.0)
-    return _from_blocks(row_mask[:, :, :, None] * col_mask[:, :, None, :])
+    return _from_blocks(row_mask[..., :, None] * col_mask[..., None, :])
 
 
 def bcr_mask(w: torch.Tensor, spec: BCRSpec) -> torch.Tensor:
     """Dense {0,1} fp32 mask of the BCR-projection support of ``w``."""
     if spec.balanced:
         row_idx, col_idx = bcr_indices(w, spec)
-        return mask_from_indices(row_idx, col_idx, tuple(w.shape),
+        return mask_from_indices(row_idx, col_idx, tuple(w.shape[-2:]),
                                  spec.block_shape)
     return _unbalanced_mask(w, spec)
 
@@ -208,16 +212,15 @@ def _unbalanced_mask(w: torch.Tensor, spec: BCRSpec) -> torch.Tensor:
 
 def bcr_mask_any(w: torch.Tensor, spec: BCRSpec) -> torch.Tensor:
     """``bcr_mask`` over leading stacking dims: each trailing 2-D matrix is
-    masked on its own."""
-    if w.dim() == 2:
+    masked on its own — the balanced form in one batched pass, the
+    unbalanced form (a threshold over the whole matrix) matrix by matrix."""
+    if w.dim() == 2 or spec.balanced:
         return bcr_mask(w, spec)
     return torch.stack([bcr_mask_any(x, spec) for x in w])
 
 
 def bcr_project_any(w: torch.Tensor, spec: BCRSpec) -> torch.Tensor:
-    if w.dim() == 2:
-        return bcr_project(w, spec)
-    return torch.stack([bcr_project_any(x, spec) for x in w])
+    return w * bcr_mask_any(w, spec).to(w.dtype)
 
 
 def density(mask: torch.Tensor) -> torch.Tensor:

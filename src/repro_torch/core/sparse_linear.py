@@ -5,6 +5,11 @@ technique and the model layers.
   * dense ``{"w": (N, K) [, "b"]}``       → a plain matmul
   * packed ``{"w_packed": TBCRC [, "b"]}`` → the BCR kernel (serving path)
 ``grouped_linear_apply`` consumes ``{"w_group": GroupedTBCRC [, "b"]}``.
+
+A weight stacked on a leading expert axis (an MoE layer's experts: dense
+``w`` ``(E, N, K)``, or a stacked pack) takes x ``(E, M, K)``; expert
+``e``'s rows meet expert ``e``'s weight. Dispatch is by device, as for a
+plain weight: the kernel on the card, the plain version on the CPU.
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ def linear_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
         from repro_torch.kernels.ops import bcr_matmul  # lazy: core <-> kernels
         y = bcr_matmul(x, params["w_packed"])
     else:
-        y = x @ params["w"].T.to(x.dtype)
+        y = x @ params["w"].mT.to(x.dtype)
     if "b" in params:
         y = y + params["b"].to(y.dtype)
     return y

@@ -11,6 +11,14 @@ Each has two forms, chosen by the packed ``vals``: the fp form (tiles in
 x's dtype) and the int8 form (int8 codes with one fp32 scale per tile on
 ``plan.block_scales``, the reference's quantized serving).
 
+Each also takes a pack stacked on a leading expert axis (an MoE layer's E
+experts: vals ``(E, [G,] nb_r, nb_c, R_keep, C_keep)``) with x ``(E, M, K)``
+and returns y with the same leading axis, in ONE launch for all E experts:
+the expert is the grid's second axis, as the reference's ``jax.vmap`` over
+its ``pallas_call`` makes the batch a grid axis. Every expert computes its
+whole ``(M, N)``, empty or not (its pad rows are zero), as the reference's
+does.
+
 Under bf16 x both forms run on the tensor cores; :func:`launch_plan` (pure,
 pinned by ``tests/test_torch_bcr_plan.py``) picks the launch: the M tile,
 the warp layout, the output rows per CTA, the split of the contraction
@@ -22,7 +30,9 @@ A CUDA tensor goes through the kernel (or the wrapper raises); a CPU tensor
 goes through the plain version in :mod:`repro_torch.kernels.ref`. Each
 launch adds one to ``LAUNCHES[<kernel>]``, with separate keys per form
 (``bcr_spmm`` / ``bcr_spmm_int8``, ``bcr_spmm_grouped`` /
-``bcr_spmm_grouped_int8``). The kernels' design notes (what bounds them on
+``bcr_spmm_grouped_int8``); a launch over stacked experts also adds one to
+the form's ``<kernel>_experts`` key, which counts the expert-batched form
+apart. The kernels' design notes (what bounds them on
 the card, and what the design does about it) head the CUDA source.
 """
 
@@ -36,9 +46,12 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.kernels.plan import stacked_experts
 
 LAUNCHES = {"bcr_spmm": 0, "bcr_spmm_grouped": 0, "bcr_spmm_int8": 0,
-            "bcr_spmm_grouped_int8": 0}
+            "bcr_spmm_grouped_int8": 0, "bcr_spmm_experts": 0,
+            "bcr_spmm_grouped_experts": 0, "bcr_spmm_int8_experts": 0,
+            "bcr_spmm_grouped_int8_experts": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -66,9 +79,10 @@ def _up(v: int, q: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class LaunchPlan:
     """One tensor-core launch. The grid is ``nb_r · chunks · m_tiles ·
-    splits`` CTAs; CTA (block row i, row chunk, M tile, split s) computes
-    output rows ``[chunk·n_chunk, (chunk+1)·n_chunk)`` of block row i for
-    every member, over contraction blocks ``[s·nb_c/S, (s+1)·nb_c/S)``."""
+    splits`` CTAs by ``experts``; CTA (block row i, row chunk, M tile, split
+    s; expert e) computes output rows ``[chunk·n_chunk, (chunk+1)·n_chunk)``
+    of block row i for every member of expert e, over contraction blocks
+    ``[s·nb_c/S, (s+1)·nb_c/S)``."""
     m_tile: int
     slabs: int           # m16 row slabs per warp
     warps_m: int         # warps side by side across the M tile
@@ -83,6 +97,7 @@ class LaunchPlan:
     nb_r: int
     nb_c: int
     group: int
+    experts: int = 1     # the grid's second axis (1: an unstacked pack)
 
     @property
     def rows(self) -> int:
@@ -91,12 +106,12 @@ class LaunchPlan:
 
     @property
     def grid(self) -> int:
-        return self.nb_r * self.chunks * self.m_tiles * self.splits
+        return self.tiles * self.splits
 
     @property
     def tiles(self) -> int:
-        """Output tiles: one split counter each."""
-        return self.nb_r * self.chunks * self.m_tiles
+        """Output tiles, every expert's: one split counter each."""
+        return self.experts * self.nb_r * self.chunks * self.m_tiles
 
     @property
     def workspace_floats(self) -> int:
@@ -148,9 +163,11 @@ def smem_layout(m_tile: int, n_chunk: int, stages: int, g: int, bc: int,
 @functools.lru_cache(maxsize=1024)
 def launch_plan(m: int, n: int, k: int, g: int, block: Tuple[int, int],
                 kept: Tuple[int, int], sm_count: int,
-                int8_tiles: bool = False, aligned: bool = True) -> LaunchPlan:
+                int8_tiles: bool = False, aligned: bool = True,
+                experts: int = 1) -> LaunchPlan:
     """The tensor-core launch for ``x (m, k)`` against G packed ``(n, k)``
-    weights of ``block`` blocks keeping ``kept`` = (R_keep, C_keep).
+    weights of ``block`` blocks keeping ``kept`` = (R_keep, C_keep), for
+    each of ``experts`` stacked experts (the same plan for every expert).
 
     * M tile: the smallest of 8, 16, 32, 64 that holds M, else 128.
     * Configuration: of those compiled for the M tile, the one that wastes
@@ -158,10 +175,11 @@ def launch_plan(m: int, n: int, k: int, g: int, block: Tuple[int, int],
       G members, point at a zero row), then the most slabs per warp. Its
       row chunk ``n_chunk`` is a multiple of the warp's 16·slabs rows, so a
       warp reads one member's gathered x.
-    * Split: when the output tiles number at most half the card's SMs, the
-      contraction blocks of each tile are shared by ``splits`` CTAs so the
-      grid reaches the SM count (at most nb_c splits, so none is empty); the
-      last to finish sums the partials in split order.
+    * Split: when the output tiles (of every expert) number at most half
+      the card's SMs, the contraction blocks of each tile are shared by
+      ``splits`` CTAs so the grid reaches the SM count (at most nb_c
+      splits, so none is empty); the last to finish sums the partials in
+      split order.
     * Stages: one more than the blocks a CTA walks, at least 3, at most 8,
       and what shared memory holds. A smaller M tile is tried when nothing
       fits; a block no CTA can hold raises ``ValueError``.
@@ -200,7 +218,7 @@ def launch_plan(m: int, n: int, k: int, g: int, block: Tuple[int, int],
             continue
         _, slabs, wm, nw, n_chunk, chunks = best
         m_tiles = -(-m // mt)
-        tiles = nb_r * chunks * m_tiles
+        tiles = experts * nb_r * chunks * m_tiles
         # split where it at least doubles the grid (a nearly full grid
         # gains less than the partials' round trip costs)
         splits = (1 if 2 * tiles > sm_count
@@ -211,13 +229,14 @@ def launch_plan(m: int, n: int, k: int, g: int, block: Tuple[int, int],
                                vec, wm == WGMMA_WARPS_M, blocks)
             if smem <= SMEM_LIMIT:
                 return LaunchPlan(mt, slabs, wm, nw, n_chunk, chunks, m_tiles,
-                                  splits, stages, vec, smem, nb_r, nb_c, g)
+                                  splits, stages, vec, smem, nb_r, nb_c, g,
+                                  experts)
     raise ValueError(f"BCR block {br}x{bc} keeping {r}x{c} (G={g}) needs "
                      f"more shared memory than a CTA has")
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    lib.bcr_spmm_launch.argtypes = ([_I] * 4 + [_P] * 9 + [_I] * 10
+    lib.bcr_spmm_launch.argtypes = ([_I] * 4 + [_P] * 9 + [_I] * 11
                                     + [ctypes.POINTER(ctypes.c_int), _P])
     lib.bcr_spmm_launch.restype = _I
 
@@ -252,13 +271,16 @@ def split_counters(dev: torch.device, n: int) -> torch.Tensor:
     return buf
 
 
-def _check(x: torch.Tensor, packed) -> Optional[torch.Tensor]:
-    """Validate a launch; returns the fp32 tile scales of an int8 pack
-    (None for the fp form)."""
+def _check(x: torch.Tensor, packed, e: int) -> Optional[torch.Tensor]:
+    """Validate a launch over ``e`` stacked experts (0: an unstacked pack);
+    returns the fp32 tile scales of an int8 pack (None for the fp form)."""
     vals, row_idx, col_idx = packed.vals, packed.row_idx, packed.col_idx
     scales = getattr(packed.plan, "block_scales", None)
-    if x.dim() != 2 or not x.is_contiguous():
-        raise ValueError("x must be a contiguous (M, K) tensor")
+    if x.dim() != (3 if e else 2) or not x.is_contiguous():
+        raise ValueError("x must be a contiguous (M, K) tensor, or (E, M, K) "
+                         "over a pack of E stacked experts")
+    if e and x.shape[0] != e:
+        raise ValueError(f"x has {x.shape[0]} experts, the pack {e}")
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"x dtype {x.dtype} not supported (float32, bfloat16)")
     if vals.dtype == torch.int8:
@@ -288,19 +310,21 @@ def _check(x: torch.Tensor, packed) -> Optional[torch.Tensor]:
     n, k = packed.shape
     br, bc = packed.block_shape
     nb_r, nb_c, r, c = vals.shape[-4:]
-    if x.shape[1] != k:
-        raise ValueError(f"x K dim {x.shape[1]} != packed K dim {k}")
+    if x.shape[-1] != k:
+        raise ValueError(f"x K dim {x.shape[-1]} != packed K dim {k}")
     if nb_r * br != n or nb_c * bc != k:
         raise ValueError(f"packed grid {nb_r}x{nb_c} of {br}x{bc} blocks does "
                          f"not tile ({n}, {k})")
-    if row_idx.shape[-1] != r or col_idx.shape[-1] != c:
+    if (tuple(row_idx.shape) != tuple(vals.shape[:-1])
+            or tuple(col_idx.shape) != tuple(vals.shape[:-2]) + (c,)):
         raise ValueError("index planes do not match the kept tile shape")
     return scales
 
 
-def _launch(x, packed, scales, g, grouped, bias, swiglu, y, what) -> None:
-    """One launch of ``bcr_spmm_launch`` for a checked (grouped) pack."""
-    m, k = x.shape
+def _launch(x, packed, scales, g, e, grouped, bias, swiglu, y, what) -> None:
+    """One launch of ``bcr_spmm_launch`` for a checked (grouped) pack over
+    ``e`` stacked experts (0: unstacked)."""
+    m, k = x.shape[-2:]
     n = packed.shape[0]
     nb_r, nb_c, r, c = packed.vals.shape[-4:]
     br, bc = packed.block_shape
@@ -309,7 +333,7 @@ def _launch(x, packed, scales, g, grouped, bias, swiglu, y, what) -> None:
         aligned = all(t.data_ptr() % 16 == 0 for t in (
             x, packed.vals, packed.row_idx, packed.col_idx))
         plan = launch_plan(m, n, k, g, (br, bc), (r, c), _sm_count(x.device),
-                           scales is not None, aligned)
+                           scales is not None, aligned, max(e, 1))
         plan_arr = (ctypes.c_int * 9)(*plan.args())
         if plan.splits > 1:
             ws = torch.empty(plan.workspace_floats, dtype=torch.float32,
@@ -324,23 +348,32 @@ def _launch(x, packed, scales, g, grouped, bias, swiglu, y, what) -> None:
         bias.data_ptr() if bias is not None else None, y.data_ptr(),
         ws.data_ptr() if ws is not None else None,
         counters.data_ptr() if counters is not None else None,
-        m, k, n, g, nb_r, nb_c, br, bc, r, c, plan_arr,
+        m, k, n, g, nb_r, nb_c, br, bc, r, c, max(e, 1), plan_arr,
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, what)
 
 
+def _count(key: str, e: int) -> None:
+    """One launch of form ``key`` (over ``e`` stacked experts, 0: none)."""
+    LAUNCHES[key] += 1
+    if e:
+        LAUNCHES[key + "_experts"] += 1
+
+
 def bcr_spmm(x: torch.Tensor, packed) -> torch.Tensor:
     """``y[M, N] = x[M, K] @ W.T`` for balanced-BCR packed ``W`` (fp tiles,
-    or int8 codes with ``plan.block_scales``)."""
+    or int8 codes with ``plan.block_scales``); over a pack of E stacked
+    experts, ``y[e] = x[e] @ W_e.T`` for x ``(E, M, K)``, one launch."""
     if not x.is_cuda:
         return ref.bcr_spmm_packed_ref(x, packed)
-    scales = _check(x, packed)
-    m, _ = x.shape
-    y = torch.empty((m, packed.shape[0]), dtype=x.dtype, device=x.device)
-    if m == 0:
+    e = stacked_experts(packed)
+    scales = _check(x, packed, e)
+    y = torch.empty((*x.shape[:-1], packed.shape[0]), dtype=x.dtype,
+                    device=x.device)
+    if y.numel() == 0:
         return y
-    _launch(x, packed, scales, 1, False, None, False, y, "bcr_spmm launch")
-    LAUNCHES["bcr_spmm_int8" if scales is not None else "bcr_spmm"] += 1
+    _launch(x, packed, scales, 1, e, False, None, False, y, "bcr_spmm launch")
+    _count("bcr_spmm_int8" if scales is not None else "bcr_spmm", e)
     return y
 
 
@@ -349,7 +382,9 @@ def bcr_spmm_grouped(x: torch.Tensor, grouped,
                      epilogue: Optional[str] = None) -> torch.Tensor:
     """``y[G, M, N] = x[M, K] @ W_g.T`` for G same-shaped packed weights;
     ``bias`` ``(G, N)`` adds off the fp32 accumulator and
-    ``epilogue="swiglu"`` (G=2) returns ``silu(y[0]) * y[1]`` as ``(M, N)``."""
+    ``epilogue="swiglu"`` (G=2) returns ``silu(y[0]) * y[1]`` as ``(M, N)``.
+    Over E stacked experts, x ``(E, M, K)``, bias ``(E, G, N)`` and y gain
+    the leading E axis, in one launch."""
     if epilogue not in (None, "swiglu"):
         raise ValueError(f"unknown epilogue {epilogue!r}")
     g = grouped.group_size
@@ -358,20 +393,23 @@ def bcr_spmm_grouped(x: torch.Tensor, grouped,
                          f"group_size={g}")
     if not x.is_cuda:
         y = ref.bcr_spmm_grouped_ref(x, grouped, bias=bias, epilogue=epilogue)
-        return y if epilogue == "swiglu" else y.transpose(0, 1)
-    scales = _check(x, grouped)
-    m, _ = x.shape
+        return y if epilogue == "swiglu" else y.transpose(-3, -2)
+    e = stacked_experts(grouped)
+    scales = _check(x, grouped, e)
+    m = x.shape[-2]
     n = grouped.shape[0]
+    lead = tuple(x.shape[:-2])
     if bias is not None:
-        if tuple(bias.shape) != (g, n):
-            raise ValueError(f"bias shape {tuple(bias.shape)} != {(g, n)}")
+        if tuple(bias.shape) != lead + (g, n):
+            raise ValueError(f"bias shape {tuple(bias.shape)} != "
+                             f"{lead + (g, n)}")
         bias = bias.to(device=x.device, dtype=torch.float32).contiguous()
-    out_shape = (m, n) if epilogue == "swiglu" else (g, m, n)
+    out_shape = lead + ((m, n) if epilogue == "swiglu" else (g, m, n))
     y = torch.empty(out_shape, dtype=x.dtype, device=x.device)
-    if m == 0:
+    if y.numel() == 0:
         return y
-    _launch(x, grouped, scales, g, True, bias, epilogue == "swiglu", y,
+    _launch(x, grouped, scales, g, e, True, bias, epilogue == "swiglu", y,
             "bcr_spmm_grouped launch")
-    LAUNCHES["bcr_spmm_grouped_int8" if scales is not None
-             else "bcr_spmm_grouped"] += 1
+    _count("bcr_spmm_grouped_int8" if scales is not None
+           else "bcr_spmm_grouped", e)
     return y

@@ -10,11 +10,14 @@
 // C_keep whole columns stored as a dense (R_keep, C_keep) tile plus the
 // block-local row/col indices. The grouped form runs G same-shaped weights
 // over one x, adds a (G, N) fp32 bias, and either emits (G, M, N) or, for a
-// gate/up pair, silu(acc0) * acc1 as (M, N). Tiles come in x's dtype (the
-// fp form) or as int8 codes with one fp32 scale per kept tile (the int8
-// form, the reference's quantized serving: plan.block_scales), whose scale
-// multiplies the block's fp32 partial, as the reference's _block_update
-// does.
+// gate/up pair, silu(acc0) * acc1 as (M, N). Both forms take E stacked
+// experts in one launch (an MoE layer's experts, the reference's vmap over
+// its pallas_call): x (E, M, K), the packed operands, scales and bias with
+// a leading E, y (E, ...); the expert is the grid's last axis. Tiles come
+// in x's dtype (the fp form) or as int8 codes with one fp32 scale per kept
+// tile (the int8 form, the reference's quantized serving:
+// plan.block_scales), whose scale multiplies the block's fp32 partial, as
+// the reference's _block_update does.
 //
 // Two bodies, chosen by x's dtype.
 //
@@ -50,7 +53,9 @@
 //     MMA work at the serving block.
 //   * Copies are asynchronous, into a ring of 3 to 8 stages with one
 //     mbarrier each: a producer warp's lane issues per block one TMA copy
-//     of the x block (rows past M arrive as zeros), one TMA copy per bf16
+//     of the x block (rows past M arrive as zeros, or over stacked
+//     experts as the next expert's rows: either feeds only output columns
+//     never written), one TMA copy per bf16
 //     tile (rows 128-byte swizzled when C_keep = 64, so ldmatrix reads
 //     them without bank conflicts) or one bulk copy per int8 tile (never
 //     widened in device memory), and bulk copies of the indices. One block
@@ -60,6 +65,14 @@
 //     the copies cannot take (rows that are not 16-byte multiples: kept
 //     counts of 1..16 at smoke sizes) take plain loads through the same
 //     ring.
+//   * Stacked experts (MoE): one launch, the expert the grid's second axis
+//     (E × the plan's grid). A CTA adds its expert to its tile, x-row,
+//     output, bias, workspace and counter indices, always from the launch's
+//     base pointers: offsetting the base pointers per expert instead put
+//     them in vector registers and slowed the unstacked decode launches by
+//     up to 70% (lm_head M=8 0.106 → 0.178 ms on an H100, PERF.md §6). The
+//     plan (M tile, split) counts every expert's output tiles; at decode an
+//     MoE layer's 64 experts × 11 or 16 block rows fill the card unsplit.
 //   * At small M a grid of (block rows × M tiles) leaves most SMs idle, so
 //     where the output tiles number at most half the SMs the contraction
 //     blocks of each tile are split over S CTAs of the same launch. Each
@@ -109,7 +122,7 @@ template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
 
 struct SpmmShape {
-  int M, K, N, G, nb_r, nb_c, br, bc, R, C, m_tile;
+  int M, K, N, G, nb_r, nb_c, br, bc, R, C, m_tile, E;
   int jb;    // contraction blocks staged per phase (divides nb_c)
   int vec;   // 1: register-pipelined 16-byte loads; 0: plain loads
 };
@@ -435,11 +448,25 @@ __device__ void spmm_body(const T* __restrict__ x, const TW* __restrict__ vals,
   }
 }
 
+// Expert blockIdx.z's operands: every array is E equal slices, expert-major.
+template <typename T, typename TW, bool SWIGLU>
+__device__ __forceinline__ void expert_body(
+    const T* x, const TW* vals, const float* scales, const int* row_idx,
+    const int* col_idx, const float* bias, T* y, const SpmmShape& s) {
+  const size_t e = blockIdx.z, tiles = (size_t)s.G * s.nb_r * s.nb_c;
+  spmm_body<T, TW, SWIGLU>(
+      x + e * s.M * s.K, vals + e * tiles * s.R * s.C,
+      scales != nullptr ? scales + e * tiles : nullptr,
+      row_idx + e * tiles * s.R, col_idx + e * tiles * s.C,
+      bias != nullptr ? bias + e * s.G * s.N : nullptr,
+      y + e * (SWIGLU ? 1 : s.G) * s.M * s.N, s);
+}
+
 template <typename T, typename TW>
 __global__ void __launch_bounds__(kThreads)
 bcr_spmm_kernel(const T* x, const TW* vals, const float* scales,
                 const int* row_idx, const int* col_idx, T* y, SpmmShape s) {
-  spmm_body<T, TW, false>(x, vals, scales, row_idx, col_idx, nullptr, y, s);
+  expert_body<T, TW, false>(x, vals, scales, row_idx, col_idx, nullptr, y, s);
 }
 
 
@@ -448,7 +475,7 @@ __global__ void __launch_bounds__(kThreads)
 bcr_spmm_grouped_kernel(const T* x, const TW* vals, const float* scales,
                         const int* row_idx, const int* col_idx,
                         const float* bias, T* y, SpmmShape s) {
-  spmm_body<T, TW, SWIGLU>(x, vals, scales, row_idx, col_idx, bias, y, s);
+  expert_body<T, TW, SWIGLU>(x, vals, scales, row_idx, col_idx, bias, y, s);
 }
 
 // Blocks per phase: the register pipeline needs 16-byte rows (a vector
@@ -484,7 +511,7 @@ int launch(Kernel kernel, const SpmmShape& s, cudaStream_t stream,
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(s.nb_r, (s.M + s.m_tile - 1) / s.m_tile);
+  dim3 grid(s.nb_r, (s.M + s.m_tile - 1) / s.m_tile, s.E);
   err = cudaLaunchKernel((const void*)kernel, grid, dim3(kThreads), args,
                          smem, stream);
   if (err != cudaSuccess) return (int)err;
@@ -492,10 +519,10 @@ int launch(Kernel kernel, const SpmmShape& s, cudaStream_t stream,
 }
 
 SpmmShape make_shape(int M, int K, int N, int G, int nb_r, int nb_c, int br,
-                     int bc, int R, int C, int m_tile) {
+                     int bc, int R, int C, int m_tile, int E) {
   SpmmShape s;
   s.M = M; s.K = K; s.N = N; s.G = G; s.nb_r = nb_r; s.nb_c = nb_c;
-  s.br = br; s.bc = bc; s.R = R; s.C = C; s.m_tile = m_tile;
+  s.br = br; s.bc = bc; s.R = R; s.C = C; s.m_tile = m_tile; s.E = E;
   s.jb = 1; s.vec = 0;
   return s;
 }
@@ -547,7 +574,7 @@ struct Layout {
 };
 
 struct Shape {
-  int M, K, N, G, nb_r, nb_c, br, bc, R, C, m_tiles;
+  int M, K, N, G, nb_r, nb_c, br, bc, R, C, m_tiles, E;
   int int8_tiles, swiglu, grouped;
   Plan p;
   Layout l;
@@ -636,17 +663,20 @@ __device__ __forceinline__ void fence_operands(float (&d)[4][4][4]) {
       for (int q = 0; q < 4; ++q) asm volatile("" : "+f"(d[a][b][q]));
 }
 
-// Index of member g's tile (i, j) in vals' (G, nb_r, nb_c) grid.
-__device__ __forceinline__ size_t tile_id(const Shape& s, int g, int i,
-                                          int j) {
-  return ((size_t)g * s.nb_r + i) * s.nb_c + j;
+// Index of expert ex's member g's tile (i, j) in vals' (E, G, nb_r, nb_c)
+// grid.
+__device__ __forceinline__ size_t tile_id(const Shape& s, int ex, int g,
+                                          int i, int j) {
+  return (((size_t)ex * s.G + g) * s.nb_r + i) * s.nb_c + j;
 }
 
 // Stage contraction block j of block row i (all members) into ring slot sl
-// and arm its mbarrier: a TMA copy of the x block (rows past M arrive as
-// zeros), one TMA copy per bf16 tile (or one bulk copy per int8 tile) and
-// bulk copies of the indices. One thread (the producer warp's lane 0)
-// issues them.
+// and arm its mbarrier: a TMA copy of the x block, one TMA copy per bf16
+// tile (or one bulk copy per int8 tile) and bulk copies of the indices. One
+// thread (the producer warp's lane 0) issues them. The tensor maps span
+// every expert: the x block's rows start at ex·M + m0 (rows past the
+// expert's M are the next expert's rows, or zeros past the last; they feed
+// only MMA columns the epilogue never writes).
 template <bool INT8>
 __device__ __forceinline__ void issue_tma(const Shape& s, unsigned char* sl,
                                           uint32_t bar,
@@ -655,14 +685,14 @@ __device__ __forceinline__ void issue_tma(const Shape& s, unsigned char* sl,
                                           const void* __restrict__ vals,
                                           const int* __restrict__ row_idx,
                                           const int* __restrict__ col_idx,
-                                          int i, int j, int m0) {
+                                          int ex, int i, int j, int m0) {
   const Layout& l = s.l;
   const int RC = s.R * s.C;
   bar_expect(bar, s.p.mt * s.bc * 2 + s.G * RC * (INT8 ? 1 : 2) +
                       s.G * (s.R + s.C) * 4);
-  tma2d(smem_u32(sl + l.off_x), xmap, j * s.bc, m0, bar);
+  tma2d(smem_u32(sl + l.off_x), xmap, j * s.bc, ex * s.M + m0, bar);
   for (int g = 0; g < s.G; ++g) {
-    const size_t t = tile_id(s, g, i, j);
+    const size_t t = tile_id(s, ex, g, i, j);
     if (INT8)
       bulk(smem_u32(sl + g * l.tile_member),
            static_cast<const int8_t*>(vals) + t * RC, RC, bar);
@@ -685,7 +715,8 @@ __device__ __forceinline__ void issue_plain(const Shape& s, unsigned char* sl,
                                             const void* __restrict__ vals,
                                             const int* __restrict__ row_idx,
                                             const int* __restrict__ col_idx,
-                                            int i, int j, int m0, int mt) {
+                                            int ex, int i, int j, int m0,
+                                            int mt) {
   const int tid = threadIdx.x, nt = blockDim.x;
   const Layout& l = s.l;
   const int RC = s.R * s.C;
@@ -693,27 +724,28 @@ __device__ __forceinline__ void issue_plain(const Shape& s, unsigned char* sl,
     const int g = e / RC, v = e - g * RC;
     if (INT8) {
       sl[g * l.tile_member + v] =
-          static_cast<const unsigned char*>(vals)[tile_id(s, g, i, j) * RC + v];
+          static_cast<const unsigned char*>(
+              vals)[tile_id(s, ex, g, i, j) * RC + v];
     } else {
       const int r = v / s.C, c = v - r * s.C;
       reinterpret_cast<bf16*>(sl)[(g * s.R + r) * l.as + c] =
-          static_cast<const bf16*>(vals)[tile_id(s, g, i, j) * RC + v];
+          static_cast<const bf16*>(vals)[tile_id(s, ex, g, i, j) * RC + v];
     }
   }
   bf16* xs = reinterpret_cast<bf16*>(sl + l.off_x);
   for (int e = tid; e < mt * s.bc; e += nt) {
     const int m = e / s.bc, c = e - m * s.bc;
-    xs[e] = x[(size_t)(m0 + m) * s.K + (size_t)j * s.bc + c];   // m < mt
+    xs[e] = x[(size_t)(ex * s.M + m0 + m) * s.K + (size_t)j * s.bc + c];
   }
   int* ri = reinterpret_cast<int*>(sl + l.off_ridx);
   int* ci = reinterpret_cast<int*>(sl + l.off_cidx);
   for (int e = tid; e < s.G * s.R; e += nt) {
     const int g = e / s.R;
-    ri[e] = row_idx[tile_id(s, g, i, j) * s.R + (e - g * s.R)];
+    ri[e] = row_idx[tile_id(s, ex, g, i, j) * s.R + (e - g * s.R)];
   }
   for (int e = tid; e < s.G * s.C; e += nt) {
     const int g = e / s.C;
-    ci[e] = col_idx[tile_id(s, g, i, j) * s.C + (e - g * s.C)];
+    ci[e] = col_idx[tile_id(s, ex, g, i, j) * s.C + (e - g * s.C)];
   }
   if (tid == 0)   // the stores are published by the next block barrier
     asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
@@ -819,7 +851,7 @@ __device__ __forceinline__ void add4(float4& a, const float4 b) {
 __device__ __forceinline__ void emit_sum8(const Shape& s, const float* red,
                                           const float* wt, int rs, int per,
                                           int S, int MT, int g, int m, int n,
-                                          int nb, const float* bias,
+                                          int nb, const float* bias, int ex,
                                           float4& a0, float4& a1) {
   const int NC = s.p.n_chunk;
   if (S > 1) {
@@ -848,7 +880,7 @@ __device__ __forceinline__ void emit_sum8(const Shape& s, const float* red,
     a1 = *reinterpret_cast<const float4*>(p + 4);
   }
   if (bias != nullptr) {
-    const float* bb = bias + (size_t)g * s.N + nb;
+    const float* bb = bias + ((size_t)ex * s.G + g) * s.N + nb;
     add4(a0, make_float4(bb[0], bb[1], bb[2], bb[3]));
     add4(a1, make_float4(bb[4], bb[5], bb[6], bb[7]));
   }
@@ -928,6 +960,9 @@ __device__ __forceinline__ void tc_body(
   idx /= s.m_tiles;
   const int ch = idx % s.p.chunks, i = idx / s.p.chunks;
   const int m0 = mtile * MT, mt = min(MT, s.M - m0);
+  const int ex = blockIdx.y;                // the expert (0: a plain pack)
+  // this expert's output tile: its split counter and workspace slice
+  const size_t gtile = (size_t)ex * s.nb_r * s.p.chunks * s.m_tiles + tile;
   const int nc0 = ch * NC;
   const int j0 = (int)((long long)sp * s.nb_c / S);
   const int nblk = (int)((long long)(sp + 1) * s.nb_c / S) - j0;
@@ -942,7 +977,7 @@ __device__ __forceinline__ void tc_body(
     if (vec)
       for (int p = 0; p < ST - 1 && p < nblk; ++p)
         issue_tma<INT8>(s, smem + p * l.slot, bar0 + p * 8, xmap, wmap, vals,
-                        row_idx, col_idx, i, j0 + p, m0);
+                        row_idx, col_idx, ex, i, j0 + p, m0);
   }
 
   // what no copy writes: the zero row, x rows past M in every stage, the
@@ -1000,14 +1035,14 @@ __device__ __forceinline__ void tc_body(
     float* sc_all = reinterpret_cast<float*>(smem + l.off_scales);
     for (int e = tid; e < nblk * s.G; e += nt) {
       const int b = e / s.G;
-      sc_all[e] = __ldg(scales + tile_id(s, e - b * s.G, i, j0 + b));
+      sc_all[e] = __ldg(scales + tile_id(s, ex, e - b * s.G, i, j0 + b));
     }
   }
   __syncthreads();
   if (!vec)   // ring prologue by plain loads: blocks 0 .. ST-2
     for (int p = 0; p < ST - 1 && p < nblk; ++p)
       issue_plain<INT8>(s, smem + p * l.slot, bar0 + p * 8, x, vals, row_idx,
-                        col_idx, i, j0 + p, m0, mt);
+                        col_idx, ex, i, j0 + p, m0, mt);
   bar_wait(bar0, 0);
   __syncthreads();
   if (!producer) prepare<INT8, MT, NW>(s, smem, smem, 0, 0, nc0);
@@ -1036,10 +1071,10 @@ __device__ __forceinline__ void tc_body(
       unsigned char* sn = smem + (nxt % ST) * l.slot;
       const uint32_t bn = bar0 + (nxt % ST) * 8;
       if (!vec)
-        issue_plain<INT8>(s, sn, bn, x, vals, row_idx, col_idx, i, j0 + nxt,
-                          m0, mt);
+        issue_plain<INT8>(s, sn, bn, x, vals, row_idx, col_idx, ex, i,
+                          j0 + nxt, m0, mt);
       else if (producer && lane == 0)
-        issue_tma<INT8>(s, sn, bn, xmap, wmap, vals, row_idx, col_idx, i,
+        issue_tma<INT8>(s, sn, bn, xmap, wmap, vals, row_idx, col_idx, ex, i,
                         j0 + nxt, m0);
     }
     const bool next = jl + 1 < nblk && !producer;
@@ -1133,14 +1168,14 @@ __device__ __forceinline__ void tc_body(
   if (S > 1) {
     // this split's partial to the workspace; the last split to arrive sums
     // all of them in split order, so y does not depend on arrival order
-    float* wp = ws + ((size_t)tile * S + sp) * per;
+    float* wp = ws + (gtile * S + sp) * per;
     for (int gm = warp; gm < s.G * MT; gm += NW + 1)
       for (int n = lane; n < NC; n += 32)
         wp[(size_t)gm * NC + n] = red[(size_t)gm * rs + n];
     __threadfence();
     __syncthreads();
     int* flag = reinterpret_cast<int*>(smem + l.off_flag);
-    if (tid == 0) *flag = atomicAdd(counters + tile, 1) == S - 1;
+    if (tid == 0) *flag = atomicAdd(counters + gtile, 1) == S - 1;
     __syncthreads();
     if (!*flag) return;
     __threadfence();
@@ -1152,7 +1187,7 @@ __device__ __forceinline__ void tc_body(
   // and one 16-byte store.
   const int n0 = i * s.br + nc0;
   const int nv = min(NC, s.br - nc0);
-  const float* wt = ws + (size_t)tile * S * per;
+  const float* wt = ws + gtile * S * per;
   const int gy = s.swiglu ? 1 : s.G;
   if (nv % 8 == 0 && s.N % 8 == 0 && s.br % 8 == 0) {
     const int nq = nv / 8;
@@ -1161,16 +1196,17 @@ __device__ __forceinline__ void tc_body(
       const int go = gm / mt, m = gm - go * mt;
       float4 a0, a1, b0, b1;
       emit_sum8(s, red, wt, rs, per, S, MT, s.swiglu ? 0 : go, m, n, n0 + n,
-                bias, a0, a1);
+                bias, ex, a0, a1);
       if (s.swiglu) {
-        emit_sum8(s, red, wt, rs, per, S, MT, 1, m, n, n0 + n, bias, b0, b1);
+        emit_sum8(s, red, wt, rs, per, S, MT, 1, m, n, n0 + n, bias, ex, b0,
+                  b1);
         a0 = make_float4(silu(a0.x) * b0.x, silu(a0.y) * b0.y,
                          silu(a0.z) * b0.z, silu(a0.w) * b0.w);
         a1 = make_float4(silu(a1.x) * b1.x, silu(a1.y) * b1.y,
                          silu(a1.z) * b1.z, silu(a1.w) * b1.w);
       }
-      *reinterpret_cast<uint4*>(y + ((size_t)go * s.M + m0 + m) * s.N + n0 +
-                                n) =
+      *reinterpret_cast<uint4*>(
+          y + (((size_t)ex * gy + go) * s.M + m0 + m) * s.N + n0 + n) =
           make_uint4(pack_bf16(a0.x, a0.y), pack_bf16(a0.z, a0.w),
                      pack_bf16(a1.x, a1.y), pack_bf16(a1.z, a1.w));
     }
@@ -1191,14 +1227,16 @@ __device__ __forceinline__ void tc_body(
         } else {
           val = red[((size_t)g * MT + m) * rs + n];
         }
-        if (bias != nullptr) val += bias[(size_t)g * s.N + n0 + n];
+        if (bias != nullptr)
+          val += bias[((size_t)ex * s.G + g) * s.N + n0 + n];
         v[h] = val;
       }
       const float o = s.swiglu ? silu(v[0]) * v[1] : v[0];
-      y[((size_t)go * s.M + m0 + m) * s.N + n0 + n] = __float2bfloat16(o);
+      y[(((size_t)ex * gy + go) * s.M + m0 + m) * s.N + n0 + n] =
+          __float2bfloat16(o);
     }
   }
-  if (S > 1 && tid == 0) counters[tile] = 0;   // ready for the next call
+  if (S > 1 && tid == 0) counters[gtile] = 0;   // ready for the next call
 }
 
 // One body under two names, so a profile tells bcr_spmm's launches from
@@ -1230,7 +1268,7 @@ int launch_cfg(const Shape& s, cudaStream_t stream, void** args) {
     smem_set[s.grouped] = s.p.smem;
   }
   const int grid = s.nb_r * s.p.chunks * s.m_tiles * s.p.splits;
-  cudaError_t err = cudaLaunchKernel((const void*)kernel, dim3(grid),
+  cudaError_t err = cudaLaunchKernel((const void*)kernel, dim3(grid, s.E),
                                      dim3(NW * 32 + 32), args, s.p.smem,
                                      stream);
   if (err != cudaSuccess) return (int)err;
@@ -1263,20 +1301,23 @@ extern "C" {
 // share it). grouped: bcr_spmm_grouped's call (its kernels' names).
 // int8_tiles = 0: vals in x's dtype, scales unused; 1: int8 vals
 // with ([G,] nb_r, nb_c) fp32 scales. bias: (G, N) fp32 or null; swiglu: G
-// = 2, y (M, N), else y (G, M, N). plan: kernels/bcr_spmm.py:LaunchPlan.args()
-// under bf16 (ws: its fp32 workspace, counters: its zeroed split counters,
-// both null when unsplit); ignored under fp32.
+// = 2, y (M, N), else y (G, M, N). E: stacked experts (1 for a plain pack),
+// each operand above then E of those, expert-major. plan:
+// kernels/bcr_spmm.py:LaunchPlan.args() under bf16 (ws: its fp32 workspace,
+// counters: its zeroed split counters, both null when unsplit, both sized
+// for every expert); ignored under fp32.
 int bcr_spmm_launch(int dtype, int grouped, int int8_tiles, int swiglu,
                     const void* x,
                     const void* vals, const float* scales, const int* row_idx,
                     const int* col_idx, const float* bias, void* y, float* ws,
                     int* counters, int M, int K, int N, int G, int nb_r,
-                    int nb_c, int br, int bc, int R, int C, const int* plan,
-                    void* stream) {
+                    int nb_c, int br, int bc, int R, int C, int E,
+                    const int* plan, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (E < 1 || E > 65535) return (int)cudaErrorInvalidValue;
   if (dtype == 0) {
     using namespace cuda_core;
-    SpmmShape s = make_shape(M, K, N, G, nb_r, nb_c, br, bc, R, C, 4);
+    SpmmShape s = make_shape(M, K, N, G, nb_r, nb_c, br, bc, R, C, 4, E);
     s.m_tile = m_tile_for(s);
     if (s.m_tile == 0) return (int)cudaErrorInvalidValue;
     plan_phases(s, 4, int8_tiles ? 1 : 4, x, vals);
@@ -1303,7 +1344,7 @@ int bcr_spmm_launch(int dtype, int grouped, int int8_tiles, int swiglu,
   if (dtype != 1 || plan == nullptr) return (int)cudaErrorInvalidValue;
   tc::Shape s;
   s.M = M; s.K = K; s.N = N; s.G = G; s.nb_r = nb_r; s.nb_c = nb_c;
-  s.br = br; s.bc = bc; s.R = R; s.C = C;
+  s.br = br; s.bc = bc; s.R = R; s.C = C; s.E = E;
   s.int8_tiles = int8_tiles; s.swiglu = swiglu; s.grouped = grouped != 0;
   s.p = tc::Plan{plan[0], plan[1], plan[2], plan[3], plan[4], plan[5],
                  plan[6], plan[7], plan[8]};
@@ -1317,10 +1358,10 @@ int bcr_spmm_launch(int dtype, int grouped, int int8_tiles, int swiglu,
     if ((uintptr_t)x % 16 || (uintptr_t)vals % 16 || (uintptr_t)row_idx % 16 ||
         (uintptr_t)col_idx % 16)
       return -2;
-    if (!hopper::make_map(&xmap, x, M, K, s.p.mt, bc, false) ||
+    if (!hopper::make_map(&xmap, x, (uint64_t)E * M, K, s.p.mt, bc, false) ||
         (!int8_tiles &&
-         !hopper::make_map(&wmap, vals, (uint64_t)G * nb_r * nb_c * R, C, R, C,
-                       s.l.swz)))
+         !hopper::make_map(&wmap, vals, (uint64_t)E * G * nb_r * nb_c * R, C,
+                           R, C, s.l.swz)))
       return -3;
   }
   void* args[] = {(void*)&xmap, (void*)&wmap, (void*)&x, (void*)&vals,

@@ -55,14 +55,15 @@ class BCRPlan:
 def _index_vectors(row_idx: torch.Tensor, col_idx: torch.Tensor,
                    block_shape: Tuple[int, int],
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Block-local index planes → flat global take/scatter vectors."""
+    """Block-local index planes → flat global take/scatter vectors, one per
+    matrix of a stacked pack (the planes' leading axes lead the vectors)."""
     br, bc = block_shape
-    nb_r, nb_c = col_idx.shape[0], col_idx.shape[1]
+    *lead, nb_r, nb_c, _ = col_idx.shape
     dev = col_idx.device
     gcols = (torch.arange(nb_c, dtype=torch.int32, device=dev)[None, :, None]
-             * bc + col_idx).reshape(-1)
+             * bc + col_idx).reshape(*lead, -1)
     srows = (torch.arange(nb_r, dtype=torch.int32, device=dev)[:, None, None]
-             * br + row_idx).reshape(-1)
+             * br + row_idx).reshape(*lead, -1)
     return gcols.to(torch.int32), srows.to(torch.int32)
 
 
@@ -79,12 +80,15 @@ class GroupedTBCRC:
 
     ``plan.gather_cols`` concatenates the members' take vectors and
     ``plan.scatter_rows`` offsets member ``g`` by ``g·N`` so the plain path
-    scatters into one ``(M, G·N)`` output.
+    scatters into one ``(M, G·N)`` output. A group of stacked members (an
+    MoE layer's experts) keeps the expert axis first: vals ``(E, G, nb_r,
+    nb_c, R_keep, C_keep)``, plan vectors ``(E, ·)``, scales ``(E, G,
+    nb_r, nb_c)``.
     """
 
-    vals: torch.Tensor        # (G, nb_r, nb_c, R_keep, C_keep)
-    row_idx: torch.Tensor     # (G, nb_r, nb_c, R_keep)
-    col_idx: torch.Tensor     # (G, nb_r, nb_c, C_keep)
+    vals: torch.Tensor        # ([E,] G, nb_r, nb_c, R_keep, C_keep)
+    row_idx: torch.Tensor     # ([E,] G, nb_r, nb_c, R_keep)
+    col_idx: torch.Tensor     # ([E,] G, nb_r, nb_c, C_keep)
     plan: Any
     shape: Tuple[int, int]          # per-MEMBER dense (N, K)
     block_shape: Tuple[int, int]
@@ -116,11 +120,13 @@ def groupable(members: Sequence[TBCRC]) -> bool:
 
 
 def pack_group(members: Sequence[TBCRC]) -> GroupedTBCRC:
-    """Stack same-shaped packed weights into one fused-launch group."""
+    """Stack same-shaped packed weights into one fused-launch group; stacked
+    members (experts) group per expert, the group axis after theirs."""
     members = list(members)
     if not groupable(members):
         raise ValueError("grouped members must share shape/block/kept/dtype")
     n = members[0].shape[0]
+    ax = members[0].vals.dim() - 4          # leading (expert) axes
     gcols_parts, srows_parts = [], []
     for g, mem in enumerate(members):
         gc, sr = _index_vectors(mem.row_idx, mem.col_idx, mem.block_shape)
@@ -128,16 +134,39 @@ def pack_group(members: Sequence[TBCRC]) -> GroupedTBCRC:
         srows_parts.append(sr + g * n)
     mem_scales = [m.plan.block_scales if m.plan is not None else None
                   for m in members]
-    bscales = (torch.stack(mem_scales).contiguous()
+    bscales = (torch.stack(mem_scales, dim=ax).contiguous()
                if all(sc is not None for sc in mem_scales) else None)
-    plan = BCRPlan(gather_cols=torch.cat(gcols_parts),
-                   scatter_rows=torch.cat(srows_parts), block_scales=bscales)
+    plan = BCRPlan(gather_cols=torch.cat(gcols_parts, dim=-1),
+                   scatter_rows=torch.cat(srows_parts, dim=-1),
+                   block_scales=bscales)
     return GroupedTBCRC(
-        vals=torch.stack([m.vals for m in members]).contiguous(),
-        row_idx=torch.stack([m.row_idx for m in members]).contiguous(),
-        col_idx=torch.stack([m.col_idx for m in members]).contiguous(),
+        vals=torch.stack([m.vals for m in members], dim=ax).contiguous(),
+        row_idx=torch.stack([m.row_idx for m in members], dim=ax).contiguous(),
+        col_idx=torch.stack([m.col_idx for m in members], dim=ax).contiguous(),
         plan=plan, shape=members[0].shape,
         block_shape=members[0].block_shape, group_size=len(members))
+
+
+def stacked_experts(packed) -> int:
+    """E of a pack stacked on a leading expert axis (an MoE layer's
+    experts), else 0."""
+    base = 5 if isinstance(packed, GroupedTBCRC) else 4
+    return packed.vals.shape[0] if packed.vals.dim() > base else 0
+
+
+def expert_slice(packed, e: int):
+    """Expert ``e`` of a stacked pack: the unstacked pack the kernels' plain
+    versions take."""
+    plan = packed.plan
+    if plan is not None:
+        plan = dataclasses.replace(
+            plan, gather_cols=plan.gather_cols[e],
+            scatter_rows=plan.scatter_rows[e],
+            block_scales=(None if plan.block_scales is None
+                          else plan.block_scales[e]))
+    return dataclasses.replace(packed, vals=packed.vals[e],
+                               row_idx=packed.row_idx[e],
+                               col_idx=packed.col_idx[e], plan=plan)
 
 
 # dict-key patterns of projections sharing one activation (models/layers.py
@@ -167,7 +196,8 @@ def _try_fuse(tree: Dict[str, Any], fused_key: str,
         return False
     fused: Dict[str, Any] = {"w_group": pack_group(members)}
     if all(has_bias):
-        fused["b"] = torch.stack([tree[k]["b"] for k in member_keys])
+        # group axis at -2, so stacked (expert) axes stay leading
+        fused["b"] = torch.stack([tree[k]["b"] for k in member_keys], dim=-2)
     for k in member_keys:
         del tree[k]
     tree[fused_key] = fused
@@ -206,7 +236,8 @@ def _scale_bytes(packed) -> int:
 
 def quantize_packed(packed: TBCRC) -> TBCRC:
     """int8-quantize a packed weight's kept tiles, one symmetric fp32 scale
-    per tile, stored on the plan. Idempotent."""
+    per tile, stored on the plan. Idempotent; a stacked pack's scales gain
+    its leading axes, as ``vals`` has them."""
     from repro_torch.kernels.quant import quantize_blocks
     if packed.vals.dtype == torch.int8:
         return packed

@@ -18,7 +18,9 @@ They mirror the reference package's ``kernels/ref.py`` line for line:
   ``kernels/bcr_spmm_skip.py`` oracle).
 
 int8 packed vals carry per-tile scales on ``plan.block_scales``; the plain
-spmm applies each to its block's fp32 partial before the scatter-add.
+spmm applies each to its block's fp32 partial before the scatter-add. A pack
+stacked on a leading expert axis (an MoE layer's experts) takes ``x`` with
+the same leading axis, and the plain spmm loops over the experts.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.bcr import _from_blocks
 from repro_torch.core.bcrc import TBCRC, tbcrc_unpack
+from repro_torch.kernels.plan import expert_slice, stacked_experts
 
 NEG_INF = -1e30
 
@@ -39,9 +42,10 @@ _GATHER_ELEMS = 1 << 27
 
 
 def bcr_spmm_ref(x: torch.Tensor, packed: TBCRC) -> torch.Tensor:
-    """y[M, N] = x[M, K] @ W.T with W = dense reconstruction of ``packed``."""
-    w = tbcrc_unpack(packed)  # (N, K)
-    return (x.float() @ w.float().T).to(x.dtype)
+    """y[M, N] = x[M, K] @ W.T with W = dense reconstruction of ``packed``
+    (``[E,] M, N`` over a stacked pack)."""
+    w = tbcrc_unpack(packed)  # ([E,] N, K)
+    return (x.float() @ w.float().mT).to(x.dtype)
 
 
 def _row_chunks(m: int, width: int):
@@ -54,7 +58,11 @@ def bcr_spmm_packed_ref(x: torch.Tensor, packed: TBCRC) -> torch.Tensor:
     """Reconstruction-free plain path: ``y = x @ W.T`` straight off the
     packed ``(nb_r, nb_c, R_keep, C_keep)`` vals — one gather of every
     surviving activation, one batched einsum over the kept tiles, one
-    scatter-add into fp32 output rows."""
+    scatter-add into fp32 output rows. Over a stacked pack, x ``(E, M,
+    K)`` → ``(E, M, N)``, one expert at a time."""
+    if stacked_experts(packed):
+        return torch.stack([bcr_spmm_packed_ref(x[e], expert_slice(packed, e))
+                            for e in range(x.shape[0])])
     plan = packed.plan
     m = x.shape[0]
     nb_r, nb_c, r_keep, c_keep = packed.vals.shape
@@ -93,7 +101,13 @@ def bcr_spmm_grouped_ref(x: torch.Tensor, grouped, bias=None,
                          epilogue: Optional[str] = None) -> torch.Tensor:
     """Grouped plain path: G same-shaped packed weights sharing ``x`` in one
     gather + one einsum + one scatter-add. Returns ``(M, G, N)``, or
-    ``(M, N)`` with ``epilogue="swiglu"``."""
+    ``(M, N)`` with ``epilogue="swiglu"``; over stacked experts, x ``(E, M,
+    K)`` and a leading E on the result (``bias`` then ``(E, G, N)``)."""
+    if stacked_experts(grouped):
+        return torch.stack([bcr_spmm_grouped_ref(
+            x[e], expert_slice(grouped, e),
+            bias=None if bias is None else bias[e], epilogue=epilogue)
+            for e in range(x.shape[0])])
     plan = grouped.plan
     m = x.shape[0]
     g, nb_r, nb_c, r_keep, c_keep = grouped.vals.shape

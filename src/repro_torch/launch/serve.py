@@ -72,7 +72,10 @@ def pack_params(cfg: ModelConfig, params: PyTree, *,
                 weight_dtype: str = "") -> PyTree:
     """Replace every prunable linear's ``{"w"}`` with ``{"w_packed": TBCRC}``
     and fuse projections sharing one activation (Q/K/V or K/V, gate/up) into
-    grouped entries.
+    grouped entries. An MoE layer's stacked expert weights ``(E, N, K)``
+    pack in one batched pass to a TBCRC with a leading E axis (the
+    reference's ``_pack_any``), and its experts' gate/up fuse to one stacked
+    ``GroupedTBCRC`` ``wgi``.
 
     ``weight_dtype="int8"`` then quantizes every packed tile, fused groups
     included, to int8 codes with one fp32 scale per tile (from the
@@ -435,6 +438,9 @@ def main() -> None:
     p = argparse.ArgumentParser()
     p.add_argument("--arch", required=True)
     p.add_argument("--smoke", action="store_true")
+    p.add_argument("--num-layers", type=int, default=0,
+                   help="cut the model's depth to this many layers (0 → "
+                        "the config's)")
     p.add_argument("--slots", type=int, default=8)
     p.add_argument("--capacity", type=int, default=128)
     p.add_argument("--page-size", type=int, default=16,
@@ -528,6 +534,8 @@ def main() -> None:
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     cfg = dataclasses.replace(cfg, bcr_keep_frac=args.bcr_keep)
+    if args.num_layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.num_layers)
     if args.attn_impl:
         cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
     if args.weight_dtype and args.bcr_keep <= 0:

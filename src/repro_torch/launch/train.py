@@ -46,8 +46,9 @@ PyTree = Any
 
 
 def default_prune_filter(cfg: ModelConfig):
-    """BCR on every 2-D projection weight named 'w' (attention and MLP
-    projections + lm_head), excluding embeddings and norms — the paper's
+    """BCR on every projection weight named 'w' (attention, MLP and MoE
+    expert projections + lm_head; a stacked ``(E, N, K)`` expert weight by
+    its trailing 2-D shape), excluding embeddings and norms — the paper's
     FC/GEMM scope. Takes a leaf's path (``['lm_head']['w']``) and tensor."""
     if cfg.bcr_keep_frac <= 0:
         return lambda name, leaf: None

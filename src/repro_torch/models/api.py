@@ -3,8 +3,10 @@
     fns = model_fns(cfg)   # init_params / loss_fn / prefill / decode_step
                            # / init_cache / prefill_append
 
-Batches are dicts of tensors, as in the reference package. Only the dense
-family is ported so far.
+Batches are dicts of tensors, as in the reference package. The dense and
+MoE families are ported; both run through ``causal_lm`` (a MoE layer's
+routing reads the batch's optional ``token_mask``). The other families raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -35,9 +37,11 @@ def model_fns(cfg: ModelConfig) -> ModelFns:
         init_params=functools.partial(causal_lm.init_params, cfg),
         loss_fn=functools.partial(causal_lm.loss_fn, cfg),
         prefill=lambda p, b: causal_lm.prefill(
-            cfg, p, b["tokens"], length=b.get("length")),
+            cfg, p, b["tokens"], length=b.get("length"),
+            token_mask=b.get("token_mask")),
         decode_step=lambda p, b, c: causal_lm.decode_step(
-            cfg, p, b["tokens"], c, b["cache_len"], b.get("block_tables")),
+            cfg, p, b["tokens"], c, b["cache_len"], b.get("block_tables"),
+            token_mask=b.get("token_mask")),
         init_cache=functools.partial(causal_lm.init_cache, cfg),
         prefill_append=lambda p, b, c: causal_lm.prefill_append(
             cfg, p, b["tokens"], c, b["prefix_len"], b["block_tables"],

@@ -1,10 +1,13 @@
-"""Causal LM, dense family: init, the training forward and loss, paged and
-capacity-dense caches, prefill, decode step and prefill-append. A Python
-loop over ``params["layers"]`` replaces the reference's scanned stack (the
-converter unstacks the reference's layer axis); ``cfg.remat`` checkpoints
-each layer (``torch.utils.checkpoint``), as the reference's
-``jax.checkpoint`` does its one-layer scan body. The other families come
-in a later slice of the port.
+"""Causal LM, dense and MoE families: init, the training forward and loss,
+paged and capacity-dense caches, prefill, decode step and prefill-append.
+A Python loop over ``params["layers"]`` replaces the reference's scanned
+stack (the converter unstacks the reference's layer axis); ``cfg.remat``
+checkpoints each layer (``torch.utils.checkpoint``), as the reference's
+``jax.checkpoint`` does its one-layer scan body. :func:`layer_plan` gives
+each layer's FFN kind, ``"mlp"`` or ``"moe"`` (``moe_first_dense`` leading
+dense layers, then MoE every ``moe_every``-th); a MoE layer's routing reads
+``token_mask``, which every serving entry point threads through. The
+hybrid, SSM, encdec and vlm families come in a later slice of the port.
 """
 
 from __future__ import annotations
@@ -19,16 +22,19 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.sparse_linear import linear_apply, linear_init
 from repro_torch.kernels.quant import quantize_rows
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 
 Params = Dict[str, Any]
 Cache = List[Dict[str, torch.Tensor]]
 
+PORTED_FAMILIES = ("dense", "moe")
+
 
 def _check_cfg(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r}: only the dense family is ported so far; "
-            f"the other families come in a later slice of the port")
+            f"family {cfg.family!r}: only the {PORTED_FAMILIES} families are "
+            f"ported so far; the others come in a later slice of the port")
     if cfg.kv_dtype not in ("", "int8"):
         raise ValueError(f"unsupported kv_dtype {cfg.kv_dtype!r}")
     L.check_attn_impl(cfg.attn_impl)
@@ -39,7 +45,24 @@ def _head_logits(cfg: ModelConfig, params: Params,
     return linear_apply(params["lm_head"], x)
 
 
-def layer_init(generator: torch.Generator, cfg: ModelConfig) -> Params:
+def layer_plan(cfg: ModelConfig) -> List[Tuple[str, str]]:
+    """``(mixer, ffn)`` per layer, as the reference's ``layer_plan`` gives
+    it for the ported families: every mixer attention; the FFN ``"moe"``
+    from layer ``moe_first_dense`` on, every ``moe_every``-th layer (the
+    last of each period), else ``"mlp"``."""
+    plan = []
+    for i in range(cfg.num_layers):
+        ffn = "mlp"
+        if cfg.num_experts and i >= cfg.moe_first_dense:
+            j = i - cfg.moe_first_dense
+            if cfg.moe_every <= 1 or j % cfg.moe_every == cfg.moe_every - 1:
+                ffn = "moe"
+        plan.append(("attn", ffn))
+    return plan
+
+
+def layer_init(generator: torch.Generator, cfg: ModelConfig,
+               ffn: str = "mlp") -> Params:
     dev = generator.device
     return {
         "norm1": L.rmsnorm_init(cfg.d_model, cfg.p_dtype, dev),
@@ -47,8 +70,9 @@ def layer_init(generator: torch.Generator, cfg: ModelConfig) -> Params:
                                   cfg.num_kv_heads, cfg.head_dim,
                                   qkv_bias=cfg.qkv_bias, dtype=cfg.p_dtype),
         "norm2": L.rmsnorm_init(cfg.d_model, cfg.p_dtype, dev),
-        "ffn": L.swiglu_init(generator, cfg.d_model, cfg.d_ff,
-                             dtype=cfg.p_dtype),
+        "ffn": (MOE.moe_init(generator, cfg) if ffn == "moe" else
+                L.swiglu_init(generator, cfg.d_model, cfg.d_ff,
+                              dtype=cfg.p_dtype)),
     }
 
 
@@ -64,7 +88,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
         "final_norm": L.rmsnorm_init(cfg.d_model, cfg.p_dtype, dev),
         "lm_head": linear_init(gen, cfg.d_model, cfg.vocab_size,
                                dtype=cfg.p_dtype),
-        "layers": [layer_init(gen, cfg) for _ in range(cfg.num_layers)],
+        "layers": [layer_init(gen, cfg, ffn) for _, ffn in layer_plan(cfg)],
     }
 
 
@@ -112,8 +136,11 @@ def _layer_body(lp: Params, x: torch.Tensor, cfg: ModelConfig, *,
                 cache_len: Optional[torch.Tensor] = None,
                 block_tables: Optional[torch.Tensor] = None,
                 suffix_len: Optional[torch.Tensor] = None,
+                token_mask: Optional[torch.Tensor] = None,
                 ) -> Tuple[torch.Tensor, Params]:
-    """One transformer layer: (x', the attention block's K/V or pages)."""
+    """One transformer layer: (x', the attention block's K/V or pages).
+    ``token_mask`` (B, S) marks the tokens that may claim MoE expert
+    capacity (None: all); attention and the dense MLP ignore it."""
     h = L.rmsnorm(lp["norm1"], x, cfg.norm_eps)
     out, kv = L.attention_apply(
         lp["mixer"], h, n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads,
@@ -123,6 +150,9 @@ def _layer_body(lp: Params, x: torch.Tensor, cfg: ModelConfig, *,
         q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
     x = x + out
     h2 = L.rmsnorm(lp["norm2"], x, cfg.norm_eps)
+    if "router" in lp["ffn"]:
+        return x + MOE.moe_apply(lp["ffn"], h2, cfg,
+                                 token_mask=token_mask), kv
     return x + L.swiglu_apply(lp["ffn"], h2), kv
 
 
@@ -131,6 +161,7 @@ def layer_apply(lp: Params, x: torch.Tensor, cfg: ModelConfig, *,
                 cache_len: Optional[torch.Tensor] = None,
                 block_tables: Optional[torch.Tensor] = None,
                 suffix_len: Optional[torch.Tensor] = None,
+                token_mask: Optional[torch.Tensor] = None,
                 ) -> Tuple[torch.Tensor, Params]:
     """One serving layer; returns the layer's KV (fresh prefill K/V in
     ``cache_dtype``, or under ``kv_dtype="int8"`` quantized on emission to
@@ -139,7 +170,8 @@ def layer_apply(lp: Params, x: torch.Tensor, cfg: ModelConfig, *,
     shares (see ``_step_tables``)."""
     x, kv = _layer_body(lp, x, cfg, rope_cs=rope_cs, kv_dest=kv_dest,
                         cache=cache, cache_len=cache_len,
-                        block_tables=block_tables, suffix_len=suffix_len)
+                        block_tables=block_tables, suffix_len=suffix_len,
+                        token_mask=token_mask)
     if cache is None and cfg.kv_dtype == "int8":
         kc, ks = quantize_rows(kv["k"])
         vc, vs = quantize_rows(kv["v"])
@@ -201,21 +233,30 @@ def loss_fn(cfg: ModelConfig, params: Params,
     return L.cross_entropy(logits, batch["targets"], batch.get("mask"))
 
 
+def _mask(token_mask, like: torch.Tensor) -> Optional[torch.Tensor]:
+    return None if token_mask is None else torch.as_tensor(
+        token_mask, device=like.device).to(torch.bool)
+
+
 def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
-            length: Optional[torch.Tensor] = None
+            length: Optional[torch.Tensor] = None,
+            token_mask: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Cache]:
     """Serving prefill: last-position logits ``(B, 1, V)`` + each layer's
     K/V ``(B, S, Hkv, D)``. ``length`` (B,) gives each row's true prompt
     length when ``tokens`` is right-padded: logits are taken at
-    ``length - 1``; causality keeps the pads invisible to real positions."""
+    ``length - 1``; causality keeps the pads invisible to real positions.
+    ``token_mask`` (B, S) keeps pad positions and rows out of MoE expert
+    capacity."""
     _check_cfg(cfg)
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
     x = _embed_tokens(cfg, params, tokens)
     shared = _step_tables(cfg, positions)
+    token_mask = _mask(token_mask, tokens)
     cache: Cache = []
     for lp in params["layers"]:
-        x, kv = layer_apply(lp, x, cfg, **shared)
+        x, kv = layer_apply(lp, x, cfg, token_mask=token_mask, **shared)
         cache.append(kv)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if length is None:
@@ -228,13 +269,16 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
 
 def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                 cache: Cache, cache_len: torch.Tensor,
-                block_tables: Optional[torch.Tensor] = None
+                block_tables: Optional[torch.Tensor] = None,
+                token_mask: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Cache]:
     """One serving step: tokens (B, 1) + cache → (logits (B, 1, V), cache).
     ``cache_len`` is a scalar (uniform batch) or (B,): slot b writes its
     K/V at position ``cache_len[b]`` and attends to its own history —
     through ``block_tables`` (B, n_cols) over a paged cache, or in its own
-    rows of a capacity-dense cache (``block_tables`` None)."""
+    rows of a capacity-dense cache (``block_tables`` None). ``token_mask``
+    (B, 1) marks the rows that may claim MoE expert capacity (the engine
+    passes ``lens > 0``; None: every row routes)."""
     _check_cfg(cfg)
     b = tokens.shape[0]
     cache_len = torch.as_tensor(cache_len, dtype=torch.int32,
@@ -244,10 +288,11 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     shared = (_step_tables(cfg, positions) if block_tables is None else
               _step_tables(cfg, positions, block_tables, cache_len,
                            page_size=cache[0]["k"].shape[1]))
+    token_mask = _mask(token_mask, tokens)
     for lp, c in zip(params["layers"], cache):
         x, _ = layer_apply(lp, x, cfg, cache=c,
                            cache_len=cache_len, block_tables=block_tables,
-                           **shared)
+                           token_mask=token_mask, **shared)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return _head_logits(cfg, params, x), cache
 
@@ -264,7 +309,8 @@ def prefill_append(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     (B,) the true suffix lengths. Each layer writes its suffix K/V at
     ``prefix_len + j`` and attends to prefix + suffix through the pages.
     Returns last-real-token logits (B, 1, V), or with ``all_logits`` the
-    logits of every suffix position (B, S, V)."""
+    logits of every suffix position (B, S, V). A MoE layer routes only the
+    real suffix positions (the reference's ``valid`` mask)."""
     _check_cfg(cfg)
     b, s = tokens.shape
     dev = tokens.device
@@ -275,10 +321,12 @@ def prefill_append(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     x = _embed_tokens(cfg, params, tokens)
     shared = _step_tables(cfg, positions, block_tables, prefix_len, slen,
                           page_size=cache[0]["k"].shape[1])
+    token_mask = (torch.arange(s, device=dev)[None] < slen[:, None]
+                  if cfg.num_experts else None)
     for lp, c in zip(params["layers"], cache):
         x, _ = layer_apply(lp, x, cfg, cache=c,
                            cache_len=prefix_len, block_tables=block_tables,
-                           suffix_len=slen, **shared)
+                           suffix_len=slen, token_mask=token_mask, **shared)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if all_logits:
         return _head_logits(cfg, params, x), cache

@@ -24,6 +24,13 @@ Free slots ride along as garbage rows: their length is 0 (and on a paged
 pool their table row is zero, so their writes land in the null page) and
 their output is dropped.
 
+MoE families, as in the reference: routing couples tokens through the
+expert capacity, so the engine threads a ``token_mask`` into every prefill
+(real positions of real rows) and every decode step (``lens > 0``), and
+garbage rows never claim capacity. Their cold prefill runs at exact length
+(``pad_prefill`` is on for the dense and vlm families only), one dispatch
+per prompt length, and the prefix cache is silently off.
+
 Quantized serving: ``kv_dtype="int8"`` stores the pool as int8 codes with
 per-row, per-kv-head fp32 scales; ``weight_dtype="int8"`` quantizes the
 packed tiles to int8 codes with one fp32 scale per tile at engine build.
@@ -95,6 +102,10 @@ from repro_torch.serving.speculative import (DraftModel, accept_draft,
 
 PyTree = Any
 
+# families whose cold prefill right-pads prompts to a shared bucket; the
+# others prefill at exact length, grouped by prompt length
+_PADDED_FAMILIES = ("dense", "vlm")
+
 
 def sample_tokens(logits: torch.Tensor, generator: torch.Generator,
                   temps: torch.Tensor, topks: torch.Tensor,
@@ -131,6 +142,7 @@ class EngineConfig:
     seed: int = 0
     max_admit_per_step: Optional[int] = None  # None → fill every free slot
     min_bucket: int = 8
+    pad_prefill: Optional[bool] = None        # None → auto by model family
     # block-paged KV: page_size > 0 keeps attention K/V in a shared page
     # pool indexed by per-slot block tables (kv_pages None → full
     # provisioning; fewer pages oversubscribe the pool and admission
@@ -222,7 +234,9 @@ class InferenceEngine:
         self.ec = ec
         self.params = params
         self.fns = model_fns(cfg)
-        if cfg.attn_impl in FLASH_ATTN_IMPLS:
+        self.pad_prefill = (cfg.family in _PADDED_FAMILIES
+                            if ec.pad_prefill is None else ec.pad_prefill)
+        if cfg.attn_impl in FLASH_ATTN_IMPLS and self.pad_prefill:
             bad = [b for b in self._buckets() if not self._chunks_fit(b)]
             if bad:
                 raise ValueError(
@@ -239,8 +253,10 @@ class InferenceEngine:
                                  ec.capacity, device=self.device)
         self.sched = Scheduler(ec.n_slots)
         # prefix sharing and preemption read pages: paged pools only, as in
-        # the reference (which ignores prefix_cache on an unpaged pool)
-        self.prefix_cache = bool(ec.prefix_cache) and self.paged
+        # the reference (which ignores prefix_cache on an unpaged pool, and
+        # for the families it prefills at exact length)
+        self.prefix_cache = (bool(ec.prefix_cache) and self.paged
+                             and cfg.family in _PADDED_FAMILIES)
         # speculative decoding: verification is a prefill_append over the
         # pages and rollback truncates them, so it needs the paged pool
         self.spec = ec.spec_k > 0
@@ -640,6 +656,8 @@ class InferenceEngine:
     # -- internals ---------------------------------------------------------
 
     def _bucket(self, n: int) -> int:
+        if not self.pad_prefill:
+            return n
         return prefill_bucket(n, self.ec.min_bucket, self.ec.capacity,
                               flash_chunks(self.cfg))
 
@@ -724,7 +742,8 @@ class InferenceEngine:
         """ONE prefill for a batch of admissions. Prompts are right-padded
         to the largest member's bucket and rows to the next tier; pad rows
         alias the group's first slot but carry zero table rows, so their
-        KV lands in the null page."""
+        KV lands in the null page. The token mask keeps pad positions and
+        rows out of MoE expert capacity."""
         k = len(group)
         bucket = max(self._bucket(req.prompt_len) for req, _ in group)
         k_pad = next(t for t in self._row_tiers() if t >= k)
@@ -733,17 +752,20 @@ class InferenceEngine:
         temps = np.zeros((k_pad,), np.float32)
         topks = np.zeros((k_pad,), np.int32)
         slots = np.zeros((k_pad,), np.int32)
+        mask = np.zeros((k_pad, bucket), bool)
         for i, (req, slot) in enumerate(group):
             p = req.prompt_len
             toks[i, :p] = req.prompt
             lens[i] = p
+            mask[i, :p] = True
             temps[i] = req.temperature
             topks[i] = req.top_k
             slots[i] = slot
         slots[k:] = slots[0]
         logits, pcache = self.fns.prefill(
             self.params, {"tokens": self._tensor(toks),
-                          "length": self._tensor(lens)})
+                          "length": self._tensor(lens),
+                          "token_mask": self._tensor(mask)})
         tok, ok = self._sample(logits[:, -1], temps, topks)
         self.pool.insert_rows(pcache, slots, lens[:k])
         self.stats["prefills"] += 1
@@ -907,8 +929,18 @@ class InferenceEngine:
             cold = [(r, s) for r, s in admitted if r.prefix_hit == 0]
             if hits:
                 finished.extend(self._admit_group_append(hits))
-            if cold:
+            if cold and self.pad_prefill:
+                # padded families: ONE merged dispatch for the whole batch
+                # of admissions, whatever their prompt lengths
                 finished.extend(self._admit_group(cold))
+            elif cold:
+                # exact-length families (MoE): one dispatch per prompt
+                # length, in order of first appearance
+                groups: Dict[int, List] = {}
+                for req, slot in cold:
+                    groups.setdefault(req.prompt_len, []).append((req, slot))
+                for group in groups.values():
+                    finished.extend(self._admit_group(group))
 
         # requests whose first (prefill-sampled) token already completed them
         for slot, req in list(self.sched.active.items()):
@@ -934,10 +966,15 @@ class InferenceEngine:
             rows = self.ec.n_slots * self.ec.capacity
             self.stats["kv_bytes_read"] += rows * self._kv_row_bytes
             self.stats["kv_bytes_read_live"] += rows * self._kv_row_bytes
+        # free slots are garbage rows: lens > 0 marks a live request, and
+        # only live rows may claim MoE expert capacity
         logits, self.pool.cache = self.fns.decode_step(
             self.params, {"tokens": self._tensor(self._tokens),
                           "cache_len": self._tensor(self.pool.lens),
-                          "block_tables": bt}, self.pool.cache)
+                          "block_tables": bt,
+                          "token_mask": self._tensor(
+                              self.pool.lens > 0)[:, None]},
+            self.pool.cache)
         next_tok, ok = self._sample(logits[:, -1], self._temps, self._topks)
         if faults is not None and faults.fires(self._step_idx, "nan_logits"):
             slots_live = sorted(self.sched.active)
@@ -1365,7 +1402,9 @@ class InferenceEngine:
                 logits, self.pool.cache = self.fns.decode_step(
                     self.params, {"tokens": self._tensor(lens0[:, None]),
                                   "cache_len": self._tensor(lens0),
-                                  "block_tables": bt}, self.pool.cache)
+                                  "block_tables": bt,
+                                  "token_mask": self._tensor(
+                                      lens0 > 0)[:, None]}, self.pool.cache)
                 self._sample(logits[:, -1], np.zeros((n,), np.float32),
                              lens0)
                 sample_both(logits[:, -1])

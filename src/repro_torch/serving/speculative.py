@@ -129,8 +129,10 @@ def accept_draft(rows: np.ndarray, props: Sequence[int],
 class DraftModel:
     """Model-based drafter: a small ``causal_lm`` sharing the target's
     token space, serving proposals out of its own capacity-dense
-    :class:`SlotPool` on the engine's device. The port's only family is
-    dense, so the drafter is pure attention and can rewind.
+    :class:`SlotPool` on the engine's device. The port's families (dense,
+    MoE) are pure attention, so the drafter can rewind; a MoE drafter's
+    routing sees only real tokens (pad positions and free slots are
+    masked out of expert capacity, as in the engine).
 
     Protocol driven by the engine:
 
@@ -173,15 +175,18 @@ class DraftModel:
                      for req, _ in group)
         toks = np.zeros((k, bucket), np.int32)
         lens = np.ones((k,), np.int32)
+        mask = np.zeros((k, bucket), bool)
         slots = np.zeros((k,), np.int32)
         for i, (req, slot) in enumerate(group):
             p = req.prompt_len
             toks[i, :p] = req.prompt
             lens[i] = p
+            mask[i, :p] = True
             slots[i] = slot
         _, pcache = self.fns.prefill(
             self.params, {"tokens": self._tensor(toks),
-                          "length": self._tensor(lens)})
+                          "length": self._tensor(lens),
+                          "token_mask": self._tensor(mask)})
         self.pool.insert_rows(pcache, slots, lens)
 
     def propose(self, active: List[Tuple[int, Request]],
@@ -219,7 +224,9 @@ class DraftModel:
         for j in range(k):
             logits, self.pool.cache = self.fns.decode_step(
                 self.params, {"tokens": self._tensor(toks),
-                              "cache_len": self._tensor(self.pool.lens)},
+                              "cache_len": self._tensor(self.pool.lens),
+                              "token_mask": self._tensor(
+                                  self.pool.lens > 0)[:, None]},
                 self.pool.cache)
             last = logits[:, -1]
             if greedy_only:

@@ -730,3 +730,103 @@ def test_paged_split_counters_back_at_zero(cuda, int8, s):
     torch.cuda.synchronize()
     counters = K.split_counters(cuda, plan.units)[:plan.units]
     assert int(torch.count_nonzero(counters)) == 0
+
+
+# -- expert-batched forms (MoE: E stacked experts, one launch) --------------
+
+
+def _stacked_packed(rng, e, n, k, dtype, dev, int8=False):
+    w = torch.as_tensor(rng.normal(size=(e, n, k)) * k ** -0.5,
+                        dtype=torch.float32, device=dev)
+    p = tbcrc_pack(w, BCRSpec(block_shape=(128, 128), keep_frac=0.25,
+                              align=8))
+    if int8:
+        return quantize_packed(p)
+    p.vals = p.vals.to(dtype)
+    return p
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("m", [1, 4, 37, 240])
+def test_expert_batched_bcr_spmm_matches_plain(cuda, dtype, int8, m):
+    """E = 5 experts of deepseek's down projection shape cut to 2 block
+    columns (256 x 384): one launch, each expert against its plain
+    version."""
+    rng = np.random.default_rng(12)
+    p = _stacked_packed(rng, 5, 256, 384, dtype, cuda, int8)
+    x = torch.as_tensor(rng.normal(size=(5, m, 384)), dtype=dtype,
+                        device=cuda)
+    key = "bcr_spmm_int8" if int8 else "bcr_spmm"
+    before = K.LAUNCHES[key]
+    got = K.bcr_spmm(x, p)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES[key] == before + 1
+    assert got.shape == (5, m, 256)
+    _close(got, ref.bcr_spmm_packed_ref(x, p), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("epilogue,bias", [(None, False), ("swiglu", True)])
+@pytest.mark.parametrize("m", [4, 240])
+def test_expert_batched_bcr_spmm_grouped_matches_plain(cuda, dtype, int8,
+                                                       epilogue, bias, m):
+    rng = np.random.default_rng(13)
+    g = pack_group([_stacked_packed(rng, 5, 384, 256, torch.float32, cuda)
+                    for _ in range(2)])
+    if int8:
+        g = quantize_grouped(g)
+    else:
+        g.vals = g.vals.to(dtype)
+    x = torch.as_tensor(rng.normal(size=(5, m, 256)), dtype=dtype,
+                        device=cuda)
+    b = (torch.as_tensor(rng.normal(size=(5, 2, 384)), dtype=torch.float32,
+                         device=cuda) if bias else None)
+    key = "bcr_spmm_grouped_int8" if int8 else "bcr_spmm_grouped"
+    before = K.LAUNCHES[key]
+    got = K.bcr_spmm_grouped(x, g, bias=b, epilogue=epilogue)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES[key] == before + 1
+    want = ref.bcr_spmm_grouped_ref(x, g, bias=b, epilogue=epilogue)
+    if epilogue is None:
+        want = want.transpose(1, 2)
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_expert_batched_split_path(cuda, int8):
+    """Two experts of deepseek's gate/up at M = 4 take the one-launch split
+    (64 would fill the card unsplit): two launches bit-equal, right, and
+    every expert's counters back at zero."""
+    rng = np.random.default_rng(14)
+    g = pack_group([_stacked_packed(rng, 2, 1408, 2048, torch.float32, cuda)
+                    for _ in range(2)])
+    g = quantize_grouped(g) if int8 else g
+    if not int8:
+        g.vals = g.vals.to(torch.bfloat16)
+    x = torch.as_tensor(rng.normal(size=(2, 4, 2048)), dtype=torch.bfloat16,
+                        device=cuda)
+    plan = K.launch_plan(4, 1408, 2048, 2, (128, 128), (64, 64),
+                         torch.cuda.get_device_properties(
+                             cuda).multi_processor_count, int8, experts=2)
+    assert plan.splits > 1
+    first = K.bcr_spmm_grouped(x, g, epilogue="swiglu")
+    second = K.bcr_spmm_grouped(x, g, epilogue="swiglu")
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    _close(first, ref.bcr_spmm_grouped_ref(x, g, epilogue="swiglu"),
+           torch.bfloat16)
+    counters = K.split_counters(cuda, plan.tiles)[:plan.tiles]
+    assert int(torch.count_nonzero(counters)) == 0
+
+
+def test_expert_batched_wrappers_reject_bad_inputs(cuda):
+    rng = np.random.default_rng(15)
+    p = _stacked_packed(rng, 3, 256, 256, torch.bfloat16, cuda)
+    with pytest.raises(ValueError):          # 2-D x over stacked experts
+        K.bcr_spmm(torch.zeros((4, 256), dtype=torch.bfloat16, device=cuda),
+                   p)
+    with pytest.raises(ValueError):          # expert counts differ
+        K.bcr_spmm(torch.zeros((2, 4, 256), dtype=torch.bfloat16,
+                               device=cuda), p)

@@ -7,9 +7,10 @@
   kernel as its yardstick, only inside a ``_library_*`` function.
 * Entry points (serving and training) default to the card: without one
   visible they raise instead of running on the CPU.
-* Options not ported yet raise ``NotImplementedError``; the quantized
-  serving options, the prefix cache, speculative decoding and the
-  capacity-dense pool are accepted, and an unknown ``attn_impl`` raises.
+* Options not ported yet raise ``NotImplementedError`` (the hybrid, SSM,
+  encdec and vlm families among them); the quantized serving options, the
+  prefix cache, speculative decoding, the capacity-dense pool and the MoE
+  family are accepted, and an unknown ``attn_impl`` raises.
 """
 
 import ast
@@ -184,12 +185,17 @@ def test_prefix_cache_engine_serves():
     eng.check_conservation()
 
 
-def test_unported_model_options_raise():
+@pytest.mark.parametrize("family", ["hybrid", "ssm", "encdec", "vlm"])
+def test_unported_model_options_raise(family):
+    """The families still to port raise at the model's entry point; the
+    registry refuses jamba (hybrid: mamba mixers and MoE)."""
     from repro_torch.models import causal_lm
     with pytest.raises(NotImplementedError):
         causal_lm.init_params(tcfgs.ModelConfig(
-            name="x", family="moe", num_layers=1, d_model=8, num_heads=2,
+            name="x", family=family, num_layers=1, d_model=8, num_heads=2,
             num_kv_heads=2, d_ff=8, vocab_size=8), device="cpu")
+    with pytest.raises(NotImplementedError):
+        tcfgs.get_config("jamba-v0.1-52b")
 
 
 @pytest.mark.parametrize("option", ["kv_dtype", "weight_dtype"])
