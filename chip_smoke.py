@@ -211,6 +211,9 @@ PORT = "src/repro_torch/kernels/csrc"
 # 60
 MOE_ARCH, MOE_LAYERS = "deepseek-moe-16b", 4
 EXPERTS, EXPERT_MS = 64, (4, 240)
+# phase 12b's fp32 M a expert: 2 decode slots, and its 300-token
+# prompt (one group, capacity_factor 8: 300 x 6 x 8 / 64 -> 228)
+EXPERT_FP32_MS = (4, 228)
 EXPERT_FORMS = {"bcr_spmm_experts": "experts wo 64x2048x1408 M=4",
                 "bcr_spmm_int8_experts": "experts wo 64x2048x1408 M=4",
                 "bcr_spmm_grouped_experts": "experts wgi 64x2x1408x2048 M=4",
@@ -566,22 +569,35 @@ def bcr_instruction_check(lib_path: Path) -> None:
             + ", ".join(sorted(rows[form], key=lambda t: int(t.split()[2][:-1]))))
     log("  fp32 x (every form): CUDA-core FMAs, no HMMA/HGMMA")
     # the expert-batched forms are these kernels with the expert on a grid
-    # axis: every BCR body reads it (tensor cores: blockIdx.y, CUDA cores:
-    # blockIdx.z), so one launch covers E experts
-    axes = {}
+    # axis: every stacked tensor-core instantiation (STACKED = 1) reads
+    # blockIdx.y and every CUDA-core body blockIdx.z, so one launch covers E
+    # experts; the unstacked tensor-core instantiations read no expert axis
+    # at all (no expert arithmetic on the dense family's path)
+    axes = {"Y": 0, "Z": 0, "none": 0}
     for name, lines in sass_functions(lib_path).items():
         if "bcr_spmm" not in name:
             continue
+        tc = re.search(r"_tcILb[01]ELi\d+ELi\d+ELi\d+ELi\d+ELb([01])E",
+                       name)
         axis = "Z" if "cuda_core" in name else "Y"
-        if not any(f"SR_CTAID.{axis}" in ln for ln in lines):
+        reads = any(f"SR_CTAID.{axis}" in ln for ln in lines)
+        if tc and tc.group(1) == "0":
+            if reads:
+                raise AssertionError(f"{name}: the unstacked instantiation "
+                                     f"reads SR_CTAID.Y")
+            axes["none"] += 1
+        elif not reads:
             raise AssertionError(f"{name}: no SR_CTAID.{axis} (the expert "
                                  f"grid axis) in its SASS")
-        axes.setdefault(axis, 0)
-        axes[axis] += 1
+        else:
+            axes[axis] += 1
+    if not (axes["Y"] and axes["Y"] == axes["none"]):
+        raise AssertionError(f"stacked / unstacked tensor-core kernels "
+                             f"{axes}: want one of each per configuration")
     log(f"  expert-batched forms: the same bodies, expert index read from "
-        f"SR_CTAID.Y in {axes.get('Y', 0)} tensor-core kernels (HMMA / "
-        f"HGMMA as above) and SR_CTAID.Z in {axes.get('Z', 0)} CUDA-core "
-        f"kernels")
+        f"SR_CTAID.Y in {axes['Y']} stacked tensor-core kernels (HMMA / "
+        f"HGMMA as above; their {axes['none']} unstacked twins read no "
+        f"expert axis) and SR_CTAID.Z in {axes['Z']} CUDA-core kernels")
 
 
 def tc_instruction_check(skip_lib: Path, flash_lib: Path,
@@ -1392,12 +1408,12 @@ def _library_expert_bmm(torch, x, w_t):
     return torch.bmm(x, w_t)
 
 
-def expert_packs(torch, gen, e, int8):
+def expert_packs(torch, gen, e, int8, dtype=None):
     """deepseek-moe-16b's expert projections for ``e`` experts, random
     weights from ``gen``, packed at block 128 / keep 0.25 in one batched
     pass: the down projection ``wo`` (E x 2048 x 1408) and the fused
-    gate/up ``wgi`` (E x 2 x 1408 x 2048); bf16 tiles, or int8 tiles with
-    per-tile scales."""
+    gate/up ``wgi`` (E x 2 x 1408 x 2048); ``dtype`` tiles (bf16 unless
+    given), or int8 tiles with per-tile scales."""
     from repro_torch.core.bcr import BCRSpec
     from repro_torch.core.bcrc import tbcrc_pack
     from repro_torch.kernels.plan import (pack_group, quantize_grouped,
@@ -1414,17 +1430,19 @@ def expert_packs(torch, gen, e, int8):
     if int8:
         return quantize_packed(wo), quantize_grouped(wgi)
     for p in (wo, wgi):
-        p.vals = p.vals.to(torch.bfloat16)
+        p.vals = p.vals.to(dtype or torch.bfloat16)
     return wo, wgi
 
 
 def expert_cases(torch, timer, gen, record):
     """Phase 3's expert-batched ``bcr_spmm`` (``wo``) and
-    ``bcr_spmm_grouped`` (``wgi`` with the SwiGLU epilogue), fp and int8
-    tiles under bf16 x, at deepseek-moe-16b's 64 experts and M = 4 and 240
-    a expert: one launch for all 64 (the counters say so) against the
-    plain version's loop over the experts, timed beside it and beside one
-    ``torch.bmm`` over the dense pruned expert weights."""
+    ``bcr_spmm_grouped`` (``wgi`` with the SwiGLU epilogue) at
+    deepseek-moe-16b's 64 experts: bf16 and int8 tiles under bf16 x at M =
+    4 and 240 a expert, and fp32 tiles under fp32 x (the CUDA-core body
+    that phase 12b serves) at its decode and 300-token prefill M = 4 and
+    228. Each is one launch for all 64 (the counters say so), held to the
+    plain version's loop over the experts and timed beside it and beside
+    one ``torch.bmm`` over the dense pruned expert weights."""
     from repro_torch.core.bcrc import tbcrc_unpack
     from repro_torch.kernels import bcr_spmm as K
     from repro_torch.kernels import ref
@@ -1445,22 +1463,28 @@ def expert_cases(torch, timer, gen, record):
         return out
 
     e = EXPERTS
-    for int8 in (False, True):
-        wo, wgi = expert_packs(torch, gen, e, int8)
+    bf16, fp32 = torch.bfloat16, torch.float32
+    # (int8 tiles, tile and x dtype, M a expert, tolerance, shape prefix)
+    for int8, dt, ms, tol, pre in (
+            (False, bf16, EXPERT_MS, BF16_TOL, ""),
+            (True, bf16, EXPERT_MS, BF16_TOL, ""),
+            (False, fp32, EXPERT_FP32_MS, FP32_TOL, "fp32 ")):
+        wo, wgi = expert_packs(torch, gen, e, int8, dt)
         tag = "_int8" if int8 else ""
-        log(f"expert-batched bcr_spmm{tag} / bcr_spmm_grouped{tag} (bf16 x, "
+        log(f"expert-batched bcr_spmm{tag} / bcr_spmm_grouped{tag} "
+            f"({'int8' if int8 else str(dt)[6:]} tiles, {str(dt)[6:]} x, "
             f"{e} experts, block 128, keep 0.25)")
-        w_wo = tbcrc_unpack(wo).to(torch.bfloat16).transpose(1, 2)
-        w_gi = tbcrc_unpack(wgi).to(torch.bfloat16).reshape(
+        w_wo = tbcrc_unpack(wo).to(dt).transpose(1, 2)
+        w_gi = tbcrc_unpack(wgi).to(dt).reshape(
             e, 2 * 1408, 2048).transpose(1, 2)
-        for m in EXPERT_MS:
+        for m in ms:
             for key, w, w_t, k, n, shape in (
                     (f"bcr_spmm{tag}_experts", wo, w_wo, 1408, 2048,
-                     f"experts wo 64x2048x1408 M={m}"),
+                     f"{pre}experts wo 64x2048x1408 M={m}"),
                     (f"bcr_spmm_grouped{tag}_experts", wgi, w_gi, 2048,
-                     1408, f"experts wgi 64x2x1408x2048 M={m}")):
+                     1408, f"{pre}experts wgi 64x2x1408x2048 M={m}")):
                 x = (torch.randn((e, m, k), generator=gen, device="cuda")
-                     .to(torch.bfloat16))
+                     .to(dt))
                 grouped = "grouped" in key
                 if grouped:
                     def run():
@@ -1478,12 +1502,13 @@ def expert_cases(torch, timer, gen, record):
                 got = one_launch(key, run)
                 want = plain()
                 torch.cuda.synchronize()
-                err = check_close(f"{key} {shape}", got, want, BF16_TOL)
+                err = check_close(f"{key} {shape}", got, want, tol)
                 g = 2 if grouped else 1
                 nb_r, nb_c, r, c = w.vals.shape[-4:]
+                elt = x.element_size()
                 record(key, shape, err, timer.ms(run), timer.ms(plain),
-                       nbytes(w) + e * m * (k + n) * 2,
-                       2 * e * m * g * nb_r * nb_c * r * c, torch.bfloat16,
+                       nbytes(w) + e * m * (k + n) * elt,
+                       2 * e * m * g * nb_r * nb_c * r * c, dt,
                        timer.ms(lambda: _library_expert_bmm(torch, x, w_t)))
         del wo, wgi, w_wo, w_gi
 
@@ -1679,13 +1704,10 @@ def main_traffic(np, vocab):
     return rng, [rng.integers(0, vocab, size=int(n)) for n in plens]
 
 
-def serve_main_path(torch, np, cfg, params, ec, label, frac,
-                    append_check=True):
+def serve_main_path(torch, np, cfg, params, ec, label, frac):
     """Serve the phase's 16 requests with the launch counters zeroed just
-    before and read just after; then a profiled decode window and (with
-    ``append_check``) one direct ``prefill_append`` on a live pool, held to
-    a cold prefill."""
-    from repro_torch.models import causal_lm
+    before and read just after, then a profiled decode window. Returns the
+    stats, the launches, each request's (prompt, tokens) and the engine."""
     from repro_torch.serving import FINISHED, InferenceEngine
 
     engine = InferenceEngine(cfg, params, ec, device="cuda")
@@ -1734,13 +1756,19 @@ def serve_main_path(torch, np, cfg, params, ec, label, frac,
     trajectories = [(prompts[i], r.generated) for i, r in
                     sorted(((rids.index(r.rid), r) for r in done),
                            key=lambda t: t[0])]
-    if not append_check:
-        return stats, launches, trajectories
+    return stats, launches, trajectories, engine
 
-    # one direct prefill_append on a live pool: a 100-token prefix seated by
-    # a cold prefill, then a 16-token suffix through the pages, held to a
-    # cold prefill of all 116 tokens
-    pool = engine.pool
+
+def append_vs_cold(torch, np, engine, label, stats):
+    """One direct ``prefill_append`` on the engine's live pool: a 100-token
+    prefix seated by a cold prefill, then a 16-token suffix through the
+    pages, held to a cold prefill of all 116 tokens. Dense families only:
+    a MoE layer routes the suffix under its own capacity, so its append
+    and cold outputs differ by design."""
+    from repro_torch.models import causal_lm
+
+    cfg, params, pool = engine.cfg, engine.params, engine.pool
+    rng = np.random.default_rng(7)
     toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(1, 116)),
                            dtype=torch.int32, device="cuda")
     pool.reserve(0, 116)
@@ -1768,15 +1796,15 @@ def serve_main_path(torch, np, cfg, params, ec, label, frac,
     stats["append_vs_cold_max_abs"] = err
     pool.release(0)
     pool.check_consistency()
-    return stats, launches, trajectories
 
 
 def phase_main_path(torch, np, cfg, params, frac):
     from repro_torch.serving import EngineConfig
 
     ec = EngineConfig(n_slots=8, capacity=640, page_size=16, seed=0)
-    stats, launches, traj = serve_main_path(torch, np, cfg, params, ec,
-                                            "bf16 main path", frac)
+    stats, launches, traj, engine = serve_main_path(
+        torch, np, cfg, params, ec, "bf16 main path", frac)
+    append_vs_cold(torch, np, engine, "bf16 main path", stats)
     if not all(launches[k] > 0 for k in FP_KERNELS):
         raise AssertionError(f"a kernel of the bf16 main path never "
                              f"launched: {launches}")
@@ -1789,8 +1817,9 @@ def phase_quantized_path(torch, np, cfg, params_q, frac):
     cfg = dataclasses.replace(cfg, attn_impl="pallas")
     ec = EngineConfig(n_slots=8, capacity=640, page_size=16, seed=0,
                       kv_dtype="int8", weight_dtype="int8")
-    stats, launches, traj = serve_main_path(torch, np, cfg, params_q, ec,
-                                            "quantized main path", frac)
+    stats, launches, traj, engine = serve_main_path(
+        torch, np, cfg, params_q, ec, "quantized main path", frac)
+    append_vs_cold(torch, np, engine, "quantized main path", stats)
     if not all(launches[k] > 0 for k in INT8_KERNELS):
         raise AssertionError(f"an int8 kernel of the quantized path never "
                              f"launched: {launches}")
@@ -3225,8 +3254,10 @@ def phase_moe_serving(torch, np, cfg, params, frac, quantized):
     ec = EngineConfig(n_slots=8, capacity=640, page_size=16, seed=0, **kw)
     label = ("phase 12c int8 tiles + int8 KV + flash prefill" if quantized
              else "phase 12a bf16")
-    stats, launches, traj = serve_main_path(torch, np, cfg, params, ec,
-                                            label, frac, append_check=False)
+    # no append_vs_cold here: capacity routing makes a MoE suffix's
+    # append differ from its cold prefill by design
+    stats, launches, traj, _ = serve_main_path(torch, np, cfg, params, ec,
+                                               label, frac)
     _expert_checks(cfg, stats, launches, label, quantized)
     if quantized:
         if not all(launches[k] > 0 for k in INT8_KERNELS):

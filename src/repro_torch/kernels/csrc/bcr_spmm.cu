@@ -71,8 +71,12 @@
 //     base pointers: offsetting the base pointers per expert instead put
 //     them in vector registers and slowed the unstacked decode launches by
 //     up to 70% (lm_head M=8 0.106 → 0.178 ms on an H100, PERF.md §6). The
-//     plan (M tile, split) counts every expert's output tiles; at decode an
-//     MoE layer's 64 experts × 11 or 16 block rows fill the card unsplit.
+//     expert index is a template flag (STACKED) of its own instantiations,
+//     so an unstacked launch runs code with no expert arithmetic at all:
+//     even the index form cost wq at M=32 15% against the code before it.
+//     The plan (M tile, split) counts every expert's output tiles; at decode
+//     an MoE layer's 64 experts × 11 or 16 block rows fill the card
+//     unsplit.
 //   * At small M a grid of (block rows × M tiles) leaves most SMs idle, so
 //     where the output tiles number at most half the SMs the contraction
 //     blocks of each tile are split over S CTAs of the same launch. Each
@@ -930,7 +934,8 @@ __device__ __forceinline__ void mma_block(float (&acc)[SLABS][NI][4],
 // wc) owns SLABS m16 row slabs of one member by NI n8 column tiles. wgmma
 // (the 128 tile, WM = 4): warpgroup wr owns 64 rows of one member by all
 // 128 columns, warp wc of it 16 of those rows. Warp NW is the producer.
-template <bool INT8, int MT, int SLABS, int WM, int NW>
+// STACKED: the expert is blockIdx.y; else there is one (a plain pack).
+template <bool INT8, int MT, int SLABS, int WM, int NW, bool STACKED>
 __device__ __forceinline__ void tc_body(
     const CUtensorMap* xmap, const CUtensorMap* wmap,
     const bf16* __restrict__ x, const void* __restrict__ vals,
@@ -960,7 +965,7 @@ __device__ __forceinline__ void tc_body(
   idx /= s.m_tiles;
   const int ch = idx % s.p.chunks, i = idx / s.p.chunks;
   const int m0 = mtile * MT, mt = min(MT, s.M - m0);
-  const int ex = blockIdx.y;                // the expert (0: a plain pack)
+  const int ex = STACKED ? (int)blockIdx.y : 0;   // the expert
   // this expert's output tile: its split counter and workspace slice
   const size_t gtile = (size_t)ex * s.nb_r * s.p.chunks * s.m_tiles + tile;
   const int nc0 = ch * NC;
@@ -1242,24 +1247,26 @@ __device__ __forceinline__ void tc_body(
 // One body under two names, so a profile tells bcr_spmm's launches from
 // bcr_spmm_grouped's.
 #define BCR_TC_KERNEL(NAME)                                                  \
-  template <bool INT8, int MT, int SLABS, int WM, int NW>                    \
+  template <bool INT8, int MT, int SLABS, int WM, int NW, bool STACKED>      \
   __global__ void __launch_bounds__(NW * 32 + 32, 1)                         \
   NAME(const __grid_constant__ CUtensorMap xmap,                             \
        const __grid_constant__ CUtensorMap wmap, const bf16* x,              \
        const void* vals, const float* scales, const int* row_idx,            \
        const int* col_idx, const float* bias, bf16* y, float* ws,            \
        int* counters, const Shape s) {                                       \
-    tc_body<INT8, MT, SLABS, WM, NW>(&xmap, &wmap, x, vals, scales, row_idx, \
-                                 col_idx, bias, y, ws, counters, s);         \
+    tc_body<INT8, MT, SLABS, WM, NW, STACKED>(&xmap, &wmap, x, vals, scales, \
+                                          row_idx, col_idx, bias, y, ws,     \
+                                          counters, s);                      \
   }
 BCR_TC_KERNEL(bcr_spmm_tc)
 BCR_TC_KERNEL(bcr_spmm_grouped_tc)
 #undef BCR_TC_KERNEL
 
-template <bool INT8, int MT, int SLABS, int WM, int NW>
+template <bool INT8, int MT, int SLABS, int WM, int NW, bool STACKED>
 int launch_cfg(const Shape& s, cudaStream_t stream, void** args) {
-  auto kernel = s.grouped ? bcr_spmm_grouped_tc<INT8, MT, SLABS, WM, NW>
-                          : bcr_spmm_tc<INT8, MT, SLABS, WM, NW>;
+  auto kernel = s.grouped
+                    ? bcr_spmm_grouped_tc<INT8, MT, SLABS, WM, NW, STACKED>
+                    : bcr_spmm_tc<INT8, MT, SLABS, WM, NW, STACKED>;
   static int smem_set[2] = {0, 0};   // per kernel: raise the limit once
   if (s.p.smem > smem_set[s.grouped]) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -1279,8 +1286,10 @@ int launch_cfg(const Shape& s, cudaStream_t stream, void** args) {
 template <bool INT8>
 int dispatch(const Shape& s, cudaStream_t st, void** args) {
   const int mt = s.p.mt, sl = s.p.slabs, wm = s.p.warps_m;
-#define BCR_CFG(A, B, C, D) \
-  if (mt == A && sl == B && wm == C) return launch_cfg<INT8, A, B, C, D>(s, st, args);
+#define BCR_CFG(A, B, C, D)                                          \
+  if (mt == A && sl == B && wm == C)                                 \
+    return s.E > 1 ? launch_cfg<INT8, A, B, C, D, true>(s, st, args) \
+                   : launch_cfg<INT8, A, B, C, D, false>(s, st, args);
   BCR_CFG(8, 1, 1, 8)
   BCR_CFG(8, 2, 1, 8)
   BCR_CFG(16, 1, 1, 8)

@@ -518,6 +518,41 @@ def test_moe_cold_prefill_groups_by_prompt_length(moe_models):
     assert deng.stats["prefills"] == 1
 
 
+@pytest.mark.parametrize("family,pad", [("dense", False), ("moe", True)])
+def test_pad_prefill_override(moe_models, family, pad):
+    """``EngineConfig.pad_prefill`` overrides the family default both ways:
+    a dense engine prefilling at exact length, one dispatch per prompt
+    length, and a MoE engine padding every cold prompt into one dispatch
+    (its pad rows kept out of expert capacity by the token mask). Both
+    still equal naive ``generate``."""
+    if family == "moe":
+        cfg, params = moe_models[0.0]
+    else:
+        cfg = dataclasses.replace(tcfgs.get_smoke_config("llama3.2-1b"),
+                                  cache_dtype="float32")
+        params = build_params(cfg, log=lambda *_: None, device="cpu")
+    prompts = _prompts(cfg.vocab_size, lens=(5, 9, 5, 7))
+    eng = InferenceEngine(cfg, params, EngineConfig(
+        n_slots=4, capacity=32, page_size=PS, pad_prefill=pad),
+        device="cpu")
+    assert eng.pad_prefill is pad
+    seen = []
+    prefill = eng.fns.prefill
+
+    def spy(p, batch):
+        seen.append(tuple(batch["tokens"].shape))
+        return prefill(p, batch)
+
+    eng.fns = dataclasses.replace(eng.fns, prefill=spy)
+    got = eng.generate(prompts, max_new_tokens=GEN)
+    if pad:
+        assert len(seen) == 1 and seen[0][0] == 4 and seen[0][1] >= 9
+    else:
+        assert sorted(seen) == [(1, 7), (1, 9), (2, 5)]
+    assert got == _naive(cfg, params, prompts)
+    eng.check_conservation()
+
+
 def test_moe_prefix_cache_is_ignored(moe_models):
     cfg, params = moe_models[0.0]
     eng = InferenceEngine(cfg, params, EngineConfig(
