@@ -3,12 +3,13 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --bcr-ab TREE [TREE ...]
+    python3 chip_smoke.py --paper
 
 The second form times phase 3's ``bcr_spmm*``, ``bcr_spmm_skip`` and flash
 cases for each checkout TREE (its own ``src/repro_torch``, built into its
 own ``build/``), one process per TREE in the order given, and prints them
 side by side — e.g. ``build/parent . . build/parent`` after ``git archive
-HEAD~1 | tar -x -C build/parent``.
+HEAD~1 | tar -x -C build/parent``. The third runs phases 1, 2 and 13 only.
 
 Phases, in order (any failed check raises and the script exits non-zero):
 
@@ -169,6 +170,34 @@ Phases, in order (any failed check raises and the script exits non-zero):
    with int8 tiles, int8 KV and the flash cold prefill: the int8
    expert-batched and flash counters move, every fp form stays at 0.
 
+13. The source paper's own workloads. (a) The GRU at the paper's width
+   (``models/gru.py``: d_model 1024, 2 layers, vocab 64, 8 classes, seed
+   0), masks from ``admm.finalize`` at the ``gru_rnn`` example's spec
+   ((8, 8) blocks, keep 0.1, granule 2: 2 x 4 tiles), packed by
+   ``pack_params`` under the example's config, fp32 and bf16: packed
+   ``gru_apply`` (B 32, S 24; 288 ``bcr_spmm`` launches, counted between
+   zeroed counters) against the dense masked forward and against the plain
+   version (``bcr_matmul`` routed through ``bcr_spmm``'s plain version on
+   the same card tensors), within 1e-4 (fp32) or 2e-2 x the output scale
+   (bf16); then one timestep (``gru_step_latency_fn``) at batch 1 and 32,
+   dense and packed, fp32 and bf16: p50 wall over 60 warm steps, device
+   time and launches a step (``torch.profiler``), ``bcr_spmm`` launches a
+   step (12), against the packed kernels' bound (tiles, index planes, x
+   and y over 3.35 TB/s) and the dense step (``x @ W.T``, the library);
+   and ``bcr_spmm`` alone at the GRU's shapes (M = 1, 32), timed as phase
+   3's rows. (b) ``conv_as_gemm`` of the ``cnn_im2col`` example through
+   ``bcr_spmm``, fp32 and bf16, against the plain version and the dense
+   ``cols @ W.T``: the example's conv2 (M 256, K 144, N 32) and a VGG-16
+   conv3 layer (arXiv:1409.1556: 56 x 56, 256 -> 256, 3 x 3; M 3136 an
+   image) at batch 1 and 8, (8, 16) blocks at keep 0.25, one launch each;
+   the im2col skip's dead columns. (c) Listing 1 on the card:
+   ``find_opt_blk`` over the card runner (bf16, keep 0.25), its full
+   (block, ms) curve, for the GRU's 1024 x 1024 at M 1 and 32 and
+   llama3.2-1b's MLP wo (2048 x 8192) at M 8, over (8, 8) .. (128, 128)
+   and ``default_candidates``; every finite candidate's output held to the
+   plain version. (d) The port's three examples end to end on the card
+   (``main([])``: the default device), each ending in ``OK``.
+
 Phase 3 also holds the verify dispatch's shapes: paged prefill-append with
 4 rows a slot over lengths 1..512 (ragged real rows, bf16 and int8 pages)
 and every ``bcr_spmm*`` case at M = 32 = 8 slots x (``spec_k`` + 1).
@@ -180,14 +209,19 @@ entries with their launches over phase 10a's model-drafter run,
 verify shape, ``verify_ms``; every entry its launches over phase 11
 (a)–(d), ``serving_launches``; the BCR, paged and flash entries their
 launches on phase 12, ``moe_launches``; four entries for the
-expert-batched forms, launched on phase 12 only), and the contract line.
+expert-batched forms, launched on phase 12 only; the ``bcr_spmm`` entry
+its launches in one packed fp32 GRU step at batch 1, ``gru_launches``, and
+that step's device time, ``gru_ms``, from phase 13), and the contract line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib
+import io
 import json
+import math
 import re
 import shutil
 import statistics
@@ -315,12 +349,13 @@ class Timer:
         return statistics.median(times)
 
 
-def check_close(name, got, want, tol):
+def check_close(name, got, want, tol, quiet=False):
     err = float((got.float() - want.float()).abs().max())
     scale = max(1.0, float(want.float().abs().max()))
     ok = err <= tol * scale
-    log(f"  {name}: max_abs_err {err:.3e} (tolerance {tol:g} x {scale:.3g}) "
-        f"{'ok' if ok else 'FAIL'}")
+    if not (quiet and ok):
+        log(f"  {name}: max_abs_err {err:.3e} (tolerance {tol:g} x "
+            f"{scale:.3g}) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name}: kernel disagrees with its plain "
                              f"version ({err} > {tol} x {scale})")
@@ -3570,6 +3605,344 @@ def phase_resume(torch, np, tmp_dir):
     return rel
 
 
+# -- phase 13: the source paper's own workloads on the card --------------------
+
+# the GRU at the paper's width (the reference's models/gru.py: d_model 1024
+# x 2 layers is the paper's TIMIT model), the gru_rnn example's vocab and
+# classes; gru_apply at B 32, S 24; the step at batch 1 and 32
+GRU_D, GRU_VOCAB, GRU_CLASSES, GRU_B, GRU_S = 1024, 64, 8, 32, 24
+GRU_BATCHES, GRU_REPS, GRU_PROFILED = (1, 32), 60, 10
+# (name, batch, H, W, C_in, C_out) of phase 13b's 3x3 convolutions: the
+# cnn_im2col example's conv2 (4 images of 8 x 8: M 256) and a VGG-16 conv3
+# layer (Simonyan & Zisserman, arXiv:1409.1556, ImageNet: 56 x 56, 256 ->
+# 256), at batch 1 and 8
+CONVS = (("example conv2", 4, 8, 8, 16, 32),
+         ("VGG-16 conv3", 1, 56, 56, 256, 256),
+         ("VGG-16 conv3", 8, 56, 56, 256, 256))
+# phase 13c: Listing 1's candidates beside default_candidates, and its
+# layers (name, M, K, N) at the serving keep
+LISTING1_BLOCKS = ((8, 8), (8, 16), (16, 16), (32, 32), (64, 64), (128, 128))
+LISTING1_LAYERS = (("GRU 1024x1024", 1, 1024, 1024),
+                   ("GRU 1024x1024", 32, 1024, 1024),
+                   ("llama3.2-1b MLP wo 2048x8192", 8, 8192, 2048))
+LISTING1_KEEP = 0.25
+
+
+@contextlib.contextmanager
+def plain_bcr():
+    """Inside the block ``bcr_matmul`` runs ``bcr_spmm``'s plain version on
+    the card's tensors: a whole model's plain forward on the same inputs."""
+    from repro_torch.kernels import ops, ref
+    kernel = ops.bcr_spmm
+    ops.bcr_spmm = ref.bcr_spmm_packed_ref
+    try:
+        yield
+    finally:
+        ops.bcr_spmm = kernel
+
+
+def packed_leaves(tree):
+    """Every TBCRC of a param tree."""
+    from repro_torch.core.bcrc import TBCRC
+    if isinstance(tree, TBCRC):
+        return [tree]
+    if isinstance(tree, dict):
+        return [p for v in tree.values() for p in packed_leaves(v)]
+    if isinstance(tree, list):
+        return [p for v in tree for p in packed_leaves(v)]
+    return []
+
+
+def gru_models(torch):
+    """``{dtype: (dense masked, packed)}`` for fp32 and bf16: the GRU at the
+    paper's width from seed 0, masks from ``admm.finalize`` at the
+    ``gru_rnn`` example's spec, packed by ``pack_params`` under the
+    example's config in that dtype (the head, 8 x 1024, stays dense)."""
+    from repro_torch.core import admm
+    from repro_torch.examples.gru_rnn import prune_filter, serving_config
+    from repro_torch.launch.serve import pack_params
+    from repro_torch.models.gru import gru_init
+    from repro_torch.tree import tree_map
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    dense = gru_init(gen, GRU_VOCAB, GRU_D, 2, GRU_CLASSES)
+    dense, _ = admm.finalize(dense, admm.specs_for(dense, prune_filter))
+    models = {}
+    for dt, name in ((torch.float32, "float32"),
+                     (torch.bfloat16, "bfloat16")):
+        d = tree_map(lambda t: t.to(dt), dense)
+        packed = pack_params(serving_config(GRU_D, GRU_VOCAB, name), d)
+        if len(packed_leaves(packed)) != 12:
+            raise AssertionError("phase 13a: expected 12 packed GRU matrices")
+        models[dt] = (d, packed)
+    return models
+
+
+def gru_step_stats(torch, params, batch, dtype, gen):
+    """One GRU timestep at ``batch``: p50 wall over ``GRU_REPS`` warm steps
+    (each ending in a synchronise), ``bcr_spmm`` launches in one step, and
+    device time, launches and ``bcr_spmm`` device time a step over a
+    profiled window of ``GRU_PROFILED`` steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.gru import gru_step_latency_fn
+
+    fn = gru_step_latency_fn(params)
+    h = (torch.randn((batch, GRU_D), generator=gen, device="cuda")
+         * 0.5).to(dtype)
+    x = (torch.randn((batch, GRU_D), generator=gen, device="cuda")
+         * 0.5).to(dtype)
+    for _ in range(5):
+        fn(h, x)
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(GRU_REPS):
+        t0 = time.perf_counter()
+        fn(h, x)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e6)
+    zero_counters()
+    fn(h, x)
+    torch.cuda.synchronize()
+    bcr_launches = read_counters()["bcr_spmm"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(GRU_PROFILED):
+            fn(h, x)
+        torch.cuda.synchronize()
+    events = list(device_events(torch, prof))
+    launches = sum(ev.count for ev in prof.key_averages()
+                   if getattr(ev, "device_type", None)
+                   == torch.autograd.DeviceType.CUDA)
+    return dict(
+        wall_p50_us=statistics.median(walls),
+        device_us=sum(ms for _, _, ms in events) / GRU_PROFILED * 1e3,
+        bcr_device_us=sum(ms for name, _, ms in events
+                          if "bcr_spmm" in name) / GRU_PROFILED * 1e3,
+        device_launches=launches / GRU_PROFILED, bcr_launches=bcr_launches)
+
+
+def gru_step_bound_us(torch, params, batch, dtype) -> dict:
+    """The least time of one step's matmuls on the card: every packed
+    matrix's tiles and index planes (or every dense weight) plus each
+    launch's x and y, over 3.35 TB/s, against the kept (or dense) products
+    over the dtype's peak."""
+    elt = torch.empty((), dtype=dtype).element_size()
+    peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
+    packs = packed_leaves(params["cells"])
+    if packs:
+        weights = sum(p.vals.numel() * p.vals.element_size()
+                      + (p.row_idx.numel() + p.col_idx.numel()) * 4
+                      for p in packs)
+        macs = sum(p.vals.numel() for p in packs)
+    else:
+        weights = sum(lin["w"].numel() * elt for cell in params["cells"]
+                      for lin in cell.values())
+        macs = weights // elt
+    byts = weights + 12 * 2 * batch * GRU_D * elt
+    t_bytes = byts / HBM_BYTES_PER_S * 1e6
+    t_ops = 2 * batch * macs / peak * 1e6
+    return dict(bound_us=max(t_bytes, t_ops), bound_bytes=byts,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_gru(torch, np, timer, record):
+    """Phase 13a (see the module docstring). Returns the packed fp32 step's
+    ``bcr_spmm`` launches and device ms at batch 1 (the kernels line's
+    ``gru_launches`` and ``gru_ms``)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bcr_spmm import bcr_spmm
+    from repro_torch.models.gru import gru_apply
+
+    models = gru_models(torch)
+    toks = torch.as_tensor(np.random.default_rng(13).integers(
+        0, GRU_VOCAB, size=(GRU_B, GRU_S)), device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    steps = []
+    with torch.no_grad():
+        for dt, tol in ((torch.float32, FP32_TOL),
+                        (torch.bfloat16, BF16_TOL)):
+            dense, packed = models[dt]
+            zero_counters()
+            got = gru_apply(packed, toks)
+            torch.cuda.synchronize()
+            launches = read_counters()["bcr_spmm"]
+            want = gru_apply(dense, toks)
+            with plain_bcr():
+                plain = gru_apply(packed, toks)
+            if launches != 2 * GRU_S * 6 or not bool(
+                    torch.isfinite(got).all()) or got.shape != (
+                        GRU_B, GRU_CLASSES):
+                raise AssertionError(f"phase 13a gru_apply {dt}: launches "
+                                     f"{launches}, shape {got.shape}")
+            what = f"phase 13a gru_apply {dt} B={GRU_B} S={GRU_S} packed"
+            check_close(f"{what} vs dense masked", got, want, tol)
+            check_close(f"{what} vs plain", got, plain, tol)
+            log(f"  bcr_spmm launches over gru_apply: {launches} = 2 layers "
+                f"x {GRU_S} steps x 6")
+            for batch in GRU_BATCHES:
+                for form, params in (("dense", dense), ("packed", packed)):
+                    st = gru_step_stats(torch, params, batch, dt, gen)
+                    st.update(gru_step_bound_us(torch, params, batch, dt))
+                    st.update(dtype=str(dt).split(".")[-1], batch=batch,
+                              form=form)
+                    steps.append(st)
+                    log(f"phase 13a GRU step {st['dtype']} batch {batch} "
+                        f"{form}: " + json.dumps(st))
+            # bcr_spmm alone at the GRU's shapes, timed as phase 3's rows
+            p = packed["cells"][0]["uz"]["w_packed"]
+            w_dense = dense["cells"][0]["uz"]["w"]
+            for m in GRU_BATCHES:
+                x = torch.randn((m, GRU_D), generator=gen,
+                                device="cuda").to(dt)
+                shape = (f"GRU uz {GRU_D}x{GRU_D} (8,8) keep 0.1 M={m} "
+                         f"{str(dt).split('.')[-1]}")
+                err = check_close(shape, bcr_spmm(x, p),
+                                  ref.bcr_spmm_packed_ref(x, p), tol)
+                byts = (p.vals.numel() * p.vals.element_size()
+                        + (p.row_idx.numel() + p.col_idx.numel()) * 4
+                        + 2 * m * GRU_D * x.element_size())
+                record("bcr_spmm", shape, err,
+                       timer.ms(lambda: bcr_spmm(x, p)),
+                       timer.ms(lambda: ref.bcr_spmm_packed_ref(x, p)),
+                       byts, 2 * m * p.vals.numel(), dt,
+                       timer.ms(lambda: _library_dense_matmul(x, w_dense)))
+    first = next(st for st in steps if st["dtype"] == "float32"
+                 and st["batch"] == 1 and st["form"] == "packed")
+    if any(st["bcr_launches"] != (12 if st["form"] == "packed" else 0)
+           for st in steps):
+        raise AssertionError("phase 13a: a packed step did not launch "
+                             "bcr_spmm once a matrix")
+    del models
+    torch.cuda.empty_cache()
+    return first["bcr_launches"], first["device_us"] / 1e3
+
+
+def phase_cnn(torch, timer, record):
+    """Phase 13b (see the module docstring)."""
+    from repro_torch.core.bcr import bcr_mask
+    from repro_torch.core.bcrc import tbcrc_pack
+    from repro_torch.examples.cnn_im2col import conv_as_gemm, im2col, spec_for
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ops import bcr_matmul
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    with torch.no_grad():
+        for name, b, hh, ww, cin, cout in CONVS:
+            k = 9 * cin
+            w = torch.randn((cout, k), generator=gen, device="cuda") \
+                * k ** -0.5
+            spec = spec_for(w)
+            mask = bcr_mask(w, spec)
+            dead = int((mask.sum(0) == 0).sum())
+            x = torch.randn((b, hh, ww, cin), generator=gen, device="cuda")
+            for dt, tol in ((torch.float32, FP32_TOL),
+                            (torch.bfloat16, BF16_TOL)):
+                packed = tbcrc_pack(w, spec)
+                packed.vals = packed.vals.to(dt)
+                w_dense = (w * mask).to(dt)
+                xd = x.to(dt)
+                zero_counters()
+                got = conv_as_gemm(xd, packed, 3, 3, cout)
+                torch.cuda.synchronize()
+                if read_counters()["bcr_spmm"] != 1:
+                    raise AssertionError(f"phase 13b {name}: not one launch")
+                with plain_bcr():
+                    plain = conv_as_gemm(xd, packed, 3, 3, cout)
+                cols = im2col(xd, 3, 3)
+                m = cols.shape[0]
+                shape = (f"{name} B={b} M={m} K={k} N={cout} "
+                         f"{spec.block_shape} keep 0.25 "
+                         f"{str(dt).split('.')[-1]}")
+                err = check_close(f"{shape} vs plain", got, plain, tol)
+                check_close(f"{shape} vs dense cols @ W.T", got,
+                            conv_as_gemm(xd, w_dense, 3, 3, cout), tol)
+                byts = ((m * k + m * cout) * cols.element_size()
+                        + packed.vals.numel() * packed.vals.element_size()
+                        + (packed.row_idx.numel()
+                           + packed.col_idx.numel()) * 4)
+                record("bcr_spmm", shape, err,
+                       timer.ms(lambda: bcr_matmul(cols, packed)),
+                       timer.ms(lambda: ref.bcr_spmm_packed_ref(cols, packed),
+                                reps=5),
+                       byts, 2 * m * packed.vals.numel(), dt,
+                       timer.ms(lambda: _library_dense_matmul(cols, w_dense)))
+                del cols, plain, got
+            log(f"phase 13b {name} ({cout}x{k}, blocks {spec.block_shape}, "
+                f"kept {tuple(packed.vals.shape[-2:])}): im2col skip "
+                f"{dead}/{k} patch columns never expanded")
+    torch.cuda.empty_cache()
+
+
+def phase_listing1(torch):
+    """Phase 13c (see the module docstring)."""
+    from repro_torch.core import block_search as BS
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bcr_spmm import bcr_spmm
+
+    def run(layer):
+        t = BS.wallclock_runner(layer, iters=20, device="cuda")
+        if math.isfinite(t):
+            x, p = BS.synth_operands(layer, device="cuda")
+            check_close(f"phase 13c {layer.block_shape} M={layer.m}",
+                        bcr_spmm(x, p), ref.bcr_spmm_packed_ref(x, p),
+                        BF16_TOL, quiet=True)
+        return t
+
+    for name, m, k, n in LISTING1_LAYERS:
+        cands = list(dict.fromkeys(LISTING1_BLOCKS
+                                   + tuple(BS.default_candidates(n, k))))
+        size, log_ = BS.find_opt_blk(m, k, n, LISTING1_KEEP, cands,
+                                     run_layer=run)
+        curve = [(list(b), t * 1e3) for b, t in log_]
+        log(f"phase 13c Listing 1, {name} M={m} keep {LISTING1_KEEP} bf16: "
+            f"chosen {size}; (block, ms): " + json.dumps(curve))
+
+
+def phase_examples(torch):
+    """Phase 13d: the port's three examples through ``main([])`` (their
+    default device, the card); each must end in ``OK``."""
+    from repro_torch.examples import cnn_im2col, gru_rnn, quickstart
+
+    for name, mod in (("quickstart", quickstart), ("gru_rnn", gru_rnn),
+                      ("cnn_im2col", cnn_im2col)):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            mod.main([])
+        lines = buf.getvalue().strip().splitlines()
+        for ln in lines:
+            log(f"  {name}: {ln}")
+        if not lines or lines[-1] != "OK":
+            raise AssertionError(f"phase 13d: {name} did not end in OK")
+        log(f"phase 13d {name}: OK in {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+
+
+def phase_paper(torch, np):
+    """Phase 13: (a)–(d). Returns the packed fp32 GRU step's ``bcr_spmm``
+    launches and device ms at batch 1."""
+    rows = []
+    timer, record = Timer(torch), recorder(torch, rows)
+    t0 = time.perf_counter()
+    gru_launches, gru_ms = phase_gru(torch, np, timer, record)
+    t1 = time.perf_counter()
+    phase_cnn(torch, timer, record)
+    del timer
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    phase_listing1(torch)
+    t3 = time.perf_counter()
+    phase_examples(torch)
+    log("phase 13 kernel cases: " + json.dumps(rows))
+    log(f"phase 13: (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) "
+        f"{t3 - t2:.1f} s, (d) {time.perf_counter() - t3:.1f} s")
+    return gru_launches, gru_ms
+
+
 def bcr_worker(tree: str) -> int:
     """``--bcr-worker TREE``: :func:`bcr_cases`, :func:`paged_cases`,
     :func:`skip_cases` and :func:`flash_cases` against TREE's own
@@ -3644,9 +4017,10 @@ def main() -> int:
         return bcr_ab(sys.argv[2:])
     if sys.argv[1:2] == ["--bcr-worker"] and len(sys.argv) == 3:
         return bcr_worker(sys.argv[2])
-    if len(sys.argv) > 1:
-        print("usage: chip_smoke.py [--bcr-ab TREE... | --bcr-worker TREE]",
-              file=sys.stderr)
+    paper_only = sys.argv[1:] == ["--paper"]
+    if len(sys.argv) > 1 and not paper_only:
+        print("usage: chip_smoke.py [--bcr-ab TREE... | --bcr-worker TREE | "
+              "--paper]", file=sys.stderr)
         return 2
     import numpy as np
     import torch
@@ -3679,6 +4053,10 @@ def main() -> int:
     bcr_instruction_check(paths["bcr_spmm"])
     tc_instruction_check(paths["bcr_spmm_skip"], paths["flash_attention"],
                          paths["paged_attention"])
+    if paper_only:
+        phase_paper(torch, np)
+        log(smi)
+        return 0
 
     log("phase 3, kernels against their plain versions")
     t0 = time.perf_counter()
@@ -3785,6 +4163,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"phase 12: {time.perf_counter() - t0:.1f} s")
 
+    log("phase 13, the source paper's own workloads (the GRU, the im2col "
+        "CNN, Listing 1, the examples)")
+    t0 = time.perf_counter()
+    gru_launches, gru_ms = phase_paper(torch, np)
+    log(f"phase 13: {time.perf_counter() - t0:.1f} s")
+
     # one entry per kernel form at its decode-step shape (M = 8 slots) or,
     # for flash, the largest cold-prefill bucket; launches from the main
     # path that runs it (for bcr_spmm_skip, the trained-weight runs of the
@@ -3824,6 +4208,9 @@ def main() -> int:
                                and r["shape"] == VERIFY_ROWS[name]))
         if name == "flash_attention_fused":
             kernels[-1]["verify_launches"] = verify_launches_q[name]
+        if name == "bcr_spmm":
+            # phase 13a's path: one packed fp32 GRU step at batch 1
+            kernels[-1].update(gru_launches=gru_launches, gru_ms=gru_ms)
         if name in ("paged_attention", "paged_attention_int8"):
             # the prefill-append form: its launches on phase 9a's shared
             # run, its time at phase 9a's append admission (phase 3)

@@ -22,6 +22,10 @@ plan vectors included — carry a leading repeat axis. The converter unstacks
 that axis into the port's ``params["layers"]`` list, in the reference's
 execution order (unscanned ``prefix`` layers first).
 
+``from_jax_gru`` converts the reference's GRU (``models/gru.py``: embed,
+cells, head; dense, or packed by its ``pack_params``) with the same leaf
+rules.
+
 ``from_jax_train_state`` carries a reference ``TrainState`` across the same
 way: params, AdamW moments (nested like the params) and step, and the ADMM
 Z/U trees (None on unpruned leaves) or the retrain masks. ``from_jax_skip``
@@ -139,6 +143,18 @@ def from_jax_params(tree: Any, cfg: ModelConfig, device="cuda") -> dict:
         "lm_head": _convert(tree["lm_head"], None, cfg, dev),
         "layers": layers,
     }
+
+
+def from_jax_gru(tree: Any, cfg: ModelConfig, device="cuda") -> dict:
+    """The port's GRU params for a reference GRU tree of numpy leaves. Its
+    linears are dense ``{"w"}`` or, after the reference's ``pack_params``
+    under ``cfg``, ``{"w_packed": TBCRC}``, whose fp vals are cast to
+    ``cfg.dtype`` as the port's ``pack_params`` leaves them."""
+    if set(tree) != {"embed", "cells", "head"}:
+        raise ValueError(f"not a GRU tree: keys {sorted(tree)}")
+    dev = resolve_device(device)
+    return {k: _convert(tree[k], None, cfg, dev)
+            for k in ("embed", "cells", "head")}
 
 
 def from_jax_train_state(state: Any, cfg: ModelConfig, device="cuda"):

@@ -1,20 +1,114 @@
-"""TBCRC — the packed balanced-BCR layout the sparse-matmul kernels consume.
+"""Compact storage of BCR-pruned matrices (GRIM §4.3).
 
-Per block a dense ``(R_keep, C_keep)`` value tile plus int32 row/col index
-planes, shapes ``(nb_r, nb_c, R_keep, C_keep)`` / ``(nb_r, nb_c, R_keep)`` /
-``(nb_r, nb_c, C_keep)``. The paper's six-array BCRC format and the CSR
-baseline come in a later slice of the port.
+Three formats live here:
+
+* **BCRC** — the paper's six-array hierarchical format (reorder, row offset,
+  occurrence, column stride, compact column, weights), in numpy: an offline
+  storage format, as the paper packs it at compile time. Rows that share an
+  identical surviving-column set store that set once.
+* **TBCRC** — the packed balanced-BCR layout the sparse-matmul kernels
+  consume: per block a dense ``(R_keep, C_keep)`` value tile plus int32
+  row/col index planes, shapes ``(nb_r, nb_c, R_keep, C_keep)`` /
+  ``(nb_r, nb_c, R_keep)`` / ``(nb_r, nb_c, C_keep)``.
+* **CSR** — the paper's baseline for the storage comparison
+  (:func:`csr_extra_bytes`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Tuple
+from typing import Any, Dict, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import bcr as bcr_mod
 from repro_torch.core.bcr import BCRSpec
+
+
+@dataclasses.dataclass
+class BCRC:
+    """The paper's six arrays + shape metadata."""
+
+    shape: Tuple[int, int]
+    reorder: np.ndarray          # (n_rows,) original row id of each packed row
+    row_offset: np.ndarray       # (n_rows+1,) offsets into `weights`
+    occurrence: np.ndarray       # (n_groups+1,) packed-row ranges sharing cols
+    column_stride: np.ndarray    # (n_groups+1,) offsets into `compact_column`
+    compact_column: np.ndarray   # concatenated deduped column-index sets
+    weights: np.ndarray          # all surviving weights, row-major packed
+
+    def nbytes_extra(self, index_bytes: int = 4) -> int:
+        """Index/metadata bytes (everything except the weight payload)."""
+        n = (self.reorder.size + self.row_offset.size + self.occurrence.size
+             + self.column_stride.size + self.compact_column.size)
+        return n * index_bytes
+
+    def nbytes_weights(self, weight_bytes: int = 2) -> int:
+        return self.weights.size * weight_bytes
+
+
+def bcrc_pack(w: np.ndarray) -> BCRC:
+    """Pack a (BCR-)sparse matrix into BCRC.
+
+    Matrix reorder (§4.2) is folded in: rows are sorted by (surviving
+    count, column-set bytes), so rows with an identical surviving-column set
+    become adjacent and the ``occurrence`` array stores each set once. The
+    column sets are int32, so the order (and the six arrays) equal the
+    reference's."""
+    w = np.asarray(w)
+    n_rows = w.shape[0]
+    col_sets = [np.flatnonzero(w[r]).astype(np.int32) for r in range(n_rows)]
+    keys = [(len(c), c.tobytes()) for c in col_sets]
+    order = sorted(range(n_rows), key=lambda r: keys[r])
+
+    weights_parts, row_offset = [], [0]
+    occurrence, column_stride, compact_cols = [0], [0], []
+    prev_key = None
+    for packed_pos, orig_row in enumerate(order):
+        cols = col_sets[orig_row]
+        weights_parts.append(w[orig_row, cols])
+        row_offset.append(row_offset[-1] + len(cols))
+        key = keys[orig_row]
+        if key != prev_key:
+            if packed_pos != 0:
+                occurrence.append(packed_pos)
+            compact_cols.append(cols)
+            column_stride.append(column_stride[-1] + len(cols))
+            prev_key = key
+    occurrence.append(n_rows)
+
+    return BCRC(
+        shape=tuple(w.shape),
+        reorder=np.asarray(order, dtype=np.int32),
+        row_offset=np.asarray(row_offset, dtype=np.int32),
+        occurrence=np.asarray(occurrence, dtype=np.int32),
+        column_stride=np.asarray(column_stride, dtype=np.int32),
+        compact_column=(np.concatenate(compact_cols).astype(np.int32)
+                        if compact_cols else np.zeros((0,), np.int32)),
+        weights=(np.concatenate(weights_parts)
+                 if weights_parts else np.zeros((0,), w.dtype)),
+    )
+
+
+def bcrc_unpack(packed: BCRC) -> np.ndarray:
+    """Inverse of :func:`bcrc_pack` (dense reconstruction)."""
+    out = np.zeros(packed.shape, dtype=packed.weights.dtype)
+    for g in range(len(packed.occurrence) - 1):
+        cols = packed.compact_column[
+            packed.column_stride[g]: packed.column_stride[g + 1]]
+        for packed_pos in range(packed.occurrence[g],
+                                packed.occurrence[g + 1]):
+            lo = packed.row_offset[packed_pos]
+            hi = packed.row_offset[packed_pos + 1]
+            out[packed.reorder[packed_pos], cols] = packed.weights[lo:hi]
+    return out
+
+
+def csr_extra_bytes(w: np.ndarray, index_bytes: int = 4) -> int:
+    """CSR index overhead for the same matrix (the paper's baseline)."""
+    nnz = int(np.count_nonzero(w))
+    return (nnz + w.shape[0] + 1) * index_bytes
 
 
 @dataclasses.dataclass
@@ -97,3 +191,19 @@ def tbcrc_unpack(packed: TBCRC) -> torch.Tensor:
     blocks.scatter_(-2, packed.row_idx.long()[..., None]
                     .expand(*grid, r_keep, bc), rows)
     return bcr_mod._from_blocks(blocks)
+
+
+def tbcrc_stats(packed: TBCRC, weight_bytes: int = 2) -> Dict[str, float]:
+    """Dense vs packed bytes of one TBCRC matrix at ``weight_bytes`` a value
+    (tiles + int32 index planes; the plan's vectors are not counted, as in
+    the reference), the compression and the kept density."""
+    rows, cols = packed.shape
+    dense = rows * cols * weight_bytes
+    packed_bytes = (packed.vals.numel() * weight_bytes
+                    + (packed.row_idx.numel() + packed.col_idx.numel()) * 4)
+    return {
+        "dense_bytes": float(dense),
+        "packed_bytes": float(packed_bytes),
+        "compression": float(dense) / float(packed_bytes),
+        "density": packed.vals.numel() / (rows * cols),
+    }

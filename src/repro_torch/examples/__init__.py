@@ -1,0 +1,4 @@
+"""The reference's three paper examples, ported: run each as
+``python -m repro_torch.examples.<name>`` (``quickstart``, ``gru_rnn``,
+``cnn_im2col``), on the card by default or with ``--device cpu``. Each
+prints ``OK`` at its end."""

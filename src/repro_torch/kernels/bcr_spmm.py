@@ -135,9 +135,9 @@ def smem_layout(m_tile: int, n_chunk: int, stages: int, g: int, bc: int,
     layout (``Layout`` in the source) and refuses a plan that disagrees.
 
     Per ring stage (1024-byte aligned): the kept tiles (bf16 rows dense as
-    TMA copies them, or padded to ``Cp + 8`` elements on the plain-load
-    path, ``Cp`` = C_keep rounded up to 16; int8 codes flat, 16-byte aligned
-    per member), the x block (M tile × bc bf16), the row and column indices.
+    TMA copies them, each member's tile 128-byte aligned as TMA needs, or
+    padded to ``Cp + 8`` elements on the plain-load path, ``Cp`` = C_keep
+    rounded up to 16; int8 codes flat, 16-byte aligned per member), the x block (M tile × bc bf16), the row and column indices.
     Then two gathered-x buffers (G × M tile rows of ``Cp + 8`` elements, or
     of 128 swizzled bytes for the wgmma tile), two widened int8 tile
     buffers (int8 form), the fp32 epilogue tile (aliasing the ring), two
@@ -147,7 +147,8 @@ def smem_layout(m_tile: int, n_chunk: int, stages: int, g: int, bc: int,
     cp = _up(c, 16)
     row = (cp + 8) * 2
     ts = c * 2 if vec and not int8_tiles else row
-    member = _up(r * c, 16) if int8_tiles else r * ts
+    member = (_up(r * c, 16) if int8_tiles
+              else _up(r * ts, 128) if vec else r * ts)
     off_cidx = (_up(g * member, 128) + _up(m_tile * bc * 2, 128)
                 + _up(g * r * 4, 16))
     slot = _up(off_cidx + _up(g * c * 4, 16), 1024)

@@ -598,7 +598,10 @@ inline Layout make_layout(const Shape& s) {
   const bool tma_tile = s.p.vec && !s.int8_tiles;
   l.ts = tma_tile ? s.C * 2 : row;
   l.swz = tma_tile && s.C * 2 == 128 && s.R % 8 == 0;
-  l.tile_member = s.int8_tiles ? up16(s.R * s.C) : s.R * l.ts;
+  // a member's bf16 tile lands where TMA can write it: 128-byte aligned
+  l.tile_member = s.int8_tiles ? up16(s.R * s.C)
+                  : tma_tile   ? up(s.R * l.ts, 128)
+                               : s.R * l.ts;
   l.off_x = up(s.G * l.tile_member, 128);
   l.off_ridx = l.off_x + up(s.p.mt * s.bc * 2, 128);
   l.off_cidx = l.off_ridx + up16(s.G * s.R * 4);
@@ -1025,10 +1028,15 @@ __device__ __forceinline__ void tc_body(
   if (l.cp != s.C && l.ts == s.C * 2) {
     // dense tile rows of C_keep % 16 == 8: the last k step reads 16 bytes
     // past a row, against gathered-x columns that are zero; keep the bytes
-    // past the last row finite
-    const int end = s.G * l.tile_member;
-    for (int e = tid; e < ST * 16; e += nt)
-      if (end + (e & 15) < l.off_x) smem[(e >> 4) * l.slot + end + (e & 15)] = 0;
+    // past each member's last row finite where no copy writes them (the
+    // member's alignment padding, or the gap before the x block)
+    const int used = s.R * l.ts;
+    for (int e = tid; e < ST * s.G * 16; e += nt) {
+      const int q = e >> 4, st = q / s.G, g = q - st * s.G;
+      const int off = g * l.tile_member + used + (e & 15);
+      if (off < (g + 1 == s.G ? l.off_x : (g + 1) * l.tile_member))
+        smem[st * l.slot + off] = 0;
+    }
   }
   if (MT == 128 && s.C < 64) {   // swizzled B rows: zero columns C..63
     uint4* b4 = reinterpret_cast<uint4*>(smem + l.off_bs);

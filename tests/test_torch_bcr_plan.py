@@ -31,7 +31,10 @@ RAGGED = [((16, 32), BCRSpec(block_shape=(16, 32), keep_frac=0.25,
                              align=4).kept_counts(), 64, 96),
           ((8, 8), BCRSpec(block_shape=(8, 8), keep_frac=0.05,
                            align=1).kept_counts(), 48, 40),
-          ((128, 128), (3, 5), 256, 384), ((128, 128), (64, 24), 256, 384)]
+          ((128, 128), (3, 5), 256, 384), ((128, 128), (64, 24), 256, 384),
+          # the paper's own workloads: the GRU's (8, 8) blocks at keep 0.1
+          # and the im2col CNN's (8, 16) at keep 0.25
+          ((8, 8), (2, 4), 1024, 1024), ((8, 16), (4, 8), 256, 2304)]
 
 
 def _legal(plan, m, n, k, g, block, kept, int8):

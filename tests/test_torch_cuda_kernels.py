@@ -66,6 +66,10 @@ CASES = [  # (N, K, block, keep, align)
     (256, 384, (128, 128), 0.25, 8),     # serving block, R = C = 64
     (64, 96, (16, 32), 0.25, 4),         # non-square blocks
     (48, 40, (8, 8), 0.05, 1),           # kept counts of 1..2
+    # the paper's own workloads: the GRU at d_model 1024 ((8, 8) blocks,
+    # keep 0.1, 2 x 4 tiles) and a VGG-16 conv3 GEMM ((8, 16), 4 x 8)
+    (1024, 1024, (8, 8), 0.1, 2),
+    (256, 2304, (8, 16), 0.25, 1),
 ]
 # decode (1, 8), a ragged M tile (37), prefill tiles with a ragged edge
 # (300) and a full prefill (2048)
