@@ -4,12 +4,14 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --bcr-ab TREE [TREE ...]
     python3 chip_smoke.py --paper
+    python3 chip_smoke.py --families
 
 The second form times phase 3's ``bcr_spmm*``, ``bcr_spmm_skip`` and flash
 cases for each checkout TREE (its own ``src/repro_torch``, built into its
 own ``build/``), one process per TREE in the order given, and prints them
 side by side — e.g. ``build/parent . . build/parent`` after ``git archive
-HEAD~1 | tar -x -C build/parent``. The third runs phases 1, 2 and 13 only.
+HEAD~1 | tar -x -C build/parent``. The third runs phases 1, 2 and 13 only;
+the fourth phases 1, 2 and 14, with phase 3's checks of phase 14's shapes.
 
 Phases, in order (any failed check raises and the script exits non-zero):
 
@@ -198,6 +200,33 @@ Phases, in order (any failed check raises and the script exits non-zero):
    plain version. (d) The port's three examples end to end on the card
    (``main([])``: the default device), each ending in ``OK``.
 
+14. The vlm, ssm and hybrid families through the port's engine, random
+   weights from seed 0 packed bf16 at keep 0.25 / block 128, phase 4's
+   engine configuration and traffic. (a) pixtral-12b at full width, the
+   depth cut 40 -> 4 (printed), the prefix cache on; then one direct
+   ``prefill`` with ``image_embeds`` (B 2, 256 image positions + 256 text)
+   held to the same prefill over the plain BCR versions and moved by the
+   image. (b) rwkv6-3b at full width and full depth (32 layers): the
+   capacity-dense pool, exact-length prefill. (c) jamba-v0.1-52b at full
+   width, the depth cut 32 -> 8 (one period: 1 attention, 7 mamba, 4 MoE
+   layers of 16 experts), random weights drawn in bf16, a paged pool whose
+   mamba state is slot-major, capacity_factor 1.25; one expert-batched
+   launch per projection per MoE layer per forward. Each logs tokens/s,
+   TTFT p50, decode step-wall p50, a profiled decode window (device ms by
+   kernel family, busy share, launches a step), resident weight and
+   recurrent-state bytes, and the decode byte floor (weights + state read
+   and written over 3.35 TB/s). (d) fp32 on the card, engine tokens equal
+   naive ``generate`` under phase 6's 1e-4 near-tie rule: pixtral (prefix
+   cache on, a repeated prompt) and rwkv at full width and 2 layers, jamba
+   at its SMOKE width with 8 layers (block 16, capacity_factor 8.0), also
+   under preemption in a 7-page pool and ``recover()``. Phase 3 holds the
+   kernels at phase 14's new shapes: pixtral's wq, K/V, gate/up, wo, MLP
+   wo and lm_head (131072 x 5120), rwkv's 2560^2, 2560 <-> 8960 and
+   lm_head, jamba's in_proj, x_proj (288 x 8192 on 144 x 128 blocks: 72 x
+   64 tiles), dt_proj, out_proj, lm_head and 16 experts of 14336 x 4096
+   (M = 4 and 160 a expert), fp32 x at rwkv's 2560^2 and x_proj, and
+   paged decode at 32/8 heads, head_dim 128.
+
 Phase 3 also holds the verify dispatch's shapes: paged prefill-append with
 4 rows a slot over lengths 1..512 (ragged real rows, bf16 and int8 pages)
 and every ``bcr_spmm*`` case at M = 32 = 8 slots x (``spec_k`` + 1).
@@ -211,7 +240,9 @@ verify shape, ``verify_ms``; every entry its launches over phase 11
 launches on phase 12, ``moe_launches``; four entries for the
 expert-batched forms, launched on phase 12 only; the ``bcr_spmm`` entry
 its launches in one packed fp32 GRU step at batch 1, ``gru_launches``, and
-that step's device time, ``gru_ms``, from phase 13), and the contract line.
+that step's device time, ``gru_ms``, from phase 13; every entry its
+launches over phase 14's three serving runs, ``family_launches``), and the
+contract line.
 """
 
 from __future__ import annotations
@@ -826,6 +857,7 @@ def phase_kernels(torch, timer):
     log("expert-batched split path (M=4, one launch)")
     expert_split_checks(torch, gen)
     moe_attention_cases(torch, timer, gen, record)
+    family_cases(torch, timer, gen, record)
     return rows
 
 
@@ -1904,7 +1936,11 @@ HOST_FUNCTIONS = ("step", "decode_step", "layer_apply", "attention_apply",
                   "_qkv", "_paged_write", "quantize_rows", "swiglu_apply",
                   "moe_apply", "route",
                   "rmsnorm", "apply_rope", "bcr_spmm", "bcr_spmm_grouped",
-                  "_paged_attention", "_sample")
+                  "_paged_attention", "_sample",
+                  # the recurrent mixers (phase 14)
+                  "mamba_apply_step", "rwkv_tm_apply_step",
+                  "rwkv_cm_apply_step", "_mamba_step", "_rwkv_step",
+                  "mamba_apply_seq", "rwkv_tm_apply_seq")
 
 
 def device_events(torch, prof):
@@ -3943,6 +3979,496 @@ def phase_paper(torch, np):
     return gru_launches, gru_ms
 
 
+# -- phase 14: the vlm, ssm and hybrid families -----------------------------
+
+# the depth each family is served at on the card (full width always):
+# pixtral 40 -> 4, rwkv6-3b whole (32), jamba 32 -> 8 (one period: 1
+# attention + 7 mamba layers, 4 MoE layers of 16 experts)
+FAMILY_LAYERS = {"pixtral-12b": 4, "rwkv6-3b": 32, "jamba-v0.1-52b": 8}
+# jamba's experts at decode: 8 slots x top-2 x 1.25 / 16 experts -> 4 rows
+# a expert (the floor of 4); a 2-row 512-token prefill: 2 groups x 80
+JAMBA_EXPERTS, JAMBA_EXPERT_MS = 16, (4, 160)
+# kernel families the three families' decode steps must launch
+FAMILY_KERNELS = {
+    "pixtral-12b": ("bcr_spmm", "bcr_spmm_grouped", "paged_attention"),
+    "rwkv6-3b": ("bcr_spmm",),
+    "jamba-v0.1-52b": ("bcr_spmm", "bcr_spmm_grouped", "paged_attention",
+                       "bcr_spmm_experts", "bcr_spmm_grouped_experts"),
+}
+MIXER_FUNCTIONS = ("mamba_apply_step", "rwkv_tm_apply_step",
+                   "rwkv_cm_apply_step", "_mamba_step", "_rwkv_step",
+                   "mamba_apply_seq", "rwkv_tm_apply_seq")
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Inside the block ``bcr_matmul`` and ``bcr_matmul_grouped`` run the
+    plain versions of ``bcr_spmm`` and ``bcr_spmm_grouped`` on the card's
+    tensors (the grouped one in the wrapper's layout)."""
+    from repro_torch.kernels import ops, ref
+
+    def grouped(x, g, bias=None, epilogue=None):
+        y = ref.bcr_spmm_grouped_ref(x, g, bias=bias, epilogue=epilogue)
+        return y if epilogue == "swiglu" else y.transpose(-3, -2)
+
+    saved = ops.bcr_spmm, ops.bcr_spmm_grouped
+    ops.bcr_spmm, ops.bcr_spmm_grouped = ref.bcr_spmm_packed_ref, grouped
+    try:
+        yield
+    finally:
+        ops.bcr_spmm, ops.bcr_spmm_grouped = saved
+
+
+def family_cases(torch, timer, gen, record):
+    """Phase 3's cases at the shapes phase 14 gives the kernels, new to every
+    earlier phase, bf16 x and tiles at block 128 / keep 0.25 (the blocks
+    ``pack_params`` chooses): pixtral-12b's wq, K/V, gate/up (SwiGLU), wo,
+    MLP wo and lm_head; rwkv6-3b's 2560^2, 2560 -> 8960, 8960 -> 2560 and
+    lm_head; jamba's in_proj, x_proj (288 x 8192 on 144 x 128 blocks: 72 x
+    64 tiles), dt_proj (8192 x 256), out_proj and lm_head; at M = 8 (a
+    decode step) and 512 (one prompt's prefill), x_proj also at M = 1024;
+    jamba's 16 experts (``wo`` 4096 x 14336, ``wgi`` 2 x 14336 x 4096) at M
+    = 4 and 160 a expert; fp32 x at rwkv's 2560^2 and x_proj (phase 14d's
+    CUDA-core body); paged decode at 32/8 heads, head_dim 128 (pixtral and
+    jamba), bf16 pages. Each against its plain version, timed beside it,
+    the dense library product and its bound."""
+    from repro_torch.core.bcr import BCRSpec, choose_block_shape, kept_align
+    from repro_torch.core.bcrc import tbcrc_pack, tbcrc_unpack
+    from repro_torch.kernels import bcr_spmm as K
+    from repro_torch.kernels import paged_decode_attention as PA
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.plan import pack_group
+
+    def pack(n, k, dtype, e=0):
+        block = choose_block_shape((n, k), (128, 128))
+        spec = BCRSpec(block_shape=block, keep_frac=0.25,
+                       align=kept_align(block))
+        shape = (e, n, k) if e else (n, k)
+        p = tbcrc_pack(torch.randn(shape, generator=gen, device="cuda")
+                       * k ** -0.5, spec)
+        p.vals = p.vals.to(dtype)
+        return p
+
+    def nbytes(p):
+        return (p.vals.numel() * p.vals.element_size()
+                + (p.row_idx.numel() + p.col_idx.numel()) * 4)
+
+    bf16, fp32 = torch.bfloat16, torch.float32
+    # (model, name, n, k, group, epilogue, Ms, dtype)
+    single = [
+        ("pixtral", "wq", 4096, 5120, 1, None, (8, 512), bf16),
+        ("pixtral", "wkv", 1024, 5120, 2, None, (8, 512), bf16),
+        ("pixtral", "wgi", 14336, 5120, 2, "swiglu", (8, 512), bf16),
+        ("pixtral", "wo", 5120, 4096, 1, None, (8,), bf16),
+        ("pixtral", "mlp_wo", 5120, 14336, 1, None, (8, 512), bf16),
+        ("pixtral", "lm_head", 131072, 5120, 1, None, (8,), bf16),
+        ("rwkv6", "wr", 2560, 2560, 1, None, (8, 512), bf16),
+        ("rwkv6", "cm_wk", 8960, 2560, 1, None, (8, 512), bf16),
+        ("rwkv6", "cm_wv", 2560, 8960, 1, None, (8, 512), bf16),
+        ("rwkv6", "lm_head", 65536, 2560, 1, None, (8,), bf16),
+        ("rwkv6", "wr", 2560, 2560, 1, None, (8,), fp32),
+        ("jamba", "in_proj", 16384, 4096, 1, None, (8, 512), bf16),
+        ("jamba", "x_proj", 288, 8192, 1, None, (8, 512, 1024), bf16),
+        ("jamba", "dt_proj", 8192, 256, 1, None, (8, 512), bf16),
+        ("jamba", "out_proj", 4096, 8192, 1, None, (8, 512), bf16),
+        ("jamba", "lm_head", 65536, 4096, 1, None, (8,), bf16),
+        ("jamba", "x_proj", 288, 8192, 1, None, (8,), fp32),
+    ]
+    log("phase 14's kernel shapes: bcr_spmm / bcr_spmm_grouped (block 128, "
+        "keep 0.25; x_proj on 144 x 128 blocks)")
+    for model, wname, n, k, g, epi, ms, dt in single:
+        members = [pack(n, k, dt) for _ in range(g)]
+        w = members[0] if g == 1 else pack_group(members)
+        w_dense = torch.cat([tbcrc_unpack(p) for p in members]).to(dt)
+        key = "bcr_spmm" if g == 1 else "bcr_spmm_grouped"
+        tol = BF16_TOL if dt == bf16 else FP32_TOL
+        pre = "" if dt == bf16 else "fp32 "
+        for m in ms:
+            x = torch.randn((m, k), generator=gen, device="cuda").to(dt)
+            if g == 1:
+                def run():
+                    return K.bcr_spmm(x, w)
+
+                def plain():
+                    return ref.bcr_spmm_packed_ref(x, w)
+            else:
+                def run():
+                    return K.bcr_spmm_grouped(x, w, epilogue=epi)
+
+                def plain():
+                    y = ref.bcr_spmm_grouped_ref(x, w, epilogue=epi)
+                    return y if epi else y.transpose(0, 1)
+            shape = (f"{pre}{model} {wname} "
+                     f"{f'{g}x' if g > 1 else ''}{n}x{k} M={m}")
+            got, want = run(), plain()
+            torch.cuda.synchronize()
+            err = check_close(f"{key} {shape}", got, want, tol)
+            nb_r, nb_c, r, c = w.vals.shape[-4:]
+            out_n = n if epi else g * n
+            elt = x.element_size()
+            record(key, shape, err, timer.ms(run), timer.ms(plain),
+                   nbytes(w) + (m * k + m * out_n) * elt,
+                   2 * m * g * nb_r * nb_c * r * c, dt,
+                   timer.ms(lambda: _library_dense_matmul(x, w_dense)))
+        del members, w, w_dense
+
+    e = JAMBA_EXPERTS
+    log(f"jamba's experts: expert-batched bcr_spmm / bcr_spmm_grouped "
+        f"({e} experts, bf16)")
+    wo = pack(4096, 14336, bf16, e)
+    wgi = pack_group([pack(14336, 4096, bf16, e) for _ in range(2)])
+    w_wo = tbcrc_unpack(wo).to(bf16).transpose(1, 2)
+    w_gi = tbcrc_unpack(wgi).to(bf16).reshape(e, 2 * 14336,
+                                               4096).transpose(1, 2)
+    for m in JAMBA_EXPERT_MS:
+        for key, w, w_t, k, n, g in (
+                ("bcr_spmm_experts", wo, w_wo, 14336, 4096, 1),
+                ("bcr_spmm_grouped_experts", wgi, w_gi, 4096, 14336, 2)):
+            x = torch.randn((e, m, k), generator=gen, device="cuda").to(bf16)
+            if g == 2:
+                def run():
+                    return K.bcr_spmm_grouped(x, w, epilogue="swiglu")
+
+                def plain():
+                    return ref.bcr_spmm_grouped_ref(x, w, epilogue="swiglu")
+            else:
+                def run():
+                    return K.bcr_spmm(x, w)
+
+                def plain():
+                    return ref.bcr_spmm_packed_ref(x, w)
+            shape = (f"jamba experts {'wgi' if g == 2 else 'wo'} {e}x"
+                     f"{f'{g}x' if g > 1 else ''}{n}x{k} M={m}")
+            got, want = run(), plain()
+            torch.cuda.synchronize()
+            err = check_close(f"{key} {shape}", got, want, BF16_TOL)
+            nb_r, nb_c, r, c = w.vals.shape[-4:]
+            record(key, shape, err, timer.ms(run), timer.ms(plain),
+                   nbytes(w) + e * m * (k + n) * 2,
+                   2 * e * m * g * nb_r * nb_c * r * c, bf16,
+                   timer.ms(lambda: _library_expert_bmm(torch, x, w_t)))
+    del wo, wgi, w_wo, w_gi
+
+    log("paged decode at 32/8 heads, head_dim 128 (pixtral, jamba), bf16 "
+        "pages, page 16")
+    h, hkv, d, ps = 32, 8, 128, 16
+    lens = torch.tensor([1, 37, 128, 200, 333, 511, 512, 0],
+                        dtype=torch.int32, device="cuda")
+    per = [max(1, -(-int(t) // ps)) for t in lens.tolist()]
+    n_pages = 1 + sum(per) + 8
+    kp, vp = (torch.randn((n_pages, ps, hkv, d), generator=gen,
+                          device="cuda").to(bf16) for _ in range(2))
+    perm = torch.randperm(n_pages - 1, generator=gen,
+                          device="cuda").cpu() + 1
+    bt = torch.zeros((8, max(per)), dtype=torch.int32)
+    nxt = 0
+    for i, npg in enumerate(per):
+        bt[i, :npg] = perm[nxt:nxt + npg]
+        nxt += npg
+    bt = bt.cuda()
+    q = torch.randn((8, 1, h, d), generator=gen, device="cuda").to(bf16)
+    live = lens > 0
+
+    def run():
+        return PA.paged_decode_attention(q, kp, vp, bt, lens)
+
+    def plain():
+        return ref.paged_decode_attention_ref(q, kp, vp, bt, lens)
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    shape = "decode B=8 lens 1..512 32/8 heads hd128"
+    err = check_close(f"paged_attention {shape}", got[live], want[live],
+                      BF16_TOL)
+    if not (bool(torch.isfinite(got).all())
+            and int(torch.count_nonzero(got[~live])) == 0):
+        raise AssertionError("inactive slot output is not finite zeros")
+    l_max = bt.shape[1] * ps
+    kk = kp[bt.long()].reshape(8, l_max, hkv, d).repeat_interleave(4, 2)
+    vv = vp[bt.long()].reshape(8, l_max, hkv, d).repeat_interleave(4, 2)
+    mask = (torch.arange(l_max, device="cuda")[None, :]
+            < lens[:, None])[:, None, None, :]
+    sdpa_args = (q.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2),
+                 mask)
+    record("paged_attention", shape, err, timer.ms(run), timer.ms(plain),
+           PA.paged_kv_bytes(lens.cpu().numpy(), ps, hkv, d, 2, 0)
+           + 2 * q.numel() * 2 + bt.numel() * 4,
+           4 * int(lens.sum()) * h * d, bf16,
+           timer.ms(lambda: _library_sdpa(torch, *sdpa_args)))
+
+
+def family_cfg(arch, **over):
+    """``arch`` at full width, the depth of ``FAMILY_LAYERS`` unless
+    ``over`` says otherwise, BCR keep 0.25 with 128x128 blocks; jamba's
+    random weights drawn in bf16 (its 8 layers hold ~13.3 B parameters:
+    53 GB as fp32, 26.6 GB as bf16)."""
+    from repro_torch.configs import get_config
+    over.setdefault("num_layers", FAMILY_LAYERS[arch])
+    if arch == "jamba-v0.1-52b":
+        over.setdefault("param_dtype", "bfloat16")
+    return dataclasses.replace(get_config(arch), bcr_keep_frac=0.25,
+                               bcr_block=(128, 128), **over)
+
+
+def build_family_params(torch, arch):
+    """One random draw (seed 0) of ``family_cfg(arch)``, packed bf16."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import (pack_params, packed_fraction,
+                                          tree_bytes)
+    from repro_torch.models import causal_lm
+    from repro_torch.tree import leaves
+
+    cfg = family_cfg(arch)
+    plan = causal_lm.layer_plan(cfg)
+    log(f"{arch}: depth {get_config(arch).num_layers} -> {cfg.num_layers} "
+        f"layers {plan}; full width: d_model {cfg.d_model}, d_ff "
+        f"{cfg.d_ff}, {cfg.num_heads}/{cfg.num_kv_heads} heads, head_dim "
+        f"{cfg.head_dim}, vocab {cfg.vocab_size}"
+        + (f", {cfg.num_experts} experts top-{cfg.top_k} of d_ff "
+           f"{cfg.moe_d_ff}, mamba d_in {cfg.mamba_expand * cfg.d_model} "
+           f"d_state {cfg.mamba_d_state} dt_rank {cfg.mamba_dt_rank}"
+           if cfg.num_experts else "")
+        + f"; random weights in {cfg.param_dtype}")
+    t0 = time.perf_counter()
+    dense = causal_lm.init_params(cfg, 0, device="cuda")
+    dense_bytes = tree_bytes(dense)
+    n_params = sum(t.numel() for t in leaves(dense))
+    params = pack_params(cfg, dense)
+    frac = packed_fraction(dense, params)
+    del dense
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"{arch}: {n_params / 1e9:.3f} B parameters ({dense_bytes / 1e9:.2f} "
+        f"GB dense), init + pack {time.perf_counter() - t0:.1f} s; packed "
+        f"fraction {frac:.4f}; device memory in use "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
+    return cfg, params, frac
+
+
+def _state_bytes(engine) -> int:
+    """Bytes of the pool's recurrent state (slot leaves): a decode step
+    reads and writes each once."""
+    pool = engine.pool
+    keys = getattr(pool, "slot_keys", None)
+    if keys is None:                           # capacity-dense: not positions
+        keys = [frozenset(layer) - pk for layer, pk in
+                zip(pool.cache, pool.position_keys)]
+    return sum(layer[k].numel() * layer[k].element_size()
+               for layer, ks in zip(pool.cache, keys) for k in ks)
+
+
+def phase_family_serving(torch, np, arch, cfg, params, frac):
+    """Phase 14a/b/c: phase 4's traffic through the port's engine at full
+    width (pixtral with the prefix cache on; rwkv on the capacity-dense
+    pool; jamba on a paged pool with slot leaves), the counters zeroed
+    before and read after; the kernels each family's decode runs must have
+    launched; a profiled decode window; the decode byte floor."""
+    from repro_torch.launch.serve import tree_bytes
+    from repro_torch.serving import EngineConfig, InferenceEngine
+
+    ec = EngineConfig(n_slots=8, capacity=640, page_size=16, seed=0,
+                      prefix_cache=arch == "pixtral-12b")
+    label = {"pixtral-12b": "phase 14a", "rwkv6-3b": "phase 14b",
+             "jamba-v0.1-52b": "phase 14c"}[arch] + f" {arch} bf16"
+    stats, launches, traj, engine = serve_main_path(torch, np, cfg, params,
+                                                    ec, label, frac)
+    want_pool = "SlotPool" if arch == "rwkv6-3b" else "PagedSlotPool"
+    if type(engine.pool).__name__ != want_pool:
+        raise AssertionError(f"{label}: pool {type(engine.pool).__name__}, "
+                             f"want {want_pool}")
+    missing = [k for k in FAMILY_KERNELS[arch] if not launches[k]]
+    if missing:
+        raise AssertionError(f"{label}: {missing} never launched: "
+                             f"{launches}")
+    if arch == "rwkv6-3b" and any(launches[k] for k in launches
+                                  if k.startswith(("paged", "flash"))):
+        raise AssertionError(f"{label}: attention kernels launched on an "
+                             f"attention-free model: {launches}")
+    if arch == "jamba-v0.1-52b":
+        _expert_checks(cfg, stats, launches, label, False)
+    state = _state_bytes(engine)
+    weights = stats["packed_weight_bytes"]
+    floor_ms = (weights + 2 * state) / HBM_BYTES_PER_S * 1e3
+    prof = stats["decode_profile"]
+    summary = dict(
+        tokens_per_s=stats["tokens_per_s"], ttft_ms_p50=stats["ttft_ms_p50"],
+        decode_step_ms_p50=stats["decode_step_ms_p50"],
+        decode_steps=stats["decode_steps"], prefills=stats["prefills"],
+        device_ms_per_step=prof["device_ms"], busy_share=prof["busy_share"],
+        by_family_ms=prof["by_family_ms"],
+        device_launches_per_step=prof["device_launches_per_step"],
+        host_ops_per_step=prof["host_ops_per_step"],
+        mixer_host_ms_cprofile={k: prof["host_fn_ms_cprofile"][k]
+                                for k in MIXER_FUNCTIONS + ("step",)},
+        resident_weight_bytes=tree_bytes(params),
+        streamed_weight_bytes=weights, recurrent_state_bytes=state,
+        decode_floor_ms=floor_ms, kv_row_bytes=engine._kv_row_bytes,
+        launches={k: v for k, v in launches.items() if v})
+    log(f"{label} summary: " + json.dumps(summary))
+    del engine
+    return summary, launches
+
+
+def phase_image_prefill(torch, np, cfg, params):
+    """Phase 14a's direct ``prefill`` with ``image_embeds`` through
+    ``model_fns``: B 2, 256 image positions (random patch embeddings at the
+    embedding table's scale) then 256 text tokens; its logits finite, of
+    shape (2, 1, vocab), against the same prefill with the plain BCR
+    versions on the same card tensors (5e-2 x the logit scale, as phase 4's
+    append-vs-cold: four bf16 layers apart), and moved by the image."""
+    from repro_torch.models.api import model_fns
+
+    fns = model_fns(cfg)
+    rng = np.random.default_rng(11)
+    p = cfg.num_image_tokens
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(2, 2 * p)),
+                           dtype=torch.int32, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    img = (torch.randn((2, p, cfg.d_model), generator=gen, device="cuda")
+           * cfg.d_model ** -0.5).to(cfg.act_dtype)
+    batch = {"tokens": toks, "image_embeds": img}
+    zero_counters()
+    got, _ = fns.prefill(params, batch)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in read_counters().items() if v}
+    with plain_kernels():
+        want, _ = fns.prefill(params, batch)
+        zero = {k: v for k, v in read_counters().items() if v}
+    if zero != launches:
+        raise AssertionError(f"the plain prefill launched kernels: {zero}")
+    no_img, _ = fns.prefill(params, {"tokens": toks})
+    if tuple(got.shape) != (2, 1, cfg.vocab_size) \
+            or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"image prefill logits {tuple(got.shape)} "
+                             f"not finite of shape (2, 1, vocab)")
+    err = float((got.float() - want.float()).abs().max())
+    scale = max(1.0, float(want.float().abs().max()))
+    moved = float((got.float() - no_img.float()).abs().max())
+    log(f"phase 14a image prefill (B 2, {p} image + {p} text positions): "
+        f"launches {launches}, max |kernel - plain| {err:.3e} of {scale:.3g}, "
+        f"argmax equal {bool(torch.equal(got.argmax(-1), want.argmax(-1)))}, "
+        f"max |image - no image| {moved:.3g}")
+    if err > 5e-2 * scale or moved <= 0:
+        raise AssertionError("phase 14a: the image prefill disagrees with "
+                             "its plain version or ignores the image")
+    return err
+
+
+def phase_family_exactness(torch, np):
+    """Phase 14d, fp32 on the card: the engine's greedy tokens against the
+    naive ``generate`` under phase 6's 1e-4 near-tie rule for pixtral and
+    rwkv6-3b at full width and 2 layers (block 128, keep 0.25; pixtral
+    with the prefix cache on and a repeated prompt) and jamba at its SMOKE
+    width with 8 layers (block 16, keep 0.25, capacity_factor 8.0: no
+    token dropped, so batch composition cannot move one), which is also
+    served under preemption in a tight page pool and through
+    ``recover()``."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import build_params
+    from repro_torch.serving import FINISHED, EngineConfig, InferenceEngine
+
+    gen = 16
+    ties = {}
+    for arch in ("pixtral-12b", "rwkv6-3b", "jamba-v0.1-52b"):
+        if arch == "jamba-v0.1-52b":
+            cfg = dataclasses.replace(
+                get_smoke_config(arch), dtype="float32",
+                cache_dtype="float32", bcr_keep_frac=0.25,
+                bcr_block=(16, 16), capacity_factor=8.0)
+        else:
+            cfg = family_cfg(arch, num_layers=2, dtype="float32")
+        params = build_params(cfg, seed=1, device="cuda", log=log)
+        rng = np.random.default_rng(1)
+        prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+                   for n in (32, 77, 128, 300)]
+        prompts.append(prompts[2].copy())
+        engine = InferenceEngine(cfg, params, EngineConfig(
+            n_slots=2, capacity=640, page_size=16, seed=0,
+            prefix_cache=True), device="cuda")
+        got = engine.generate(prompts, max_new_tokens=gen)
+        engine.check_conservation()
+        n = near_tie_check(torch, cfg, params, prompts, got, gen, 1e-4,
+                           f"phase 14d {arch}")
+        ties[arch] = n
+        log(f"phase 14d {arch} engine vs naive generate (fp32, "
+            f"{cfg.num_layers} layers, d_model {cfg.d_model}, "
+            f"{type(engine.pool).__name__}, prefix cache "
+            f"{engine.prefix_cache}, hit tokens "
+            f"{engine.stats['prefix_hit_tokens']}): tokens equal, "
+            f"near-ties {n}")
+        if arch != "jamba-v0.1-52b":
+            del params, engine
+            torch.cuda.empty_cache()
+            continue
+        # phase 9b's tight pool: A (3 pages) and B (4) fill 7 pages; C (3)
+        # stalls and B is preempted, its mamba state re-prefilled
+        pa, pb, pc = (rng.integers(0, cfg.vocab_size, size=n)
+                      .astype(np.int32) for n in (32, 48, 32))
+        eng = InferenceEngine(cfg, params, EngineConfig(
+            n_slots=3, capacity=640, page_size=16, seed=0, kv_pages=8,
+            preempt_after_stalls=1), device="cuda")
+        rids = [eng.submit(pa, max_new_tokens=gen),
+                eng.submit(pb, max_new_tokens=gen)]
+        for _ in range(3):
+            eng.step()
+        rids += [eng.submit(pc, max_new_tokens=gen),
+                 eng.submit(pa.copy(), max_new_tokens=gen)]
+        done = {r.rid: r for r in eng.run()}
+        if eng.stats["preemptions"] < 1 or any(
+                done[r].status != FINISHED for r in rids):
+            raise AssertionError(f"phase 14d jamba preemption: {eng.stats}")
+        eng.check_conservation()
+        eng.pool.check_consistency()
+        preempted = eng.stats["preemptions"]
+        n_pre = near_tie_check(torch, cfg, params, [pa, pb, pc, pa],
+                               [done[r].generated for r in rids], gen, 1e-4,
+                               "phase 14d jamba preemption")
+        eng = InferenceEngine(cfg, params, EngineConfig(
+            n_slots=3, capacity=640, page_size=16, seed=0), device="cuda")
+        rids = [eng.submit(p, max_new_tokens=gen) for p in prompts]
+        for _ in range(4):
+            eng.step()
+        survivors = eng.recover()
+        done = {r.rid: r for r in eng.run()}
+        eng.check_conservation()
+        eng.pool.check_consistency()
+        n_rec = near_tie_check(torch, cfg, params, prompts,
+                               [done[r].generated for r in rids], gen, 1e-4,
+                               "phase 14d jamba recover")
+        log(f"phase 14d jamba: preemption in a 7-page pool ({preempted} "
+            f"preempted) and recover() ({survivors} requeued) give the "
+            f"naive tokens, near-ties {n_pre} + {n_rec}")
+    return ties
+
+
+def phase_families(torch, np):
+    """Phase 14: (a) pixtral-12b, (b) rwkv6-3b, (c) jamba-v0.1-52b served at
+    full width, then (d) the fp32 exactness checks. Returns each kernel's
+    launches over the three serving runs (a)-(c)."""
+    t0 = time.perf_counter()
+    total, summaries, times = {}, {}, {}
+    for arch in ("pixtral-12b", "rwkv6-3b", "jamba-v0.1-52b"):
+        ts = time.perf_counter()
+        cfg, params, frac = build_family_params(torch, arch)
+        summaries[arch], launches = phase_family_serving(torch, np, arch,
+                                                         cfg, params, frac)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        if arch == "pixtral-12b":
+            phase_image_prefill(torch, np, cfg, params)
+        del params
+        torch.cuda.empty_cache()
+        times[arch] = time.perf_counter() - ts
+    ts = time.perf_counter()
+    phase_family_exactness(torch, np)
+    torch.cuda.empty_cache()
+    log(f"phase 14: (a) {times['pixtral-12b']:.1f} s, (b) "
+        f"{times['rwkv6-3b']:.1f} s, (c) {times['jamba-v0.1-52b']:.1f} s, "
+        f"(d) {time.perf_counter() - ts:.1f} s; "
+        f"{time.perf_counter() - t0:.1f} s in all")
+    return total
+
+
 def bcr_worker(tree: str) -> int:
     """``--bcr-worker TREE``: :func:`bcr_cases`, :func:`paged_cases`,
     :func:`skip_cases` and :func:`flash_cases` against TREE's own
@@ -4018,9 +4544,10 @@ def main() -> int:
     if sys.argv[1:2] == ["--bcr-worker"] and len(sys.argv) == 3:
         return bcr_worker(sys.argv[2])
     paper_only = sys.argv[1:] == ["--paper"]
-    if len(sys.argv) > 1 and not paper_only:
+    families_only = sys.argv[1:] == ["--families"]
+    if len(sys.argv) > 1 and not (paper_only or families_only):
         print("usage: chip_smoke.py [--bcr-ab TREE... | --bcr-worker TREE | "
-              "--paper]", file=sys.stderr)
+              "--paper | --families]", file=sys.stderr)
         return 2
     import numpy as np
     import torch
@@ -4055,6 +4582,22 @@ def main() -> int:
                          paths["paged_attention"])
     if paper_only:
         phase_paper(torch, np)
+        log(smi)
+        return 0
+    if families_only:
+        log("phase 14's kernel shapes (phase 3's checks)")
+        t0 = time.perf_counter()
+        rows, timer = [], Timer(torch)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        family_cases(torch, timer, gen, recorder(torch, rows))
+        log("phase 14 kernel cases: " + json.dumps(rows))
+        del timer
+        torch.cuda.empty_cache()
+        log(f"phase 14 kernel shapes: {time.perf_counter() - t0:.1f} s")
+        log("phase 14, the vlm, ssm and hybrid families")
+        family_launches = phase_families(torch, np)
+        log(f"phase 14 launches: {json.dumps(family_launches)}")
         log(smi)
         return 0
 
@@ -4169,6 +4712,12 @@ def main() -> int:
     gru_launches, gru_ms = phase_paper(torch, np)
     log(f"phase 13: {time.perf_counter() - t0:.1f} s")
 
+    log("phase 14, the vlm, ssm and hybrid families (pixtral-12b, rwkv6-3b, "
+        "jamba-v0.1-52b)")
+    t0 = time.perf_counter()
+    family_launches = phase_families(torch, np)
+    log(f"phase 14: {time.perf_counter() - t0:.1f} s")
+
     # one entry per kernel form at its decode-step shape (M = 8 slots) or,
     # for flash, the largest cold-prefill bucket; launches from the main
     # path that runs it (for bcr_spmm_skip, the trained-weight runs of the
@@ -4192,7 +4741,8 @@ def main() -> int:
                             if r["kernel"] == name),
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
-            shape=row["shape"], serving_launches=serving_launches[name]))
+            shape=row["shape"], serving_launches=serving_launches[name],
+            family_launches=family_launches.get(name, 0)))
         if name in FP_KERNELS + INT8_KERNELS + ("flash_attention_fused",):
             # phase 12's MoE path runs these too (deepseek's shapes)
             kernels[-1]["moe_launches"] = (

@@ -1,7 +1,8 @@
 """Architecture registry of the port: --arch <id> → (full CONFIG, SMOKE).
 
-The dense and MoE families are ported. The other architectures of the
-reference registry raise ``NotImplementedError`` naming the later slice.
+The dense, MoE, vlm, ssm and hybrid families are ported. The encdec
+architecture of the reference registry (whisper) raises
+``NotImplementedError`` naming the later slice.
 """
 
 from __future__ import annotations
@@ -20,10 +21,13 @@ _MODULES: Dict[str, str] = {
     "qwen1.5-4b": "qwen1_5_4b",
     "deepseek-moe-16b": "deepseek_moe_16b",
     "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
+    "pixtral-12b": "pixtral_12b",
+    "jamba-v0.1-52b": "jamba_v0_1_52b",
+    "rwkv6-3b": "rwkv6_3b",
 }
 
 # architectures of the reference registry whose families come later
-_LATER = ("pixtral-12b", "jamba-v0.1-52b", "rwkv6-3b", "whisper-large-v3")
+_LATER = ("whisper-large-v3",)
 
 ARCH_IDS: List[str] = list(_MODULES)
 
@@ -31,8 +35,8 @@ ARCH_IDS: List[str] = list(_MODULES)
 def _module(name: str):
     if name in _LATER:
         raise NotImplementedError(
-            f"{name}: only the dense and MoE families are ported so far; "
-            f"the other families come in a later slice of the port")
+            f"{name}: the encdec family is not ported yet; it comes in a "
+            f"later slice of the port")
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; available: {ARCH_IDS}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")

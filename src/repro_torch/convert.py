@@ -14,13 +14,19 @@ containers and swaps their leaves). It handles:
 * a MoE layer's ``{"router", "experts"[, "shared"]}``: the router and the
   shared experts as above, the experts' packs (or dense ``w``) stacked on
   their leading E axis, index planes, plan vectors and int8 scales with
-  it.
+  it;
+* the recurrent mixers' plain leaves (mamba ``A_log``, ``D``, ``conv_w``,
+  ``conv_b``; RWKV ``mu``, ``w0``, ``w_lora_a``/``w_lora_b``, ``u``,
+  ``ln_scale``) as arrays, and their linears as above (mamba's
+  ``dt_proj`` with its bias).
 
 The reference scans its layers: ``params["stack"]`` is a list (one entry per
-position of the repeating layer pattern) whose leaves — index planes and
-plan vectors included — carry a leading repeat axis. The converter unstacks
+position of the repeating layer pattern: one layer for a dense or ssm
+stack, jamba's whole 8-layer period) whose leaves — index planes and plan
+vectors included — carry a leading repeat axis. The converter unstacks
 that axis into the port's ``params["layers"]`` list, in the reference's
-execution order (unscanned ``prefix`` layers first).
+execution order (unscanned ``prefix`` layers first, then repeat by repeat
+each position of the pattern).
 
 ``from_jax_gru`` converts the reference's GRU (``models/gru.py``: embed,
 cells, head; dense, or packed by its ``pack_params``) with the same leaf

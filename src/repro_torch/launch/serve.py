@@ -19,6 +19,11 @@ serves from the capacity-dense slot pool; ``--spec-k 3 --draft-bcr-keep
 ``--slo-admission`` rejects doomed deadlines at submit, and ``--tenants
 a,b`` tags requests round-robin for the per-tenant counters (quotas are set
 through ``EngineConfig.tenant_quotas``).
+Every decoder family runs through the same CLI: ``--arch pixtral-12b``
+(vlm), ``rwkv6-3b`` (ssm: the capacity-dense pool, exact-length prefill),
+``jamba-v0.1-52b`` (hybrid: mamba and MoE layers beside paged attention;
+``--param-dtype bfloat16`` halves its random dense tree before packing),
+``deepseek-moe-16b``.
 ``--rate R`` (Poisson arrivals at R req/s) or ``--trace FILE.jsonl`` (the
 reference's trace format, e.g. ``examples/trace_heavy_tail.jsonl``) drives
 the engine open loop through :func:`run_traffic` instead, paced by the wall
@@ -171,8 +176,9 @@ def generate(cfg: ModelConfig, params: PyTree, prompts: torch.Tensor, *,
              ) -> Dict[str, torch.Tensor]:
     """Naive greedy oracle: prefill a batch of equal-length prompts at their
     exact length, seat the KV (codes and scales under ``kv_dtype="int8"``)
-    into a fixed page table (slot b owns pages ``1 + b·max_pages ...``),
-    then decode ``gen_tokens - 1`` steps.
+    into a fixed page table (slot b owns pages ``1 + b·max_pages ...``) and
+    a recurrent layer's state into row b, then decode ``gen_tokens - 1``
+    steps.
 
     Returns ``tokens`` (B, gen_tokens) and ``logits`` (B, gen_tokens, V):
     the distribution each emitted token was taken from. With ``forced``
@@ -185,7 +191,8 @@ def generate(cfg: ModelConfig, params: PyTree, prompts: torch.Tensor, *,
     b, p = prompts.shape
     logits, pcache = causal_lm.prefill(cfg, params, prompts)
     max_pages = -(-(p + gen_tokens) // page_size)
-    cache = causal_lm.init_cache(cfg, kv_pages=b * max_pages + 1,
+    cache = causal_lm.init_cache(cfg, b, p + gen_tokens,
+                                 kv_pages=b * max_pages + 1,
                                  page_size=page_size, device=dev)
     table = (1 + torch.arange(b * max_pages, device=dev,
                               dtype=torch.int32)).reshape(b, max_pages)
@@ -193,6 +200,9 @@ def generate(cfg: ModelConfig, params: PyTree, prompts: torch.Tensor, *,
     dest = (table[:, pos // page_size].long() * page_size + pos % page_size)
     for pool, new in zip(cache, pcache):
         for key, leaf in pool.items():
+            if "k" not in pool:           # recurrent state: row b, whole
+                leaf.copy_(new[key])
+                continue
             leaf.view(-1, *leaf.shape[2:]).index_copy_(
                 0, dest.reshape(-1),
                 new[key].reshape(-1, *leaf.shape[2:]).to(leaf.dtype))
@@ -441,6 +451,11 @@ def main() -> None:
     p.add_argument("--num-layers", type=int, default=0,
                    help="cut the model's depth to this many layers (0 → "
                         "the config's)")
+    p.add_argument("--param-dtype", default="",
+                   choices=["", "float32", "bfloat16"],
+                   help="dtype of the random weights before packing (empty "
+                        "keeps the config's float32; bfloat16 halves the "
+                        "dense tree of a large model such as jamba)")
     p.add_argument("--slots", type=int, default=8)
     p.add_argument("--capacity", type=int, default=128)
     p.add_argument("--page-size", type=int, default=16,
@@ -536,6 +551,8 @@ def main() -> None:
     cfg = dataclasses.replace(cfg, bcr_keep_frac=args.bcr_keep)
     if args.num_layers:
         cfg = dataclasses.replace(cfg, num_layers=args.num_layers)
+    if args.param_dtype:
+        cfg = dataclasses.replace(cfg, param_dtype=args.param_dtype)
     if args.attn_impl:
         cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
     if args.weight_dtype and args.bcr_keep <= 0:

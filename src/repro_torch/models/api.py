@@ -3,9 +3,10 @@
     fns = model_fns(cfg)   # init_params / loss_fn / prefill / decode_step
                            # / init_cache / prefill_append
 
-Batches are dicts of tensors, as in the reference package. The dense and
-MoE families are ported; both run through ``causal_lm`` (a MoE layer's
-routing reads the batch's optional ``token_mask``). The other families raise
+Batches are dicts of tensors, as in the reference package. The dense, MoE,
+vlm, ssm and hybrid families are ported; all run through ``causal_lm`` (a
+MoE layer's routing reads the batch's optional ``token_mask``, a vlm
+prefill its optional ``image_embeds``). The encdec family raises
 ``NotImplementedError``.
 """
 
@@ -37,8 +38,8 @@ def model_fns(cfg: ModelConfig) -> ModelFns:
         init_params=functools.partial(causal_lm.init_params, cfg),
         loss_fn=functools.partial(causal_lm.loss_fn, cfg),
         prefill=lambda p, b: causal_lm.prefill(
-            cfg, p, b["tokens"], length=b.get("length"),
-            token_mask=b.get("token_mask")),
+            cfg, p, b["tokens"], image_embeds=b.get("image_embeds"),
+            length=b.get("length"), token_mask=b.get("token_mask")),
         decode_step=lambda p, b, c: causal_lm.decode_step(
             cfg, p, b["tokens"], c, b["cache_len"], b.get("block_tables"),
             token_mask=b.get("token_mask")),

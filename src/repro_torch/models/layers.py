@@ -26,10 +26,11 @@ cannot be differentiated), so ``"pallas"`` under a gradient raises.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.core.sparse_linear import (grouped_linear_apply,
                                             linear_apply, linear_init)
@@ -404,3 +405,42 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
         mask = mask.to(nll.dtype)
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
     return torch.mean(nll)
+
+
+# ---------------------------------------------------------------------------
+# Scan helper of the recurrent mixers
+# ---------------------------------------------------------------------------
+
+
+def chunked_checkpoint_scan(body: Callable, carry, xs: Sequence[torch.Tensor],
+                            chunk: int):
+    """``body(carry, inputs_t) -> (carry, y_t)`` over the leading time axis
+    of every tensor in ``xs``, ``chunk`` steps at a time; returns the final
+    carry and the ``y_t`` stacked on a new leading axis. The reference's
+    ``lax.scan`` of ``jax.checkpoint``-ed chunks: under a gradient each
+    chunk runs through ``torch.utils.checkpoint`` (only the carries at
+    chunk boundaries are kept; a chunk's steps are recomputed in the
+    backward pass); without one it is the plain loop. The SSM and RWKV
+    recurrences are XLA code in the reference, not Pallas, so a Python
+    loop over time is their port."""
+    t = xs[0].shape[0]
+    if t % chunk:
+        raise ValueError(f"time axis {t} is not a multiple of chunk {chunk}")
+
+    def run(c, *xc):
+        ys = []
+        for i in range(xc[0].shape[0]):
+            c, y = body(c, tuple(a[i] for a in xc))
+            ys.append(y)
+        return c, torch.stack(ys)
+
+    out = []
+    for s in range(0, t, chunk):
+        xc = tuple(a[s:s + chunk] for a in xs)
+        if torch.is_grad_enabled():
+            carry, ys = torch.utils.checkpoint.checkpoint(
+                run, carry, *xc, use_reentrant=False)
+        else:
+            carry, ys = run(carry, *xc)
+        out.append(ys)
+    return carry, torch.cat(out)

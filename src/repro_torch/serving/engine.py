@@ -31,6 +31,14 @@ garbage rows never claim capacity. Their cold prefill runs at exact length
 (``pad_prefill`` is on for the dense and vlm families only), one dispatch
 per prompt length, and the prefix cache is silently off.
 
+Recurrent families, as in the reference: a recurrent layer's state (RWKV,
+mamba) runs through every prompt position, so the ssm and hybrid families
+prefill at exact length too, and their state cannot be adopted from a
+shared prefix or rolled back (no prefix cache; ``spec_k > 0`` raises). An
+ssm model has no attention K/V: it serves from the capacity-dense pool
+whatever ``page_size`` says. A hybrid model's paged pool pages its
+attention layers and keeps its mamba state slot-major.
+
 Quantized serving: ``kv_dtype="int8"`` stores the pool as int8 codes with
 per-row, per-kv-head fp32 scales; ``weight_dtype="int8"`` quantizes the
 packed tiles to int8 codes with one fp32 scale per tile at engine build.
@@ -88,6 +96,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import chunks_fit, prefill_bucket
 from repro_torch.kernels.plan import quantize_packed_params
 from repro_torch.models.api import model_fns
+from repro_torch.models.causal_lm import layer_plan
 from repro_torch.models.layers import FLASH_ATTN_IMPLS, flash_chunks
 from repro_torch.serving.admission import (TenantQuota, TokenBucket,
                                            estimate_seat_steps,
@@ -242,7 +251,9 @@ class InferenceEngine:
                 raise ValueError(
                     f"prefill buckets {bad} do not split into the flash "
                     f"chunks q_chunk={cfg.q_chunk}, kv_chunk={cfg.kv_chunk}")
-        self.paged = ec.page_size > 0
+        # the ssm family holds no attention K/V to page: its recurrent
+        # state lives in the capacity-dense pool whatever page_size says
+        self.paged = ec.page_size > 0 and cfg.family != "ssm"
         if self.paged:
             self.pool: Any = PagedSlotPool(
                 self.fns.init_cache, ec.n_slots, ec.capacity,
@@ -261,11 +272,13 @@ class InferenceEngine:
         # pages and rollback truncates them, so it needs the paged pool
         self.spec = ec.spec_k > 0
         if self.spec:
-            if not self.paged:
+            if not (self.paged and all(m == "attn"
+                                       for m, _ in layer_plan(cfg))):
                 raise ValueError(
-                    "spec_k > 0 needs a block-paged pool (page_size > 0): "
-                    "verification runs through prefill_append and rollback "
-                    "rewinds pages")
+                    "spec_k > 0 needs a block-paged pool (page_size > 0) "
+                    "on a pure-attention family: verification runs through "
+                    "prefill_append and rollback rewinds pages (recurrent "
+                    "mixers cannot rewind state)")
             if drafter is None:
                 if ec.draft_cfg is None or draft_params is None:
                     raise ValueError(
@@ -300,12 +313,14 @@ class InferenceEngine:
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(ec.seed)
         self._defer_steps = 0
-        # bytes one cache position costs to read across all layers: K + V
-        # (+ their fp32 scales under int8 KV); leaves are (pages or slots,
-        # positions, ...) in both pools
+        # bytes one cache position costs to read across all attention
+        # layers: K + V (+ their fp32 scales under int8 KV); position
+        # leaves are (pages or slots, positions, ...) in both pools, and
+        # recurrent state (no positions) does not count
         self._kv_row_bytes = sum(
-            leaf[0, 0].numel() * leaf.element_size()
-            for layer in self.pool.cache for leaf in layer.values())
+            layer[key][0, 0].numel() * layer[key].element_size()
+            for layer, keys in zip(self.pool.cache, self.pool.position_keys)
+            for key in keys)
         # per-slot decode-state rows (host-side mirrors of the ragged batch)
         self._tokens = np.zeros((ec.n_slots, 1), np.int32)
         self._temps = np.zeros((ec.n_slots,), np.float32)

@@ -7,14 +7,23 @@ ages. In the capacity-dense pool slot ``b`` owns row ``b`` of every cache
 leaf, ``(n_slots, capacity, Hkv, D)`` (plus ``(n_slots, capacity, Hkv)``
 scales under int8 KV), and a length; admission writes a prefill cache into
 the slot's rows, retirement only zeroes the length (stale K/V past a
-slot's length is never attended to). The dense family's layout puts the
-batch axis first in every leaf, so the pool takes that as fixed instead of
-finding it by probing ``init_cache`` as the reference's
-``cache_batch_axes`` does for its families.
+slot's length is never attended to). The port's layout puts the batch axis
+first in every leaf, so the pools take that as fixed.
+
+Two kinds of leaf share that layout: position leaves (attention K/V and
+their scales: axis 1 counts positions) and slot leaves (a recurrent
+layer's state: mamba ``h``/``conv``, RWKV ``s``/``shift``/``cm_shift``,
+whose axis 1 is a width, not positions). As the reference does, the pools
+tell them apart by probing ``init_cache``, here on the meta device (no
+memory): the leaves whose shape moves with the capacity (capacity-dense)
+or with the page count (paged) carry positions; every other leaf is seated
+whole, one row a slot. Clipping a slot leaf's axis 1 to the capacity would
+keep only part of its state (RWKV's ``shift`` is ``(B, d_model)``).
 
 In the paged pool, attention K/V live in a shared page pool per layer, ``(n_pages, page_size,
 Hkv, D)`` torch tensors on the engine's device, plus per-slot block tables
-(physical page ids) kept on the host. Under int8 KV each layer also holds
+(physical page ids) kept on the host; slot leaves stay slot-major,
+``(n_slots, ...)``, and move only at admission. Under int8 KV each layer also holds
 fp32 ``k_scale``/``v_scale`` pools ``(n_pages, page_size, Hkv)`` in the same
 page index space; every write and every copy moves codes and scales
 together. Pages are reserved at admission, allocated lazily as a slot's
@@ -58,15 +67,54 @@ def _chain_hash(parent: bytes, chunk) -> bytes:
         parent + np.asarray(chunk, "<i4").tobytes()).digest()
 
 
-def write_slot(pool: Cache, new: Cache, slot: int) -> None:
-    """Write a ``(k, seq <= capacity)`` cache into pool rows ``[slot, slot +
-    k)`` at positions ``[0, seq)``, in place (prefill K/V of a length-P
-    prompt fills ``[0, P)``)."""
-    for pool_layer, new_layer in zip(pool, new):
-        for key, leaf in pool_layer.items():
-            rows = new_layer[key]
-            leaf[slot:slot + rows.shape[0], :rows.shape[1]] = rows.to(
-                leaf.dtype)
+def _shape_diff(a: Cache, b: Cache) -> List[frozenset]:
+    """Per layer, the keys whose leaf shapes differ between two probes."""
+    return [frozenset(k for k in la if la[k].shape != lb[k].shape)
+            for la, lb in zip(a, b)]
+
+
+def position_keys(init_cache: Callable[..., Cache]) -> List[frozenset]:
+    """Per layer, the keys of a capacity-dense cache's position leaves:
+    those whose shape moves with the capacity, found by building
+    ``init_cache`` at capacities 8 and 16 on the meta device (recurrent
+    state has no capacity axis)."""
+    return _shape_diff(init_cache(1, 8, device="meta"),
+                       init_cache(1, 16, device="meta"))
+
+
+def _seat_rows(cache: Cache, new: Cache, slots: np.ndarray, device,
+               keys: List[frozenset], seq_keys: List[frozenset]) -> None:
+    """Row ``i`` of the ``keys`` leaves of ``new`` → pool row ``slots[i]``,
+    in place, one scatter a leaf: position leaves (``seq_keys``) at
+    positions ``[0, seq)`` clipped to the pool's (a prefill bucket may be
+    longer: those positions are pads), every other leaf whole. Where a slot
+    appears more than once (pad rows alias the first real row's slot) only
+    its lowest row is written, which leaves what the reference's
+    reverse-order writes leave."""
+    uniq, first = np.unique(np.asarray(slots, np.int64), return_index=True)
+    dst = torch.as_tensor(uniq, device=device)
+    src = torch.as_tensor(first, device=device)
+    for pool_layer, new_layer, layer_keys, seq in zip(cache, new, keys,
+                                                      seq_keys):
+        for key in layer_keys:
+            leaf = pool_layer[key]
+            rows = new_layer[key].index_select(0, src)
+            if key in seq:
+                rows = rows[:, :leaf.shape[1]]
+                leaf = leaf[:, :rows.shape[1]]
+            leaf.index_copy_(0, dst, rows.to(leaf.dtype))
+
+
+def write_slot(pool: Cache, new: Cache, slot: int,
+               seq_keys: List[frozenset]) -> None:
+    """Write a ``k``-row cache into pool rows ``[slot, slot + k)``, in
+    place: position leaves (``seq_keys``, per layer) at positions ``[0,
+    seq)``, clipped to the capacity (prefill K/V of a length-P prompt fills
+    ``[0, P)``); every other leaf (recurrent state) whole."""
+    k = next(iter(new[0].values())).shape[0]
+    _seat_rows(pool, new, np.arange(slot, slot + k),
+               next(iter(pool[0].values())).device,
+               [frozenset(layer) for layer in pool], seq_keys)
 
 
 def seat_prefill(init_cache: Callable[..., Cache], prefill_cache: Cache,
@@ -76,7 +124,7 @@ def seat_prefill(init_cache: Callable[..., Cache], prefill_cache: Cache,
     path. The port's engine does not call it; it is kept for parity with
     the reference's ``kv_slots`` API, which the tests hold it to."""
     pool = init_cache(batch, capacity, device=device)
-    write_slot(pool, prefill_cache, 0)
+    write_slot(pool, prefill_cache, 0, position_keys(init_cache))
     return pool
 
 
@@ -91,6 +139,8 @@ class SlotPool:
         self.capacity = capacity
         self.device = torch.device(device)
         self.cache = init_cache(n_slots, capacity, device=self.device)
+        # per layer: the leaves with a capacity axis (attention K/V)
+        self.position_keys = position_keys(init_cache)
         self.lens = np.zeros((n_slots,), np.int32)
 
     def insert(self, prefill_cache: Cache, slot: int, length: int) -> None:
@@ -101,13 +151,14 @@ class SlotPool:
         if length > self.capacity:
             raise ValueError(f"length {length} exceeds the slot capacity "
                              f"{self.capacity}")
-        write_slot(self.cache, _clip_seq(prefill_cache, self.capacity), slot)
+        write_slot(self.cache, prefill_cache, slot, self.position_keys)
         self.lens[slot] = length
 
     def insert_rows(self, prefill_cache: Cache, slots: np.ndarray,
                     lengths: np.ndarray) -> None:
         """Grouped admission: row ``i`` of ``prefill_cache`` → slot
-        ``slots[i]``. ``lengths`` covers the real rows only; pad rows past
+        ``slots[i]`` (position leaves at positions ``[0, seq)``, recurrent
+        state whole). ``lengths`` covers the real rows only; pad rows past
         it alias ``slots[0]``. The reference writes the rows in reverse
         order, so the real row 0 lands last over its pads; here, where a
         slot appears more than once, only its lowest row is written, which
@@ -115,18 +166,10 @@ class SlotPool:
         capacity (a prefill bucket may be longer) are pads and dropped."""
         if max(lengths, default=0) > self.capacity:
             raise ValueError("prompt longer than the slot capacity")
-        slots = np.asarray(slots, np.int64)
-        uniq, first = np.unique(slots, return_index=True)
-        dst = torch.as_tensor(uniq, device=self.device)
-        src = torch.as_tensor(first, device=self.device)
-        for pool_layer, new_layer in zip(self.cache,
-                                         _clip_seq(prefill_cache,
-                                                   self.capacity)):
-            for key, leaf in pool_layer.items():
-                rows = new_layer[key].index_select(0, src)
-                leaf[:, :rows.shape[1]].index_copy_(0, dst,
-                                                    rows.to(leaf.dtype))
-        for s, l in zip(slots[:len(lengths)], lengths):
+        _seat_rows(self.cache, prefill_cache, slots, self.device,
+                   [frozenset(layer) for layer in self.cache],
+                   self.position_keys)
+        for s, l in zip(np.asarray(slots)[:len(lengths)], lengths):
             self.lens[s] = l
 
     def advance(self, slot: int) -> None:
@@ -144,13 +187,10 @@ class SlotPool:
         self.lens[slot] = 0
 
 
-def _clip_seq(cache: Cache, capacity: int) -> Cache:
-    return [{k: v[:, :capacity] for k, v in layer.items()} for layer in cache]
-
-
 class PagedSlotPool:
     """Block-paged decode cache: one page pool per attention leaf + per-slot
-    block tables.
+    block tables, with recurrent-state leaves kept slot-major (a hybrid
+    model's mamba layers beside its paged attention layer).
 
     Allocator lifecycle: ``reserve`` (or ``admit_prefix``) claims a slot's
     worst-case page budget at admission (so decode can never strand a
@@ -176,8 +216,28 @@ class PagedSlotPool:
             raise ValueError("need at least one page beyond the null page")
         self.n_pages = n_pages
         self.device = torch.device(device)
-        self.cache = init_cache(kv_pages=n_pages, page_size=page_size,
+        self.cache = init_cache(batch=n_slots, capacity=capacity,
+                                kv_pages=n_pages, page_size=page_size,
                                 device=self.device)
+
+        def probe(batch, pages):
+            return init_cache(batch=batch, capacity=capacity,
+                              kv_pages=pages, page_size=page_size,
+                              device="meta")
+
+        # per layer: page leaves (attention K/V, paged) and slot leaves
+        # (recurrent state, slot-major), as the reference's probes find them
+        self.position_keys = _shape_diff(probe(1, 2), probe(1, 3))
+        self.slot_keys = _shape_diff(probe(1, 2), probe(2, 2))
+        for i, (layer, pk, sk) in enumerate(zip(self.cache,
+                                                self.position_keys,
+                                                self.slot_keys)):
+            if pk & sk or (pk | sk) != set(layer):
+                raise ValueError(f"layer {i}: cache leaves {sorted(layer)} "
+                                 f"are not each either paged or slot-major")
+        if not any(self.position_keys):
+            raise ValueError("no attention K/V leaf to page: use SlotPool "
+                             "for this family")
         self.lens = np.zeros((n_slots,), np.int32)
         self.table = np.zeros((n_slots, self.max_pages), np.int32)
         self._free: deque[int] = deque(range(1, n_pages))   # 0 = null
@@ -387,32 +447,40 @@ class PagedSlotPool:
 
     def copy_pages(self, src: np.ndarray, dst: np.ndarray) -> None:
         """Copy-on-write on the device: page ``src[i]`` → ``dst[i]`` in every
-        page leaf of every layer (codes and, under int8 KV, their scales),
+        page leaf of every attention layer (codes and, under int8 KV, their scales),
         one gather and one in-place scatter per leaf, on the current
         stream, so a later dispatch on it reads the copies."""
         s = torch.as_tensor(np.asarray(src), dtype=torch.long,
                             device=self.device)
         d = torch.as_tensor(np.asarray(dst), dtype=torch.long,
                             device=self.device)
-        for layer in self.cache:
-            for leaf in layer.values():
-                leaf.index_copy_(0, d, leaf.index_select(0, s))
+        for layer, keys in zip(self.cache, self.position_keys):
+            for key in keys:
+                layer[key].index_copy_(0, d, layer[key].index_select(0, s))
 
     # -- cache writes ------------------------------------------------------
 
     def insert_rows(self, prefill_cache: Cache, slots: np.ndarray,
                     lengths: np.ndarray) -> None:
         """Seat a batched prefill cache: allocate each real slot's prompt
-        pages, then scatter the (right-padded) KV rows into them, in place.
+        pages, then scatter the (right-padded) KV rows into them, in place;
+        recurrent state (slot leaves) goes whole into each slot's row.
         ``slots`` may carry pad rows past ``len(lengths)``; their table rows
         are zero, so pad writes land in the null page, as do positions past
-        a slot's allocated pages."""
+        a slot's allocated pages; their slot leaves alias ``slots[0]`` and
+        are not written."""
         if max(lengths, default=0) > self.capacity:
             raise ValueError("prompt longer than the slot capacity")
         k = len(lengths)
         for s, l in zip(slots[:k], lengths):
             self.ensure(int(s), int(l))
-        seq = prefill_cache[0]["k"].shape[1]
+        for i, (pool, new) in enumerate(zip(self.cache, prefill_cache)):
+            if set(new) != set(pool):
+                raise ValueError(f"layer {i}: prefill cache leaves "
+                                 f"{sorted(new)} do not match the pool's "
+                                 f"{sorted(pool)}")
+        seq = next(new[key].shape[1] for new, keys in
+                   zip(prefill_cache, self.position_keys) for key in keys)
         k_pad = len(slots)
         nbp = -(-seq // self.page_size)
         bt = np.zeros((k_pad, nbp), np.int32)
@@ -426,14 +494,16 @@ class PagedSlotPool:
                 + (pos % self.page_size)[None, :])           # (k_pad, seq)
         dest_t = torch.as_tensor(dest.reshape(-1), dtype=torch.long,
                                  device=self.device)
-        for pool, new in zip(self.cache, prefill_cache):
-            if set(new) != set(pool):
-                raise ValueError(f"prefill cache leaves {sorted(new)} do not "
-                                 f"match the pool's {sorted(pool)}")
-            for key, p in pool.items():   # codes and scales move together
+        for pool, new, keys in zip(self.cache, prefill_cache,
+                                   self.position_keys):
+            for key in keys:              # codes and scales move together
+                p = pool[key]
                 row = p.shape[2:]
                 p.view(-1, *row).index_copy_(
                     0, dest_t, new[key].reshape(-1, *row).to(p.dtype))
+        if any(self.slot_keys):
+            _seat_rows(self.cache, prefill_cache, slots, self.device,
+                       self.slot_keys, [frozenset()] * len(self.cache))
         for s, l in zip(slots[:k], lengths):
             self.lens[s] = l
 
@@ -519,6 +589,8 @@ class PagedSlotPool:
                 + pos % self.page_size for slot, n in live for pos in range(n)]
         idx = torch.as_tensor(rows, dtype=torch.long, device=self.device)
         for li, layer in enumerate(self.cache):
+            if "k" not in layer:          # a recurrent layer: no pages
+                continue
             quant = layer["k"].dtype == torch.int8
             if quant != ("k_scale" in layer) or quant != ("v_scale" in layer):
                 raise AssertionError(f"layer {li}: int8 pools and scale "

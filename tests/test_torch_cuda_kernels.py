@@ -70,6 +70,9 @@ CASES = [  # (N, K, block, keep, align)
     # keep 0.1, 2 x 4 tiles) and a VGG-16 conv3 GEMM ((8, 16), 4 x 8)
     (1024, 1024, (8, 8), 0.1, 2),
     (256, 2304, (8, 16), 0.25, 1),
+    # jamba's mamba x_proj (288 x 8192 at full width): 144 x 128 blocks,
+    # 72 x 64 tiles, 72 rows not a multiple of the MMA's 16
+    (288, 1024, (144, 128), 0.25, 8),
 ]
 # decode (1, 8), a ragged M tile (37), prefill tiles with a ragged edge
 # (300) and a full prefill (2048)

@@ -185,17 +185,17 @@ def test_prefix_cache_engine_serves():
     eng.check_conservation()
 
 
-@pytest.mark.parametrize("family", ["hybrid", "ssm", "encdec", "vlm"])
+@pytest.mark.parametrize("family", ["encdec"])
 def test_unported_model_options_raise(family):
-    """The families still to port raise at the model's entry point; the
-    registry refuses jamba (hybrid: mamba mixers and MoE)."""
+    """The family still to port (encdec) raises at the model's entry point;
+    the registry refuses whisper."""
     from repro_torch.models import causal_lm
     with pytest.raises(NotImplementedError):
         causal_lm.init_params(tcfgs.ModelConfig(
             name="x", family=family, num_layers=1, d_model=8, num_heads=2,
             num_kv_heads=2, d_ff=8, vocab_size=8), device="cpu")
     with pytest.raises(NotImplementedError):
-        tcfgs.get_config("jamba-v0.1-52b")
+        tcfgs.get_config("whisper-large-v3")
 
 
 @pytest.mark.parametrize("option", ["kv_dtype", "weight_dtype"])
