@@ -1931,16 +1931,16 @@ def forced_flip_rate(torch, np, cfg, params, params_q, trajectories):
     return rate
 
 
+# the recurrent mixers' functions (phase 14)
+MIXER_FUNCTIONS = ("mamba_apply_step", "rwkv_tm_apply_step",
+                   "rwkv_cm_apply_step", "_mamba_step", "_rwkv_step",
+                   "mamba_apply_seq", "rwkv_tm_apply_seq")
 # the port's functions whose host time the decode profile reports
 HOST_FUNCTIONS = ("step", "decode_step", "layer_apply", "attention_apply",
                   "_qkv", "_paged_write", "quantize_rows", "swiglu_apply",
                   "moe_apply", "route",
                   "rmsnorm", "apply_rope", "bcr_spmm", "bcr_spmm_grouped",
-                  "_paged_attention", "_sample",
-                  # the recurrent mixers (phase 14)
-                  "mamba_apply_step", "rwkv_tm_apply_step",
-                  "rwkv_cm_apply_step", "_mamba_step", "_rwkv_step",
-                  "mamba_apply_seq", "rwkv_tm_apply_seq")
+                  "_paged_attention", "_sample") + MIXER_FUNCTIONS
 
 
 def device_events(torch, prof):
@@ -3995,9 +3995,6 @@ FAMILY_KERNELS = {
     "jamba-v0.1-52b": ("bcr_spmm", "bcr_spmm_grouped", "paged_attention",
                        "bcr_spmm_experts", "bcr_spmm_grouped_experts"),
 }
-MIXER_FUNCTIONS = ("mamba_apply_step", "rwkv_tm_apply_step",
-                   "rwkv_cm_apply_step", "_mamba_step", "_rwkv_step",
-                   "mamba_apply_seq", "rwkv_tm_apply_seq")
 
 
 @contextlib.contextmanager
@@ -4028,10 +4025,12 @@ def family_cases(torch, timer, gen, record):
     64 tiles), dt_proj (8192 x 256), out_proj and lm_head; at M = 8 (a
     decode step) and 512 (one prompt's prefill), x_proj also at M = 1024;
     jamba's 16 experts (``wo`` 4096 x 14336, ``wgi`` 2 x 14336 x 4096) at M
-    = 4 and 160 a expert; fp32 x at rwkv's 2560^2 and x_proj (phase 14d's
-    CUDA-core body); paged decode at 32/8 heads, head_dim 128 (pixtral and
-    jamba), bf16 pages. Each against its plain version, timed beside it,
-    the dense library product and its bound."""
+    = 4 and 160 a expert; fp32 x and tiles (phase 14d's CUDA-core bodies)
+    at every pixtral and rwkv6-3b shape above and jamba's x_proj; paged
+    decode and prefill-append at 32/8 heads, head_dim 128 (pixtral and
+    jamba), bf16 and fp32 pages. Each against its plain version (bf16 at
+    2e-2, fp32 at 1e-4 x the output scale), timed beside it, the dense
+    library product and its bound."""
     from repro_torch.core.bcr import BCRSpec, choose_block_shape, kept_align
     from repro_torch.core.bcrc import tbcrc_pack, tbcrc_unpack
     from repro_torch.kernels import bcr_spmm as K
@@ -4066,7 +4065,17 @@ def family_cases(torch, timer, gen, record):
         ("rwkv6", "cm_wk", 8960, 2560, 1, None, (8, 512), bf16),
         ("rwkv6", "cm_wv", 2560, 8960, 1, None, (8, 512), bf16),
         ("rwkv6", "lm_head", 65536, 2560, 1, None, (8,), bf16),
-        ("rwkv6", "wr", 2560, 2560, 1, None, (8,), fp32),
+        # fp32 x and tiles: phase 14d's CUDA-core bodies at full width
+        ("pixtral", "wq", 4096, 5120, 1, None, (8, 512), fp32),
+        ("pixtral", "wkv", 1024, 5120, 2, None, (8, 512), fp32),
+        ("pixtral", "wgi", 14336, 5120, 2, "swiglu", (8, 512), fp32),
+        ("pixtral", "wo", 5120, 4096, 1, None, (8, 512), fp32),
+        ("pixtral", "mlp_wo", 5120, 14336, 1, None, (8, 512), fp32),
+        ("pixtral", "lm_head", 131072, 5120, 1, None, (8,), fp32),
+        ("rwkv6", "wr", 2560, 2560, 1, None, (8, 512), fp32),
+        ("rwkv6", "cm_wk", 8960, 2560, 1, None, (8, 512), fp32),
+        ("rwkv6", "cm_wv", 2560, 8960, 1, None, (8, 512), fp32),
+        ("rwkv6", "lm_head", 65536, 2560, 1, None, (8,), fp32),
         ("jamba", "in_proj", 16384, 4096, 1, None, (8, 512), bf16),
         ("jamba", "x_proj", 288, 8192, 1, None, (8, 512, 1024), bf16),
         ("jamba", "dt_proj", 8192, 256, 1, None, (8, 512), bf16),
@@ -4149,51 +4158,87 @@ def family_cases(torch, timer, gen, record):
                    timer.ms(lambda: _library_expert_bmm(torch, x, w_t)))
     del wo, wgi, w_wo, w_gi
 
-    log("paged decode at 32/8 heads, head_dim 128 (pixtral, jamba), bf16 "
-        "pages, page 16")
+    log("paged decode and prefill-append at 32/8 heads, head_dim 128 "
+        "(pixtral, jamba), page 16, bf16 and fp32 pages")
     h, hkv, d, ps = 32, 8, 128, 16
+
+    def pages(tlens, dt):
+        per = [max(1, -(-int(t) // ps)) for t in tlens]
+        n_pages = 1 + sum(per) + 8
+        kp, vp = (torch.randn((n_pages, ps, hkv, d), generator=gen,
+                              device="cuda").to(dt) for _ in range(2))
+        perm = torch.randperm(n_pages - 1, generator=gen,
+                              device="cuda").cpu() + 1
+        bt = torch.zeros((len(tlens), max(per)), dtype=torch.int32)
+        nxt = 0
+        for i, npg in enumerate(per):
+            bt[i, :npg] = perm[nxt:nxt + npg]
+            nxt += npg
+        return kp, vp, bt.cuda()
+
+    def library_ms(q, kp, vp, bt, qpos):
+        """SDPA over the gathered pages, query row j at position qpos."""
+        b, l_max = q.shape[0], bt.shape[1] * ps
+        kk, vv = (p[bt.long()].reshape(b, l_max, hkv, d)
+                  .repeat_interleave(h // hkv, 2).transpose(1, 2)
+                  for p in (kp, vp))
+        mask = (torch.arange(l_max, device="cuda")[None, None, :]
+                <= qpos[:, :, None])[:, None]
+        return timer.ms(lambda: _library_sdpa(torch, q.transpose(1, 2), kk,
+                                              vv, mask))
+
     lens = torch.tensor([1, 37, 128, 200, 333, 511, 512, 0],
                         dtype=torch.int32, device="cuda")
-    per = [max(1, -(-int(t) // ps)) for t in lens.tolist()]
-    n_pages = 1 + sum(per) + 8
-    kp, vp = (torch.randn((n_pages, ps, hkv, d), generator=gen,
-                          device="cuda").to(bf16) for _ in range(2))
-    perm = torch.randperm(n_pages - 1, generator=gen,
-                          device="cuda").cpu() + 1
-    bt = torch.zeros((8, max(per)), dtype=torch.int32)
-    nxt = 0
-    for i, npg in enumerate(per):
-        bt[i, :npg] = perm[nxt:nxt + npg]
-        nxt += npg
-    bt = bt.cuda()
-    q = torch.randn((8, 1, h, d), generator=gen, device="cuda").to(bf16)
     live = lens > 0
+    # the prefix cache's append admission: a 16-row suffix over cached
+    # prefixes of 0 to 496 positions
+    plen = torch.tensor([0, 16, 112, 127, 208, 300, 480, 496],
+                        dtype=torch.int32, device="cuda")
+    tlen = plen + 16
+    qpos = plen[:, None] + torch.arange(16, device="cuda")[None]
+    for dt, tol, pre in ((bf16, BF16_TOL, ""), (fp32, FP32_TOL, "fp32 ")):
+        elt = torch.tensor([], dtype=dt).element_size()
+        kp, vp, bt = pages(lens.tolist(), dt)
+        q = torch.randn((8, 1, h, d), generator=gen, device="cuda").to(dt)
 
-    def run():
-        return PA.paged_decode_attention(q, kp, vp, bt, lens)
+        def run():
+            return PA.paged_decode_attention(q, kp, vp, bt, lens)
 
-    def plain():
-        return ref.paged_decode_attention_ref(q, kp, vp, bt, lens)
-    got, want = run(), plain()
-    torch.cuda.synchronize()
-    shape = "decode B=8 lens 1..512 32/8 heads hd128"
-    err = check_close(f"paged_attention {shape}", got[live], want[live],
-                      BF16_TOL)
-    if not (bool(torch.isfinite(got).all())
-            and int(torch.count_nonzero(got[~live])) == 0):
-        raise AssertionError("inactive slot output is not finite zeros")
-    l_max = bt.shape[1] * ps
-    kk = kp[bt.long()].reshape(8, l_max, hkv, d).repeat_interleave(4, 2)
-    vv = vp[bt.long()].reshape(8, l_max, hkv, d).repeat_interleave(4, 2)
-    mask = (torch.arange(l_max, device="cuda")[None, :]
-            < lens[:, None])[:, None, None, :]
-    sdpa_args = (q.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2),
-                 mask)
-    record("paged_attention", shape, err, timer.ms(run), timer.ms(plain),
-           PA.paged_kv_bytes(lens.cpu().numpy(), ps, hkv, d, 2, 0)
-           + 2 * q.numel() * 2 + bt.numel() * 4,
-           4 * int(lens.sum()) * h * d, bf16,
-           timer.ms(lambda: _library_sdpa(torch, *sdpa_args)))
+        def plain():
+            return ref.paged_decode_attention_ref(q, kp, vp, bt, lens)
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        shape = f"{pre}decode B=8 lens 1..512 32/8 heads hd128"
+        err = check_close(f"paged_attention {shape}", got[live], want[live],
+                          tol)
+        if not (bool(torch.isfinite(got).all())
+                and int(torch.count_nonzero(got[~live])) == 0):
+            raise AssertionError("inactive slot output is not finite zeros")
+        record("paged_attention", shape, err, timer.ms(run), timer.ms(plain),
+               PA.paged_kv_bytes(lens.cpu().numpy(), ps, hkv, d, elt, 0)
+               + 2 * q.numel() * elt + bt.numel() * 4,
+               4 * int(lens.sum()) * h * d, dt,
+               library_ms(q, kp, vp, bt, (lens - 1)[:, None]))
+
+        kp, vp, bt = pages(tlen.tolist(), dt)
+        q = torch.randn((8, 16, h, d), generator=gen, device="cuda").to(dt)
+
+        def run():
+            return PA.paged_prefill_append_attention(q, kp, vp, bt, plen,
+                                                     tlen)
+
+        def plain():
+            return ref.paged_prefill_append_ref(q, kp, vp, bt, plen, tlen)
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        shape = f"{pre}prefill-append B=8 S=16 prefix 0..496 32/8 heads hd128"
+        err = check_close(f"paged_attention {shape}", got, want, tol)
+        record("paged_attention", shape, err, timer.ms(run), timer.ms(plain),
+               PA.paged_kv_bytes(tlen.cpu().numpy(), ps, hkv, d, elt, 0)
+               + 2 * q.numel() * elt + bt.numel() * 4,
+               4 * int((qpos + 1).sum()) * h * d, dt,
+               library_ms(q, kp, vp, bt, qpos))
+        del kp, vp
 
 
 def family_cfg(arch, **over):
@@ -4248,12 +4293,8 @@ def _state_bytes(engine) -> int:
     """Bytes of the pool's recurrent state (slot leaves): a decode step
     reads and writes each once."""
     pool = engine.pool
-    keys = getattr(pool, "slot_keys", None)
-    if keys is None:                           # capacity-dense: not positions
-        keys = [frozenset(layer) - pk for layer, pk in
-                zip(pool.cache, pool.position_keys)]
     return sum(layer[k].numel() * layer[k].element_size()
-               for layer, ks in zip(pool.cache, keys) for k in ks)
+               for layer, ks in zip(pool.cache, pool.slot_keys) for k in ks)
 
 
 def phase_family_serving(torch, np, arch, cfg, params, frac):

@@ -21,8 +21,7 @@ a,b`` tags requests round-robin for the per-tenant counters (quotas are set
 through ``EngineConfig.tenant_quotas``).
 Every decoder family runs through the same CLI: ``--arch pixtral-12b``
 (vlm), ``rwkv6-3b`` (ssm: the capacity-dense pool, exact-length prefill),
-``jamba-v0.1-52b`` (hybrid: mamba and MoE layers beside paged attention;
-``--param-dtype bfloat16`` halves its random dense tree before packing),
+``jamba-v0.1-52b`` (hybrid: mamba and MoE layers beside paged attention),
 ``deepseek-moe-16b``.
 ``--rate R`` (Poisson arrivals at R req/s) or ``--trace FILE.jsonl`` (the
 reference's trace format, e.g. ``examples/trace_heavy_tail.jsonl``) drives
@@ -198,9 +197,10 @@ def generate(cfg: ModelConfig, params: PyTree, prompts: torch.Tensor, *,
                               dtype=torch.int32)).reshape(b, max_pages)
     pos = torch.arange(p, device=dev)
     dest = (table[:, pos // page_size].long() * page_size + pos % page_size)
-    for pool, new in zip(cache, pcache):
+    for pool, new, keys in zip(cache, pcache,
+                               causal_lm.position_keys(cache)):
         for key, leaf in pool.items():
-            if "k" not in pool:           # recurrent state: row b, whole
+            if key not in keys:           # recurrent state: row b, whole
                 leaf.copy_(new[key])
                 continue
             leaf.view(-1, *leaf.shape[2:]).index_copy_(
@@ -451,11 +451,6 @@ def main() -> None:
     p.add_argument("--num-layers", type=int, default=0,
                    help="cut the model's depth to this many layers (0 → "
                         "the config's)")
-    p.add_argument("--param-dtype", default="",
-                   choices=["", "float32", "bfloat16"],
-                   help="dtype of the random weights before packing (empty "
-                        "keeps the config's float32; bfloat16 halves the "
-                        "dense tree of a large model such as jamba)")
     p.add_argument("--slots", type=int, default=8)
     p.add_argument("--capacity", type=int, default=128)
     p.add_argument("--page-size", type=int, default=16,
@@ -551,8 +546,6 @@ def main() -> None:
     cfg = dataclasses.replace(cfg, bcr_keep_frac=args.bcr_keep)
     if args.num_layers:
         cfg = dataclasses.replace(cfg, num_layers=args.num_layers)
-    if args.param_dtype:
-        cfg = dataclasses.replace(cfg, param_dtype=args.param_dtype)
     if args.attn_impl:
         cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
     if args.weight_dtype and args.bcr_keep <= 0:

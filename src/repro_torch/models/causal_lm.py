@@ -85,8 +85,20 @@ def layer_plan(cfg: ModelConfig) -> List[Tuple[str, str]]:
     return plan
 
 
-def _has_attention(cfg: ModelConfig) -> bool:
+def has_attention(cfg: ModelConfig) -> bool:
+    """Whether any layer attends (and so holds position leaves)."""
     return any(m == "attn" for m, _ in layer_plan(cfg))
+
+
+# an attention layer's cache leaves: the only ones whose axis 1 counts
+# positions (pages, in a paged cache); every other leaf is a recurrent
+# layer's state, one row a slot
+POSITION_LEAVES = frozenset({"k", "v", "k_scale", "v_scale"})
+
+
+def position_keys(cache: Cache) -> List[frozenset]:
+    """Per layer, the keys of ``cache``'s position leaves."""
+    return [frozenset(layer) & POSITION_LEAVES for layer in cache]
 
 
 def layer_init(generator: torch.Generator, cfg: ModelConfig,
@@ -155,7 +167,7 @@ def init_cache(cfg: ModelConfig, batch: int = 0, capacity: int = 0, *,
     dev = resolve_device(device)
     plan = layer_plan(cfg)
     lead = None
-    if any(m == "attn" for m, _ in plan):
+    if has_attention(cfg):
         if page_size > 0:
             lead = (kv_pages, page_size)
         elif batch > 0 and capacity > 0:
@@ -286,7 +298,7 @@ def _step_tables(cfg: ModelConfig, positions: torch.Tensor,
     """What every layer of one forward shares: the RoPE (cos, sin) tables
     and, on a paged cache, the pool rows the new K/V land in (neither
     when no layer attends)."""
-    attn = _has_attention(cfg)
+    attn = has_attention(cfg)
     rope_cs = (L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
                if attn and cfg.rope_theta > 0 else None)
     kv_dest = None
@@ -300,7 +312,9 @@ def _step_tables(cfg: ModelConfig, positions: torch.Tensor,
 def _page_size(cache: Cache) -> int:
     """Positions a page of the paged cache holds (0: no attention
     layer)."""
-    return next((c["k"].shape[1] for c in cache if "k" in c), 0)
+    return next((c["k"].shape[1] for c, keys in zip(cache,
+                                                    position_keys(cache))
+                 if keys), 0)
 
 
 def _embed_tokens(cfg: ModelConfig, params: Params, tokens: torch.Tensor,

@@ -96,7 +96,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import chunks_fit, prefill_bucket
 from repro_torch.kernels.plan import quantize_packed_params
 from repro_torch.models.api import model_fns
-from repro_torch.models.causal_lm import layer_plan
+from repro_torch.models.causal_lm import has_attention
 from repro_torch.models.layers import FLASH_ATTN_IMPLS, flash_chunks
 from repro_torch.serving.admission import (TenantQuota, TokenBucket,
                                            estimate_seat_steps,
@@ -251,9 +251,10 @@ class InferenceEngine:
                 raise ValueError(
                     f"prefill buckets {bad} do not split into the flash "
                     f"chunks q_chunk={cfg.q_chunk}, kv_chunk={cfg.kv_chunk}")
-        # the ssm family holds no attention K/V to page: its recurrent
-        # state lives in the capacity-dense pool whatever page_size says
-        self.paged = ec.page_size > 0 and cfg.family != "ssm"
+        # a model with no attention layer holds no K/V to page: its
+        # recurrent state lives in the capacity-dense pool whatever
+        # page_size says
+        self.paged = ec.page_size > 0 and has_attention(cfg)
         if self.paged:
             self.pool: Any = PagedSlotPool(
                 self.fns.init_cache, ec.n_slots, ec.capacity,
@@ -272,8 +273,7 @@ class InferenceEngine:
         # pages and rollback truncates them, so it needs the paged pool
         self.spec = ec.spec_k > 0
         if self.spec:
-            if not (self.paged and all(m == "attn"
-                                       for m, _ in layer_plan(cfg))):
+            if not self.paged or any(self.pool.slot_keys):
                 raise ValueError(
                     "spec_k > 0 needs a block-paged pool (page_size > 0) "
                     "on a pure-attention family: verification runs through "

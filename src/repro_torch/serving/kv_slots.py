@@ -13,22 +13,23 @@ first in every leaf, so the pools take that as fixed.
 Two kinds of leaf share that layout: position leaves (attention K/V and
 their scales: axis 1 counts positions) and slot leaves (a recurrent
 layer's state: mamba ``h``/``conv``, RWKV ``s``/``shift``/``cm_shift``,
-whose axis 1 is a width, not positions). As the reference does, the pools
-tell them apart by probing ``init_cache``, here on the meta device (no
-memory): the leaves whose shape moves with the capacity (capacity-dense)
-or with the page count (paged) carry positions; every other leaf is seated
+whose axis 1 is a width, not positions). The pools tell them apart by
+``causal_lm.position_keys``, the one rule the model, ``generate`` and the
+engine read too (the reference probes ``init_cache`` for it): position
+leaves are clipped to the capacity or paged; every other leaf is seated
 whole, one row a slot. Clipping a slot leaf's axis 1 to the capacity would
 keep only part of its state (RWKV's ``shift`` is ``(B, d_model)``).
 
-In the paged pool, attention K/V live in a shared page pool per layer, ``(n_pages, page_size,
-Hkv, D)`` torch tensors on the engine's device, plus per-slot block tables
-(physical page ids) kept on the host; slot leaves stay slot-major,
-``(n_slots, ...)``, and move only at admission. Under int8 KV each layer also holds
-fp32 ``k_scale``/``v_scale`` pools ``(n_pages, page_size, Hkv)`` in the same
-page index space; every write and every copy moves codes and scales
-together. Pages are reserved at admission, allocated lazily as a slot's
-length crosses page boundaries, and returned on retirement. Physical page 0
-is reserved as the null sink for pad/inactive writes.
+In the paged pool, attention K/V live in a shared page pool per layer,
+``(n_pages, page_size, Hkv, D)`` torch tensors on the engine's device, plus
+per-slot block tables (physical page ids) kept on the host; slot leaves
+stay slot-major, ``(n_slots, ...)``, and move only at admission. Under int8
+KV each layer also holds fp32 ``k_scale``/``v_scale`` pools ``(n_pages,
+page_size, Hkv)`` in the same page index space; every write and every copy
+moves codes and scales together. Pages are reserved at admission,
+allocated lazily as a slot's length crosses page boundaries, and returned
+on retirement. Physical page 0 is reserved as the null sink for
+pad/inactive writes.
 
 The pool is also a prefix cache, as in the reference: pages are
 refcounted, and full prompt pages can be published into a
@@ -54,6 +55,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.models.causal_lm import position_keys
+
 
 Cache = List[dict]
 
@@ -67,54 +70,36 @@ def _chain_hash(parent: bytes, chunk) -> bytes:
         parent + np.asarray(chunk, "<i4").tobytes()).digest()
 
 
-def _shape_diff(a: Cache, b: Cache) -> List[frozenset]:
-    """Per layer, the keys whose leaf shapes differ between two probes."""
-    return [frozenset(k for k in la if la[k].shape != lb[k].shape)
-            for la, lb in zip(a, b)]
+def _leaf_keys(cache: Cache) -> Tuple[List[frozenset], List[frozenset]]:
+    """Per layer, the keys of the position leaves and of the slot leaves
+    (everything else: recurrent state)."""
+    pos = position_keys(cache)
+    return pos, [frozenset(layer) - keys for layer, keys in zip(cache, pos)]
 
 
-def position_keys(init_cache: Callable[..., Cache]) -> List[frozenset]:
-    """Per layer, the keys of a capacity-dense cache's position leaves:
-    those whose shape moves with the capacity, found by building
-    ``init_cache`` at capacities 8 and 16 on the meta device (recurrent
-    state has no capacity axis)."""
-    return _shape_diff(init_cache(1, 8, device="meta"),
-                       init_cache(1, 16, device="meta"))
-
-
-def _seat_rows(cache: Cache, new: Cache, slots: np.ndarray, device,
-               keys: List[frozenset], seq_keys: List[frozenset]) -> None:
-    """Row ``i`` of the ``keys`` leaves of ``new`` → pool row ``slots[i]``,
-    in place, one scatter a leaf: position leaves (``seq_keys``) at
-    positions ``[0, seq)`` clipped to the pool's (a prefill bucket may be
-    longer: those positions are pads), every other leaf whole. Where a slot
-    appears more than once (pad rows alias the first real row's slot) only
-    its lowest row is written, which leaves what the reference's
-    reverse-order writes leave."""
+def _seat_rows(cache: Cache, new: Cache, slots: np.ndarray,
+               seq_keys: List[frozenset],
+               keys: Optional[List[frozenset]] = None) -> None:
+    """Row ``i`` of ``new`` → pool row ``slots[i]``, in place, one scatter a
+    leaf (of every leaf, or per layer of the ``keys`` leaves): position
+    leaves (``seq_keys``) at positions ``[0, seq)`` clipped to the pool's
+    (a prefill bucket may be longer: those positions are pads), every
+    other leaf whole. Where a slot appears more than once (pad rows alias
+    the first real row's slot) only its lowest row is written, which
+    leaves what the reference's reverse-order writes leave."""
     uniq, first = np.unique(np.asarray(slots, np.int64), return_index=True)
+    device = next(iter(cache[0].values())).device
     dst = torch.as_tensor(uniq, device=device)
     src = torch.as_tensor(first, device=device)
-    for pool_layer, new_layer, layer_keys, seq in zip(cache, new, keys,
-                                                      seq_keys):
-        for key in layer_keys:
+    for i, (pool_layer, new_layer, seq) in enumerate(zip(cache, new,
+                                                         seq_keys)):
+        for key in (pool_layer if keys is None else keys[i]):
             leaf = pool_layer[key]
             rows = new_layer[key].index_select(0, src)
             if key in seq:
                 rows = rows[:, :leaf.shape[1]]
                 leaf = leaf[:, :rows.shape[1]]
             leaf.index_copy_(0, dst, rows.to(leaf.dtype))
-
-
-def write_slot(pool: Cache, new: Cache, slot: int,
-               seq_keys: List[frozenset]) -> None:
-    """Write a ``k``-row cache into pool rows ``[slot, slot + k)``, in
-    place: position leaves (``seq_keys``, per layer) at positions ``[0,
-    seq)``, clipped to the capacity (prefill K/V of a length-P prompt fills
-    ``[0, P)``); every other leaf (recurrent state) whole."""
-    k = next(iter(new[0].values())).shape[0]
-    _seat_rows(pool, new, np.arange(slot, slot + k),
-               next(iter(pool[0].values())).device,
-               [frozenset(layer) for layer in pool], seq_keys)
 
 
 def seat_prefill(init_cache: Callable[..., Cache], prefill_cache: Cache,
@@ -124,7 +109,8 @@ def seat_prefill(init_cache: Callable[..., Cache], prefill_cache: Cache,
     path. The port's engine does not call it; it is kept for parity with
     the reference's ``kv_slots`` API, which the tests hold it to."""
     pool = init_cache(batch, capacity, device=device)
-    write_slot(pool, prefill_cache, 0, position_keys(init_cache))
+    rows = next(iter(prefill_cache[0].values())).shape[0]
+    _seat_rows(pool, prefill_cache, np.arange(rows), position_keys(pool))
     return pool
 
 
@@ -139,8 +125,9 @@ class SlotPool:
         self.capacity = capacity
         self.device = torch.device(device)
         self.cache = init_cache(n_slots, capacity, device=self.device)
-        # per layer: the leaves with a capacity axis (attention K/V)
-        self.position_keys = position_keys(init_cache)
+        # per layer: the leaves with a capacity axis (attention K/V) and
+        # the recurrent state
+        self.position_keys, self.slot_keys = _leaf_keys(self.cache)
         self.lens = np.zeros((n_slots,), np.int32)
 
     def insert(self, prefill_cache: Cache, slot: int, length: int) -> None:
@@ -151,7 +138,9 @@ class SlotPool:
         if length > self.capacity:
             raise ValueError(f"length {length} exceeds the slot capacity "
                              f"{self.capacity}")
-        write_slot(self.cache, prefill_cache, slot, self.position_keys)
+        rows = next(iter(prefill_cache[0].values())).shape[0]
+        _seat_rows(self.cache, prefill_cache, np.arange(slot, slot + rows),
+                   self.position_keys)
         self.lens[slot] = length
 
     def insert_rows(self, prefill_cache: Cache, slots: np.ndarray,
@@ -166,9 +155,7 @@ class SlotPool:
         capacity (a prefill bucket may be longer) are pads and dropped."""
         if max(lengths, default=0) > self.capacity:
             raise ValueError("prompt longer than the slot capacity")
-        _seat_rows(self.cache, prefill_cache, slots, self.device,
-                   [frozenset(layer) for layer in self.cache],
-                   self.position_keys)
+        _seat_rows(self.cache, prefill_cache, slots, self.position_keys)
         for s, l in zip(np.asarray(slots)[:len(lengths)], lengths):
             self.lens[s] = l
 
@@ -220,21 +207,9 @@ class PagedSlotPool:
                                 kv_pages=n_pages, page_size=page_size,
                                 device=self.device)
 
-        def probe(batch, pages):
-            return init_cache(batch=batch, capacity=capacity,
-                              kv_pages=pages, page_size=page_size,
-                              device="meta")
-
         # per layer: page leaves (attention K/V, paged) and slot leaves
-        # (recurrent state, slot-major), as the reference's probes find them
-        self.position_keys = _shape_diff(probe(1, 2), probe(1, 3))
-        self.slot_keys = _shape_diff(probe(1, 2), probe(2, 2))
-        for i, (layer, pk, sk) in enumerate(zip(self.cache,
-                                                self.position_keys,
-                                                self.slot_keys)):
-            if pk & sk or (pk | sk) != set(layer):
-                raise ValueError(f"layer {i}: cache leaves {sorted(layer)} "
-                                 f"are not each either paged or slot-major")
+        # (recurrent state, slot-major)
+        self.position_keys, self.slot_keys = _leaf_keys(self.cache)
         if not any(self.position_keys):
             raise ValueError("no attention K/V leaf to page: use SlotPool "
                              "for this family")
@@ -447,8 +422,8 @@ class PagedSlotPool:
 
     def copy_pages(self, src: np.ndarray, dst: np.ndarray) -> None:
         """Copy-on-write on the device: page ``src[i]`` → ``dst[i]`` in every
-        page leaf of every attention layer (codes and, under int8 KV, their scales),
-        one gather and one in-place scatter per leaf, on the current
+        page leaf of every attention layer (codes and, under int8 KV, their
+        scales), one gather and one in-place scatter per leaf, on the current
         stream, so a later dispatch on it reads the copies."""
         s = torch.as_tensor(np.asarray(src), dtype=torch.long,
                             device=self.device)
@@ -502,8 +477,8 @@ class PagedSlotPool:
                 p.view(-1, *row).index_copy_(
                     0, dest_t, new[key].reshape(-1, *row).to(p.dtype))
         if any(self.slot_keys):
-            _seat_rows(self.cache, prefill_cache, slots, self.device,
-                       self.slot_keys, [frozenset()] * len(self.cache))
+            _seat_rows(self.cache, prefill_cache, slots,
+                       [frozenset()] * len(self.cache), self.slot_keys)
         for s, l in zip(slots[:k], lengths):
             self.lens[s] = l
 
@@ -588,8 +563,9 @@ class PagedSlotPool:
         rows = [int(self.table[slot, pos // self.page_size]) * self.page_size
                 + pos % self.page_size for slot, n in live for pos in range(n)]
         idx = torch.as_tensor(rows, dtype=torch.long, device=self.device)
-        for li, layer in enumerate(self.cache):
-            if "k" not in layer:          # a recurrent layer: no pages
+        for li, (layer, keys) in enumerate(zip(self.cache,
+                                               self.position_keys)):
+            if not keys:                  # a recurrent layer: no pages
                 continue
             quant = layer["k"].dtype == torch.int8
             if quant != ("k_scale" in layer) or quant != ("v_scale" in layer):

@@ -456,6 +456,58 @@ def test_recurrent_leaf_wider_than_capacity_is_seated_whole():
     pool.check_consistency()
 
 
+@pytest.mark.parametrize("kv_dtype", ["", "int8"])
+@pytest.mark.parametrize("arch", ("llama3.2-1b", "deepseek-moe-16b") + ARCHS)
+def test_position_rule_matches_reference_probe(arch, kv_dtype):
+    """``causal_lm.position_keys``, the port's one rule for which cache
+    leaves carry positions, classes every leaf of every family's paged cache
+    as the reference's shape probe of ``init_cache`` does (page leaves vs
+    slot leaves); the engine pages exactly the models with an attention
+    layer, and a pool with slot leaves refuses ``spec_k``. rwkv has no leaf
+    to page in either package."""
+    from repro.serving.kv_slots import PagedSlotPool as JPagedSlotPool
+
+    jcfg = dataclasses.replace(jcfgs.get_smoke_config(arch),
+                               kv_dtype=kv_dtype)
+    cfg = _cfg(arch, kv_dtype=kv_dtype)
+    eng = InferenceEngine(cfg, build_params(cfg, log=lambda *_: None,
+                                            device="cpu"),
+                          EngineConfig(n_slots=2, capacity=CAP,
+                                       page_size=PS), device="cpu")
+    assert eng.paged == causal_lm.has_attention(cfg) \
+        == (arch != "rwkv6-3b")
+    pool = eng.pool
+    assert pool.position_keys == causal_lm.position_keys(pool.cache)
+    if not eng.paged:
+        with pytest.raises(AssertionError, match="no attention K/V leaf"):
+            JPagedSlotPool(jmodel_fns(jcfg).init_cache, 2, CAP,
+                           page_size=PS)
+        with pytest.raises(ValueError, match="no attention K/V leaf"):
+            PagedSlotPool(lambda **kw: causal_lm.init_cache(cfg, **kw), 2,
+                          CAP, page_size=PS, device="cpu")
+        assert not any(pool.position_keys)
+        return
+    jpool = JPagedSlotPool(jmodel_fns(jcfg).init_cache, 2, CAP,
+                           page_size=PS)
+    sp = jstack_plan(jcfg)
+    ref = list(jpool._page_axes["prefix"]) \
+        + list(jpool._page_axes["stack"]) * sp.repeats
+    assert len(ref) == len(pool.cache)
+    leaf = dict(_REF_LEAF, k_scale=("mixer", "k_scale"),
+                v_scale=("mixer", "v_scale"))
+    for i, (layer, pk, sk, jl) in enumerate(zip(
+            pool.cache, pool.position_keys, pool.slot_keys, ref)):
+        assert pk | sk == set(layer) and not pk & sk, i
+        for key in layer:
+            sub, name = leaf[key]
+            assert (jl[sub][name] >= 0) == (key in pk), (i, key)
+    if any(pool.slot_keys):
+        with pytest.raises(ValueError, match="pure-attention"):
+            InferenceEngine(cfg, eng.params, EngineConfig(
+                n_slots=2, capacity=CAP, page_size=PS, spec_k=2),
+                device="cpu", drafter=OracleDraft({}))
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_serve_cli_runs_each_family(arch, monkeypatch, capsys):
     """``python -m repro_torch.launch.serve --arch <arch> --smoke --device
