@@ -5,13 +5,15 @@
     python3 chip_smoke.py --bcr-ab TREE [TREE ...]
     python3 chip_smoke.py --paper
     python3 chip_smoke.py --families
+    python3 chip_smoke.py --encdec
 
 The second form times phase 3's ``bcr_spmm*``, ``bcr_spmm_skip`` and flash
 cases for each checkout TREE (its own ``src/repro_torch``, built into its
 own ``build/``), one process per TREE in the order given, and prints them
 side by side — e.g. ``build/parent . . build/parent`` after ``git archive
 HEAD~1 | tar -x -C build/parent``. The third runs phases 1, 2 and 13 only;
-the fourth phases 1, 2 and 14, with phase 3's checks of phase 14's shapes.
+the fourth phases 1, 2 and 14, with phase 3's checks of phase 14's shapes;
+the fifth phases 1, 2 and 15, phase 15d's kernel cases first.
 
 Phases, in order (any failed check raises and the script exits non-zero):
 
@@ -227,6 +229,42 @@ Phases, in order (any failed check raises and the script exits non-zero):
    (M = 4 and 160 a expert), fp32 x at rwkv's 2560^2 and x_proj, and
    paged decode at 32/8 heads, head_dim 128.
 
+15. The encdec family: whisper-large-v3 at full width and depth (32
+   encoder + 32 decoder layers, d_model 1280, 20/20 heads of 64, d_ff
+   5120, vocab 51866), random weights from seed 0 packed at keep 0.25 /
+   block 128, 8 utterances of 1500 seeded frame embeddings (the stub
+   frontend's output) and a 4-token prompt, through ``model_fns``: the
+   reference's engine and ``generate`` refuse encdec, so ``prefill``
+   (encoder, cross K/V, the decoder over the prompt), ``init_cache(8,
+   448)`` (whisper's text context) with the cross K/V seated, the prompt
+   primed through ``decode_step`` and 32 greedy tokens. (a) bf16 tiles,
+   plain attention: prefill wall and device time, decode step-wall p50, a
+   profiled window of 5 steps (device ms by kernel family, launches a
+   step, busy share), resident weight and cross-K/V bytes, the decode
+   byte floor (streamed projections, the whole cross cache and the live
+   self K/V over 3.35 TB/s); one decode step between zeroed counters
+   launches exactly what the packed tree implies (5 x 32 + 1
+   ``bcr_spmm``, 32 ``bcr_spmm_grouped``, no paged or flash kernel). (b)
+   The same draw with int8 tiles and ``attn_impl="pallas"``, ``q_chunk``
+   = ``kv_chunk`` = 1500: the int8 forms move and the fp forms stay 0;
+   flash launches once per encoder layer and once per decoder layer a
+   prefill (the decoder's self attention over the prompt runs it too, as
+   the reference's prefill runs ``attention_apply`` in both stacks); each
+   encoder layer under flash against the same layer under plain attention
+   on the same input (2e-2); the whole encoder's gap to plain attention
+   and to (a)'s encoder, and the teacher-forced flip rate on (a)'s
+   trajectories, printed, not gated. (c) fp32 on the card, full
+   width, depth cut to 2 + 2 (printed), 4 utterances: ``prefill`` logits
+   = ``decode_train``'s last row; stepwise ``decode_step`` greedy tokens
+   = the teacher-forced argmax of ``decode_train`` under phase 6's 1e-4
+   near-tie rule; the packed encoder and decoder against the same forward
+   inside ``plain_kernels()``. (d), run first: phase 3's cases at
+   whisper's shapes (``lm_head`` 51866 x 1280 on (2, 128) blocks, one
+   kept row a tile, M = 8 and 32; ``wqkv`` and cross ``wkv`` with their
+   biases, MLP ``wi``/``wo``, at M = 8 and 12000; fp and int8 tiles;
+   non-causal flash at B·H 160, S 1500), each against its plain version,
+   timed beside it, the library call and the bound.
+
 Phase 3 also holds the verify dispatch's shapes: paged prefill-append with
 4 rows a slot over lengths 1..512 (ragged real rows, bf16 and int8 pages)
 and every ``bcr_spmm*`` case at M = 32 = 8 slots x (``spec_k`` + 1).
@@ -241,8 +279,9 @@ launches on phase 12, ``moe_launches``; four entries for the
 expert-batched forms, launched on phase 12 only; the ``bcr_spmm`` entry
 its launches in one packed fp32 GRU step at batch 1, ``gru_launches``, and
 that step's device time, ``gru_ms``, from phase 13; every entry its
-launches over phase 14's three serving runs, ``family_launches``), and the
-contract line.
+launches over phase 14's three serving runs, ``family_launches``, and over
+phase 15's runs, ``encdec_launches``: the fp forms over 15a's, the int8
+forms and flash over 15b's), and the contract line.
 """
 
 from __future__ import annotations
@@ -1957,44 +1996,38 @@ def device_events(torch, prof):
             yield ev.key, ev.count, us / 1e3
 
 
-def profile_decode(torch, engine, rng, cfg, steps=5):
-    """Device time of steady decode steps (8 live slots) under
+def profile_window(torch, step, host_functions, steps=5):
+    """Device time of ``steps`` calls of a warm ``step()`` under
     ``torch.profiler``: the sum of kernel time per step, by kernel family,
     against the wall time of the same number of unprofiled steps just
     before (the profiler slows the host) — the device's busy share. Then
     the host side under ``cProfile``: the cumulative time per step of the
-    port's functions (``HOST_FUNCTIONS``); cProfile slows every Python
-    call, so these rank where the host's time goes, they are not the
+    port's functions named in ``host_functions``; cProfile slows every
+    Python call, so these rank where the host's time goes, they are not the
     unprofiled wall."""
     import cProfile
     import pstats
 
     from torch.profiler import ProfilerActivity, profile
 
-    for n in (32, 128, 512, 128, 32, 512, 128, 32):
-        engine.submit(rng.integers(0, cfg.vocab_size, size=n),
-                      max_new_tokens=3 * steps + 4)
-    engine.step()                     # admission + first decode
-    engine.step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(steps):
-        engine.step()
+        step()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
-            engine.step()
+            step()
         torch.cuda.synchronize()
     pr = cProfile.Profile()
     pr.enable()
     for _ in range(steps):
-        engine.step()
+        step()
     torch.cuda.synchronize()
     pr.disable()
-    engine.run()
-    host_fn_ms = dict.fromkeys(HOST_FUNCTIONS, 0.0)
+    host_fn_ms = dict.fromkeys(host_functions, 0.0)
     for (path, _, fn), (_, _, _, cum, _) in pstats.Stats(pr).stats.items():
         if "repro_torch" in path and fn in host_fn_ms:
             host_fn_ms[fn] += cum * 1e3 / steps
@@ -2015,19 +2048,30 @@ def profile_decode(torch, engine, rng, cfg, steps=5):
         fam = kernel_family(name)
         families[fam] = families.get(fam, 0.0) + ms
     device_ms = sum(families.values())
-    out = dict(step_wall_ms=wall_ms, device_ms=device_ms,
-               busy_share=device_ms / wall_ms if wall_ms else None,
-               device_launches_per_step=kernels / steps,
-               by_family_ms=families,
-               top_other=sorted(((ms, n[:80]) for n, ms in by_name.items()
-                                 if kernel_family(n) == "other"),
-                                reverse=True)[:5],
-               host_fn_ms_cprofile=host_fn_ms,
-               host_ops_per_step=sum(ev.count for ev in prof.key_averages()
-                                     if getattr(ev, "device_type", None)
-                                     == torch.autograd.DeviceType.CPU)
-               // steps,
-               top_host_ms=host)
+    return dict(step_wall_ms=wall_ms, device_ms=device_ms,
+                busy_share=device_ms / wall_ms if wall_ms else None,
+                device_launches_per_step=kernels / steps,
+                by_family_ms=families,
+                top_other=sorted(((ms, n[:80]) for n, ms in by_name.items()
+                                  if kernel_family(n) == "other"),
+                                 reverse=True)[:5],
+                host_fn_ms_cprofile=host_fn_ms,
+                host_ops_per_step=sum(ev.count for ev in prof.key_averages()
+                                      if getattr(ev, "device_type", None)
+                                      == torch.autograd.DeviceType.CPU)
+                // steps,
+                top_host_ms=host)
+
+
+def profile_decode(torch, engine, rng, cfg, steps=5):
+    """:func:`profile_window` over steady engine steps, 8 live slots."""
+    for n in (32, 128, 512, 128, 32, 512, 128, 32):
+        engine.submit(rng.integers(0, cfg.vocab_size, size=n),
+                      max_new_tokens=3 * steps + 4)
+    engine.step()                     # admission + first decode
+    engine.step()
+    out = profile_window(torch, engine.step, HOST_FUNCTIONS, steps)
+    engine.run()
     log("decode profile (per step): " + json.dumps(out))
     return out
 
@@ -4016,6 +4060,112 @@ def plain_kernels():
         ops.bcr_spmm, ops.bcr_spmm_grouped = saved
 
 
+def random_pack(torch, gen, n, k, e=0):
+    """A random ``n x k`` weight (``e`` of them stacked when ``e``) drawn
+    on the card, packed at keep 0.25 on the blocks ``pack_params`` chooses
+    (``choose_block_shape`` from 128 x 128); fp32 tiles."""
+    from repro_torch.core.bcr import BCRSpec, choose_block_shape, kept_align
+    from repro_torch.core.bcrc import tbcrc_pack
+
+    block = choose_block_shape((n, k), (128, 128))
+    spec = BCRSpec(block_shape=block, keep_frac=0.25, align=kept_align(block))
+    shape = (e, n, k) if e else (n, k)
+    return tbcrc_pack(torch.randn(shape, generator=gen, device="cuda")
+                      * k ** -0.5, spec)
+
+
+def packed_nbytes(p) -> int:
+    """Bytes a kernel reads of a pack: tiles, indices, int8 scales."""
+    scales = p.plan.block_scales if p.plan is not None else None
+    return (p.vals.numel() * p.vals.element_size()
+            + (p.row_idx.numel() + p.col_idx.numel()) * 4
+            + (0 if scales is None else scales.numel() * 4))
+
+
+def projection_cases(torch, timer, gen, record, table):
+    """Phase 3's ``bcr_spmm`` / ``bcr_spmm_grouped`` cases over ``table``,
+    rows ``(model, name, n, k, group, epilogue, Ms, dtype, bias, int8)``:
+    :func:`random_pack` members, tiles and x in ``dtype``; a group fused
+    by ``pack_group``, with a random ``(G, n)`` bias in the emit step where
+    ``bias`` says; where ``int8`` says, the same weights quantized (int8
+    tiles, bf16 x) run too. Each against its
+    plain version (bf16 at 2e-2, fp32 at 1e-4 x the output scale), timed
+    beside it, the dense library product (plus the bias) and its bound."""
+    from repro_torch.core.bcrc import tbcrc_unpack
+    from repro_torch.kernels import bcr_spmm as K
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.plan import (pack_group, quantize_grouped,
+                                          quantize_packed)
+
+    def dequantized(p, g, dt):
+        if g == 1:
+            return tbcrc_unpack(p).to(dt)
+        # a group's members, one at a time (the int8 scales ride with each)
+        return torch.cat([tbcrc_unpack(dataclasses.replace(
+            p, vals=p.vals[i], row_idx=p.row_idx[i], col_idx=p.col_idx[i],
+            plan=dataclasses.replace(p.plan,
+                                     block_scales=p.plan.block_scales[i])))
+            for i in range(g)]).to(dt)
+
+    for model, wname, n, k, g, epi, ms, dt, has_bias, int8 in table:
+        members = [random_pack(torch, gen, n, k) for _ in range(g)]
+        log(f"  {model} {wname}: block {members[0].block_shape}, kept tile "
+            f"{tuple(members[0].vals.shape[-2:])}, grid "
+            f"{tuple(members[0].vals.shape[:2])}")
+        fp = members[0] if g == 1 else pack_group(members)
+        forms = [("", dataclasses.replace(fp, vals=fp.vals.to(dt)),
+                  torch.cat([tbcrc_unpack(p) for p in members]).to(dt))]
+        if int8:
+            q = quantize_packed(fp) if g == 1 else quantize_grouped(fp)
+            forms.append(("_int8", q, dequantized(q, g, dt)))
+        del members, fp
+        bias = (torch.randn((g, n), generator=gen, device="cuda").to(dt)
+                if has_bias else None)
+        tol = BF16_TOL if dt == torch.bfloat16 else FP32_TOL
+        pre = "" if dt == torch.bfloat16 else "fp32 "
+        for form, w, w_dense in forms:
+            key = ("bcr_spmm" if g == 1 else "bcr_spmm_grouped") + form
+            for m in ms:
+                x = torch.randn((m, k), generator=gen, device="cuda").to(dt)
+                if g == 1:
+                    def run():
+                        return K.bcr_spmm(x, w)
+
+                    def plain():
+                        return ref.bcr_spmm_packed_ref(x, w)
+                else:
+                    def run():
+                        return K.bcr_spmm_grouped(x, w, bias=bias,
+                                                  epilogue=epi)
+
+                    def plain():
+                        y = ref.bcr_spmm_grouped_ref(x, w, bias=bias,
+                                                     epilogue=epi)
+                        return y if epi else y.transpose(0, 1)
+
+                def library():
+                    if bias is None:
+                        return _library_dense_matmul(x, w_dense)
+                    return torch.addmm(bias.reshape(-1), x, w_dense.T)
+
+                shape = (f"{pre}{model} {wname} "
+                         f"{f'{g}x' if g > 1 else ''}{n}x{k} M={m}")
+                got, want = run(), plain()
+                torch.cuda.synchronize()
+                err = check_close(f"{key} {shape}", got, want, tol)
+                nb_r, nb_c, r, c = w.vals.shape[-4:]
+                out_n = n if epi else g * n
+                elt = x.element_size()
+                record(key, shape, err, timer.ms(run), timer.ms(plain),
+                       packed_nbytes(w) + (m * k + m * out_n) * elt
+                       + (0 if bias is None else bias.numel() * elt),
+                       2 * m * g * nb_r * nb_c * r * c, dt,
+                       timer.ms(library))
+                del x, got, want
+        del forms, w, w_dense
+        torch.cuda.empty_cache()
+
+
 def family_cases(torch, timer, gen, record):
     """Phase 3's cases at the shapes phase 14 gives the kernels, new to every
     earlier phase, bf16 x and tiles at block 128 / keep 0.25 (the blocks
@@ -4031,101 +4181,53 @@ def family_cases(torch, timer, gen, record):
     jamba), bf16 and fp32 pages. Each against its plain version (bf16 at
     2e-2, fp32 at 1e-4 x the output scale), timed beside it, the dense
     library product and its bound."""
-    from repro_torch.core.bcr import BCRSpec, choose_block_shape, kept_align
-    from repro_torch.core.bcrc import tbcrc_pack, tbcrc_unpack
+    from repro_torch.core.bcrc import tbcrc_unpack
     from repro_torch.kernels import bcr_spmm as K
     from repro_torch.kernels import paged_decode_attention as PA
     from repro_torch.kernels import ref
     from repro_torch.kernels.plan import pack_group
 
-    def pack(n, k, dtype, e=0):
-        block = choose_block_shape((n, k), (128, 128))
-        spec = BCRSpec(block_shape=block, keep_frac=0.25,
-                       align=kept_align(block))
-        shape = (e, n, k) if e else (n, k)
-        p = tbcrc_pack(torch.randn(shape, generator=gen, device="cuda")
-                       * k ** -0.5, spec)
-        p.vals = p.vals.to(dtype)
-        return p
-
-    def nbytes(p):
-        return (p.vals.numel() * p.vals.element_size()
-                + (p.row_idx.numel() + p.col_idx.numel()) * 4)
-
     bf16, fp32 = torch.bfloat16, torch.float32
-    # (model, name, n, k, group, epilogue, Ms, dtype)
-    single = [
-        ("pixtral", "wq", 4096, 5120, 1, None, (8, 512), bf16),
-        ("pixtral", "wkv", 1024, 5120, 2, None, (8, 512), bf16),
-        ("pixtral", "wgi", 14336, 5120, 2, "swiglu", (8, 512), bf16),
-        ("pixtral", "wo", 5120, 4096, 1, None, (8,), bf16),
-        ("pixtral", "mlp_wo", 5120, 14336, 1, None, (8, 512), bf16),
-        ("pixtral", "lm_head", 131072, 5120, 1, None, (8,), bf16),
-        ("rwkv6", "wr", 2560, 2560, 1, None, (8, 512), bf16),
-        ("rwkv6", "cm_wk", 8960, 2560, 1, None, (8, 512), bf16),
-        ("rwkv6", "cm_wv", 2560, 8960, 1, None, (8, 512), bf16),
-        ("rwkv6", "lm_head", 65536, 2560, 1, None, (8,), bf16),
-        # fp32 x and tiles: phase 14d's CUDA-core bodies at full width
-        ("pixtral", "wq", 4096, 5120, 1, None, (8, 512), fp32),
-        ("pixtral", "wkv", 1024, 5120, 2, None, (8, 512), fp32),
-        ("pixtral", "wgi", 14336, 5120, 2, "swiglu", (8, 512), fp32),
-        ("pixtral", "wo", 5120, 4096, 1, None, (8, 512), fp32),
-        ("pixtral", "mlp_wo", 5120, 14336, 1, None, (8, 512), fp32),
-        ("pixtral", "lm_head", 131072, 5120, 1, None, (8,), fp32),
-        ("rwkv6", "wr", 2560, 2560, 1, None, (8, 512), fp32),
-        ("rwkv6", "cm_wk", 8960, 2560, 1, None, (8, 512), fp32),
-        ("rwkv6", "cm_wv", 2560, 8960, 1, None, (8, 512), fp32),
-        ("rwkv6", "lm_head", 65536, 2560, 1, None, (8,), fp32),
-        ("jamba", "in_proj", 16384, 4096, 1, None, (8, 512), bf16),
-        ("jamba", "x_proj", 288, 8192, 1, None, (8, 512, 1024), bf16),
-        ("jamba", "dt_proj", 8192, 256, 1, None, (8, 512), bf16),
-        ("jamba", "out_proj", 4096, 8192, 1, None, (8, 512), bf16),
-        ("jamba", "lm_head", 65536, 4096, 1, None, (8,), bf16),
-        ("jamba", "x_proj", 288, 8192, 1, None, (8,), fp32),
-    ]
     log("phase 14's kernel shapes: bcr_spmm / bcr_spmm_grouped (block 128, "
         "keep 0.25; x_proj on 144 x 128 blocks)")
-    for model, wname, n, k, g, epi, ms, dt in single:
-        members = [pack(n, k, dt) for _ in range(g)]
-        w = members[0] if g == 1 else pack_group(members)
-        w_dense = torch.cat([tbcrc_unpack(p) for p in members]).to(dt)
-        key = "bcr_spmm" if g == 1 else "bcr_spmm_grouped"
-        tol = BF16_TOL if dt == bf16 else FP32_TOL
-        pre = "" if dt == bf16 else "fp32 "
-        for m in ms:
-            x = torch.randn((m, k), generator=gen, device="cuda").to(dt)
-            if g == 1:
-                def run():
-                    return K.bcr_spmm(x, w)
-
-                def plain():
-                    return ref.bcr_spmm_packed_ref(x, w)
-            else:
-                def run():
-                    return K.bcr_spmm_grouped(x, w, epilogue=epi)
-
-                def plain():
-                    y = ref.bcr_spmm_grouped_ref(x, w, epilogue=epi)
-                    return y if epi else y.transpose(0, 1)
-            shape = (f"{pre}{model} {wname} "
-                     f"{f'{g}x' if g > 1 else ''}{n}x{k} M={m}")
-            got, want = run(), plain()
-            torch.cuda.synchronize()
-            err = check_close(f"{key} {shape}", got, want, tol)
-            nb_r, nb_c, r, c = w.vals.shape[-4:]
-            out_n = n if epi else g * n
-            elt = x.element_size()
-            record(key, shape, err, timer.ms(run), timer.ms(plain),
-                   nbytes(w) + (m * k + m * out_n) * elt,
-                   2 * m * g * nb_r * nb_c * r * c, dt,
-                   timer.ms(lambda: _library_dense_matmul(x, w_dense)))
-        del members, w, w_dense
+    projection_cases(torch, timer, gen, record, [
+        row + (False, False) for row in (
+            ("pixtral", "wq", 4096, 5120, 1, None, (8, 512), bf16),
+            ("pixtral", "wkv", 1024, 5120, 2, None, (8, 512), bf16),
+            ("pixtral", "wgi", 14336, 5120, 2, "swiglu", (8, 512), bf16),
+            ("pixtral", "wo", 5120, 4096, 1, None, (8,), bf16),
+            ("pixtral", "mlp_wo", 5120, 14336, 1, None, (8, 512), bf16),
+            ("pixtral", "lm_head", 131072, 5120, 1, None, (8,), bf16),
+            ("rwkv6", "wr", 2560, 2560, 1, None, (8, 512), bf16),
+            ("rwkv6", "cm_wk", 8960, 2560, 1, None, (8, 512), bf16),
+            ("rwkv6", "cm_wv", 2560, 8960, 1, None, (8, 512), bf16),
+            ("rwkv6", "lm_head", 65536, 2560, 1, None, (8,), bf16),
+            # fp32 x and tiles: phase 14d's CUDA-core bodies at full width
+            ("pixtral", "wq", 4096, 5120, 1, None, (8, 512), fp32),
+            ("pixtral", "wkv", 1024, 5120, 2, None, (8, 512), fp32),
+            ("pixtral", "wgi", 14336, 5120, 2, "swiglu", (8, 512), fp32),
+            ("pixtral", "wo", 5120, 4096, 1, None, (8, 512), fp32),
+            ("pixtral", "mlp_wo", 5120, 14336, 1, None, (8, 512), fp32),
+            ("pixtral", "lm_head", 131072, 5120, 1, None, (8,), fp32),
+            ("rwkv6", "wr", 2560, 2560, 1, None, (8, 512), fp32),
+            ("rwkv6", "cm_wk", 8960, 2560, 1, None, (8, 512), fp32),
+            ("rwkv6", "cm_wv", 2560, 8960, 1, None, (8, 512), fp32),
+            ("rwkv6", "lm_head", 65536, 2560, 1, None, (8,), fp32),
+            ("jamba", "in_proj", 16384, 4096, 1, None, (8, 512), bf16),
+            ("jamba", "x_proj", 288, 8192, 1, None, (8, 512, 1024), bf16),
+            ("jamba", "dt_proj", 8192, 256, 1, None, (8, 512), bf16),
+            ("jamba", "out_proj", 4096, 8192, 1, None, (8, 512), bf16),
+            ("jamba", "lm_head", 65536, 4096, 1, None, (8,), bf16),
+            ("jamba", "x_proj", 288, 8192, 1, None, (8,), fp32))])
 
     e = JAMBA_EXPERTS
     log(f"jamba's experts: expert-batched bcr_spmm / bcr_spmm_grouped "
         f"({e} experts, bf16)")
-    wo = pack(4096, 14336, bf16, e)
-    wgi = pack_group([pack(14336, 4096, bf16, e) for _ in range(2)])
+    wo = random_pack(torch, gen, 4096, 14336, e)
+    wgi = pack_group([random_pack(torch, gen, 14336, 4096, e)
+                      for _ in range(2)])
+    wo, wgi = (dataclasses.replace(w, vals=w.vals.to(bf16))
+               for w in (wo, wgi))
     w_wo = tbcrc_unpack(wo).to(bf16).transpose(1, 2)
     w_gi = tbcrc_unpack(wgi).to(bf16).reshape(e, 2 * 14336,
                                                4096).transpose(1, 2)
@@ -4153,7 +4255,7 @@ def family_cases(torch, timer, gen, record):
             err = check_close(f"{key} {shape}", got, want, BF16_TOL)
             nb_r, nb_c, r, c = w.vals.shape[-4:]
             record(key, shape, err, timer.ms(run), timer.ms(plain),
-                   nbytes(w) + e * m * (k + n) * 2,
+                   packed_nbytes(w) + e * m * (k + n) * 2,
                    2 * e * m * g * nb_r * nb_c * r * c, bf16,
                    timer.ms(lambda: _library_expert_bmm(torch, x, w_t)))
     del wo, wgi, w_wo, w_gi
@@ -4510,6 +4612,510 @@ def phase_families(torch, np):
     return total
 
 
+# phase 15: whisper-large-v3 at full width, 8 utterances of its 1500 frames,
+# a 4-token prompt, its 448-position text context (arXiv:2212.04356), 32
+# greedy tokens; 15c's fp32 exactness at 2 + 2 layers and 4 utterances
+ENC_ARCH = "whisper-large-v3"
+ENC_UTTS, ENC_PROMPT, ENC_CAPACITY, ENC_GEN = 8, 4, 448, 32
+ENC_FP32_LAYERS, ENC_FP32_UTTS, ENC_FP32_GEN = 2, 4, 16
+# the port's functions whose host time phase 15's decode profile reports
+ENC_HOST_FUNCTIONS = ("decode_step", "attention_apply", "_qkv",
+                      "cross_attention_apply", "decode_attention",
+                      "gelu_mlp_apply", "layernorm", "_dense_write",
+                      "bcr_spmm", "bcr_spmm_grouped")
+
+
+def encdec_cases(torch, timer, gen, record):
+    """Phase 3's cases at the shapes phase 15 gives the kernels, bf16 x,
+    fp and int8 tiles (:func:`projection_cases`): whisper-large-v3's
+    ``lm_head`` (51866 x 1280: ``choose_block_shape`` takes (2, 128)
+    blocks, so each kept tile is ONE row of 64 columns) at M = 8 and 32;
+    the 1280 x 1280 single projections (self ``wo``, cross ``wq`` and
+    ``wo``: 10 x 10 blocks) at M = 8 (a decode step), 32 (the decoder's
+    prefill of 8 x 4 prompt tokens) and 12000 (the encoder's ``wo`` over 8
+    utterances x 1500 frames); the self-attention's ``wqkv`` (3 x 1280 x
+    1280) and the cross-attention's ``wkv`` (2 x 1280 x 1280), each with
+    its (G, N) bias in the emit step, and the MLP's ``wi`` (5120 x 1280)
+    and ``wo`` (1280 x 5120), at M = 8 and 12000. Then both
+    ``flash_attention_fused`` shapes of a 15b prefill, B·H = 8 x 20,
+    head_dim 64, chunks 1500: the encoder's non-causal S = 1500 (no
+    multiple of the kernel's key tile) and the decoder's causal S = 4 over
+    the prompt. Each against its plain version (2e-2 x the output scale),
+    timed beside it, the library call (dense ``x @ W.T`` plus bias, or
+    SDPA) and the bound."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref
+
+    bf16 = torch.bfloat16
+    log("phase 15's kernel shapes: whisper-large-v3's projections, bf16 x, "
+        "keep 0.25 (lm_head on (2, 128) blocks: R_keep = 1)")
+    projection_cases(torch, timer, gen, record, [
+        ("whisper", "lm_head", 51866, 1280, 1, None, (8, 32), bf16, False,
+         True),
+        ("whisper", "wo|cross wq", 1280, 1280, 1, None, (8, 32, 12000),
+         bf16, False, True),
+        ("whisper", "wqkv+bias", 1280, 1280, 3, None, (8, 12000), bf16,
+         True, True),
+        ("whisper", "cross wkv+bias", 1280, 1280, 2, None, (8, 12000), bf16,
+         True, True),
+        ("whisper", "mlp wi", 5120, 1280, 1, None, (8, 12000), bf16, False,
+         True),
+        ("whisper", "mlp wo", 1280, 5120, 1, None, (8, 12000), bf16, False,
+         True)])
+
+    b, h, d, chunk = ENC_UTTS, 20, 64, 1500
+    kw = dict(q_chunk=chunk, kv_chunk=chunk)
+    for causal, s in ((False, chunk), (True, ENC_PROMPT)):
+        log(f"phase 15's {'decoder' if causal else 'encoder'} attention: "
+            f"flash_attention_fused {'' if causal else 'non-'}causal, B*H "
+            f"= {b}*{h}, S = {s}, head_dim {d}, chunks {chunk} (bf16)")
+        q, k, v = (torch.randn((b * h, s, d), generator=gen, device="cuda")
+                   .to(bf16) for _ in range(3))
+        got = FA.flash_attention_fused(q, k, v, causal=causal, **kw)
+        want = ref.flash_attention_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        shape = f"{'' if causal else 'non-'}causal BH={b * h} S={s}"
+        err = check_close(f"flash {shape}", got, want, BF16_TOL)
+        q4, k4, v4 = (t.reshape(b, h, s, d) for t in (q, k, v))
+        # (q, k) pairs the function needs: under causal, row i sees keys
+        # 0 .. i
+        pairs = s * (s + 1) // 2 if causal else s * s
+        record("flash_attention_fused", shape, err,
+               timer.ms(lambda: FA.flash_attention_fused(
+                   q, k, v, causal=causal, **kw)),
+               timer.ms(lambda: ref.flash_attention_ref(q, k, v,
+                                                        causal=causal)),
+               4 * b * h * s * d * 2, 4 * b * h * pairs * d, bf16,
+               timer.ms(lambda: _library_sdpa(torch, q4, k4, v4, None,
+                                              is_causal=causal)))
+        del q, k, v, got, want, q4, k4, v4
+    torch.cuda.empty_cache()
+
+
+def encdec_cfg(**over):
+    """whisper-large-v3 at full width (and depth, unless ``over`` cuts it),
+    BCR keep 0.25 with 128x128 blocks."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(ENC_ARCH), bcr_keep_frac=0.25,
+                               bcr_block=(128, 128), **over)
+
+
+def build_encdec_params(torch):
+    """One random draw (seed 0) of whisper-large-v3, packed twice: bf16
+    tiles (15a) and int8 tiles (15b)."""
+    from repro_torch.launch.serve import (pack_params, packed_fraction,
+                                          tree_bytes)
+    from repro_torch.models import encdec
+    from repro_torch.tree import leaves
+
+    cfg = encdec_cfg()
+    log(f"{ENC_ARCH}: {cfg.encoder_layers} encoder + {cfg.num_layers} "
+        f"decoder layers (nothing cut), d_model {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.encoder_seq} frames")
+    t0 = time.perf_counter()
+    dense = encdec.init_params(cfg, 0, device="cuda")
+    dense_bytes = tree_bytes(dense)
+    n_params = sum(t.numel() for t in leaves(dense))
+    params = pack_params(cfg, dense)
+    params_q = pack_params(cfg, dense, weight_dtype="int8")
+    fracs = packed_fraction(dense, params), packed_fraction(dense, params_q)
+    del dense
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"{ENC_ARCH}: {n_params / 1e9:.3f} B parameters ({dense_bytes / 1e9:.2f}"
+        f" GB dense fp32), init + 2 packs {time.perf_counter() - t0:.1f} s; "
+        f"packed fraction bf16 {fracs[0]:.4f}, int8 {fracs[1]:.4f}; device "
+        f"memory in use {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
+    return cfg, params, params_q, fracs
+
+
+def encdec_inputs(torch, np, cfg, utts, seed=0):
+    """Seeded frame embeddings ``(utts, 1500, d_model)`` (the stub
+    frontend's output) and a prompt of ``ENC_PROMPT`` tokens."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    frames = torch.randn((utts, cfg.encoder_seq, cfg.d_model), generator=gen,
+                         device="cuda").to(cfg.act_dtype)
+    rng = np.random.default_rng(seed)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                          size=(utts, ENC_PROMPT)),
+                             dtype=torch.int32, device="cuda")
+    return frames, prompt
+
+
+def encdec_decode(torch, fns, params, cache, prompt, gen_tokens):
+    """Prime the prompt's self K/V through ``decode_step`` (one token a
+    step, as the reference's launchers do), then decode greedily:
+    ``gen_tokens`` tokens, the first from the last primed step. Each
+    step's wall ends in the token's copy to the host. Returns the tokens
+    ``(B, gen_tokens)``, the logits each was taken from, and the walls of
+    the ``gen_tokens - 1`` greedy steps."""
+    b, p = prompt.shape
+
+    def lens(n):
+        return torch.full((b,), n, dtype=torch.int32, device="cuda")
+
+    for i in range(p):
+        logits, cache = fns.decode_step(params, {
+            "tokens": prompt[:, i:i + 1], "cache_len": lens(i)}, cache)
+    step_logits = [logits[:, -1].float()]
+    tok = step_logits[-1].argmax(-1).to(torch.int32)
+    toks, walls = [tok.cpu()], []
+    for j in range(gen_tokens - 1):
+        t0 = time.perf_counter()
+        logits, cache = fns.decode_step(params, {
+            "tokens": tok[:, None], "cache_len": lens(p + j)}, cache)
+        step_logits.append(logits[:, -1].float())
+        tok = step_logits[-1].argmax(-1).to(torch.int32)
+        toks.append(tok.cpu())
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return torch.stack(toks, 1), torch.stack(step_logits, 1), walls
+
+
+def encdec_step_launches(params) -> tuple:
+    """``(bcr_spmm, bcr_spmm_grouped)`` launches one decode step must make
+    over a packed tree: every packed linear the step reads (self
+    attention, the cross attention's Q and output — its K/V were computed
+    at prefill — the MLP) and ``lm_head``; a fused group is one launch."""
+    single = grouped = 0
+    reads = {"self_attn": ("wq", "wk", "wv", "wkv", "wqkv", "wo"),
+             "cross_attn": ("wq", "wo"), "mlp": ("wi", "wo")}
+    for lp in params["dec_layers"]:
+        for block, keys in reads.items():
+            for key in keys:
+                entry = lp[block].get(key, {})
+                single += "w_packed" in entry
+                grouped += "w_group" in entry
+    return single + ("w_packed" in params["lm_head"]), grouped
+
+
+def encdec_prefill_device_ms(torch, fns, params, batch) -> float:
+    """Device time of one ``prefill`` under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fns.prefill(params, batch)
+        torch.cuda.synchronize()
+    return sum(ms for _, _, ms in device_events(torch, prof))
+
+
+def phase_encdec_serve(torch, cfg, params, frac, label, frames, prompt,
+                       forms):
+    """Phase 15a / 15b: ``prefill`` of 8 utterances (wall and device
+    time), the cross K/V seated into ``init_cache(8, 448)``, the prompt
+    primed and 32 greedy tokens through ``decode_step``: the counters
+    zeroed before and read after the run; one decode step's launches
+    between zeroed counters against what the packed tree implies; a
+    profiled window of 5 steps; resident weight and cross-K/V bytes; the
+    decode byte floor. ``forms`` names the counter keys the run must move
+    (fp or int8 BCR forms); every other BCR form must stay at 0. Returns
+    (summary, launches over the run, the greedy tokens)."""
+    from repro_torch.launch.serve import tree_bytes
+    from repro_torch.models.api import model_fns
+
+    fns = model_fns(cfg)
+    single_key, grouped_key = forms
+    batch = {"frames": frames, "tokens": prompt}
+    fns.prefill(params, batch)            # warm-up: kernels loaded, plans
+    torch.cuda.synchronize()
+    zero_counters()
+    t0 = time.perf_counter()
+    logits, cross = fns.prefill(params, batch)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    prefill_launches = {k: v for k, v in read_counters().items() if v}
+    cache = fns.init_cache(ENC_UTTS, ENC_CAPACITY, device="cuda")
+    for key in ("cross_k", "cross_v"):
+        cache[key].copy_(cross[key])
+    del cross
+    toks, tok_logits, walls = encdec_decode(torch, fns, params, cache,
+                                            prompt, ENC_GEN)
+    torch.cuda.synchronize()
+    launches = read_counters()
+    if not (tuple(toks.shape) == (ENC_UTTS, ENC_GEN)
+            and bool(torch.isfinite(tok_logits).all())
+            and tuple(logits.shape) == (ENC_UTTS, 1, cfg.vocab_size)
+            and bool(torch.isfinite(logits).all())):
+        raise AssertionError(f"{label}: tokens {tuple(toks.shape)} or "
+                             f"logits not finite of the expected shape")
+    # the primed prompt's last step and the prefill give the same logits
+    primed_err = float((tok_logits[:, 0] - logits[:, -1].float()).abs().max())
+    pos = ENC_PROMPT + ENC_GEN - 1
+    tok = toks[:, -1].to(device="cuda")
+
+    def step():
+        fns.decode_step(params, {"tokens": tok[:, None], "cache_len":
+                                 torch.full((ENC_UTTS,), pos,
+                                            dtype=torch.int32,
+                                            device="cuda")}, cache)
+
+    zero_counters()
+    step()
+    torch.cuda.synchronize()
+    one = {k: v for k, v in read_counters().items() if v}
+    want_single, want_grouped = encdec_step_launches(params)
+    if one != {single_key: want_single, grouped_key: want_grouped}:
+        raise AssertionError(f"{label}: one decode step launched {one}, the "
+                             f"packed tree implies {single_key} "
+                             f"{want_single}, {grouped_key} {want_grouped}")
+    log(f"{label}: one decode step launched {one} (= 5 x "
+        f"{cfg.num_layers} + 1 and {cfg.num_layers}: self wqkv grouped, "
+        f"self wo, cross wq and wo, MLP wi and wo a layer, lm_head; no "
+        f"paged or flash kernel)")
+    prof = profile_window(torch, step, ENC_HOST_FUNCTIONS)
+    weights = tree_bytes(params)
+    cross_bytes = sum(cache[k].numel() * cache[k].element_size()
+                      for k in ("cross_k", "cross_v"))
+    # a decode step streams the decoder's packed projections but the cross
+    # K/V's (computed at prefill), the LayerNorms and lm_head, and reads
+    # the whole cross cache and the live self K/V
+    streamed = tree_bytes(params["lm_head"]) + tree_bytes(params["dec_norm"])
+    for lp in params["dec_layers"]:
+        streamed += tree_bytes({k: v for k, v in lp.items()
+                                if k != "cross_attn"})
+        streamed += tree_bytes({k: v for k, v in lp["cross_attn"].items()
+                                if k != "wkv"})
+    self_bytes = 2 * cfg.num_layers * ENC_UTTS * (pos + 1) * (
+        cfg.num_kv_heads * cfg.head_dim * cache["self_k"].element_size())
+    floor_ms = (streamed + cross_bytes + self_bytes) / HBM_BYTES_PER_S * 1e3
+    summary = dict(
+        prefill_wall_ms=prefill_ms,
+        prefill_device_ms=encdec_prefill_device_ms(torch, fns, params,
+                                                   batch),
+        prefill_launches=prefill_launches,
+        decode_step_ms_p50=statistics.median(walls),
+        decode_steps=len(walls), device_ms_per_step=prof["device_ms"],
+        busy_share=prof["busy_share"], by_family_ms=prof["by_family_ms"],
+        device_launches_per_step=prof["device_launches_per_step"],
+        host_ops_per_step=prof["host_ops_per_step"],
+        top_other=prof["top_other"],
+        host_fn_ms_cprofile=prof["host_fn_ms_cprofile"],
+        resident_weight_bytes=weights, packed_fraction=frac,
+        cross_kv_bytes=cross_bytes, streamed_weight_bytes=streamed,
+        self_kv_bytes=self_bytes, decode_floor_ms=floor_ms,
+        primed_vs_prefill_max_abs=primed_err,
+        launches={k: v for k, v in launches.items() if v})
+    log(f"{label} summary: " + json.dumps(summary))
+    bad = [k for k in read_counters() if k.startswith("bcr_spmm")
+           and k not in forms and launches[k]]
+    if bad or not all(launches[k] for k in forms):
+        raise AssertionError(f"{label}: BCR forms launched {launches}; "
+                             f"want only {forms}")
+    return summary, launches, toks
+
+
+def encdec_exactness(torch, np):
+    """Phase 15c, fp32 on the card: whisper-large-v3 at full width, the
+    depth cut to 2 + 2 layers, 4 utterances of 1500 frames, packed at keep
+    0.25 (fp32 tiles: the CUDA-core bodies). ``prefill``'s logits equal
+    ``decode_train``'s last row; the greedy tokens of stepwise
+    ``decode_step`` equal the teacher-forced argmax of ``decode_train``
+    over the same sequence under phase 6's 1e-4 near-tie rule; the packed
+    forward (encoder and decoder) against the same forward with the plain
+    BCR versions on the same card tensors (1e-4 x the output scale)."""
+    from repro_torch.launch.serve import build_params
+    from repro_torch.models import encdec
+    from repro_torch.models.api import model_fns
+
+    cfg = encdec_cfg(num_layers=ENC_FP32_LAYERS,
+                     encoder_layers=ENC_FP32_LAYERS, dtype="float32",
+                     cache_dtype="float32")
+    log(f"phase 15c: depth {encdec_cfg().encoder_layers} + "
+        f"{encdec_cfg().num_layers} -> {cfg.encoder_layers} + "
+        f"{cfg.num_layers} layers, fp32, {ENC_FP32_UTTS} utterances of "
+        f"{cfg.encoder_seq} frames")
+    params = build_params(cfg, seed=1, device="cuda", log=log)
+    fns = model_fns(cfg)
+    frames, prompt = encdec_inputs(torch, np, cfg, ENC_FP32_UTTS, seed=1)
+    with torch.no_grad():
+        zero_counters()
+        logits, cross = fns.prefill(params, {"frames": frames,
+                                             "tokens": prompt})
+        enc = encdec.encode(cfg, params, frames)
+        full = encdec.decode_train(cfg, params, prompt, enc)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in read_counters().items() if v}
+        err_p = check_close("phase 15c prefill logits vs decode_train's "
+                            "last row", logits, full[:, -1:], FP32_TOL)
+        cache = fns.init_cache(ENC_FP32_UTTS, ENC_CAPACITY, device="cuda")
+        cache.update(cross)
+        toks, _, _ = encdec_decode(torch, fns, params, cache, prompt,
+                                   ENC_FP32_GEN)
+        seq = torch.cat([prompt, toks.to(device="cuda",
+                                         dtype=torch.int32)], dim=1)
+        tf = encdec.decode_train(cfg, params, seq[:, :-1], enc)[
+            :, ENC_PROMPT - 1:].float()
+        picks = tf.argmax(-1).cpu()
+        near, gaps = 0, [0.0]
+        for b, j in zip(*torch.nonzero(picks != toks, as_tuple=True)):
+            top = float(tf[b, j].max())
+            rel = (top - float(tf[b, j, toks[b, j]])) / max(abs(top), 1e-30)
+            if rel >= 1e-4:
+                raise AssertionError(
+                    f"phase 15c: stepwise token {int(toks[b, j])} at step "
+                    f"{int(j)} of utterance {int(b)}, teacher-forced "
+                    f"argmax {int(picks[b, j])}: relative gap {rel:.3e}")
+            near += 1
+            gaps.append(rel)
+        zero_counters()
+        with plain_kernels():
+            enc_plain = encdec.encode(cfg, params, frames)
+            full_plain = encdec.decode_train(cfg, params, prompt, enc_plain)
+            plain_launched = {k: v for k, v in read_counters().items() if v}
+        if plain_launched:
+            raise AssertionError(f"phase 15c: the plain forward launched "
+                                 f"kernels: {plain_launched}")
+        err_e = check_close("phase 15c packed encoder vs plain BCR", enc,
+                            enc_plain, FP32_TOL)
+        err_d = check_close("phase 15c packed decode_train vs plain BCR",
+                            full, full_plain, FP32_TOL)
+    log(f"phase 15c: prefill launched {launched}; prefill vs decode_train "
+        f"{err_p:.3e}; stepwise decode_step = teacher-forced decode_train "
+        f"for {ENC_FP32_UTTS} x {ENC_FP32_GEN} tokens, near-ties {near} "
+        f"(largest gap {max(gaps):.3e}); packed vs plain encoder "
+        f"{err_e:.3e}, decoder {err_d:.3e}")
+    del params, cache, cross
+    torch.cuda.empty_cache()
+    return near
+
+
+def flip_picks(torch, cfg, params, enc, traj):
+    """Greedy picks of ``decode_train`` over a fixed trajectory at its
+    generated positions."""
+    from repro_torch.models import encdec
+    with torch.no_grad():
+        return encdec.decode_train(cfg, params, traj, enc)[
+            :, ENC_PROMPT - 1:].float().argmax(-1)
+
+
+def run_phase_encdec(torch, np) -> dict:
+    """Phase 15d's kernel cases, then phase 15 (a)-(c). Returns each
+    kernel's launches over 15a's run (the fp forms) and 15b's (the int8
+    forms and flash), the kernels line's ``encdec_launches``."""
+    log("phase 15's kernel shapes (phase 3's checks)")
+    t0 = time.perf_counter()
+    rows, timer = [], Timer(torch)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    encdec_cases(torch, timer, gen, recorder(torch, rows))
+    log("phase 15 kernel cases: " + json.dumps(rows))
+    del timer
+    torch.cuda.empty_cache()
+    log(f"phase 15d kernel shapes: {time.perf_counter() - t0:.1f} s")
+    log(f"phase 15, the encdec family ({ENC_ARCH}: encoder, cross-attention "
+        f"decoder)")
+    t0 = time.perf_counter()
+    launches_a, launches_b = phase_encdec(torch, np)
+    log(f"phase 15: {time.perf_counter() - t0:.1f} s")
+    return {k: (launches_b if "int8" in k or k.startswith("flash")
+                else launches_a)[k] for k in launches_a
+            if launches_a[k] or launches_b[k]}
+
+
+def phase_encdec(torch, np):
+    """Phase 15: (a) bf16 and (b) int8 tiles with the flash encoder at full
+    width and depth, then (c) the fp32 exactness checks. Returns each
+    kernel's launches over the (a) and (b) runs."""
+    from repro_torch.models import encdec
+    from repro_torch.models import layers as L
+
+    times = {}
+    ts = time.perf_counter()
+    cfg, params, params_q, fracs = build_encdec_params(torch)
+    frames, prompt = encdec_inputs(torch, np, cfg, ENC_UTTS)
+    _, launches_a, toks_a = phase_encdec_serve(
+        torch, cfg, params, fracs[0], "phase 15a whisper-large-v3 bf16",
+        frames, prompt, ("bcr_spmm", "bcr_spmm_grouped"))
+    if launches_a["flash_attention_fused"] or any(
+            v for k, v in launches_a.items() if k.startswith("paged")):
+        raise AssertionError(f"phase 15a: attention kernels launched under "
+                             f"attn_impl {cfg.attn_impl!r}: {launches_a}")
+    with torch.no_grad():
+        enc_a = encdec.encode(cfg, params, frames)
+    times["a"] = time.perf_counter() - ts
+
+    ts = time.perf_counter()
+    cfg_q = dataclasses.replace(cfg, attn_impl="pallas",
+                                q_chunk=cfg.encoder_seq,
+                                kv_chunk=cfg.encoder_seq)
+    summary_b, launches_b, _ = phase_encdec_serve(
+        torch, cfg_q, params_q, fracs[1],
+        "phase 15b whisper-large-v3 int8 tiles + flash encoder", frames,
+        prompt, ("bcr_spmm_int8", "bcr_spmm_grouped_int8"))
+    # a prefill runs flash once per encoder layer (non-causal, 1500 frames)
+    # and once per decoder layer (causal, over the prompt): the reference's
+    # prefill runs attention_apply under attn_impl in both stacks
+    want_flash = cfg.encoder_layers + cfg.num_layers
+    got_flash = summary_b["prefill_launches"].get("flash_attention_fused")
+    if got_flash != want_flash:
+        raise AssertionError(f"phase 15b: {got_flash} flash launches a "
+                             f"prefill, want {want_flash}")
+    cfg_plain = dataclasses.replace(cfg_q, attn_impl="dense")
+    with torch.no_grad():
+        zero_counters()
+        enc_q = encdec.encode(cfg_q, params_q, frames)
+        torch.cuda.synchronize()
+        enc_flash = read_counters()["flash_attention_fused"]
+        enc_plain = encdec.encode(cfg_plain, params_q, frames)
+        # the flash kernel held to plain attention in every encoder layer:
+        # the attention sublayer's own output on that layer's real normed
+        # input (the plain stack's). The whole encoder's gap is printed,
+        # not gated: a 32-deep bf16 stack compounds two valid roundings
+        x = encdec.embed_frames(cfg_q, frames)
+        layer_errs, scales = [], []
+        for i, lp in enumerate(params_q["enc_layers"]):
+            h = L.layernorm(lp["norm1"], x, cfg.norm_eps)
+            want = encdec.encoder_attention(cfg_plain, lp, h)
+            layer_errs.append(check_close(
+                f"phase 15b encoder layer {i} attention: flash vs plain",
+                encdec.encoder_attention(cfg_q, lp, h), want, BF16_TOL,
+                quiet=True))
+            scales.append(float(want.float().abs().max()))
+            x = encdec.encoder_layer(cfg_plain, lp, x)
+    stack_err = float((enc_q.float() - enc_plain.float()).abs().max())
+    cross_err = float((enc_q.float() - enc_a.float()).abs().max())
+    if enc_flash != cfg.encoder_layers:
+        raise AssertionError(f"phase 15b: the encoder launched flash "
+                             f"{enc_flash} times")
+    worst = layer_errs.index(max(layer_errs))
+    log(f"phase 15b: flash vs plain attention, int8 tiles both: every "
+        f"encoder layer's attention output within {BF16_TOL} x its scale "
+        f"on the same normed input (largest max |diff| "
+        f"{layer_errs[worst]:.3e} of scale {scales[worst]:.3g}, layer "
+        f"{worst}; scales {min(scales):.3g} to {max(scales):.3g}); the "
+        f"whole {cfg.encoder_layers}-layer encoder max |diff| "
+        f"{stack_err:.3e} of scale "
+        f"{float(enc_plain.float().abs().max()):.3g} (not gated)")
+    del enc_plain
+    # teacher-forced flip rate: 15a's trajectories (prompt + tokens)
+    # through decode_train on both paths, the greedy picks at the 32
+    # generated positions compared
+    traj = torch.cat([prompt, toks_a.to(device="cuda", dtype=torch.int32)],
+                     dim=1)[:, :-1]
+    picks_a = flip_picks(torch, cfg, params, enc_a, traj)
+    picks_q = flip_picks(torch, cfg_q, params_q, enc_q, traj)
+    flips = int((picks_a != picks_q).sum())
+    log(f"phase 15b: the encoder launched flash {enc_flash} times (one a "
+        f"layer); int8 + flash encoder vs 15a's bf16 plain encoder max "
+        f"|diff| {cross_err:.3e} of scale "
+        f"{float(enc_a.float().abs().max()):.3g} (not gated: int8 tiles "
+        f"against bf16); teacher-forced flip rate, int8 + flash vs bf16 on "
+        f"15a's trajectories: {flips}/{picks_a.numel()} = "
+        f"{flips / picks_a.numel():.4f} (not gated)")
+    del params, params_q, enc_a, enc_q, frames
+    torch.cuda.empty_cache()
+    times["b"] = time.perf_counter() - ts
+
+    ts = time.perf_counter()
+    encdec_exactness(torch, np)
+    times["c"] = time.perf_counter() - ts
+    log(f"phase 15: (a) {times['a']:.1f} s, (b) {times['b']:.1f} s, (c) "
+        f"{times['c']:.1f} s")
+    return launches_a, launches_b
+
+
 def bcr_worker(tree: str) -> int:
     """``--bcr-worker TREE``: :func:`bcr_cases`, :func:`paged_cases`,
     :func:`skip_cases` and :func:`flash_cases` against TREE's own
@@ -4586,9 +5192,11 @@ def main() -> int:
         return bcr_worker(sys.argv[2])
     paper_only = sys.argv[1:] == ["--paper"]
     families_only = sys.argv[1:] == ["--families"]
-    if len(sys.argv) > 1 and not (paper_only or families_only):
+    encdec_only = sys.argv[1:] == ["--encdec"]
+    if len(sys.argv) > 1 and not (paper_only or families_only
+                                  or encdec_only):
         print("usage: chip_smoke.py [--bcr-ab TREE... | --bcr-worker TREE | "
-              "--paper | --families]", file=sys.stderr)
+              "--paper | --families | --encdec]", file=sys.stderr)
         return 2
     import numpy as np
     import torch
@@ -4639,6 +5247,11 @@ def main() -> int:
         log("phase 14, the vlm, ssm and hybrid families")
         family_launches = phase_families(torch, np)
         log(f"phase 14 launches: {json.dumps(family_launches)}")
+        log(smi)
+        return 0
+    if encdec_only:
+        encdec_launches = run_phase_encdec(torch, np)
+        log(f"phase 15 launches: {json.dumps(encdec_launches)}")
         log(smi)
         return 0
 
@@ -4759,6 +5372,8 @@ def main() -> int:
     family_launches = phase_families(torch, np)
     log(f"phase 14: {time.perf_counter() - t0:.1f} s")
 
+    encdec_launches = run_phase_encdec(torch, np)
+
     # one entry per kernel form at its decode-step shape (M = 8 slots) or,
     # for flash, the largest cold-prefill bucket; launches from the main
     # path that runs it (for bcr_spmm_skip, the trained-weight runs of the
@@ -4783,7 +5398,8 @@ def main() -> int:
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
             shape=row["shape"], serving_launches=serving_launches[name],
-            family_launches=family_launches.get(name, 0)))
+            family_launches=family_launches.get(name, 0),
+            encdec_launches=encdec_launches.get(name, 0)))
         if name in FP_KERNELS + INT8_KERNELS + ("flash_attention_fused",):
             # phase 12's MoE path runs these too (deepseek's shapes)
             kernels[-1]["moe_launches"] = (

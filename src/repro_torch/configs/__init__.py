@@ -1,8 +1,7 @@
 """Architecture registry of the port: --arch <id> → (full CONFIG, SMOKE).
 
-The dense, MoE, vlm, ssm and hybrid families are ported. The encdec
-architecture of the reference registry (whisper) raises
-``NotImplementedError`` naming the later slice.
+Every architecture of the reference registry: the dense, MoE, vlm, ssm,
+hybrid and encdec families.
 """
 
 from __future__ import annotations
@@ -24,19 +23,13 @@ _MODULES: Dict[str, str] = {
     "pixtral-12b": "pixtral_12b",
     "jamba-v0.1-52b": "jamba_v0_1_52b",
     "rwkv6-3b": "rwkv6_3b",
+    "whisper-large-v3": "whisper_large_v3",
 }
-
-# architectures of the reference registry whose families come later
-_LATER = ("whisper-large-v3",)
 
 ARCH_IDS: List[str] = list(_MODULES)
 
 
 def _module(name: str):
-    if name in _LATER:
-        raise NotImplementedError(
-            f"{name}: the encdec family is not ported yet; it comes in a "
-            f"later slice of the port")
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; available: {ARCH_IDS}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")

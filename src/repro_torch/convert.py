@@ -26,7 +26,11 @@ stack, jamba's whole 8-layer period) whose leaves — index planes and plan
 vectors included — carry a leading repeat axis. The converter unstacks
 that axis into the port's ``params["layers"]`` list, in the reference's
 execution order (unscanned ``prefix`` layers first, then repeat by repeat
-each position of the pattern).
+each position of the pattern). An encdec tree's ``enc_stack`` and
+``dec_stack`` are each one layer dict with a leading layer axis (fused
+``wqkv``/``wkv`` groups and their ``(G, N)`` biases included); they unstack
+into ``enc_layers`` and ``dec_layers``, beside ``enc_norm``,
+``dec_embed``, ``dec_pos``, ``dec_norm`` and ``lm_head``.
 
 ``from_jax_gru`` converts the reference's GRU (``models/gru.py``: embed,
 cells, head; dense, or packed by its ``pack_params``) with the same leaf
@@ -129,6 +133,8 @@ def _repeats(stack_entry: Any) -> int:
 def from_jax_params(tree: Any, cfg: ModelConfig, device="cuda") -> dict:
     """The port's params for a reference param tree of numpy leaves (also
     any tree nested like it: AdamW moments, ADMM Z/U with None leaves)."""
+    if cfg.family == "encdec":
+        return _from_jax_encdec(tree, cfg, device)
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r}: only the {PORTED_FAMILIES} families are "
@@ -149,6 +155,27 @@ def from_jax_params(tree: Any, cfg: ModelConfig, device="cuda") -> dict:
         "lm_head": _convert(tree["lm_head"], None, cfg, dev),
         "layers": layers,
     }
+
+
+def _from_jax_encdec(tree: Any, cfg: ModelConfig, device) -> dict:
+    dev = resolve_device(device)
+
+    def unstack(stack: str, n: int) -> list:
+        if _repeats(tree[stack]) != n:
+            raise ValueError(f"{stack} holds {_repeats(tree[stack])} "
+                             f"layers, config has {n}")
+        return [_convert(tree[stack], i, cfg, dev) for i in range(n)]
+
+    def leaf(key: str):
+        return _convert(tree[key], None, cfg, dev)
+
+    # the order of encdec.init_params
+    return {"enc_layers": unstack("enc_stack",
+                                  cfg.encoder_layers or cfg.num_layers),
+            "enc_norm": leaf("enc_norm"), "dec_embed": leaf("dec_embed"),
+            "dec_pos": leaf("dec_pos"),
+            "dec_layers": unstack("dec_stack", cfg.num_layers),
+            "dec_norm": leaf("dec_norm"), "lm_head": leaf("lm_head")}
 
 
 def from_jax_gru(tree: Any, cfg: ModelConfig, device="cuda") -> dict:

@@ -204,18 +204,24 @@ def _try_fuse(tree: Dict[str, Any], fused_key: str,
     return True
 
 
-def fuse_packed_projections(tree: Any) -> Any:
+def fuse_packed_projections(tree: Any, _key: Optional[str] = None) -> Any:
     """Walk a packed params tree and fuse Q/K/V and gate/up projections
-    whose packed geometry matches. Returns a new tree; leaves are shared."""
+    whose packed geometry matches. Returns a new tree; leaves are shared.
+
+    A cross-attention dict (parent key ``cross_attn``) never fuses Q with
+    K/V: Q projects the decoder stream, K/V the encoder's output. Its K/V
+    still fuse into ``wkv``."""
     if isinstance(tree, dict):
-        out = {k: fuse_packed_projections(v) for k, v in tree.items()}
+        out = {k: fuse_packed_projections(v, k) for k, v in tree.items()}
         for fused_key, member_keys, requires in _GROUPS:
+            if fused_key == "wqkv" and _key == "cross_attn":
+                continue
             if (all(k in out for k in member_keys)
                     and all(k in out for k in requires)):
                 _try_fuse(out, fused_key, member_keys)
         return out
     if isinstance(tree, list):
-        return [fuse_packed_projections(v) for v in tree]
+        return [fuse_packed_projections(v, _key) for v in tree]
     return tree
 
 

@@ -52,6 +52,7 @@ from repro_torch.kernels.plan import (GroupedTBCRC, fuse_packed_projections,
                                      quantize_packed_params)
 from repro_torch.launch.train import default_prune_filter
 from repro_torch.models import causal_lm
+from repro_torch.models.api import model_fns
 from repro_torch.models.layers import FLASH_ATTN_IMPLS, PLAIN_ATTN_IMPLS
 from repro_torch.serving import (CANCELLED, FAILED, FINISHED, REJECTED,
                                  TIMEOUT, EngineConfig, InferenceEngine)
@@ -79,7 +80,9 @@ def pack_params(cfg: ModelConfig, params: PyTree, *,
     grouped entries. An MoE layer's stacked expert weights ``(E, N, K)``
     pack in one batched pass to a TBCRC with a leading E axis (the
     reference's ``_pack_any``), and its experts' gate/up fuse to one stacked
-    ``GroupedTBCRC`` ``wgi``.
+    ``GroupedTBCRC`` ``wgi``. An encdec tree packs every attention and MLP
+    projection of both stacks and its ``lm_head``; its cross attention
+    fuses K/V only, and its embeddings and ``dec_pos`` stay dense.
 
     ``weight_dtype="int8"`` then quantizes every packed tile, fused groups
     included, to int8 codes with one fp32 scale per tile (from the
@@ -137,7 +140,7 @@ def build_params(cfg: ModelConfig, log=print, *, seed: int = 0,
                  device="cuda", weight_dtype: str = "") -> PyTree:
     """Random weights from a seeded generator on ``device``, BCR-packed when
     ``cfg.bcr_keep_frac > 0`` (int8 tiles with ``weight_dtype="int8"``)."""
-    params = causal_lm.init_params(cfg, seed, device=resolve_device(device))
+    params = model_fns(cfg).init_params(seed, device=resolve_device(device))
     if cfg.bcr_keep_frac > 0:
         packed = pack_params(cfg, params, weight_dtype=weight_dtype)
         log(f"packed weight bytes: {packed_fraction(params, packed):.3f}x "
@@ -184,6 +187,10 @@ def generate(cfg: ModelConfig, params: PyTree, prompts: torch.Tensor, *,
     (B, gen_tokens) each step is fed ``forced[:, i]`` instead of its own
     argmax (teacher forcing), so ``tokens`` holds this model's greedy pick
     at every position of a fixed trajectory."""
+    if cfg.family == "encdec":
+        raise NotImplementedError(
+            "generate() serves decoder-only families; encdec prefill needs "
+            "encoder frames and primes a different cache tree")
     prompts = torch.as_tensor(prompts)
     dev = params["embed"]["table"].device
     prompts = prompts.to(device=dev, dtype=torch.int32)

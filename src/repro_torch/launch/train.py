@@ -32,7 +32,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import admm as admm_mod
 from repro_torch.core.bcr import BCRSpec, choose_block_shape, kept_align
 from repro_torch.data.pipeline import DataConfig, TokenSource
-from repro_torch.models import causal_lm
+from repro_torch.models.api import model_fns
 from repro_torch.optim import adamw
 from repro_torch.runtime.fault_tolerance import StragglerDetector
 from repro_torch.tree import leaves, tree_map
@@ -94,10 +94,15 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
     writes the new params and moments into ``state``'s tensors.
 
     Weight decay follows the reference's default mask for ``cfg`` (leaves
-    of rank ≥ 2 in its stacked layout, :func:`adamw.decay_mask`)."""
+    of rank ≥ 2 in its stacked layout, :func:`adamw.decay_mask`). The loss
+    is the family's (``model_fns``): an encdec batch carries ``frames``
+    beside ``tokens`` and ``targets``."""
+
+    fns = model_fns(cfg)
+    loss_fn = fns.loss_fn
 
     def loss_with_penalty(params, mb, admm_state):
-        loss = causal_lm.loss_fn(cfg, params, mb)
+        loss = loss_fn(params, mb)
         if admm_state is not None and specs:
             loss = loss + admm_mod.admm_penalty(params, admm_state, specs,
                                                 admm_cfg).to(loss.device)
@@ -129,8 +134,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
                          else torch.zeros_like(p), state.params)
         params, opt, metrics = adamw.update(
             opt_cfg, grads, state.opt, state.params,
-            decay_mask=adamw.decay_mask(state.params,
-                                        scan_layers=cfg.scan_layers))
+            decay_mask=adamw.decay_mask(state.params, stacked=fns.stacked))
         for p in flat:
             p.grad = None
         if state.masks is not None:
@@ -163,7 +167,7 @@ class TrainerConfig:
 
 def init_state(cfg: ModelConfig, seed: int, device) -> TrainState:
     """Seeded params (``requires_grad``) and a fresh AdamW state."""
-    params = causal_lm.init_params(cfg, seed, device=device)
+    params = model_fns(cfg).init_params(seed, device=device)
     for p in leaves(params):
         p.requires_grad_(True)
     return TrainState(params, adamw.init(params), None, None)

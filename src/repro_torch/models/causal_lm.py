@@ -21,8 +21,8 @@ a recurrent layer holds its state, one row per slot: mamba ``h`` ``(B,
 d_in, n)`` fp32 and ``conv`` ``(B, k-1, d_in)``, RWKV ``s`` ``(B, H, hs,
 hs)`` fp32, ``shift`` ``(B, d)`` and its channel-mix's ``cm_shift`` ``(B,
 d)`` (the reference nests the last as ``{"ffn": {"shift"}}``). Decode
-updates both in place. The encdec family comes in a later slice of the
-port.
+updates both in place. The encdec family is not a causal LM: it runs
+through ``models/encdec.py`` (``models.api.model_fns`` dispatches).
 """
 
 from __future__ import annotations
@@ -49,8 +49,9 @@ PORTED_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
 def _check_cfg(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r}: only the {PORTED_FAMILIES} families are "
-            f"ported so far; the others come in a later slice of the port")
+            f"family {cfg.family!r}: causal_lm runs the decoder-only "
+            f"families {PORTED_FAMILIES}; encdec runs through "
+            f"models.encdec (models.api.model_fns)")
     if cfg.kv_dtype not in ("", "int8"):
         raise ValueError(f"unsupported kv_dtype {cfg.kv_dtype!r}")
     L.check_attn_impl(cfg.attn_impl)

@@ -1,8 +1,10 @@
-"""The neural-net substrate of the dense family: RMSNorm, RoPE, embeddings,
-attention (full-sequence for training and cold prefill, capacity-dense and
-paged decode, paged prefill-append), the SwiGLU MLP and the cross-entropy loss. Every projection
-goes through ``core.sparse_linear`` so BCR-packed weights run through the
-port's kernels.
+"""The neural-net substrate: RMSNorm and LayerNorm, RoPE and sinusoidal
+positions, embeddings, attention (full-sequence for training and cold
+prefill, causal or not; capacity-dense and paged decode, paged
+prefill-append; encoder-decoder cross attention), the SwiGLU and GELU MLPs
+and the cross-entropy loss. Every projection goes through
+``core.sparse_linear`` so BCR-packed weights run through the port's
+kernels.
 
 Page writes happen in place (``index_copy_`` into the pool); the reference's
 functional ``.at[].set`` returns a new pool instead. int8 pools quantize on
@@ -15,7 +17,11 @@ attention, the same function) and the paged-kernel settings ``"paged"`` /
 ``"paged_interpret"`` run the plain product; anything else raises. Paged
 decode and prefill-append always run the paged attention kernel;
 capacity-dense decode runs the plain :func:`decode_attention`, as the
-reference runs it outside any Pallas kernel.
+reference runs it outside any Pallas kernel, and so does cross attention
+(plain torch, as the reference's XLA code). The plain product has no chunk
+rule, so an encoder of 1500 frames runs under every plain setting; the
+flash kernel keeps the reference's (``q_chunk``/``kv_chunk`` must split the
+length).
 
 Training differentiates the full-sequence path with autograd. The plain
 product stands in for the reference's XLA ``flash_attention`` (which
@@ -26,6 +32,7 @@ cannot be differentiated), so ``"pallas"`` under a gradient raises.
 
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
@@ -76,6 +83,32 @@ def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     var = (x32 * x32).mean(dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
     return (y * params["scale"].float()).to(x.dtype)
+
+
+def layernorm_init(dim: int, dtype, device) -> Params:
+    return {"scale": torch.ones((dim,), dtype=dtype, device=device),
+            "bias": torch.zeros((dim,), dtype=dtype, device=device)}
+
+
+def layernorm(params: Params, x: torch.Tensor, eps: float = 1e-5
+              ) -> torch.Tensor:
+    """LayerNorm in fp32 over the population variance, as the reference's
+    (``jnp.var``), then cast back to ``x``'s dtype."""
+    y = F.layer_norm(x.float(), (x.shape[-1],), params["scale"].float(),
+                     params["bias"].float(), eps)
+    return y.to(x.dtype)
+
+
+def sinusoidal_positions(seq: int, dim: int, device=None) -> torch.Tensor:
+    """fp32 ``(seq, dim)`` table: sines then cosines of ``pos · f_i``, with
+    ``f_i = exp(-ln(10000) · i / max(half - 1, 1))`` — the reference's
+    frequencies, whose denominator is ``half - 1``, not ``half``."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    half = dim // 2
+    freqs = torch.exp(-math.log(10000.0) * torch.arange(
+        half, dtype=torch.float32, device=device) / max(half - 1, 1))
+    angles = pos * freqs[None]
+    return torch.cat([torch.sin(angles), torch.cos(angles)], dim=-1)
 
 
 def rope_tables(positions: torch.Tensor, head_dim: int,
@@ -201,16 +234,17 @@ def _paged_write(cache: Params, dest: torch.Tensor, k: torch.Tensor,
 
 
 def cold_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                   attn_impl: str, q_chunk: int, kv_chunk: int
-                   ) -> torch.Tensor:
-    """Causal cold-prefill attention, q ``(B, S, H, D)``, k/v ``(B, S, Hkv,
-    D)``. ``attn_impl="pallas"`` runs the fused flash kernel on the
-    merged-head layout with K/V repeated to all q heads (the reference's
-    trade: duplicated K/V reads for one fused pass); the plain settings run
+                   attn_impl: str, q_chunk: int, kv_chunk: int,
+                   causal: bool = True) -> torch.Tensor:
+    """Full-sequence attention (causal for a decoder's cold prefill, not
+    for an encoder), q ``(B, S, H, D)``, k/v ``(B, S, Hkv, D)``.
+    ``attn_impl="pallas"`` runs the fused flash kernel on the merged-head
+    layout with K/V repeated to all q heads (the reference's trade:
+    duplicated K/V reads for one fused pass); the plain settings run
     :func:`dense_attention`."""
     check_attn_impl(attn_impl)
     if attn_impl not in FLASH_ATTN_IMPLS:
-        return dense_attention(q, k, v, causal=True)
+        return dense_attention(q, k, v, causal=causal)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise NotImplementedError(
             f"attn_impl={attn_impl!r} under a gradient: flash_attention_fused "
@@ -225,7 +259,7 @@ def cold_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     out = flash_attention_fused(
         q.transpose(1, 2).reshape(b * h, s, d), merged(k), merged(v),
-        causal=True, q_chunk=q_chunk, kv_chunk=kv_chunk)
+        causal=causal, q_chunk=q_chunk, kv_chunk=kv_chunk)
     return out.reshape(b, h, s, d).transpose(1, 2)
 
 
@@ -306,6 +340,7 @@ def attention_apply(
     suffix_len: Optional[torch.Tensor] = None,
     kv_dest: Optional[torch.Tensor] = None,
     attn_impl: str = "flash", q_chunk: int = 512, kv_chunk: int = 1024,
+    causal: bool = True,
 ) -> Tuple[torch.Tensor, Params]:
     """Full attention block.
 
@@ -313,8 +348,9 @@ def attention_apply(
     cache, ``kv_dest`` (:func:`paged_write_rows`) are computed once per
     forward by the caller and shared by every layer.
 
-    * no ``cache`` — cold prefill (causal; :func:`cold_attention` by
-      ``attn_impl``); returns the fresh K/V as the cache.
+    * no ``cache`` — cold prefill (causal unless ``causal=False``, as an
+      encoder's; :func:`cold_attention` by ``attn_impl``); returns the
+      fresh K/V as the cache.
     * ``cache`` without ``block_tables`` — capacity-dense decode, one
       token: each slot writes its K/V at ``cache_len[b]`` of its own rows
       (``(B, capacity, Hkv, D)`` leaves), then :func:`decode_attention`
@@ -357,10 +393,44 @@ def attention_apply(
         new_cache = cache
     else:
         out = cold_attention(q, k, v, attn_impl=attn_impl, q_chunk=q_chunk,
-                             kv_chunk=kv_chunk)
+                             kv_chunk=kv_chunk, causal=causal)
         new_cache = {"k": k, "v": v}
     y = linear_apply(params["wo"], out.reshape(b, s, n_heads * head_dim))
     return y, new_cache
+
+
+def cross_attention_apply(params: Params, x: torch.Tensor, kv: Params, *,
+                          n_heads: int, n_kv: int, head_dim: int
+                          ) -> torch.Tensor:
+    """Encoder-decoder cross attention of the decoder stream ``x`` ``(B,
+    S, d)`` against precomputed encoder K/V (``kv["k"]``/``kv["v"]``, ``(B,
+    S_enc, Hkv, D)``). Q is never fused with K/V here (it projects another
+    activation; see ``kernels/plan.fuse_packed_projections``). One query
+    row runs :func:`decode_attention` over every encoder row; more run
+    non-causal plain attention (the reference's XLA ``flash_attention``,
+    not a Pallas kernel)."""
+    b, s, _ = x.shape
+    q = linear_apply(params["wq"], x).reshape(b, s, n_heads, head_dim)
+    k, v = kv["k"], kv["v"]
+    if s == 1:
+        out = decode_attention(q, k, v, k.shape[1])
+    else:
+        out = dense_attention(q, k, v, causal=False)
+    return linear_apply(params["wo"], out.reshape(b, s, n_heads * head_dim))
+
+
+def cross_kv(params: Params, enc_out: torch.Tensor, *, n_kv: int,
+             head_dim: int) -> Params:
+    """The cross-attention K/V of encoder states ``(B, S_enc, d)``: one
+    grouped launch when packing fused them into ``wkv``."""
+    b, s, _ = enc_out.shape
+    if "wkv" in params:
+        k, v = grouped_linear_apply(params["wkv"], enc_out)
+    else:
+        k = linear_apply(params["wk"], enc_out)
+        v = linear_apply(params["wv"], enc_out)
+    return {"k": k.reshape(b, s, n_kv, head_dim),
+            "v": v.reshape(b, s, n_kv, head_dim)}
 
 
 # ---------------------------------------------------------------------------
@@ -385,6 +455,21 @@ def swiglu_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
     else:
         h = F.silu(linear_apply(params["wg"], x)) * linear_apply(
             params["wi"], x)
+    return linear_apply(params["wo"], h)
+
+
+def gelu_mlp_init(generator: torch.Generator, d_model: int, d_ff: int,
+                  dtype=torch.float32) -> Params:
+    return {
+        "wi": linear_init(generator, d_model, d_ff, bias=True, dtype=dtype),
+        "wo": linear_init(generator, d_ff, d_model, bias=True, dtype=dtype),
+    }
+
+
+def gelu_mlp_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """``wo(gelu(wi(x)))``, both linears with a bias; the tanh GELU, as
+    ``jax.nn.gelu``'s default."""
+    h = F.gelu(linear_apply(params["wi"], x), approximate="tanh")
     return linear_apply(params["wo"], h)
 
 

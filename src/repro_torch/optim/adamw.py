@@ -12,10 +12,13 @@ overwrites the params, the moments and (when clipping) the grads it is
 given, so a full-width model needs no second copy of any of them.
 
 Decay mask: the reference decays every leaf with ``ndim >= 2`` *in its
-stacked layout*. Under ``scan_layers=True`` its layers carry a leading layer
-axis, so a layer's RMSNorm ``scale`` (L, d) is decayed while ``final_norm``
-(d,) is not. The port stores layers unstacked; :func:`decay_mask` gives the
-mask the reference would use for the same config.
+stacked layout*. Where it stacks a model's layers (a decoder under
+``scan_layers=True``, an encdec model's two stacks always) they carry a
+leading layer axis, so a layer's RMSNorm ``scale`` (L, d) is decayed while
+``final_norm`` (d,) is not. The port stores layers unstacked;
+:func:`decay_mask`, given the keys the reference stacks
+(``model_fns(cfg).stacked``), gives the mask it would use for the same
+config.
 """
 
 from __future__ import annotations
@@ -91,13 +94,14 @@ def clip_by_global_norm(grads: PyTree, max_norm: float
     return grads, norm
 
 
-def decay_mask(params: PyTree, *, scan_layers: bool) -> PyTree:
+def decay_mask(params: PyTree, *, stacked: Tuple[str, ...] = ()) -> PyTree:
     """The reference's default mask (``ndim >= 2``) as its layout would see
-    it: under ``scan_layers`` every leaf of ``params["layers"]`` has one
-    more (stacking) dim, so norm scales and biases there are decayed."""
+    it: every leaf under one of the top-level keys ``stacked`` has one more
+    (stacking) dim there, so norm scales and biases there are decayed."""
+    prefixes = tuple(f"[{k!r}]" for k in stacked)
     return unflatten(params, [
-        float(p.dim() + int(scan_layers and path.startswith("['layers']"))
-              >= 2) for path, p in flatten(params)])
+        float(p.dim() + int(path.startswith(prefixes)) >= 2)
+        for path, p in flatten(params)])
 
 
 @torch.no_grad()

@@ -228,6 +228,10 @@ class InferenceEngine:
                  ec: Optional[EngineConfig] = None, *, device="cuda",
                  draft_params: PyTree = None, drafter: Any = None,
                  clock: Optional[Callable[[], float]] = None):
+        if cfg.family == "encdec":
+            raise NotImplementedError(
+                "InferenceEngine serves decoder-only families; encdec "
+                "prefill needs encoder frames and a different cache tree")
         ec = ec or EngineConfig()
         self.device = resolve_device(device)
         table = params["embed"]["table"]

@@ -73,6 +73,9 @@ CASES = [  # (N, K, block, keep, align)
     # jamba's mamba x_proj (288 x 8192 at full width): 144 x 128 blocks,
     # 72 x 64 tiles, 72 rows not a multiple of the MMA's 16
     (288, 1024, (144, 128), 0.25, 8),
+    # whisper-large-v3's lm_head (51866 = 2 x 25933 rows): (2, 128) blocks,
+    # one kept row a tile
+    (518, 1280, (2, 128), 0.25, 1),
 ]
 # decode (1, 8), a ragged M tile (37), prefill tiles with a ragged edge
 # (300) and a full prefill (2048)

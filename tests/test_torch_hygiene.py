@@ -187,15 +187,20 @@ def test_prefix_cache_engine_serves():
 
 @pytest.mark.parametrize("family", ["encdec"])
 def test_unported_model_options_raise(family):
-    """The family still to port (encdec) raises at the model's entry point;
-    the registry refuses whisper."""
-    from repro_torch.models import causal_lm
-    with pytest.raises(NotImplementedError):
-        causal_lm.init_params(tcfgs.ModelConfig(
-            name="x", family=family, num_layers=1, d_model=8, num_heads=2,
-            num_kv_heads=2, d_ff=8, vocab_size=8), device="cpu")
-    with pytest.raises(NotImplementedError):
-        tcfgs.get_config("whisper-large-v3")
+    """encdec is not a causal LM: ``causal_lm`` refuses it at its entry
+    point, while ``model_fns`` serves it through ``models/encdec.py``."""
+    from repro_torch.models import causal_lm, encdec
+    from repro_torch.models.api import model_fns
+    cfg = tcfgs.ModelConfig(
+        name="x", family=family, num_layers=1, d_model=8, num_heads=2,
+        num_kv_heads=2, d_ff=8, vocab_size=8, encoder_seq=4)
+    with pytest.raises(NotImplementedError, match="encdec"):
+        causal_lm.init_params(cfg, device="cpu")
+    fns = model_fns(cfg)
+    assert fns.init_params.func is encdec.init_params
+    assert fns.prefill_append is None
+    params = fns.init_params(0, device="cpu")
+    assert len(params["enc_layers"]) == len(params["dec_layers"]) == 1
 
 
 @pytest.mark.parametrize("option", ["kv_dtype", "weight_dtype"])

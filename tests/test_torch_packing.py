@@ -27,8 +27,8 @@ from repro_torch.kernels import plan as tplan  # noqa: E402
 torch.set_num_threads(2)
 
 DENSE = ["llama3.2-1b", "llama3.2-3b", "llama3-405b", "qwen1.5-4b"]
-# the vlm, ssm and hybrid families
-FAMILIES = ["pixtral-12b", "rwkv6-3b", "jamba-v0.1-52b"]
+# the vlm, ssm, hybrid and encdec families
+FAMILIES = ["pixtral-12b", "rwkv6-3b", "jamba-v0.1-52b", "whisper-large-v3"]
 
 
 @pytest.mark.parametrize("arch", DENSE + FAMILIES)
@@ -44,9 +44,15 @@ def test_config_fields_match_reference(arch, smoke):
 
 
 def test_other_families_raise():
-    """encdec (whisper) is the one family the port does not serve yet."""
-    with pytest.raises(NotImplementedError):
-        tcfgs.get_config("whisper-large-v3")
+    """The registry holds every architecture of the reference's, whisper
+    (encdec) included, and refuses an unknown one."""
+    from repro.configs import ARCH_IDS as jarch_ids
+    assert sorted(tcfgs.ARCH_IDS) == sorted(jarch_ids)
+    cfg = tcfgs.get_config("whisper-large-v3")
+    assert (cfg.family, cfg.encoder_layers, cfg.encoder_seq) == (
+        "encdec", 32, 1500)
+    with pytest.raises(KeyError):
+        tcfgs.get_config("whisper-tiny")
 
 
 SPECS = [  # (shape, block, keep, align)

@@ -43,6 +43,7 @@ from repro_torch.data import pipeline as tdata  # noqa: E402
 from repro_torch.launch import train as ttrain  # noqa: E402
 from repro_torch.models import causal_lm as tlm  # noqa: E402
 from repro_torch.models import layers as tlayers  # noqa: E402
+from repro_torch.models.api import model_fns  # noqa: E402
 from repro_torch.optim import adamw as tadamw  # noqa: E402
 from repro_torch.runtime.fault_tolerance import StragglerDetector  # noqa: E402
 from repro_torch.tree import flatten, leaves  # noqa: E402
@@ -93,7 +94,8 @@ def test_decay_mask_follows_the_stacked_layout(scan_layers):
     jc, tc = _smoke(scan_layers=scan_layers)
     jp = jlm.init_params(jc, jax.random.PRNGKey(0))
     tp = from_jax_params(_np_tree(jp), tc, device="cpu")
-    mask = dict(flatten(tadamw.decay_mask(tp, scan_layers=scan_layers)))
+    mask = dict(flatten(tadamw.decay_mask(tp,
+                                          stacked=model_fns(tc).stacked)))
     assert mask["['final_norm']['scale']"] == 0.0
     assert mask["['layers'][0]['norm1']['scale']"] == float(scan_layers)
     assert mask["['layers'][1]['mixer']['wq']['w']"] == 1.0
@@ -119,7 +121,7 @@ def test_adamw_update_matches_reference(scan_layers, clip):
         tg = from_jax_params(_np_tree(grads), tc, device="cpu")
         tp, ts, tm = tadamw.update(
             tcfg, tg, ts, tp,
-            decay_mask=tadamw.decay_mask(tp, scan_layers=scan_layers))
+            decay_mask=tadamw.decay_mask(tp, stacked=model_fns(tc).stacked))
         assert float(tm["lr"]) == pytest.approx(float(jm["lr"]), rel=1e-6)
         assert float(tm["grad_norm"]) == pytest.approx(
             float(jm["grad_norm"]), rel=1e-5)
