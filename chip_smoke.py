@@ -6,6 +6,7 @@
     python3 chip_smoke.py --paper
     python3 chip_smoke.py --families
     python3 chip_smoke.py --encdec
+    python3 chip_smoke.py --train
 
 The second form times phase 3's ``bcr_spmm*``, ``bcr_spmm_skip`` and flash
 cases for each checkout TREE (its own ``src/repro_torch``, built into its
@@ -13,7 +14,8 @@ own ``build/``), one process per TREE in the order given, and prints them
 side by side — e.g. ``build/parent . . build/parent`` after ``git archive
 HEAD~1 | tar -x -C build/parent``. The third runs phases 1, 2 and 13 only;
 the fourth phases 1, 2 and 14, with phase 3's checks of phase 14's shapes;
-the fifth phases 1, 2 and 15, phase 15d's kernel cases first.
+the fifth phases 1, 2 and 15, phase 15d's kernel cases first; the sixth
+phases 1, 2 and 16.
 
 Phases, in order (any failed check raises and the script exits non-zero):
 
@@ -265,6 +267,42 @@ Phases, in order (any failed check raises and the script exits non-zero):
    non-causal flash at B·H 160, S 1500), each against its plain version,
    timed beside it, the library call and the bound.
 
+16. Training for every family that serves, on GRIM's pruning path with
+   phase 7's schedule (8 steps: 2 dense, ADMM from step 2 with one Z/U
+   dual update at step 5, ``finalize`` and frozen-mask retraining from
+   step 6), fp32 params, the config's activation dtype and ``grad_accum``,
+   BCR keep 0.25 on 128 x 128 blocks (``choose_block_shape`` decides the
+   non-divisible leaves): (a) whisper-large-v3 at full width and depth,
+   8 x 1500 frames and 1500 tokens a step from ``synth_inputs`` at
+   ``ShapeSpec("whisper_train", 1500, 8, "train")``; (b) deepseek-moe-16b
+   at full width, 4 layers, through ``train_loop`` (markov data, 8 x 128,
+   as phase 7); (c) rwkv6-3b at full width, 16 of 32 layers, through
+   ``train_loop``; (d) pixtral-12b at full width, 2 of 40 layers, over
+   ``synth_inputs`` at 8 x 512 with 256 ``image_embeds`` in the loss; (e)
+   jamba-v0.1-52b at its SMOKE config (8 layers, one period, fp32, 16 x 16
+   blocks): at full width one MoE layer alone holds 2.8 B parameters, ~68
+   GB of training state, so no full-width period fits one card. (a) and
+   (d) train through phase 16's own loop (``make_train_step``,
+   ``admm_init``, ``admm_dual_update``, ``finalize`` in ``train_loop``'s
+   order), since ``train_loop`` feeds token batches only, as the
+   reference's does. Each family: phase 7's gates (the phases, one dual
+   update, a finite loss lower at the end, every pruned matrix — each
+   expert of a stacked leaf — a balanced-BCR member); the parameter count
+   and the state's bytes arithmetic (16 B a parameter, 8 more a pruned
+   one during ADMM) beside ``max_memory_allocated``; step wall p50 by
+   phase; one profiled retrain step (device ms by kernel family, busy
+   share); then the retrained weights through ``pack_params`` and the
+   family's packed prefill (``model_fns``; pixtral with its
+   ``image_embeds``, whisper over 8 x 1500 frames and a 16-token prompt)
+   against the dense finalized weights' last-position logits under phase
+   7's gate (5e-2 of their scale) and near-tie rule, with every kernel
+   form the packed tree runs launched (``bcr_spmm``, ``bcr_spmm_grouped``,
+   and for stacked experts the expert-batched forms). A MoE model's dense
+   forward is dispatched as its packed prefill was (``moe_routing``), so
+   the gate measures the kernels; the token-layers whose top-k the dense
+   forward's own routing tips elsewhere, and the gap under that routing,
+   are printed.
+
 Phase 3 also holds the verify dispatch's shapes: paged prefill-append with
 4 rows a slot over lengths 1..512 (ragged real rows, bf16 and int8 pages)
 and every ``bcr_spmm*`` case at M = 32 = 8 slots x (``spec_k`` + 1).
@@ -281,7 +319,8 @@ its launches in one packed fp32 GRU step at batch 1, ``gru_launches``, and
 that step's device time, ``gru_ms``, from phase 13; every entry its
 launches over phase 14's three serving runs, ``family_launches``, and over
 phase 15's runs, ``encdec_launches``: the fp forms over 15a's, the int8
-forms and flash over 15b's), and the contract line.
+forms and flash over 15b's; and over phase 16's five packed prefills,
+``train_launches``), and the contract line.
 """
 
 from __future__ import annotations
@@ -3458,13 +3497,10 @@ def phase_trainer(torch, np, smi, num_layers=16):
     """GRIM's pruning path at full width through ``train_loop`` (see the
     module docstring, phase 7). Returns the trainer's stats and the
     ``bcr_spmm_skip`` launches of the trained-weight runs."""
-    from repro_torch.core.bcr import is_bcr_set_member
     from repro_torch.data.pipeline import DataConfig, TokenSource
     SK = importlib.import_module("repro_torch.kernels.bcr_spmm_skip")
     from repro_torch.kernels import ref
-    from repro_torch.launch.serve import pack_params
     from repro_torch.launch.train import train_loop
-    from repro_torch.models import causal_lm
     from repro_torch.tree import flatten, tree_map
 
     cfg = train_cfg(torch, num_layers)
@@ -3491,60 +3527,23 @@ def phase_trainer(torch, np, smi, num_layers=16):
     log(f"trainer peak memory {peak / 2**30:.2f} GiB "
         f"(torch.cuda.max_memory_allocated) on {smi}; retrain step p50 "
         f"{stats['step_ms_p50'].get('retrain', float('nan')):.1f} ms")
-    if phases != ["dense"] * 2 + ["admm"] * 4 + ["retrain"] * 2:
-        raise AssertionError(f"unexpected phases {phases}")
-    if len(out["transition_ms"]["dual_update"]) != 1:
-        raise AssertionError("expected one Z/U dual update (step 5)")
-    if not (all(np.isfinite(hist)) and hist[-1] < hist[0]):
-        raise AssertionError(f"loss not finite or not lower: {hist}")
-    stats["profile"] = profile_train_step(torch, cfg, tc, state, specs)
-    flat = dict(flatten(state.params))
-    bad = [path for path, spec in specs.items()
-           if not is_bcr_set_member(flat[path].detach(), spec)]
-    if bad:
-        raise AssertionError(f"{len(bad)} pruned leaves are not BCR members: "
-                             f"{bad[:3]}")
+    check_trained(np, out, "phase 7")
+    stats["profile"] = profile_train_step(torch, cfg, state, specs,
+                                          markov_batch(cfg, tc))
     log(f"  every one of the {len(specs)} pruned leaves is a balanced-BCR "
         f"member; loss {hist[0]:.4f} -> {hist[-1]:.4f}")
 
     # the retrained weights through the serving path
     dense = tree_map(lambda p: p.detach(), state.params)
-    del out, state, flat
+    del out, state
     torch.cuda.empty_cache()
-    packed = pack_params(cfg, dense)
     toks = TokenSource(DataConfig(cfg.vocab_size, tc.seq, tc.batch,
                                   seed=1, kind="markov")).device_batch(
         0, "cuda")["tokens"]
-    zero_counters()
-    with torch.no_grad():
-        got, _ = causal_lm.prefill(cfg, packed, toks)
-        torch.cuda.synchronize()
-        serve_launches = {k: v for k, v in read_counters().items() if v}
-        want = causal_lm.forward(cfg, dense, toks)[:, -1:]
-    err = float((got.float() - want.float()).abs().max())
-    scale = float(want.float().abs().max())
-    a, b = got.float().argmax(-1), want.float().argmax(-1)
-    ties = 0
-    for r in torch.nonzero(a != b).tolist():
-        la = float(want[r[0], r[1], a[r[0], r[1]]])
-        lb = float(want[r[0], r[1], b[r[0], r[1]]])
-        if abs(la - lb) > err:
-            raise AssertionError(f"packed argmax differs at row {r}: dense "
-                                 f"logits {la} vs {lb}, beyond the max "
-                                 f"difference {err}")
-        ties += 1
-    log(f"  packed prefill vs dense forward of the finalized weights "
-        f"(B={tc.batch}, S={tc.seq}): launches {serve_launches}, max |diff| "
-        f"{err:.3e} of {scale:.3g}, argmax equal on {tc.batch - ties}/"
-        f"{tc.batch} rows (near-ties {ties})")
-    if not (bool(torch.isfinite(got).all()) and err <= 5e-2 * scale):
-        raise AssertionError("packed prefill disagrees with the dense "
-                             "forward of the finalized weights")
-    if not serve_launches.get("bcr_spmm") or \
-            not serve_launches.get("bcr_spmm_grouped"):
-        raise AssertionError("packed prefill did not run the BCR kernels")
-    stats.update(serve_max_abs=err, serve_scale=scale, serve_near_ties=ties)
-    del packed, got, want
+    _, serve = packed_prefill_check(torch, cfg, dense, {"tokens": toks},
+                                    "phase 7")
+    stats.update(serve_max_abs=serve["max_abs"], serve_scale=serve["scale"],
+                 serve_near_ties=serve["near_ties"])
     torch.cuda.empty_cache()
 
     # the trained projections, paper-general form: unbalanced BCR, skip pack;
@@ -3604,22 +3603,32 @@ def train_kernel_family(name: str) -> str:
     return "other"
 
 
-def profile_train_step(torch, cfg, tc, state, specs):
-    """Where a retrain step's time goes: one more step (frozen masks, a
-    tiny learning rate) timed on the host, then one under
-    ``torch.profiler`` — device time by kernel family against the wall
-    (the busy share), and the markov batch's host time on its own. Run
-    after the 8 steps of ``train_loop``, on its final state."""
-    from torch.profiler import ProfilerActivity, profile
-
+def markov_batch(cfg, tc):
+    """The batch ``train_loop`` would draw at step ``tc.steps`` (the step
+    after its last), as a function of no arguments."""
     from repro_torch.data.pipeline import DataConfig, TokenSource
-    from repro_torch.launch.train import make_train_step
-    from repro_torch.optim.adamw import AdamWConfig
 
     data = TokenSource(DataConfig(cfg.vocab_size, tc.seq, tc.batch,
                                   seed=tc.seed, kind=tc.data_kind))
+    return lambda: data.device_batch(tc.steps, tc.device)
+
+
+def profile_train_step(torch, cfg, state, specs, make_batch):
+    """Where a retrain step's time goes: one more step (frozen masks, a
+    tiny learning rate) timed on the host, then one under
+    ``torch.profiler`` — device time by kernel family against the wall
+    (the busy share), and the host time of ``make_batch()`` on its own.
+    Run after the 8 steps of a training run, on its final state. The
+    profiler collects device activity only: the CPU ops of a host-bound
+    recurrent step (rwkv6-3b: ~250 k launches) take it minutes to gather,
+    and nothing here reads them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.optim.adamw import AdamWConfig
+
     t0 = time.perf_counter()
-    batch = data.device_batch(tc.steps, "cuda")
+    batch = make_batch()
     batch_ms = (time.perf_counter() - t0) * 1e3
     step = make_train_step(cfg, AdamWConfig(lr=1e-6, warmup_steps=0,
                                             total_steps=1), None, specs)
@@ -3628,8 +3637,7 @@ def profile_train_step(torch, cfg, tc, state, specs):
     state, m = step(state, batch)
     float(m["loss"])
     wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         state, m = step(state, batch)
         float(m["loss"])
     fams, top = {}, []
@@ -3641,7 +3649,7 @@ def profile_train_step(torch, cfg, tc, state, specs):
     launches = sum(ev.count for ev in prof.key_averages()
                    if getattr(ev, "device_type", None)
                    == torch.autograd.DeviceType.CUDA)
-    out = dict(step_wall_ms=wall_ms, markov_batch_host_ms=batch_ms,
+    out = dict(step_wall_ms=wall_ms, batch_host_ms=batch_ms,
                device_ms=device_ms, busy_share=device_ms / wall_ms,
                device_launches=launches, by_family_ms=fams,
                top_kernels=sorted(top, reverse=True)[:8])
@@ -5116,6 +5124,359 @@ def phase_encdec(torch, np):
     return launches_a, launches_b
 
 
+# -- phase 16: training for every family that serves, on the card -----------
+
+# (label, arch, depth or None for all, SMOKE config, the ShapeSpec of its
+# synth_inputs batches or None for train_loop's markov batches). Depths
+# are cut so the training state (24 B a parameter by arithmetic: fp32
+# params, grads, m, v, Z, U) fits one 80 GB card: whisper-large-v3 whole,
+# 1.64 B (~39.5 GB); deepseek-moe-16b 4 of 28 layers, ~2.2 B (~53 GB);
+# rwkv6-3b 16 of 32, ~1.7 B (~41 GB; 32 would need ~75 GB); pixtral-12b 2
+# of 40, ~1.9 B (~45 GB); jamba at its SMOKE config, fp32: at full width
+# one MoE layer alone is 16 x 3 x 4096 x 14336 = 2.8 B parameters, ~68 GB
+# of state, so no full-width period of 8 layers fits one card
+TRAIN_FAMILIES = (
+    ("16a", "whisper-large-v3", None, False, ("whisper_train", 1500, 8)),
+    ("16b", "deepseek-moe-16b", 4, False, None),
+    ("16c", "rwkv6-3b", 16, False, None),
+    ("16d", "pixtral-12b", 2, False, ("pixtral_train", 512, 8)),
+    ("16e", "jamba-v0.1-52b", None, True, None),
+)
+# the kernel forms a packed tree runs: every packed projection; a fused
+# group (Q/K/V, K/V, gate/up) outside the experts; the stacked experts
+TRAIN_PACKED_KERNELS = (("['w_packed']", "bcr_spmm"),
+                        ("['w_group']", "bcr_spmm_grouped"),
+                        ("['experts']", "bcr_spmm_experts"),
+                        ("['experts']", "bcr_spmm_grouped_experts"))
+
+
+def train_family_cfg(arch, layers, smoke):
+    """``arch`` at full width (or its SMOKE config), the depth cut to
+    ``layers`` where given, BCR keep 0.25 on 128 x 128 blocks (16 x 16 at
+    SMOKE width, where 128 prunes nothing), the config's own dtypes and
+    ``grad_accum``."""
+    from repro_torch.configs import get_config, get_smoke_config
+    cfg = (get_smoke_config if smoke else get_config)(arch)
+    over = dict(bcr_keep_frac=0.25,
+                bcr_block=(16, 16) if smoke else (128, 128))
+    if layers is not None:
+        over["num_layers"] = layers
+    return dataclasses.replace(cfg, **over)
+
+
+def synth_train_loop(torch, cfg, shape, tc, log=log):
+    """Phase 7's schedule over ``synth_inputs`` batches (seed = step): the
+    port's ``init_state``, ``make_train_step``, ``admm_init``,
+    ``admm_dual_update`` and ``finalize`` in ``train_loop``'s order and with
+    its defaults. ``train_loop`` feeds token batches only, as the
+    reference's does (ROADMAP §3), so a family whose loss reads ``frames``
+    (encdec) or ``image_embeds`` (vlm) trains through this loop. Returns
+    what ``train_loop`` returns."""
+    from repro_torch.core import admm as A
+    from repro_torch.launch.train import (TrainState, default_prune_filter,
+                                          init_state, make_train_step)
+    from repro_torch.models.api import synth_inputs
+    from repro_torch.optim import adamw
+
+    opt_cfg = adamw.AdamWConfig(lr=1e-3,
+                                warmup_steps=min(20, tc.steps // 5 + 1),
+                                total_steps=tc.steps)
+    admm_cfg = A.ADMMConfig(steps_per_admm=max(tc.steps // 10, 5))
+    state = init_state(cfg, tc.seed, tc.device)
+    specs = A.specs_for(state.params, default_prune_filter(cfg))
+    step_fn = make_train_step(cfg, opt_cfg, admm_cfg, specs)
+    history, step_ms, phases = [], [], []
+    transition_ms = {"dual_update": []}
+
+    def timed(key, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        if key == "dual_update":
+            transition_ms[key].append(ms)
+        else:
+            transition_ms[key] = ms
+        return out
+
+    for step in range(tc.steps):
+        if step == tc.admm_start:
+            state = TrainState(state.params, state.opt, timed(
+                "admm_init", lambda: A.admm_init(state.params, specs)), None)
+            log(f"  step {step}: ADMM phase begins ({len(specs)} pruned "
+                f"tensors)")
+        if step == tc.retrain_start:
+            pruned, masks = timed("finalize",
+                                  lambda: A.finalize(state.params, specs))
+            state = TrainState(pruned, state.opt, None, masks)
+            log(f"  step {step}: masks frozen; retraining")
+        if (state.admm is not None and step % admm_cfg.steps_per_admm == 0
+                and step > 0):
+            state = TrainState(state.params, state.opt, timed(
+                "dual_update", lambda: A.admm_dual_update(
+                    state.params, state.admm, specs)), state.masks)
+        t0 = time.perf_counter()
+        batch = synth_inputs(cfg, shape, seed=step, device=tc.device)["batch"]
+        state, metrics = step_fn(state, batch)
+        loss = float(metrics["loss"])
+        dt = (time.perf_counter() - t0) * 1e3
+        history.append(loss)
+        step_ms.append(dt)
+        phases.append("retrain" if state.masks is not None else
+                      "admm" if state.admm is not None else "dense")
+        log(f"  step {step:5d} loss {loss:8.4f} lr "
+            f"{float(metrics['lr']):.2e} gnorm "
+            f"{float(metrics['grad_norm']):7.3f} {dt:7.1f} ms")
+    return {"state": state, "history": history, "specs": specs,
+            "step_ms": step_ms, "phases": phases,
+            "transition_ms": transition_ms}
+
+
+def check_trained(np, out, label):
+    """Phase 7's gates on a run of 8 steps: the phases in order with one
+    dual update, a finite loss lower at the end, and every pruned leaf
+    (each expert of a stacked one) a balanced-BCR member."""
+    from repro_torch.core.bcr import is_bcr_set_member
+    from repro_torch.tree import flatten
+
+    hist, phases = out["history"], out["phases"]
+    if phases != ["dense"] * 2 + ["admm"] * 4 + ["retrain"] * 2:
+        raise AssertionError(f"{label}: unexpected phases {phases}")
+    if len(out["transition_ms"]["dual_update"]) != 1:
+        raise AssertionError(f"{label}: expected one Z/U dual update "
+                             f"(step 5)")
+    if not (all(np.isfinite(hist)) and hist[-1] < hist[0]):
+        raise AssertionError(f"{label}: loss not finite or not lower: "
+                             f"{hist}")
+    flat = dict(flatten(out["state"].params))
+    bad, members = [], 0
+    for path, spec in out["specs"].items():
+        w = flat[path].detach()
+        for mat in w.reshape(-1, *w.shape[-2:]):
+            members += 1
+            if not is_bcr_set_member(mat, spec):
+                bad.append(path)
+    if bad:
+        raise AssertionError(f"{label}: {len(bad)} pruned matrices are not "
+                             f"BCR members: {bad[:3]}")
+    return members
+
+
+@contextlib.contextmanager
+def moe_routing(record=None, replay=None):
+    """Inside the block every MoE layer's router (``models.moe.route``)
+    appends its result to ``record``, or, given ``replay``, routes the
+    current tokens and then dispatches and combines them as the recorded
+    calls did, in order, appending its own expert choices to ``record``:
+    a dense forward so routed runs exactly the experts a packed prefill
+    ran, and their gap is the kernels' own, not a top-k near-tie that a
+    bf16 summation order tips to another expert (and, at capacity, shifts
+    which tokens drop). Routing itself is held to the reference on the CPU
+    (``tests/test_torch_moe.py``)."""
+    from repro_torch.models import moe
+    route, it = moe.route, None if replay is None else iter(replay)
+
+    def routed(*a, **kw):
+        out = route(*a, **kw)
+        record.append(out)
+        if it is None:
+            return out
+        want = next(it)
+        return out[0], want[1], want[2], want[3], want[4]
+
+    moe.route = routed
+    try:
+        yield
+    finally:
+        moe.route = route
+
+
+def packed_prefill_check(torch, cfg, dense, batch, label):
+    """The retrained weights through ``pack_params`` and the family's
+    packed prefill (``model_fns``), held against the dense finalized
+    weights' last-position logits (a causal LM's ``forward``, an encdec
+    model's own ``prefill``) under phase 7's gate and near-tie rule; the
+    kernel forms the packed tree runs must launch. Returns the launches."""
+    from repro_torch.launch.serve import pack_params
+    from repro_torch.models import causal_lm
+    from repro_torch.models.api import model_fns
+    from repro_torch.tree import flatten
+
+    fns = model_fns(cfg)
+    packed = pack_params(cfg, dense)
+    paths = [p for p, _ in flatten(packed)]
+    need = {k for key, k in TRAIN_PACKED_KERNELS
+            if any(key in p and (k.endswith("experts")
+                                 or "['experts']" not in p) for p in paths)}
+    packed_routes, dense_routes = [], []
+    zero_counters()
+    with torch.no_grad():
+        with moe_routing(record=packed_routes):
+            got = fns.prefill(packed, batch)[0]
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in read_counters().items() if v}
+        if cfg.family == "encdec":
+            want = fns.prefill(dense, batch)[0]
+        else:
+            with moe_routing(record=dense_routes, replay=packed_routes):
+                want = causal_lm.forward(
+                    cfg, dense, batch["tokens"],
+                    image_embeds=batch.get("image_embeds"))[:, -1:]
+            if packed_routes:
+                own = causal_lm.forward(
+                    cfg, dense, batch["tokens"],
+                    image_embeds=batch.get("image_embeds"))[:, -1:]
+    if packed_routes:
+        # the dense forward's own top-k sets against the packed prefill's
+        flips = sum(int((torch.sort(a[2], -1).values
+                         != torch.sort(b[2], -1).values).any(-1).sum())
+                    for a, b in zip(packed_routes, dense_routes))
+        tokens = sum(a[2].shape[0] * a[2].shape[1] for a in packed_routes)
+        own_err = float((got.float() - own.float()).abs().max())
+        log(f"  {label}: {len(packed_routes)} MoE layers; the dense "
+            f"forward's own routing picks another expert set for {flips} of "
+            f"{tokens} token-layers; packed vs dense under its own routing "
+            f"max |diff| {own_err:.3e} (not gated); the gate below holds "
+            f"the dense forward dispatched as the packed prefill was")
+        del own
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    a, b = got.float().argmax(-1), want.float().argmax(-1)
+    ties = 0
+    for r in torch.nonzero(a != b).tolist():
+        la = float(want[r[0], r[1], a[r[0], r[1]]])
+        lb = float(want[r[0], r[1], b[r[0], r[1]]])
+        if abs(la - lb) > err:
+            raise AssertionError(f"{label}: packed argmax differs at row {r}:"
+                                 f" dense logits {la} vs {lb}, beyond the "
+                                 f"max difference {err}")
+        ties += 1
+    rows = got.shape[0]
+    log(f"  {label} packed prefill vs dense finalized weights "
+        f"({', '.join(f'{k} {tuple(v.shape)}' for k, v in batch.items())}):"
+        f" launches {launches}, max |diff| {err:.3e} of {scale:.3g}, argmax "
+        f"equal on {rows - ties}/{rows} rows (near-ties {ties})")
+    if not (bool(torch.isfinite(got).all()) and err <= 5e-2 * scale):
+        raise AssertionError(f"{label}: packed prefill disagrees with the "
+                             f"dense forward of the finalized weights")
+    missing = sorted(k for k in need if not launches.get(k))
+    if missing:
+        raise AssertionError(f"{label}: the packed prefill did not launch "
+                             f"{missing} (launches {launches})")
+    del packed
+    return launches, dict(max_abs=err, scale=scale, near_ties=ties)
+
+
+def phase_train_family(torch, np, smi, label, arch, layers, smoke, shape):
+    """One family of phase 16 (see the module docstring): train, gate,
+    profile a retrain step, then the packed prefill of the retrained
+    weights. Returns the family's stats and the prefill's launches."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models.api import synth_inputs
+    from repro_torch.tree import flatten, tree_map
+
+    t_start = time.perf_counter()
+    cfg = train_family_cfg(arch, layers, smoke)
+    full = get_config(arch)
+    depth = (f"{cfg.encoder_layers} + {cfg.num_layers} layers"
+             if cfg.family == "encdec" else f"{cfg.num_layers} layers")
+    cut = ("SMOKE config" if smoke else "full width, " + (
+        f"depth {full.num_layers} -> {cfg.num_layers}"
+        if cfg.num_layers != full.num_layers else "full depth"))
+    if shape is not None:
+        shape = ShapeSpec(shape[0], shape[1], shape[2], "train")
+        tc = trainer_config(batch=shape.global_batch, seq=shape.seq_len)
+        where = (f"phase 16's loop over synth_inputs {shape.name} "
+                 f"(B {shape.global_batch}, S {shape.seq_len})")
+    else:
+        tc = trainer_config()
+        where = (f"train_loop, {tc.data_kind} data, B {tc.batch} x S "
+                 f"{tc.seq}")
+    log(f"phase {label} {arch} ({cut}: {depth}, d_model {cfg.d_model}, "
+        f"vocab {cfg.vocab_size}, params {cfg.param_dtype}, activations "
+        f"{cfg.dtype}, grad_accum {cfg.grad_accum}, BCR keep "
+        f"{cfg.bcr_keep_frac} on {cfg.bcr_block} blocks) through {where}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    if shape is not None:
+        out = synth_train_loop(torch, cfg, shape, tc)
+        make_batch = (lambda: synth_inputs(cfg, shape, seed=tc.steps,
+                                           device=tc.device)["batch"])
+    else:
+        out = train_loop(cfg, tc, log=lambda *a: log(" ", *a))
+        make_batch = markov_batch(cfg, tc)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    state, specs = out["state"], out["specs"]
+    flat = dict(flatten(state.params))
+    n_params = sum(p.numel() for p in flat.values())
+    n_pruned = sum(flat[p].numel() for p in specs)
+    # fp32 params, grads, m and v for every parameter; Z and U for the
+    # pruned ones during ADMM
+    state_bytes = 16 * n_params + 8 * n_pruned
+    phases, step_ms = out["phases"], out["step_ms"]
+    p50 = {ph: statistics.median([ms for ms, q in zip(step_ms, phases)
+                                  if q == ph])
+           for ph in ("dense", "admm", "retrain") if ph in phases}
+    members = check_trained(np, out, f"phase {label}")
+    stats = dict(arch=arch, cut=cut, depth=depth, params=n_params,
+                 pruned_params=n_pruned, pruned_leaves=len(specs),
+                 pruned_matrices=members, state_bytes=state_bytes,
+                 peak_bytes=peak, losses=out["history"], phases=phases,
+                 step_ms=step_ms, step_ms_p50=p50,
+                 transition_ms=out["transition_ms"], train_s=train_s)
+    log(f"  phase {label}: {n_params / 1e9:.3f} B parameters, "
+        f"{n_pruned / 1e9:.3f} B pruned ({len(specs)} leaves, {members} "
+        f"matrices, every one a balanced-BCR member); state 16 B x "
+        f"{n_params / 1e9:.3f} B + 8 B x {n_pruned / 1e9:.3f} B (Z, U) = "
+        f"{state_bytes / 1e9:.2f} GB; peak {peak / 1e9:.2f} GB "
+        f"(torch.cuda.max_memory_allocated over the run) on {smi}; step "
+        f"wall p50 {json.dumps({k: round(v, 1) for k, v in p50.items()})} "
+        f"ms; loss {out['history'][0]:.4f} -> {out['history'][-1]:.4f}")
+    stats["profile"] = profile_train_step(torch, cfg, state, specs,
+                                          make_batch)
+    dense = tree_map(lambda p: p.detach(), state.params)
+    del out, state, flat
+    torch.cuda.empty_cache()
+    if cfg.family == "encdec":
+        batch = synth_inputs(cfg, ShapeSpec("prefill", shape.seq_len,
+                                            shape.global_batch, "prefill"),
+                             seed=tc.steps + 1, device=tc.device)["batch"]
+    else:
+        batch = {k: v for k, v in make_batch().items() if k != "targets"}
+    launches, stats["serve"] = packed_prefill_check(
+        torch, cfg, dense, batch, f"phase {label}")
+    stats["prefill_launches"] = launches
+    del dense, batch
+    torch.cuda.empty_cache()
+    stats["wall_s"] = time.perf_counter() - t_start
+    log(f"phase {label} {arch}: " + json.dumps(stats))
+    log(f"phase {label}: {stats['wall_s']:.1f} s (training "
+        f"{train_s:.1f} s)")
+    return stats, launches
+
+
+def run_phase_train(torch, np, smi):
+    """Phase 16: each family of ``TRAIN_FAMILIES`` in turn. Returns each
+    kernel's launches summed over the five packed prefills (the kernels
+    line's ``train_launches``)."""
+    log("phase 16, training for every family that serves (dense -> ADMM -> "
+        "retrain at full width, then the packed prefill)")
+    t0 = time.perf_counter()
+    total = {}
+    for label, arch, layers, smoke, shape in TRAIN_FAMILIES:
+        _, launches = phase_train_family(torch, np, smi, label, arch, layers,
+                                         smoke, shape)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    log(f"phase 16: {time.perf_counter() - t0:.1f} s")
+    return total
+
+
 def bcr_worker(tree: str) -> int:
     """``--bcr-worker TREE``: :func:`bcr_cases`, :func:`paged_cases`,
     :func:`skip_cases` and :func:`flash_cases` against TREE's own
@@ -5193,10 +5554,11 @@ def main() -> int:
     paper_only = sys.argv[1:] == ["--paper"]
     families_only = sys.argv[1:] == ["--families"]
     encdec_only = sys.argv[1:] == ["--encdec"]
+    train_only = sys.argv[1:] == ["--train"]
     if len(sys.argv) > 1 and not (paper_only or families_only
-                                  or encdec_only):
+                                  or encdec_only or train_only):
         print("usage: chip_smoke.py [--bcr-ab TREE... | --bcr-worker TREE | "
-              "--paper | --families | --encdec]", file=sys.stderr)
+              "--paper | --families | --encdec | --train]", file=sys.stderr)
         return 2
     import numpy as np
     import torch
@@ -5252,6 +5614,11 @@ def main() -> int:
     if encdec_only:
         encdec_launches = run_phase_encdec(torch, np)
         log(f"phase 15 launches: {json.dumps(encdec_launches)}")
+        log(smi)
+        return 0
+    if train_only:
+        train_launches = run_phase_train(torch, np, smi)
+        log(f"phase 16 launches: {json.dumps(train_launches)}")
         log(smi)
         return 0
 
@@ -5373,6 +5740,7 @@ def main() -> int:
     log(f"phase 14: {time.perf_counter() - t0:.1f} s")
 
     encdec_launches = run_phase_encdec(torch, np)
+    train_launches = run_phase_train(torch, np, smi)
 
     # one entry per kernel form at its decode-step shape (M = 8 slots) or,
     # for flash, the largest cold-prefill bucket; launches from the main
@@ -5399,7 +5767,8 @@ def main() -> int:
             bound_by=row["bound_by"], library_ms=row["library_ms"],
             shape=row["shape"], serving_launches=serving_launches[name],
             family_launches=family_launches.get(name, 0),
-            encdec_launches=encdec_launches.get(name, 0)))
+            encdec_launches=encdec_launches.get(name, 0),
+            train_launches=train_launches.get(name, 0)))
         if name in FP_KERNELS + INT8_KERNELS + ("flash_attention_fused",):
             # phase 12's MoE path runs these too (deepseek's shapes)
             kernels[-1]["moe_launches"] = (

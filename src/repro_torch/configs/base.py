@@ -2,7 +2,9 @@
 
 A copy of the reference package's schema with its field names, order and
 defaults unchanged, so a config compares field by field across packages.
-Dtypes stay strings; :func:`torch_dtype` maps them to ``torch.dtype``.
+Dtypes stay strings; :func:`torch_dtype` maps them to ``torch.dtype``. The
+assigned shape cells (``SHAPES``) and the rule that skips some of them
+(:func:`shape_applicable`) are the reference's too.
 """
 
 from __future__ import annotations
@@ -127,3 +129,15 @@ SHAPES = {
     "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
     "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
 }
+
+# Shape cells skipped per the assignment (sub-quadratic requirement / family).
+LONG_CONTEXT_FAMILIES = ("ssm", "hybrid")
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeSpec) -> Tuple[bool, str]:
+    """Whether the cell ``cfg`` × ``shape`` runs, and why not: ``long_500k``
+    needs a sub-quadratic family (``LONG_CONTEXT_FAMILIES``)."""
+    if shape.name == "long_500k" and cfg.family not in LONG_CONTEXT_FAMILIES:
+        return False, ("skipped: long_500k needs sub-quadratic attention; "
+                       f"{cfg.name} is a pure full-attention arch (DESIGN.md)")
+    return True, ""

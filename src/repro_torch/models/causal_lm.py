@@ -86,6 +86,17 @@ def layer_plan(cfg: ModelConfig) -> List[Tuple[str, str]]:
     return plan
 
 
+def stacked_layers(cfg: ModelConfig) -> Tuple[str, ...]:
+    """Paths of the layers whose params the reference stacks on a leading
+    axis: under ``scan_layers`` every layer after a MoE model's
+    ``moe_first_dense`` leading ones (its unstacked ``prefix``), else none
+    (the reference's ``stack_plan``)."""
+    if not cfg.scan_layers:
+        return ()
+    first = cfg.moe_first_dense if cfg.num_experts else 0
+    return tuple(f"['layers'][{i}]" for i in range(first, cfg.num_layers))
+
+
 def has_attention(cfg: ModelConfig) -> bool:
     """Whether any layer attends (and so holds position leaves)."""
     return any(m == "attn" for m, _ in layer_plan(cfg))

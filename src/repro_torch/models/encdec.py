@@ -40,8 +40,8 @@ Params = Dict[str, Any]
 
 MAX_DEC_POS = 32768  # decoder learned-position capacity (covers decode_32k)
 # the layer lists the reference always stacks (``enc_stack``/``dec_stack``,
-# scanned whatever ``scan_layers`` says)
-STACKED = ("enc_layers", "dec_layers")
+# scanned whatever ``scan_layers`` says), as paths of the port's tree
+STACKED = ("['enc_layers']", "['dec_layers']")
 
 
 def _check_cfg(cfg: ModelConfig) -> None:

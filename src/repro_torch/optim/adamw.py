@@ -15,10 +15,11 @@ Decay mask: the reference decays every leaf with ``ndim >= 2`` *in its
 stacked layout*. Where it stacks a model's layers (a decoder under
 ``scan_layers=True``, an encdec model's two stacks always) they carry a
 leading layer axis, so a layer's RMSNorm ``scale`` (L, d) is decayed while
-``final_norm`` (d,) is not. The port stores layers unstacked;
-:func:`decay_mask`, given the keys the reference stacks
-(``model_fns(cfg).stacked``), gives the mask it would use for the same
-config.
+``final_norm`` (d,) is not. A MoE model's ``moe_first_dense`` leading
+layers stay unstacked there (its ``prefix``), so theirs are not. The port
+stores layers unstacked; :func:`decay_mask`, given the subtrees the
+reference stacks (``model_fns(cfg).stacked``), gives the mask it would use
+for the same config.
 """
 
 from __future__ import annotations
@@ -96,9 +97,11 @@ def clip_by_global_norm(grads: PyTree, max_norm: float
 
 def decay_mask(params: PyTree, *, stacked: Tuple[str, ...] = ()) -> PyTree:
     """The reference's default mask (``ndim >= 2``) as its layout would see
-    it: every leaf under one of the top-level keys ``stacked`` has one more
-    (stacking) dim there, so norm scales and biases there are decayed."""
-    prefixes = tuple(f"[{k!r}]" for k in stacked)
+    it: every leaf under one of the subtrees ``stacked`` (paths as
+    :func:`repro_torch.tree.flatten` writes them, e.g. ``['layers'][1]``)
+    has one more (stacking) dim there, so norm scales and biases there are
+    decayed."""
+    prefixes = tuple(f"{k}[" for k in stacked)
     return unflatten(params, [
         float(p.dim() + int(path.startswith(prefixes)) >= 2)
         for path, p in flatten(params)])
