@@ -7,6 +7,7 @@
     python3 chip_smoke.py --families
     python3 chip_smoke.py --encdec
     python3 chip_smoke.py --train
+    python3 chip_smoke.py --tune
 
 The second form times phase 3's ``bcr_spmm*``, ``bcr_spmm_skip`` and flash
 cases for each checkout TREE (its own ``src/repro_torch``, built into its
@@ -15,7 +16,7 @@ side by side — e.g. ``build/parent . . build/parent`` after ``git archive
 HEAD~1 | tar -x -C build/parent``. The third runs phases 1, 2 and 13 only;
 the fourth phases 1, 2 and 14, with phase 3's checks of phase 14's shapes;
 the fifth phases 1, 2 and 15, phase 15d's kernel cases first; the sixth
-phases 1, 2 and 16.
+phases 1, 2 and 16; the seventh phases 1, 2 and 17.
 
 Phases, in order (any failed check raises and the script exits non-zero):
 
@@ -276,7 +277,7 @@ Phases, in order (any failed check raises and the script exits non-zero):
    8 x 1500 frames and 1500 tokens a step from ``synth_inputs`` at
    ``ShapeSpec("whisper_train", 1500, 8, "train")``; (b) deepseek-moe-16b
    at full width, 4 layers, through ``train_loop`` (markov data, 8 x 128,
-   as phase 7); (c) rwkv6-3b at full width, 16 of 32 layers, through
+   as phase 7); (c) rwkv6-3b at full width, 8 of 32 layers, through
    ``train_loop``; (d) pixtral-12b at full width, 2 of 40 layers, over
    ``synth_inputs`` at 8 x 512 with 256 ``image_embeds`` in the loss; (e)
    jamba-v0.1-52b at its SMOKE config (8 layers, one period, fp32, 16 x 16
@@ -302,6 +303,34 @@ Phases, in order (any failed check raises and the script exits non-zero):
    the gate measures the kernels; the token-layers whose top-k the dense
    forward's own routing tips elsewhere, and the gap under that routing,
    are printed.
+17. GRIM's compile step on the card (llama3.2-1b at full width, keep 0.25,
+   128 x 128 blocks, bf16, unless stated). (a) The plan tuner per served
+   shape at the engine's decode hint M = 8 (``TUNE_SHAPES``: wq/wo, wkv,
+   wgi + SwiGLU, MLP wo, lm_head, and whisper-large-v3's lm_head on (2,
+   128) blocks and wqkv at G = 3), bf16 and int8 tiles: every legal genome
+   of ``plan_search_space`` against the plain version (phase 3's gate) and
+   timed (median of 5 x 20 launches under CUDA events, per projection)
+   beside the H100 model's prediction; the rule's plan, the ``"analytic"``
+   pick and the ``"wallclock"`` pick with their times and predictions; the
+   model's rank correlation with the measured times; an analytic pick
+   slower than the rule's plan is printed as such. (b) Phase 4's engine
+   and traffic over analytic and over wall-clock plans (packed and tuned
+   by ``pack_params(plan_fitness=...)``, the engine of the same fitness);
+   the wall-clock run's tokens held to the naive ``generate`` on its tree
+   (``BF16_TIE``); both step p50s. (c) ``pack_params(auto_block=True)``
+   with the card runner (``wallclock_runner``): the block Listing 1 picks
+   per leaf shape, the search's time, 8 requests through the engine held
+   to the naive ``generate``. (d) ``python -m repro_torch.launch.serve
+   --mode static`` in a subprocess (batch 8, prompt 128, 32 tokens), its
+   tokens held to the naive ``generate`` on the same seeded weights and
+   prompts; prefill and decode ms. (e) One 32768-token sequence (the
+   reference's ``prefill_32k`` length, its batch of 32 cut to 1) through
+   ``causal_lm.prefill`` under ``attn_impl="flash"``, the chunked
+   ``flash_attention``: wall and device time, peak memory; layer 0's
+   attention over the last 512 query rows against the plain masked
+   softmax over those rows, and the function against ``dense_attention``
+   at S = 4096, both under bf16's gate. Every launch of the phase is
+   counted (``tune_launches``); each sub-phase's time is printed.
 
 Phase 3 also holds the verify dispatch's shapes: paged prefill-append with
 4 rows a slot over lengths 1..512 (ragged real rows, bf16 and int8 pages)
@@ -319,8 +348,9 @@ its launches in one packed fp32 GRU step at batch 1, ``gru_launches``, and
 that step's device time, ``gru_ms``, from phase 13; every entry its
 launches over phase 14's three serving runs, ``family_launches``, and over
 phase 15's runs, ``encdec_launches``: the fp forms over 15a's, the int8
-forms and flash over 15b's; and over phase 16's five packed prefills,
-``train_launches``), and the contract line.
+forms and flash over 15b's; over phase 16's five packed prefills,
+``train_launches``; and over phase 17, ``tune_launches``), and the
+contract line.
 """
 
 from __future__ import annotations
@@ -5131,14 +5161,16 @@ def phase_encdec(torch, np):
 # are cut so the training state (24 B a parameter by arithmetic: fp32
 # params, grads, m, v, Z, U) fits one 80 GB card: whisper-large-v3 whole,
 # 1.64 B (~39.5 GB); deepseek-moe-16b 4 of 28 layers, ~2.2 B (~53 GB);
-# rwkv6-3b 16 of 32, ~1.7 B (~41 GB; 32 would need ~75 GB); pixtral-12b 2
+# rwkv6-3b 8 of 32, ~1.0 B (~24 GB; 32 would need ~75 GB; at 16 its WKV
+# scan, a token at a time and host-bound, took 160 s of the run, which
+# keeps to half its time limit); pixtral-12b 2
 # of 40, ~1.9 B (~45 GB); jamba at its SMOKE config, fp32: at full width
 # one MoE layer alone is 16 x 3 x 4096 x 14336 = 2.8 B parameters, ~68 GB
 # of state, so no full-width period of 8 layers fits one card
 TRAIN_FAMILIES = (
     ("16a", "whisper-large-v3", None, False, ("whisper_train", 1500, 8)),
     ("16b", "deepseek-moe-16b", 4, False, None),
-    ("16c", "rwkv6-3b", 16, False, None),
+    ("16c", "rwkv6-3b", 8, False, None),
     ("16d", "pixtral-12b", 2, False, ("pixtral_train", 512, 8)),
     ("16e", "jamba-v0.1-52b", None, True, None),
 )
@@ -5477,6 +5509,488 @@ def run_phase_train(torch, np, smi):
     return total
 
 
+# -- phase 17: GRIM's compile step and the long prefill on one H100 ----------
+
+# 17a's shapes (label, N, K, G, block, epilogue): every distinct packed
+# shape phase 4 serves at the engine's decode hint M = 8 — llama3.2-1b's
+# wq (and the attention's wo: the same 2048 x 2048), the fused K/V (GQA:
+# Q is wider, so llama fuses no Q/K/V), gate/up with its SwiGLU, the MLP's
+# wo and lm_head — and phase 15's whisper-large-v3 lm_head on (2, 128)
+# blocks (one kept row a tile) and its self-attention wqkv (G = 3)
+TUNE_M = 8
+TUNE_SHAPES = (
+    ("wq|wo 2048x2048", 2048, 2048, 1, (128, 128), None),
+    ("wkv 2x512x2048", 512, 2048, 2, (128, 128), None),
+    ("wgi+swiglu 2x8192x2048", 8192, 2048, 2, (128, 128), "swiglu"),
+    ("mlp wo 2048x8192", 2048, 8192, 1, (128, 128), None),
+    ("lm_head 128256x2048", 128256, 2048, 1, (128, 128), None),
+    ("whisper lm_head 51866x1280", 51866, 1280, 1, (2, 128), None),
+    ("whisper wqkv 3x1280x1280", 1280, 1280, 3, (128, 128), None))
+# 17e: the reference's prefill_32k length (its batch of 32 cut to one
+# sequence), and the length of the whole-function check against the dense
+# product
+LONG_PREFILL, DENSE_CHECK_S, TAIL_ROWS = 32768, 4096, 512
+
+
+def take_counters(acc):
+    """Add the launch counters to ``acc`` and zero them (phase 17's
+    ``tune_launches`` sum every launch of the phase)."""
+    for k, v in read_counters().items():
+        acc[k] = acc.get(k, 0) + v
+    zero_counters()
+
+
+def rank_correlation(np, a, b) -> float:
+    """Spearman's rho of two equal-length sequences (average ranks on
+    ties)."""
+    def ranks(v):
+        v = np.asarray(v, dtype=np.float64)
+        order = np.argsort(v, kind="stable")
+        r = np.empty(len(v))
+        r[order] = np.arange(len(v))
+        for x in np.unique(v):
+            r[v == x] = r[v == x].mean()
+        return r
+    ra, rb = ranks(a), ranks(b)
+    if len(ra) < 2 or ra.std() == 0 or rb.std() == 0:
+        return float("nan")
+    return float(np.corrcoef(ra, rb)[0, 1])
+
+
+def tune_case(torch, np, gen, label, n, k, g, block, epi, int8):
+    """17a for one shape and tile form: every legal genome of the space
+    launched once against the plain version (phase 3's gate) and timed
+    (median of 5 x 20 launches under CUDA events, per projection) beside
+    the H100 model's prediction; then the rule's plan, the analytic pick
+    and the wall-clock pick (``tuned_genome``). Returns the row and the
+    (model, measured) pairs."""
+    import itertools
+
+    from repro_torch.core.bcr import BCRSpec, kept_align
+    from repro_torch.core.bcrc import tbcrc_pack
+    from repro_torch.core.block_search import device_seconds
+    from repro_torch.core.tuner import (H100_SMS, genome_knobs, launch_cost)
+    from repro_torch.kernels import bcr_spmm as K
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.plan import (attach_plan, pack_group,
+                                          plan_search_space,
+                                          quantize_packed, tuned_genome)
+
+    spec = BCRSpec(block_shape=block, keep_frac=0.25, align=kept_align(block))
+    members = []
+    for _ in range(g):
+        p = tbcrc_pack(torch.randn((n, k), generator=gen, device="cuda")
+                       * k ** -0.5, spec)
+        members.append(quantize_packed(p) if int8 else dataclasses.replace(
+            p, vals=p.vals.to(torch.bfloat16)))
+    kept = members[0].kept_counts
+    x = torch.randn((TUNE_M, k), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    wb, sb = (1, 4) if int8 else (2, 0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def run(genome, grp):
+        """(fn, plain fn) of one launch of ``grp`` members under
+        ``genome`` (None: the rule)."""
+        if grp > 1:
+            pk = pack_group(members[:grp], genome, m=TUNE_M)
+            ep = epi if grp == 2 else None
+            return (lambda: K.bcr_spmm_grouped(x, pk, epilogue=ep),
+                    lambda: ref.bcr_spmm_grouped_ref(x, pk, epilogue=ep))
+        pk = attach_plan(members[0], genome, m=TUNE_M)
+        return (lambda: K.bcr_spmm(x, pk),
+                lambda: ref.bcr_spmm_packed_ref(x, pk))
+
+    def measure(genome, grp, what):
+        fn, plain = run(genome, grp)
+        got, want = fn(), plain()
+        if grp > 1 and not (grp == 2 and epi):
+            want = want.transpose(-3, -2)
+        torch.cuda.synchronize()
+        err = check_close(what, got, want, BF16_TOL, quiet=True)
+        ms = device_seconds(fn, x, 20, 5) / grp * 1e3
+        plan = K.launch_plan(TUNE_M, n, k, grp, block, kept, sms, int8, True,
+                             1, None if genome is None
+                             else genome_knobs(genome))
+        model_ms = launch_cost(plan, TUNE_M, k, n, kept,
+                               weight_bytes_per_el=wb,
+                               weight_scale_bytes=sb) / grp * 1e3
+        return ms, model_ms, err, plan
+
+    space = plan_search_space(TUNE_M, g)
+    pairs, errs = [], []
+    for values in itertools.product(*(space[key] for key in sorted(space))):
+        genome = dict(zip(sorted(space), values))
+        try:
+            K.launch_plan(TUNE_M, n, k, genome["group_size"], block, kept,
+                          sms, int8, True, 1, genome_knobs(genome))
+        except ValueError:
+            continue
+        ms, model_ms, err, _ = measure(genome, genome["group_size"],
+                                       f"{label} genome {genome}")
+        pairs.append((model_ms, ms))
+        errs.append(err)
+    t0 = time.perf_counter()
+    picks = {"analytic": tuned_genome(
+        TUNE_M, k, n, block, *kept, max_group=g, weight_bytes_per_el=wb,
+        weight_scale_bytes=sb)}
+    t_an = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    picks["wallclock"] = tuned_genome(
+        TUNE_M, k, n, block, *kept, max_group=g, weight_bytes_per_el=wb,
+        weight_scale_bytes=sb, fitness="wallclock")
+    t_wc = time.perf_counter() - t0
+    form = "int8" if int8 else "bf16"
+    row = dict(shape=label, form=form, kept=list(kept), legal=len(pairs),
+               max_abs_err=max(errs),
+               rho=rank_correlation(np, *zip(*pairs)),
+               tune_s={"analytic": t_an, "wallclock": t_wc})
+    for name, genome in (("rule", None), *picks.items()):
+        grp = g if genome is None else genome["group_size"]
+        ms, model_ms, err, plan = measure(genome, grp, f"{label} {name}")
+        row[name] = dict(genome=genome, m_tile=plan.m_tile, slabs=plan.slabs,
+                         chunks=plan.chunks, splits=plan.splits,
+                         grid=plan.grid, group=grp, ms=ms, model_ms=model_ms,
+                         max_abs_err=err)
+    slower = row["analytic"]["ms"] > row["rule"]["ms"]
+    row["analytic_slower_than_rule"] = slower
+    log(f"phase 17a {label} {form}: kept {tuple(kept)}; {len(pairs)} legal "
+        f"genomes, rank correlation model vs measured {row['rho']:.3f}; "
+        + "; ".join(f"{name} {row[name]['genome']} (M tile "
+                    f"{row[name]['m_tile']}, slabs {row[name]['slabs']}, "
+                    f"chunks {row[name]['chunks']}, splits "
+                    f"{row[name]['splits']}, G {row[name]['group']}): "
+                    f"{row[name]['ms']:.4f} ms, model "
+                    f"{row[name]['model_ms']:.4f} ms"
+                    for name in ("rule", "analytic", "wallclock"))
+        + (" -- the analytic pick is SLOWER than the rule's plan"
+           if slower else ""))
+    return row, pairs
+
+
+def phase_tune_shapes(torch, np):
+    """17a: the tuner per served shape, bf16 and int8 tiles."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(17)
+    rows, pairs = [], []
+    for label, n, k, g, block, epi in TUNE_SHAPES:
+        for int8 in (False, True):
+            row, p = tune_case(torch, np, gen, label, n, k, g, block, epi,
+                               int8)
+            rows.append(row)
+            pairs.extend(p)
+            torch.cuda.empty_cache()
+    rho = rank_correlation(np, *zip(*pairs))
+    log(f"phase 17a: rank correlation of the H100 model with the measured "
+        f"times over all {len(pairs)} genomes: {rho:.3f}; analytic picks "
+        f"slower than the rule: "
+        f"{[(r['shape'], r['form']) for r in rows if r['analytic_slower_than_rule']]}")
+    log("phase 17a rows: " + json.dumps(rows))
+    return rows, rho
+
+
+def tuned_engine_run(torch, np, cfg, dense, fitness, acc):
+    """Pack the full-width model with ``plan_fitness=fitness`` and serve
+    phase 4's traffic through an engine of that fitness; returns its
+    stats, trajectories and packed params."""
+    from repro_torch.launch.serve import pack_params, packed_fraction
+    from repro_torch.serving import EngineConfig
+
+    t0 = time.perf_counter()
+    params = pack_params(cfg, dense, plan_fitness=fitness)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    take_counters(acc)
+    ec = EngineConfig(n_slots=8, capacity=640, page_size=16, seed=0,
+                      plan_fitness=fitness)
+    stats, _, traj, engine = serve_main_path(
+        torch, np, cfg, params, ec, f"phase 17b {fitness}",
+        packed_fraction(dense, params))
+    take_counters(acc)
+    stats["pack_and_tune_s"] = pack_s
+    del engine
+    return stats, traj, params
+
+
+def phase_tuned_serving(torch, np, acc):
+    """17b: phase 4's engine and traffic with every launch tuned by the
+    analytic model (the default) and by wall-clock times on this card; the
+    wall-clock run's tokens held to the naive ``generate`` on its own
+    packed tree (the near-tie rule of phases 6 and 9b)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import causal_lm
+
+    cfg = dataclasses.replace(get_config("llama3.2-1b"), num_layers=16,
+                              bcr_keep_frac=0.25, bcr_block=(128, 128))
+    dense = causal_lm.init_params(cfg, 0, device="cuda")
+    out = {}
+    for fitness in ("analytic", "wallclock"):
+        stats, traj, params = tuned_engine_run(torch, np, cfg, dense,
+                                               fitness, acc)
+        out[fitness] = stats
+        if fitness == "wallclock":
+            prompts = [p for p, _ in traj]
+            got = [list(g) for _, g in traj]
+            near = near_tie_check(torch, cfg, params, prompts, got, 32,
+                                  BF16_TIE, "phase 17b wallclock")
+            take_counters(acc)
+            out[fitness]["near_ties"] = near
+        del params
+        torch.cuda.empty_cache()
+    del dense
+    torch.cuda.empty_cache()
+    log(f"phase 17b: decode step p50 analytic "
+        f"{out['analytic']['decode_step_ms_p50']:.2f} ms, wallclock "
+        f"{out['wallclock']['decode_step_ms_p50']:.2f} ms; pack + tune "
+        f"{out['analytic']['pack_and_tune_s']:.1f} / "
+        f"{out['wallclock']['pack_and_tune_s']:.1f} s; wallclock tokens "
+        f"equal naive generate, near-ties {out['wallclock']['near_ties']}")
+    return out
+
+
+def phase_auto_block(torch, np, acc):
+    """17c: ``pack_params(auto_block=True)`` with the card runner (Listing
+    1 over the reference's candidates per leaf shape, each timed on this
+    card) and wall-clock plans, then 8 requests through the engine, held to
+    the naive ``generate`` on that tree."""
+    import functools
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.bcrc import TBCRC
+    from repro_torch.core.block_search import wallclock_runner
+    from repro_torch.kernels.plan import GroupedTBCRC
+    from repro_torch.launch import serve as S
+    from repro_torch.models import causal_lm
+    from repro_torch.serving import EngineConfig, InferenceEngine
+
+    cfg = dataclasses.replace(get_config("llama3.2-1b"), num_layers=16,
+                              bcr_keep_frac=0.25, bcr_block=(128, 128))
+    dense = causal_lm.init_params(cfg, 0, device="cuda")
+    runner = functools.partial(wallclock_runner, device="cuda")
+    t0 = time.perf_counter()
+    params = S.pack_params(cfg, dense, auto_block=True, block_runner=runner,
+                           plan_fitness="wallclock")
+    torch.cuda.synchronize()
+    search_s = time.perf_counter() - t0
+    def packs(tree):
+        if isinstance(tree, (TBCRC, GroupedTBCRC)):
+            return [tree]
+        nodes = (tree.values() if isinstance(tree, dict)
+                 else tree if isinstance(tree, list) else ())
+        return [p for v in nodes for p in packs(v)]
+
+    picks = {f"{pk.shape[0]}x{pk.shape[1]}": list(pk.block_shape)
+             for pk in packs(params)}
+    del dense
+    torch.cuda.empty_cache()
+    take_counters(acc)
+    rng = np.random.default_rng(17)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in (32, 128, 512, 64, 256, 32, 128, 16)]
+    engine = InferenceEngine(cfg, params, EngineConfig(
+        n_slots=8, capacity=640, page_size=16, seed=0,
+        plan_fitness="wallclock"), device="cuda")
+    t0 = time.perf_counter()
+    got = engine.generate(prompts, max_new_tokens=16)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    near = near_tie_check(torch, cfg, params, prompts, got, 16, BF16_TIE,
+                          "phase 17c auto-block")
+    take_counters(acc)
+    log(f"phase 17c: Listing-1 blocks per leaf shape (card runner) "
+        f"{json.dumps(picks)}; search + pack + tune {search_s:.1f} s; 8 "
+        f"requests x 16 tokens in {serve_s:.2f} s; tokens equal naive "
+        f"generate, near-ties {near}")
+    del engine, params
+    torch.cuda.empty_cache()
+    return dict(blocks=picks, search_s=search_s, serve_s=serve_s,
+                near_ties=near)
+
+
+def phase_static_cli(torch, np, acc):
+    """17d: ``python -m repro_torch.launch.serve --mode static`` in a
+    subprocess (batch 8, prompt 128, 32 greedy tokens, full width and
+    depth), its tokens held to the naive ``generate`` on the same seeded
+    weights and prompts."""
+    import os
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import build_params
+
+    root = Path(__file__).resolve().parent
+    out = root / "build" / "phase17d_static.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    batch, plen, gen_tokens = 8, 128, 32
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           "llama3.2-1b", "--mode", "static", "--batch", str(batch),
+           "--prompt-len", str(plen), "--gen", str(gen_tokens),
+           "--capacity", str(plen + gen_tokens), "--bcr-keep", "0.25",
+           "--bcr-block", "128", "--json-out", str(out)]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
+                          text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 17d: the static CLI exited "
+                             f"{proc.returncode}: {proc.stdout[-2000:]} "
+                             f"{proc.stderr[-3000:]}")
+    rec = json.loads(out.read_text())
+    cfg = dataclasses.replace(get_config("llama3.2-1b"), bcr_keep_frac=0.25,
+                              bcr_block=(128, 128))
+    params = build_params(cfg, seed=0, device="cuda", decode_m=batch,
+                          log=lambda *_: None)
+    g = torch.Generator()
+    g.manual_seed(0)
+    prompts = torch.randint(0, cfg.vocab_size, (batch, plen), generator=g,
+                            dtype=torch.int32)
+    got = [list(r) for r in rec["tokens"]]
+    near = near_tie_check(torch, cfg, params, list(prompts.numpy()), got,
+                          gen_tokens, BF16_TIE, "phase 17d static")
+    take_counters(acc)
+    log(f"phase 17d: {' '.join(cmd[1:])}: {proc.stdout.strip().splitlines()[-1]}"
+        f"; exit 0 in {wall:.1f} s; tokens equal naive generate, near-ties "
+        f"{near}")
+    del params
+    torch.cuda.empty_cache()
+    return dict(prefill_ms=rec["prefill_s"] * 1e3,
+                decode_ms=rec["decode_s"] * 1e3, near_ties=near, wall_s=wall)
+
+
+def phase_long_prefill(torch, np, acc):
+    """17e: one 32768-token sequence (the reference's prefill_32k length,
+    its batch of 32 cut to 1) through ``causal_lm.prefill`` at full width
+    and depth under ``attn_impl="flash"``: peak memory, wall and device
+    time; layer 0's attention over the last 512 query rows against the
+    plain masked softmax over those rows; the whole function against
+    ``dense_attention`` at S = 4096 (bf16's gate)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import pack_params
+    from repro_torch.models import causal_lm
+    from repro_torch.models import layers as L
+
+    cfg = dataclasses.replace(get_config("llama3.2-1b"), bcr_keep_frac=0.25,
+                              bcr_block=(128, 128), attn_impl="flash")
+    dense = causal_lm.init_params(cfg, 0, device="cuda")
+    params = pack_params(cfg, dense)
+    del dense
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(17)
+    toks = torch.randint(0, cfg.vocab_size, (1, LONG_PREFILL), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    take_counters(acc)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    with torch.no_grad():
+        logits, cache = causal_lm.prefill(cfg, params, toks)
+    end.record()
+    end.synchronize()
+    wall = time.perf_counter() - t0
+    device_ms = start.elapsed_time(end)
+    peak = torch.cuda.max_memory_allocated()
+    take_counters(acc)
+    if tuple(logits.shape) != (1, 1, cfg.vocab_size) \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError("phase 17e: prefill logits not finite")
+    kv_bytes = sum(t.numel() * t.element_size() for layer in cache
+                   for t in layer.values())
+    del cache, logits
+    # layer 0's q/k/v at full length, its attention's last rows
+    lp = params["layers"][0]["mixer"]
+    with torch.no_grad():
+        h = L.rmsnorm(params["layers"][0]["norm1"],
+                      causal_lm._embed_tokens(cfg, params, toks),
+                      cfg.norm_eps)
+        pos = torch.arange(LONG_PREFILL, device="cuda")[None]
+        cs = L.rope_tables(pos, cfg.head_dim, cfg.rope_theta)
+        q, k, v = L._qkv(lp, h, cfg.num_heads, cfg.num_kv_heads,
+                         cfg.head_dim, cs)
+        got = L.flash_attention(q, k, v, causal=True, q_chunk=cfg.q_chunk,
+                                kv_chunk=cfg.kv_chunk)[:, -TAIL_ROWS:]
+        qt = q[:, -TAIL_ROWS:]
+        g = cfg.num_heads // cfg.num_kv_heads
+        logit = torch.einsum(
+            "bqhgd,bkhd->bhgqk",
+            qt.reshape(1, TAIL_ROWS, cfg.num_kv_heads, g, cfg.head_dim)
+            .float(), k.float()) * cfg.head_dim ** -0.5
+        qpos = torch.arange(LONG_PREFILL - TAIL_ROWS, LONG_PREFILL,
+                            device="cuda")
+        mask = qpos[:, None] >= torch.arange(LONG_PREFILL,
+                                             device="cuda")[None]
+        logit = torch.where(mask, logit, torch.full_like(logit, -1e30))
+        want = torch.einsum("bhgqk,bkhd->bqhgd", torch.softmax(logit, -1),
+                            v.float()).reshape(1, TAIL_ROWS, cfg.num_heads,
+                                               cfg.head_dim)
+        del logit
+        tail_err = check_close("17e flash vs masked softmax, last 512 rows "
+                               "of 32768 (layer 0)", got, want, BF16_TOL)
+        del q, k, v, h, got, want
+        torch.cuda.empty_cache()
+        qd, kd, vd = (torch.randn((1, DENSE_CHECK_S, heads, cfg.head_dim),
+                                  generator=gen, device="cuda")
+                      .to(torch.bfloat16)
+                      for heads in (cfg.num_heads, cfg.num_kv_heads,
+                                    cfg.num_kv_heads))
+        dense_err = check_close(
+            f"17e flash vs dense_attention, S = {DENSE_CHECK_S}",
+            L.flash_attention(qd, kd, vd, causal=True, q_chunk=cfg.q_chunk,
+                              kv_chunk=cfg.kv_chunk),
+            L.dense_attention(qd, kd, vd, causal=True), BF16_TOL)
+    take_counters(acc)
+    bmm = ("bf16 operands, fp32 result (torch.bmm out_dtype)"
+           if L._BMM_OUT_DTYPE else "operands upcast to fp32")
+    out = dict(tokens=LONG_PREFILL, wall_s=wall, device_ms=device_ms,
+               peak_gib=peak / 2 ** 30,
+               peak_over_weights_gib=(peak - base) / 2 ** 30,
+               kv_gib=kv_bytes / 2 ** 30, tail_max_abs_err=tail_err,
+               dense_max_abs_err=dense_err, products=bmm)
+    log(f"phase 17e: prefill of {LONG_PREFILL} tokens (batch 1; "
+        f"prefill_32k's 32 cut to 1), 16 layers, attn_impl flash "
+        f"(q_chunk {cfg.q_chunk}, kv_chunk {cfg.kv_chunk}; {bmm}): wall "
+        f"{wall:.2f} s, device {device_ms:.1f} ms, peak "
+        f"{out['peak_gib']:.2f} GiB ({out['peak_over_weights_gib']:.2f} "
+        f"over the weights), K/V {out['kv_gib']:.2f} GiB")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_phase_tune(torch, np, smi):
+    """Phase 17 in order, timed per sub-phase; returns every kernel's
+    launches over it (``tune_launches``)."""
+    log(f"phase 17, GRIM's compile step on the card and the chunked "
+        f"flash_attention at 32k ({smi})")
+    acc = {}
+    zero_counters()
+    times, out = {}, {}
+    for name, fn in (("17a", lambda: phase_tune_shapes(torch, np)),
+                     ("17b", lambda: phase_tuned_serving(torch, np, acc)),
+                     ("17c", lambda: phase_auto_block(torch, np, acc)),
+                     ("17d", lambda: phase_static_cli(torch, np, acc)),
+                     ("17e", lambda: phase_long_prefill(torch, np, acc))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        take_counters(acc)
+        times[name] = time.perf_counter() - t0
+        log(f"phase {name}: {times[name]:.1f} s")
+    rows, rho = out["17a"]
+    summary = {"times_s": times, "rank_correlation": rho,
+               "17b": {k: {kk: v[kk] for kk in
+                           ("decode_step_ms_p50", "tokens_per_s",
+                            "ttft_ms_p50", "pack_and_tune_s")}
+                       for k, v in out["17b"].items()},
+               "17c": out["17c"], "17d": out["17d"], "17e": out["17e"]}
+    log("phase 17: " + json.dumps(summary))
+    log(f"phase 17: {sum(times.values()):.1f} s")
+    return acc
+
+
 def bcr_worker(tree: str) -> int:
     """``--bcr-worker TREE``: :func:`bcr_cases`, :func:`paged_cases`,
     :func:`skip_cases` and :func:`flash_cases` against TREE's own
@@ -5555,10 +6069,12 @@ def main() -> int:
     families_only = sys.argv[1:] == ["--families"]
     encdec_only = sys.argv[1:] == ["--encdec"]
     train_only = sys.argv[1:] == ["--train"]
+    tune_only = sys.argv[1:] == ["--tune"]
     if len(sys.argv) > 1 and not (paper_only or families_only
-                                  or encdec_only or train_only):
+                                  or encdec_only or train_only or tune_only):
         print("usage: chip_smoke.py [--bcr-ab TREE... | --bcr-worker TREE | "
-              "--paper | --families | --encdec | --train]", file=sys.stderr)
+              "--paper | --families | --encdec | --train | --tune]",
+              file=sys.stderr)
         return 2
     import numpy as np
     import torch
@@ -5619,6 +6135,11 @@ def main() -> int:
     if train_only:
         train_launches = run_phase_train(torch, np, smi)
         log(f"phase 16 launches: {json.dumps(train_launches)}")
+        log(smi)
+        return 0
+    if tune_only:
+        tune_launches = run_phase_tune(torch, np, smi)
+        log(f"phase 17 launches: {json.dumps(tune_launches)}")
         log(smi)
         return 0
 
@@ -5741,6 +6262,7 @@ def main() -> int:
 
     encdec_launches = run_phase_encdec(torch, np)
     train_launches = run_phase_train(torch, np, smi)
+    tune_launches = run_phase_tune(torch, np, smi)
 
     # one entry per kernel form at its decode-step shape (M = 8 slots) or,
     # for flash, the largest cold-prefill bucket; launches from the main
@@ -5768,7 +6290,8 @@ def main() -> int:
             shape=row["shape"], serving_launches=serving_launches[name],
             family_launches=family_launches.get(name, 0),
             encdec_launches=encdec_launches.get(name, 0),
-            train_launches=train_launches.get(name, 0)))
+            train_launches=train_launches.get(name, 0),
+            tune_launches=tune_launches.get(name, 0)))
         if name in FP_KERNELS + INT8_KERNELS + ("flash_attention_fused",):
             # phase 12's MoE path runs these too (deepseek's shapes)
             kernels[-1]["moe_launches"] = (

@@ -18,6 +18,8 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from repro_torch.core.bcr import BCRSpec, choose_block_shape
+
 Params = Dict[str, Any]
 
 
@@ -56,3 +58,29 @@ def grouped_linear_apply(params: Params, x: torch.Tensor, *,
     if epilogue == "swiglu":
         return y                                              # (..., N)
     return tuple(y[..., g, :] for g in range(grouped.group_size))
+
+
+def pack_linear(params: Params, spec: BCRSpec, *,
+                tune_m: Optional[int] = 8) -> Params:
+    """Dense (ADMM-pruned) → packed serving representation.
+
+    ``tune_m`` (decode-batch hint) wires in the §4.5 GA tuner: the packed
+    weight carries a plan whose dispatch genome (M tile, configuration,
+    split) was searched against the model of the CUDA kernel on an H100 —
+    pass ``None`` to keep the default plan (the kernel's rule)."""
+    from repro_torch.core.bcrc import tbcrc_pack  # lazy: core <-> kernels
+    packed = tbcrc_pack(params["w"], spec)
+    if tune_m:
+        from repro_torch.kernels.plan import tune_packed  # lazy
+        packed = tune_packed(packed, m=tune_m)
+    out = {"w_packed": packed}
+    if "b" in params:
+        out["b"] = params["b"]
+    return out
+
+
+def spec_for_shape(shape, keep_frac: float, target_block=(256, 256),
+                   align: int = 8) -> BCRSpec:
+    """Helper: a valid BCRSpec for an arbitrary (N, K) weight."""
+    return BCRSpec(block_shape=choose_block_shape(tuple(shape), target_block),
+                   keep_frac=keep_frac, align=align)

@@ -23,7 +23,9 @@ Under bf16 x both forms run on the tensor cores; :func:`launch_plan` (pure,
 pinned by ``tests/test_torch_bcr_plan.py``) picks the launch: the M tile,
 the warp layout, the output rows per CTA, the split of the contraction
 blocks over CTAs at small M, the copy-ring depth and the shared-memory
-bytes. Under fp32 x the kernel keeps its CUDA-core body (fp32 products, the
+bytes. A pack whose plan carries a tuned genome (``kernels/plan.py``, GRIM
+§4.5) fixes the M tile, the configuration and the split for every call of
+at most the decode batch it was tuned for; an illegal genome raises. Under fp32 x the kernel keeps its CUDA-core body (fp32 products, the
 1e-4 tolerance) and sizes its own M tile.
 
 A CUDA tensor goes through the kernel (or the wrapper raises); a CPU tensor
@@ -46,7 +48,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.plan import stacked_experts
+from repro_torch.kernels.plan import launch_genome, stacked_experts
 
 LAUNCHES = {"bcr_spmm": 0, "bcr_spmm_grouped": 0, "bcr_spmm_int8": 0,
             "bcr_spmm_grouped_int8": 0, "bcr_spmm_experts": 0,
@@ -161,14 +163,63 @@ def smem_layout(m_tile: int, n_chunk: int, stages: int, g: int, bc: int,
             + 16 + _up(stages * 8, 16) + scales + 1024)
 
 
+def tile_configs(m_tile: int) -> Tuple[Tuple[int, int, int], ...]:
+    """``(slabs, warps_m, warps)`` of each configuration compiled for
+    ``m_tile``, in ``CONFIGS`` order: a genome's ``config`` indexes this."""
+    return tuple((slabs, wm, nw) for cmt, slabs, wm, nw in CONFIGS
+                 if cmt == m_tile)
+
+
+def _chunking(m_tile: int, slabs: int, wm: int, nw: int, g: int, br: int,
+              c: int) -> Optional[Tuple[int, int, int]]:
+    """``(n_chunk, chunks, wasted MMA rows)`` of one configuration for G
+    members of ``br``-row blocks keeping ``c`` columns, or None where it
+    cannot run them (the wgmma tile over C_keep > 64, or fewer rows than one
+    warp's slab a member)."""
+    if wm == WGMMA_WARPS_M and c > 64:
+        return None
+    rows = 16 * slabs * (nw // wm)
+    q = 16 * slabs
+    n_chunk = min(_up(br, q), (rows // g) // q * q)
+    if n_chunk < q:
+        return None
+    chunks = -(-br // n_chunk)
+    return n_chunk, chunks, chunks * rows - g * br
+
+
+def _rule_splits(tiles: int, nb_c: int, sm_count: int) -> int:
+    """Split where it at least doubles the grid (a nearly full grid gains
+    less than the partials' round trip costs)."""
+    return 1 if 2 * tiles > sm_count else min(nb_c, -(-sm_count // tiles))
+
+
+def _fit(mt, slabs, wm, nw, n_chunk, chunks, m, g, bc, r, c, nb_r, nb_c,
+         splits, int8_tiles, vec, experts) -> Optional[LaunchPlan]:
+    """The plan with the deepest ring shared memory holds, or None."""
+    m_tiles = -(-m // mt)
+    blocks = -(-nb_c // splits)
+    for stages in range(min(MAX_STAGES, max(3, blocks + 1)), 2, -1):
+        smem = smem_layout(mt, n_chunk, stages, g, bc, r, c, int8_tiles,
+                           vec, wm == WGMMA_WARPS_M, blocks)
+        if smem <= SMEM_LIMIT:
+            return LaunchPlan(mt, slabs, wm, nw, n_chunk, chunks, m_tiles,
+                              splits, stages, vec, smem, nb_r, nb_c, g,
+                              experts)
+    return None
+
+
 @functools.lru_cache(maxsize=1024)
 def launch_plan(m: int, n: int, k: int, g: int, block: Tuple[int, int],
                 kept: Tuple[int, int], sm_count: int,
                 int8_tiles: bool = False, aligned: bool = True,
-                experts: int = 1) -> LaunchPlan:
+                experts: int = 1,
+                genome: Optional[Tuple[int, int, bool]] = None
+                ) -> LaunchPlan:
     """The tensor-core launch for ``x (m, k)`` against G packed ``(n, k)``
     weights of ``block`` blocks keeping ``kept`` = (R_keep, C_keep), for
     each of ``experts`` stacked experts (the same plan for every expert).
+
+    With ``genome=None`` one rule decides:
 
     * M tile: the smallest of 8, 16, 32, 64 that holds M, else 128.
     * Configuration: of those compiled for the M tile, the one that wastes
@@ -184,6 +235,14 @@ def launch_plan(m: int, n: int, k: int, g: int, block: Tuple[int, int],
     * Stages: one more than the blocks a CTA walks, at least 3, at most 8,
       and what shared memory holds. A smaller M tile is tried when nothing
       fits; a block no CTA can hold raises ``ValueError``.
+
+    A ``genome`` ``(m_tile, config, split)`` (the plan tuner's knobs,
+    ``kernels/plan.py``) fixes the M tile (one of ``M_TILES``), the
+    configuration (``tile_configs(m_tile)[config]``) and the split (the
+    rule's own count for that grid, or none); the ring depth is derived as
+    above. A genome that cannot run (a configuration that does not fit G
+    members of this block, or shared memory no stage count fits) raises
+    ``ValueError``: it never falls back to another plan.
     """
     br, bc = block
     r, c = kept
@@ -199,39 +258,48 @@ def launch_plan(m: int, n: int, k: int, g: int, block: Tuple[int, int],
            and r % 4 == 0 and c % 4 == 0
            and ((r * c) % 16 == 0 if int8_tiles
                 else c % 8 == 0 and r <= 256 and c <= 256))
+    if genome is not None:
+        mt, config, split = genome
+        cfgs = tile_configs(mt)
+        if not 0 <= config < len(cfgs):
+            raise ValueError(f"genome {genome}: M tile {mt} has "
+                             f"{len(cfgs)} configurations")
+        slabs, wm, nw = cfgs[config]
+        chunking = _chunking(mt, slabs, wm, nw, g, br, c)
+        if chunking is None:
+            raise ValueError(f"genome {genome}: configuration {cfgs[config]} "
+                             f"cannot run G={g} members of {br}-row blocks "
+                             f"keeping {c} columns")
+        n_chunk, chunks, _ = chunking
+        tiles = experts * nb_r * chunks * (-(-m // mt))
+        splits = _rule_splits(tiles, nb_c, sm_count) if split else 1
+        plan = _fit(mt, slabs, wm, nw, n_chunk, chunks, m, g, bc, r, c, nb_r,
+                    nb_c, splits, int8_tiles, vec, experts)
+        if plan is None:
+            raise ValueError(f"genome {genome}: BCR block {br}x{bc} keeping "
+                             f"{r}x{c} (G={g}) needs more shared memory than "
+                             f"a CTA has")
+        return plan
     first = next(mt for mt in M_TILES if m <= mt or mt == M_TILES[-1])
     for mt in reversed([t for t in M_TILES if t <= first]):
         best = None
-        for cmt, slabs, wm, nw in CONFIGS:
-            if cmt != mt or (wm == WGMMA_WARPS_M and c > 64):
+        for slabs, wm, nw in tile_configs(mt):
+            chunking = _chunking(mt, slabs, wm, nw, g, br, c)
+            if chunking is None:
                 continue
-            rows = 16 * slabs * (nw // wm)
-            q = 16 * slabs
-            n_chunk = min(_up(br, q), (rows // g) // q * q)
-            if n_chunk < q:
-                continue
-            chunks = -(-br // n_chunk)
-            waste = chunks * rows - g * br
+            n_chunk, chunks, waste = chunking
             key = (waste, -slabs)
             if best is None or key < best[0]:
                 best = (key, slabs, wm, nw, n_chunk, chunks)
         if best is None:
             continue
         _, slabs, wm, nw, n_chunk, chunks = best
-        m_tiles = -(-m // mt)
-        tiles = experts * nb_r * chunks * m_tiles
-        # split where it at least doubles the grid (a nearly full grid
-        # gains less than the partials' round trip costs)
-        splits = (1 if 2 * tiles > sm_count
-                  else min(nb_c, -(-sm_count // tiles)))
-        blocks = -(-nb_c // splits)
-        for stages in range(min(MAX_STAGES, max(3, blocks + 1)), 2, -1):
-            smem = smem_layout(mt, n_chunk, stages, g, bc, r, c, int8_tiles,
-                               vec, wm == WGMMA_WARPS_M, blocks)
-            if smem <= SMEM_LIMIT:
-                return LaunchPlan(mt, slabs, wm, nw, n_chunk, chunks, m_tiles,
-                                  splits, stages, vec, smem, nb_r, nb_c, g,
-                                  experts)
+        tiles = experts * nb_r * chunks * (-(-m // mt))
+        plan = _fit(mt, slabs, wm, nw, n_chunk, chunks, m, g, bc, r, c, nb_r,
+                    nb_c, _rule_splits(tiles, nb_c, sm_count), int8_tiles,
+                    vec, experts)
+        if plan is not None:
+            return plan
     raise ValueError(f"BCR block {br}x{bc} keeping {r}x{c} (G={g}) needs "
                      f"more shared memory than a CTA has")
 
@@ -334,7 +402,8 @@ def _launch(x, packed, scales, g, e, grouped, bias, swiglu, y, what) -> None:
         aligned = all(t.data_ptr() % 16 == 0 for t in (
             x, packed.vals, packed.row_idx, packed.col_idx))
         plan = launch_plan(m, n, k, g, (br, bc), (r, c), _sm_count(x.device),
-                           scales is not None, aligned, max(e, 1))
+                           scales is not None, aligned, max(e, 1),
+                           launch_genome(packed.plan, m))
         plan_arr = (ctypes.c_int * 9)(*plan.args())
         if plan.splits > 1:
             ws = torch.empty(plan.workspace_floats, dtype=torch.float32,

@@ -1,4 +1,5 @@
-"""Pack-time execution plans for BCR matmuls — the data half.
+"""Pack-time execution plans for BCR matmuls (GRIM §4.4–§4.5): the compile
+step.
 
 Everything derivable from the static sparsity pattern is computed once at
 pack time and carried beside the packed weight:
@@ -8,20 +9,29 @@ pack time and carried beside the packed weight:
   for the plain path (:func:`repro_torch.kernels.ref.bcr_spmm_packed_ref`).
 * ``scatter_rows`` — flat int32 ``(nb_r·nb_c·R_keep,)`` global output rows,
   ``i·br + row_idx[i, j, r]``: one scatter-add places the partial products.
-
 * ``block_scales`` — for int8-quantized vals, one fp32 scale per kept
   ``(R_keep, C_keep)`` tile, ``([G,] nb_r, nb_c)``; ``None`` for fp vals.
+* the dispatch genome — ``m_tile``, ``config``, ``split``, ``group_size``
+  — chosen by the GA tuner (:func:`tuned_genome`, the reference's §4.5
+  search) for a decode batch hint ``m_hint``, cached per unique layer
+  shape. It sets the CUDA kernel's launch knobs
+  (``kernels/bcr_spmm.py:launch_plan``) for every call of at most
+  ``m_hint`` rows; above the hint (prefill, verify) the kernel's own rule
+  decides, as a tile tuned for decode says nothing about a prefill.
 
 The CUDA kernels read ``row_idx``/``col_idx`` (and ``block_scales``)
-directly; the vectors serve the plain path. The reference's one-hot planes,
-``m_tile`` and ``grid_order`` are dispatch knobs of its TPU kernel and are
-not ported.
+directly; the vectors serve the plain path. The reference's genome has two
+more knobs of its TPU kernel with no counterpart here: ``use_planes``
+(one-hot gather/scatter planes built on the VPU or streamed from HBM; the
+CUDA kernel reads the index planes and builds an inverse row map in shared
+memory) and ``grid_order`` (the order of the Pallas grid; the CUDA grid's
+order is fixed). The port's genome has ``config`` and ``split`` instead.
 
 :class:`GroupedTBCRC` stacks projections that share one activation (Q/K/V,
-gate/up) for a single kernel launch. The reference fuses a group only when
-its GA plan tuner votes to (``kernels/plan.py`` of the reference, the
-``group_size`` check in ``_try_fuse``). The port has no tuner yet, so
-:func:`fuse_packed_projections` fuses every groupable member set.
+gate/up) for a single kernel launch. As in the reference, a group is fused
+only when the tuner votes to (:func:`_try_fuse`: the tuned genome's
+``group_size`` covers the members); with ``plan=False`` packing neither
+tunes nor fuses.
 """
 
 from __future__ import annotations
@@ -33,6 +43,9 @@ import torch
 
 from repro_torch.core.bcrc import TBCRC
 
+Genome = Dict[str, Any]
+FITNESS_BACKENDS = ("analytic", "wallclock")
+
 
 @dataclasses.dataclass
 class BCRPlan:
@@ -43,6 +56,14 @@ class BCRPlan:
     # per-tile fp32 dequant scales of int8 vals, ([G,] nb_r, nb_c), applied
     # to each block's fp32 partial before the scatter (None: fp vals)
     block_scales: Optional[torch.Tensor] = None
+    # the tuner's dispatch genome (None: untuned, the kernel's rule
+    # decides) and the decode batch it was tuned for: it sets the launch of
+    # every call of at most m_hint rows. Static: not leaves of a params
+    # tree (the reference's plan keeps them as aux data)
+    genome: Optional[Dict[str, Any]] = dataclasses.field(
+        default=None, metadata={"static": True})
+    m_hint: Optional[int] = dataclasses.field(
+        default=None, metadata={"static": True})
 
     def nbytes(self) -> int:
         tot = self.gather_cols.numel() * 4 + self.scatter_rows.numel() * 4
@@ -72,6 +93,33 @@ def default_plan(row_idx: torch.Tensor, col_idx: torch.Tensor,
     """Index vectors only — what ``tbcrc_pack`` attaches."""
     gcols, srows = _index_vectors(row_idx, col_idx, block_shape)
     return BCRPlan(gather_cols=gcols, scatter_rows=srows)
+
+
+def attach_plan(packed: TBCRC, genome: Optional[Genome] = None, *,
+                m: Optional[int] = None) -> TBCRC:
+    """Rebuild ``packed``'s plan with the dispatch ``genome`` tuned for
+    decode batch ``m`` (stacked packs keep their leading axes; the genome
+    is the same for every expert, as the launch is one). int8 scales ride
+    along."""
+    gcols, srows = _index_vectors(packed.row_idx, packed.col_idx,
+                                  packed.block_shape)
+    scales = packed.plan.block_scales if packed.plan is not None else None
+    plan = BCRPlan(gather_cols=gcols, scatter_rows=srows,
+                   block_scales=scales,
+                   genome=dict(genome) if genome is not None else None,
+                   m_hint=m if genome is not None else None)
+    return dataclasses.replace(packed, plan=plan)
+
+
+def launch_genome(plan: Any, m: int) -> Optional[Tuple[int, int, bool]]:
+    """The ``launch_plan`` genome a call of ``m`` rows runs under: the
+    plan's tuned knobs when it has them and ``m`` is at most the decode
+    hint they were tuned for; None (the kernel's rule) otherwise."""
+    from repro_torch.core.tuner import genome_knobs
+    genome = getattr(plan, "genome", None)
+    if genome is None or m > plan.m_hint:
+        return None
+    return genome_knobs(genome)
 
 
 @dataclasses.dataclass
@@ -119,9 +167,12 @@ def groupable(members: Sequence[TBCRC]) -> bool:
         for m in members[1:])
 
 
-def pack_group(members: Sequence[TBCRC]) -> GroupedTBCRC:
-    """Stack same-shaped packed weights into one fused-launch group; stacked
-    members (experts) group per expert, the group axis after theirs."""
+def pack_group(members: Sequence[TBCRC], genome: Optional[Genome] = None,
+               *, m: Optional[int] = None) -> GroupedTBCRC:
+    """Stack same-shaped packed weights into one fused-launch group, with
+    the dispatch ``genome`` tuned for decode batch ``m`` (None: untuned);
+    stacked members (experts) group per expert, the group axis after
+    theirs."""
     members = list(members)
     if not groupable(members):
         raise ValueError("grouped members must share shape/block/kept/dtype")
@@ -136,9 +187,12 @@ def pack_group(members: Sequence[TBCRC]) -> GroupedTBCRC:
                   for m in members]
     bscales = (torch.stack(mem_scales, dim=ax).contiguous()
                if all(sc is not None for sc in mem_scales) else None)
+    if genome is not None:
+        genome = {**genome, "group_size": len(members)}
     plan = BCRPlan(gather_cols=torch.cat(gcols_parts, dim=-1),
                    scatter_rows=torch.cat(srows_parts, dim=-1),
-                   block_scales=bscales)
+                   block_scales=bscales, genome=genome,
+                   m_hint=m if genome is not None else None)
     return GroupedTBCRC(
         vals=torch.stack([m.vals for m in members], dim=ax).contiguous(),
         row_idx=torch.stack([m.row_idx for m in members], dim=ax).contiguous(),
@@ -187,14 +241,19 @@ def _packed_entry(node: Any) -> Optional[TBCRC]:
 
 
 def _try_fuse(tree: Dict[str, Any], fused_key: str,
-              member_keys: Tuple[str, ...]) -> bool:
+              member_keys: Tuple[str, ...], m: int,
+              fitness: str = "analytic") -> bool:
     members = [_packed_entry(tree.get(k)) for k in member_keys]
     if any(p is None for p in members) or not groupable(members):
         return False
     has_bias = ["b" in tree[k] for k in member_keys]
     if any(has_bias) and not all(has_bias):
         return False
-    fused: Dict[str, Any] = {"w_group": pack_group(members)}
+    genome = tune_genome_for(members[0], m=m, max_group=len(members),
+                             fitness=fitness)
+    if int(genome.get("group_size", 1)) < len(members):
+        return False            # the tuner preferred separate launches
+    fused: Dict[str, Any] = {"w_group": pack_group(members, genome, m=m)}
     if all(has_bias):
         # group axis at -2, so stacked (expert) axes stay leading
         fused["b"] = torch.stack([tree[k]["b"] for k in member_keys], dim=-2)
@@ -204,25 +263,158 @@ def _try_fuse(tree: Dict[str, Any], fused_key: str,
     return True
 
 
-def fuse_packed_projections(tree: Any, _key: Optional[str] = None) -> Any:
+def fuse_packed_projections(tree: Any, *, m: int = 8,
+                            fitness: str = "analytic",
+                            _key: Optional[str] = None) -> Any:
     """Walk a packed params tree and fuse Q/K/V and gate/up projections
-    whose packed geometry matches. Returns a new tree; leaves are shared.
+    whose packed geometry matches and whose tuned genome (decode batch
+    ``m``, backend ``fitness``) votes to fuse. Returns a new tree; leaves
+    are shared.
 
     A cross-attention dict (parent key ``cross_attn``) never fuses Q with
     K/V: Q projects the decoder stream, K/V the encoder's output. Its K/V
     still fuse into ``wkv``."""
     if isinstance(tree, dict):
-        out = {k: fuse_packed_projections(v, k) for k, v in tree.items()}
+        out = {k: fuse_packed_projections(v, m=m, fitness=fitness, _key=k)
+               for k, v in tree.items()}
         for fused_key, member_keys, requires in _GROUPS:
             if fused_key == "wqkv" and _key == "cross_attn":
                 continue
             if (all(k in out for k in member_keys)
                     and all(k in out for k in requires)):
-                _try_fuse(out, fused_key, member_keys)
+                _try_fuse(out, fused_key, member_keys, m, fitness)
         return out
     if isinstance(tree, list):
-        return [fuse_packed_projections(v, _key) for v in tree]
+        return [fuse_packed_projections(v, m=m, fitness=fitness, _key=_key)
+                for v in tree]
     return tree
+
+
+# ---------------------------------------------------------------------------
+# GA tuner wiring (§4.5): one search per unique layer shape, cached
+# ---------------------------------------------------------------------------
+
+_GENOME_CACHE: Dict[Tuple, Tuple[Genome, float]] = {}
+
+
+def plan_search_space(m: int, max_group: int) -> Dict[str, Sequence[Any]]:
+    """The launch knobs of the CUDA kernel at M = ``m``: every M tile up to
+    the one the kernel's rule starts from (the smallest holding M, else
+    128), each configuration index, split or not, and the group widths.
+    The rule's own choice is a point of this space."""
+    from repro_torch.kernels.bcr_spmm import M_TILES, tile_configs
+    m = max(m, 1)
+    first = next(mt for mt in M_TILES if m <= mt or mt == M_TILES[-1])
+    return {
+        "m_tile": [mt for mt in M_TILES if mt <= first],
+        "config": list(range(max(len(tile_configs(mt)) for mt in M_TILES))),
+        "split": [False, True],
+        "group_size": sorted({1, max_group}),
+    }
+
+
+def _tile_bytes(packed) -> Tuple[int, int]:
+    """(bytes a weight element, bytes of a tile's scale) the tensor-core
+    kernel streams: bf16 tiles (the fp form, whatever dtype the pack holds
+    before ``pack_params`` casts it to bf16), or int8 codes with their fp32
+    scale."""
+    if packed.vals.dtype == torch.int8:
+        return 1, _scale_bytes(packed)
+    return 2, 0
+
+
+def tuned_genome(m: int, k: int, n: int, block_shape: Tuple[int, int],
+                 r_keep: int, c_keep: int, *, max_group: int = 1,
+                 weight_bytes_per_el: int = 2, weight_scale_bytes: int = 0,
+                 experts: int = 1, fitness: str = "analytic") -> Genome:
+    """§4.5 genetic search over the CUDA kernel's launch knobs (M tile,
+    configuration, split, group width) at decode batch ``m``; memoized per
+    unique layer shape so a deep stack tunes once.
+
+    ``fitness`` picks the backend: "analytic" (default — the
+    ``tuner.plan_cost_model`` model of the kernel on an H100, no card in
+    the loop) or "wallclock" (``block_search.wallclock_plan_fitness``:
+    CUDA-event times of the kernel itself on synthesized operands of this
+    geometry, on the card). Anything else raises. A shape where no genome
+    launches (no CTA's shared memory holds its tiles) raises
+    ``ValueError``."""
+    if fitness not in FITNESS_BACKENDS:
+        raise ValueError(f"unknown plan fitness backend {fitness!r}; known: "
+                         f"{FITNESS_BACKENDS}")
+    key = (m, k, n, tuple(block_shape), r_keep, c_keep, max_group,
+           weight_bytes_per_el, weight_scale_bytes, experts, fitness)
+    if key not in _GENOME_CACHE:
+        from repro_torch.core.tuner import genetic_search, plan_cost_model
+        if fitness == "wallclock":
+            from repro_torch.core.block_search import wallclock_plan_fitness
+            fit = wallclock_plan_fitness(
+                m, k, n, block_shape, r_keep, c_keep,
+                int8_tiles=weight_bytes_per_el == 1, experts=experts)
+            pop, gens = 8, 4     # measured evaluations cost more than math
+        else:
+            fit = plan_cost_model(
+                m, k, n, block_shape, r_keep, c_keep,
+                weight_bytes_per_el=weight_bytes_per_el,
+                weight_scale_bytes=weight_scale_bytes, experts=experts)
+            pop, gens = 16, 8
+        res = genetic_search(plan_search_space(m, max_group), fit,
+                             population=pop, generations=gens, seed=0)
+        _GENOME_CACHE[key] = (dict(res.best), res.best_fitness)
+    genome, best = _GENOME_CACHE[key]
+    if best == float("inf"):
+        raise ValueError(
+            f"no launch of the BCR kernel fits ({n}, {k}) on "
+            f"{tuple(block_shape)} blocks keeping {r_keep}x{c_keep} "
+            f"(G <= {max_group}, {experts} experts)")
+    return dict(genome)
+
+
+def tune_genome_for(packed, *, m: int, max_group: int = 1,
+                    fitness: str = "analytic") -> Genome:
+    """:func:`tuned_genome` for a (stacked) pack's geometry and tile
+    bytes."""
+    n, k = packed.shape
+    wb, sb = _tile_bytes(packed)
+    return tuned_genome(
+        m, k, n, tuple(packed.block_shape), packed.vals.shape[-2],
+        packed.vals.shape[-1], max_group=max_group, weight_bytes_per_el=wb,
+        weight_scale_bytes=sb, experts=max(stacked_experts(packed), 1),
+        fitness=fitness)
+
+
+def tune_packed(packed: TBCRC, *, m: int = 8, max_group: int = 1,
+                fitness: str = "analytic") -> TBCRC:
+    """Attach a GA-tuned plan to ``packed`` (decode batch hint ``m``).
+    int8 packs price their true traffic — 1-byte tiles plus the fp32 scale
+    a tile — so the tuner retunes for the quantized bytes."""
+    return attach_plan(packed, tune_genome_for(packed, m=m,
+                                               max_group=max_group,
+                                               fitness=fitness), m=m)
+
+
+def plan_params(tree: Any, *, m: int = 8, fuse: bool = True,
+                fitness: str = "analytic") -> Any:
+    """Engine-build entry point: GA-tune every packed linear's plan and
+    (optionally) fuse shared-activation projection groups. Idempotent —
+    fused groups and plans already tuned (a genome set) are left alone;
+    only untuned plans are tuned."""
+    def tune(node: Any) -> Any:
+        if isinstance(node, dict):
+            if isinstance(node.get("w_packed"), TBCRC):
+                packed = node["w_packed"]
+                if packed.plan is not None and packed.plan.genome is not None:
+                    return node          # the caller already tuned this plan
+                node = dict(node)
+                node["w_packed"] = tune_packed(packed, m=m, fitness=fitness)
+                return node
+            return {k: tune(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [tune(v) for v in node]
+        return node
+
+    tree = tune(tree)
+    return (fuse_packed_projections(tree, m=m, fitness=fitness) if fuse
+            else tree)
 
 
 # ---------------------------------------------------------------------------

@@ -31,12 +31,23 @@ clock, with ``--cancel-rate``, ``--temperature``, ``--top-k`` and
 loop). ``generate`` is the naive oracle the engine is held to: one batched
 exact-length prefill, then step-by-step greedy decode over a fixed page
 table.
+
+``--mode static --batch B --prompt-len P --gen G`` runs the reference's
+one-batch-at-a-time loop instead (:func:`generate_static`: one prefill at
+the exact prompt length, then uniform greedy decode over a capacity-dense
+cache), the baseline the reference's serving benchmark measures the engine
+against. Packing is GRIM's compile step (:func:`pack_params`): every packed
+weight's CUDA launch is tuned by the §4.5 GA tuner for the decode batch
+(``--plan-fitness analytic``, a model of the kernel on an H100, or
+``wallclock``, the kernel timed on the card), and ``--auto-block`` picks
+each layer shape's block by Listing 1 first.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import time
 from typing import Any, Dict, List, Optional, Tuple
@@ -48,7 +59,8 @@ from repro_torch import resolve_device
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.bcrc import TBCRC, tbcrc_pack
-from repro_torch.kernels.plan import (GroupedTBCRC, fuse_packed_projections,
+from repro_torch.core.bcr import BCRSpec, kept_align
+from repro_torch.kernels.plan import (GroupedTBCRC, plan_params,
                                      quantize_packed_params)
 from repro_torch.launch.train import default_prune_filter
 from repro_torch.models import causal_lm
@@ -73,21 +85,64 @@ def _cast_vals(tree: Any, dtype: torch.dtype) -> Any:
     return tree
 
 
-def pack_params(cfg: ModelConfig, params: PyTree, *,
-                weight_dtype: str = "") -> PyTree:
-    """Replace every prunable linear's ``{"w"}`` with ``{"w_packed": TBCRC}``
-    and fuse projections sharing one activation (Q/K/V or K/V, gate/up) into
-    grouped entries. An MoE layer's stacked expert weights ``(E, N, K)``
-    pack in one batched pass to a TBCRC with a leading E axis (the
-    reference's ``_pack_any``), and its experts' gate/up fuse to one stacked
-    ``GroupedTBCRC`` ``wgi``. An encdec tree packs every attention and MLP
-    projection of both stacks and its ``lm_head``; its cross attention
-    fuses K/V only, and its embeddings and ``dec_pos`` stay dense.
+def _auto_block_spec(spec: BCRSpec, shape, keep_frac: float, decode_m: int,
+                     run_layer=None, _cache={}) -> BCRSpec:
+    """keep_frac-aware block-size selection (GRIM §5.1, Listing 1) at pack
+    time: sweep the reference's candidate blocks with
+    ``block_search.find_opt_blk`` for THIS layer's (M, K, N, keep_frac) and
+    take its verdict instead of the config's block as is. ``run_layer`` is
+    the latency backend (default :func:`~repro_torch.core.block_search.
+    analytic_latency`, the model of the CUDA kernel on an H100; the CLI
+    passes the card runner under ``--plan-fitness wallclock``). Memoized
+    per unique layer geometry and backend."""
+    from repro_torch.core.block_search import (analytic_latency,
+                                               default_candidates,
+                                               find_opt_blk)
+    n, k = int(shape[0]), int(shape[1])
+    run_layer = run_layer or analytic_latency
+    key = (n, k, keep_frac, decode_m, run_layer)
+    if key not in _cache:
+        cands = set(default_candidates(n, k))
+        cands |= {(b, b) for b in (16, 32, 64, 128, 256)
+                  if n % b == 0 and k % b == 0}
+        cands.add(tuple(spec.block_shape))
+        best, _ = find_opt_blk(decode_m, k, n, keep_frac, sorted(cands),
+                               run_layer=run_layer)
+        _cache[key] = best
+    block = _cache[key]
+    return BCRSpec(block_shape=block, keep_frac=keep_frac,
+                   align=kept_align(block))
 
-    ``weight_dtype="int8"`` then quantizes every packed tile, fused groups
-    included, to int8 codes with one fp32 scale per tile (from the
-    param-dtype vals, as the reference does; per-tile scales make the
-    result the same before or after fusion).
+
+def pack_params(cfg: ModelConfig, params: PyTree, *, plan: bool = True,
+                decode_m: int = 8, auto_block: bool = False,
+                block_runner=None, plan_fitness: str = "analytic",
+                weight_dtype: str = "") -> PyTree:
+    """Replace every prunable linear's ``{"w"}`` with ``{"w_packed": TBCRC}``.
+    An MoE layer's stacked expert weights ``(E, N, K)`` pack in one batched
+    pass to a TBCRC with a leading E axis (the reference's ``_pack_any``).
+    An encdec tree packs every attention and MLP projection of both stacks
+    and its ``lm_head``; its embeddings and ``dec_pos`` stay dense.
+
+    The reference's order: prune → pack → quantize → tune and fuse, then
+    the port's cast.
+
+    * ``auto_block=True`` runs the paper's Listing-1 block search per layer
+      geometry before packing (:func:`_auto_block_spec`; ``block_runner``
+      overrides its latency backend); the config's block then only seeds
+      the candidate set.
+    * ``weight_dtype="int8"`` quantizes every packed tile to int8 codes with
+      one fp32 scale per tile (from the param-dtype vals, as the reference
+      does), before tuning, so the tuner prices the 1-byte tiles.
+    * With ``plan=True`` (default) this is GRIM's full compile step
+      (``kernels/plan.plan_params``): every packed weight gets a GA-tuned
+      launch genome for decode batch ``decode_m`` (``plan_fitness``:
+      "analytic", the model of the CUDA kernel on an H100, or "wallclock",
+      the kernel timed on the card), and projections sharing one activation
+      (Q/K/V or K/V, gate/up; an MoE layer's experts' gate/up as one
+      stacked group; a cross attention's K/V only) fuse into grouped
+      entries where the tuner votes to. ``plan=False`` neither tunes nor
+      fuses, as in the reference.
 
     Afterwards fp packed ``vals`` are cast to the activation dtype
     ``cfg.dtype``: the reference's TPU kernel casts its tiles to the
@@ -102,6 +157,10 @@ def pack_params(cfg: ModelConfig, params: PyTree, *,
         if isinstance(node, dict) and isinstance(node.get("w"), torch.Tensor):
             spec = fil(path + "['w']", node["w"])
             if spec is not None:
+                if auto_block:
+                    spec = _auto_block_spec(
+                        spec, node["w"].shape[-2:], cfg.bcr_keep_frac,
+                        decode_m, block_runner)
                 out = {"w_packed": tbcrc_pack(node["w"], spec)}
                 if "b" in node:
                     out["b"] = node["b"]
@@ -112,9 +171,11 @@ def pack_params(cfg: ModelConfig, params: PyTree, *,
             return [rewrite(v, f"{path}[{i}]") for i, v in enumerate(node)]
         return node
 
-    packed = fuse_packed_projections(rewrite(params))
+    packed = rewrite(params)
     if weight_dtype:
         packed = quantize_packed_params(packed)
+    if plan:
+        packed = plan_params(packed, m=decode_m, fitness=plan_fitness)
     return _cast_vals(packed, cfg.act_dtype)
 
 
@@ -137,12 +198,19 @@ def packed_fraction(params: PyTree, packed: PyTree) -> float:
 
 
 def build_params(cfg: ModelConfig, log=print, *, seed: int = 0,
-                 device="cuda", weight_dtype: str = "") -> PyTree:
+                 device="cuda", weight_dtype: str = "", decode_m: int = 8,
+                 auto_block: bool = False, block_runner=None,
+                 plan_fitness: str = "analytic") -> PyTree:
     """Random weights from a seeded generator on ``device``, BCR-packed when
-    ``cfg.bcr_keep_frac > 0`` (int8 tiles with ``weight_dtype="int8"``)."""
+    ``cfg.bcr_keep_frac > 0`` (int8 tiles with ``weight_dtype="int8"``),
+    their launches tuned for the batch this server decodes at
+    (``decode_m``; the engine keeps plans the packer tuned)."""
     params = model_fns(cfg).init_params(seed, device=resolve_device(device))
     if cfg.bcr_keep_frac > 0:
-        packed = pack_params(cfg, params, weight_dtype=weight_dtype)
+        packed = pack_params(cfg, params, decode_m=decode_m,
+                             auto_block=auto_block, block_runner=block_runner,
+                             plan_fitness=plan_fitness,
+                             weight_dtype=weight_dtype)
         log(f"packed weight bytes: {packed_fraction(params, packed):.3f}x "
             f"dense")
         params = packed
@@ -226,6 +294,77 @@ def generate(cfg: ModelConfig, params: PyTree, prompts: torch.Tensor, *,
         toks.append(torch.argmax(step_logits[-1], dim=-1).to(torch.int32))
     return {"tokens": torch.stack(toks, dim=1),
             "logits": torch.stack(step_logits, dim=1)}
+
+
+@dataclasses.dataclass
+class ServeConfig:
+    """The static loop's batch (the reference's ``ServeConfig``)."""
+
+    batch: int = 4
+    prompt_len: int = 16
+    gen_tokens: int = 16
+    capacity: int = 128
+    seed: int = 0
+
+
+def generate_static(cfg: ModelConfig, params: PyTree, sc: ServeConfig, *,
+                    prompts: Optional[torch.Tensor] = None, log=print
+                    ) -> Dict[str, Any]:
+    """The reference's static ``generate``: prefill one uniform batch at
+    the exact prompt length, seat its cache into a capacity-dense decode
+    cache (``serving/kv_slots.seat_prefill``), then greedy-decode
+    ``sc.gen_tokens`` steps for every row together — the baseline the
+    engine is measured against (the naive oracle is :func:`generate`).
+
+    Prompts ``(batch, prompt_len)`` come from a ``torch.Generator`` seeded
+    by ``sc.seed`` unless ``prompts`` is given. Returns ``tokens`` (batch,
+    gen_tokens) and the prefill and decode seconds (the card synchronized
+    before each clock read)."""
+    from repro_torch.serving.kv_slots import seat_prefill
+    if cfg.family == "encdec":
+        raise NotImplementedError(
+            "generate() serves decoder-only families; encdec prefill needs "
+            "encoder frames and primes a different cache tree")
+    dev = params["embed"]["table"].device
+    if prompts is None:
+        gen = torch.Generator()
+        gen.manual_seed(sc.seed)
+        prompts = torch.randint(0, cfg.vocab_size, (sc.batch, sc.prompt_len),
+                                generator=gen, dtype=torch.int32)
+    prompts = torch.as_tensor(prompts).to(device=dev, dtype=torch.int32)
+    b, p = prompts.shape
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    sync()
+    t0 = time.perf_counter()
+    logits, pcache = causal_lm.prefill(cfg, params, prompts)
+    cache = seat_prefill(
+        lambda batch, capacity, device: causal_lm.init_cache(
+            cfg, batch, capacity, device=device),
+        pcache, b, sc.capacity, device=dev)
+    sync()
+    prefill_t = time.perf_counter() - t0
+    lens = torch.full((b,), p, dtype=torch.int32, device=dev)
+    out_tokens = []
+    t0 = time.perf_counter()
+    next_tok = torch.argmax(logits[:, -1].float(), dim=-1).to(
+        torch.int32)[:, None]
+    for i in range(sc.gen_tokens):
+        out_tokens.append(next_tok)
+        logits, cache = causal_lm.decode_step(cfg, params, next_tok, cache,
+                                              lens + i)
+        next_tok = torch.argmax(logits[:, -1].float(), dim=-1).to(
+            torch.int32)[:, None]
+    sync()
+    decode_t = time.perf_counter() - t0
+    log(f"prefill {p} tok x{b}: {prefill_t * 1e3:.1f} ms; decode "
+        f"{sc.gen_tokens} tok x{b}: {decode_t * 1e3:.1f} ms "
+        f"({decode_t / max(sc.gen_tokens, 1) * 1e3:.2f} ms/step)")
+    return {"tokens": torch.cat(out_tokens, dim=1).cpu(),
+            "prefill_s": prefill_t, "decode_s": decode_t}
 
 
 @dataclasses.dataclass
@@ -455,6 +594,10 @@ def main() -> None:
     p = argparse.ArgumentParser()
     p.add_argument("--arch", required=True)
     p.add_argument("--smoke", action="store_true")
+    p.add_argument("--mode", default="traffic", choices=["traffic", "static"],
+                   help="traffic: the continuous-batching engine; static: "
+                        "the one-batch-at-a-time baseline loop")
+    p.add_argument("--batch", type=int, default=4, help="static-mode batch")
     p.add_argument("--num-layers", type=int, default=0,
                    help="cut the model's depth to this many layers (0 → "
                         "the config's)")
@@ -535,7 +678,8 @@ def main() -> None:
     p.add_argument("--temperature", type=float, default=0.0)
     p.add_argument("--top-k", type=int, default=0)
     p.add_argument("--json-out", default=None,
-                   help="write the run's metrics here as JSON")
+                   help="write the run's metrics (static mode: its tokens "
+                        "and times) here as JSON")
     p.add_argument("--device", default="cuda")
     p.add_argument("--kv-dtype", default="", choices=["", "int8"],
                    help="int8: KV pages as int8 codes + per-row, per-kv-head "
@@ -543,6 +687,15 @@ def main() -> None:
     p.add_argument("--weight-dtype", default="", choices=["", "int8"],
                    help="int8: packed BCR tiles as int8 codes + one fp32 "
                         "scale per tile (needs --bcr-keep)")
+    p.add_argument("--auto-block", action="store_true",
+                   help="Listing-1 block-size search per layer geometry at "
+                        "pack time instead of taking the config block")
+    p.add_argument("--plan-fitness", default="analytic",
+                   choices=["analytic", "wallclock"],
+                   help="GA plan-tuner fitness backend: analytic (a model of "
+                        "the CUDA kernel on an H100) or wallclock (the "
+                        "kernel timed on the card; also the --auto-block "
+                        "runner)")
     p.add_argument("--attn-impl", default="",
                    choices=["", *FLASH_ATTN_IMPLS, *PLAIN_ATTN_IMPLS],
                    help="cold-prefill attention; pallas: the fused flash "
@@ -565,8 +718,29 @@ def main() -> None:
         p.error("--prefix-cache and --spec-k need --page-size > 0 (the "
                 "paged KV pool)")
     dev = resolve_device(args.device)
+    block_runner = None
+    if args.auto_block and args.plan_fitness == "wallclock":
+        from repro_torch.core.block_search import wallclock_runner
+        block_runner = functools.partial(wallclock_runner, device=dev)
+    static = args.mode == "static"
     params = build_params(cfg, seed=args.seed, device=dev,
-                          weight_dtype=args.weight_dtype)
+                          weight_dtype=args.weight_dtype,
+                          decode_m=args.batch if static else args.slots,
+                          auto_block=args.auto_block,
+                          block_runner=block_runner,
+                          plan_fitness=args.plan_fitness)
+    if static:
+        if args.kv_dtype:
+            cfg = dataclasses.replace(cfg, kv_dtype=args.kv_dtype)
+        out = generate_static(cfg, params, ServeConfig(
+            batch=args.batch, prompt_len=args.prompt_len,
+            gen_tokens=args.gen, capacity=args.capacity, seed=args.seed))
+        if args.json_out:
+            with open(args.json_out, "w") as f:
+                json.dump({"tokens": out["tokens"].tolist(),
+                           "prefill_s": out["prefill_s"],
+                           "decode_s": out["decode_s"]}, f)
+        return
     draft_cfg = draft_params = None
     if args.spec_k:
         draft_cfg, draft_params = build_draft(

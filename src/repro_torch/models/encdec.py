@@ -117,14 +117,27 @@ def _run_layers(cfg: ModelConfig, body: Callable, layers: List[Params],
     return x
 
 
+def _chunks(cfg: ModelConfig, sq: int, skv: int) -> Dict[str, Any]:
+    """``attn_impl`` and the q/kv chunks of an attention over ``sq`` query
+    and ``skv`` key rows: each configured chunk where it divides its
+    length, else the whole length (``layers.whole_length_chunk``). Whisper's
+    1500 frames do not split into the default 512 / 1024 chunks, where the
+    reference's chunked attention asserts; one whole-length tile computes
+    what it means."""
+    return {"attn_impl": cfg.attn_impl,
+            "q_chunk": L.whole_length_chunk(cfg.q_chunk, sq),
+            "kv_chunk": L.whole_length_chunk(cfg.kv_chunk, skv)}
+
+
 def encoder_attention(cfg: ModelConfig, lp: Params,
                       h: torch.Tensor) -> torch.Tensor:
     """An encoder layer's attention sublayer on its normed input ``h``:
     non-causal self attention by ``cfg.attn_impl``."""
+    s = h.shape[1]
     out, _ = L.attention_apply(
         lp["attn"], h, n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads,
         head_dim=cfg.head_dim, rope_cs=None, causal=False,
-        attn_impl=cfg.attn_impl, q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+        **_chunks(cfg, s, s))
     return out
 
 
@@ -181,16 +194,18 @@ def _decoder(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 
     def body(i, lp, x):
         h = L.layernorm(lp["norm1"], x, cfg.norm_eps)
+        s = h.shape[1]
         out, _ = L.attention_apply(
             lp["self_attn"], h, n_heads=cfg.num_heads,
             n_kv=cfg.num_kv_heads, head_dim=cfg.head_dim, rope_cs=None,
-            causal=True, attn_impl=cfg.attn_impl, q_chunk=cfg.q_chunk,
-            kv_chunk=cfg.kv_chunk)
+            causal=True, **_chunks(cfg, s, s))
         x = x + out
         hx = L.layernorm(lp["norm_x"], x, cfg.norm_eps)
+        kv = cross(i, lp)
         x = x + L.cross_attention_apply(
-            lp["cross_attn"], hx, cross(i, lp), n_heads=cfg.num_heads,
-            n_kv=cfg.num_kv_heads, head_dim=cfg.head_dim)
+            lp["cross_attn"], hx, kv, n_heads=cfg.num_heads,
+            n_kv=cfg.num_kv_heads, head_dim=cfg.head_dim,
+            **_chunks(cfg, s, kv["k"].shape[1]))
         h2 = L.layernorm(lp["norm2"], x, cfg.norm_eps)
         return x + L.gelu_mlp_apply(lp["mlp"], h2)
 

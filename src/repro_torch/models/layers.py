@@ -11,23 +11,31 @@ functional ``.at[].set`` returns a new pool instead. int8 pools quantize on
 store, writing codes and the sibling per-row scale at the same flat row.
 
 Cold-prefill attention follows ``cfg.attn_impl`` as in the reference:
-``"pallas"`` (and its CPU-validation twin ``"pallas_interpret"``) runs the
-fused flash kernel; ``"dense"``, ``"flash"`` (the reference's XLA chunked
-attention, the same function) and the paged-kernel settings ``"paged"`` /
-``"paged_interpret"`` run the plain product; anything else raises. Paged
+``"flash"`` (every full config's default) runs :func:`flash_attention`,
+the reference's chunked online-softmax attention (XLA code there, a plain
+torch chunk loop here); ``"pallas"`` (and its CPU-validation twin
+``"pallas_interpret"``) runs the fused flash kernel; ``"dense"`` and the
+paged-kernel settings ``"paged"`` / ``"paged_interpret"`` run the
+materialized product :func:`dense_attention`; anything else raises. Paged
 decode and prefill-append always run the paged attention kernel;
 capacity-dense decode runs the plain :func:`decode_attention`, as the
-reference runs it outside any Pallas kernel, and so does cross attention
-(plain torch, as the reference's XLA code). The plain product has no chunk
-rule, so an encoder of 1500 frames runs under every plain setting; the
-flash kernel keeps the reference's (``q_chunk``/``kv_chunk`` must split the
-length).
+reference runs it outside any Pallas kernel. Cross attention over more than
+one query row runs :func:`flash_attention` under ``"flash"`` and
+:func:`dense_attention` otherwise.
 
-Training differentiates the full-sequence path with autograd. The plain
-product stands in for the reference's XLA ``flash_attention`` (which
-``"flash"`` selects there); the fused flash kernel has no backward, as the
-reference's Pallas ``flash_attention_fused`` has none (its ``pallas_call``
-cannot be differentiated), so ``"pallas"`` under a gradient raises.
+Both chunked paths keep the reference's chunk rule: ``q_chunk`` and
+``kv_chunk`` (each clamped to its length) must divide the lengths. The
+engine's prefill buckets respect it (:func:`flash_chunks`); whisper's 1500
+frames do not split into the default 512 / 1024, so the encdec callers
+clamp each chunk to the whole length when the configured one does not
+divide it (``models/encdec.py``).
+
+Training differentiates the full-sequence path with autograd:
+:func:`flash_attention` recomputes each q-chunk body in the backward pass
+(``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``). The
+fused flash kernel has no backward, as the reference's Pallas
+``flash_attention_fused`` has none (its ``pallas_call`` cannot be
+differentiated), so ``"pallas"`` under a gradient raises.
 """
 
 from __future__ import annotations
@@ -55,12 +63,26 @@ FLASH_ATTN_IMPLS = ("pallas", "pallas_interpret")
 PLAIN_ATTN_IMPLS = ("dense", "flash", "paged", "paged_interpret")
 
 
+# the settings whose cold prefill splits the sequence into q/kv chunks: the
+# fused kernel and the chunked flash_attention
+CHUNKED_ATTN_IMPLS = FLASH_ATTN_IMPLS + ("flash",)
+
+
 def flash_chunks(cfg) -> Optional[Tuple[int, int]]:
     """``(q_chunk, kv_chunk)`` when cold prefill runs the fused flash
-    kernel, else None (the argument of ``prefill_bucket``)."""
-    if cfg.attn_impl in FLASH_ATTN_IMPLS:
+    kernel or the chunked :func:`flash_attention`, else None (the argument
+    of ``prefill_bucket``)."""
+    if cfg.attn_impl in CHUNKED_ATTN_IMPLS:
         return cfg.q_chunk, cfg.kv_chunk
     return None
+
+
+def whole_length_chunk(chunk: int, length: int) -> int:
+    """``chunk`` where it divides ``length``, else the whole length: the
+    encdec callers' rule for whisper's 1500 frames, which the configured
+    512 / 1024 chunks do not split (the reference's chunked attention
+    asserts there)."""
+    return chunk if length % min(chunk, length) == 0 else length
 
 
 def check_attn_impl(attn_impl: str) -> None:
@@ -210,6 +232,109 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(b, sq, h, d).to(q.dtype)
 
 
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """fp32 ``a @ b`` of two batched operands in their own dtype, as the
+    reference's ``preferred_element_type=jnp.float32``: bf16/fp16 operands
+    on the card go in as they are with an fp32 result (``torch.bmm``'s
+    ``out_dtype``) when this PyTorch offers it and no gradient is needed
+    (it has no backward); otherwise both are upcast to fp32 and multiplied
+    in fp32 (TF32 off, as every caller leaves it). Products of bf16 values
+    are exact in fp32 either way; only the summation order differs."""
+    if (a.is_cuda and a.dtype in (torch.bfloat16, torch.float16)
+            and b.dtype == a.dtype and _BMM_OUT_DTYPE
+            and not (torch.is_grad_enabled()
+                     and (a.requires_grad or b.requires_grad))):
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+_BMM_OUT_DTYPE = "dtype" in torch.ops.aten.bmm.overloads()
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, q_chunk: int = 512,
+                    kv_chunk: int = 1024, q_offset: int = 0) -> torch.Tensor:
+    """Online-softmax chunked attention, GQA-aware: the reference's XLA
+    ``models/layers.flash_attention`` as a plain torch chunk loop. q ``(B,
+    Sq, H, D)``, k/v ``(B, Skv, Hkv, D)``; with ``causal`` query row ``i``
+    sits at position ``q_offset + i``.
+
+    Never holds more than ``q_chunk × kv_chunk`` logits a head: for each
+    q-chunk, a running max, sum and fp32 accumulator over its kv-chunks.
+    Tiles wholly in the future are skipped (statically, as the reference
+    skips them at trace time) and only tiles that cross the diagonal are
+    masked (-1e30). Logits are fp32 products of the operands in their own
+    dtype (:func:`_bmm_f32`: bf16 operands with an fp32 result on the card
+    where ``torch.bmm`` takes ``out_dtype``, else both upcast with TF32
+    off), scaled by ``D**-0.5``; ``p`` is cast to v's dtype before the PV
+    product, whose result is fp32 too. Under a gradient each q-chunk body
+    runs under ``torch.utils.checkpoint`` (``use_reentrant=False``), the
+    reference's ``jax.checkpoint``: the backward pass recomputes it instead
+    of keeping each tile's residuals.
+
+    The chunks, each clamped to its length, must divide the lengths (the
+    reference's assertion, kept)."""
+    b, sq, h, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    q_chunk = min(q_chunk, sq)
+    kv_chunk = min(kv_chunk, skv)
+    assert sq % q_chunk == 0 and skv % kv_chunk == 0
+    nq, nk = sq // q_chunk, skv // kv_chunk
+    scale = d ** -0.5
+    bh = b * hkv
+    qm = q.reshape(b, sq, hkv, g, d).permute(0, 2, 1, 3, 4).reshape(
+        bh, nq, q_chunk, g, d)
+    kr = k.permute(0, 2, 1, 3).reshape(bh, nk, kv_chunk, d)
+    vr = v.permute(0, 2, 1, 3).reshape(bh, nk, kv_chunk, d)
+
+    def one_q_chunk(qi: int, qc: torch.Tensor) -> torch.Tensor:
+        # qc (bh, q_chunk, g, d) → rows (g, q) of one bmm per kv-chunk
+        qg = qc.permute(0, 2, 1, 3).reshape(bh, g * q_chunk, d)
+        m = torch.full((bh, g, q_chunk), -1e30, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((bh, g, q_chunk), dtype=torch.float32,
+                        device=q.device)
+        acc = torch.zeros((bh, g, q_chunk, d), dtype=torch.float32,
+                          device=q.device)
+        q_lo = q_offset + qi * q_chunk
+        q_hi = q_lo + q_chunk - 1
+        for ki in range(nk):
+            k_lo = ki * kv_chunk
+            if causal and k_lo > q_hi:
+                continue              # wholly in the future: skipped
+            kc, vc = kr[:, ki], vr[:, ki]
+            logits = (_bmm_f32(qg, kc.transpose(1, 2)) * scale).reshape(
+                bh, g, q_chunk, kv_chunk)
+            if causal and k_lo + kv_chunk - 1 > q_lo:   # diagonal: mask
+                qpos = q_lo + torch.arange(q_chunk, device=q.device)
+                kpos = k_lo + torch.arange(kv_chunk, device=q.device)
+                logits = logits.masked_fill(qpos[:, None] < kpos[None, :],
+                                            -1e30)
+            new_m = torch.maximum(m, logits.amax(-1))
+            alpha = torch.exp(m - new_m)
+            p = torch.exp(logits - new_m[..., None])
+            l = l * alpha + p.sum(-1)
+            pv = _bmm_f32(p.to(vc.dtype).reshape(bh, g * q_chunk, kv_chunk),
+                          vc).reshape(bh, g, q_chunk, d)
+            acc = acc * alpha[..., None] + pv
+            m = new_m
+        out = acc / torch.clamp(l, min=1e-30)[..., None]
+        return out.permute(0, 2, 1, 3)       # (bh, q_chunk, g, d)
+
+    grad = torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v))
+    outs = []
+    for qi in range(nq):
+        if grad:
+            outs.append(torch.utils.checkpoint.checkpoint(
+                one_q_chunk, qi, qm[:, qi], use_reentrant=False))
+        else:
+            outs.append(one_q_chunk(qi, qm[:, qi]))
+    out = torch.stack(outs, dim=1).reshape(b, hkv, sq, g, d)
+    return out.permute(0, 2, 1, 3, 4).reshape(b, sq, h, d).to(q.dtype)
+
+
 def _paged_write(cache: Params, dest: torch.Tensor, k: torch.Tensor,
                  v: torch.Tensor, n_kv: int, head_dim: int) -> None:
     """Scatter K/V rows into the layer's page pools at flat row positions
@@ -238,11 +363,15 @@ def cold_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    causal: bool = True) -> torch.Tensor:
     """Full-sequence attention (causal for a decoder's cold prefill, not
     for an encoder), q ``(B, S, H, D)``, k/v ``(B, S, Hkv, D)``.
-    ``attn_impl="pallas"`` runs the fused flash kernel on the merged-head
-    layout with K/V repeated to all q heads (the reference's trade:
-    duplicated K/V reads for one fused pass); the plain settings run
+    ``attn_impl="flash"`` runs the chunked :func:`flash_attention`;
+    ``"pallas"`` runs the fused flash kernel on the merged-head layout with
+    K/V repeated to all q heads (the reference's trade: duplicated K/V
+    reads for one fused pass); the other plain settings run
     :func:`dense_attention`."""
     check_attn_impl(attn_impl)
+    if attn_impl == "flash":
+        return flash_attention(q, k, v, causal=causal, q_chunk=q_chunk,
+                               kv_chunk=kv_chunk)
     if attn_impl not in FLASH_ATTN_IMPLS:
         return dense_attention(q, k, v, causal=causal)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
@@ -400,20 +529,27 @@ def attention_apply(
 
 
 def cross_attention_apply(params: Params, x: torch.Tensor, kv: Params, *,
-                          n_heads: int, n_kv: int, head_dim: int
-                          ) -> torch.Tensor:
+                          n_heads: int, n_kv: int, head_dim: int,
+                          attn_impl: str = "dense", q_chunk: int = 512,
+                          kv_chunk: int = 1024) -> torch.Tensor:
     """Encoder-decoder cross attention of the decoder stream ``x`` ``(B,
     S, d)`` against precomputed encoder K/V (``kv["k"]``/``kv["v"]``, ``(B,
     S_enc, Hkv, D)``). Q is never fused with K/V here (it projects another
     activation; see ``kernels/plan.fuse_packed_projections``). One query
     row runs :func:`decode_attention` over every encoder row; more run
-    non-causal plain attention (the reference's XLA ``flash_attention``,
-    not a Pallas kernel)."""
+    non-causal attention, the chunked :func:`flash_attention` under
+    ``attn_impl="flash"`` (the reference's XLA ``flash_attention``, not a
+    Pallas kernel; the encdec model passes its config's setting, with
+    chunks clamped to divide the lengths) and :func:`dense_attention` under
+    the other settings, the default here."""
     b, s, _ = x.shape
     q = linear_apply(params["wq"], x).reshape(b, s, n_heads, head_dim)
     k, v = kv["k"], kv["v"]
     if s == 1:
         out = decode_attention(q, k, v, k.shape[1])
+    elif attn_impl == "flash":
+        out = flash_attention(q, k, v, causal=False, q_chunk=q_chunk,
+                              kv_chunk=kv_chunk)
     else:
         out = dense_attention(q, k, v, causal=False)
     return linear_apply(params["wo"], out.reshape(b, s, n_heads * head_dim))

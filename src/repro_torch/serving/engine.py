@@ -94,10 +94,11 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import chunks_fit, prefill_bucket
-from repro_torch.kernels.plan import quantize_packed_params
+from repro_torch.kernels.plan import plan_params, quantize_packed_params
 from repro_torch.models.api import model_fns
 from repro_torch.models.causal_lm import has_attention
-from repro_torch.models.layers import FLASH_ATTN_IMPLS, flash_chunks
+from repro_torch.models.layers import (CHUNKED_ATTN_IMPLS, FLASH_ATTN_IMPLS,
+                                      flash_chunks)
 from repro_torch.serving.admission import (TenantQuota, TokenBucket,
                                            estimate_seat_steps,
                                            request_work_steps)
@@ -169,6 +170,14 @@ class EngineConfig:
     # the engine is idle), then run ONE merged prefill for all of them
     backfill_chunk: int = 2
     backfill_max_defer: int = 2
+    # GRIM's compile step at engine build (kernels/plan.plan_params): tune
+    # every packed weight's CUDA launch for this engine's decode batch
+    # (n_slots) and fuse shared-activation groups where the tuner votes
+    # to; plans the packer already tuned and groups it fused are kept.
+    # plan_fitness picks the tuner's backend: "analytic" (a model of the
+    # kernel on an H100) or "wallclock" (the kernel timed on the card)
+    plan_packed: bool = True
+    plan_fitness: str = "analytic"
     # speculative decoding: spec_k > 0 makes every decode step a
     # draft→verify→accept step (paged pools only) — a drafter proposes up
     # to spec_k tokens a live slot and ONE prefill_append dispatch scores
@@ -241,15 +250,19 @@ class InferenceEngine:
         if ec.kv_dtype:
             cfg = dataclasses.replace(cfg, kv_dtype=ec.kv_dtype)
         if ec.weight_dtype:
-            # idempotent: packs quantized by pack_params stay as they are
+            # idempotent: packs quantized by pack_params stay as they are;
+            # before planning, so the tuner prices the 1-byte tiles
             params = quantize_packed_params(params)
+        if ec.plan_packed:
+            params = plan_params(params, m=ec.n_slots,
+                                 fitness=ec.plan_fitness)
         self.cfg = cfg
         self.ec = ec
         self.params = params
         self.fns = model_fns(cfg)
         self.pad_prefill = (cfg.family in _PADDED_FAMILIES
                             if ec.pad_prefill is None else ec.pad_prefill)
-        if cfg.attn_impl in FLASH_ATTN_IMPLS and self.pad_prefill:
+        if cfg.attn_impl in CHUNKED_ATTN_IMPLS and self.pad_prefill:
             bad = [b for b in self._buckets() if not self._chunks_fit(b)]
             if bad:
                 raise ValueError(

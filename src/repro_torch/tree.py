@@ -7,6 +7,9 @@ same nesting with these helpers. A leaf's path is written the way
 ['mixer']['wq']['w']``), with ``.field`` for a dataclass field, so the
 port's prune filters and ADMM specs key on strings like the reference's.
 ``None`` is a leaf here (the reference keeps it as one in its ADMM trees).
+A dataclass field marked ``metadata={"static": True}`` (a plan's tuned
+dispatch genome) is not part of the tree, as the reference keeps such
+values as a pytree's static aux data.
 """
 
 from __future__ import annotations
@@ -20,6 +23,12 @@ def _is_node(tree: Any) -> bool:
             or (dataclasses.is_dataclass(tree) and not isinstance(tree, type)))
 
 
+def _fields(tree: Any) -> List[dataclasses.Field]:
+    """A dataclass node's child fields (static ones are not children)."""
+    return [f for f in dataclasses.fields(tree)
+            if not f.metadata.get("static")]
+
+
 def flatten(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
     """(path, leaf) for every leaf, in nesting order; ``None`` included."""
     if isinstance(tree, dict):
@@ -29,7 +38,7 @@ def flatten(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
         return [kv for i, v in enumerate(tree)
                 for kv in flatten(v, f"{prefix}[{i}]")]
     if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
-        return [kv for f in dataclasses.fields(tree)
+        return [kv for f in _fields(tree)
                 for kv in flatten(getattr(tree, f.name),
                                   f"{prefix}.{f.name}")]
     return [(prefix, tree)]
@@ -47,7 +56,7 @@ def _rebuild(like: Any, it: Iterator[Any]) -> Any:
     if dataclasses.is_dataclass(like) and not isinstance(like, type):
         return dataclasses.replace(like, **{
             f.name: _rebuild(getattr(like, f.name), it)
-            for f in dataclasses.fields(like) if f.init})
+            for f in _fields(like) if f.init})
     return next(it)
 
 

@@ -840,3 +840,51 @@ def test_expert_batched_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):          # expert counts differ
         K.bcr_spmm(torch.zeros((2, 4, 256), dtype=torch.bfloat16,
                                device=cuda), p)
+
+
+# the plan tuner's genomes (kernels/plan.py): every legal one at two small
+# shapes, one launch each against the plain version — the serving block at
+# decode M (4 block rows, split) and the smoke block at a ragged M
+GENOME_SHAPES = [  # (N, K, block, keep, align, M, G)
+    (512, 1024, (128, 128), 0.25, 8, 8, 2),
+    (64, 96, (16, 16), 0.25, 4, 20, 3),
+]
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("shape", GENOME_SHAPES)
+def test_every_legal_genome_matches_plain(cuda, int8, shape):
+    import itertools
+
+    from repro_torch.core.tuner import genome_knobs
+    from repro_torch.kernels.plan import attach_plan, plan_search_space
+    n, k, block, keep, align, m, g = shape
+    rng = np.random.default_rng(7)
+    members = [_packed(rng, n, k, block, keep, torch.bfloat16, cuda, align)
+               for _ in range(g)]
+    if int8:
+        members = [quantize_packed(p) for p in members]
+    x = torch.as_tensor(rng.normal(size=(m, k)), dtype=torch.bfloat16,
+                        device=cuda)
+    space = plan_search_space(m, g)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    legal = 0
+    for values in itertools.product(*(space[key] for key in sorted(space))):
+        genome = dict(zip(sorted(space), values))
+        grp = genome["group_size"]
+        try:
+            K.launch_plan(m, n, k, grp, block, members[0].kept_counts, sms,
+                          int8, True, 1, genome_knobs(genome))
+        except ValueError:
+            continue
+        legal += 1
+        if grp > 1:
+            grouped = pack_group(members[:grp], genome, m=m)
+            got = K.bcr_spmm_grouped(x, grouped)
+            want = ref.bcr_spmm_grouped_ref(x, grouped).transpose(-3, -2)
+        else:
+            planned = attach_plan(members[0], genome, m=m)
+            got, want = K.bcr_spmm(x, planned), ref.bcr_spmm_packed_ref(
+                x, planned)
+        _close(got, want, torch.bfloat16)
+    assert legal >= 4
