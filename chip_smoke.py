@@ -8,6 +8,7 @@
     python3 chip_smoke.py --encdec
     python3 chip_smoke.py --train
     python3 chip_smoke.py --tune
+    python3 chip_smoke.py --tp
 
 The second form times phase 3's ``bcr_spmm*``, ``bcr_spmm_skip`` and flash
 cases for each checkout TREE (its own ``src/repro_torch``, built into its
@@ -16,7 +17,8 @@ side by side — e.g. ``build/parent . . build/parent`` after ``git archive
 HEAD~1 | tar -x -C build/parent``. The third runs phases 1, 2 and 13 only;
 the fourth phases 1, 2 and 14, with phase 3's checks of phase 14's shapes;
 the fifth phases 1, 2 and 15, phase 15d's kernel cases first; the sixth
-phases 1, 2 and 16; the seventh phases 1, 2 and 17.
+phases 1, 2 and 16; the seventh phases 1, 2 and 17; the eighth phases 1, 2
+and 18.
 
 Phases, in order (any failed check raises and the script exits non-zero):
 
@@ -202,8 +204,9 @@ Phases, in order (any failed check raises and the script exits non-zero):
    (block, ms) curve, for the GRU's 1024 x 1024 at M 1 and 32 and
    llama3.2-1b's MLP wo (2048 x 8192) at M 8, over (8, 8) .. (128, 128)
    and ``default_candidates``; every finite candidate's output held to the
-   plain version. (d) The port's three examples end to end on the card
-   (``main([])``: the default device), each ending in ``OK``.
+   plain version. (d) The port's five examples end to end on the card
+   (``main``: the default device; ``train_lm`` at ``--preset tiny``, 60
+   steps with ADMM from 20 and retraining from 40), each ending in ``OK``.
 
 14. The vlm, ssm and hybrid families through the port's engine, random
    weights from seed 0 packed bf16 at keep 0.25 / block 128, phase 4's
@@ -331,6 +334,32 @@ Phases, in order (any failed check raises and the script exits non-zero):
    softmax over those rows, and the function against ``dense_attention``
    at S = 4096, both under bf16's gate. Every launch of the phase is
    counted (``tune_launches``); each sub-phase's time is printed.
+18. Tensor-parallel serving (``serving/tp.py``) with the ranks sharing
+   the one card under gloo (one process a rank; gathers through the
+   host). (c), run first: the BCR kernels at the tp = 2 shard shapes
+   (``wq`` 1024 x 2048, ``wkv`` 2 x 256 x 2048, ``wgi`` + SwiGLU 2 x 4096
+   x 2048, MLP ``wo`` 1024 x 8192, ``lm_head`` 64128 x 2048, at M = 8),
+   each whole pack tuned for M = 8 as ``pack_params`` tunes it and split
+   by ``split_packed`` / ``split_grouped``, and paged decode over one
+   rank's 16/4 heads: each against its plain version, timed beside it,
+   the library call and the bound, its launch (M tile, configuration,
+   split, stages; row tile and split) equal to the whole's, and the
+   shards' outputs bit-equal to the whole's. (a) Phase 4's model, engine
+   and traffic at mesh 1 and at mesh 2 (``EngineConfig(mesh_model=2,
+   mesh_devices=("cuda:0",) * 2)``): greedy tokens and the first decode
+   step's logits bit-equal; ``kv_bytes_read_device`` x 2 =
+   ``kv_bytes_read``; each rank's KV pool half of mesh 1's; each rank
+   launched the bf16 ``bcr_spmm``, grouped and paged kernels (their
+   counters read from every rank); per-rank param and streamed-weight
+   bytes, decode step-wall p50 and rank 0's device ms a step against mesh
+   1. Then 9a's prefix traffic (its seeds and first wave: 8 requests of 16
+   tokens) at mesh 1 and 2: the same tokens and hit tokens, and every rank
+   launched the paged kernel's prefill-append form. (b) The same at mesh 4 over int8 tiles and int8 KV, 8 requests of
+   16 tokens, against the mesh-1 int8 engine; ``lm_head`` (1002 row
+   blocks) stays replicated. (d) ``hierarchical_psum`` on (b)'s 4 ranks
+   over CUDA tensors as pod 2 x data 2: exact in its order, int8 within
+   the reference's 2%. Printed: ``phase 18a bf16`` / ``phase 18b int8``
+   JSON lines, the 18c rows and the phase's seconds by sub-phase.
 
 Phase 3 also holds the verify dispatch's shapes: paged prefill-append with
 4 rows a slot over lengths 1..512 (ragged real rows, bf16 and int8 pages)
@@ -349,8 +378,10 @@ that step's device time, ``gru_ms``, from phase 13; every entry its
 launches over phase 14's three serving runs, ``family_launches``, and over
 phase 15's runs, ``encdec_launches``: the fp forms over 15a's, the int8
 forms and flash over 15b's; over phase 16's five packed prefills,
-``train_launches``; and over phase 17, ``tune_launches``), and the
-contract line.
+``train_launches``; over phase 17, ``tune_launches``; over phase 18's
+sharded runs, every rank's, ``tp_launches``; and for the ``bcr_spmm``,
+``bcr_spmm_grouped`` and paged entries their time and bound at phase 18c's
+shard shape, ``tp_ms`` and ``tp_bound_ms``), and the contract line.
 """
 
 from __future__ import annotations
@@ -4021,16 +4052,23 @@ def phase_listing1(torch):
 
 
 def phase_examples(torch):
-    """Phase 13d: the port's three examples through ``main([])`` (their
-    default device, the card); each must end in ``OK``."""
-    from repro_torch.examples import cnn_im2col, gru_rnn, quickstart
+    """Phase 13d: the port's five examples through ``main`` on their
+    default device, the card (``train_lm`` at ``--preset tiny`` through
+    dense, ADMM and retraining); each must end in ``OK``."""
+    from repro_torch.examples import (cnn_im2col, gru_rnn, quickstart,
+                                      serve_decode, train_lm)
 
-    for name, mod in (("quickstart", quickstart), ("gru_rnn", gru_rnn),
-                      ("cnn_im2col", cnn_im2col)):
+    tiny = ["--preset", "tiny", "--steps", "60", "--admm-start", "20",
+            "--retrain-start", "40"]
+    for name, mod, argv in (("quickstart", quickstart, []),
+                            ("gru_rnn", gru_rnn, []),
+                            ("cnn_im2col", cnn_im2col, []),
+                            ("serve_decode", serve_decode, []),
+                            ("train_lm", train_lm, tiny)):
         buf = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
-            mod.main([])
+            mod.main(argv)
         lines = buf.getvalue().strip().splitlines()
         for ln in lines:
             log(f"  {name}: {ln}")
@@ -5991,6 +6029,475 @@ def run_phase_tune(torch, np, smi):
     return acc
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: tensor-parallel serving, ranks sharing the one card
+# ---------------------------------------------------------------------------
+
+# 18c's shard shapes: (name, whole N, K, group, epilogue) at M = 8, each
+# the tp = 2 shard of a llama3.2-1b projection (lm_head's 1002 row blocks
+# of 128 halve to 501), planned as pack_params plans the whole
+TP_SHARD_CASES = (("wq", 2048, 2048, 1, None),
+                  ("wkv", 512, 2048, 2, None),
+                  ("wgi", 8192, 2048, 2, "swiglu"),
+                  ("mlp_wo", 2048, 8192, 1, None),
+                  ("lm_head", 128256, 2048, 1, None))
+TP_KERNEL_ROWS = {"bcr_spmm": "lm_head 64128x2048 M=8 tp=2",
+                  "bcr_spmm_grouped": "wgi 2x4096x2048 M=8 tp=2",
+                  "paged_attention": "decode 16/4 heads B=8 lens 1..512 tp=2"}
+
+
+def tp_shard_cases(torch, timer, record):
+    """Phase 18c: the BCR kernels at the shard shapes of tp = 2 (each pack
+    tuned for M = 8 as a whole, then split by ``split_packed`` /
+    ``split_grouped``) and paged decode over one rank's 16/4 heads: each
+    against its plain version, timed beside it, the library product and
+    the bound; the launch the shard runs under equal to the whole's (M
+    tile, configuration, split, stages; logged); and the two shards'
+    outputs concatenated bit-equal to the whole's (the heads of the pool's
+    first shard bit-equal to the whole pool's)."""
+    from repro_torch.core.bcr import BCRSpec
+    from repro_torch.core.bcrc import tbcrc_pack, tbcrc_unpack
+    from repro_torch.kernels import bcr_spmm as K
+    from repro_torch.kernels import paged_decode_attention as PA
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bcr_spmm import _sm_count, launch_plan
+    from repro_torch.kernels.plan import (launch_genome, pack_group,
+                                          plan_shards, split_grouped,
+                                          split_packed, tune_genome_for,
+                                          tune_packed)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(18)
+    spec = BCRSpec(block_shape=(128, 128), keep_frac=0.25, align=8)
+    sms = _sm_count(torch.device("cuda"))
+
+    def decision(p, m, g):
+        nb_r, nb_c, r, c = p.vals.shape[-4:]
+        lp = launch_plan(m, p.shape[0], p.shape[1], g, p.block_shape, (r, c),
+                         sms, False, True, 1, launch_genome(p.plan, m),
+                         plan_shards(p.plan))
+        return dict(m_tile=lp.m_tile, slabs=lp.slabs, warps_m=lp.warps_m,
+                    n_chunk=lp.n_chunk, splits=lp.splits, stages=lp.stages)
+
+    m = 8
+    for name, n, k, g, epi in TP_SHARD_CASES:
+        members = []
+        for _ in range(g):
+            w = torch.randn((n, k), generator=gen, device="cuda") * k ** -0.5
+            members.append(tbcrc_pack(w, spec))
+        if g == 1:
+            whole = tune_packed(members[0], m=m)
+            whole.vals = whole.vals.to(torch.bfloat16)
+            shards = split_packed(whole, 2)
+        else:
+            genome = tune_genome_for(members[0], m=m, max_group=g)
+            whole = pack_group(members, genome, m=m)
+            whole.vals = whole.vals.to(torch.bfloat16)
+            shards = split_grouped(whole, 2)
+        x = (torch.randn((m, k), generator=gen, device="cuda")
+             ).to(torch.bfloat16)
+        want_dec, got_dec = decision(whole, m, g), decision(shards[0], m, g)
+        if want_dec != got_dec:
+            raise AssertionError(f"{name}: the shard launches {got_dec}, the "
+                                 f"whole {want_dec}")
+        if g == 1:
+            run = lambda p: K.bcr_spmm(x, p)                    # noqa: E731
+            plain = lambda p: ref.bcr_spmm_packed_ref(x, p)     # noqa: E731
+        else:
+            run = lambda p: K.bcr_spmm_grouped(x, p, epilogue=epi)  # noqa
+            plain = lambda p: (ref.bcr_spmm_grouped_ref(        # noqa: E731
+                x, p, epilogue=epi) if epi else
+                ref.bcr_spmm_grouped_ref(x, p).transpose(0, 1))
+        full = run(whole)
+        parts = [run(s) for s in shards]
+        torch.cuda.synchronize()
+        if not torch.equal(torch.cat(parts, dim=-1), full):
+            raise AssertionError(f"{name}: the shards' outputs do not "
+                                 f"concatenate to the whole's bit for bit")
+        sh = shards[0]
+        ln = sh.shape[0]
+        shape = (f"{name} {ln}x{k} M={m} tp=2" if g == 1
+                 else f"{name} {g}x{ln}x{k} M={m} tp=2")
+        err = check_close(shape, parts[0], plain(sh), BF16_TOL)
+        if g == 1:
+            w_dense = tbcrc_unpack(sh)
+        else:
+            w_dense = torch.cat([tbcrc_unpack(dataclasses.replace(
+                sh, vals=sh.vals[i], row_idx=sh.row_idx[i],
+                col_idx=sh.col_idx[i])) for i in range(g)])
+        nb_r, nb_c, r, c = sh.vals.shape[-4:]
+        out_n = ln if (g == 1 or epi) else g * ln
+        tiles = (sh.vals.numel() * 2
+                 + (sh.row_idx.numel() + sh.col_idx.numel()) * 4)
+        record("bcr_spmm" if g == 1 else "bcr_spmm_grouped", shape, err,
+               timer.ms(lambda: run(sh)), timer.ms(lambda: plain(sh)),
+               tiles + (m * k + m * out_n) * 2,
+               2 * m * g * nb_r * nb_c * r * c, torch.bfloat16,
+               timer.ms(lambda: _library_dense_matmul(x, w_dense)))
+        log(f"    launch (the whole's): {got_dec}")
+        del whole, shards, members, w_dense
+
+    # paged decode over one rank's heads: 16 of 32 q heads, 4 of 8 kv heads
+    hkv, h, d, ps = 8, 32, 64, 16
+    lens = torch.tensor([1, 37, 128, 200, 333, 511, 512, 0],
+                        dtype=torch.int32, device="cuda")
+    per = [-(-int(t) // ps) for t in lens.tolist()]
+    n_pages = 1 + sum(per) + 8
+    kp = torch.randn((n_pages, ps, hkv, d), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    vp = torch.randn((n_pages, ps, hkv, d), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    bt = torch.zeros((8, max(per)), dtype=torch.int32)
+    nxt = 1
+    for i, npg in enumerate(per):
+        bt[i, :npg] = torch.arange(nxt, nxt + npg)
+        nxt += npg
+    bt = bt.cuda()
+    q = torch.randn((8, 1, h, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    whole = PA.paged_decode_attention(q, kp, vp, bt, lens)
+    qs = q[:, :, :h // 2].contiguous()
+    ks, vs = kp[:, :, :hkv // 2].contiguous(), vp[:, :, :hkv // 2].contiguous()
+
+    def shard_run():
+        return PA.paged_decode_attention(qs, ks, vs, bt, lens, head_shards=2)
+
+    got = shard_run()
+    torch.cuda.synchronize()
+    if not torch.equal(got, whole[:, :, :h // 2]):
+        raise AssertionError("paged decode over a rank's heads is not the "
+                             "whole pool's bit for bit")
+    plan_w = PA.paged_plan(8, hkv, h // hkv, bt.shape[1], ps, sms)
+    plan_s = PA.paged_plan(8, hkv // 2, h // hkv, bt.shape[1], ps, sms,
+                           head_shards=2)
+    if (plan_w.row_tile, plan_w.splits) != (plan_s.row_tile, plan_s.splits):
+        raise AssertionError(f"paged shard plan {plan_s} != whole {plan_w}")
+    want = ref.paged_decode_attention_ref(qs, ks, vs, bt, lens)
+    live = lens > 0
+    err = check_close(TP_KERNEL_ROWS["paged_attention"], got[live],
+                      want[live], BF16_TOL)
+    kv_bytes = PA.paged_kv_bytes(lens.cpu().numpy(), ps, hkv // 2, d, 2)
+    kk = ks[bt.long()].reshape(8, -1, hkv // 2, d).repeat_interleave(4, 2)
+    vv = vs[bt.long()].reshape(8, -1, hkv // 2, d).repeat_interleave(4, 2)
+    mask = (torch.arange(kk.shape[1], device="cuda")[None, None, :]
+            <= (lens - 1)[:, None, None])[:, None]
+    sdpa_args = (qs.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2),
+                 mask)
+    record("paged_attention", TP_KERNEL_ROWS["paged_attention"], err,
+           timer.ms(shard_run),
+           timer.ms(lambda: ref.paged_decode_attention_ref(qs, ks, vs, bt,
+                                                           lens)),
+           kv_bytes + 2 * qs.numel() * 2 + bt.numel() * 4,
+           4 * int(lens.sum()) * (h // 2) * d, torch.bfloat16,
+           timer.ms(lambda: _library_sdpa(torch, *sdpa_args)))
+    log(f"    launch (the whole pool's): row tile {plan_s.row_tile}, "
+        f"{plan_s.splits} splits of {plan_s.pages_per_split} pages")
+
+
+def tp_rank_reports(engine):
+    """Each rank's bytes and launch counters, rank 0 first."""
+    from repro_torch.serving.tp import rank_report
+    mine = rank_report(engine.params, engine.pool.cache)
+    if engine.group is None:
+        return [mine]
+    return [mine] + engine.group.query("report")
+
+
+def tp_serve(torch, np, cfg, params, ec, label, n_req, gen, group=None):
+    """Serve ``n_req`` of phase 4's prompts (``gen`` tokens each) through an
+    engine at ``ec.mesh_model`` on ``group``, every rank's counters zeroed
+    just before; keeps the first decode step's logits (rank 0's, gathered
+    over the vocab). Returns the tokens in submission order, the stats, the
+    logits, each rank's report and the engine (closed by the caller)."""
+    from repro_torch.serving import FINISHED, InferenceEngine
+
+    tb = time.perf_counter()
+    engine = InferenceEngine(cfg, params, ec, device="cuda", group=group)
+    build_s = time.perf_counter() - tb
+    probe = {}
+    decode = engine.fns.decode_step
+
+    def keep_first(p, batch, cache):
+        logits, cache = decode(p, batch, cache)
+        probe.setdefault("logits", logits.clone())
+        return logits, cache
+
+    engine.fns = dataclasses.replace(engine.fns, decode_step=keep_first)
+    rng, prompts = main_traffic(np, cfg.vocab_size)
+    prompts = prompts[:n_req]
+    zero_counters()
+    if engine.group is not None:
+        engine.group.query("zero_counters")
+    rids = [engine.submit(p, max_new_tokens=gen) for p in prompts]
+    done, decode_ms = [], []
+    t0 = time.perf_counter()
+    while engine.sched.has_work():
+        prefills = engine.stats["prefills"]
+        ts = time.perf_counter()
+        done.extend(engine.step())
+        if engine.stats["prefills"] == prefills:
+            decode_ms.append((time.perf_counter() - ts) * 1e3)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    reports = tp_rank_reports(engine)
+    if len(done) != n_req or any(r.status != FINISHED for r in done):
+        raise AssertionError(f"{label}: not every request FINISHED")
+    engine.check_conservation()
+    by_rid = {r.rid: list(r.generated) for r in done}
+    st = engine.stats
+    stats = dict(tokens_per_s=st["tokens_generated"] / wall, wall_s=wall,
+                 engine_build_s=build_s,
+                 decode_step_ms_p50=statistics.median(decode_ms),
+                 decode_steps=st["decode_steps"],
+                 kv_bytes_read=st["kv_bytes_read"],
+                 kv_bytes_read_device=st["kv_bytes_read_device"])
+    stats.update(tp_profile(torch, engine, rng, cfg))
+    return [by_rid[r] for r in rids], stats, probe["logits"], reports, engine
+
+
+def tp_profile(torch, engine, rng, cfg, steps=2):
+    """Rank 0's device time a decode step over ``steps`` steady steps of 8
+    live slots, against their unprofiled wall: each rank is its own
+    process, so the profiler sees rank 0's kernels only."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for n in (32, 128, 512, 128, 32, 512, 128, 32):
+        engine.submit(rng.integers(0, cfg.vocab_size, size=n),
+                      max_new_tokens=2 * steps + 3)
+    engine.step()
+    engine.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        engine.step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            engine.step()
+        torch.cuda.synchronize()
+    engine.run()
+    dev = sum(ms for _, _, ms in device_events(torch, prof)) / steps
+    return dict(steady_step_wall_ms=wall, rank0_device_ms=dev,
+                rank0_busy_share=dev / wall)
+
+
+def tp_prefix(np, cfg, params, group):
+    """Phase 18a's prefix run: 9a's traffic cut to its seeds and first wave
+    (8 requests, 16 tokens each) with the prefix cache on, at mesh 1 and on
+    ``group``'s 2 ranks: the same tokens and hit tokens, and every rank
+    launched the paged kernel's prefill-append form (the adopted pages and
+    the suffixes' writes live on every rank's shard of the pool)."""
+    from repro_torch.serving import EngineConfig, InferenceEngine
+
+    systems, reqs = prefix_traffic(np, cfg.vocab_size)
+    out = {}
+    for tp in (1, 2):
+        ec = EngineConfig(n_slots=8, capacity=640, page_size=16, seed=0,
+                          prefix_cache=True, mesh_model=tp,
+                          mesh_devices=("cuda:0",) * tp if tp > 1 else ())
+        engine = InferenceEngine(cfg, params, ec, device="cuda",
+                                 group=group if tp > 1 else None)
+        for p in systems:
+            engine.submit(p, max_new_tokens=4)
+        engine.run()
+        zero_counters()
+        if tp > 1:
+            group.query("zero_counters")
+        rids = [engine.submit(p, max_new_tokens=16) for p in reqs[:8]]
+        done = {r.rid: list(r.generated) for r in engine.run()}
+        engine.check_conservation()
+        out[tp] = ([done[r] for r in rids], engine.stats["prefix_hit_tokens"],
+                   tp_rank_reports(engine))
+        engine.close()
+    appends = [rep["launches"]["paged_attention_append"]
+               for rep in out[2][2]]
+    log(f"phase 18a prefix cache at mesh 2: tokens equal mesh 1's "
+        f"{out[2][0] == out[1][0]}, hit tokens {out[2][1]} (mesh 1 "
+        f"{out[1][1]}), prefill-append launches a rank {appends}")
+    if out[2][0] != out[1][0] or out[2][1] != out[1][1] or not out[1][1]:
+        raise AssertionError("18a: the prefix cache at mesh 2 is not mesh "
+                             "1's")
+    if not all(appends):
+        raise AssertionError("18a: a rank never ran the prefill-append form")
+    return dict(hit_tokens=out[2][1], append_launches=appends,
+                reports=out[2][2])
+
+
+def tp_compare(torch, label, tp, base, sharded, kernels, params):
+    """18a/b's gate: tokens and the first decode step's logits bit-equal to
+    mesh 1's; per-device KV traffic a tp-th of the aggregate; every rank's
+    KV pool a tp-th of mesh 1's; every rank launched each kernel of
+    ``kernels``. Logs the per-rank figures."""
+    toks1, st1, logits1, rep1, _ = base
+    toks, st, logits, reps, _ = sharded
+    if toks != toks1:
+        raise AssertionError(f"{label}: mesh-{tp} tokens differ from mesh "
+                             f"1's")
+    if not torch.equal(logits, logits1):
+        raise AssertionError(f"{label}: mesh-{tp} decode logits are not "
+                             f"mesh 1's bit for bit")
+    if st["kv_bytes_read_device"] * tp != st["kv_bytes_read"]:
+        raise AssertionError(f"{label}: kv_bytes_read_device x {tp} != "
+                             f"kv_bytes_read")
+    pool1 = rep1[0]["kv_pool_bytes"]
+    for r, rep in enumerate(reps):
+        if rep["kv_pool_bytes"] * tp != pool1:
+            raise AssertionError(f"{label}: rank {r}'s pool is "
+                                 f"{rep['kv_pool_bytes']} B, mesh 1's "
+                                 f"{pool1}")
+        missing = [k for k in kernels if not rep["launches"].get(k)]
+        if missing:
+            raise AssertionError(f"{label}: rank {r} never launched "
+                                 f"{missing}")
+    per_rank = [dict(rank=r, param_bytes=rep["param_bytes"],
+                     param_ratio=rep["param_bytes"] / rep1[0]["param_bytes"],
+                     kv_pool_bytes=rep["kv_pool_bytes"],
+                     cuda_allocated=rep["cuda_allocated"],
+                     launches={k: rep["launches"][k] for k in kernels})
+                for r, rep in enumerate(reps)]
+    out = dict(mesh=tp, tokens_equal=True, logits_equal=True,
+               mesh1=st1, sharded=st, per_rank=per_rank,
+               streamed_weight_ratio=(_weight_bytes(sharded[4].params)
+                                      / _weight_bytes(params)),
+               mesh1_param_bytes=rep1[0]["param_bytes"],
+               mesh1_kv_pool_bytes=pool1,
+               mesh1_launches={k: rep1[0]["launches"][k] for k in kernels})
+    log(f"phase {label}: " + json.dumps(out))
+    return out
+
+
+def psum_rank():
+    """One rank of 18d (``ModelGroup.call``): pod 2 x data 2 over the
+    group's 4 gloo ranks on the card."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime.collectives import hierarchical_psum
+
+    rank = dist.get_rank()
+    mesh = make_mesh((2, 2), ("pod", "data"))
+    g = np.random.default_rng(rank).standard_normal((64, 1024)).astype(
+        np.float32)
+    exact = hierarchical_psum({"g": torch.as_tensor(g, device="cuda")},
+                              mesh)["g"].cpu().numpy()
+    # the codec as the reference tests it: the same gradients on every rank
+    g0 = np.random.default_rng(0).standard_normal((64, 1024)).astype(
+        np.float32)
+    q = hierarchical_psum({"g": torch.as_tensor(g0, device="cuda")}, mesh,
+                          codec="int8")["g"].cpu().numpy()
+    return exact, q
+
+
+def tp_psum(np, group):
+    """Phase 18d: ``hierarchical_psum`` on the 4 gloo ranks of 18b's group,
+    CUDA tensors on the card (pod 2 x data 2): the full-precision reduction
+    bit-equal to the numpy sum of the four ranks' gradients in its order
+    (data, then pod); the int8 codec, over the same gradients on every
+    rank as the reference tests it, within the reference's 2% relative
+    error."""
+    got = group.call(psum_rank)
+    g = [np.random.default_rng(r).standard_normal((64, 1024)).astype(
+        np.float32) for r in range(4)]
+    want = (g[0] + g[1]) + (g[2] + g[3])
+    rel = max(float(np.linalg.norm(q - 4 * g[0]) / np.linalg.norm(4 * g[0]))
+              for _, q in got)
+    exact_err = max(float(np.abs(e - want).max()) for e, _ in got)
+    log(f"phase 18d hierarchical_psum (4 gloo ranks on the card, pod 2 x "
+        f"data 2): exact max |err| {exact_err:.3e}; int8 relative error "
+        f"{rel:.4f} (reference's bound 0.02)")
+    if exact_err > 0 or rel >= 0.02:
+        raise AssertionError("18d: hierarchical_psum disagrees")
+    return dict(exact_max_abs_err=exact_err, int8_rel_err=rel)
+
+
+def run_phase_tp(torch, np, smi):
+    """Phase 18 in order, timed per sub-phase. Returns the launches of the
+    sharded runs (rank 0's plus every other rank's), the 18c rows and the
+    summary."""
+    from repro_torch.serving import EngineConfig
+    from repro_torch.serving.tp import make_model_group
+
+    log(f"phase 18, tensor-parallel serving: ranks sharing the card under "
+        f"gloo ({smi})")
+    times, summary = {}, {}
+    t0 = time.perf_counter()
+    rows, timer = [], Timer(torch)
+    tp_shard_cases(torch, timer, recorder(torch, rows))
+    del timer
+    torch.cuda.empty_cache()
+    times["18c"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    cfg, params, params_q, _ = build_main_params(torch)
+    times["params"] = time.perf_counter() - t0
+    acc = {}
+
+    def take(reports):              # every rank's launches, summed
+        for rep in reports:
+            for k, v in rep["launches"].items():
+                acc[k] = acc.get(k, 0) + v
+
+    t0 = time.perf_counter()
+    ec1 = EngineConfig(n_slots=8, capacity=640, page_size=16, seed=0)
+    base = tp_serve(torch, np, cfg, params, ec1, "18a mesh 1", 16, 32)
+    base[4].close()
+    tg = time.perf_counter()
+    with make_model_group(2, ["cuda:0"] * 2, timeout_s=300) as group:
+        summary["18a_group_start_s"] = time.perf_counter() - tg
+        ec2 = dataclasses.replace(ec1, mesh_model=2,
+                                  mesh_devices=("cuda:0",) * 2)
+        sharded = tp_serve(torch, np, cfg, params, ec2, "18a mesh 2", 16, 32,
+                           group)
+        take(sharded[3])
+        summary["18a"] = tp_compare(torch, "18a bf16", 2, base, sharded,
+                                    FP_KERNELS, params)
+        sharded[4].close()
+        summary["18a_prefix"] = tp_prefix(np, cfg, params, group)
+        take(summary["18a_prefix"].pop("reports"))
+    del sharded, base, params
+    torch.cuda.empty_cache()
+    times["18a"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    ec1q = EngineConfig(n_slots=8, capacity=640, page_size=16, seed=0,
+                        kv_dtype="int8", weight_dtype="int8")
+    base = tp_serve(torch, np, cfg, params_q, ec1q, "18b mesh 1", 8, 16)
+    base[4].close()
+    tg = time.perf_counter()
+    with make_model_group(4, ["cuda:0"] * 4, timeout_s=300) as group:
+        summary["18b_group_start_s"] = time.perf_counter() - tg
+        ec4 = dataclasses.replace(ec1q, mesh_model=4,
+                                  mesh_devices=("cuda:0",) * 4)
+        sharded = tp_serve(torch, np, cfg, params_q, ec4, "18b mesh 4", 8,
+                           16, group)
+        take(sharded[3])
+        lm = sharded[4].params["lm_head"]["w_packed"]
+        if lm.shape[0] != cfg.vocab_size:
+            raise AssertionError("18b: lm_head's 1002 row blocks do not "
+                                 "divide 4, yet it was split")
+        log("phase 18b: lm_head stays replicated (1002 row blocks, mesh 4)")
+        summary["18b"] = tp_compare(torch, "18b int8", 4, base, sharded,
+                                    INT8_KERNELS, params_q)
+        sharded[4].close()
+        del sharded, base, params_q
+        torch.cuda.empty_cache()
+        times["18b"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        summary["18d"] = tp_psum(np, group)
+        times["18d"] = time.perf_counter() - t0
+    summary["times_s"] = times
+    log("phase 18: " + json.dumps({k: v for k, v in summary.items()
+                                   if k in ("times_s", "18d",
+                                            "18a_group_start_s",
+                                            "18b_group_start_s")}))
+    log(f"phase 18: {sum(times.values()):.1f} s")
+    return acc, rows
+
+
 def bcr_worker(tree: str) -> int:
     """``--bcr-worker TREE``: :func:`bcr_cases`, :func:`paged_cases`,
     :func:`skip_cases` and :func:`flash_cases` against TREE's own
@@ -6070,10 +6577,12 @@ def main() -> int:
     encdec_only = sys.argv[1:] == ["--encdec"]
     train_only = sys.argv[1:] == ["--train"]
     tune_only = sys.argv[1:] == ["--tune"]
+    tp_only = sys.argv[1:] == ["--tp"]
     if len(sys.argv) > 1 and not (paper_only or families_only
-                                  or encdec_only or train_only or tune_only):
+                                  or encdec_only or train_only or tune_only
+                                  or tp_only):
         print("usage: chip_smoke.py [--bcr-ab TREE... | --bcr-worker TREE | "
-              "--paper | --families | --encdec | --train | --tune]",
+              "--paper | --families | --encdec | --train | --tune | --tp]",
               file=sys.stderr)
         return 2
     import numpy as np
@@ -6140,6 +6649,12 @@ def main() -> int:
     if tune_only:
         tune_launches = run_phase_tune(torch, np, smi)
         log(f"phase 17 launches: {json.dumps(tune_launches)}")
+        log(smi)
+        return 0
+    if tp_only:
+        tp_launches, tp_rows = run_phase_tp(torch, np, smi)
+        log("phase 18 kernel cases: " + json.dumps(tp_rows))
+        log(f"phase 18 launches: {json.dumps(tp_launches)}")
         log(smi)
         return 0
 
@@ -6263,6 +6778,8 @@ def main() -> int:
     encdec_launches = run_phase_encdec(torch, np)
     train_launches = run_phase_train(torch, np, smi)
     tune_launches = run_phase_tune(torch, np, smi)
+    tp_launches, tp_rows = run_phase_tp(torch, np, smi)
+    log("phase 18 kernel cases: " + json.dumps(tp_rows))
 
     # one entry per kernel form at its decode-step shape (M = 8 slots) or,
     # for flash, the largest cold-prefill bucket; launches from the main
@@ -6291,7 +6808,14 @@ def main() -> int:
             family_launches=family_launches.get(name, 0),
             encdec_launches=encdec_launches.get(name, 0),
             train_launches=train_launches.get(name, 0),
-            tune_launches=tune_launches.get(name, 0)))
+            tune_launches=tune_launches.get(name, 0),
+            tp_launches=tp_launches.get(name, 0)))
+        if name in TP_KERNEL_ROWS:
+            # phase 18c: the kernel at its tp = 2 shard shape
+            tp_row = next(r for r in tp_rows
+                          if r["shape"] == TP_KERNEL_ROWS[name])
+            kernels[-1].update(tp_shape=tp_row["shape"], tp_ms=tp_row["ms"],
+                               tp_bound_ms=tp_row["bound_ms"])
         if name in FP_KERNELS + INT8_KERNELS + ("flash_attention_fused",):
             # phase 12's MoE path runs these too (deepseek's shapes)
             kernels[-1]["moe_launches"] = (

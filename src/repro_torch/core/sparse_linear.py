@@ -45,6 +45,15 @@ def linear_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def linear_in_dim(params: Params) -> int:
+    """The input width ``K`` of a dense, packed or fused linear."""
+    if "w_packed" in params:
+        return params["w_packed"].shape[1]
+    if "w_group" in params:
+        return params["w_group"].shape[1]
+    return params["w"].shape[-1]
+
+
 def grouped_linear_apply(params: Params, x: torch.Tensor, *,
                          epilogue: Optional[str] = None):
     """Apply a fused projection group sharing activation ``x``; returns one

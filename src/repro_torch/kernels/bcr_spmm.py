@@ -48,7 +48,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.plan import launch_genome, stacked_experts
+from repro_torch.kernels.plan import (launch_genome, plan_shards,
+                                     stacked_experts)
 
 LAUNCHES = {"bcr_spmm": 0, "bcr_spmm_grouped": 0, "bcr_spmm_int8": 0,
             "bcr_spmm_grouped_int8": 0, "bcr_spmm_experts": 0,
@@ -213,8 +214,8 @@ def launch_plan(m: int, n: int, k: int, g: int, block: Tuple[int, int],
                 kept: Tuple[int, int], sm_count: int,
                 int8_tiles: bool = False, aligned: bool = True,
                 experts: int = 1,
-                genome: Optional[Tuple[int, int, bool]] = None
-                ) -> LaunchPlan:
+                genome: Optional[Tuple[int, int, bool]] = None,
+                shards: int = 1) -> LaunchPlan:
     """The tensor-core launch for ``x (m, k)`` against G packed ``(n, k)``
     weights of ``block`` blocks keeping ``kept`` = (R_keep, C_keep), for
     each of ``experts`` stacked experts (the same plan for every expert).
@@ -243,6 +244,12 @@ def launch_plan(m: int, n: int, k: int, g: int, block: Tuple[int, int],
     above. A genome that cannot run (a configuration that does not fit G
     members of this block, or shared memory no stage count fits) raises
     ``ValueError``: it never falls back to another plan.
+
+    ``shards`` > 1 plans one of that many column-parallel shards of a
+    weight (``kernels/plan.split_packed``): the split counts the whole
+    weight's output tiles, so a shard splits its contraction as the whole
+    does and sums the same partials in the same order. Nothing else the
+    rule decides depends on the number of block rows.
     """
     br, bc = block
     r, c = kept
@@ -272,7 +279,8 @@ def launch_plan(m: int, n: int, k: int, g: int, block: Tuple[int, int],
                              f"keeping {c} columns")
         n_chunk, chunks, _ = chunking
         tiles = experts * nb_r * chunks * (-(-m // mt))
-        splits = _rule_splits(tiles, nb_c, sm_count) if split else 1
+        splits = (_rule_splits(tiles * shards, nb_c, sm_count) if split
+                  else 1)
         plan = _fit(mt, slabs, wm, nw, n_chunk, chunks, m, g, bc, r, c, nb_r,
                     nb_c, splits, int8_tiles, vec, experts)
         if plan is None:
@@ -296,8 +304,8 @@ def launch_plan(m: int, n: int, k: int, g: int, block: Tuple[int, int],
         _, slabs, wm, nw, n_chunk, chunks = best
         tiles = experts * nb_r * chunks * (-(-m // mt))
         plan = _fit(mt, slabs, wm, nw, n_chunk, chunks, m, g, bc, r, c, nb_r,
-                    nb_c, _rule_splits(tiles, nb_c, sm_count), int8_tiles,
-                    vec, experts)
+                    nb_c, _rule_splits(tiles * shards, nb_c, sm_count),
+                    int8_tiles, vec, experts)
         if plan is not None:
             return plan
     raise ValueError(f"BCR block {br}x{bc} keeping {r}x{c} (G={g}) needs "
@@ -403,7 +411,8 @@ def _launch(x, packed, scales, g, e, grouped, bias, swiglu, y, what) -> None:
             x, packed.vals, packed.row_idx, packed.col_idx))
         plan = launch_plan(m, n, k, g, (br, bc), (r, c), _sm_count(x.device),
                            scales is not None, aligned, max(e, 1),
-                           launch_genome(packed.plan, m))
+                           launch_genome(packed.plan, m),
+                           plan_shards(packed.plan))
         plan_arr = (ctypes.c_int * 9)(*plan.args())
         if plan.splits > 1:
             ws = torch.empty(plan.workspace_floats, dtype=torch.float32,

@@ -118,7 +118,8 @@ class PagedPlan:
 
 
 def paged_plan(b: int, hkv: int, rows: int, n_cols: int, page_size: int,
-               sm_count: int, row_tile: int | None = None) -> PagedPlan:
+               sm_count: int, row_tile: int | None = None,
+               head_shards: int = 1) -> PagedPlan:
     """The launch for ``b`` slots of ``hkv`` kv-heads, ``rows`` = S·G query
     rows each, over block tables ``n_cols`` pages wide. It reads only what
     the host has — never the device lengths — so it depends on the table
@@ -140,17 +141,26 @@ def paged_plan(b: int, hkv: int, rows: int, n_cols: int, page_size: int,
       walk is a chain of memory latencies). At most ``n_cols`` splits, so
       none is empty by construction; splits past a short slot's live pages
       return at once on the card.
+
+    ``head_shards`` > 1 plans one of that many head-parallel shards of the
+    pool (tensor-parallel serving, ``hkv`` the shard's own kv-heads): the
+    row tile and the split are decided for the whole pool's ``hkv ·
+    head_shards`` heads, so a shard merges the same partials in the same
+    order as the whole would; only its units are its own.
     """
+    whole = b * hkv * head_shards
     if row_tile is None:
         top = max(TC_ROW_TILES[0], -(-rows // 16) * 16)
         tiles = [t for t in TC_ROW_TILES if t <= top]
         row_tile = next((t for t in reversed(tiles)
-                         if b * hkv * -(-rows // t) >= sm_count), tiles[0])
+                         if whole * -(-rows // t) >= sm_count), tiles[0])
     row_tiles = max(1, -(-rows // row_tile))
     units = b * hkv * row_tiles
+    whole_units = whole * row_tiles
     keys = n_cols * page_size
-    fill = (1 if 2 * units > sm_count
-            else min(-(-sm_count // units), max(1, keys // MIN_SPLIT_KEYS)))
+    fill = (1 if 2 * whole_units > sm_count
+            else min(-(-sm_count // whole_units),
+                     max(1, keys // MIN_SPLIT_KEYS)))
     want = max(1, min(n_cols, max(fill, -(-keys // SPLIT_KEYS))))
     pps = max(1, -(-n_cols // want))
     while pps > 1 and -(-n_cols // pps) < want:   # at least `want` splits
@@ -172,7 +182,7 @@ def library() -> ctypes.CDLL:
 
 def _paged_attention(q, k_pages, v_pages, block_tables, prefix_len,
                      total_len, k_scale=None, v_scale=None,
-                     append=False) -> torch.Tensor:
+                     append=False, head_shards=1) -> torch.Tensor:
     """Kernel launch: q (B, S, H, D), row ``i`` of slot ``b`` at absolute
     position ``prefix_len[b] + i`` (``prefix_len`` None: ``total_len[b] -
     S + i``, the slot's last S positions), over table pages covering
@@ -231,7 +241,8 @@ def _paged_attention(q, k_pages, v_pages, block_tables, prefix_len,
         t.data_ptr() % 16 == 0 for t in (qc, k_pages, v_pages)))
     plan = paged_plan(b, hkv, rows, n_cols, page_size, _sm_count(q.device),
                       row_tile=None if tc
-                      else cuda_core_row_tile(rows, d, page_size))
+                      else cuda_core_row_tile(rows, d, page_size),
+                      head_shards=head_shards)
     ws = counters = None
     if plan.splits > 1:
         ws = torch.empty(plan.workspace_floats(d), dtype=torch.float32,
@@ -260,12 +271,14 @@ def _paged_attention(q, k_pages, v_pages, block_tables, prefix_len,
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, block_tables: torch.Tensor,
                            cache_len: torch.Tensor, *, k_scale=None,
-                           v_scale=None) -> torch.Tensor:
+                           v_scale=None, head_shards: int = 1
+                           ) -> torch.Tensor:
     """Single-step attention against each slot's live pages only.
 
     q ``(B, 1, H, D)``; ``cache_len`` ``(B,)`` counts valid positions
     including the step's new token; ``k_scale``/``v_scale`` are the scale
-    pools of int8 pages. Returns ``(B, 1, H, D)``."""
+    pools of int8 pages; ``head_shards`` the head-parallel shards the pool
+    is one of (:func:`paged_plan`). Returns ``(B, 1, H, D)``."""
     if q.shape[1] != 1:
         raise ValueError("paged_decode_attention is a single-step kernel")
     if not q.is_cuda:
@@ -274,7 +287,8 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                                               k_scale=k_scale,
                                               v_scale=v_scale)
     return _paged_attention(q, k_pages, v_pages, block_tables, None,
-                            cache_len, k_scale, v_scale)
+                            cache_len, k_scale, v_scale,
+                            head_shards=head_shards)
 
 
 def paged_prefill_append_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -282,7 +296,8 @@ def paged_prefill_append_attention(q: torch.Tensor, k_pages: torch.Tensor,
                                    block_tables: torch.Tensor,
                                    prefix_len: torch.Tensor,
                                    total_len: torch.Tensor, *, k_scale=None,
-                                   v_scale=None) -> torch.Tensor:
+                                   v_scale=None, head_shards: int = 1
+                                   ) -> torch.Tensor:
     """Prefill-append: the uncached suffix attends to cached prefix pages
     (decode is the S=1, prefix_len=cache_len-1 case). Rows at/past a slot's
     true suffix length are garbage the caller discards. Returns
@@ -292,7 +307,8 @@ def paged_prefill_append_attention(q: torch.Tensor, k_pages: torch.Tensor,
                                             prefix_len, total_len,
                                             k_scale=k_scale, v_scale=v_scale)
     return _paged_attention(q, k_pages, v_pages, block_tables, prefix_len,
-                            total_len, k_scale, v_scale, append=True)
+                            total_len, k_scale, v_scale, append=True,
+                            head_shards=head_shards)
 
 
 def paged_kv_bytes(cache_len, page_size: int, hkv: int, d: int,

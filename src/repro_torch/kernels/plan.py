@@ -37,7 +37,7 @@ tunes nor fuses.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -64,6 +64,13 @@ class BCRPlan:
         default=None, metadata={"static": True})
     m_hint: Optional[int] = dataclasses.field(
         default=None, metadata={"static": True})
+    # the column-parallel shards the whole weight was split into (1: the
+    # whole weight). A shard launches as the whole would: the split rule
+    # of ``bcr_spmm.launch_plan`` counts the whole's output tiles, so the
+    # partial sums add up in the same order and the tokens of a sharded
+    # engine stay bit-identical to one device's (``split_packed``)
+    row_shards: int = dataclasses.field(default=1,
+                                        metadata={"static": True})
 
     def nbytes(self) -> int:
         tot = self.gather_cols.numel() * 4 + self.scatter_rows.numel() * 4
@@ -107,8 +114,15 @@ def attach_plan(packed: TBCRC, genome: Optional[Genome] = None, *,
     plan = BCRPlan(gather_cols=gcols, scatter_rows=srows,
                    block_scales=scales,
                    genome=dict(genome) if genome is not None else None,
-                   m_hint=m if genome is not None else None)
+                   m_hint=m if genome is not None else None,
+                   row_shards=plan_shards(packed.plan))
     return dataclasses.replace(packed, plan=plan)
+
+
+def plan_shards(plan: Any) -> int:
+    """How many column-parallel shards ``plan``'s weight is one of (1 for
+    a whole weight, or no plan)."""
+    return getattr(plan, "row_shards", 1)
 
 
 def launch_genome(plan: Any, m: int) -> Optional[Tuple[int, int, bool]]:
@@ -478,3 +492,195 @@ def quantize_packed_params(tree: Any) -> Any:
     if isinstance(tree, list):
         return [quantize_packed_params(v) for v in tree]
     return tree
+
+
+# ---------------------------------------------------------------------------
+# Column-parallel splitting for tensor-parallel serving (the reference's
+# ``kernels/plan.py`` splitters). A packed matrix shards cleanly along nb_r:
+# row block i scatters only into output rows [i·br, (i+1)·br), so
+# contiguous nb_r ranges, with rows renumbered into each shard's local
+# space, are self-contained sub-packs whose outputs concatenate to the
+# whole's, in order, through the unmodified kernels. gather_cols index K
+# (the activation stays replicated), so they do not change. Every shard
+# keeps the whole's dispatch genome and records the shard count
+# (``BCRPlan.row_shards``), so it launches as the whole does.
+# ---------------------------------------------------------------------------
+
+
+def _slice_dim(a: torch.Tensor, s: int, step: int, ax: int) -> torch.Tensor:
+    return a.narrow(ax % a.dim(), s * step, step).contiguous()
+
+
+def splittable_packed(packed, n_shards: int) -> Optional[str]:
+    """None if ``packed`` splits evenly into ``n_shards`` output shards,
+    else the reason, in the reference's words."""
+    if n_shards <= 1:
+        return None
+    nb_r = packed.vals.shape[-4]
+    n, _ = packed.shape
+    br = packed.block_shape[0]
+    if nb_r % n_shards:
+        return f"nb_r={nb_r} row blocks not divisible into {n_shards} shards"
+    if n != nb_r * br:
+        return (f"ragged last row block (N={n}, nb_r={nb_r}, br={br}) "
+                f"cannot shard")
+    return None
+
+
+def _sub_plan(plan: Any, gcols: torch.Tensor, srows: torch.Tensor,
+              scales: Optional[torch.Tensor], n_shards: int,
+              group_size: int = 1) -> BCRPlan:
+    """A shard's plan: its own flat vectors and scales, the whole's genome,
+    and the whole's shard count times ``n_shards``."""
+    genome = getattr(plan, "genome", None)
+    return BCRPlan(gather_cols=gcols, scatter_rows=srows,
+                   block_scales=scales,
+                   genome=dict(genome) if genome is not None else None,
+                   m_hint=getattr(plan, "m_hint", None),
+                   row_shards=plan_shards(plan) * n_shards)
+
+
+def split_packed_shard(packed: TBCRC, n_shards: int, s: int) -> TBCRC:
+    """Shard ``s`` of :func:`split_packed`: output rows ``[s·N/n,
+    (s+1)·N/n)``, its row blocks the contiguous nb_r slice, its
+    ``scatter_rows`` regenerated in the shard-local row space and its
+    ``shape`` the local ``(N/n, K)``. int8 tile scales slice with their
+    blocks; the genome is the whole's. Leading (stacked) axes slice
+    along their nb_r axis unchanged."""
+    reason = splittable_packed(packed, n_shards)
+    if reason:
+        raise ValueError(f"split_packed: {reason}")
+    step = packed.vals.shape[-4] // n_shards
+    n, k = packed.shape
+    row_idx = _slice_dim(packed.row_idx, s, step, -3)
+    col_idx = _slice_dim(packed.col_idx, s, step, -3)
+    gcols, srows = _index_vectors(row_idx, col_idx, packed.block_shape)
+    scales = getattr(packed.plan, "block_scales", None)
+    if scales is not None:
+        scales = _slice_dim(scales, s, step, -2)
+    return dataclasses.replace(
+        packed, vals=_slice_dim(packed.vals, s, step, -4), row_idx=row_idx,
+        col_idx=col_idx, shape=(n // n_shards, k),
+        plan=_sub_plan(packed.plan, gcols, srows, scales, n_shards))
+
+
+def split_packed(packed: TBCRC, n_shards: int) -> List[TBCRC]:
+    """Split a packed weight into ``n_shards`` column-parallel sub-packs
+    (:func:`split_packed_shard` each); one shard is the pack itself."""
+    if n_shards == 1:
+        return [packed]
+    return [split_packed_shard(packed, n_shards, s)
+            for s in range(n_shards)]
+
+
+def _cat_or_none(parts: Sequence[Optional[torch.Tensor]], ax: int):
+    if any(p is None for p in parts):
+        return None
+    return torch.cat(list(parts), dim=ax)
+
+
+def merge_packed(shards: Sequence[TBCRC]) -> TBCRC:
+    """Inverse of :func:`split_packed`: the whole pack, its flat vectors
+    regenerated from the merged index planes."""
+    shards = list(shards)
+    first = shards[0]
+    n_local, k = first.shape
+    row_idx = torch.cat([s.row_idx for s in shards], dim=-3)
+    col_idx = torch.cat([s.col_idx for s in shards], dim=-3)
+    gcols, srows = _index_vectors(row_idx, col_idx, first.block_shape)
+    scales = _cat_or_none([getattr(s.plan, "block_scales", None)
+                           for s in shards], -2)
+    plan = dataclasses.replace(
+        _sub_plan(first.plan, gcols, srows, scales, 1),
+        row_shards=max(1, plan_shards(first.plan) // len(shards)))
+    return dataclasses.replace(
+        first, vals=torch.cat([s.vals for s in shards], dim=-4),
+        row_idx=row_idx, col_idx=col_idx,
+        shape=(n_local * len(shards), k), plan=plan)
+
+
+def _member(grouped: GroupedTBCRC, g: int) -> TBCRC:
+    """Member ``g`` of a fused group as a standalone TBCRC, its tile scales
+    and the group's genome riding along and its flat vectors rebuilt."""
+    def take(a, ax):
+        return a.select(ax % a.dim(), g).contiguous()
+    row_idx, col_idx = take(grouped.row_idx, -4), take(grouped.col_idx, -4)
+    gcols, srows = _index_vectors(row_idx, col_idx, grouped.block_shape)
+    scales = getattr(grouped.plan, "block_scales", None)
+    plan = _sub_plan(grouped.plan, gcols, srows,
+                     take(scales, -3) if scales is not None else None, 1)
+    return TBCRC(vals=take(grouped.vals, -5), row_idx=row_idx,
+                 col_idx=col_idx, shape=grouped.shape,
+                 block_shape=grouped.block_shape, plan=plan)
+
+
+def split_grouped_shard(grouped: GroupedTBCRC, n_shards: int, s: int
+                        ) -> GroupedTBCRC:
+    """Shard ``s`` of :func:`split_grouped`. The fused flat vectors are
+    g-major (member, then block), so they do not slice along the output
+    axis: each member is split by :func:`split_packed_shard` and the
+    shard's fused vectors are rebuilt with member offset ``g·N/n`` in the
+    shard-local output space, as :func:`pack_group` lays out local
+    members."""
+    g_n = grouped.group_size
+    mems = [split_packed_shard(_member(grouped, g), n_shards, s)
+            for g in range(g_n)]
+    n_local = grouped.shape[0] // n_shards
+    ax = grouped.vals.dim() - 5          # the group axis, after any expert
+    gcols = torch.cat([m.plan.gather_cols for m in mems], dim=-1)
+    srows = torch.cat([m.plan.scatter_rows + g * n_local
+                       for g, m in enumerate(mems)], dim=-1)
+    scales = [m.plan.block_scales for m in mems]
+    scales = (torch.stack(scales, dim=ax).contiguous()
+              if all(sc is not None for sc in scales) else None)
+    plan = _sub_plan(grouped.plan, gcols.to(torch.int32),
+                     srows.to(torch.int32), scales, n_shards)
+    return GroupedTBCRC(
+        vals=torch.stack([m.vals for m in mems], dim=ax).contiguous(),
+        row_idx=torch.stack([m.row_idx for m in mems], dim=ax).contiguous(),
+        col_idx=torch.stack([m.col_idx for m in mems], dim=ax).contiguous(),
+        plan=plan, shape=(n_local, grouped.shape[1]),
+        block_shape=grouped.block_shape, group_size=g_n)
+
+
+def split_grouped(grouped: GroupedTBCRC, n_shards: int
+                  ) -> List[GroupedTBCRC]:
+    """Split a fused projection group into ``n_shards`` per-shard groups
+    (:func:`split_grouped_shard` each)."""
+    reason = splittable_packed(_member(grouped, 0), n_shards)
+    if reason:
+        raise ValueError(f"split_grouped: {reason}")
+    if n_shards == 1:
+        return [grouped]
+    return [split_grouped_shard(grouped, n_shards, s)
+            for s in range(n_shards)]
+
+
+def merge_grouped(shards: Sequence[GroupedTBCRC]) -> GroupedTBCRC:
+    """Inverse of :func:`split_grouped`: the canonical g-major vectors
+    rebuilt from the merged index planes, as :func:`pack_group` lays them
+    out."""
+    shards = list(shards)
+    first = shards[0]
+    g_n = first.group_size
+    n_full = first.shape[0] * len(shards)
+    row_idx = torch.cat([s.row_idx for s in shards], dim=-3)
+    col_idx = torch.cat([s.col_idx for s in shards], dim=-3)
+    gcols, srows = [], []
+    for g in range(g_n):
+        gc, sr = _index_vectors(row_idx.select(row_idx.dim() - 4, g),
+                                col_idx.select(col_idx.dim() - 4, g),
+                                first.block_shape)
+        gcols.append(gc)
+        srows.append(sr + g * n_full)
+    scales = _cat_or_none([getattr(s.plan, "block_scales", None)
+                           for s in shards], -2)
+    plan = dataclasses.replace(
+        _sub_plan(first.plan, torch.cat(gcols, dim=-1).to(torch.int32),
+                  torch.cat(srows, dim=-1).to(torch.int32), scales, 1),
+        row_shards=max(1, plan_shards(first.plan) // len(shards)))
+    return GroupedTBCRC(
+        vals=torch.cat([s.vals for s in shards], dim=-4),
+        row_idx=row_idx, col_idx=col_idx, plan=plan,
+        shape=(n_full, first.shape[1]), block_shape=first.block_shape,
+        group_size=g_n)

@@ -16,10 +16,12 @@ quantized) engine as ``launch/serve.py`` and serves it over
 ``--device`` (default ``cuda``; raises when no card is visible) and
 ``--attn-impl`` (in place of the reference's JAX-only ``--impl``) are the
 port's own, as is ``--num-layers`` (cut the depth; 0 keeps the config's).
-Weights are random, from seed 0. ``--mesh-model`` > 1 raises: tensor
-parallelism is not ported yet. Before ``/readyz`` turns 200, ``warmup``
-builds and loads every kernel library the configuration launches and runs
-each dispatch shape once.
+Weights are random, from seed 0. ``--mesh-model N`` serves tensor-parallel
+over N ranks that this command starts (``--mesh-devices``: each rank's
+device, e.g. ``cuda:0,cuda:0`` to share one card or ``cpu,cpu``; default
+one card a rank); the drain stops them. Before ``/readyz`` turns 200,
+``warmup`` builds and loads every kernel library the configuration
+launches and runs each dispatch shape once.
 
 SIGTERM (or Ctrl-C) drains gracefully: readiness flips false, the waiting
 queue is shed as 429, in-flight requests finish and flush their streams,
@@ -36,7 +38,8 @@ import sys
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.launch.serve import build_draft, build_params
+from repro_torch.launch.serve import (add_mesh_args, build_draft,
+                                      build_params, mesh_options)
 from repro_torch.models.layers import FLASH_ATTN_IMPLS, PLAIN_ATTN_IMPLS
 from repro_torch.serving import EngineConfig, InferenceEngine, TenantQuota
 from repro_torch.serving.server import InferenceServer, ServerConfig
@@ -99,9 +102,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "kernel; empty keeps the config's")
     p.add_argument("--kv-dtype", default="", choices=["", "int8"])
     p.add_argument("--weight-dtype", default="", choices=["", "int8"])
-    p.add_argument("--mesh-model", type=int, default=1,
-                   help="tensor-parallel mesh size; > 1 is not ported yet "
-                        "and raises")
+    add_mesh_args(p)
     p.add_argument("--max-waiting", type=int, default=0,
                    help="bound the waiting queue; overflow sheds the "
                         "lowest-tier earliest-deadline waiter as 429")
@@ -181,7 +182,7 @@ def build_server(args: argparse.Namespace) -> InferenceServer:
         max_waiting=args.max_waiting or None,
         preempt_after_stalls=args.preempt_after_stalls,
         slo_admission=args.slo_admission, slo_slack=args.slo_slack,
-        mesh_model=args.mesh_model,
+        **mesh_options(args),
         tenant_quotas=parse_tenant_quotas(args.tenant) or None,
         default_tenant_quota=(
             parse_tenant_quotas(["_," + args.default_tenant_quota])["_"]

@@ -424,11 +424,15 @@ def _pct(a, q) -> float:
 
 def run_traffic(engine: InferenceEngine, tc: TrafficConfig, log=print
                 ) -> Dict[str, Any]:
-    """Open-loop arrivals against a live engine, paced by the wall clock,
-    as the reference's ``run_traffic``: Poisson gaps at ``tc.rate`` (or a
-    trace's offsets, each record clamped to fit its slot), submissions as
-    they fall due, client-side cancels, one ``step`` at a time, and a sleep
-    only while the engine is idle ahead of the next arrival. Returns the
+    """Open-loop arrivals against a live engine, as the reference's
+    ``run_traffic``: Poisson gaps at ``tc.rate`` (or a trace's offsets, each
+    record clamped to fit its slot), submissions as they fall due,
+    client-side cancels, one ``step`` at a time, and a sleep only while the
+    engine is idle ahead of the next arrival. Paced by the engine's clock
+    (``engine.clock``: the wall clock unless the engine was built with
+    another) and that clock's ``sleep`` when it has one (a ``FakeClock``),
+    else ``time.sleep``; arrivals fall due at absolute times on that
+    clock, so a fake clock's sleep lands on them exactly. Returns the
     metrics dict (throughput, goodput, per-status counts, TTFT and
     per-token p50/p95/p99 over FINISHED requests, mean occupancy, prefix,
     speculative and admission counters)."""
@@ -486,12 +490,16 @@ def run_traffic(engine: InferenceEngine, tc: TrafficConfig, log=print
         cancel_at[hit] = arrivals[hit] + rng.uniform(
             0.01, max(span, 0.02), size=int(hit.sum()))
 
-    t0 = time.perf_counter()
+    clock = engine.clock
+    sleep = getattr(clock, "sleep", time.sleep)
+    t0 = clock()
+    due = t0 + arrivals
+    cancel_at = t0 + cancel_at
     submitted = 0
     rids: List[int] = []
     while submitted < n_requests or engine.sched.has_work():
-        now = time.perf_counter() - t0
-        while submitted < n_requests and arrivals[submitted] <= now:
+        now = clock()
+        while submitted < n_requests and due[submitted] <= now:
             rids.append(engine.submit(
                 prompts[submitted], max_new_tokens=gens[submitted],
                 temperature=tc.temperature, top_k=tc.top_k,
@@ -507,10 +515,10 @@ def run_traffic(engine: InferenceEngine, tc: TrafficConfig, log=print
             # idle until the next arrival (none left once a cancel has
             # emptied the engine after the last submission)
             if submitted < n_requests:
-                time.sleep(max(0.0, arrivals[submitted] - now))
+                sleep(max(0.0, due[submitted] - now))
             continue
         engine.step()                # ends in a device→host token copy
-    elapsed = time.perf_counter() - t0
+    elapsed = clock() - t0
 
     reqs = engine.sched.finished
     fin = [r for r in reqs if r.status == FINISHED]
@@ -588,6 +596,29 @@ def run_traffic(engine: InferenceEngine, tc: TrafficConfig, log=print
             f"{metrics['decode_tokens_per_step']:.2f} committed tokens/decode "
             f"step; accepted-length histogram {st['accepted_hist']}")
     return metrics
+
+
+def add_mesh_args(p: argparse.ArgumentParser) -> None:
+    """``--mesh-model`` and ``--mesh-devices``, shared by the serving
+    CLIs."""
+    p.add_argument("--mesh-model", type=int, default=1,
+                   help="tensor-parallel mesh size: every projection "
+                        "column-parallel and attention head-parallel, one "
+                        "process a rank started by this command (greedy "
+                        "tokens equal --mesh-model 1's). Needs the paged "
+                        "pool (--page-size > 0), a dense or vlm arch and "
+                        "head counts that divide the mesh")
+    p.add_argument("--mesh-devices", default="",
+                   help="each rank's device, comma-separated, rank 0's (the "
+                        "engine's --device) first: cuda:0,cuda:0 shares one "
+                        "card, cpu,cpu runs on the CPU; empty → one card a "
+                        "rank")
+
+
+def mesh_options(args: argparse.Namespace) -> Dict[str, Any]:
+    """The ``EngineConfig`` fields of :func:`add_mesh_args`' flags."""
+    devices = tuple(d for d in args.mesh_devices.split(",") if d)
+    return dict(mesh_model=args.mesh_model, mesh_devices=devices)
 
 
 def main() -> None:
@@ -700,6 +731,7 @@ def main() -> None:
                    choices=["", *FLASH_ATTN_IMPLS, *PLAIN_ATTN_IMPLS],
                    help="cold-prefill attention; pallas: the fused flash "
                         "kernel; empty keeps the config's")
+    add_mesh_args(p)
     args = p.parse_args()
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
@@ -755,8 +787,20 @@ def main() -> None:
         max_waiting=args.max_waiting or None,
         preempt_after_stalls=args.preempt_after_stalls,
         spec_k=args.spec_k, draft_cfg=draft_cfg,
-        slo_admission=args.slo_admission, slo_slack=args.slo_slack),
+        slo_admission=args.slo_admission, slo_slack=args.slo_slack,
+        **mesh_options(args)),
         device=dev, draft_params=draft_params)
+    try:
+        _serve(p, args, cfg, engine, tenants)
+    finally:
+        engine.close()              # stops the other ranks under a mesh
+
+
+def _serve(p: argparse.ArgumentParser, args: argparse.Namespace,
+           cfg: ModelConfig, engine: InferenceEngine, tenants: List[str]
+           ) -> None:
+    """The serve CLI's traffic through a built engine, and its report."""
+    dev = engine.device
     sys_len = args.system_len if args.system_prompts else 0
     pmax = args.capacity - args.gen - args.spec_k - sys_len
     if pmax < 1:
@@ -832,6 +876,9 @@ def main() -> None:
     print(f"KV bytes read over live pages: "
           f"{engine.stats['kv_bytes_read_live']} ({engine._kv_row_bytes} "
           f"bytes per cached position, all layers, K + V)")
+    if engine.tp > 1:
+        print(f"mesh {engine.tp}: KV bytes read {st['kv_bytes_read']} in "
+              f"all, {st['kv_bytes_read_device']} per rank")
 
 
 if __name__ == "__main__":

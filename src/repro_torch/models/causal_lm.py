@@ -39,6 +39,7 @@ from repro_torch.kernels.quant import quantize_rows
 from repro_torch.models import layers as L
 from repro_torch.models import mixers as M
 from repro_torch.models import moe as MOE
+from repro_torch.runtime.collectives import maybe_gather
 
 Params = Dict[str, Any]
 Cache = List[Dict[str, torch.Tensor]]
@@ -59,7 +60,12 @@ def _check_cfg(cfg: ModelConfig) -> None:
 
 def _head_logits(cfg: ModelConfig, params: Params,
                  x: torch.Tensor) -> torch.Tensor:
-    return linear_apply(params["lm_head"], x)
+    """``lm_head``; under tensor parallelism (``cfg.tp_axis``) the vocab
+    shards are gathered, so every rank holds the whole logits (a
+    replicated ``lm_head``, one whose rows do not divide the group, needs
+    no gather)."""
+    return maybe_gather(linear_apply(params["lm_head"], x), cfg.vocab_size,
+                        cfg.tp_axis)
 
 
 def layer_plan(cfg: ModelConfig) -> List[Tuple[str, str]]:
@@ -244,7 +250,7 @@ def _layer_body(kinds: Tuple[str, str], lp: Params, x: torch.Tensor,
             head_dim=cfg.head_dim, rope_cs=rope_cs, cache=cache,
             cache_len=cache_len, block_tables=block_tables,
             suffix_len=suffix_len, kv_dest=kv_dest, attn_impl=cfg.attn_impl,
-            q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+            q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk, tp_axis=cfg.tp_axis)
     elif cache is not None:
         step = (M.mamba_apply_step if mixer == "mamba"
                 else M.rwkv_tm_apply_step)
@@ -267,7 +273,7 @@ def _layer_body(kinds: Tuple[str, str], lp: Params, x: torch.Tensor,
             if want_state:
                 state["cm_shift"] = h2[:, -1].to(cfg.c_dtype)
     else:
-        y = L.swiglu_apply(lp["ffn"], h2)
+        y = L.swiglu_apply(lp["ffn"], h2, tp_axis=cfg.tp_axis)
     return x + y, state
 
 

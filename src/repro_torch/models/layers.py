@@ -48,12 +48,14 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from repro_torch.core.sparse_linear import (grouped_linear_apply,
-                                            linear_apply, linear_init)
+                                            linear_apply, linear_in_dim,
+                                            linear_init)
 from repro_torch.kernels.flash_attention import flash_attention_fused
 from repro_torch.kernels.paged_decode_attention import (
     paged_decode_attention, paged_prefill_append_attention)
 from repro_torch.kernels.quant import quantize_rows
 from repro_torch.kernels.ref import NEG_INF
+from repro_torch.runtime.collectives import axis_size, maybe_gather
 
 Params = Dict[str, Any]
 
@@ -469,7 +471,7 @@ def attention_apply(
     suffix_len: Optional[torch.Tensor] = None,
     kv_dest: Optional[torch.Tensor] = None,
     attn_impl: str = "flash", q_chunk: int = 512, kv_chunk: int = 1024,
-    causal: bool = True,
+    causal: bool = True, tp_axis: str = "",
 ) -> Tuple[torch.Tensor, Params]:
     """Full attention block.
 
@@ -495,6 +497,14 @@ def attention_apply(
 
     A cache with ``k_scale``/``v_scale`` leaves holds int8 pages: writes
     quantize on store and attention reads the codes with their scales.
+
+    ``tp_axis`` names the tensor-parallel group when the block runs on one
+    rank of a sharded engine (``serving/tp.py``): ``n_heads``/``n_kv`` are
+    then the rank's own head counts, the cache leaves its ``Hkv`` slice,
+    and the block re-replicates by all-gather (never a reduce: summation
+    order stays one device's) at the reference's two points: the head
+    axis before ``wo`` (whose reduction spans all heads) and ``wo``'s
+    output (the residual stream stays replicated).
     """
     b, s, _ = x.shape
     q, k, v = _qkv(params, x, n_heads, n_kv, head_dim, rope_cs)
@@ -511,21 +521,25 @@ def attention_apply(
         kp, vp = cache["k"], cache["v"]
         ks, vs = cache.get("k_scale"), cache.get("v_scale")
         _paged_write(cache, kv_dest, k, v, n_kv, head_dim)
+        shards = axis_size(tp_axis)
         if s > 1:
             out = paged_prefill_append_attention(
                 q, kp, vp, block_tables, cache_len, cache_len + suffix_len,
-                k_scale=ks, v_scale=vs)
+                k_scale=ks, v_scale=vs, head_shards=shards)
         else:
             out = paged_decode_attention(q, kp, vp, block_tables,
                                          cache_len + 1, k_scale=ks,
-                                         v_scale=vs)
+                                         v_scale=vs, head_shards=shards)
         new_cache = cache
     else:
         out = cold_attention(q, k, v, attn_impl=attn_impl, q_chunk=q_chunk,
                              kv_chunk=kv_chunk, causal=causal)
         new_cache = {"k": k, "v": v}
-    y = linear_apply(params["wo"], out.reshape(b, s, n_heads * head_dim))
-    return y, new_cache
+    if tp_axis:
+        out = maybe_gather(out, linear_in_dim(params["wo"]) // head_dim,
+                           tp_axis, axis=2)
+    y = linear_apply(params["wo"], out.reshape(b, s, out.shape[2] * head_dim))
+    return maybe_gather(y, x.shape[-1], tp_axis), new_cache
 
 
 def cross_attention_apply(params: Params, x: torch.Tensor, kv: Params, *,
@@ -583,7 +597,8 @@ def swiglu_init(generator: torch.Generator, d_model: int, d_ff: int,
     }
 
 
-def swiglu_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
+def swiglu_apply(params: Params, x: torch.Tensor,
+                 tp_axis: str = "") -> torch.Tensor:
     if "wgi" in params:
         # packed serving: ONE fused gate/up launch whose emit step applies
         # bias + silu(g)·h — no separate elementwise pass over the hidden
@@ -591,7 +606,12 @@ def swiglu_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
     else:
         h = F.silu(linear_apply(params["wg"], x)) * linear_apply(
             params["wi"], x)
-    return linear_apply(params["wo"], h)
+    if tp_axis:
+        # column-parallel gate/up made a local d_ff slice (silu·mul is
+        # elementwise, so it commutes with the shard): re-replicate to
+        # wo's whole reduction width by a gather, never a reduce-scatter
+        h = maybe_gather(h, linear_in_dim(params["wo"]), tp_axis)
+    return maybe_gather(linear_apply(params["wo"], h), x.shape[-1], tp_axis)
 
 
 def gelu_mlp_init(generator: torch.Generator, d_model: int, d_ff: int,

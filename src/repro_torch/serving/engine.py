@@ -77,8 +77,16 @@ with a computed ``retry_after_s`` and weight the scheduler's fair queue.
 One reentrant lock serializes every public entry point, so other threads
 may submit and cancel against a stepping engine.
 
-Not ported yet: tensor parallelism (``mesh_model > 1`` raises
-``NotImplementedError``).
+Tensor parallelism (``mesh_model > 1``, ``serving/tp.py``): one process a
+rank. This process is rank 0: it runs the scheduler, the pool's
+bookkeeping, admission and sampling, and broadcasts each model call and
+each device write of the pool to the other ranks before running its own
+part; every projection is column-parallel and attention head-parallel over
+an ``Hkv``-split pool, so greedy tokens equal one device's. It needs a
+paged pool on a dense or vlm model whose head counts divide the mesh, and
+composes with the prefix cache, ``spec_k`` (the drafter runs on rank 0,
+unsharded) and int8 KV and weights. ``kv_bytes_read`` counts every rank's
+KV reads, ``kv_bytes_read_device`` one rank's (equal at mesh 1).
 """
 
 from __future__ import annotations
@@ -109,6 +117,7 @@ from repro_torch.serving.scheduler import (CANCELLED, FAILED, FINISHED,
                                            Scheduler)
 from repro_torch.serving.speculative import (DraftModel, accept_draft,
                                              accept_greedy)
+from repro_torch.serving.tp import per_device_kv_bytes
 
 PyTree = Any
 
@@ -218,14 +227,25 @@ class EngineConfig:
     # default_tenant_quota covers tenants not listed (None → unlimited)
     tenant_quotas: Optional[Dict[str, TenantQuota]] = None
     default_tenant_quota: Optional[TenantQuota] = None
-    # tensor parallelism, not ported yet: > 1 raises NotImplementedError
+    # tensor-parallel serving (serving/tp.py): mesh_model > 1 shards every
+    # projection column-parallel (output rows / BCR row blocks, re-
+    # replicated by all-gathers so greedy tokens stay bit-identical to one
+    # device) and attention head-parallel over an Hkv-split paged pool, one
+    # process a rank. mesh_devices lists each rank's device, rank 0's (the
+    # engine's) first: () → one card a rank (raising when fewer are
+    # visible); ("cuda:0",) * N shares one card, ("cpu",) * N runs on the
+    # CPU. Needs a paged pool on a pure-attention dense/vlm family with
+    # head counts divisible by the mesh
     mesh_model: int = 1
+    mesh_devices: Tuple[str, ...] = ()
 
     def __post_init__(self):
-        if self.mesh_model > 1:
-            raise NotImplementedError(
-                "mesh_model > 1 (tensor parallelism) is not ported yet; it "
-                "comes in a later slice of the port (see ROADMAP.md)")
+        if self.mesh_model < 1:
+            raise ValueError(f"mesh_model must be >= 1, got "
+                             f"{self.mesh_model}")
+        if self.mesh_devices and len(self.mesh_devices) != self.mesh_model:
+            raise ValueError(f"{len(self.mesh_devices)} mesh_devices for "
+                             f"mesh_model={self.mesh_model}")
         for name in ("kv_dtype", "weight_dtype"):
             if getattr(self, name) not in ("", "int8"):
                 raise ValueError(f"unsupported {name} "
@@ -236,7 +256,8 @@ class InferenceEngine:
     def __init__(self, cfg: ModelConfig, params: PyTree,
                  ec: Optional[EngineConfig] = None, *, device="cuda",
                  draft_params: PyTree = None, drafter: Any = None,
-                 clock: Optional[Callable[[], float]] = None):
+                 clock: Optional[Callable[[], float]] = None,
+                 group: Any = None):
         if cfg.family == "encdec":
             raise NotImplementedError(
                 "InferenceEngine serves decoder-only families; encdec "
@@ -258,8 +279,32 @@ class InferenceEngine:
                                  fitness=ec.plan_fitness)
         self.cfg = cfg
         self.ec = ec
+        # tensor parallelism: shard the params over the group's ranks (each
+        # rank receives its own shard) and broadcast every model call; the
+        # model each rank runs sees its own head counts (tp.localize_cfg)
+        self.tp = ec.mesh_model
+        self.group = None
+        self._owns_group = False
+        if self.tp > 1:
+            from repro_torch.serving import tp as tp_lib
+            reason = tp_lib.shardable(cfg, self.tp, ec.page_size)
+            if reason is not None:
+                raise ValueError(f"mesh_model={self.tp}: {reason}")
+            if group is None:
+                group = tp_lib.make_model_group(self.tp,
+                                                ec.mesh_devices or None)
+                self._owns_group = True
+            if group.tp != self.tp or group.devices[0] != self.device:
+                raise ValueError(f"the model group ({group.tp} ranks, rank "
+                                 f"0 on {group.devices[0]}) does not match "
+                                 f"mesh_model={self.tp} on {self.device}")
+            self.group = group
+            local = tp_lib.localize_cfg(cfg, self.tp)
+            params = group.load(params, local)
+            self.fns = tp_lib.sharded_fns(group, model_fns(local))
+        else:
+            self.fns = model_fns(cfg)
         self.params = params
-        self.fns = model_fns(cfg)
         self.pad_prefill = (cfg.family in _PADDED_FAMILIES
                             if ec.pad_prefill is None else ec.pad_prefill)
         if cfg.attn_impl in CHUNKED_ATTN_IMPLS and self.pad_prefill:
@@ -273,10 +318,14 @@ class InferenceEngine:
         # page_size says
         self.paged = ec.page_size > 0 and has_attention(cfg)
         if self.paged:
-            self.pool: Any = PagedSlotPool(
-                self.fns.init_cache, ec.n_slots, ec.capacity,
-                page_size=ec.page_size, n_pages=ec.kv_pages,
-                device=self.device)
+            pool_args = (self.fns.init_cache, ec.n_slots, ec.capacity)
+            pool_kw = dict(page_size=ec.page_size, n_pages=ec.kv_pages,
+                           device=self.device)
+            if self.group is not None:
+                self.pool: Any = tp_lib.ShardedPagedSlotPool(
+                    self.group, *pool_args, **pool_kw)
+            else:
+                self.pool = PagedSlotPool(*pool_args, **pool_kw)
         else:
             self.pool = SlotPool(self.fns.init_cache, ec.n_slots,
                                  ec.capacity, device=self.device)
@@ -333,8 +382,10 @@ class InferenceEngine:
         # bytes one cache position costs to read across all attention
         # layers: K + V (+ their fp32 scales under int8 KV); position
         # leaves are (pages or slots, positions, ...) in both pools, and
-        # recurrent state (no positions) does not count
-        self._kv_row_bytes = sum(
+        # recurrent state (no positions) does not count. Under a mesh the
+        # pool here is rank 0's Hkv shard and every rank holds as much:
+        # these are aggregate bytes, kv_bytes_read_device one rank's
+        self._kv_row_bytes = self.tp * sum(
             layer[key][0, 0].numel() * layer[key].element_size()
             for layer, keys in zip(self.pool.cache, self.pool.position_keys)
             for key in keys)
@@ -347,6 +398,12 @@ class InferenceEngine:
         # every terminal transition passes through the scheduler's hook, so
         # per-tenant counters cannot drift from the finished list
         self.sched.on_terminal = self._account_terminal
+
+    @property
+    def clock(self) -> Callable[[], float]:
+        """The clock deadlines, timestamps, quotas and the watchdog read
+        (``time.perf_counter`` unless the engine was given one)."""
+        return self._clock
 
     # -- request intake ----------------------------------------------------
 
@@ -897,6 +954,15 @@ class InferenceEngine:
         faults = self.faults
         if faults is not None:
             faults.maybe_sleep(self._step_idx)
+            if faults.fires(self._step_idx, "shard_skew"):
+                # one rank running slow: the ranks move in lockstep (every
+                # gather waits for all of them), so the whole step stalls
+                # for the skewed rank's delay — an engine-level sleep is the
+                # exact observable effect; `choose` records which rank
+                shard = faults.choose(max(self.tp, 1))
+                faults.record(self._step_idx, "shard_skew", shard)
+                faults.sleep(faults.arg(self._step_idx, "shard_skew")
+                             or 0.02)
             if faults.fires(self._step_idx, "cancel"):
                 live = sorted([r.rid for r in self.sched.active.values()]
                               + [r.rid for r in self.sched.waiting])
@@ -998,6 +1064,8 @@ class InferenceEngine:
             rows = self.ec.n_slots * self.ec.capacity
             self.stats["kv_bytes_read"] += rows * self._kv_row_bytes
             self.stats["kv_bytes_read_live"] += rows * self._kv_row_bytes
+            self.stats["kv_bytes_read_device"] += per_device_kv_bytes(
+                rows * self._kv_row_bytes, self.tp)
         # free slots are garbage rows: lens > 0 marks a live request, and
         # only live rows may claim MoE expert capacity
         logits, self.pool.cache = self.fns.decode_step(
@@ -1084,9 +1152,12 @@ class InferenceEngine:
             src, dst = zip(*cow)
             self.pool.copy_pages(np.asarray(src), np.asarray(dst))
         bt = self.pool.device_tables(self.pool.table_width(extra=extra))
-        self.stats["kv_bytes_read"] += (bt.shape[1] * self.ec.page_size
-                                        * self.ec.n_slots
-                                        * self._kv_row_bytes)
+        step_bytes = (bt.shape[1] * self.ec.page_size * self.ec.n_slots
+                      * self._kv_row_bytes)
+        self.stats["kv_bytes_read"] += step_bytes
+        # under a mesh each rank reads only its Hkv slice of every page
+        self.stats["kv_bytes_read_device"] += per_device_kv_bytes(
+            step_bytes, self.tp)
         self.stats["kv_bytes_read_live"] += (self.pool.live_page_rows()
                                              * self._kv_row_bytes)
         return bt
@@ -1285,6 +1356,18 @@ class InferenceEngine:
                     and drafter_pool.lens.any():
                 raise AssertionError("leaked drafter slot lengths")
 
+    def close(self) -> None:
+        """Release the other ranks' shards of a tensor-parallel engine and,
+        when the engine started its own model group, stop its ranks. The
+        engine serves no further step. Nothing to do at mesh 1."""
+        group, self.group = self.group, None
+        if group is None or group.closed:
+            return
+        if self._owns_group:
+            group.close()
+        else:
+            group.send("unload")
+
     # -- convenience -------------------------------------------------------
 
     def reset_stats(self) -> None:
@@ -1293,7 +1376,7 @@ class InferenceEngine:
             self.stats.update(decode_steps=0, prefills=0, prefill_rows=0,
                               deferred_admissions=0, tokens_generated=0,
                               page_stalls=0, kv_bytes_read=0,
-                              kv_bytes_read_live=0,
+                              kv_bytes_read_live=0, kv_bytes_read_device=0,
                               slot_occupancy=[], prefix_hit_tokens=0,
                               pages_shared=0, cow_copies=0, evictions=0,
                               pages_allocated=0, spec_steps=0,

@@ -15,11 +15,10 @@ call. Tests that want faults at precise points attach the injector to a
 fresh engine.
 
 The port's engine acts on ``page_alloc``, ``nan_logits``, ``slow_step``,
-``cancel`` and, under speculative decoding, ``drafter``; the HTTP layer
+``cancel``, ``shard_skew`` (at any mesh size; at mesh 1 the one rank is the
+straggler) and, under speculative decoding, ``drafter``; the HTTP layer
 (``serving/server.py``'s ``EngineHost``) acts on ``crash_step`` and
-``slow_client``, which the engine ignores. ``shard_skew`` waits for tensor
-parallelism: it stays in :data:`KINDS` so one schedule serves both
-packages.
+``slow_client``, which the engine ignores.
 
 Fault kinds
 -----------

@@ -114,6 +114,40 @@ def seat_prefill(init_cache: Callable[..., Cache], prefill_cache: Cache,
     return pool
 
 
+def copy_pages_into(cache: Cache, position_keys: List[frozenset],
+                    src: np.ndarray, dst: np.ndarray) -> None:
+    """Page ``src[i]`` → ``dst[i]`` in every page leaf of every attention
+    layer of a paged ``cache`` (codes and, under int8 KV, their scales),
+    one gather and one in-place scatter a leaf, on the current stream."""
+    device = next(iter(cache[0].values())).device
+    s = torch.as_tensor(src, dtype=torch.long, device=device)
+    d = torch.as_tensor(dst, dtype=torch.long, device=device)
+    for layer, keys in zip(cache, position_keys):
+        for key in keys:
+            layer[key].index_copy_(0, d, layer[key].index_select(0, s))
+
+
+def seat_pages(cache: Cache, prefill_cache: Cache,
+               position_keys: List[frozenset], slot_keys: List[frozenset],
+               dest: np.ndarray, slots: np.ndarray) -> None:
+    """Scatter a batched prefill cache's position rows (right-padded, row
+    ``b`` position ``p`` at ``dest[b·S + p]``) into a paged ``cache``, in
+    place, codes and scales together; recurrent state (``slot_keys``)
+    goes whole into row ``slots[i]`` (pad rows alias ``slots[0]`` and are
+    not written)."""
+    device = next(iter(cache[0].values())).device
+    dest_t = torch.as_tensor(dest, dtype=torch.long, device=device)
+    for pool, new, keys in zip(cache, prefill_cache, position_keys):
+        for key in keys:
+            p = pool[key]
+            row = p.shape[2:]
+            p.view(-1, *row).index_copy_(
+                0, dest_t, new[key].reshape(-1, *row).to(p.dtype))
+    if any(slot_keys):
+        _seat_rows(cache, prefill_cache, slots, [frozenset()] * len(cache),
+                   slot_keys)
+
+
 class SlotPool:
     """Capacity-dense decode cache + host-side per-slot lengths: the pool
     owns the cache (``init_cache(n_slots, capacity)``), ``lens`` is the
@@ -425,13 +459,12 @@ class PagedSlotPool:
         page leaf of every attention layer (codes and, under int8 KV, their
         scales), one gather and one in-place scatter per leaf, on the current
         stream, so a later dispatch on it reads the copies."""
-        s = torch.as_tensor(np.asarray(src), dtype=torch.long,
-                            device=self.device)
-        d = torch.as_tensor(np.asarray(dst), dtype=torch.long,
-                            device=self.device)
-        for layer, keys in zip(self.cache, self.position_keys):
-            for key in keys:
-                layer[key].index_copy_(0, d, layer[key].index_select(0, s))
+        self._device_copy(np.asarray(src), np.asarray(dst))
+
+    def _device_copy(self, src: np.ndarray, dst: np.ndarray) -> None:
+        """The device half of :meth:`copy_pages` (a tensor-parallel pool
+        runs it on every rank's shard)."""
+        copy_pages_into(self.cache, self.position_keys, src, dst)
 
     # -- cache writes ------------------------------------------------------
 
@@ -467,20 +500,16 @@ class PagedSlotPool:
         pos = np.arange(seq)
         dest = (bt[:, pos // self.page_size] * self.page_size
                 + (pos % self.page_size)[None, :])           # (k_pad, seq)
-        dest_t = torch.as_tensor(dest.reshape(-1), dtype=torch.long,
-                                 device=self.device)
-        for pool, new, keys in zip(self.cache, prefill_cache,
-                                   self.position_keys):
-            for key in keys:              # codes and scales move together
-                p = pool[key]
-                row = p.shape[2:]
-                p.view(-1, *row).index_copy_(
-                    0, dest_t, new[key].reshape(-1, *row).to(p.dtype))
-        if any(self.slot_keys):
-            _seat_rows(self.cache, prefill_cache, slots,
-                       [frozenset()] * len(self.cache), self.slot_keys)
+        self._device_seat(prefill_cache, dest.reshape(-1), np.asarray(slots))
         for s, l in zip(slots[:k], lengths):
             self.lens[s] = l
+
+    def _device_seat(self, prefill_cache: Cache, dest: np.ndarray,
+                     slots: np.ndarray) -> None:
+        """The device half of :meth:`insert_rows` (a tensor-parallel pool
+        runs it on every rank's shard, each with its own prefill cache)."""
+        seat_pages(self.cache, prefill_cache, self.position_keys,
+                   self.slot_keys, dest, slots)
 
     # -- decode-step views -------------------------------------------------
 

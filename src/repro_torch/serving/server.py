@@ -53,8 +53,9 @@ keep-alive (until ``Connection: close``, ``keepalive_idle_s`` idle, or
 Graceful drain (SIGTERM in ``serve_forever`` / ``launch/api.py``):
 readiness flips false, the listener closes, the waiting queue is shed as
 REJECTED (429 "server draining"), running requests finish and flush their
-streams, idle keep-alive connections close, and ``check_conservation()``
-verifies nothing leaked. The queue is shed before anything waits on open
+streams, idle keep-alive connections close, ``check_conservation()``
+verifies nothing leaked, and ``engine.close()`` stops a tensor-parallel
+engine's other ranks. The queue is shed before anything waits on open
 connections: since Python 3.12.1 ``asyncio.Server.wait_closed`` also waits
 for every open connection, so awaiting it first (as the reference's
 ``drain`` does) holds the queued request's connection open until the
@@ -455,6 +456,8 @@ class InferenceServer:
             self.conservation_ok = False
             raise
         finally:
+            # a tensor-parallel engine's other ranks stop with the server
+            self.engine.close()
             if self._closed is not None:
                 self._closed.set()
 

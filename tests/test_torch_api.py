@@ -27,7 +27,7 @@ from repro_torch.launch import api, serve  # noqa: E402
 from repro_torch.launch.serve import (TrafficConfig, build_params,  # noqa
                                       load_trace, run_traffic)
 from repro_torch.serving import (FINISHED, EngineConfig,  # noqa: E402
-                                 InferenceEngine, http_request,
+                                 FakeClock, InferenceEngine, http_request,
                                  stream_completion)
 
 torch.set_num_threads(2)
@@ -63,10 +63,18 @@ def test_api_flags():
     args = api.parse_args(["--arch", "llama3.2-1b"])
     assert args.device == "cuda" and args.mesh_model == 1
     assert args.attn_impl == "" and not hasattr(args, "impl")
-    with pytest.raises(NotImplementedError):
-        api.build_server(api.parse_args(["--arch", "llama3.2-1b", "--smoke",
-                                         "--device", "cpu",
-                                         "--mesh-model", "2"]))
+    # tensor parallelism needs its ranks' devices: one card a rank unless
+    # a list is given, so on a machine with too few cards it raises before
+    # any weight is built, never falling back to the CPU or to mesh 1
+    args = api.parse_args(["--arch", "llama3.2-1b", "--smoke", "--device",
+                           "cpu", "--page-size", "8", "--mesh-model", "2"])
+    assert args.mesh_model == 2 and args.mesh_devices == ""
+    if torch.cuda.device_count() < 2:
+        with pytest.raises(ValueError, match="CUDA devices visible"):
+            api.build_server(args)
+    args = api.parse_args(["--arch", "llama3.2-1b", "--mesh-model", "2",
+                           "--mesh-devices", "cuda:0,cuda:0"])
+    assert args.mesh_devices == "cuda:0,cuda:0"
 
 
 def _free_port() -> int:
@@ -142,11 +150,17 @@ def smoke():
     return cfg, build_params(cfg, log=lambda *_: None, device="cpu")
 
 
-def _engine(smoke, **kw):
+def _engine(smoke, clock=None, **kw):
     cfg, params = smoke
     ec = dict(n_slots=4, capacity=64, page_size=8)
     ec.update(kw)
-    return InferenceEngine(cfg, params, EngineConfig(**ec), device="cpu")
+    return InferenceEngine(cfg, params, EngineConfig(**ec), device="cpu",
+                           clock=clock)
+
+
+# a step of the trace replay on the fake clock: the engine's work takes
+# this long, whatever the machine's load
+TRACE_STEP_S = 0.01
 
 
 def test_load_trace_reads_the_example_and_rejects_bad_traces(tmp_path):
@@ -163,10 +177,24 @@ def test_load_trace_reads_the_example_and_rejects_bad_traces(tmp_path):
 
 @pytest.mark.parametrize("mode", ["poisson", "trace"])
 def test_run_traffic_finishes_everything_and_leaks_nothing(smoke, mode):
-    """Poisson arrivals at 2000 req/s (no idle sleep) and the example trace
-    replayed at its own offsets: every request FINISHED, every token
-    counted, the percentiles filled in, no page leaked."""
-    eng = _engine(smoke)
+    """Poisson arrivals at 2000 req/s (no idle sleep) on the wall clock, and
+    the example trace replayed at its own offsets on a ``FakeClock`` that
+    each engine step advances by ``TRACE_STEP_S`` (so the trace's 1.37–3.9
+    s deadlines are met or missed by the schedule, not by the machine's
+    load): every request FINISHED, every token counted, the percentiles
+    filled in, no page leaked."""
+    if mode == "poisson":
+        eng = _engine(smoke)
+    else:
+        clk = FakeClock()
+        eng = _engine(smoke, clock=clk)
+        step = eng.step
+
+        def timed_step():
+            clk.advance(TRACE_STEP_S)
+            return step()
+
+        eng.step = timed_step
     if mode == "poisson":
         tc = TrafficConfig(n_requests=12, rate=2000.0, prompt_lens=(4, 9),
                            gen_tokens=6, tenants=("a", "b"))
@@ -220,3 +248,58 @@ def test_serve_cli_open_loop_writes_json(tmp_path, monkeypatch, capsys):
     m = json.loads(out.read_text())
     assert m["n_requests"] == 6 and m["status_counts"]["finished"] == 6
     assert "TTFT p50/p95/p99" in capsys.readouterr().out
+
+
+# -- tensor parallelism through the entry points -------------------------
+
+
+def _tp_smoke():
+    cfg = dataclasses.replace(tcfgs.get_smoke_config("llama3.2-3b"),
+                              bcr_keep_frac=0.5, bcr_block=(16, 16))
+    return cfg, build_params(cfg, log=lambda *_: None, device="cpu")
+
+
+def test_serve_cli_mesh_model_starts_and_stops_its_ranks(monkeypatch,
+                                                         capsys):
+    """``--mesh-model 2 --mesh-devices cpu,cpu``: one command starts rank
+    1, serves through both ranks and stops it (no process group left)."""
+    import torch.distributed as dist
+    monkeypatch.setattr(sys, "argv", [
+        "serve", "--arch", "llama3.2-3b", "--smoke", "--device", "cpu",
+        "--requests", "4", "--gen", "4", "--bcr-keep", "0.5",
+        "--page-size", "8", "--mesh-model", "2", "--mesh-devices",
+        "cpu,cpu"])
+    serve.main()
+    out = capsys.readouterr().out
+    assert "status: finished 4 / timeout 0" in out
+    line = next(ln for ln in out.splitlines() if ln.startswith("mesh 2:"))
+    total, per_rank = [int(w) for w in line.split() if w.isdigit()]
+    assert per_rank * 2 == total
+    assert not dist.is_initialized()
+
+
+def test_http_server_on_two_ranks_drains_and_stops_them():
+    """The HTTP server over a mesh-2 engine on CPU ranks: the tokens of a
+    completion equal the mesh-1 engine's, and the drain stops rank 1."""
+    cfg, params = _tp_smoke()
+    ec = dict(n_slots=2, capacity=32, page_size=8)
+    want = InferenceEngine(cfg, params, EngineConfig(**ec),
+                           device="cpu").generate([[1, 2, 3]],
+                                                  max_new_tokens=6)[0]
+    eng = InferenceEngine(cfg, params, EngineConfig(
+        **ec, mesh_model=2, mesh_devices=("cpu", "cpu")), device="cpu")
+    procs = list(eng.group._procs)
+    from repro_torch.serving import start_in_thread
+    h = start_in_thread(eng, warmup_lens=[3])    # warmup on both ranks
+    try:
+        st, _, body = http_request(HOST, h.port, "POST", "/v1/completions",
+                                   {"prompt": [1, 2, 3], "max_tokens": 6})
+        assert st == 200 and body["tokens"] == want
+    finally:
+        h.request_drain()
+        h.wait_closed(60)
+    assert h.server.conservation_ok
+    for p in procs:
+        p.join(30)
+        assert not p.is_alive()
+    assert eng.group is None

@@ -148,8 +148,21 @@ def test_entry_points_default_to_the_card():
 
 @pytest.mark.parametrize("option", [dict(mesh_model=2)])
 def test_unported_engine_options_raise(option):
-    with pytest.raises(NotImplementedError):
-        EngineConfig(**option)
+    """No silent fallback: a mesh the machine cannot give (fewer cards than
+    ranks, no device list) and configurations the sharded engine does not
+    serve raise at engine build, never falling back to the CPU or to mesh
+    1."""
+    cfg = _smoke_cfg()
+    params = build_params(cfg, device="cpu")
+    if torch.cuda.device_count() < 2:
+        with pytest.raises(ValueError, match="CUDA devices visible"):
+            InferenceEngine(cfg, params, EngineConfig(**option),
+                            device="cpu")
+    with pytest.raises(ValueError, match="paged KV pool"):
+        InferenceEngine(cfg, params, EngineConfig(page_size=0, **option),
+                        device="cpu")
+    with pytest.raises(ValueError, match="mesh_devices"):
+        EngineConfig(mesh_devices=("cpu",), **option)
 
 
 @pytest.mark.parametrize("option", [dict(spec_k=2), dict(page_size=0)])

@@ -228,9 +228,9 @@ def test_oversized_request_is_429_in_both(both):
 def test_metrics_keys_agree(both):
     jm, tm = (metrics(h.port) for h in both[:2])
     assert set(jm) == set(tm)
-    # the port's engine counters are the reference's, less the TPU-only
-    # device-side KV read count
-    assert set(tm["engine"]) == set(jm["engine"]) - {"kv_bytes_read_device"}
+    # the port's engine counters are the reference's, the per-device KV
+    # read count (``kv_bytes_read_device``, tensor parallelism) included
+    assert set(tm["engine"]) == set(jm["engine"])
     assert jm["requests_in_flight"] == tm["requests_in_flight"] == 0
 
 
