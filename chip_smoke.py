@@ -9,6 +9,7 @@
     python3 chip_smoke.py --train
     python3 chip_smoke.py --tune
     python3 chip_smoke.py --tp
+    python3 chip_smoke.py --dryrun
 
 The second form times phase 3's ``bcr_spmm*``, ``bcr_spmm_skip`` and flash
 cases for each checkout TREE (its own ``src/repro_torch``, built into its
@@ -18,7 +19,7 @@ HEAD~1 | tar -x -C build/parent``. The third runs phases 1, 2 and 13 only;
 the fourth phases 1, 2 and 14, with phase 3's checks of phase 14's shapes;
 the fifth phases 1, 2 and 15, phase 15d's kernel cases first; the sixth
 phases 1, 2 and 16; the seventh phases 1, 2 and 17; the eighth phases 1, 2
-and 18.
+and 18; the ninth phases 1, 2 and 19.
 
 Phases, in order (any failed check raises and the script exits non-zero):
 
@@ -280,7 +281,7 @@ Phases, in order (any failed check raises and the script exits non-zero):
    8 x 1500 frames and 1500 tokens a step from ``synth_inputs`` at
    ``ShapeSpec("whisper_train", 1500, 8, "train")``; (b) deepseek-moe-16b
    at full width, 4 layers, through ``train_loop`` (markov data, 8 x 128,
-   as phase 7); (c) rwkv6-3b at full width, 8 of 32 layers, through
+   as phase 7); (c) rwkv6-3b at full width, 4 of 32 layers, through
    ``train_loop``; (d) pixtral-12b at full width, 2 of 40 layers, over
    ``synth_inputs`` at 8 x 512 with 256 ``image_embeds`` in the loss; (e)
    jamba-v0.1-52b at its SMOKE config (8 layers, one period, fp32, 16 x 16
@@ -360,6 +361,29 @@ Phases, in order (any failed check raises and the script exits non-zero):
    over CUDA tensors as pod 2 x data 2: exact in its order, int8 within
    the reference's 2%. Printed: ``phase 18a bf16`` / ``phase 18b int8``
    JSON lines, the 18c rows and the phase's seconds by sub-phase.
+19. The pod-scale dry run and pipeline parallelism. (b) and (c)'s dry runs
+   run first, in a process of their own (``--dryrun-worker``: its fake
+   process group never becomes this one's), while (a) and (c)'s calls run
+   on the card. (a) GPipe (``runtime/pipeline_parallel.py``): llama3.2-1b at
+   full width, its 16 layers packed bf16 at keep 0.25 on 128 x 128 blocks,
+   each stage its layers through ``causal_lm.layer_apply`` with no cache
+   (fresh K/V discarded), so ``bcr_spmm`` and ``bcr_spmm_grouped`` run at
+   full width; 4 microbatches of 2 x 128 tokens over 2 and then 4 stages,
+   the ranks sharing the card under gloo (one group of 4; the 2-stage run
+   on its first two), each rank's counters zeroed just before its
+   ``pipeline_apply`` and read just after: every rank's output bit-equal to
+   the same stage functions applied in sequence on one rank; the wall, the
+   bubble fraction, launches a rank and bytes sent a step. (b) The
+   reference's dry-run test: ``launch/dryrun.py``'s llama3.2-1b
+   ``decode_32k`` on pod16x16 (a fake 256-rank group) ``ok`` on 256 ranks
+   with FLOPs and a peak under the H100's 80 GiB; ``long_500k`` skipped as
+   sub-quadratic-only. (c) The dry run held to the card at mesh 1, every
+   layer run: phase 7's train step (llama3.2-1b, 16 layers, fp32 params,
+   ADMM on, 8 x 128 tokens) and a bf16 prefill of 8 x 512 (dense weights,
+   as the dry run's): the predicted peak within 20% of
+   ``torch.cuda.max_memory_allocated`` over the same call (its state
+   built, then the peak reset), and the predicted max(compute, memory)
+   seconds beside the profiler's device time of one more call.
 
 Phase 3 also holds the verify dispatch's shapes: paged prefill-append with
 4 rows a slot over lengths 1..512 (ragged real rows, bf16 and int8 pages)
@@ -379,7 +403,8 @@ launches over phase 14's three serving runs, ``family_launches``, and over
 phase 15's runs, ``encdec_launches``: the fp forms over 15a's, the int8
 forms and flash over 15b's; over phase 16's five packed prefills,
 ``train_launches``; over phase 17, ``tune_launches``; over phase 18's
-sharded runs, every rank's, ``tp_launches``; and for the ``bcr_spmm``,
+sharded runs, every rank's, ``tp_launches``; over phase 19a's pipelines,
+every rank's, ``pipe_launches``; and for the ``bcr_spmm``,
 ``bcr_spmm_grouped`` and paged entries their time and bound at phase 18c's
 shard shape, ``tp_ms`` and ``tp_bound_ms``), and the contract line.
 """
@@ -5199,16 +5224,16 @@ def phase_encdec(torch, np):
 # are cut so the training state (24 B a parameter by arithmetic: fp32
 # params, grads, m, v, Z, U) fits one 80 GB card: whisper-large-v3 whole,
 # 1.64 B (~39.5 GB); deepseek-moe-16b 4 of 28 layers, ~2.2 B (~53 GB);
-# rwkv6-3b 8 of 32, ~1.0 B (~24 GB; 32 would need ~75 GB; at 16 its WKV
-# scan, a token at a time and host-bound, took 160 s of the run, which
-# keeps to half its time limit); pixtral-12b 2
+# rwkv6-3b 4 of 32, ~0.8 B (32 would need ~75 GB; its WKV scan, a token
+# at a time and host-bound, took 160 s of the run at 16 layers and 85 s
+# at 8, which keeps the run inside its time limit); pixtral-12b 2
 # of 40, ~1.9 B (~45 GB); jamba at its SMOKE config, fp32: at full width
 # one MoE layer alone is 16 x 3 x 4096 x 14336 = 2.8 B parameters, ~68 GB
 # of state, so no full-width period of 8 layers fits one card
 TRAIN_FAMILIES = (
     ("16a", "whisper-large-v3", None, False, ("whisper_train", 1500, 8)),
     ("16b", "deepseek-moe-16b", 4, False, None),
-    ("16c", "rwkv6-3b", 8, False, None),
+    ("16c", "rwkv6-3b", 4, False, None),
     ("16d", "pixtral-12b", 2, False, ("pixtral_train", 512, 8)),
     ("16e", "jamba-v0.1-52b", None, True, None),
 )
@@ -6498,6 +6523,363 @@ def run_phase_tp(torch, np, smi):
     return acc, rows
 
 
+# phase 19a's pipeline: 4 microbatches of 2 x 128 tokens through the 16
+# packed layers, at 2 and 4 stages
+PIPE_STAGES, PIPE_MICRO, PIPE_MB, PIPE_SEQ = (2, 4), 4, 2, 128
+# phase 19c's calls, held to their dry runs at mesh 1
+DRY_TRAIN = ("train_8x128", 128, 8)
+DRY_PREFILL = ("prefill_8x512", 512, 8)
+DRY_PEAK_TOL = 0.20
+_PIPE = {}
+
+
+def pipe_model():
+    """Phase 19a's model on this rank: llama3.2-1b at full width, 16
+    layers, random weights from seed 0 packed bf16 at keep 0.25 on 128 x
+    128 blocks — the same tree on every rank (init and pack are
+    deterministic on one card), kept for the process."""
+    if "params" not in _PIPE:
+        from repro_torch.configs import get_config
+        from repro_torch.launch.serve import pack_params
+        from repro_torch.models import causal_lm
+        cfg = dataclasses.replace(get_config("llama3.2-1b"), num_layers=16,
+                                  bcr_keep_frac=0.25, bcr_block=(128, 128))
+        dense = causal_lm.init_params(cfg, 0, device="cuda")
+        _PIPE.update(cfg=cfg, params=pack_params(cfg, dense))
+        del dense
+    return _PIPE["cfg"], _PIPE["params"]
+
+
+def pipe_parts(torch):
+    """(cfg, the (kinds, layer) list, the microbatched input (n_micro, mb,
+    S, d) bf16 from seed 19, the stage function): a stage is its layers
+    through ``causal_lm.layer_apply`` with ``cache=None``, each layer's
+    fresh K/V discarded, over one RoPE table every stage shares."""
+    from repro_torch.models import causal_lm
+    from repro_torch.models import layers as L
+
+    cfg, params = pipe_model()
+    layers = list(zip(causal_lm.layer_plan(cfg), params["layers"]))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(19)
+    x = (torch.randn((PIPE_MICRO, PIPE_MB, PIPE_SEQ, cfg.d_model),
+                     generator=gen, device="cuda") * 0.5).to(cfg.act_dtype)
+    pos = torch.arange(PIPE_SEQ, device="cuda")[None].expand(PIPE_MB,
+                                                             PIPE_SEQ)
+    rope_cs = L.rope_tables(pos, cfg.head_dim, cfg.rope_theta)
+
+    def stage(mine, xb):
+        for kinds, lp in mine:
+            xb, _ = causal_lm.layer_apply(kinds, lp, xb, cfg,
+                                          rope_cs=rope_cs)
+        return xb
+
+    return cfg, layers, x, stage
+
+
+def pipe_rank(n_stages: int):
+    """One rank of 19a (``ModelGroup.call``; every rank of the 4 calls it):
+    ranks ``0 .. n_stages-1`` run ``pipeline_apply`` over their own
+    stage's packed layers, the launch counters zeroed just before and read
+    just after. Returns the output's bf16 bits, the launches, the
+    schedule's stats and the wall (None on a rank outside the pipeline)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.runtime.pipeline_parallel import (pipeline_apply,
+                                                       split_stages)
+
+    rank = dist.get_rank()
+    group = (dist.new_group(list(range(n_stages)))
+             if n_stages < dist.get_world_size() else None)
+    if rank >= n_stages:
+        return None
+    with torch.no_grad():
+        cfg, layers, x, stage = pipe_parts(torch)
+        mine = split_stages(layers, n_stages)[rank]
+        stats = {}
+        stage(mine, x[0])          # warm: this process's first launches
+        torch.cuda.synchronize()
+        dist.barrier(group=group)
+        zero_counters()
+        t0 = time.perf_counter()
+        out = pipeline_apply(stage, mine, x, group=group, stats=stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in read_counters().items() if v}
+    return dict(rank=rank, bits=out.view(torch.int16).cpu().numpy(),
+                launches=launches, wall_s=wall, layers=len(mine), **stats)
+
+
+def phase_pipeline(torch, np):
+    """Phase 19a: GPipe over ranks sharing the card under gloo (one group
+    of 4; the 2-stage run on its first two ranks), each stage's packed
+    layers through ``bcr_spmm`` and ``bcr_spmm_grouped``; every rank's
+    output bit-equal to the same stage functions applied in sequence on
+    one rank (rank 0, before the group starts). Returns the launches over
+    both runs (every rank's) and the summary."""
+    from repro_torch.runtime.pipeline_parallel import (
+        pipeline_bubble_fraction, split_stages)
+    from repro_torch.serving.tp import make_model_group
+
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cfg, layers, x, stage = pipe_parts(torch)
+        stage(layers, x[0])        # warm: this process's first launches
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        seq = torch.stack([stage(layers, x[m]) for m in range(PIPE_MICRO)])
+        torch.cuda.synchronize()
+        seq_ms = (time.perf_counter() - ts) * 1e3
+    want = seq.view(torch.int16).cpu().numpy()
+    summary = dict(model_s=time.perf_counter() - t0, sequential_ms=seq_ms)
+    acc = {}
+    tg = time.perf_counter()
+    with make_model_group(4, ["cuda:0"] * 4, timeout_s=300) as group:
+        summary["group_start_s"] = time.perf_counter() - tg
+        for n in PIPE_STAGES:
+            got = [g for g in group.call(pipe_rank, n) if g is not None]
+            for g in got:
+                if not np.array_equal(g["bits"], want):
+                    raise AssertionError(f"19a: {n} stages, rank "
+                                         f"{g['rank']}'s output differs "
+                                         f"from the sequential stages")
+                for k, v in g["launches"].items():
+                    acc[k] = acc.get(k, 0) + v
+            for k in ("bcr_spmm", "bcr_spmm_grouped"):
+                if any(not g["launches"].get(k) for g in got):
+                    raise AssertionError(f"19a: a rank never launched {k}")
+            summary[f"stages_{n}"] = dict(
+                wall_ms=max(g["wall_s"] for g in got) * 1e3,
+                bubble_fraction=pipeline_bubble_fraction(PIPE_MICRO, n),
+                steps=got[0]["steps"],
+                launches_per_rank=[g["launches"] for g in got],
+                bytes_sent_per_step=[g["bytes_sent"] / g["steps"]
+                                     for g in got],
+                layers_per_rank=[g["layers"] for g in got])
+            log(f"phase 19a {n} stages: bit-equal to sequential on every "
+                f"rank; " + json.dumps(summary[f"stages_{n}"]))
+    del seq, x
+    _PIPE.clear()
+    torch.cuda.empty_cache()
+    log(f"phase 19a: sequential {seq_ms:.1f} ms on one rank; "
+        f"{json.dumps({k: v for k, v in summary.items() if 'stages' not in k})}")
+    return acc, summary
+
+
+def dryrun_worker(out_path: str) -> int:
+    """``--dryrun-worker OUT``: 19b and 19c's dry runs, in a process of
+    their own (their fake group never becomes ``chip_smoke``'s): the
+    reference's two cells (llama3.2-1b ``decode_32k`` and ``long_500k`` on
+    pod16x16), then 19c's two calls at mesh 1, every layer run. Writes the
+    records to OUT."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.dryrun import run_cell
+
+    out_dir = str(Path(out_path).parent / "dryrun")
+    recs = {}
+    t0 = time.perf_counter()
+    for shape in ("decode_32k", "long_500k"):
+        recs[shape] = run_cell("llama3.2-1b", shape, multi_pod=False,
+                               out_dir=out_dir, force=True)
+    recs["ref_s"] = time.perf_counter() - t0
+    base = dataclasses.replace(get_config("llama3.2-1b"), num_layers=16)
+    t0 = time.perf_counter()
+    name, seq, b = DRY_TRAIN
+    recs["train"] = run_cell(
+        "llama3.2-1b", name, multi_pod=False, out_dir=out_dir, force=True,
+        cfg_override=dataclasses.replace(base, bcr_keep_frac=0.25,
+                                         bcr_block=(128, 128)),
+        shape_override=ShapeSpec(name, seq, b, "train"), mesh_shape=(1, 1),
+        exact=True)
+    name, seq, b = DRY_PREFILL
+    recs["prefill"] = run_cell(
+        "llama3.2-1b", name, multi_pod=False, out_dir=out_dir, force=True,
+        cfg_override=dataclasses.replace(base, param_dtype="bfloat16"),
+        shape_override=ShapeSpec(name, seq, b, "prefill"),
+        mesh_shape=(1, 1), exact=True)
+    recs["mesh1_s"] = time.perf_counter() - t0
+    Path(out_path).write_text(json.dumps(recs, default=str))
+    return 0
+
+
+def device_ms_of(torch, call) -> float:
+    """Device time of one ``call()`` under ``torch.profiler`` (kernels and
+    copies)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    return sum(ms for _, _, ms in device_events(torch, prof))
+
+
+def dry_real_calls(torch, np):
+    """19c's calls on the card, each from a clean allocator peak: the
+    phase-7 train step (llama3.2-1b, 16 layers, fp32 params, ADMM on, 8 x
+    128 tokens) and a bf16 prefill of 8 x 512, dense weights as the dry
+    run's. ``max_memory_allocated`` less what was allocated before the
+    call's state was built, and one more call's device time."""
+    from repro_torch.core import admm as admm_mod
+    from repro_torch.launch.train import (TrainState, default_prune_filter,
+                                          init_state, make_train_step)
+    from repro_torch.models import causal_lm
+    from repro_torch.optim.adamw import AdamWConfig
+
+    out = {}
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = train_cfg(torch)
+    state = init_state(cfg, 0, "cuda")
+    specs = admm_mod.specs_for(state.params, default_prune_filter(cfg))
+    with torch.no_grad():
+        admm = admm_mod.admm_init(state.params, specs)
+    state = TrainState(state.params, state.opt, admm, None)
+    name, seq, b = DRY_TRAIN
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    tok = torch.randint(0, cfg.vocab_size, (b, seq + 1), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    batch = {"tokens": tok[:, :-1].contiguous(),
+             "targets": tok[:, 1:].contiguous()}
+    step = make_train_step(cfg, AdamWConfig(total_steps=1000),
+                           admm_mod.ADMMConfig(), specs)
+    torch.cuda.synchronize()
+    # the dry run's state is the call's argument: its peak counts from the
+    # state on, so the card's does too (state built, peak reset, call)
+    state_bytes = torch.cuda.memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, m = step(state, batch)
+    float(m["loss"])
+    wall = time.perf_counter() - t0
+    out["train"] = dict(
+        peak_bytes=torch.cuda.max_memory_allocated() - base,
+        state_bytes=state_bytes, wall_ms=wall * 1e3,
+        device_ms=device_ms_of(torch, lambda: step(state, batch)))
+    del state, m, step, admm, specs, batch
+    torch.cuda.empty_cache()
+
+    base = torch.cuda.memory_allocated()
+    pcfg = dataclasses.replace(cfg, bcr_keep_frac=0.0,
+                               param_dtype="bfloat16")
+    params = causal_lm.init_params(pcfg, 0, device="cuda")
+    name, seq, b = DRY_PREFILL
+    tokens = torch.randint(0, pcfg.vocab_size, (b, seq), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    torch.cuda.synchronize()
+    state_bytes = torch.cuda.memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        logits, _ = causal_lm.prefill(pcfg, params, tokens)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        del logits, _
+        out["prefill"] = dict(
+            peak_bytes=peak, state_bytes=state_bytes, wall_ms=wall * 1e3,
+            device_ms=device_ms_of(
+                torch, lambda: causal_lm.prefill(pcfg, params, tokens)))
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_phase_dryrun(torch, np, smi):
+    """Phase 19: 19b and 19c's dry runs in a process of their own, started
+    first; 19a (GPipe over ranks sharing the card) and 19c's calls on the
+    card meanwhile; then 19b's gates and 19c's comparison. Returns 19a's
+    launches (every rank's)."""
+    log(f"phase 19, the pod-scale dry run and pipeline parallelism ({smi})")
+    times, t_all = {}, time.perf_counter()
+    out_path = Path(__file__).resolve().parent / "build" / "dryrun19.json"
+    out_path.parent.mkdir(exist_ok=True)
+    if out_path.exists():
+        out_path.unlink()
+    worker = subprocess.Popen([sys.executable, __file__, "--dryrun-worker",
+                               str(out_path)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+    try:
+        t0 = time.perf_counter()
+        acc, pipe = phase_pipeline(torch, np)
+        times["19a"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        real = dry_real_calls(torch, np)
+        times["19c_card"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        stdout, stderr = worker.communicate(timeout=600)
+        times["wait_dryrun"] = time.perf_counter() - t0
+    finally:
+        if worker.poll() is None:
+            worker.kill()
+            worker.wait()
+    if worker.returncode != 0 or not out_path.exists():
+        print(stdout[-3000:], stderr[-3000:], file=sys.stderr)
+        raise RuntimeError(f"19b/19c: the dry-run process failed "
+                           f"({worker.returncode})")
+    recs = json.loads(out_path.read_text())
+
+    # 19b: the reference's dry-run test, with the H100's 80 GiB
+    dec, skip = recs["decode_32k"], recs["long_500k"]
+    if dec["status"] != "ok":
+        raise AssertionError(f"19b: decode_32k {dec['status']}: "
+                             f"{dec.get('error')}")
+    peak = dec["memory_analysis"]["peak_memory_in_bytes"]
+    if (dec["roofline"]["n_chips"] != 256
+            or dec["hlo_corrected"]["flops"] <= 0 or peak >= 80 * 2**30):
+        raise AssertionError(f"19b: decode_32k record off: {dec['roofline']}"
+                             f", peak {peak}")
+    if skip["status"] != "skipped" or "sub-quadratic" not in skip["reason"]:
+        raise AssertionError(f"19b: long_500k not skipped: {skip}")
+    log(f"phase 19b: llama3.2-1b decode_32k on pod16x16 ok: 256 ranks, "
+        f"peak {peak / 2**30:.3f} GiB a rank (< 80 GiB), flops "
+        f"{dec['hlo_corrected']['flops']:.4e} a rank, roofline "
+        f"{json.dumps(dec['roofline'])}; long_500k skipped "
+        f"('{skip['reason'][:60]}...'); {recs['ref_s']:.1f} s (build "
+        f"{dec['timings']['build_s']:.1f}, run {dec['timings']['run_s']:.1f})")
+
+    # 19c: the dry run's predictions against the card
+    summary = {}
+    for key in ("train", "prefill"):
+        rec = recs[key]
+        if rec["status"] != "ok":
+            raise AssertionError(f"19c {key}: dry run {rec['status']}: "
+                                 f"{rec.get('error')}")
+        pred = rec["memory_analysis"]["peak_memory_in_bytes"]
+        held = rec["memory_analysis"]["argument_size_in_bytes"]
+        r = rec["roofline"]
+        row = dict(
+            predicted_peak_bytes=pred, measured_peak_bytes=real[key][
+                "peak_bytes"], predicted_state_bytes=held,
+            measured_state_bytes=real[key]["state_bytes"],
+            peak_ratio=real[key]["peak_bytes"] / pred,
+            predicted_s=max(r["compute_s"], r["memory_s"]),
+            compute_s=r["compute_s"], memory_s=r["memory_s"],
+            measured_device_ms=real[key]["device_ms"],
+            measured_wall_ms=real[key]["wall_ms"],
+            dryrun_build_s=rec["timings"]["build_s"],
+            dryrun_run_s=rec["timings"]["run_s"])
+        summary[key] = row
+        log(f"phase 19c {key}: predicted peak {pred / 2**30:.3f} GiB, "
+            f"max_memory_allocated {real[key]['peak_bytes'] / 2**30:.3f} "
+            f"GiB (ratio {row['peak_ratio']:.3f}); predicted "
+            f"max(compute, memory) {row['predicted_s'] * 1e3:.2f} ms, "
+            f"profiler device time {real[key]['device_ms']:.2f} ms; "
+            + json.dumps(row))
+        if abs(row["peak_ratio"] - 1) > DRY_PEAK_TOL:
+            raise AssertionError(f"19c {key}: the predicted peak is off by "
+                                 f"more than {DRY_PEAK_TOL:.0%}")
+    times["dryrun_mesh1_s"] = recs["mesh1_s"]
+    times["total"] = time.perf_counter() - t_all
+    log(f"phase 19: {json.dumps(times)}")
+    log(f"phase 19: {times['total']:.1f} s")
+    return acc, dict(pipeline=pipe, dryrun=summary)
+
+
 def bcr_worker(tree: str) -> int:
     """``--bcr-worker TREE``: :func:`bcr_cases`, :func:`paged_cases`,
     :func:`skip_cases` and :func:`flash_cases` against TREE's own
@@ -6572,18 +6954,21 @@ def main() -> int:
         return bcr_ab(sys.argv[2:])
     if sys.argv[1:2] == ["--bcr-worker"] and len(sys.argv) == 3:
         return bcr_worker(sys.argv[2])
+    if sys.argv[1:2] == ["--dryrun-worker"] and len(sys.argv) == 3:
+        return dryrun_worker(sys.argv[2])
     paper_only = sys.argv[1:] == ["--paper"]
     families_only = sys.argv[1:] == ["--families"]
     encdec_only = sys.argv[1:] == ["--encdec"]
     train_only = sys.argv[1:] == ["--train"]
     tune_only = sys.argv[1:] == ["--tune"]
     tp_only = sys.argv[1:] == ["--tp"]
+    dryrun_only = sys.argv[1:] == ["--dryrun"]
     if len(sys.argv) > 1 and not (paper_only or families_only
                                   or encdec_only or train_only or tune_only
-                                  or tp_only):
+                                  or tp_only or dryrun_only):
         print("usage: chip_smoke.py [--bcr-ab TREE... | --bcr-worker TREE | "
-              "--paper | --families | --encdec | --train | --tune | --tp]",
-              file=sys.stderr)
+              "--paper | --families | --encdec | --train | --tune | --tp | "
+              "--dryrun]", file=sys.stderr)
         return 2
     import numpy as np
     import torch
@@ -6655,6 +7040,11 @@ def main() -> int:
         tp_launches, tp_rows = run_phase_tp(torch, np, smi)
         log("phase 18 kernel cases: " + json.dumps(tp_rows))
         log(f"phase 18 launches: {json.dumps(tp_launches)}")
+        log(smi)
+        return 0
+    if dryrun_only:
+        pipe_launches, _ = run_phase_dryrun(torch, np, smi)
+        log(f"phase 19 launches: {json.dumps(pipe_launches)}")
         log(smi)
         return 0
 
@@ -6780,6 +7170,7 @@ def main() -> int:
     tune_launches = run_phase_tune(torch, np, smi)
     tp_launches, tp_rows = run_phase_tp(torch, np, smi)
     log("phase 18 kernel cases: " + json.dumps(tp_rows))
+    pipe_launches, _ = run_phase_dryrun(torch, np, smi)
 
     # one entry per kernel form at its decode-step shape (M = 8 slots) or,
     # for flash, the largest cold-prefill bucket; launches from the main
@@ -6809,7 +7200,8 @@ def main() -> int:
             encdec_launches=encdec_launches.get(name, 0),
             train_launches=train_launches.get(name, 0),
             tune_launches=tune_launches.get(name, 0),
-            tp_launches=tp_launches.get(name, 0)))
+            tp_launches=tp_launches.get(name, 0),
+            pipe_launches=pipe_launches.get(name, 0)))
         if name in TP_KERNEL_ROWS:
             # phase 18c: the kernel at its tp = 2 shard shape
             tp_row = next(r for r in tp_rows

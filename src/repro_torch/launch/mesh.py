@@ -1,9 +1,14 @@
-"""Host meshes over ``torch.distributed`` ranks (the reference's
-``launch/mesh.py``): a grid of the ranks there are, with one process
-subgroup per line of the grid along each axis.
+"""Meshes over ``torch.distributed`` ranks (the reference's
+``launch/mesh.py``).
 
-``make_production_mesh`` (the reference's pod-scale mesh) is not here: only
-its dry run uses it, and that tooling is not ported.
+* :func:`make_mesh` / :func:`make_host_mesh`: a grid of the ranks there
+  are, with one process subgroup per line of the grid along each axis
+  (tensor-parallel serving, the collectives).
+* :func:`make_production_mesh`: the reference's pod-scale mesh, 16×16
+  ``("data", "model")`` or 2×16×16 ``("pod", "data", "model")``, as a
+  ``DeviceMesh`` over the default group. The dry run
+  (``launch/dryrun.py``) makes that group a fake one of 256 or 512 ranks
+  in one process.
 """
 
 from __future__ import annotations
@@ -12,6 +17,7 @@ import dataclasses
 import math
 from typing import Any, Dict, Sequence, Tuple
 
+import torch
 import torch.distributed as dist
 
 
@@ -62,6 +68,19 @@ def make_mesh(shape: Sequence[int], axis_names: Sequence[str]) -> HostMesh:
             if rank in ranks:
                 groups[name] = g
     return HostMesh(shape, axis_names, groups)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device="cuda"):
+    """The pod-scale ``DeviceMesh``: ``(16, 16)`` ``("data", "model")``, or
+    ``(2, 16, 16)`` ``("pod", "data", "model")`` with ``multi_pod``, over
+    the default group (its world size must be 256 or 512). ``device`` is
+    the mesh's device type: the card unless the caller asks for the CPU."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return init_device_mesh(torch.device(device).type, shape,
+                            mesh_dim_names=axes)
 
 
 def make_host_mesh(model: int = 1) -> HostMesh:

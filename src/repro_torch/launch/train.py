@@ -81,8 +81,13 @@ class TrainState:
 
 
 def _split_microbatches(batch: Dict[str, torch.Tensor], accum: int):
-    return [{k: v.reshape((accum, v.shape[0] // accum) + v.shape[1:])[i]
-             for k, v in batch.items()} for i in range(accum)]
+    """Microbatch ``i`` is rows ``[i·mb, (i+1)·mb)`` (the reference's
+    ``reshape(accum, mb)[i]``, as a slice: a batch sharded over its rows
+    (the dry run's ``DTensor``) slices where that reshape cannot split)."""
+    def rows(v, i):
+        mb = v.shape[0] // accum
+        return v[i * mb:(i + 1) * mb]
+    return [{k: rows(v, i) for k, v in batch.items()} for i in range(accum)]
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,

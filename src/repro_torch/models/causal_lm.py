@@ -39,6 +39,7 @@ from repro_torch.kernels.quant import quantize_rows
 from repro_torch.models import layers as L
 from repro_torch.models import mixers as M
 from repro_torch.models import moe as MOE
+from repro_torch.runtime import partitioning as part
 from repro_torch.runtime.collectives import maybe_gather
 
 Params = Dict[str, Any]
@@ -241,6 +242,7 @@ def _layer_body(kinds: Tuple[str, str], lp: Params, x: torch.Tensor,
     ``token_mask`` (B, S) marks the tokens that may claim MoE expert
     capacity (None: all); every other path ignores it."""
     mixer, ffn = kinds
+    x = part.act(x, "batch", "seq_sp", "embed")
     h = L.rmsnorm(lp["norm1"], x, cfg.norm_eps)
     mp = lp["mixer"]
     state: Params = {}
@@ -260,6 +262,9 @@ def _layer_body(kinds: Tuple[str, str], lp: Params, x: torch.Tensor,
         out = seq(mp, h, cfg, return_state=want_state)
         if want_state:
             out, state = out
+    # the block output in the residual's (seq-parallel) layout before the
+    # add (the reference's perf iteration C4)
+    out = part.act(out, "batch", "seq_sp", "embed")
     x = x + out
     h2 = L.rmsnorm(lp["norm2"], x, cfg.norm_eps)
     if ffn == "moe":
@@ -274,6 +279,7 @@ def _layer_body(kinds: Tuple[str, str], lp: Params, x: torch.Tensor,
                 state["cm_shift"] = h2[:, -1].to(cfg.c_dtype)
     else:
         y = L.swiglu_apply(lp["ffn"], h2, tp_axis=cfg.tp_axis)
+    y = part.act(y, "batch", "seq_sp", "embed")
     return x + y, state
 
 
@@ -345,7 +351,7 @@ def _embed_tokens(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
         p = image_embeds.shape[1]
         h = torch.cat([torch.as_tensor(image_embeds, device=h.device)
                        .to(h.dtype), h[:, p:]], dim=1)
-    return h
+    return part.act(h, "batch", "seq_sp", "embed")
 
 
 def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
@@ -369,7 +375,7 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
         else:
             x = run(kinds, lp, x)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return _head_logits(cfg, params, x)
+    return part.act(_head_logits(cfg, params, x), "batch", "seq", "vocab")
 
 
 def loss_fn(cfg: ModelConfig, params: Params,

@@ -35,6 +35,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.sparse_linear import linear_apply, linear_init
 from repro_torch.models import layers as L
+from repro_torch.runtime import partitioning as part
 
 Params = Dict[str, Any]
 
@@ -165,8 +166,9 @@ def encode(cfg: ModelConfig, params: Params,
     """Stub frontend output ``(B, S_enc, d)`` → encoder states: sinusoidal
     positions added, non-causal layers, then ``enc_norm``."""
     _check_cfg(cfg)
+    x = part.act(embed_frames(cfg, frames), "batch", "seq_sp", "embed")
     x = _run_layers(cfg, lambda i, lp, x: encoder_layer(cfg, lp, x),
-                    params["enc_layers"], embed_frames(cfg, frames))
+                    params["enc_layers"], x)
     return L.layernorm(params["enc_norm"], x, cfg.norm_eps)
 
 
@@ -190,7 +192,8 @@ def _decoder(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
              cross: Callable[[int, Params], Params]) -> torch.Tensor:
     """Teacher-forced decoder forward → logits; ``cross(i, lp)`` gives
     layer ``i``'s cross-attention K/V."""
-    x = _dec_embed(cfg, params, tokens, 0)
+    x = part.act(_dec_embed(cfg, params, tokens, 0), "batch", "seq_sp",
+                 "embed")
 
     def body(i, lp, x):
         h = L.layernorm(lp["norm1"], x, cfg.norm_eps)

@@ -55,6 +55,7 @@ from repro_torch.kernels.paged_decode_attention import (
     paged_decode_attention, paged_prefill_append_attention)
 from repro_torch.kernels.quant import quantize_rows
 from repro_torch.kernels.ref import NEG_INF
+from repro_torch.runtime import partitioning as part
 from repro_torch.runtime.collectives import axis_size, maybe_gather
 
 Params = Dict[str, Any]
@@ -102,11 +103,19 @@ def rmsnorm_init(dim: int, dtype, device) -> Params:
     return {"scale": torch.ones((dim,), dtype=dtype, device=device)}
 
 
+def _seq_gathered(y: torch.Tensor) -> torch.Tensor:
+    """A normed residual stream ``(B, S, d)`` feeds projections: under
+    rules it leaves the sequence-parallel layout (the all-gather over the
+    sequence the reference's GSPMD inserts before a column-parallel
+    projection; DTensor needs it spelled out). No-op without rules."""
+    return part.act(y, "batch", "seq", "embed") if y.dim() == 3 else y
+
+
 def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     x32 = x.float()
     var = (x32 * x32).mean(dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
-    return (y * params["scale"].float()).to(x.dtype)
+    return _seq_gathered((y * params["scale"].float()).to(x.dtype))
 
 
 def layernorm_init(dim: int, dtype, device) -> Params:
@@ -120,7 +129,7 @@ def layernorm(params: Params, x: torch.Tensor, eps: float = 1e-5
     (``jnp.var``), then cast back to ``x``'s dtype."""
     y = F.layer_norm(x.float(), (x.shape[-1],), params["scale"].float(),
                      params["bias"].float(), eps)
-    return y.to(x.dtype)
+    return _seq_gathered(y.to(x.dtype))
 
 
 def sinusoidal_positions(seq: int, dim: int, device=None) -> torch.Tensor:
@@ -165,7 +174,7 @@ def embed_init(generator: torch.Generator, vocab: int, dim: int,
 
 
 def embed(params: Params, ids: torch.Tensor) -> torch.Tensor:
-    return params["table"][ids.long()]
+    return part.lookup(params["table"], ids)
 
 
 # ---------------------------------------------------------------------------
@@ -209,6 +218,9 @@ def _qkv(params: Params, x: torch.Tensor, n_heads: int, n_kv: int,
     if rope_cs is not None:
         q = apply_rope(q, *rope_cs)
         k = apply_rope(k, *rope_cs)
+    q = part.act(q, "batch", "seq", "heads", "head_dim")
+    k = part.act(k, "batch", "seq", "kv_heads", "head_dim")
+    v = part.act(v, "batch", "seq", "kv_heads", "head_dim")
     return q, k, v
 
 
@@ -285,10 +297,30 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     nq, nk = sq // q_chunk, skv // kv_chunk
     scale = d ** -0.5
     bh = b * hkv
+    # the merged (B, Hkv) dim over the whole mesh when it divides it, else
+    # over the DP axes with the GQA q-groups over model (the reference's
+    # adaptive layout; no-ops without rules)
+    if part.divides(bh, "batch_heads"):
+        t0, tg = "batch_heads", None
+    else:
+        t0, tg = "batch_kv", ("heads_g" if part.divides(g, "heads_g")
+                              else None)
     qm = q.reshape(b, sq, hkv, g, d).permute(0, 2, 1, 3, 4).reshape(
-        bh, nq, q_chunk, g, d)
-    kr = k.permute(0, 2, 1, 3).reshape(bh, nk, kv_chunk, d)
-    vr = v.permute(0, 2, 1, 3).reshape(bh, nk, kv_chunk, d)
+        bh, sq, g, d)
+    km = k.permute(0, 2, 1, 3).reshape(bh, skv, d)
+    vm = v.permute(0, 2, 1, 3).reshape(bh, skv, d)
+    qm = part.act(qm, t0, "seq", tg, "head_dim")
+    km = part.act(km, t0, "seq", "head_dim")
+    vm = part.act(vm, t0, "seq", "head_dim")
+    # no dim the chunk loop reduces over is sharded: each rank attends over
+    # its own (B·Hkv, q-group) shard, so the loop runs on the local tensors
+    # (the tensors themselves without a DTensor)
+    g_all = g
+    ql, kl, vl = part.local(qm), part.local(km), part.local(vm)
+    bh, g = ql.shape[0], ql.shape[2]
+    qr = ql.reshape(bh, nq, q_chunk, g, d)
+    kr = kl.reshape(bh, nk, kv_chunk, d)
+    vr = vl.reshape(bh, nk, kv_chunk, d)
 
     def one_q_chunk(qi: int, qc: torch.Tensor) -> torch.Tensor:
         # qc (bh, q_chunk, g, d) → rows (g, q) of one bmm per kv-chunk
@@ -308,6 +340,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             kc, vc = kr[:, ki], vr[:, ki]
             logits = (_bmm_f32(qg, kc.transpose(1, 2)) * scale).reshape(
                 bh, g, q_chunk, kv_chunk)
+            logits = part.act(logits, t0, tg, None, None)
             if causal and k_lo + kv_chunk - 1 > q_lo:   # diagonal: mask
                 qpos = q_lo + torch.arange(q_chunk, device=q.device)
                 kpos = k_lo + torch.arange(kv_chunk, device=q.device)
@@ -330,10 +363,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     for qi in range(nq):
         if grad:
             outs.append(torch.utils.checkpoint.checkpoint(
-                one_q_chunk, qi, qm[:, qi], use_reentrant=False))
+                one_q_chunk, qi, qr[:, qi], use_reentrant=False))
         else:
-            outs.append(one_q_chunk(qi, qm[:, qi]))
-    out = torch.stack(outs, dim=1).reshape(b, hkv, sq, g, d)
+            outs.append(one_q_chunk(qi, qr[:, qi]))
+    out = part.like(torch.stack(outs, dim=1).reshape(bh, sq, g, d), qm)
+    out = out.reshape(b, hkv, sq, g_all, d)
     return out.permute(0, 2, 1, 3, 4).reshape(b, sq, h, d).to(q.dtype)
 
 
@@ -413,15 +447,19 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if k_scale is not None:
         k_cache = k_cache.float() * k_scale.float()[..., None]
         v_cache = v_cache.float() * v_scale.float()[..., None]
+    k_cache = part.act(k_cache, "batch", "kv_seq", None, None)
+    v_cache = part.act(v_cache, "batch", "kv_seq", None, None)
     qg = q.reshape(b, hkv, h // hkv, d).to(k_cache.dtype)
     logits = torch.einsum("bhgd,bkhd->bhgk", qg.float(),
                           k_cache.float()) * d ** -0.5
+    logits = part.act(logits, "batch", None, None, "kv_seq")
     lens = torch.as_tensor(cache_len, device=q.device).reshape(-1)
     valid = (torch.arange(l, device=q.device)[None]
              < lens.expand(b)[:, None])                       # (B, L)
     logits = torch.where(valid[:, None, None, :], logits,
                          torch.full_like(logits, NEG_INF))
-    p = torch.softmax(logits, dim=-1).to(v_cache.dtype)
+    p = part.act(part.softmax(logits, dim=-1), "batch", None, None,
+                 "kv_seq").to(v_cache.dtype)
     out = torch.einsum("bhgk,bkhd->bhgd", p.float(), v_cache.float())
     return out.reshape(b, 1, h, d).to(q.dtype)
 
@@ -431,12 +469,12 @@ def _dense_write(cache: Params, cache_len: torch.Tensor, k: torch.Tensor,
     """Write each slot's step K/V ``(B, 1, Hkv, D)`` at its own position
     ``cache_len[b]`` of the capacity-dense cache, in place; int8 caches
     store codes and the per-row, per-kv-head scales at the same position."""
-    rows = torch.arange(k.shape[0], device=k.device)
-    idx = (rows, cache_len.to(k.device).long())
     if "k_scale" not in cache:
         for key, new in (("k", k), ("v", v)):
-            cache[key].index_put_(idx, new[:, 0].to(cache[key].dtype))
+            part.write_rows(cache[key], cache_len, new[:, 0])
         return
+    rows = torch.arange(k.shape[0], device=k.device)
+    idx = (rows, cache_len.to(k.device).long())
     codes, scales = quantize_rows(torch.stack([k[:, 0], v[:, 0]]))
     for i, key in enumerate(("k", "v")):
         cache[key].index_put_(idx, codes[i])
@@ -512,6 +550,8 @@ def attention_apply(
     if cache is not None and block_tables is None:
         if s != 1:
             raise ValueError("a capacity-dense cache takes one token a step")
+        cache["k"] = part.act(cache["k"], "batch", "kv_seq", None, None)
+        cache["v"] = part.act(cache["v"], "batch", "kv_seq", None, None)
         _dense_write(cache, cache_len, k, v)
         out = decode_attention(q, cache["k"], cache["v"], cache_len + 1,
                                k_scale=cache.get("k_scale"),
@@ -535,6 +575,7 @@ def attention_apply(
         out = cold_attention(q, k, v, attn_impl=attn_impl, q_chunk=q_chunk,
                              kv_chunk=kv_chunk, causal=causal)
         new_cache = {"k": k, "v": v}
+    out = part.act(out, "batch", "seq", "heads", "head_dim")
     if tp_axis:
         out = maybe_gather(out, linear_in_dim(params["wo"]) // head_dim,
                            tp_axis, axis=2)
@@ -606,6 +647,7 @@ def swiglu_apply(params: Params, x: torch.Tensor,
     else:
         h = F.silu(linear_apply(params["wg"], x)) * linear_apply(
             params["wi"], x)
+    h = part.act(h, "batch", "seq", "mlp")
     if tp_axis:
         # column-parallel gate/up made a local d_ff slice (silu·mul is
         # elementwise, so it commutes with the shard): re-replicate to
@@ -626,6 +668,7 @@ def gelu_mlp_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
     """``wo(gelu(wi(x)))``, both linears with a bias; the tanh GELU, as
     ``jax.nn.gelu``'s default."""
     h = F.gelu(linear_apply(params["wi"], x), approximate="tanh")
+    h = part.act(h, "batch", "seq", "mlp")
     return linear_apply(params["wo"], h)
 
 
@@ -638,10 +681,13 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Token-mean cross entropy in fp32 (logsumexp); logits ``(..., V)``,
     targets ``(...)``; with ``mask`` the mean over masked-in tokens."""
-    logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    logits = part.act(logits.float(), "batch", "seq", "vocab")
+    lse, gold = part.xent_terms(logits, targets)
     nll = lse - gold
+    if nll.dim() == 2:
+        # per-token losses in the batch layout, so their gradient comes
+        # back sharded as they were, not replicated (no-op without rules)
+        nll = part.act(nll, "batch", "seq")
     if mask is not None:
         mask = mask.to(nll.dtype)
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.sparse_linear import linear_apply, linear_init
 from repro_torch.models.layers import chunked_checkpoint_scan
+from repro_torch.runtime import partitioning as part
 
 Params = Dict[str, Any]
 
@@ -303,6 +304,7 @@ def rwkv_cm_apply(params: Params, x: torch.Tensor,
     xk = x + mu[0] * (x_prev - x)
     xr = x + mu[1] * (x_prev - x)
     k = torch.square(F.relu(linear_apply(params["wk"], xk)))
+    k = part.act(k, "batch", "seq", "mlp")
     kv = linear_apply(params["wv"], k)
     return torch.sigmoid(linear_apply(params["wr"], xr)) * kv
 

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.sparse_linear import linear_apply, linear_init
 from repro_torch.models.layers import swiglu_apply, swiglu_init
+from repro_torch.runtime import partitioning as part
 
 Params = Dict[str, Any]
 
@@ -134,9 +135,11 @@ def moe_apply(params: Params, x: torch.Tensor, cfg,
 
     # dispatch tokens to expert buffers: (E, G, C, d)
     expert_in = torch.einsum("gsec,gsd->egcd", dispatch.to(x.dtype), xg)
+    expert_in = part.act(expert_in, "experts", None, None, "embed")
     expert_out = swiglu_apply(params["experts"],
                               expert_in.reshape(e, n_g * cap, d))
     expert_out = expert_out.reshape(e, n_g, cap, d)
+    expert_out = part.act(expert_out, "experts", None, None, "embed")
     y = torch.einsum("gsec,egcd->gsd", combine,
                      expert_out.float()).to(x.dtype)
     y = y.reshape(b, s, d)
