@@ -228,7 +228,13 @@ Phases, in order (any failed check raises and the script exits non-zero):
    naive ``generate`` under phase 6's 1e-4 near-tie rule: pixtral (prefix
    cache on, a repeated prompt) and rwkv at full width and 2 layers, jamba
    at its SMOKE width with 8 layers (block 16, capacity_factor 8.0), also
-   under preemption in a 7-page pool and ``recover()``. Phase 3 holds the
+   under preemption in a 7-page pool and ``recover()``. (e) The sequence
+   forms' scans in block form against the step forms: one rwkv6-3b
+   time-mix layer and one jamba mamba layer at full width (seeded random
+   weights, dense), bf16 and fp32, B 2 x 100 tokens (blocks of 64, a
+   padded tail): ``*_apply_seq`` with its state against ``*_apply_step``
+   over the same tokens from a zero state, outputs and final state within
+   1e-4 (fp32) and 3e-2 (bf16) of the larger's scale. Phase 3 holds the
    kernels at phase 14's new shapes: pixtral's wq, K/V, gate/up, wo, MLP
    wo and lm_head (131072 x 5120), rwkv's 2560^2, 2560 <-> 8960 and
    lm_head, jamba's in_proj, x_proj (288 x 8192 on 144 x 128 blocks: 72 x
@@ -281,7 +287,7 @@ Phases, in order (any failed check raises and the script exits non-zero):
    8 x 1500 frames and 1500 tokens a step from ``synth_inputs`` at
    ``ShapeSpec("whisper_train", 1500, 8, "train")``; (b) deepseek-moe-16b
    at full width, 4 layers, through ``train_loop`` (markov data, 8 x 128,
-   as phase 7); (c) rwkv6-3b at full width, 4 of 32 layers, through
+   as phase 7); (c) rwkv6-3b at full width, 16 of 32 layers, through
    ``train_loop``; (d) pixtral-12b at full width, 2 of 40 layers, over
    ``synth_inputs`` at 8 x 512 with 256 ``image_embeds`` in the loss; (e)
    jamba-v0.1-52b at its SMOKE config (8 layers, one period, fp32, 16 x 16
@@ -377,10 +383,11 @@ Phases, in order (any failed check raises and the script exits non-zero):
    reference's dry-run test: ``launch/dryrun.py``'s llama3.2-1b
    ``decode_32k`` on pod16x16 (a fake 256-rank group) ``ok`` on 256 ranks
    with FLOPs and a peak under the H100's 80 GiB; ``long_500k`` skipped as
-   sub-quadratic-only. (c) The dry run held to the card at mesh 1, every
-   layer run: phase 7's train step (llama3.2-1b, 16 layers, fp32 params,
-   ADMM on, 8 x 128 tokens) and a bf16 prefill of 8 x 512 (dense weights,
-   as the dry run's): the predicted peak within 20% of
+   sub-quadratic-only; and rwkv6-3b's ``prefill_32k`` on pod16x16 ``ok``
+   (its WKV scan in block form). (c) The dry run held to the card at mesh
+   1, every layer run: phase 7's train step (llama3.2-1b, 16 layers, fp32
+   params, ADMM on, 8 x 128 tokens) and a bf16 prefill of 8 x 512 (dense
+   weights, as the dry run's): the predicted peak within 20% of
    ``torch.cuda.max_memory_allocated`` over the same call (its state
    built, then the peak reset), and the predicted max(compute, memory)
    seconds beside the profiler's device time of one more call.
@@ -4685,6 +4692,72 @@ def phase_family_exactness(torch, np):
     return ties
 
 
+# phase 14e: tokens a sequence and the tolerances, each relative to the
+# larger of the two results' largest magnitude and 1: fp32 sums in another
+# order (1e-4); bf16 projections at M = B x S and at M = B round apart
+BLOCK_STEP_S, BLOCK_STEP_TOL = 100, {"float32": 1e-4, "bfloat16": 3e-2}
+
+
+def phase_block_vs_step(torch, np):
+    """Phase 14e: each recurrent mixer's sequence form (its scan in block
+    form) against its step form stepped over the same tokens, at full
+    width, fp32 and bf16: outputs and the final state (module
+    docstring)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import mixers as M
+
+    mixers = {"rwkv6-3b": (M.rwkv_tm_init, M.rwkv_tm_apply_seq,
+                           M.rwkv_tm_init_cache, M.rwkv_tm_apply_step, "s"),
+              "jamba-v0.1-52b": (M.mamba_init, M.mamba_apply_seq,
+                                 M.mamba_init_cache, M.mamba_apply_step,
+                                 "h")}
+    out = {}
+    for arch, (init, seq, init_cache, step, key) in mixers.items():
+        for dtype in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(get_config(arch), param_dtype=dtype,
+                                      dtype=dtype, cache_dtype=dtype)
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(14)
+            params = init(gen, cfg)
+            x = (torch.randn((2, BLOCK_STEP_S, cfg.d_model), generator=gen,
+                             device="cuda")).to(cfg.act_dtype)
+            with torch.no_grad():
+                t0 = time.perf_counter()
+                y_seq, st = seq(params, x, cfg, return_state=True)
+                torch.cuda.synchronize()
+                seq_ms = (time.perf_counter() - t0) * 1e3
+                cache = init_cache(cfg, 2, cfg.act_dtype, "cuda")
+                ys = []
+                t0 = time.perf_counter()
+                for t in range(BLOCK_STEP_S):
+                    y, cache = step(params, x[:, t:t + 1], cache, cfg)
+                    ys.append(y)
+                torch.cuda.synchronize()
+                step_ms = (time.perf_counter() - t0) * 1e3
+            y_step = torch.cat(ys, 1)
+            row = {"seq_ms": seq_ms, "step_ms": step_ms}
+            for name, got, want in (("y", y_seq, y_step),
+                                    (key, st[key], cache[key])):
+                got, want = got.float(), want.float()
+                scale = max(1.0, float(got.abs().max()),
+                            float(want.abs().max()))
+                err = float((got - want).abs().max())
+                finite = bool(torch.isfinite(got).all())
+                row[f"{name}_err"], row[f"{name}_scale"] = err, scale
+                if not finite or err > BLOCK_STEP_TOL[dtype] * scale:
+                    raise AssertionError(
+                        f"phase 14e {arch} {dtype}: {name} of the block form "
+                        f"off the step form by {err:.3e} (scale {scale:.3g}, "
+                        f"finite {finite})")
+            out[f"{arch} {dtype}"] = row
+            log(f"phase 14e {arch} {dtype}: block-form prefill of "
+                f"{BLOCK_STEP_S} tokens = {BLOCK_STEP_S} steps: "
+                + json.dumps(row))
+            del params
+            torch.cuda.empty_cache()
+    return out
+
+
 def phase_families(torch, np):
     """Phase 14: (a) pixtral-12b, (b) rwkv6-3b, (c) jamba-v0.1-52b served at
     full width, then (d) the fp32 exactness checks. Returns each kernel's
@@ -4706,9 +4779,12 @@ def phase_families(torch, np):
     ts = time.perf_counter()
     phase_family_exactness(torch, np)
     torch.cuda.empty_cache()
+    times["d"] = time.perf_counter() - ts
+    ts = time.perf_counter()
+    phase_block_vs_step(torch, np)
     log(f"phase 14: (a) {times['pixtral-12b']:.1f} s, (b) "
         f"{times['rwkv6-3b']:.1f} s, (c) {times['jamba-v0.1-52b']:.1f} s, "
-        f"(d) {time.perf_counter() - ts:.1f} s; "
+        f"(d) {times['d']:.1f} s, (e) {time.perf_counter() - ts:.1f} s; "
         f"{time.perf_counter() - t0:.1f} s in all")
     return total
 
@@ -5224,16 +5300,16 @@ def phase_encdec(torch, np):
 # are cut so the training state (24 B a parameter by arithmetic: fp32
 # params, grads, m, v, Z, U) fits one 80 GB card: whisper-large-v3 whole,
 # 1.64 B (~39.5 GB); deepseek-moe-16b 4 of 28 layers, ~2.2 B (~53 GB);
-# rwkv6-3b 4 of 32, ~0.8 B (32 would need ~75 GB; its WKV scan, a token
-# at a time and host-bound, took 160 s of the run at 16 layers and 85 s
-# at 8, which keeps the run inside its time limit); pixtral-12b 2
+# rwkv6-3b 16 of 32, ~1.7 B (~40 GB; 32 would need ~75 GB; with its WKV
+# scan in block form the phase took 17.9 s at 16 layers on an H100, where
+# it took 46.6 s at 4 a token at a time); pixtral-12b 2
 # of 40, ~1.9 B (~45 GB); jamba at its SMOKE config, fp32: at full width
 # one MoE layer alone is 16 x 3 x 4096 x 14336 = 2.8 B parameters, ~68 GB
 # of state, so no full-width period of 8 layers fits one card
 TRAIN_FAMILIES = (
     ("16a", "whisper-large-v3", None, False, ("whisper_train", 1500, 8)),
     ("16b", "deepseek-moe-16b", 4, False, None),
-    ("16c", "rwkv6-3b", 4, False, None),
+    ("16c", "rwkv6-3b", 16, False, None),
     ("16d", "pixtral-12b", 2, False, ("pixtral_train", 512, 8)),
     ("16e", "jamba-v0.1-52b", None, True, None),
 )
@@ -6530,6 +6606,10 @@ PIPE_STAGES, PIPE_MICRO, PIPE_MB, PIPE_SEQ = (2, 4), 4, 2, 128
 DRY_TRAIN = ("train_8x128", 128, 8)
 DRY_PREFILL = ("prefill_8x512", 512, 8)
 DRY_PEAK_TOL = 0.20
+# 19b's recurrent cell: the cheapest of the rwkv6-3b and jamba train_4k /
+# prefill_32k cells, which ran past the sweep's 240 s a cell while the
+# scans stepped a token at a time
+DRY_RECURRENT = ("rwkv6-3b", "prefill_32k")
 _PIPE = {}
 
 
@@ -6685,6 +6765,11 @@ def dryrun_worker(out_path: str) -> int:
         recs[shape] = run_cell("llama3.2-1b", shape, multi_pod=False,
                                out_dir=out_dir, force=True)
     recs["ref_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    arch, shape = DRY_RECURRENT
+    recs["recurrent"] = run_cell(arch, shape, multi_pod=False,
+                                 out_dir=out_dir, force=True)
+    recs["recurrent_s"] = time.perf_counter() - t0
     base = dataclasses.replace(get_config("llama3.2-1b"), num_layers=16)
     t0 = time.perf_counter()
     name, seq, b = DRY_TRAIN
@@ -6835,6 +6920,15 @@ def run_phase_dryrun(torch, np, smi):
                              f", peak {peak}")
     if skip["status"] != "skipped" or "sub-quadratic" not in skip["reason"]:
         raise AssertionError(f"19b: long_500k not skipped: {skip}")
+    rec = recs["recurrent"]
+    if rec["status"] != "ok" or rec["hlo_corrected"]["flops"] <= 0:
+        raise AssertionError(f"19b: {' '.join(DRY_RECURRENT)} "
+                             f"{rec['status']}: {rec.get('error')}")
+    log(f"phase 19b: {' '.join(DRY_RECURRENT)} on pod16x16 ok in "
+        f"{recs['recurrent_s']:.1f} s: peak "
+        f"{rec['memory_analysis']['peak_memory_in_bytes'] / 2**30:.3f} GiB "
+        f"a rank, flops {rec['hlo_corrected']['flops']:.4e} a rank, "
+        f"roofline {json.dumps(rec['roofline'])}")
     log(f"phase 19b: llama3.2-1b decode_32k on pod16x16 ok: 256 ranks, "
         f"peak {peak / 2**30:.3f} GiB a rank (< 80 GiB), flops "
         f"{dec['hlo_corrected']['flops']:.4e} a rank, roofline "

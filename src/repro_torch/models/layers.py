@@ -638,8 +638,11 @@ def swiglu_init(generator: torch.Generator, d_model: int, d_ff: int,
     }
 
 
-def swiglu_apply(params: Params, x: torch.Tensor,
-                 tp_axis: str = "") -> torch.Tensor:
+def swiglu_apply(params: Params, x: torch.Tensor, tp_axis: str = "",
+                 axes: Tuple[Optional[str], ...] = ("batch", "seq", "mlp")
+                 ) -> torch.Tensor:
+    """``wo(silu(wg x) · wi x)``; the hidden is laid out by the logical
+    ``axes`` (the stacked experts' rows pass their own)."""
     if "wgi" in params:
         # packed serving: ONE fused gate/up launch whose emit step applies
         # bias + silu(g)·h — no separate elementwise pass over the hidden
@@ -647,7 +650,7 @@ def swiglu_apply(params: Params, x: torch.Tensor,
     else:
         h = F.silu(linear_apply(params["wg"], x)) * linear_apply(
             params["wi"], x)
-    h = part.act(h, "batch", "seq", "mlp")
+    h = part.act(h, *axes)
     if tp_axis:
         # column-parallel gate/up made a local d_ff slice (silu·mul is
         # elementwise, so it commutes with the shard): re-replicate to
@@ -695,7 +698,7 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Scan helper of the recurrent mixers
+# Scan helpers of the recurrent mixers
 # ---------------------------------------------------------------------------
 
 
@@ -707,9 +710,10 @@ def chunked_checkpoint_scan(body: Callable, carry, xs: Sequence[torch.Tensor],
     ``lax.scan`` of ``jax.checkpoint``-ed chunks: under a gradient each
     chunk runs through ``torch.utils.checkpoint`` (only the carries at
     chunk boundaries are kept; a chunk's steps are recomputed in the
-    backward pass); without one it is the plain loop. The SSM and RWKV
-    recurrences are XLA code in the reference, not Pallas, so a Python
-    loop over time is their port."""
+    backward pass); without one it is the plain loop. The recurrent mixers
+    run :func:`block_scan` instead; this loop, one step at a time as the
+    reference's scan steps, is their plain version, which the tests hold
+    the block forms to."""
     t = xs[0].shape[0]
     if t % chunk:
         raise ValueError(f"time axis {t} is not a multiple of chunk {chunk}")
@@ -731,3 +735,109 @@ def chunked_checkpoint_scan(body: Callable, carry, xs: Sequence[torch.Tensor],
             carry, ys = run(carry, *xc)
         out.append(ys)
     return carry, torch.cat(out)
+
+
+# Bytes a group of blocks may give the block scans' largest intermediate:
+# :func:`block_scan` takes as many whole blocks a group as fit (one at
+# least), so the intermediates of one group stay a few times this
+BLOCK_SCAN_BYTES = 1 << 30
+
+
+def block_scan(body: Callable, carry, xs: Sequence[torch.Tensor],
+               block: int, pads: Sequence[float], block_bytes: int):
+    """A recurrence over axis 1 (time) of every tensor in ``xs`` (each
+    ``(B, S, ...)``) in block form. ``body(carry, *xs_g) -> (carry, ys_g)``
+    runs a group of whole blocks, each ``xs_g`` ``(B, G, block, ...)``,
+    from the state before the group, and returns the state after it and the
+    group's outputs ``(B, G, block, ...)``: it batches the work inside the
+    blocks over all G of them, and only the carry crosses from block to
+    block.
+
+    S need not be a multiple of ``block``: the tail block is padded with
+    identity steps, input ``i`` with ``pads[i]`` (a step that leaves the
+    state as it was), so the final state and the outputs are those of the
+    S real positions. ``block_bytes`` is one block's share of the body's
+    largest intermediate; a group holds as many blocks as
+    :data:`BLOCK_SCAN_BYTES` allows. Under a gradient each group runs
+    under ``torch.utils.checkpoint``: only the states between groups are
+    kept, and a group's work is recomputed in the backward pass, as the
+    reference's ``jax.checkpoint`` recomputes its chunks. Returns the
+    final state and the outputs ``(B, S, ...)``."""
+    s = xs[0].shape[1]
+    n_blocks = -(-s // block)
+    pad = n_blocks * block - s
+    if pad:
+        xs = [F.pad(x, (0, 0) * (x.dim() - 2) + (0, pad), value=v)
+              for x, v in zip(xs, pads)]
+    xs = [x.reshape(x.shape[0], n_blocks, block, *x.shape[2:]) for x in xs]
+    group = max(1, min(n_blocks, BLOCK_SCAN_BYTES // max(block_bytes, 1)))
+    out = []
+    for g in range(0, n_blocks, group):
+        xg = [x[:, g:g + group] for x in xs] if group < n_blocks else xs
+        if torch.is_grad_enabled():
+            carry, ys = torch.utils.checkpoint.checkpoint(
+                body, carry, *xg, use_reentrant=False)
+        else:
+            carry, ys = body(carry, *xg)
+        out.append(ys)
+    ys = out[0] if len(out) == 1 else torch.cat(out, 1)
+    ys = ys.reshape(ys.shape[0], n_blocks * block, *ys.shape[3:])
+    return carry, ys[:, :s] if pad else ys
+
+
+def _hillis_steele(a: torch.Tensor, b: torch.Tensor, dim: int):
+    """:func:`linear_scan`'s pairs: log2 of the length steps, each
+    combining every pair with the one ``shift`` before it, ``(a_l, b_l)``
+    then ``(a_r, b_r)`` into ``(a_r * a_l, a_r * b_l + b_r)``; the first
+    ``shift`` pairs combine with the identity (1, 0), padded in. ``a`` may
+    broadcast against ``b``."""
+    n = b.shape[dim]
+    pad = [0, 0] * (b.dim() - 1 - dim)
+    shift = 1
+    while shift < n:
+        ahead = pad + [shift, 0]
+        b = b + a * F.pad(b.narrow(dim, 0, n - shift), ahead)
+        a = a * F.pad(a.narrow(dim, 0, n - shift), ahead, value=1.0)
+        shift *= 2
+    return a, b
+
+
+class _LinearScan(torch.autograd.Function):
+    """:func:`linear_scan` with its adjoint written out: the backward pass
+    is the same recurrence run backwards in time (``λ_t = g_t + a_{t+1}
+    λ_{t+1}``, one scan for both outputs' gradients), so only ``a`` and the
+    two outputs are kept for it, not every step of the forward scan."""
+
+    @staticmethod
+    def forward(ctx, a, b, dim):
+        prod, state = _hillis_steele(a, b, dim)
+        ctx.dim = dim
+        ctx.save_for_backward(a, prod, state)
+        return prod, state
+
+    @staticmethod
+    def backward(ctx, g_prod, g_state):
+        a, prod, state = ctx.saved_tensors
+        dim, n = ctx.dim, a.shape[ctx.dim]
+        zero = torch.zeros_like(state)
+        g = torch.stack([zero if g_state is None else g_state,
+                         zero if g_prod is None else g_prod])
+        tail = [0, 0] * (a.dim() - 1 - dim)
+        # the backward recurrence's decays: a_{t+1}, none after the last step
+        a_next = F.pad(a.narrow(dim, 1, n - 1), tail + [0, 1])
+        _, lam = _hillis_steele(a_next.flip(dim)[None], g.flip(dim + 1),
+                                dim + 1)
+        lam = lam.flip(dim + 1)
+        state_before = F.pad(state.narrow(dim, 0, n - 1), tail + [1, 0])
+        prod_before = F.pad(prod.narrow(dim, 0, n - 1), tail + [1, 0],
+                            value=1.0)
+        return lam[0] * state_before + lam[1] * prod_before, lam[0], None
+
+
+def linear_scan(a: torch.Tensor, b: torch.Tensor, dim: int):
+    """The inclusive scan of ``h_t = a_t * h_{t-1} + b_t`` along ``dim``,
+    as the pairs ``(A_t, B_t)`` with ``h_t = A_t * h_start + B_t`` (``A_t``
+    the product of ``a`` up to t, ``B_t`` the state from a zero start), by
+    Hillis and Steele's associative scan (:func:`_hillis_steele`). ``a`` and
+    ``b`` have one shape."""
+    return _LinearScan.apply(a, b, dim % a.dim())

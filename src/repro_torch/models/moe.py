@@ -130,19 +130,47 @@ def moe_apply(params: Params, x: torch.Tensor, cfg,
     experts: one gate/up and one down launch for all E on the card."""
     b, s, d = x.shape
     e = cfg.num_experts
-    xg, _, _, dispatch, combine = route(params, x, cfg, token_mask)
-    n_g, cap = xg.shape[0], dispatch.shape[-1]
+    # when each rank's rows hold whole groups, routing (the router, the
+    # capacity cumsum, dispatch and combine) runs on each rank's own rows,
+    # whole sequences, with the router whole on every rank, and only the
+    # experts' buffers cross ranks; groups that span ranks' rows are routed
+    # whole on every rank (no-ops without rules)
+    group = min(cfg.moe_group_size, b * s)
+    group = group if (b * s) % group == 0 else b * s
+    rows_axis = "batch"
+    xa = part.act(x, rows_axis, "seq", "embed")
+    if (part.local(xa).shape[0] * s) % group:
+        rows_axis = None
+        xa = part.act(x, rows_axis, "seq", "embed")
+    mask = (None if token_mask is None
+            else part.local(part.act(token_mask, rows_axis, "seq")))
+    xl = part.local(xa)
+    xg, _, _, dispatch, combine = route(
+        {"router": part.whole(params["router"])}, xl, cfg, mask)
+    cap = dispatch.shape[-1]
 
-    # dispatch tokens to expert buffers: (E, G, C, d)
-    expert_in = torch.einsum("gsec,gsd->egcd", dispatch.to(x.dtype), xg)
-    expert_in = part.act(expert_in, "experts", None, None, "embed")
-    expert_out = swiglu_apply(params["experts"],
-                              expert_in.reshape(e, n_g * cap, d))
-    expert_out = expert_out.reshape(e, n_g, cap, d)
-    expert_out = part.act(expert_out, "experts", None, None, "embed")
+    # dispatch tokens to expert buffers: (E, G, C, d), the groups laid out
+    # as the rows they came from. Experts over their axis when E divides
+    # it (expert parallel); when it does not, the experts are whole on
+    # every rank and the groups stay where the tokens are, so each rank
+    # runs its own groups, as the reference's partitioned program does,
+    # not every rank's
+    expert_in = torch.einsum("gsec,gsd->egcd", dispatch.to(x.dtype),
+                             xg).contiguous()
+    expert_in = part.like(expert_in, xa, dims=(None, 0, None, None))
+    rows = expert_in
+    groups = None if part.divides(e, "experts") else "batch"
+    expert_in = part.act(expert_in, "experts", groups, None, "embed")
+    expert_out = swiglu_apply(
+        params["experts"], expert_in.reshape(e, -1, d),
+        axes=("batch", "seq", "mlp") if groups is None
+        else (None, groups, "mlp"))
+    expert_out = expert_out.reshape(e, -1, cap, d)
+    expert_out = part.act(expert_out, "experts", groups, None, "embed")
+    expert_out = part.local(part.laid_out_as(expert_out, rows))
     y = torch.einsum("gsec,egcd->gsd", combine,
                      expert_out.float()).to(x.dtype)
-    y = y.reshape(b, s, d)
+    y = part.like(y.reshape(xl.shape), xa)
     if "shared" in params:
         y = y + swiglu_apply(params["shared"], x)
     return y

@@ -161,13 +161,47 @@ def local(x):
     return x.to_local() if is_dtensor(x) else x
 
 
-def like(y, ref):
+def like(y, ref, dims: Optional[Tuple[Optional[int], ...]] = None):
     """``y``, one rank's shard of a tensor of ``ref``'s global shape, as a
     ``DTensor`` laid out as ``ref`` (differentiable); ``y`` itself when
-    ``ref`` is a plain tensor."""
+    ``ref`` is a plain tensor. With ``dims``, ``y`` is a shard of another
+    shape: its dim ``i`` is laid out as ``ref``'s dim ``dims[i]`` (None:
+    whole on every rank), and each dim ``ref`` shards must be one of
+    them."""
     if not is_dtensor(ref):
         return y
-    return _from_local(y, ref.device_mesh, ref.placements, ref.shape)
+    if dims is None:
+        return _from_local(y, ref.device_mesh, ref.placements, ref.shape)
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh, shape, out = ref.device_mesh, list(y.shape), []
+    for m, p in enumerate(ref.placements):
+        if isinstance(p, Replicate):
+            out.append(p)
+            continue
+        if not isinstance(p, Shard) or p.dim not in dims:
+            raise ValueError(f"{ref.placements} has {p} outside dims {dims}")
+        i = dims.index(p.dim)
+        shape[i] *= mesh.size(m)
+        out.append(Shard(i))
+    return _from_local(y, mesh, tuple(out), shape)
+
+
+def whole(params):
+    """A layer's param dict with each ``DTensor`` leaf gathered whole on
+    every rank, as its local tensor (other leaves as they are): for a
+    product on each rank's own rows."""
+    return {k: local(act(v, *(None,) * v.dim())) if is_dtensor(v) else v
+            for k, v in params.items()}
+
+
+def laid_out_as(y, ref):
+    """``y`` redistributed to ``ref``'s placements (a ``DTensor`` of the
+    same mesh); ``y`` itself when either is a plain tensor."""
+    if not (is_dtensor(y) and is_dtensor(ref)) or \
+            tuple(y.placements) == tuple(ref.placements):
+        return y
+    return y.redistribute(ref.device_mesh, ref.placements)
 
 
 def _from_local(y, mesh, placements, shape):

@@ -1,10 +1,11 @@
 """The port's pod-scale dry run (``launch/dryrun.py``) against the
 reference's: which cells run and which are skipped (with the same reason),
 the analytic terms, the per-rank FLOPs and collectives of a decode, a
-prefill and a train cell against the reference's own dry run of the same
-cells, every family's SMOKE config on the fake 16×16 mesh, and the depth
-and microbatch extrapolation against a full run. Cells run in
-subprocesses: their fake 256-rank group must not become this process's.
+prefill and three train cells (dense, RWKV6, the mamba hybrid) against the
+reference's own dry run of the same cells, every family's SMOKE config on
+the fake 16×16 mesh, and the depth and microbatch extrapolation against
+a full run. Cells run in subprocesses: their fake 256-rank group must not
+become this process's.
 The reference's own two cells (``tests/test_dryrun_smoke.py``) are here at
 full size with the H100's 80 GiB, slow-marked as the reference's are."""
 
@@ -83,9 +84,12 @@ def test_analytic_equals_the_reference(arch):
                     janalytic.ideal_bytes_per_chip(jc, jcfgs.SHAPES[shape], n)
 
 
-# Cells both dry runs take at their SMOKE widths on pod16x16.
+# Cells both dry runs take at their SMOKE widths on pod16x16: the dense
+# family's decode, prefill and train, and the recurrent families' train
+# (RWKV6 and the mamba hybrid, their scans in block form)
 COMPARED = [("llama3.2-1b", "decode_32k"), ("llama3.2-1b", "prefill_32k"),
-            ("qwen1.5-4b", "train_4k")]
+            ("qwen1.5-4b", "train_4k"), ("rwkv6-3b", "train_4k"),
+            ("jamba-v0.1-52b", "train_4k")]
 
 # The reference's dry run, its CLI's cells, on 512 host placeholder devices.
 # jax >= 0.7's ``make_mesh`` makes Explicit axes by default, under which the
@@ -156,6 +160,20 @@ def test_per_rank_counts_match_the_reference_dry_run(both_dry_runs, arch,
     softmax, which the reference's parse of the fused program counts
     short. A rank that did redundant work (a softmax over the whole
     context-parallel cache on every rank was 17% over) fails here.
+
+    The recurrent cells read 0.9889 (rwkv6-3b) and 0.9986 (jamba): within
+    3%, so no wider bound is needed for the block forms. Their extra
+    pairwise work is small beside the per-token scan's own: WKV6 at chunk
+    8 and head size 16 counts about 2.4k FLOPs a token and head against
+    the reference's 2.35k (its scan is 66% of the rwkv6-3b cell, measured
+    by stubbing the reference's step), and the selective scan's log2-step
+    scans count more than the reference's step a token, but the scan is
+    1% of the jamba cell. The same test failed them first for redundant
+    work, as it is meant to: the token shift gathered on every rank (1.8x
+    at prefill: the channel mix's replicated ``wr`` and the decay's lora
+    ran on the whole sequence), jamba's four experts not dividing the data
+    axis (every rank ran every group: 1.39x), and softplus's backward,
+    which DTensor has no rule for, run on the gathered whole.
 
     Collectives by op are compared where the two layouts agree: the decode
     step's all-reduces, the context-parallel softmax's max and sum and the
