@@ -12,7 +12,9 @@
     python3 chip_smoke.py --dryrun
 
 The second form times phase 3's ``bcr_spmm*``, ``bcr_spmm_skip`` and flash
-cases for each checkout TREE (its own ``src/repro_torch``, built into its
+cases, and ``bcr_spmm`` at the short-block shapes of PERF.md's rows 1g and
+1h (the GRU, the im2col CNN's convolutions, whisper's lm_head), for each
+checkout TREE (its own ``src/repro_torch``, built into its
 own ``build/``), one process per TREE in the order given, and prints them
 side by side — e.g. ``build/parent . . build/parent`` after ``git archive
 HEAD~1 | tar -x -C build/parent``. The third runs phases 1, 2 and 13 only;
@@ -31,9 +33,11 @@ Phases, in order (any failed check raises and the script exits non-zero):
    the BCR kernels by M tile (HMMA up to 64, HGMMA for 128), the bf16
    ``bcr_spmm_skip`` kernels by M tile likewise, the bf16 flash kernels
    HGMMA at head_dim 64 and HMMA at the others; none in any fp32
-   (CUDA-core) body. The expert-batched BCR forms are the same bodies with
+   (CUDA-core) body; HMMA in every instantiation of the short-block body,
+   fp and int8 tiles. The expert-batched BCR forms are the same bodies with
    the expert on a grid axis: every BCR kernel's SASS must read it
-   (``SR_CTAID.Y`` on the tensor cores, ``SR_CTAID.Z`` on the CUDA cores).
+   (``SR_CTAID.Y`` on the tensor cores, ``SR_CTAID.Z`` on the CUDA cores),
+   and the short-block kernels (one unstacked pack) read no such axis.
 3. Kernels against their plain PyTorch versions on the card, bf16 at the
    llama3.2-1b full-width shapes (d_model 2048, 32/8 heads, head_dim 64,
    d_ff 8192, vocab 128256, BCR block 128 at keep 0.25, so R_keep = C_keep =
@@ -43,8 +47,13 @@ Phases, in order (any failed check raises and the script exits non-zero):
    (never used by the port) and the bound. Every form: the fp and int8
    forms of ``bcr_spmm``, ``bcr_spmm_grouped`` (plus the one-launch split
    at decode: MLP wo and gate/up at M = 8, two launches bit-equal, output
-   and workspace in freed NaN-filled blocks, split counters back at 0)
-   and paged attention (decode over lengths 1..512 and 1024..4096,
+   and workspace in freed NaN-filled blocks, split counters back at 0; and
+   the short-block body for blocks under 16 rows, fp and int8 tiles, at
+   ``SHORT_CHECKS``: (8, 8), (2, 128), (8, 16) and (3, 16) blocks whose
+   block rows no CTA's P divides, M in {1, 5, 33}, the split at M = 1 and
+   5, each launch counted under ``bcr_spmm_short`` / ``_int8_short``, two
+   launches bit-equal over freed NaN-filled buffers with the counters back
+   at 0, and x off 16-byte alignment) and paged attention (decode over lengths 1..512 and 1024..4096,
    prefill-append of 16 rows over 100 and of 64 rows over 384 (phase 9a's
    append admission); plus its one-launch split over pages at
    decode and prefill-append, fp and int8 pages, checked as the BCR split
@@ -192,14 +201,16 @@ Phases, in order (any failed check raises and the script exits non-zero):
    (bf16); then one timestep (``gru_step_latency_fn``) at batch 1 and 32,
    dense and packed, fp32 and bf16: p50 wall over 60 warm steps, device
    time and launches a step (``torch.profiler``), ``bcr_spmm`` launches a
-   step (12), against the packed kernels' bound (tiles, index planes, x
+   step (12; under bf16 all 12 through the short-block body, as all 288 of
+   bf16 ``gru_apply``), against the packed kernels' bound (tiles, index planes, x
    and y over 3.35 TB/s) and the dense step (``x @ W.T``, the library);
    and ``bcr_spmm`` alone at the GRU's shapes (M = 1, 32), timed as phase
    3's rows. (b) ``conv_as_gemm`` of the ``cnn_im2col`` example through
    ``bcr_spmm``, fp32 and bf16, against the plain version and the dense
    ``cols @ W.T``: the example's conv2 (M 256, K 144, N 32) and a VGG-16
    conv3 layer (arXiv:1409.1556: 56 x 56, 256 -> 256, 3 x 3; M 3136 an
-   image) at batch 1 and 8, (8, 16) blocks at keep 0.25, one launch each;
+   image) at batch 1 and 8, (8, 16) blocks at keep 0.25, one launch each
+   (bf16: through the short-block body);
    the im2col skip's dead columns. (c) Listing 1 on the card:
    ``find_opt_blk`` over the card runner (bf16, keep 0.25), its full
    (block, ms) curve, for the GRU's 1024 x 1024 at M 1 and 32 and
@@ -257,7 +268,9 @@ Phases, in order (any failed check raises and the script exits non-zero):
    byte floor (streamed projections, the whole cross cache and the live
    self K/V over 3.35 TB/s); one decode step between zeroed counters
    launches exactly what the packed tree implies (5 x 32 + 1
-   ``bcr_spmm``, 32 ``bcr_spmm_grouped``, no paged or flash kernel). (b)
+   ``bcr_spmm``, 32 ``bcr_spmm_grouped``, no paged or flash kernel), the
+   one on lm_head's (2, 128) blocks through the short-block body
+   (``bcr_spmm_short`` 1; ``bcr_spmm_int8_short`` in (b)). (b)
    The same draw with int8 tiles and ``attn_impl="pallas"``, ``q_chunk``
    = ``kv_chunk`` = 1500: the int8 forms move and the fp forms stay 0;
    flash launches once per encoder layer and once per decoder layer a
@@ -413,7 +426,13 @@ forms and flash over 15b's; over phase 16's five packed prefills,
 sharded runs, every rank's, ``tp_launches``; over phase 19a's pipelines,
 every rank's, ``pipe_launches``; and for the ``bcr_spmm``,
 ``bcr_spmm_grouped`` and paged entries their time and bound at phase 18c's
-shard shape, ``tp_ms`` and ``tp_bound_ms``), and the contract line.
+shard shape, ``tp_ms`` and ``tp_bound_ms``; two entries for the
+short-block body's counters, ``bcr_spmm_short`` and
+``bcr_spmm_int8_short``, timed at whisper's lm_head M = 8 (phase 15d),
+their launches over 15a's and 15b's runs, the bf16 one's
+``gru_launches`` and ``gru_ms`` from one packed bf16 GRU step, and their
+errors the larger of phase 3's short-block checks and that row), and the
+contract line.
 """
 
 from __future__ import annotations
@@ -486,7 +505,15 @@ KERNELS = {
            f"{REPO}/kernels/bcr_spmm.py:" + ("311" if "grouped" in k
                                              else "158"), shape)
        for k, shape in EXPERT_FORMS.items()},
+    # the short-block body (blocks under 16 rows, G = 1): whisper's lm_head
+    # on (2, 128) blocks, its row in phase 15d, launches over 15a / 15b
+    **{k: (f"{PORT}/bcr_spmm.cu", f"{REPO}/kernels/bcr_spmm.py:158",
+           "whisper lm_head 51866x1280 M=8") for k in ("bcr_spmm_short",
+                                                       "bcr_spmm_int8_short")},
 }
+# the counter key of each short-body entry → the form whose rows time it
+SHORT_FORMS = {"bcr_spmm_short": "bcr_spmm",
+               "bcr_spmm_int8_short": "bcr_spmm_int8"}
 # phase 3's paged case at phase 9a's append admission
 APPEND_SHAPE = "prefill-append B=8 S=64 prefix 384"
 # phase 10a's verify dispatch: 8 slots x (spec_k + 1) = 4 rows, ragged
@@ -786,7 +813,17 @@ def bcr_instruction_check(lib_path: Path) -> None:
     for name, (hmma, hgmma) in ops.items():
         m = re.search(r"bcr_spmm(_grouped)?_tcILb([01])ELi(\d+)ELi\d+ELi(\d+)E",
                       name)
-        if m:
+        short = re.search(r"bcr_spmm_short_tcILb([01])ELi(\d+)ELi(\d+)E",
+                          name)
+        if short:
+            # the short-block body: mma.sync over every warp tile
+            if not hmma or hgmma:
+                raise AssertionError(f"{name}: {hmma} HMMA, {hgmma} HGMMA; "
+                                     f"want mma.sync")
+            rows.setdefault("bcr_spmm" + ("_int8" if short.group(1) == "1"
+                                          else "") + "_short", set()).add(
+                f"{short.group(2)}x{short.group(3)} tiles: mma.sync")
+        elif m:
             form = ("bcr_spmm" + ("_grouped" if m.group(1) else "")
                     + ("_int8" if m.group(2) == "1" else ""))
             want = ("wgmma" if int(m.group(4)) == K.WGMMA_WARPS_M
@@ -801,7 +838,14 @@ def bcr_instruction_check(lib_path: Path) -> None:
         elif "cuda_core" in name and (hmma or hgmma):
             raise AssertionError(f"{name}: the fp32 body issued tensor-core "
                                  f"instructions")
+    if not ({"bcr_spmm_short", "bcr_spmm_int8_short"} <= set(rows)):
+        raise AssertionError(f"short-block body instantiations missing: "
+                             f"{sorted(rows)}")
     for form in sorted(rows):
+        if form.endswith("_short"):
+            log(f"  {form} (bf16 x, slabs x n8 tiles a warp): "
+                + ", ".join(sorted(rows[form])))
+            continue
         log(f"  {form} (bf16 x): "
             + ", ".join(sorted(rows[form], key=lambda t: int(t.split()[2][:-1]))))
     log("  fp32 x (every form): CUDA-core FMAs, no HMMA/HGMMA")
@@ -810,9 +854,16 @@ def bcr_instruction_check(lib_path: Path) -> None:
     # blockIdx.y and every CUDA-core body blockIdx.z, so one launch covers E
     # experts; the unstacked tensor-core instantiations read no expert axis
     # at all (no expert arithmetic on the dense family's path)
-    axes = {"Y": 0, "Z": 0, "none": 0}
+    axes = {"Y": 0, "Z": 0, "none": 0, "short": 0}
     for name, lines in sass_functions(lib_path).items():
         if "bcr_spmm" not in name:
+            continue
+        if "bcr_spmm_short_tc" in name:
+            # one unstacked pack: no expert axis
+            if any("SR_CTAID.Y" in ln for ln in lines):
+                raise AssertionError(f"{name}: the short body reads "
+                                     f"SR_CTAID.Y")
+            axes["short"] += 1
             continue
         tc = re.search(r"_tcILb[01]ELi\d+ELi\d+ELi\d+ELi\d+ELb([01])E",
                        name)
@@ -834,7 +885,8 @@ def bcr_instruction_check(lib_path: Path) -> None:
     log(f"  expert-batched forms: the same bodies, expert index read from "
         f"SR_CTAID.Y in {axes['Y']} stacked tensor-core kernels (HMMA / "
         f"HGMMA as above; their {axes['none']} unstacked twins read no "
-        f"expert axis) and SR_CTAID.Z in {axes['Z']} CUDA-core kernels")
+        f"expert axis) and SR_CTAID.Z in {axes['Z']} CUDA-core kernels; "
+        f"the {axes['short']} short-block kernels read none")
 
 
 def tc_instruction_check(skip_lib: Path, flash_lib: Path,
@@ -887,7 +939,8 @@ def check_split(torch, form, plan, run, want, out_shape) -> None:
     """One split launch form: two launches give bit-equal y (the last split
     sums the partials in split order); the output and the workspace land
     in freed NaN-filled blocks and the result is still right; the split
-    counters are back at zero after the calls."""
+    counters are back at zero after the calls. (An unsplit plan is held to
+    the same, with no workspace.)"""
     from repro_torch.kernels import bcr_spmm as K
 
     poison = (torch.full((plan.workspace_floats,), float("nan"),
@@ -910,7 +963,8 @@ def check_split(torch, form, plan, run, want, out_shape) -> None:
     if left:
         raise AssertionError(f"split {form}: {left} counters not back at "
                              f"zero")
-    log(f"  split {form}: two launches bit-equal, counters back at 0")
+    log(f"  {'split ' if plan.splits > 1 else ''}{form}: two launches "
+        f"bit-equal" + (", counters back at 0" if plan.splits > 1 else ""))
 
 
 def bcr_split_checks(torch, gen) -> None:
@@ -958,6 +1012,127 @@ def bcr_split_checks(torch, gen) -> None:
                         f"M=8", plan, run, want, (8, n))
 
 
+# phase 3's short-block checks (label, N, K, block, keep, align, Ms): blocks
+# under 16 rows at G = 1, each with a block-row count no configuration's P
+# divides (a masked last group), ragged M, the GRU's split at M = 1 and 5
+SHORT_CHECKS = (
+    ("GRU-like 1000x1024 (8, 8) keep 0.1", 1000, 1024, (8, 8), 0.1, 2,
+     (1, 5, 33)),
+    ("whisper-like 2002x1280 (2, 128) keep 0.25", 2002, 1280, (2, 128), 0.25,
+     1, (1, 5, 33)),
+    ("CNN 200x2304 (8, 16) keep 0.25", 200, 2304, (8, 16), 0.25, 2,
+     (1, 5, 33)),
+    ("odd 111x144 (3, 16) keep 0.5", 111, 144, (3, 16), 0.5, 1, (1, 5, 33)))
+
+
+def short_checks(torch, gen) -> dict:
+    """The short-block body against its plain version on the card, fp and
+    int8 tiles, at ``SHORT_CHECKS``: every launch must take the short body
+    (its ``_short`` counter moves with the form's), run twice bit-equal
+    over freed NaN-filled output (and workspace) blocks with the split
+    counters back at 0 (:func:`check_split`); then each shape once more
+    with x one element off 16-byte alignment (the plain x loads). Returns
+    the largest error per counter key."""
+    from repro_torch.core.bcr import BCRSpec
+    from repro_torch.core.bcrc import tbcrc_pack
+    from repro_torch.kernels import bcr_spmm as K
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.plan import quantize_packed
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    errs = {"bcr_spmm_short": 0.0, "bcr_spmm_int8_short": 0.0}
+    for label, n, k, block, keep, align, ms in SHORT_CHECKS:
+        w = torch.randn((n, k), generator=gen, device="cuda") * k ** -0.5
+        p = tbcrc_pack(w, BCRSpec(block_shape=block, keep_frac=keep,
+                                  align=align))
+        for int8 in (False, True):
+            pk = (quantize_packed(p) if int8 else dataclasses.replace(
+                p, vals=p.vals.to(torch.bfloat16)))
+            key = "bcr_spmm_int8_short" if int8 else "bcr_spmm_short"
+            for m in ms:
+                x = torch.randn((m, k), generator=gen, device="cuda").to(
+                    torch.bfloat16)
+                plan = K.launch_plan(m, n, k, 1, block, pk.kept_counts, sms,
+                                     int8)
+                if plan.body != "short":
+                    raise AssertionError(f"{label} M={m}: plan {plan}")
+                want = ref.bcr_spmm_packed_ref(x, pk)
+                before = K.LAUNCHES[key]
+                form = (f"short {'int8 ' if int8 else ''}{label} M={m} "
+                        f"(P {plan.block_rows}, J {plan.stage_blocks})")
+                check_split(torch, form, plan, lambda: K.bcr_spmm(x, pk),
+                            want, (m, n))
+                if K.LAUNCHES[key] - before != 2:
+                    raise AssertionError(f"{form}: {key} moved "
+                                         f"{K.LAUNCHES[key] - before}, not 2")
+                errs[key] = max(errs[key], check_close(
+                    form, K.bcr_spmm(x, pk), want, BF16_TOL, quiet=True))
+            xs = torch.empty(5 * k + 1, dtype=torch.bfloat16,
+                             device="cuda")[1:].view(5, k)
+            xs.copy_(torch.randn((5, k), generator=gen, device="cuda"))
+            errs[key] = max(errs[key], check_close(
+                f"short {'int8 ' if int8 else ''}{label} M=5, x off 16-byte "
+                f"alignment", K.bcr_spmm(xs, pk),
+                ref.bcr_spmm_packed_ref(xs, pk), BF16_TOL))
+    return errs
+
+
+def short_cases(torch, timer, gen, record):
+    """The ``bcr_spmm`` shapes of PERF.md's rows 1g and 1h under bf16 x,
+    timed as phase 3's rows (``--bcr-ab`` runs it on each tree): the
+    paper's GRU ``uz`` (1024 x 1024, (8, 8) blocks keeping 2 x 4) at M = 1
+    and 32, the ``cnn_im2col`` example's conv2 and a VGG-16 conv3 GEMM
+    ((8, 16) blocks keeping 4 x 8) at phase 13b's M, and whisper-large-v3's
+    lm_head ((2, 128) blocks keeping 1 x 64) at M = 8 and 32, fp and int8
+    tiles. Random weights at the same block and keep (phase 13 packs the
+    GRU after ADMM; the kernel's work does not depend on which columns
+    survive). Only the wrappers' public calls."""
+    from repro_torch.core.bcr import BCRSpec
+    from repro_torch.core.bcrc import tbcrc_pack, tbcrc_unpack
+    from repro_torch.kernels import bcr_spmm as K
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.plan import quantize_packed
+
+    bf16 = torch.bfloat16
+    gru = f"GRU uz {GRU_D}x{GRU_D} (8,8) keep 0.1 M={{}} bfloat16"
+    cases = [("bcr_spmm", gru, GRU_D, GRU_D, (8, 8), 0.1, 2, False, (1, 32))]
+    for name, b, hh, ww, cin, cout in CONVS:
+        m = b * hh * ww
+        cases.append(("bcr_spmm", f"{name} B={b} M={{}} K={9 * cin} N={cout} "
+                      f"(8, 16) keep 0.25 bfloat16", cout, 9 * cin, (8, 16),
+                      0.25, 2, False, (m,)))
+    for int8 in (False, True):
+        cases.append(("bcr_spmm_int8" if int8 else "bcr_spmm",
+                      "whisper lm_head 51866x1280 M={}", 51866, 1280,
+                      (2, 128), 0.25, 1, int8, (8, 32)))
+    log("short-block shapes (rows 1g and 1h), bf16 x")
+    for kernel, shape, n, k, block, keep, align, int8, ms in cases:
+        w = torch.randn((n, k), generator=gen, device="cuda") * k ** -0.5
+        p = tbcrc_pack(w, BCRSpec(block_shape=block, keep_frac=keep,
+                                  align=align))
+        p = quantize_packed(p) if int8 else dataclasses.replace(
+            p, vals=p.vals.to(bf16))
+        w_dense = tbcrc_unpack(p).to(bf16)
+        for m in ms:
+            x = torch.randn((m, k), generator=gen, device="cuda").to(bf16)
+            got, want = K.bcr_spmm(x, p), ref.bcr_spmm_packed_ref(x, p)
+            torch.cuda.synchronize()
+            err = check_close(shape.format(m), got, want, BF16_TOL)
+            byts = (p.vals.numel() * p.vals.element_size()
+                    + (p.row_idx.numel() + p.col_idx.numel()) * 4
+                    + (p.plan.block_scales.numel() * 4 if int8 else 0)
+                    + (m * k + m * n) * 2)
+            record(kernel, shape.format(m), err,
+                   timer.ms(lambda: K.bcr_spmm(x, p)),
+                   timer.ms(lambda: ref.bcr_spmm_packed_ref(x, p),
+                            reps=5 if m > 4096 else 20),
+                   byts, 2 * m * p.vals.numel(), bf16,
+                   timer.ms(lambda: _library_dense_matmul(x, w_dense)))
+            del x, got, want
+        del w, p, w_dense
+        torch.cuda.empty_cache()
+
+
 def phase_kernels(torch, timer):
     from repro_torch.core.bcr import BCRSpec
     from repro_torch.core.bcrc import tbcrc_pack, tbcrc_unpack
@@ -985,6 +1160,12 @@ def phase_kernels(torch, timer):
     bcr_cases(torch, timer, gen, record)
     log("bcr_spmm split path (M=8, one launch)")
     bcr_split_checks(torch, gen)
+    log("bcr_spmm short-block body (blocks under 16 rows: ragged groups and "
+        "M, the split, NaN-filled buffers, unaligned x)")
+    t0 = time.perf_counter()
+    short_errs = short_checks(torch, gen)
+    log(f"short-block checks: {time.perf_counter() - t0:.1f} s, largest "
+        f"errors {json.dumps(short_errs)}")
     p = pack(256, 384, torch.float32)
     x = randn(5, 384, dtype=torch.float32)
     err = check_close("fp32 256x384 M=5", K.bcr_spmm(x, p),
@@ -1029,7 +1210,7 @@ def phase_kernels(torch, timer):
     expert_split_checks(torch, gen)
     moe_attention_cases(torch, timer, gen, record)
     family_cases(torch, timer, gen, record)
-    return rows
+    return rows, short_errs
 
 
 def paged_cases(torch, timer, gen, record):
@@ -3887,6 +4068,7 @@ def gru_step_stats(torch, params, batch, dtype, gen):
     fn(h, x)
     torch.cuda.synchronize()
     bcr_launches = read_counters()["bcr_spmm"]
+    short_launches = read_counters()["bcr_spmm_short"]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(GRU_PROFILED):
@@ -3901,7 +4083,8 @@ def gru_step_stats(torch, params, batch, dtype, gen):
         device_us=sum(ms for _, _, ms in events) / GRU_PROFILED * 1e3,
         bcr_device_us=sum(ms for name, _, ms in events
                           if "bcr_spmm" in name) / GRU_PROFILED * 1e3,
-        device_launches=launches / GRU_PROFILED, bcr_launches=bcr_launches)
+        device_launches=launches / GRU_PROFILED, bcr_launches=bcr_launches,
+        short_launches=short_launches)
 
 
 def gru_step_bound_us(torch, params, batch, dtype) -> dict:
@@ -3931,7 +4114,8 @@ def gru_step_bound_us(torch, params, batch, dtype) -> dict:
 def phase_gru(torch, np, timer, record):
     """Phase 13a (see the module docstring). Returns the packed fp32 step's
     ``bcr_spmm`` launches and device ms at batch 1 (the kernels line's
-    ``gru_launches`` and ``gru_ms``)."""
+    ``gru_launches`` and ``gru_ms``), then the packed bf16 step's
+    short-block launches and device ms at batch 1 (the short entry's)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.bcr_spmm import bcr_spmm
     from repro_torch.models.gru import gru_apply
@@ -3950,19 +4134,24 @@ def phase_gru(torch, np, timer, record):
             got = gru_apply(packed, toks)
             torch.cuda.synchronize()
             launches = read_counters()["bcr_spmm"]
+            short = read_counters()["bcr_spmm_short"]
             want = gru_apply(dense, toks)
             with plain_bcr():
                 plain = gru_apply(packed, toks)
-            if launches != 2 * GRU_S * 6 or not bool(
+            # bf16: every launch through the short-block body ((8, 8)
+            # blocks); fp32 runs the CUDA-core body
+            want_short = launches if dt == torch.bfloat16 else 0
+            if launches != 2 * GRU_S * 6 or short != want_short or not bool(
                     torch.isfinite(got).all()) or got.shape != (
                         GRU_B, GRU_CLASSES):
                 raise AssertionError(f"phase 13a gru_apply {dt}: launches "
-                                     f"{launches}, shape {got.shape}")
+                                     f"{launches} (short body {short}), "
+                                     f"shape {got.shape}")
             what = f"phase 13a gru_apply {dt} B={GRU_B} S={GRU_S} packed"
             check_close(f"{what} vs dense masked", got, want, tol)
             check_close(f"{what} vs plain", got, plain, tol)
             log(f"  bcr_spmm launches over gru_apply: {launches} = 2 layers "
-                f"x {GRU_S} steps x 6")
+                f"x {GRU_S} steps x 6, {short} through the short-block body")
             for batch in GRU_BATCHES:
                 for form, params in (("dense", dense), ("packed", packed)):
                     st = gru_step_stats(torch, params, batch, dt, gen)
@@ -3992,13 +4181,23 @@ def phase_gru(torch, np, timer, record):
                        timer.ms(lambda: _library_dense_matmul(x, w_dense)))
     first = next(st for st in steps if st["dtype"] == "float32"
                  and st["batch"] == 1 and st["form"] == "packed")
+    short = next(st for st in steps if st["dtype"] == "bfloat16"
+                 and st["batch"] == 1 and st["form"] == "packed")
     if any(st["bcr_launches"] != (12 if st["form"] == "packed" else 0)
            for st in steps):
         raise AssertionError("phase 13a: a packed step did not launch "
                              "bcr_spmm once a matrix")
+    if any(st["short_launches"] != (12 if st["form"] == "packed"
+                                    and st["dtype"] == "bfloat16" else 0)
+           for st in steps):
+        raise AssertionError("phase 13a: a packed bf16 step's 12 launches "
+                             "did not all go through the short-block body")
+    log("phase 13a: each packed bf16 step's 12 bcr_spmm launches went "
+        "through the short-block body (bcr_spmm_short 12)")
     del models
     torch.cuda.empty_cache()
-    return first["bcr_launches"], first["device_us"] / 1e3
+    return (first["bcr_launches"], first["device_us"] / 1e3,
+            short["short_launches"], short["device_us"] / 1e3)
 
 
 def phase_cnn(torch, timer, record):
@@ -4029,8 +4228,11 @@ def phase_cnn(torch, timer, record):
                 zero_counters()
                 got = conv_as_gemm(xd, packed, 3, 3, cout)
                 torch.cuda.synchronize()
-                if read_counters()["bcr_spmm"] != 1:
-                    raise AssertionError(f"phase 13b {name}: not one launch")
+                if read_counters()["bcr_spmm"] != 1 or read_counters()[
+                        "bcr_spmm_short"] != (dt == torch.bfloat16):
+                    raise AssertionError(f"phase 13b {name}: not one launch "
+                                         f"(bf16: through the short-block "
+                                         f"body) {read_counters()}")
                 with plain_bcr():
                     plain = conv_as_gemm(xd, packed, 3, 3, cout)
                 cols = im2col(xd, 3, 3)
@@ -4111,12 +4313,12 @@ def phase_examples(torch):
 
 
 def phase_paper(torch, np):
-    """Phase 13: (a)–(d). Returns the packed fp32 GRU step's ``bcr_spmm``
-    launches and device ms at batch 1."""
+    """Phase 13: (a)–(d). Returns :func:`phase_gru`'s GRU step launches and
+    device ms."""
     rows = []
     timer, record = Timer(torch), recorder(torch, rows)
     t0 = time.perf_counter()
-    gru_launches, gru_ms = phase_gru(torch, np, timer, record)
+    gru = phase_gru(torch, np, timer, record)
     t1 = time.perf_counter()
     phase_cnn(torch, timer, record)
     del timer
@@ -4128,7 +4330,7 @@ def phase_paper(torch, np):
     log("phase 13 kernel cases: " + json.dumps(rows))
     log(f"phase 13: (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) "
         f"{t3 - t2:.1f} s, (d) {time.perf_counter() - t3:.1f} s")
-    return gru_launches, gru_ms
+    return gru
 
 
 # -- phase 14: the vlm, ssm and hybrid families -----------------------------
@@ -4951,20 +5153,23 @@ def encdec_decode(torch, fns, params, cache, prompt, gen_tokens):
 
 
 def encdec_step_launches(params) -> tuple:
-    """``(bcr_spmm, bcr_spmm_grouped)`` launches one decode step must make
-    over a packed tree: every packed linear the step reads (self
+    """``(bcr_spmm, bcr_spmm_grouped, short)`` launches one decode step
+    must make over a packed tree: every packed linear the step reads (self
     attention, the cross attention's Q and output — its K/V were computed
-    at prefill — the MLP) and ``lm_head``; a fused group is one launch."""
-    single = grouped = 0
+    at prefill — the MLP) and ``lm_head``; a fused group is one launch;
+    ``short`` counts the single packs on blocks under 16 rows (lm_head's
+    (2, 128)), which run the short-block body."""
+    single = grouped = short = 0
     reads = {"self_attn": ("wq", "wk", "wv", "wkv", "wqkv", "wo"),
              "cross_attn": ("wq", "wo"), "mlp": ("wi", "wo")}
-    for lp in params["dec_layers"]:
-        for block, keys in reads.items():
-            for key in keys:
-                entry = lp[block].get(key, {})
-                single += "w_packed" in entry
-                grouped += "w_group" in entry
-    return single + ("w_packed" in params["lm_head"]), grouped
+    entries = [lp[block].get(key, {}) for lp in params["dec_layers"]
+               for block, keys in reads.items() for key in keys]
+    for entry in entries + [params["lm_head"]]:
+        single += "w_packed" in entry
+        grouped += "w_group" in entry
+        short += ("w_packed" in entry
+                  and entry["w_packed"].block_shape[0] < 16)
+    return single, grouped, short
 
 
 def encdec_prefill_device_ms(torch, fns, params, batch) -> float:
@@ -4993,7 +5198,7 @@ def phase_encdec_serve(torch, cfg, params, frac, label, frames, prompt,
     from repro_torch.models.api import model_fns
 
     fns = model_fns(cfg)
-    single_key, grouped_key = forms
+    single_key, grouped_key, short_key = forms
     batch = {"frames": frames, "tokens": prompt}
     fns.prefill(params, batch)            # warm-up: kernels loaded, plans
     torch.cuda.synchronize()
@@ -5032,15 +5237,17 @@ def phase_encdec_serve(torch, cfg, params, frac, label, frames, prompt,
     step()
     torch.cuda.synchronize()
     one = {k: v for k, v in read_counters().items() if v}
-    want_single, want_grouped = encdec_step_launches(params)
-    if one != {single_key: want_single, grouped_key: want_grouped}:
+    want_single, want_grouped, want_short = encdec_step_launches(params)
+    want_one = {single_key: want_single, grouped_key: want_grouped,
+                short_key: want_short}
+    if one != {k: v for k, v in want_one.items() if v} or want_short != 1:
         raise AssertionError(f"{label}: one decode step launched {one}, the "
-                             f"packed tree implies {single_key} "
-                             f"{want_single}, {grouped_key} {want_grouped}")
+                             f"packed tree implies {want_one} (lm_head on "
+                             f"(2, 128) blocks through the short body)")
     log(f"{label}: one decode step launched {one} (= 5 x "
         f"{cfg.num_layers} + 1 and {cfg.num_layers}: self wqkv grouped, "
-        f"self wo, cross wq and wo, MLP wi and wo a layer, lm_head; no "
-        f"paged or flash kernel)")
+        f"self wo, cross wq and wo, MLP wi and wo a layer, lm_head, which "
+        f"went through the short-block body; no paged or flash kernel)")
     prof = profile_window(torch, step, ENC_HOST_FUNCTIONS)
     weights = tree_bytes(params)
     cross_bytes = sum(cache[k].numel() * cache[k].element_size()
@@ -5167,10 +5374,11 @@ def flip_picks(torch, cfg, params, enc, traj):
             :, ENC_PROMPT - 1:].float().argmax(-1)
 
 
-def run_phase_encdec(torch, np) -> dict:
+def run_phase_encdec(torch, np):
     """Phase 15d's kernel cases, then phase 15 (a)-(c). Returns each
     kernel's launches over 15a's run (the fp forms) and 15b's (the int8
-    forms and flash), the kernels line's ``encdec_launches``."""
+    forms and flash), the kernels line's ``encdec_launches``, and 15d's
+    rows."""
     log("phase 15's kernel shapes (phase 3's checks)")
     t0 = time.perf_counter()
     rows, timer = [], Timer(torch)
@@ -5188,7 +5396,7 @@ def run_phase_encdec(torch, np) -> dict:
     log(f"phase 15: {time.perf_counter() - t0:.1f} s")
     return {k: (launches_b if "int8" in k or k.startswith("flash")
                 else launches_a)[k] for k in launches_a
-            if launches_a[k] or launches_b[k]}
+            if launches_a[k] or launches_b[k]}, rows
 
 
 def phase_encdec(torch, np):
@@ -5204,7 +5412,7 @@ def phase_encdec(torch, np):
     frames, prompt = encdec_inputs(torch, np, cfg, ENC_UTTS)
     _, launches_a, toks_a = phase_encdec_serve(
         torch, cfg, params, fracs[0], "phase 15a whisper-large-v3 bf16",
-        frames, prompt, ("bcr_spmm", "bcr_spmm_grouped"))
+        frames, prompt, ("bcr_spmm", "bcr_spmm_grouped", "bcr_spmm_short"))
     if launches_a["flash_attention_fused"] or any(
             v for k, v in launches_a.items() if k.startswith("paged")):
         raise AssertionError(f"phase 15a: attention kernels launched under "
@@ -5220,7 +5428,8 @@ def phase_encdec(torch, np):
     summary_b, launches_b, _ = phase_encdec_serve(
         torch, cfg_q, params_q, fracs[1],
         "phase 15b whisper-large-v3 int8 tiles + flash encoder", frames,
-        prompt, ("bcr_spmm_int8", "bcr_spmm_grouped_int8"))
+        prompt, ("bcr_spmm_int8", "bcr_spmm_grouped_int8",
+                 "bcr_spmm_int8_short"))
     # a prefill runs flash once per encoder layer (non-causal, 1500 frames)
     # and once per decoder layer (causal, over the prompt): the reference's
     # prefill runs attention_apply under attn_impl in both stacks
@@ -5756,7 +5965,7 @@ def tune_case(torch, np, gen, label, n, k, g, block, epi, int8):
                                weight_scale_bytes=sb) / grp * 1e3
         return ms, model_ms, err, plan
 
-    space = plan_search_space(TUNE_M, g)
+    space = plan_search_space(TUNE_M, g, block)
     pairs, errs = [], []
     for values in itertools.product(*(space[key] for key in sorted(space))):
         genome = dict(zip(sorted(space), values))
@@ -6975,8 +7184,9 @@ def run_phase_dryrun(torch, np, smi):
 
 
 def bcr_worker(tree: str) -> int:
-    """``--bcr-worker TREE``: :func:`bcr_cases`, :func:`paged_cases`,
-    :func:`skip_cases` and :func:`flash_cases` against TREE's own
+    """``--bcr-worker TREE``: :func:`bcr_cases`, :func:`short_cases`,
+    :func:`paged_cases`, :func:`skip_cases` and :func:`flash_cases` against
+    TREE's own
     ``repro_torch`` (built into TREE's build directory); the rows come out
     as one ``bcr rows:`` JSON line."""
     import torch
@@ -6995,6 +7205,7 @@ def bcr_worker(tree: str) -> int:
     rows = []
     timer, record = Timer(torch), recorder(torch, rows)
     bcr_cases(torch, timer, gen, record)
+    short_cases(torch, timer, gen, record)
     paged_cases(torch, timer, gen, record)
     skip_cases(torch, timer, gen, record)
     flash_cases(torch, timer, gen, record)
@@ -7116,7 +7327,7 @@ def main() -> int:
         log(smi)
         return 0
     if encdec_only:
-        encdec_launches = run_phase_encdec(torch, np)
+        encdec_launches, _ = run_phase_encdec(torch, np)
         log(f"phase 15 launches: {json.dumps(encdec_launches)}")
         log(smi)
         return 0
@@ -7145,7 +7356,7 @@ def main() -> int:
     log("phase 3, kernels against their plain versions")
     t0 = time.perf_counter()
     timer = Timer(torch)
-    rows = phase_kernels(torch, timer)
+    rows, short_errs = phase_kernels(torch, timer)
     log("kernel cases: " + json.dumps(rows))
     del timer
     torch.cuda.empty_cache()
@@ -7250,7 +7461,7 @@ def main() -> int:
     log("phase 13, the source paper's own workloads (the GRU, the im2col "
         "CNN, Listing 1, the examples)")
     t0 = time.perf_counter()
-    gru_launches, gru_ms = phase_paper(torch, np)
+    gru_launches, gru_ms, gru_short, gru_short_ms = phase_paper(torch, np)
     log(f"phase 13: {time.perf_counter() - t0:.1f} s")
 
     log("phase 14, the vlm, ssm and hybrid families (pixtral-12b, rwkv6-3b, "
@@ -7259,7 +7470,7 @@ def main() -> int:
     family_launches = phase_families(torch, np)
     log(f"phase 14: {time.perf_counter() - t0:.1f} s")
 
-    encdec_launches = run_phase_encdec(torch, np)
+    encdec_launches, encdec_rows = run_phase_encdec(torch, np)
     train_launches = run_phase_train(torch, np, smi)
     tune_launches = run_phase_tune(torch, np, smi)
     tp_launches, tp_rows = run_phase_tp(torch, np, smi)
@@ -7277,16 +7488,22 @@ def main() -> int:
                      "bcr_spmm_skip": skip_launches,
                      # the expert-batched forms run on phase 12's path only
                      **{k: (moe_launches_q if "int8" in k
-                            else moe_launches)[k] for k in EXPERT_FORMS}}
+                            else moe_launches)[k] for k in EXPERT_FORMS},
+                     # the short-block body: whisper's lm_head on phase 15's
+                     # path (15a's run bf16, 15b's int8)
+                     **{k: encdec_launches[k] for k in SHORT_FORMS}}
     kernels = []
     for name, (source, replaces, shape) in KERNELS.items():
-        row = next(r for r in rows if r["kernel"] == name
+        form = SHORT_FORMS.get(name, name)
+        pool = encdec_rows if name in SHORT_FORMS else rows
+        row = next(r for r in pool if r["kernel"] == form
                    and r["shape"] == shape)
+        errs = [r["max_abs_err"] for r in rows if r["kernel"] == name]
+        if name in SHORT_FORMS:
+            errs = [short_errs[name], row["max_abs_err"]]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=path_launches[name],
-            max_abs_err=max(r["max_abs_err"] for r in rows
-                            if r["kernel"] == name),
+            launches=path_launches[name], max_abs_err=max(errs),
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
             shape=row["shape"], serving_launches=serving_launches[name],
@@ -7320,6 +7537,9 @@ def main() -> int:
         if name == "bcr_spmm":
             # phase 13a's path: one packed fp32 GRU step at batch 1
             kernels[-1].update(gru_launches=gru_launches, gru_ms=gru_ms)
+        if name == "bcr_spmm_short":
+            # phase 13a's path: one packed bf16 GRU step at batch 1
+            kernels[-1].update(gru_launches=gru_short, gru_ms=gru_short_ms)
         if name in ("paged_attention", "paged_attention_int8"):
             # the prefill-append form: its launches on phase 9a's shared
             # run, its time at phase 9a's append admission (phase 3)

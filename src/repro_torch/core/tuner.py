@@ -30,6 +30,11 @@ SearchSpace = Dict[str, Sequence[Any]]
 H100_BYTES_PER_S = 3.35e12
 H100_BF16_OPS_PER_S = 989e12
 H100_SMS = 132
+H100_SMEM_PER_SM = 233472
+# modelled latency of one stage of the short-block body (its copies landed,
+# its scatter and its two block barriers), fitted to the body's times on an
+# H100; chip_smoke.py phase 17a prints the model's rank correlation
+SHORT_STAGE_S = 3.0e-6
 
 
 @dataclasses.dataclass
@@ -118,20 +123,53 @@ def launch_cost(plan, m: int, k: int, n: int, kept: Tuple[int, int], *,
       C_keep rounded up to the MMA's k of 16, per contraction block.
     * Time: the larger of bytes over 3.35 TB/s and operations over 989
       TFLOP/s, stretched by the grid's fill of the 132 SMs: ``waves · 132 /
-      grid``, each wave as long as the others."""
+      grid``, each wave as long as the others.
+
+    A short-body plan (``plan.body == "short"``, blocks under 16 rows)
+    counts its own way (:func:`_short_cost`): its P·br rows a CTA, its
+    dense ``bc`` depth (the tile expanded to its block), x staged once a
+    CTA; and each round of the CTAs the SMs hold at once pays
+    ``SHORT_STAGE_S`` for every stage a CTA walks (the copies' landing and
+    two block barriers a stage)."""
     r, c = kept
     e, g = plan.experts, plan.group
     w_bytes = e * g * plan.nb_r * plan.nb_c * (
         r * c * weight_bytes_per_el + (r + c) * 4 + weight_scale_bytes)
-    x_bytes = e * plan.nb_r * plan.chunks * m * k * 2
     y_bytes = e * g * m * n * 2
     partials = plan.workspace_floats * 4 * 2
+    waves = -(-plan.grid // H100_SMS)
+    if plan.body == "short":
+        # CTAs an SM holds at once: shared memory (1 KB reserved a CTA),
+        # and at most 4 (64 registers a thread, 256 threads)
+        resident = max(1, min(4, H100_SMEM_PER_SM // (plan.smem_bytes
+                                                      + 1024)))
+        stages = -(-plan.nb_c // (plan.stage_blocks * plan.splits))
+        return (_short_cost(plan, m, k, w_bytes + y_bytes + partials)
+                * waves * H100_SMS / plan.grid
+                + -(-plan.grid // (H100_SMS * resident)) * stages
+                * SHORT_STAGE_S)
+    x_bytes = e * plan.nb_r * plan.chunks * m * k * 2
     ops = (2 * plan.tiles * plan.nb_c * plan.rows * plan.m_tile
            * (-(-c // 16) * 16))
     t = max((w_bytes + x_bytes + y_bytes + partials) / H100_BYTES_PER_S,
             ops / H100_BF16_OPS_PER_S)
-    waves = -(-plan.grid // H100_SMS)
     return t * waves * H100_SMS / plan.grid
+
+
+def _short_cost(plan, m: int, k: int, other_bytes: int) -> float:
+    """Bytes-or-operations seconds of a short-body launch: x staged once
+    for each CTA's P block rows (each group of them reads all of x's
+    columns once over its splits), and the MMA work of the expanded tiles,
+    P·br rows padded to the configuration's by the M tile by each stage's
+    J·bc columns padded to k16."""
+    groups = -(-plan.nb_r // plan.block_rows)
+    x_bytes = groups * m * k * 2
+    bc = k // plan.nb_c
+    stages = -(-plan.nb_c // plan.stage_blocks)
+    ops = (2 * plan.tiles * plan.rows * plan.m_tile * stages
+           * (-(-plan.stage_blocks * bc // 16) * 16))
+    return max((x_bytes + other_bytes) / H100_BYTES_PER_S,
+               ops / H100_BF16_OPS_PER_S)
 
 
 def plan_cost_model(

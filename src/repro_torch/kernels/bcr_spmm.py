@@ -23,10 +23,16 @@ Under bf16 x both forms run on the tensor cores; :func:`launch_plan` (pure,
 pinned by ``tests/test_torch_bcr_plan.py``) picks the launch: the M tile,
 the warp layout, the output rows per CTA, the split of the contraction
 blocks over CTAs at small M, the copy-ring depth and the shared-memory
-bytes. A pack whose plan carries a tuned genome (``kernels/plan.py``, GRIM
-§4.5) fixes the M tile, the configuration and the split for every call of
-at most the decode batch it was tuned for; an illegal genome raises. Under fp32 x the kernel keeps its CUDA-core body (fp32 products, the
-1e-4 tolerance) and sizes its own M tile.
+bytes. A G = 1 launch of one unstacked pack whose blocks are shorter than
+one m16 MMA slab (br < 16: GRIM's own (8, 8) / (8, 16) blocks, whisper's
+(2, 128) lm_head) takes the short-block body (``LaunchPlan.body ==
+"short"``): P block rows a CTA, each stage's tiles expanded across their
+blocks in shared memory against x's dense block. A pack whose plan
+carries a tuned genome (``kernels/plan.py``, GRIM §4.5) fixes the M tile,
+the configuration and the split for every call of at most the decode batch
+it was tuned for; an illegal genome raises. Under fp32 x the kernel keeps
+its CUDA-core body (fp32 products, the 1e-4 tolerance) and sizes its own M
+tile.
 
 A CUDA tensor goes through the kernel (or the wrapper raises); a CPU tensor
 goes through the plain version in :mod:`repro_torch.kernels.ref`. Each
@@ -34,7 +40,8 @@ launch adds one to ``LAUNCHES[<kernel>]``, with separate keys per form
 (``bcr_spmm`` / ``bcr_spmm_int8``, ``bcr_spmm_grouped`` /
 ``bcr_spmm_grouped_int8``); a launch over stacked experts also adds one to
 the form's ``<kernel>_experts`` key, which counts the expert-batched form
-apart. The kernels' design notes (what bounds them on
+apart, and a launch of the short-block body one to ``bcr_spmm_short`` /
+``bcr_spmm_int8_short``. The kernels' design notes (what bounds them on
 the card, and what the design does about it) head the CUDA source.
 """
 
@@ -54,7 +61,8 @@ from repro_torch.kernels.plan import (launch_genome, plan_shards,
 LAUNCHES = {"bcr_spmm": 0, "bcr_spmm_grouped": 0, "bcr_spmm_int8": 0,
             "bcr_spmm_grouped_int8": 0, "bcr_spmm_experts": 0,
             "bcr_spmm_grouped_experts": 0, "bcr_spmm_int8_experts": 0,
-            "bcr_spmm_grouped_int8_experts": 0}
+            "bcr_spmm_grouped_int8_experts": 0, "bcr_spmm_short": 0,
+            "bcr_spmm_int8_short": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -73,6 +81,20 @@ WGMMA_WARPS_M = 4
 CONFIGS = ((8, 1, 1, 8), (8, 2, 1, 8), (16, 1, 1, 8), (16, 2, 1, 8),
            (32, 1, 1, 8), (32, 2, 1, 8), (64, 2, 2, 8), (128, 4, 4, 8))
 M_TILES = (8, 16, 32, 64, 128)
+# The short-block body (blocks shorter than one m16 slab, G = 1): 8 warps a
+# CTA, each (M tile, slabs, warps_m, rows) below one compiled configuration.
+# A CTA computes ``rows`` MMA rows — the P = rows // br block rows it owns —
+# by the M tile; warp (wr, wm, wk) owns ``slabs`` m16 slabs by M tile /
+# (8·warps_m) n8 tiles and every warps_k-th k16 step, warps_k = 8 /
+# (rows / (16·slabs) · warps_m).
+SHORT_WARPS = 8
+SHORT_CONFIGS = ((8, 1, 1, 16), (8, 1, 1, 64), (8, 1, 1, 128),
+                 (16, 1, 1, 16), (16, 1, 1, 64), (16, 1, 1, 128),
+                 (32, 1, 1, 16), (32, 1, 1, 64), (32, 1, 1, 128),
+                 (64, 1, 2, 16), (64, 1, 2, 64), (64, 2, 2, 128),
+                 (128, 1, 2, 16), (128, 2, 2, 64), (128, 2, 2, 128))
+SHORT_SLOTS = 3              # ring slots: two stages in flight ahead of one
+SHORT_DEPTH = 256            # the most x columns (J·bc) a stage takes
 
 
 def _up(v: int, q: int) -> int:
@@ -101,11 +123,18 @@ class LaunchPlan:
     nb_c: int
     group: int
     experts: int = 1     # the grid's second axis (1: an unstacked pack)
+    # the body: "tc" (one block row a CTA, one contraction block a stage) or
+    # "short" (block_rows block rows a CTA, stage_blocks blocks a stage,
+    # warps_k warps sharing the k16 steps of one output tile)
+    body: str = "tc"
+    block_rows: int = 1
+    stage_blocks: int = 1
+    warps_k: int = 1
 
     @property
     def rows(self) -> int:
         """MMA rows one CTA computes (all members together)."""
-        return 16 * self.slabs * (self.warps // self.warps_m)
+        return 16 * self.slabs * (self.warps // (self.warps_m * self.warps_k))
 
     @property
     def grid(self) -> int:
@@ -114,7 +143,8 @@ class LaunchPlan:
     @property
     def tiles(self) -> int:
         """Output tiles, every expert's: one split counter each."""
-        return self.experts * self.nb_r * self.chunks * self.m_tiles
+        return (self.experts * -(-self.nb_r // self.block_rows) * self.chunks
+                * self.m_tiles)
 
     @property
     def workspace_floats(self) -> int:
@@ -125,7 +155,12 @@ class LaunchPlan:
                 * self.n_chunk)
 
     def args(self) -> Tuple[int, ...]:
-        """The order ``bcr_spmm_launch`` reads its plan array in."""
+        """The order ``bcr_spmm_launch`` (or, for the short body,
+        ``bcr_spmm_short_launch``) reads its plan array in."""
+        if self.body == "short":
+            return (self.m_tile, self.slabs, self.warps_m, self.n_chunk,
+                    self.stage_blocks, self.splits, self.stages,
+                    int(self.vec), self.smem_bytes)
         return (self.m_tile, self.slabs, self.warps_m, self.n_chunk,
                 self.chunks, self.splits, self.stages, int(self.vec),
                 self.smem_bytes)
@@ -162,6 +197,104 @@ def smem_layout(m_tile: int, n_chunk: int, stages: int, g: int, bc: int,
     scales = _up(blocks * g * 4, 16) if int8_tiles else 0
     return (max(main, red) + _up(2 * g * n_chunk * 4, 16) + _up(row, 16)
             + 16 + _up(stages * 8, 16) + scales + 1024)
+
+
+def short_smem_layout(m_tile: int, rows: int, br: int, j: int, slots: int,
+                      bc: int, r: int, c: int, int8_tiles: bool,
+                      warps_k: int) -> int:
+    """Shared-memory bytes of one CTA of the short body; the CUDA launcher
+    computes the same layout (``ShortLayout`` in the source) and refuses a
+    plan that disagrees.
+
+    A ring slot holds one stage of ``j`` contraction blocks: the x block
+    (M tile rows of ``ks`` = J·bc rounded up to 16 columns, rows ``ks + 8``
+    elements apart), then for each of the CTA's P = rows // br block rows
+    its runs of tile values, row indices, column indices (and int8 scales),
+    each with room for the 16-byte chunks that cover it at any alignment
+    (n + 15 bytes rounded up to 16); the slot is 128-byte aligned. Then two
+    expanded A buffers (rows × ks, the same row stride). The epilogue's
+    fp32 tiles (``warps_k`` of M tile × (rows + 4)) alias the ring; 16
+    bytes for the split flag follow."""
+    p = rows // br
+    elt = 1 if int8_tiles else 2
+    ks = _up(j * bc, 16)
+    stride = (ks + 8) * 2
+
+    def cover(n: int) -> int:
+        return _up(n + 15, 16)
+
+    runs = (cover(j * r * c * elt) + cover(j * r * 4) + cover(j * c * 4)
+            + (cover(j * 4) if int8_tiles else 0))
+    slot = _up(m_tile * stride + p * runs, 128)
+    main = slots * slot + 2 * rows * stride
+    red = warps_k * m_tile * (rows + 4) * 4
+    return max(main, red) + 16
+
+
+def short_configs(m_tile: int) -> Tuple[Tuple[int, int, int], ...]:
+    """``(slabs, warps_m, rows)`` of each short-body configuration compiled
+    for ``m_tile``, in ``SHORT_CONFIGS`` order: a short block's genome
+    ``config`` indexes this."""
+    return tuple((slabs, wm, rows) for cmt, slabs, wm, rows in SHORT_CONFIGS
+                 if cmt == m_tile)
+
+
+def short_body(block: Tuple[int, int], g: int, experts: int) -> bool:
+    """Whether a launch runs the short-block body: one unstacked (or
+    single-expert) pack, G = 1, whose blocks are shorter than one m16 MMA
+    slab (br < 16). Under the tensor-core body, one block row a CTA, such a
+    block row leaves at least 112 of the CTA's 128 MMA rows idle."""
+    return block[0] < 16 and g == 1 and experts == 1
+
+
+def _short_fit(m: int, k: int, br: int, bc: int, r: int, c: int, nb_r: int,
+               nb_c: int, mt: int, cfg: Tuple[int, int, int], split: bool,
+               int8_tiles: bool, aligned: bool, sm_count: int,
+               shards: int) -> Optional[LaunchPlan]:
+    """The short-body plan of configuration ``cfg`` at M tile ``mt``, or
+    None where its P·br rows or no stage depth fit.
+
+    * Stage depth J: the most contraction blocks whose x columns (J·bc)
+      stay within ``SHORT_DEPTH`` and, where any J allows it, are a whole
+      number of k16 steps; under a split, at most nb_c / (the CTAs each
+      output tile needs to fill the card), so the split has stages to
+      share. The deepest J shared memory holds.
+    * Split: the rule's count over the nb_c / J stages (the tiles of every
+      shard counted, as ``launch_plan`` counts them), each split a run of
+      whole stages; none where K is under two full stages (2 ·
+      ``SHORT_DEPTH``): there a split's partials cost more than its share
+      of the contraction saves (on an H100, the CNN's conv2, K = 144).
+    * Ring: three slots (two stages in flight ahead of the one computed),
+      fewer when a split walks fewer stages."""
+    slabs, wm, rows = cfg
+    if rows < br:
+        return None
+    p = rows // br
+    wk = SHORT_WARPS // ((rows // (16 * slabs)) * wm)
+    m_tiles = -(-m // mt)
+    tiles = -(-nb_r // p) * m_tiles
+    split = split and k >= 2 * SHORT_DEPTH
+    need = 1
+    if split and 2 * tiles * shards <= sm_count:
+        need = -(-sm_count // (tiles * shards))
+    jmax = max(1, min(nb_c, SHORT_DEPTH // bc))
+    if need > 1:
+        jmax = max(1, min(jmax, nb_c // need))
+    cands = ([j for j in range(jmax, 0, -1) if (j * bc) % 16 == 0]
+             or list(range(jmax, 0, -1)))
+    for j in cands:
+        n_st = -(-nb_c // j)
+        splits = (_rule_splits(tiles * shards, n_st, sm_count) if split
+                  else 1)
+        slots = min(SHORT_SLOTS, -(-n_st // splits))
+        smem = short_smem_layout(mt, rows, br, j, slots, bc, r, c,
+                                 int8_tiles, wk)
+        if smem <= SMEM_LIMIT:
+            vec = aligned and k % 8 == 0 and (j * bc) % 8 == 0
+            return LaunchPlan(mt, slabs, wm, SHORT_WARPS, rows, 1, m_tiles,
+                              splits, slots, vec, smem, nb_r, nb_c, 1, 1,
+                              "short", p, j, wk)
+    return None
 
 
 def tile_configs(m_tile: int) -> Tuple[Tuple[int, int, int], ...]:
@@ -237,6 +370,16 @@ def launch_plan(m: int, n: int, k: int, g: int, block: Tuple[int, int],
       and what shared memory holds. A smaller M tile is tried when nothing
       fits; a block no CTA can hold raises ``ValueError``.
 
+    A launch ``short_body`` accepts (br < 16, G = 1, one unstacked pack)
+    takes the short-block body instead (``body="short"``): the M tile as
+    above; of the M tile's ``short_configs``, below the 128 tile the one
+    with the fewest rows (16: the most CTAs, several to an SM), at the 128
+    tile the one with the most rows whose grid fills over half the SMs
+    unsplit, else the fewest; each the first whose plan fits
+    (``_short_fit``: stage depth, split over stages, ring). A smaller M
+    tile when none fits, and the body above when no short plan fits at
+    all.
+
     A ``genome`` ``(m_tile, config, split)`` (the plan tuner's knobs,
     ``kernels/plan.py``) fixes the M tile (one of ``M_TILES``), the
     configuration (``tile_configs(m_tile)[config]``) and the split (the
@@ -244,6 +387,9 @@ def launch_plan(m: int, n: int, k: int, g: int, block: Tuple[int, int],
     above. A genome that cannot run (a configuration that does not fit G
     members of this block, or shared memory no stage count fits) raises
     ``ValueError``: it never falls back to another plan.
+
+    For a short-body launch the genome's ``config`` indexes
+    ``short_configs(m_tile)`` instead.
 
     ``shards`` > 1 plans one of that many column-parallel shards of a
     weight (``kernels/plan.split_packed``): the split counts the whole
@@ -265,6 +411,11 @@ def launch_plan(m: int, n: int, k: int, g: int, block: Tuple[int, int],
            and r % 4 == 0 and c % 4 == 0
            and ((r * c) % 16 == 0 if int8_tiles
                 else c % 8 == 0 and r <= 256 and c <= 256))
+    if short_body(block, g, experts):
+        plan = _short_plan(m, k, br, bc, r, c, nb_r, nb_c, int8_tiles,
+                           aligned, sm_count, genome, shards)
+        if plan is not None:
+            return plan
     if genome is not None:
         mt, config, split = genome
         cfgs = tile_configs(mt)
@@ -312,10 +463,52 @@ def launch_plan(m: int, n: int, k: int, g: int, block: Tuple[int, int],
                      f"more shared memory than a CTA has")
 
 
+def _short_plan(m, k, br, bc, r, c, nb_r, nb_c, int8_tiles, aligned,
+                sm_count, genome, shards) -> Optional[LaunchPlan]:
+    """``launch_plan``'s short-body half: the genome's plan (or
+    ``ValueError``), else the rule's, else None (no short plan fits)."""
+    if genome is not None:
+        mt, config, split = genome
+        cfgs = short_configs(mt)
+        if not 0 <= config < len(cfgs):
+            raise ValueError(f"genome {genome}: M tile {mt} has {len(cfgs)} "
+                             f"short-body configurations")
+        plan = _short_fit(m, k, br, bc, r, c, nb_r, nb_c, mt, cfgs[config],
+                          split, int8_tiles, aligned, sm_count, shards)
+        if plan is None:
+            raise ValueError(f"genome {genome}: short-body configuration "
+                             f"{cfgs[config]} cannot run {br}x{bc} blocks "
+                             f"keeping {r}x{c} (too few rows, or more shared "
+                             f"memory than a CTA has)")
+        return plan
+    first = next(mt for mt in M_TILES if m <= mt or mt == M_TILES[-1])
+    for mt in reversed([t for t in M_TILES if t <= first]):
+        cfgs = sorted(short_configs(mt), key=lambda cf: cf[2])
+        if mt == M_TILES[-1]:
+            # prefill: the most rows whose grid fills over half the SMs
+            # unsplit (each CTA's x block then feeds the most rows), else
+            # the fewest
+            full = [cf for cf in cfgs
+                    if 2 * -(-nb_r // (cf[2] // br)) * -(-m // mt) * shards
+                    > sm_count and cf[2] >= br]
+            cfgs = full[::-1] + [cf for cf in cfgs if cf not in full]
+        # decode: the fewest rows first (the most CTAs, small enough that
+        # several share an SM and hide each other's copy latency)
+        for cfg in cfgs:
+            plan = _short_fit(m, k, br, bc, r, c, nb_r, nb_c, mt, cfg, True,
+                              int8_tiles, aligned, sm_count, shards)
+            if plan is not None:
+                return plan
+    return None
+
+
 def _declare(lib: ctypes.CDLL) -> None:
     lib.bcr_spmm_launch.argtypes = ([_I] * 4 + [_P] * 9 + [_I] * 11
                                     + [ctypes.POINTER(ctypes.c_int), _P])
     lib.bcr_spmm_launch.restype = _I
+    lib.bcr_spmm_short_launch.argtypes = ([_I] + [_P] * 8 + [_I] * 9
+                                          + [ctypes.POINTER(ctypes.c_int), _P])
+    lib.bcr_spmm_short_launch.restype = _I
 
 
 def library() -> ctypes.CDLL:
@@ -398,14 +591,16 @@ def _check(x: torch.Tensor, packed, e: int) -> Optional[torch.Tensor]:
     return scales
 
 
-def _launch(x, packed, scales, g, e, grouped, bias, swiglu, y, what) -> None:
-    """One launch of ``bcr_spmm_launch`` for a checked (grouped) pack over
-    ``e`` stacked experts (0: unstacked)."""
+def _launch(x, packed, scales, g, e, grouped, bias, swiglu, y,
+            what) -> Optional[LaunchPlan]:
+    """One launch of ``bcr_spmm_launch`` (or ``bcr_spmm_short_launch``) for
+    a checked (grouped) pack over ``e`` stacked experts (0: unstacked);
+    returns the tensor-core plan (None under fp32 x)."""
     m, k = x.shape[-2:]
     n = packed.shape[0]
     nb_r, nb_c, r, c = packed.vals.shape[-4:]
     br, bc = packed.block_shape
-    plan_arr, ws, counters = None, None, None
+    plan, plan_arr, ws, counters = None, None, None, None
     if x.dtype == torch.bfloat16:
         aligned = all(t.data_ptr() % 16 == 0 for t in (
             x, packed.vals, packed.row_idx, packed.col_idx))
@@ -418,6 +613,17 @@ def _launch(x, packed, scales, g, e, grouped, bias, swiglu, y, what) -> None:
             ws = torch.empty(plan.workspace_floats, dtype=torch.float32,
                              device=x.device)
             counters = split_counters(x.device, plan.tiles)
+    if plan is not None and plan.body == "short":
+        err = library().bcr_spmm_short_launch(
+            int(scales is not None), x.data_ptr(), packed.vals.data_ptr(),
+            scales.data_ptr() if scales is not None else None,
+            packed.row_idx.data_ptr(), packed.col_idx.data_ptr(),
+            y.data_ptr(), ws.data_ptr() if ws is not None else None,
+            counters.data_ptr() if counters is not None else None,
+            m, k, n, nb_r, nb_c, br, bc, r, c, plan_arr,
+            torch.cuda.current_stream(x.device).cuda_stream)
+        build.check(err, what)
+        return plan
     err = library().bcr_spmm_launch(
         _DTYPE_CODE[x.dtype], int(grouped), int(scales is not None),
         int(swiglu),
@@ -430,13 +636,17 @@ def _launch(x, packed, scales, g, e, grouped, bias, swiglu, y, what) -> None:
         m, k, n, g, nb_r, nb_c, br, bc, r, c, max(e, 1), plan_arr,
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, what)
+    return plan
 
 
-def _count(key: str, e: int) -> None:
-    """One launch of form ``key`` (over ``e`` stacked experts, 0: none)."""
+def _count(key: str, e: int, plan: Optional[LaunchPlan] = None) -> None:
+    """One launch of form ``key`` (over ``e`` stacked experts, 0: none;
+    under ``plan``, counted apart again when it ran the short body)."""
     LAUNCHES[key] += 1
     if e:
         LAUNCHES[key + "_experts"] += 1
+    if plan is not None and plan.body == "short":
+        LAUNCHES[key + "_short"] += 1
 
 
 def bcr_spmm(x: torch.Tensor, packed) -> torch.Tensor:
@@ -451,8 +661,9 @@ def bcr_spmm(x: torch.Tensor, packed) -> torch.Tensor:
                     device=x.device)
     if y.numel() == 0:
         return y
-    _launch(x, packed, scales, 1, e, False, None, False, y, "bcr_spmm launch")
-    _count("bcr_spmm_int8" if scales is not None else "bcr_spmm", e)
+    plan = _launch(x, packed, scales, 1, e, False, None, False, y,
+                   "bcr_spmm launch")
+    _count("bcr_spmm_int8" if scales is not None else "bcr_spmm", e, plan)
     return y
 
 

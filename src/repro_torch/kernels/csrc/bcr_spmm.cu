@@ -19,7 +19,9 @@
 // plan.block_scales), whose scale multiplies the block's fp32 partial, as
 // the reference's _block_update does.
 //
-// Two bodies, chosen by x's dtype.
+// Three bodies: the CUDA-core body under fp32 x; under bf16 x, the
+// short-block body for blocks shorter than one m16 slab (G = 1), else the
+// tensor-core body.
 //
 // bf16 x (the serving path; fp and int8 tiles) — namespace tc, tensor
 // cores. What bounds it on this card: at decode (M = 1..8) the bytes of the
@@ -88,6 +90,61 @@
 //     depth come from kernels/bcr_spmm.py:launch_plan; the launcher checks
 //     the plan's shared-memory total against its own layout and encodes
 //     the tensor maps.
+//   * Which shapes leave this body: a G = 1 launch of one unstacked pack
+//     whose blocks are shorter than one m16 slab (br < 16) takes the
+//     short-block body below. Here one CTA owns one block row, so such a
+//     block row fills at most 16 of a CTA's 128 MMA rows (2 of them for
+//     whisper's (2, 128) lm_head blocks), pads C_keep 4 or 8 to the k of
+//     16, and walks its contraction blocks one block barrier each: 25933
+//     CTAs for whisper's lm_head, 128 serial blocks for the GRU's (8, 8).
+//
+// bf16 x, blocks shorter than one m16 slab (G = 1, unstacked) — the
+// short-block body (tc::bcr_spmm_short_tc), the reference's planes form
+// (_kernel_planes / _block_update: gather one-hot → tile → scatter
+// one-hot), done in shared memory. What bounds it on this card: at decode
+// the bytes of the kept tiles and their index runs (col_idx's int32 is two
+// thirds of whisper's lm_head bytes) and each CTA's latency from its first
+// copy to its output; at prefill the expanded tiles' products and the
+// scatter that builds them. What the design does:
+//   * One CTA owns P = rows / br consecutive block rows (rows 16, 64 or
+//     128: the MMA's M side), so P·br output rows fill the MMA's rows; a
+//     last group of fewer block rows masks the missing ones (never read).
+//   * The tile is expanded, not x: each stage's kept tiles are written
+//     across their whole blocks into a zeroed A operand (rows × J·bc, row
+//     p·br + row_idx, column jj·bc + col_idx; int8 codes widened with
+//     their tile's scale folded in, bf16(code × scale), as above). The B
+//     operand is then x's dense (M tile × J·bc) block, staged once a stage
+//     for all P block rows: no per-block-row gather of x. It costs
+//     br/R_keep × bc/C_keep the kept MMA work (4× whisper, 8× the GRU, 4×
+//     VGG conv3), free at decode. A is double-buffered: one buffer is
+//     zeroed while the other is filled, so no element is cleared one by
+//     one.
+//   * A stage carries J contraction blocks (J·bc up to 256 columns) for
+//     all P block rows, with two block barriers a stage (one after its
+//     copies land, one after its scatter), not one a block. Stages are
+//     filled by 16-byte cp.async from every thread into a ring of three
+//     slots, two stages in flight ahead of the one computed: the x block
+//     (zeros past M and past the stage's columns), and for each block row
+//     its runs of J·R_keep·C_keep tile values, index runs (and scales),
+//     each copied as the 16-byte-aligned chunks that cover it and read back
+//     at the run's offset mod 16. So any kept count and alignment copies
+//     asynchronously: R_keep 1 and 2 no longer fall to plain loads. (Only
+//     x rows that are not 16-byte multiples load x plainly.)
+//   * mma.sync m16n8k16 at every M tile: warp (wr, wm, wk) owns slabs ×
+//     n8 tiles and every wk-th k16 step of the stage (at 16 rows the 8
+//     warps share the k steps; their partials are summed in order at the
+//     end). At decode the kernel is bytes- and latency-bound, so wgmma
+//     would buy nothing there; at the VGG prefill it stays on mma.sync
+//     too: there the scatter and the barriers, not the MMA rate, bound it
+//     (PERF.md §6, row 1g).
+//   * Grid: P block rows × M tile a CTA, the M tile's groups side by side
+//     (its x block read from device memory once). Where that leaves under
+//     half the SMs and K spans two full stages (the GRU at M = 1: 64
+//     CTAs), the stages are split over CTAs with the workspace, counters
+//     and split-order sum above. A decode CTA is small (16 rows: whisper
+//     49.5 KB of shared memory), so four share an SM and hide each other's
+//     copy latency; launch_plan picks 16 rows at decode and, at the 128 M
+//     tile, the most rows whose grid fills over half the SMs unsplit.
 //
 // fp32 x (fp32 tiles, or int8 tiles under fp32 x; only the cross-package
 // fp32 configurations, never the bf16 serving path) — namespace cuda_core,
@@ -1310,6 +1367,419 @@ int dispatch(const Shape& s, cudaStream_t st, void** args) {
   return (int)cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// The short-block body: bf16 x, G = 1, one unstacked pack, blocks shorter
+// than one m16 slab (br < 16). Design notes at the head of the file.
+// ---------------------------------------------------------------------------
+
+constexpr int kShortWarps = 8;
+constexpr int kShortThreads = kShortWarps * 32;
+
+// The plan kernels/bcr_spmm.py:launch_plan chose, in the order of its
+// LaunchPlan.args() for the short body.
+struct ShortPlan {
+  int mt, slabs, warps_m, rows, J, splits, slots, vec, smem;
+};
+
+// q = n / d for 0 <= n < 2^31 by one multiply-high (Granlund and
+// Montgomery): the scatter decodes each kept weight's place with it.
+struct FastDiv {
+  uint32_t m, s;
+};
+
+inline FastDiv fast_div(uint32_t d) {
+  FastDiv f;
+  f.s = 0;
+  while ((1ull << f.s) < d) ++f.s;
+  f.m = (uint32_t)(((1ull << 32) * ((1ull << f.s) - d)) / d + 1);
+  return f;
+}
+
+__device__ __forceinline__ int fdiv(int n, const FastDiv& f) {
+  return (int)((__umulhi((uint32_t)n, f.m) + (uint32_t)n) >> f.s);
+}
+
+// Byte offsets of shared memory, as kernels/bcr_spmm.py:short_smem_layout
+// computes them (the launcher refuses a plan whose total disagrees). A ring
+// slot holds one stage: the x block (M tile rows of ks columns, padded by
+// 8 so ldmatrix rows hit distinct banks), then, for each of the CTA's P
+// block rows, its runs of tile values, row and column indices (and int8
+// scales) over the stage's blocks, each with the room of the 16-byte chunks
+// that cover it at any alignment. Then the two expanded A buffers (rows ×
+// ks, the same padded stride). The epilogue's fp32 tile (one per k-split
+// warp set) aliases the ring; the split flag follows both.
+struct ShortLayout {
+  int ks, stride;                  // stage depth (elements); row bytes
+  int seg_v, seg_r, seg_c, seg_s;  // one block row's run of each array
+  int off_v, off_r, off_c, off_s;  // within a slot (the x block at 0)
+  int slot, off_a, off_flag, total;
+};
+
+struct ShortShape {
+  int M, K, N, nb_r, nb_c, br, bc, R, C;
+  int p, groups, m_tiles, n_st, wr, wk;   // block rows a CTA; warp layout
+  FastDiv f_rc, f_c, f_j, f_cpr;
+  ShortPlan q;
+  ShortLayout l;
+};
+
+inline int cover16(int n) { return up16(n + 15); }
+
+inline ShortLayout make_short_layout(const ShortShape& s, int int8_tiles) {
+  ShortLayout l;
+  const int J = s.q.J, elt = int8_tiles ? 1 : 2;
+  l.ks = up16(J * s.bc);
+  l.stride = (l.ks + 8) * 2;
+  l.seg_v = cover16(J * s.R * s.C * elt);
+  l.seg_r = cover16(J * s.R * 4);
+  l.seg_c = cover16(J * s.C * 4);
+  l.seg_s = int8_tiles ? cover16(J * 4) : 0;
+  l.off_v = s.q.mt * l.stride;
+  l.off_r = l.off_v + s.p * l.seg_v;
+  l.off_c = l.off_r + s.p * l.seg_r;
+  l.off_s = l.off_c + s.p * l.seg_c;
+  l.slot = up(l.off_s + s.p * l.seg_s, 128);
+  l.off_a = s.q.slots * l.slot;
+  const int main_end = l.off_a + 2 * s.q.rows * l.stride;
+  const int red = s.wk * s.q.mt * (s.q.rows + 4) * 4;
+  l.off_flag = main_end > red ? main_end : red;
+  l.total = l.off_flag + 16;
+  return l;
+}
+
+// A run of n bytes at src, copied to dst + (src mod 16) as the 16-byte
+// aligned chunks that cover it, a lane a chunk. A chunk never leaves the
+// 16-byte granule of a byte of the run, so never its allocation.
+__device__ __forceinline__ void run_copy(unsigned char* dst, const void* src,
+                                         int n, int lane) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(src);
+  const uintptr_t a0 = a & ~(uintptr_t)15;
+  const int chunks = (int)((a + n - a0 + 15) >> 4);
+  for (int c = lane; c < chunks; c += 32)
+    cp16(smem_u32(dst + c * 16), reinterpret_cast<const void*>(a0 + c * 16),
+         true);
+}
+
+// Stage st (contraction blocks [st·J, st·J + nb)) of block-row group g
+// into slot sl, by 16-byte cp.async from every thread: the x block (zeros
+// past M, past the stage's columns and so past K) and, a warp a block row,
+// its runs of the four arrays. A plan without vec loads the x block
+// plainly (x rows that are not 16-byte multiples).
+template <bool INT8>
+__device__ __forceinline__ void short_issue(
+    const ShortShape& s, unsigned char* sl, const bf16* __restrict__ x,
+    const void* __restrict__ vals, const float* __restrict__ scales,
+    const int* __restrict__ row_idx, const int* __restrict__ col_idx, int g,
+    int m0, int mt, int st) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const ShortLayout& l = s.l;
+  const int J = s.q.J, j0 = st * J, nb = min(J, s.nb_c - j0);
+  const int cols = nb * s.bc, MT = s.q.mt;
+  const bf16* xb = x + (size_t)m0 * s.K + (size_t)j0 * s.bc;
+  if (s.q.vec) {
+    const int cpr = l.ks / 8;
+    for (int e = tid; e < MT * cpr; e += kShortThreads) {
+      const int m = fdiv(e, s.f_cpr), c8 = e - m * cpr;
+      const bool ok = m < mt && c8 * 8 < cols;
+      cp16(smem_u32(sl + m * l.stride + c8 * 16),
+           ok ? xb + (size_t)m * s.K + c8 * 8 : x, ok);
+    }
+  } else {
+    bf16* xs = reinterpret_cast<bf16*>(sl);
+    const int row = l.stride / 2;
+    for (int e = tid; e < MT * l.ks; e += kShortThreads) {
+      const int m = e / l.ks, c = e - m * l.ks;
+      xs[m * row + c] = m < mt && c < cols ? xb[(size_t)m * s.K + c]
+                                           : __float2bfloat16(0.f);
+    }
+  }
+  const int i0 = g * s.p, RC = s.R * s.C, ev = INT8 ? 1 : 2;
+  for (int p = warp; p < s.p && i0 + p < s.nb_r; p += kShortWarps) {
+    const size_t blk = (size_t)(i0 + p) * s.nb_c + j0;
+    run_copy(sl + l.off_v + p * l.seg_v,
+             static_cast<const unsigned char*>(vals) + blk * RC * ev,
+             nb * RC * ev, lane);
+    run_copy(sl + l.off_r + p * l.seg_r, row_idx + blk * s.R, nb * s.R * 4,
+             lane);
+    run_copy(sl + l.off_c + p * l.seg_c, col_idx + blk * s.C, nb * s.C * 4,
+             lane);
+    if (INT8)
+      run_copy(sl + l.off_s + p * l.seg_s, scales + blk, nb * 4, lane);
+  }
+}
+
+// The kept tiles of stage st, staged in slot sl, written across their
+// blocks into the zeroed A buffer: block row p's tile of block jj lands at
+// rows p·br + row_idx, columns jj·bc + col_idx (int8 codes widened with
+// their tile's scale folded in, bf16(code × scale)). Every other element
+// stays zero: the tile expanded to its whole block, the reference's
+// gather → tile → scatter one-hots in one operand. A thread takes every
+// 256th kept weight, four at a time, so four weights' index and value
+// loads are in flight together.
+template <bool INT8>
+__device__ __forceinline__ void short_scatter(
+    const ShortShape& s, const unsigned char* sl, unsigned char* a_buf,
+    const void* vals, const float* scales, const int* row_idx,
+    const int* col_idx, int g, int st) {
+  const ShortLayout& l = s.l;
+  const int J = s.q.J, j0 = st * J, nb = min(J, s.nb_c - j0);
+  const int RC = s.R * s.C, i0 = g * s.p;
+  const int total = min(s.p, s.nb_r - i0) * J * RC;
+  const uint32_t ev = INT8 ? 1 : 2;
+  // the low address bits of each array: a run's offset mod 16 in its slot
+  const uint32_t lo_v = (uint32_t)reinterpret_cast<uintptr_t>(vals);
+  const uint32_t lo_r = (uint32_t)reinterpret_cast<uintptr_t>(row_idx);
+  const uint32_t lo_c = (uint32_t)reinterpret_cast<uintptr_t>(col_idx);
+  const uint32_t lo_s = (uint32_t)reinterpret_cast<uintptr_t>(scales);
+  const int arow = l.stride / 2;
+  bf16* A = reinterpret_cast<bf16*>(a_buf);
+  for (int e0 = threadIdx.x; e0 < total; e0 += 4 * kShortThreads) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int e = e0 + u * kShortThreads;
+      const int t = fdiv(e, s.f_rc), rc = e - t * RC;
+      const int p = fdiv(t, s.f_j), jj = t - p * J;
+      if (e >= total || jj >= nb) continue;
+      const int r = fdiv(rc, s.f_c), c = rc - r * s.C;
+      const uint32_t blk = (uint32_t)(i0 + p) * (uint32_t)s.nb_c + j0;
+      const unsigned char* vs = sl + l.off_v + p * l.seg_v +
+                                ((lo_v + blk * (uint32_t)RC * ev) & 15);
+      const int* rs = reinterpret_cast<const int*>(
+          sl + l.off_r + p * l.seg_r +
+          ((lo_r + blk * (uint32_t)s.R * 4) & 15));
+      const int* cs = reinterpret_cast<const int*>(
+          sl + l.off_c + p * l.seg_c +
+          ((lo_c + blk * (uint32_t)s.C * 4) & 15));
+      const int idx = jj * RC + rc;
+      bf16 v;
+      if (INT8) {
+        const float* ss = reinterpret_cast<const float*>(
+            sl + l.off_s + p * l.seg_s + ((lo_s + blk * 4u) & 15));
+        v = __float2bfloat16(
+            (float)reinterpret_cast<const int8_t*>(vs)[idx] * ss[jj]);
+      } else {
+        v = reinterpret_cast<const bf16*>(vs)[idx];
+      }
+      A[(p * s.br + rs[jj * s.R + r]) * arow + jj * s.bc +
+        cs[jj * s.C + c]] = v;
+    }
+  }
+}
+
+__device__ __forceinline__ void zero_bytes(unsigned char* p, int bytes) {
+  uint4* q = reinterpret_cast<uint4*>(p);
+  for (int e = threadIdx.x; e < bytes / 16; e += kShortThreads)
+    q[e] = make_uint4(0, 0, 0, 0);
+}
+
+// One stage's products for one warp: SLABS m16 slabs of A (ldmatrix rows
+// from a_addr) by NI n8 tiles of the x block (from b_addr), k16 steps ks0,
+// ks0 + wk, ... below ks_n, accumulated into acc.
+template <int SLABS, int NI>
+__device__ __forceinline__ void short_mma(float (&acc)[SLABS][NI][4],
+                                          uint32_t a_addr, uint32_t b_addr,
+                                          int stride, int ks0, int ks_n,
+                                          int wk) {
+  for (int ks = ks0; ks < ks_n; ks += wk) {
+    uint32_t af[SLABS][4];
+#pragma unroll
+    for (int a = 0; a < SLABS; ++a)
+      ldsm_x4(af[a], a_addr + a * 16 * stride + ks * 32);
+    uint32_t bfr[NI][2];
+    if (NI == 1) {
+      ldsm_x2(bfr[0][0], bfr[0][1], b_addr + ks * 32);
+    } else {
+#pragma unroll
+      for (int b = 0; b < (NI == 1 ? 1 : NI / 2); ++b) {
+        uint32_t r4[4];
+        ldsm_x4(r4, b_addr + b * 16 * stride + ks * 32);
+        bfr[2 * b][0] = r4[0];
+        bfr[2 * b][1] = r4[1];
+        bfr[(2 * b + 1) % NI][0] = r4[2];
+        bfr[(2 * b + 1) % NI][1] = r4[3];
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < SLABS; ++a)
+#pragma unroll
+      for (int b = 0; b < NI; ++b) mma(acc[a][b], af[a], bfr[b][0], bfr[b][1]);
+  }
+}
+
+// One CTA: output rows [g·P·br, (g+1)·P·br) (P block rows, the MMA's M
+// side) by x rows [m0, m0 + MT) (its N side), over the stages of split sp.
+// Warp (wr, wm, wk) owns SLABS m16 slabs by NI n8 tiles and every wk-th k16
+// step; the k-split warps' partials are summed in order at the end.
+template <bool INT8, int SLABS, int NI>
+__global__ void __launch_bounds__(kShortThreads)
+    bcr_spmm_short_tc(const bf16* __restrict__ x,
+                      const void* __restrict__ vals,
+                      const float* __restrict__ scales,
+                      const int* __restrict__ row_idx,
+                      const int* __restrict__ col_idx, bf16* __restrict__ y,
+                      float* __restrict__ ws, int* __restrict__ counters,
+                      const ShortShape s) {
+  extern __shared__ __align__(128) unsigned char smem_short[];
+  unsigned char* smem = smem_short;
+  const ShortLayout& l = s.l;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int MT = s.q.mt, S = s.q.splits, rows = s.q.rows;
+  // the groups of one M tile run side by side: its x block is read from
+  // device memory once and from L2 by the others
+  const int sp = blockIdx.x % S, tile = blockIdx.x / S;
+  const int g = tile % s.groups, mtile = tile / s.groups;
+  const int m0 = mtile * MT, mt = min(MT, s.M - m0);
+  const int st0 = (int)((long long)sp * s.n_st / S);
+  const int n_loc = (int)((long long)(sp + 1) * s.n_st / S) - st0;
+  const int wk = warp % s.wk, wt = warp / s.wk;
+  const int wm = wt % s.q.warps_m, wr = wt / s.q.warps_m;
+  const int row0 = wr * SLABS * 16;
+
+  unsigned char* abuf = smem + l.off_a;
+  const int abytes = rows * l.stride;
+  zero_bytes(abuf, abytes);
+  // two stages in flight ahead of the one being computed
+  for (int p = 0; p < 2; ++p) {
+    if (p < n_loc)
+      short_issue<INT8>(s, smem + (p % s.q.slots) * l.slot, x, vals, scales,
+                        row_idx, col_idx, g, m0, mt, st0 + p);
+    cp_commit();
+  }
+
+  float acc[SLABS][NI][4];
+#pragma unroll
+  for (int a = 0; a < SLABS; ++a)
+#pragma unroll
+    for (int b = 0; b < NI; ++b)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[a][b][q] = 0.f;
+  const int a_lane_row = (lane & 7) + ((lane >> 3) & 1) * 8, a_kc = lane >> 4;
+  const int b_lane_row = NI == 1 ? (lane & 7) : ((lane >> 4) * 8 + (lane & 7));
+  const int b_kc = (lane >> 3) & 1;
+  const uint32_t a_off = (row0 + a_lane_row) * l.stride + a_kc * 16;
+  const uint32_t b_off = (wm * NI * 8 + b_lane_row) * l.stride + b_kc * 16;
+
+  for (int it = 0; it < n_loc; ++it) {
+    cp_wait<1>();
+    // stage it landed (every thread's copies); stage it-1's products done,
+    // so its slot and A buffer are free
+    __syncthreads();
+    if (it + 2 < n_loc)
+      short_issue<INT8>(s, smem + ((it + 2) % s.q.slots) * l.slot, x, vals,
+                        scales, row_idx, col_idx, g, m0, mt, st0 + it + 2);
+    cp_commit();
+    if (it + 1 < n_loc) zero_bytes(abuf + ((it + 1) & 1) * abytes, abytes);
+    unsigned char* slot = smem + (it % s.q.slots) * l.slot;
+    unsigned char* ab = abuf + (it & 1) * abytes;
+    short_scatter<INT8>(s, slot, ab, vals, scales, row_idx, col_idx, g,
+                        st0 + it);
+    __syncthreads();
+    const int nb = min(s.q.J, s.nb_c - (st0 + it) * s.q.J);
+    short_mma<SLABS, NI>(acc, smem_u32(ab) + a_off, smem_u32(slot) + b_off,
+                         l.stride, wk, (nb * s.bc + 15) / 16, s.wk);
+  }
+  cp_wait<0>();
+  __syncthreads();
+
+  // fp32 tile → shared memory as [wk][m][n] (row stride rows + 4), over the
+  // ring; then the k-split warps' partials summed in order into [0]
+  float* red = reinterpret_cast<float*>(smem);
+  const int rs = rows + 4;
+#pragma unroll
+  for (int a = 0; a < SLABS; ++a)
+#pragma unroll
+    for (int b = 0; b < NI; ++b)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int n = row0 + a * 16 + (lane >> 2) + (q >> 1) * 8;
+        const int m = wm * NI * 8 + b * 8 + (lane & 3) * 2 + (q & 1);
+        red[((size_t)wk * MT + m) * rs + n] = acc[a][b][q];
+      }
+  __syncthreads();
+  const int per = MT * rows;
+  if (s.wk > 1) {
+    for (int e = tid; e < per; e += kShortThreads) {
+      const int m = e / rows, n = e - m * rows;
+      float v = red[m * rs + n];
+      for (int k = 1; k < s.wk; ++k) v += red[((size_t)k * MT + m) * rs + n];
+      red[m * rs + n] = v;
+    }
+    __syncthreads();
+  }
+  if (S > 1) {
+    // this split's partial to the workspace; the last split to arrive sums
+    // all of them in split order, so y does not depend on arrival order
+    float* wp = ws + ((size_t)tile * S + sp) * per;
+    for (int e = tid; e < per; e += kShortThreads) {
+      const int m = e / rows, n = e - m * rows;
+      wp[e] = red[m * rs + n];
+    }
+    __threadfence();
+    __syncthreads();
+    int* flag = reinterpret_cast<int*>(smem + l.off_flag);
+    if (tid == 0) *flag = atomicAdd(counters + tile, 1) == S - 1;
+    __syncthreads();
+    if (!*flag) return;
+    __threadfence();
+  }
+  const int n0 = g * s.p * s.br;
+  const int nv = min(s.p * s.br, s.N - n0);
+  const float* parts = ws + (size_t)tile * S * per;
+  for (int e = tid; e < mt * nv; e += kShortThreads) {
+    const int m = e / nv, n = e - m * nv;
+    float v;
+    if (S > 1) {
+      const size_t o = (size_t)m * rows + n;
+      v = __ldcg(parts + o);
+      for (int q = 1; q < S; ++q) v += __ldcg(parts + (size_t)q * per + o);
+    } else {
+      v = red[m * rs + n];
+    }
+    y[(size_t)(m0 + m) * s.N + n0 + n] = __float2bfloat16(v);
+  }
+  if (S > 1 && tid == 0) counters[tile] = 0;   // ready for the next call
+}
+
+template <bool INT8, int SLABS, int NI>
+int short_launch_cfg(const ShortShape& s, cudaStream_t stream, void** args) {
+  auto kernel = bcr_spmm_short_tc<INT8, SLABS, NI>;
+  static int smem_set = 0;   // raise the limit once
+  if (s.q.smem > smem_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, s.q.smem);
+    // all of L1 as shared memory, so small CTAs share an SM four at a time
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+          (int)cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = s.q.smem;
+  }
+  const int grid = s.groups * s.m_tiles * s.q.splits;
+  cudaError_t err = cudaLaunchKernel((const void*)kernel, dim3(grid),
+                                     dim3(kShortThreads), args, s.q.smem,
+                                     stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The compiled warp tiles (m16 slabs × n8 tiles a warp):
+// kernels/bcr_spmm.py:SHORT_CONFIGS.
+template <bool INT8>
+int short_dispatch(const ShortShape& s, cudaStream_t st, void** args) {
+  const int ni = s.q.mt / (8 * s.q.warps_m), sl = s.q.slabs;
+#define BCR_SHORT(A, B) \
+  if (sl == A && ni == B) return short_launch_cfg<INT8, A, B>(s, st, args);
+  BCR_SHORT(1, 1)
+  BCR_SHORT(1, 2)
+  BCR_SHORT(1, 4)
+  BCR_SHORT(2, 4)
+  BCR_SHORT(1, 8)
+  BCR_SHORT(2, 8)
+#undef BCR_SHORT
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace tc
 
 extern "C" {
@@ -1387,6 +1857,51 @@ int bcr_spmm_launch(int dtype, int grouped, int int8_tiles, int swiglu,
                   (void*)&s};
   return int8_tiles ? tc::dispatch<true>(s, st, args)
                     : tc::dispatch<false>(s, st, args);
+}
+
+// One launch of the short-block body (bf16 x and y, G = 1, one unstacked
+// pack, br < 16): int8_tiles, operands and ws / counters as for
+// bcr_spmm_launch; plan: kernels/bcr_spmm.py:LaunchPlan.args() of a
+// short-body plan.
+int bcr_spmm_short_launch(int int8_tiles, const void* x, const void* vals,
+                          const float* scales, const int* row_idx,
+                          const int* col_idx, void* y, float* ws,
+                          int* counters, int M, int K, int N, int nb_r,
+                          int nb_c, int br, int bc, int R, int C,
+                          const int* plan, void* stream) {
+  using namespace tc;
+  if (plan == nullptr) return (int)cudaErrorInvalidValue;
+  ShortShape s;
+  s.M = M; s.K = K; s.N = N; s.nb_r = nb_r; s.nb_c = nb_c;
+  s.br = br; s.bc = bc; s.R = R; s.C = C;
+  s.q = ShortPlan{plan[0], plan[1], plan[2], plan[3], plan[4], plan[5],
+                  plan[6], plan[7], plan[8]};
+  const ShortPlan& q = s.q;
+  if (br < 1 || R < 1 || C < 1 || q.rows < br || q.slabs < 1 ||
+      q.warps_m < 1 || q.J < 1 || q.splits < 1 || q.slots < 1 ||
+      q.slots > 3 || q.mt % (8 * q.warps_m) || q.rows % (16 * q.slabs))
+    return (int)cudaErrorInvalidValue;
+  s.wr = q.rows / (16 * q.slabs);
+  if (kShortWarps % (s.wr * q.warps_m)) return (int)cudaErrorInvalidValue;
+  s.wk = kShortWarps / (s.wr * q.warps_m);
+  s.p = q.rows / br;
+  s.groups = (nb_r + s.p - 1) / s.p;
+  s.m_tiles = (M + q.mt - 1) / q.mt;
+  s.n_st = (nb_c + q.J - 1) / q.J;
+  if (q.splits > s.n_st) return (int)cudaErrorInvalidValue;
+  s.l = make_short_layout(s, int8_tiles);
+  if (s.l.total != q.smem) return -1;   // plan and layout disagree
+  if (q.vec && ((uintptr_t)x % 16 || K % 8 || (q.J * bc) % 8)) return -2;
+  s.f_rc = fast_div(R * C);
+  s.f_c = fast_div(C);
+  s.f_j = fast_div(q.J);
+  s.f_cpr = fast_div(s.l.ks / 8);
+  cudaStream_t st = (cudaStream_t)stream;
+  void* args[] = {(void*)&x, (void*)&vals, (void*)&scales, (void*)&row_idx,
+                  (void*)&col_idx, (void*)&y, (void*)&ws, (void*)&counters,
+                  (void*)&s};
+  return int8_tiles ? short_dispatch<true>(s, st, args)
+                    : short_dispatch<false>(s, st, args);
 }
 
 }  // extern "C"

@@ -311,17 +311,27 @@ def fuse_packed_projections(tree: Any, *, m: int = 8,
 _GENOME_CACHE: Dict[Tuple, Tuple[Genome, float]] = {}
 
 
-def plan_search_space(m: int, max_group: int) -> Dict[str, Sequence[Any]]:
+def plan_search_space(m: int, max_group: int,
+                      block_shape: Optional[Tuple[int, int]] = None
+                      ) -> Dict[str, Sequence[Any]]:
     """The launch knobs of the CUDA kernel at M = ``m``: every M tile up to
     the one the kernel's rule starts from (the smallest holding M, else
     128), each configuration index, split or not, and the group widths.
-    The rule's own choice is a point of this space."""
-    from repro_torch.kernels.bcr_spmm import M_TILES, tile_configs
+    The rule's own choice is a point of this space. For blocks shorter than
+    one MMA slab (``block_shape`` rows under 16) a G = 1 genome's
+    ``config`` indexes the short-block body's configurations
+    (``bcr_spmm.short_configs``), so the index runs over as many as the
+    most an M tile has of either kind."""
+    from repro_torch.kernels.bcr_spmm import (M_TILES, short_configs,
+                                              tile_configs)
     m = max(m, 1)
     first = next(mt for mt in M_TILES if m <= mt or mt == M_TILES[-1])
+    n_cfg = max(len(tile_configs(mt)) for mt in M_TILES)
+    if block_shape is not None and block_shape[0] < 16:
+        n_cfg = max(n_cfg, max(len(short_configs(mt)) for mt in M_TILES))
     return {
         "m_tile": [mt for mt in M_TILES if mt <= first],
-        "config": list(range(max(len(tile_configs(mt)) for mt in M_TILES))),
+        "config": list(range(n_cfg)),
         "split": [False, True],
         "group_size": sorted({1, max_group}),
     }
@@ -371,8 +381,8 @@ def tuned_genome(m: int, k: int, n: int, block_shape: Tuple[int, int],
                 weight_bytes_per_el=weight_bytes_per_el,
                 weight_scale_bytes=weight_scale_bytes, experts=experts)
             pop, gens = 16, 8
-        res = genetic_search(plan_search_space(m, max_group), fit,
-                             population=pop, generations=gens, seed=0)
+        res = genetic_search(plan_search_space(m, max_group, block_shape),
+                             fit, population=pop, generations=gens, seed=0)
         _GENOME_CACHE[key] = (dict(res.best), res.best_fitness)
     genome, best = _GENOME_CACHE[key]
     if best == float("inf"):

@@ -848,6 +848,9 @@ def test_expert_batched_wrappers_reject_bad_inputs(cuda):
 GENOME_SHAPES = [  # (N, K, block, keep, align, M, G)
     (512, 1024, (128, 128), 0.25, 8, 8, 2),
     (64, 96, (16, 16), 0.25, 4, 20, 3),
+    # whisper's lm_head blocks: G = 1 genomes index the short-block body's
+    # configurations (259 block rows: a ragged last group at every P)
+    (518, 1280, (2, 128), 0.25, 1, 8, 1),
 ]
 
 
@@ -866,7 +869,7 @@ def test_every_legal_genome_matches_plain(cuda, int8, shape):
         members = [quantize_packed(p) for p in members]
     x = torch.as_tensor(rng.normal(size=(m, k)), dtype=torch.bfloat16,
                         device=cuda)
-    space = plan_search_space(m, g)
+    space = plan_search_space(m, g, block)
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     legal = 0
     for values in itertools.product(*(space[key] for key in sorted(space))):
@@ -888,3 +891,46 @@ def test_every_legal_genome_matches_plain(cuda, int8, shape):
                 x, planned)
         _close(got, want, torch.bfloat16)
     assert legal >= 4
+
+
+# the short-block body (blocks under 16 rows, G = 1, bf16 x): the GRU's
+# shape at M = 1 (a split over 3 CTAs), whisper's lm_head blocks at a ragged
+# M and a last group of fewer block rows, the CNN's blocks at M = 33
+SHORT_CASES = [((1024, 1024, (8, 8), 0.1, 2), 1),
+               ((518, 1280, (2, 128), 0.25, 1), 5),
+               ((200, 2304, (8, 16), 0.25, 2), 33)]
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("case,m", SHORT_CASES)
+def test_short_body_matches_plain_and_counts_apart(cuda, int8, case, m):
+    """Each launch counts once under its form and once under the form's
+    ``_short`` key; two launches are bit-equal (a split sums its partials
+    in split order), right over freed NaN-filled buffers, and leave the
+    split counters at 0."""
+    n, k, block, keep, align = case
+    rng = np.random.default_rng(29)
+    p = _packed(rng, n, k, block, keep, torch.bfloat16, cuda, align)
+    if int8:
+        p = quantize_packed(p)
+    x = torch.as_tensor(rng.normal(size=(m, k)), dtype=torch.bfloat16,
+                        device=cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = K.launch_plan(m, n, k, 1, block, p.kept_counts, sms, int8)
+    assert plan.body == "short"
+    key = "bcr_spmm_int8" if int8 else "bcr_spmm"
+    before = dict(K.LAUNCHES)
+    poison = (torch.full((max(plan.workspace_floats, 1),), float("nan"),
+                         device=cuda),
+              torch.full((m, n), float("nan"), dtype=torch.bfloat16,
+                         device=cuda))
+    del poison
+    first = K.bcr_spmm(x, p)
+    second = K.bcr_spmm(x, p)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES[key] - before[key] == 2
+    assert K.LAUNCHES[key + "_short"] - before[key + "_short"] == 2
+    assert torch.equal(first, second) and bool(torch.isfinite(first).all())
+    _close(first, ref.bcr_spmm_packed_ref(x, p), torch.bfloat16)
+    left = K.split_counters(cuda, plan.tiles)[:plan.tiles]
+    assert int(torch.count_nonzero(left)) == 0

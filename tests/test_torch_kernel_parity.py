@@ -55,6 +55,27 @@ def test_bcr_spmm_plain_matches_interpret_kernel(m, shape, block, keep,
     np.testing.assert_allclose(got, want, **TOL)
 
 
+@pytest.mark.parametrize("m", [1, 8, 33])
+@pytest.mark.parametrize("shape,block,keep,align", [
+    ((16, 256), (2, 128), 0.25, 1),      # whisper's lm_head blocks: R_keep 1
+    ((40, 96), (8, 16), 0.25, 2),        # the im2col CNN's blocks, 4 x 8 kept
+])
+def test_bcr_spmm_short_blocks_plain_matches_interpret_kernel(m, shape, block,
+                                                             keep, align):
+    """Blocks shorter than one MMA slab (the short-block body's on the
+    card): the reference's Pallas kernel in interpret mode against the
+    port's plain version on the same packed weights."""
+    rng = np.random.default_rng(5)
+    w = rng.normal(size=shape).astype(np.float32)
+    x = rng.normal(size=(m, shape[1])).astype(np.float32)
+    jp, tp = _pack_both(w, block, keep, align)
+    assert tp.kept_counts == tuple(jp.vals.shape[-2:])
+    assert tp.kept_counts[0] == (1 if block[0] == 2 else 4)
+    want = np.asarray(jbcr_matmul(jnp.asarray(x), jp, impl="interpret"))
+    got = bcr_matmul(torch.as_tensor(x), tp).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+
+
 @pytest.mark.parametrize("g,epilogue,bias", [
     (2, None, True), (3, None, False), (2, "swiglu", True),
     (2, "swiglu", False)])

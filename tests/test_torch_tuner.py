@@ -270,7 +270,13 @@ SHAPES = [(2048, 2048, 1, (128, 128), (64, 64), 1),
 
 
 def _rule_genome(plan):
-    """The genome of the rule's own plan."""
+    """The genome of the rule's own plan (a short-body plan's ``config``
+    indexes the short-block configurations)."""
+    if plan.body == "short":
+        cfgs = K.short_configs(plan.m_tile)
+        return (plan.m_tile,
+                cfgs.index((plan.slabs, plan.warps_m, plan.n_chunk)),
+                plan.splits > 1)
     cfgs = K.tile_configs(plan.m_tile)
     return (plan.m_tile, cfgs.index((plan.slabs, plan.warps_m, plan.warps)),
             plan.splits > 1)
@@ -287,7 +293,7 @@ def test_space_holds_the_rule_and_its_genome_rebuilds_it(shape, m, int8):
     assert rule == K.launch_plan(m, n, k, g, block, kept, SMS, int8, True,
                                  e, None)
     genome = _rule_genome(rule)
-    space = tplan.plan_search_space(m, g)
+    space = tplan.plan_search_space(m, g, block)
     assert genome[0] in space["m_tile"] and genome[1] in space["config"]
     assert g in space["group_size"]
     assert K.launch_plan(m, n, k, g, block, kept, SMS, int8, True, e,
@@ -303,7 +309,7 @@ def test_every_genome_fits_a_cta_or_scores_inf(shape, int8):
                                  weight_bytes_per_el=1 if int8 else 2,
                                  weight_scale_bytes=4 if int8 else 0,
                                  experts=e)
-    space = tplan.plan_search_space(m, g)
+    space = tplan.plan_search_space(m, g, block)
     finite = 0
     for values in itertools.product(*(space[key] for key in sorted(space))):
         genome = dict(zip(sorted(space), values))
@@ -318,12 +324,65 @@ def test_every_genome_fits_a_cta_or_scores_inf(shape, int8):
         finite += 1
         assert math.isfinite(score) and score > 0
         assert plan.smem_bytes <= K.SMEM_LIMIT
-        assert plan.smem_bytes == K.smem_layout(
-            plan.m_tile, plan.n_chunk, plan.stages, genome["group_size"],
-            block[1], kept[0], kept[1], int8, plan.vec,
-            plan.warps_m == K.WGMMA_WARPS_M, -(-plan.nb_c // plan.splits))
+        if plan.body == "short":
+            assert plan.smem_bytes == K.short_smem_layout(
+                plan.m_tile, plan.n_chunk, block[0], plan.stage_blocks,
+                plan.stages, block[1], kept[0], kept[1], int8, plan.warps_k)
+        else:
+            assert plan.smem_bytes == K.smem_layout(
+                plan.m_tile, plan.n_chunk, plan.stages, genome["group_size"],
+                block[1], kept[0], kept[1], int8, plan.vec,
+                plan.warps_m == K.WGMMA_WARPS_M, -(-plan.nb_c // plan.splits))
         assert genome["group_size"] * plan.n_chunk <= plan.rows
     assert finite >= 2
+
+
+# phase 17a's shapes on 128 x 128 blocks (chip_smoke.py:TUNE_SHAPES): the
+# genome the analytic tuner picks at the engine's decode hint M = 8, bf16
+# and int8 tiles, as it picked them before the short-block body
+SQUARE_PICKS = [
+    (2048, 2048, 1, {"config": 1, "group_size": 1, "m_tile": 8,
+                     "split": True}),
+    (512, 2048, 2, {"config": 0, "group_size": 2, "m_tile": 8,
+                    "split": True}),
+    (8192, 2048, 2, {"config": 0, "group_size": 2, "m_tile": 8,
+                     "split": True}),
+    (2048, 8192, 1, {"config": 1, "group_size": 1, "m_tile": 8,
+                     "split": True}),
+    (128256, 2048, 1, {"config": 1, "group_size": 1, "m_tile": 8,
+                       "split": True}),
+    (1280, 1280, 3, {"config": 0, "group_size": 3, "m_tile": 8,
+                     "split": True})]
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("n,k,g,want", SQUARE_PICKS)
+def test_square_block_picks_are_unchanged(n, k, g, want, int8):
+    """The short-block body moves no 128 x 128 shape's tuned genome: its
+    search space and the model's prices of its genomes are as before."""
+    got = tplan.tuned_genome(8, k, n, (128, 128), 64, 64, max_group=g,
+                             weight_bytes_per_el=1 if int8 else 2,
+                             weight_scale_bytes=4 if int8 else 0)
+    assert got == want
+    assert (tplan.plan_search_space(8, g, (128, 128))
+            == tplan.plan_search_space(8, g))
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_whisper_lm_head_picks_the_short_body(int8):
+    """whisper-large-v3's lm_head on (2, 128) blocks (one kept row a tile):
+    the analytic pick at M = 8 runs the short-block body, whose
+    configurations the genome's ``config`` indexes."""
+    genome = tplan.tuned_genome(8, 1280, 51866, (2, 128), 1, 64,
+                                weight_bytes_per_el=1 if int8 else 2,
+                                weight_scale_bytes=4 if int8 else 0)
+    plan = K.launch_plan(8, 51866, 1280, 1, (2, 128), (1, 64), SMS, int8,
+                         True, 1, ttuner.genome_knobs(genome))
+    assert plan.body == "short"
+    assert (plan.slabs, plan.warps_m, plan.n_chunk) == K.short_configs(
+        genome["m_tile"])[genome["config"]]
+    space = tplan.plan_search_space(8, 1, (2, 128))
+    assert space["config"] == list(range(3))
 
 
 def test_illegal_genomes_raise_outside_the_tuner():
