@@ -12,9 +12,14 @@
     python3 chip_smoke.py --dryrun
 
 The second form times phase 3's ``bcr_spmm*``, ``bcr_spmm_skip`` and flash
-cases, and ``bcr_spmm`` at the short-block shapes of PERF.md's rows 1g and
-1h (the GRU, the im2col CNN's convolutions, whisper's lm_head), for each
-checkout TREE (its own ``src/repro_torch``, built into its
+cases, the prefill rows (phase 15d's whisper shapes at M = 12000: ``wqkv``
++ bias G = 3, cross ``wkv`` + bias G = 2, ``wo``, MLP ``wi``/``wo``, fp and
+int8 tiles; pixtral's ``wq`` and ``wgi`` at M = 512; deepseek's expert
+``wo``/``wgi`` at M = 240, fp and int8) and ``bcr_spmm`` at the short-block
+shapes of PERF.md's rows 1g and 1h (the GRU, the im2col CNN's
+convolutions, whisper's lm_head), then profiles by kernel family phase
+15a's and 15b's whisper prefill and phase 9a's cold admission (bf16 and
+int8), for each checkout TREE (its own ``src/repro_torch``, built into its
 own ``build/``), one process per TREE in the order given, and prints them
 side by side — e.g. ``build/parent . . build/parent`` after ``git archive
 HEAD~1 | tar -x -C build/parent``. The third runs phases 1, 2 and 13 only;
@@ -30,7 +35,8 @@ Phases, in order (any failed check raises and the script exits non-zero):
    ``sm_90a``, one process per source, all started together; ptxas
    registers and spills; from the built libraries' SASS, the instruction
    each tensor-core kernel runs (``mma.sync`` = HMMA, ``wgmma`` = HGMMA):
-   the BCR kernels by M tile (HMMA up to 64, HGMMA for 128), the bf16
+   the BCR kernels by M tile (HMMA up to 64; HGMMA and no HMMA in all 8
+   instantiations of the 128 tile's wide body), the bf16
    ``bcr_spmm_skip`` kernels by M tile likewise, the bf16 flash kernels
    HGMMA at head_dim 64 and HMMA at the others; none in any fp32
    (CUDA-core) body; HMMA in every instantiation of the short-block body,
@@ -47,7 +53,11 @@ Phases, in order (any failed check raises and the script exits non-zero):
    (never used by the port) and the bound. Every form: the fp and int8
    forms of ``bcr_spmm``, ``bcr_spmm_grouped`` (plus the one-launch split
    at decode: MLP wo and gate/up at M = 8, two launches bit-equal, output
-   and workspace in freed NaN-filled blocks, split counters back at 0; and
+   and workspace in freed NaN-filled blocks, split counters back at 0; the
+   wide body at the 128 M tile, ``WG_CHECKS``: G = 1, 2, 3 with bias and
+   with SwiGLU, 4 stacked experts, a split, ragged last M tiles of 44 and
+   112 rows, fp and int8 tiles, each checked as the split is, G = 3 again
+   with x off 16-byte alignment; and
    the short-block body for blocks under 16 rows, fp and int8 tiles, at
    ``SHORT_CHECKS``: (8, 8), (2, 128), (8, 16) and (3, 16) blocks whose
    block rows no CTA's P divides, M in {1, 5, 33}, the split at M = 1 and
@@ -773,6 +783,35 @@ def bcr_cases(torch, timer, gen, record):
         del grouped, w_cat
 
 
+def prefill_cases(torch, timer, gen, record):
+    """The prefill rows ``--bcr-ab`` times beside :func:`bcr_cases`'s llama
+    M = 2048 (PERF.md rows 1h, 2h, 1f, 2f, 1e, 2e): phase 15d's whisper
+    shapes at M = 12000 (``wqkv`` + bias G = 3, cross ``wkv`` + bias G = 2,
+    self ``wo`` / cross ``wq``, MLP ``wi`` / ``wo``), pixtral's ``wq`` and
+    ``wgi`` + SwiGLU at M = 512, and deepseek's expert ``wo`` / ``wgi`` at
+    M = 240 a expert, fp and int8 tiles (pixtral bf16 only, as phase 14).
+    Only the wrappers' public calls."""
+    bf16 = torch.bfloat16
+    log("prefill rows: whisper M=12000, pixtral M=512 (bf16 x, keep 0.25)")
+    projection_cases(torch, timer, gen, record, [
+        ("whisper", "wqkv+bias", 1280, 1280, 3, None, (12000,), bf16, True,
+         True),
+        ("whisper", "cross wkv+bias", 1280, 1280, 2, None, (12000,), bf16,
+         True, True),
+        ("whisper", "wo|cross wq", 1280, 1280, 1, None, (12000,), bf16,
+         False, True),
+        ("whisper", "mlp wi", 5120, 1280, 1, None, (12000,), bf16, False,
+         True),
+        ("whisper", "mlp wo", 1280, 5120, 1, None, (12000,), bf16, False,
+         True),
+        ("pixtral", "wq", 4096, 5120, 1, None, (512,), bf16, False, False),
+        ("pixtral", "wgi", 14336, 5120, 2, "swiglu", (512,), bf16, False,
+         False)])
+    expert_cases(torch, timer, gen, record, variants=(
+        (False, bf16, (EXPERT_MS[-1],), BF16_TOL, ""),
+        (True, bf16, (EXPERT_MS[-1],), BF16_TOL, "")))
+
+
 def sass_functions(lib_path: Path) -> dict:
     """``cuobjdump -sass`` of a built library: {mangled kernel name: its
     SASS lines}."""
@@ -804,15 +843,16 @@ def sass_tensor_ops(lib_path: Path) -> dict:
 def bcr_instruction_check(lib_path: Path) -> None:
     """Which instruction each BCR form runs, read from the built library:
     every tensor-core kernel (bf16 x) of an M tile up to 64 issues
-    ``mma.sync`` (HMMA) and the 128 tile ``wgmma`` (HGMMA); the fp32-x
-    kernels issue neither (CUDA cores)."""
-    from repro_torch.kernels import bcr_spmm as K
-
+    ``mma.sync`` (HMMA) and every instantiation of the 128 tile's wide body
+    (fp and int8 tiles, stacked or not, either name) ``wgmma`` (HGMMA) and
+    no HMMA; the fp32-x kernels issue neither (CUDA cores)."""
     ops = sass_tensor_ops(lib_path)
     rows = {}
+    wide = 0
     for name, (hmma, hgmma) in ops.items():
         m = re.search(r"bcr_spmm(_grouped)?_tcILb([01])ELi(\d+)ELi\d+ELi(\d+)E",
                       name)
+        wg = re.search(r"bcr_spmm(_grouped)?_wgILb([01])ELb([01])E", name)
         short = re.search(r"bcr_spmm_short_tcILb([01])ELi(\d+)ELi(\d+)E",
                           name)
         if short:
@@ -823,24 +863,28 @@ def bcr_instruction_check(lib_path: Path) -> None:
             rows.setdefault("bcr_spmm" + ("_int8" if short.group(1) == "1"
                                           else "") + "_short", set()).add(
                 f"{short.group(2)}x{short.group(3)} tiles: mma.sync")
-        elif m:
-            form = ("bcr_spmm" + ("_grouped" if m.group(1) else "")
-                    + ("_int8" if m.group(2) == "1" else ""))
-            want = ("wgmma" if int(m.group(4)) == K.WGMMA_WARPS_M
-                    else "mma.sync")
+        elif m or wg:
+            hit = m or wg
+            form = ("bcr_spmm" + ("_grouped" if hit.group(1) else "")
+                    + ("_int8" if hit.group(2) == "1" else ""))
+            want = "wgmma" if wg else "mma.sync"
             got = ("wgmma" if hgmma and not hmma
                    else "mma.sync" if hmma and not hgmma else None)
             if got != want:
                 raise AssertionError(f"{name}: {hmma} HMMA, {hgmma} HGMMA; "
                                      f"want {want}")
+            wide += bool(wg)
             rows.setdefault(form, set()).add(
-                f"M tile {m.group(3)}: {want}")
+                f"M tile {m.group(3) if m else 128}: {want}")
         elif "cuda_core" in name and (hmma or hgmma):
             raise AssertionError(f"{name}: the fp32 body issued tensor-core "
                                  f"instructions")
     if not ({"bcr_spmm_short", "bcr_spmm_int8_short"} <= set(rows)):
         raise AssertionError(f"short-block body instantiations missing: "
                              f"{sorted(rows)}")
+    if wide != 8:      # {fp, int8} x {stacked, not} x {bcr_spmm, grouped}
+        raise AssertionError(f"{wide} wide-body (128 tile) instantiations "
+                             f"issue HGMMA, want 8")
     for form in sorted(rows):
         if form.endswith("_short"):
             log(f"  {form} (bf16 x, slabs x n8 tiles a warp): "
@@ -865,11 +909,11 @@ def bcr_instruction_check(lib_path: Path) -> None:
                                      f"SR_CTAID.Y")
             axes["short"] += 1
             continue
-        tc = re.search(r"_tcILb[01]ELi\d+ELi\d+ELi\d+ELi\d+ELb([01])E",
-                       name)
+        tc = re.search(r"_tcILb[01]ELi\d+ELi\d+ELi\d+ELi\d+ELb([01])E"
+                       r"|_wgILb[01]ELb([01])E", name)
         axis = "Z" if "cuda_core" in name else "Y"
         reads = any(f"SR_CTAID.{axis}" in ln for ln in lines)
-        if tc and tc.group(1) == "0":
+        if tc and "0" in (tc.group(1), tc.group(2)):
             if reads:
                 raise AssertionError(f"{name}: the unstacked instantiation "
                                      f"reads SR_CTAID.Y")
@@ -1010,6 +1054,85 @@ def bcr_split_checks(torch, gen) -> None:
                     if g == 2 else ref.bcr_spmm_packed_ref(x, w))
             check_split(torch, f"{'int8 ' if int8 else ''}{name} {g}x{n}x{k} "
                         f"M=8", plan, run, want, (8, n))
+
+
+# phase 3's wide-body checks (label, N, K, G, epilogue, bias, experts, M):
+# the 128 M tile at G = 1, 2, 3, with bias and with SwiGLU, stacked experts,
+# a split, and ragged last M tiles (300 = 2 x 128 + 44; 240 = 128 + 112)
+WG_CHECKS = (
+    ("G=1 1280x1280", 1280, 1280, 1, None, False, 0, 300),
+    ("G=1 wq 2048x2048 (split)", 2048, 2048, 1, None, False, 0, 300),
+    ("G=2 wkv+bias 2x1280x1280", 1280, 1280, 2, None, True, 0, 300),
+    ("G=2 wgi+bias+SwiGLU 2x1408x2048", 1408, 2048, 2, "swiglu", True, 0,
+     300),
+    ("G=3 wqkv+bias 3x1280x1280", 1280, 1280, 3, None, True, 0, 300),
+    ("experts wo 4x2048x1408", 2048, 1408, 1, None, False, 4, 240),
+    ("experts wgi+SwiGLU 4x2x1408x2048", 1408, 2048, 2, "swiglu", False, 4,
+     240),
+    ("experts wqkv+bias 4x3x1280x1280", 1280, 1280, 3, None, True, 4, 240))
+
+
+def wg_checks(torch, gen) -> float:
+    """The wide body (the 128 M tile) against its plain version on the card,
+    fp and int8 tiles, at ``WG_CHECKS``: every launch must take it
+    (``body == "wg"``, the split where the plan says), run twice bit-equal
+    over freed NaN-filled output (and workspace) blocks with the split
+    counters back at 0 (:func:`check_split`); then G = 3 with bias once
+    more with x one element off 16-byte alignment (the plain loads).
+    Returns the largest error."""
+    from repro_torch.kernels import bcr_spmm as K
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.plan import (pack_group, quantize_grouped,
+                                          quantize_packed)
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    bf16 = torch.bfloat16
+    worst = 0.0
+    for label, n, k, g, epi, has_bias, e, m in WG_CHECKS:
+        members = [random_pack(torch, gen, n, k, e) for _ in range(g)]
+        fp = members[0] if g == 1 else pack_group(members)
+        lead = (e,) if e else ()
+        bias = (torch.randn(lead + (g, n), generator=gen, device="cuda")
+                if has_bias else None)
+        for int8 in (False, True):
+            w = ((quantize_packed(fp) if g == 1 else quantize_grouped(fp))
+                 if int8 else dataclasses.replace(fp, vals=fp.vals.to(bf16)))
+            x = torch.randn(lead + (m, k), generator=gen,
+                            device="cuda").to(bf16)
+            plan = K.launch_plan(m, n, k, g, (128, 128), (64, 64), sms, int8,
+                                 experts=max(e, 1))
+            if plan.body != "wg":
+                raise AssertionError(f"wide {label} M={m}: plan {plan}")
+
+            def run(x=x, w=w):
+                if g == 1:
+                    return K.bcr_spmm(x, w)
+                return K.bcr_spmm_grouped(x, w, bias=bias, epilogue=epi)
+
+            def plain(x=x, w=w):
+                if g == 1:
+                    return ref.bcr_spmm_packed_ref(x, w)
+                y = ref.bcr_spmm_grouped_ref(x, w, bias=bias, epilogue=epi)
+                return y if epi else y.transpose(-3, -2)
+
+            want = plain()
+            out = lead + ((m, n) if g == 1 or epi else (g, m, n))
+            form = (f"wide {'int8 ' if int8 else ''}{label} M={m} (row "
+                    f"groups {plan.chunks}, S={plan.splits})")
+            check_split(torch, form, plan, run, want, out)
+            worst = max(worst, check_close(form, run(), want, BF16_TOL,
+                                           quiet=True))
+            if g == 3 and not e:
+                xs = torch.empty(m * k + 1, dtype=bf16,
+                                 device="cuda")[1:].view(m, k)
+                xs.copy_(x)
+                worst = max(worst, check_close(
+                    f"{form}, x off 16-byte alignment", run(xs),
+                    plain(xs), BF16_TOL))
+            del x, w, want
+        del members, fp, bias
+        torch.cuda.empty_cache()
+    return worst
 
 
 # phase 3's short-block checks (label, N, K, block, keep, align, Ms): blocks
@@ -1160,6 +1283,12 @@ def phase_kernels(torch, timer):
     bcr_cases(torch, timer, gen, record)
     log("bcr_spmm split path (M=8, one launch)")
     bcr_split_checks(torch, gen)
+    log("bcr_spmm wide body (the 128 M tile: G = 1, 2, 3, bias, SwiGLU, "
+        "stacked experts, a split, ragged M, NaN-filled buffers, unaligned x)")
+    t0 = time.perf_counter()
+    wide_err = wg_checks(torch, gen)
+    log(f"wide-body checks: {time.perf_counter() - t0:.1f} s, largest error "
+        f"{wide_err:.3e}")
     log("bcr_spmm short-block body (blocks under 16 rows: ragged groups and "
         "M, the split, NaN-filled buffers, unaligned x)")
     t0 = time.perf_counter()
@@ -1853,7 +1982,7 @@ def expert_packs(torch, gen, e, int8, dtype=None):
     return wo, wgi
 
 
-def expert_cases(torch, timer, gen, record):
+def expert_cases(torch, timer, gen, record, variants=None):
     """Phase 3's expert-batched ``bcr_spmm`` (``wo``) and
     ``bcr_spmm_grouped`` (``wgi`` with the SwiGLU epilogue) at
     deepseek-moe-16b's 64 experts: bf16 and int8 tiles under bf16 x at M =
@@ -1861,7 +1990,8 @@ def expert_cases(torch, timer, gen, record):
     that phase 12b serves) at its decode and 300-token prefill M = 4 and
     228. Each is one launch for all 64 (the counters say so), held to the
     plain version's loop over the experts and timed beside it and beside
-    one ``torch.bmm`` over the dense pruned expert weights."""
+    one ``torch.bmm`` over the dense pruned expert weights. ``variants``:
+    (int8 tiles, dtype, Ms, tolerance, prefix) rows in place of these."""
     from repro_torch.core.bcrc import tbcrc_unpack
     from repro_torch.kernels import bcr_spmm as K
     from repro_torch.kernels import ref
@@ -1884,7 +2014,7 @@ def expert_cases(torch, timer, gen, record):
     e = EXPERTS
     bf16, fp32 = torch.bfloat16, torch.float32
     # (int8 tiles, tile and x dtype, M a expert, tolerance, shape prefix)
-    for int8, dt, ms, tol, pre in (
+    for int8, dt, ms, tol, pre in variants or (
             (False, bf16, EXPERT_MS, BF16_TOL, ""),
             (True, bf16, EXPERT_MS, BF16_TOL, ""),
             (False, fp32, EXPERT_FP32_MS, FP32_TOL, "fp32 ")):
@@ -2392,9 +2522,10 @@ def profile_decode(torch, engine, rng, cfg, steps=5):
 def kernel_family(name: str) -> str:
     """A profiler kernel name → its launch-counter key (or "other"); the
     int8 forms are the instantiations on int8 (``signed char``) tiles or
-    pages, or the tensor-core BCR kernels' ``<true, ...>``."""
+    pages, or the tensor-core BCR kernels' ``<true, ...>`` (the wide
+    body's too)."""
     int8 = ("_int8" if "signed char" in name or "_tc<true" in name
-            else "")
+            or "_wg<true" in name else "")
     if "flash_attention" in name:
         return "flash_attention_fused"
     if "bcr_spmm_skip" in name:
@@ -5172,15 +5303,20 @@ def encdec_step_launches(params) -> tuple:
     return single, grouped, short
 
 
-def encdec_prefill_device_ms(torch, fns, params, batch) -> float:
-    """Device time of one ``prefill`` under ``torch.profiler``."""
+def encdec_prefill_device_ms(torch, fns, params, batch) -> tuple:
+    """Device time of one ``prefill`` under ``torch.profiler``: the total
+    and by kernel family (:func:`kernel_family`)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fns.prefill(params, batch)
         torch.cuda.synchronize()
-    return sum(ms for _, _, ms in device_events(torch, prof))
+    families = {}
+    for name, _, ms in device_events(torch, prof):
+        fam = kernel_family(name)
+        families[fam] = families.get(fam, 0.0) + ms
+    return sum(families.values()), families
 
 
 def phase_encdec_serve(torch, cfg, params, frac, label, frames, prompt,
@@ -5264,10 +5400,10 @@ def phase_encdec_serve(torch, cfg, params, frac, label, frames, prompt,
     self_bytes = 2 * cfg.num_layers * ENC_UTTS * (pos + 1) * (
         cfg.num_kv_heads * cfg.head_dim * cache["self_k"].element_size())
     floor_ms = (streamed + cross_bytes + self_bytes) / HBM_BYTES_PER_S * 1e3
+    pre_ms, pre_fams = encdec_prefill_device_ms(torch, fns, params, batch)
     summary = dict(
-        prefill_wall_ms=prefill_ms,
-        prefill_device_ms=encdec_prefill_device_ms(torch, fns, params,
-                                                   batch),
+        prefill_wall_ms=prefill_ms, prefill_device_ms=pre_ms,
+        prefill_by_family_ms=pre_fams,
         prefill_launches=prefill_launches,
         decode_step_ms_p50=statistics.median(walls),
         decode_steps=len(walls), device_ms_per_step=prof["device_ms"],
@@ -7183,12 +7319,64 @@ def run_phase_dryrun(torch, np, smi):
     return acc, dict(pipeline=pipe, dryrun=summary)
 
 
+def prefill_profiles(torch, np) -> dict:
+    """Device ms by kernel family of the prefills the BCR kernels' prefill
+    shapes serve, through the tree's entry points: phase 15a's whisper
+    ``prefill`` (8 x 1500 frames, a 4-token prompt; bf16 tiles, plain
+    attention) and 15b's (int8 tiles, the flash encoder), and phase 9a's
+    cold admission of 8 prompts (a 384-token system prompt + 16..64 tokens
+    each) on llama3.2-1b, bf16 and over int8 tiles, int8 KV and the flash
+    prefill; the same weights, inputs and engine as those phases."""
+    from repro_torch.models.api import model_fns
+    from repro_torch.serving import EngineConfig, InferenceEngine
+
+    out = {}
+    cfg, params, params_q, _ = build_encdec_params(torch)
+    frames, prompt = encdec_inputs(torch, np, cfg, ENC_UTTS)
+    cfg_q = dataclasses.replace(cfg, attn_impl="pallas",
+                                q_chunk=cfg.encoder_seq,
+                                kv_chunk=cfg.encoder_seq)
+    batch = {"frames": frames, "tokens": prompt}
+    for key, c, p in (("15a", cfg, params), ("15b", cfg_q, params_q)):
+        fns = model_fns(c)
+        fns.prefill(p, batch)                 # warm-up
+        torch.cuda.synchronize()
+        total, fams = encdec_prefill_device_ms(torch, fns, p, batch)
+        out[key] = dict(device_ms=total, by_family_ms=fams)
+        log(f"prefill profile {key}: " + json.dumps(out[key]))
+    del params, params_q, frames, prompt, batch
+    torch.cuda.empty_cache()
+    cfg, params, params_q, _ = build_main_params(torch)
+    systems, _ = prefix_traffic(np, cfg.vocab_size)
+    rng = np.random.default_rng(11)
+    probe = [np.concatenate([systems[i % 2], rng.integers(
+        0, cfg.vocab_size, size=SUFFIX_LENS[i % 4]).astype(np.int32)])
+        for i in range(8)]
+    for key, quantized in (("9a", False), ("9a int8", True)):
+        c = dataclasses.replace(cfg, attn_impl="pallas") if quantized else cfg
+        q = dict(kv_dtype="int8", weight_dtype="int8") if quantized else {}
+        engine = InferenceEngine(c, params_q if quantized else params,
+                                 EngineConfig(n_slots=8, capacity=640,
+                                              page_size=16, seed=0,
+                                              prefix_cache=False, **q),
+                                 device="cuda")
+        for p in systems:                     # warm-up: every kernel loaded
+            engine.submit(p, max_new_tokens=4)
+        engine.run()
+        out[key] = profile_admission(torch, engine, probe)
+        log(f"prefill profile {key} cold admission: " + json.dumps(out[key]))
+        del engine
+    return out
+
+
 def bcr_worker(tree: str) -> int:
-    """``--bcr-worker TREE``: :func:`bcr_cases`, :func:`short_cases`,
-    :func:`paged_cases`, :func:`skip_cases` and :func:`flash_cases` against
-    TREE's own
-    ``repro_torch`` (built into TREE's build directory); the rows come out
-    as one ``bcr rows:`` JSON line."""
+    """``--bcr-worker TREE``: :func:`bcr_cases`, :func:`prefill_cases`,
+    :func:`short_cases`, :func:`paged_cases`, :func:`skip_cases` and
+    :func:`flash_cases` against TREE's own ``repro_torch`` (built into
+    TREE's build directory), then :func:`prefill_profiles`; the rows come
+    out as one ``bcr rows:`` JSON line, the profiles as one ``bcr
+    profiles:`` line."""
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -7205,11 +7393,16 @@ def bcr_worker(tree: str) -> int:
     rows = []
     timer, record = Timer(torch), recorder(torch, rows)
     bcr_cases(torch, timer, gen, record)
+    prefill_cases(torch, timer, gen, record)
     short_cases(torch, timer, gen, record)
     paged_cases(torch, timer, gen, record)
     skip_cases(torch, timer, gen, record)
     flash_cases(torch, timer, gen, record)
     print("bcr rows: " + json.dumps(rows), flush=True)
+    del timer
+    torch.cuda.empty_cache()
+    print("bcr profiles: " + json.dumps(prefill_profiles(torch, np)),
+          flush=True)
     return 0
 
 
@@ -7225,18 +7418,21 @@ def bcr_ab(trees) -> int:
               "tree", file=sys.stderr)
         return 2
     smi = smi_line()
-    runs = []
+    runs, profiles = [], []
     for tree in trees:
         t0 = time.perf_counter()
         out = subprocess.run([sys.executable, __file__, "--bcr-worker", tree],
                              capture_output=True, text=True, timeout=1500)
         lines = [ln for ln in out.stdout.splitlines()
                  if ln.startswith("bcr rows: ")]
-        if out.returncode != 0 or not lines:
+        profs = [ln for ln in out.stdout.splitlines()
+                 if ln.startswith("bcr profiles: ")]
+        if out.returncode != 0 or not lines or not profs:
             print(out.stdout[-4000:], out.stderr[-4000:], file=sys.stderr)
             raise RuntimeError(f"bcr worker for {tree} failed "
                                f"({out.returncode})")
         runs.append((tree, json.loads(lines[-1][len("bcr rows: "):])))
+        profiles.append(json.loads(profs[-1][len("bcr profiles: "):]))
         log(f"{tree}: {time.perf_counter() - t0:.1f} s")
     log(smi)
     log("kernel | shape | " + " | ".join(f"{t} ms" for t, _ in runs)
@@ -7246,10 +7442,20 @@ def bcr_ab(trees) -> int:
         log(f"{row['kernel']} | {row['shape']} | "
             + " | ".join(f"{t:.4f}" for t in times)
             + f" | {row['bound_ms']:.4f} | {row['library_ms']:.4f}")
+    log("prefill device ms (bcr_spmm* share) | "
+        + " | ".join(t for t, _ in runs))
+    for key in profiles[0]:
+        cells = []
+        for prof in profiles:
+            fams = prof[key]["by_family_ms"]
+            bcr = sum(v for k, v in fams.items() if k.startswith("bcr_spmm"))
+            cells.append(f"{prof[key]['device_ms']:.2f} ({bcr:.2f})")
+        log(f"{key} | " + " | ".join(cells))
     out_dir = Path(__file__).resolve().parent / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "bcr_ab.json").write_text(json.dumps(
-        {"device": smi, "runs": [{"tree": t, "rows": r} for t, r in runs]},
+        {"device": smi, "runs": [{"tree": t, "rows": r, "profiles": p}
+                                 for (t, r), p in zip(runs, profiles)]},
         indent=1))
     return 0
 

@@ -125,6 +125,10 @@ def launch_cost(plan, m: int, k: int, n: int, kept: Tuple[int, int], *,
       TFLOP/s, stretched by the grid's fill of the 132 SMs: ``waves · 132 /
       grid``, each wave as long as the others.
 
+    A wide-body plan (``plan.body == "wg"``, the 128 M tile) stages x once
+    a row group of its flattened rows and multiplies each tile expanded
+    across its block's columns.
+
     A short-body plan (``plan.body == "short"``, blocks under 16 rows)
     counts its own way (:func:`_short_cost`): its P·br rows a CTA, its
     dense ``bc`` depth (the tile expanded to its block), x staged once a
@@ -148,9 +152,16 @@ def launch_cost(plan, m: int, k: int, n: int, kept: Tuple[int, int], *,
                 * waves * H100_SMS / plan.grid
                 + -(-plan.grid // (H100_SMS * resident)) * stages
                 * SHORT_STAGE_S)
-    x_bytes = e * plan.nb_r * plan.chunks * m * k * 2
-    ops = (2 * plan.tiles * plan.nb_c * plan.rows * plan.m_tile
-           * (-(-c // 16) * 16))
+    if plan.body == "wg":
+        # the 128 tile: x staged once a row group, every tile expanded to
+        # its block's bc columns over the CTA's 256 MMA rows
+        x_bytes = e * plan.chunks * m * k * 2
+        ops = (2 * plan.tiles * plan.nb_c * plan.rows * plan.m_tile
+               * (k // plan.nb_c))
+    else:
+        x_bytes = e * plan.nb_r * plan.chunks * m * k * 2
+        ops = (2 * plan.tiles * plan.nb_c * plan.rows * plan.m_tile
+               * (-(-c // 16) * 16))
     t = max((w_bytes + x_bytes + y_bytes + partials) / H100_BYTES_PER_S,
             ops / H100_BF16_OPS_PER_S)
     return t * waves * H100_SMS / plan.grid

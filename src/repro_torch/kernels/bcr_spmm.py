@@ -27,12 +27,15 @@ bytes. A G = 1 launch of one unstacked pack whose blocks are shorter than
 one m16 MMA slab (br < 16: GRIM's own (8, 8) / (8, 16) blocks, whisper's
 (2, 128) lm_head) takes the short-block body (``LaunchPlan.body ==
 "short"``): P block rows a CTA, each stage's tiles expanded across their
-blocks in shared memory against x's dense block. A pack whose plan
-carries a tuned genome (``kernels/plan.py``, GRIM §4.5) fixes the M tile,
-the configuration and the split for every call of at most the decode batch
-it was tuned for; an illegal genome raises. Under fp32 x the kernel keeps
-its CUDA-core body (fp32 products, the 1e-4 tolerance) and sizes its own M
-tile.
+blocks in shared memory against x's dense block. The 128-row M tile
+(prefill) takes the wide body (``body == "wg"``): wgmma over 256 MMA rows
+a CTA of the flattened (block row, member) rows, whatever G, each tile
+expanded across its block's 128 columns against x's dense block as TMA
+stages it. A pack whose plan carries a tuned genome (``kernels/plan.py``,
+GRIM §4.5) fixes the M tile, the configuration and the split for every call
+of at most the decode batch it was tuned for; an illegal genome raises.
+Under fp32 x the kernel keeps its CUDA-core body (fp32 products, the 1e-4
+tolerance) and sizes its own M tile.
 
 A CUDA tensor goes through the kernel (or the wrapper raises); a CPU tensor
 goes through the plain version in :mod:`repro_torch.kernels.ref`. Each
@@ -71,16 +74,20 @@ SMEM_LIMIT = 232448          # bytes of shared memory a Hopper CTA may take
 MAX_STAGES = 8
 # (M tile, m16 row slabs per warp, warps across the M tile, compute warps):
 # the compiled tensor-core configurations. A CTA computes 16·slabs·(warps /
-# warps_m) output rows (the weight's rows, the MMA's M side) by the M tile
-# (the MMA's N side); one more warp issues the copies. M tiles up to 64 run
-# mma.sync (a warp owns slabs × 16 rows by M tile / warps_m columns); the
-# 128 tile (warps_m = 4) runs wgmma m64n128k16 (a warpgroup owns 64 rows by
-# all 128 columns), which needs C_keep <= 64 (one 128-byte swizzled row of
-# K).
-WGMMA_WARPS_M = 4
+# warps_m) MMA rows (the weight's rows, the MMA's M side) by the M tile (the
+# MMA's N side). M tiles up to 64 run mma.sync over one block row (a warp
+# owns slabs × 16 rows of one member by M tile / warps_m columns; one more
+# warp issues the copies). The 128 tile is the wide body (``body="wg"``):
+# wgmma m64n128k16, two warpgroups of two m64 slabs (each warp 16 rows of
+# each, so 2 m16 slabs a warp across all 128 columns), 256 MMA rows over the
+# flattened (block row, member) rows, each tile expanded across its block's
+# columns against x's dense block (blocks of ``WG_BC`` columns).
 CONFIGS = ((8, 1, 1, 8), (8, 2, 1, 8), (16, 1, 1, 8), (16, 2, 1, 8),
-           (32, 1, 1, 8), (32, 2, 1, 8), (64, 2, 2, 8), (128, 4, 4, 8))
+           (32, 1, 1, 8), (32, 2, 1, 8), (64, 2, 2, 8), (128, 2, 1, 8))
 M_TILES = (8, 16, 32, 64, 128)
+WG_M_TILE = 128              # the wide body's M tile
+WG_ROWS = 256                # its MMA rows a CTA
+WG_BC = 128                  # the block columns it takes (two 64-wide atoms)
 # The short-block body (blocks shorter than one m16 slab, G = 1): 8 warps a
 # CTA, each (M tile, slabs, warps_m, rows) below one compiled configuration.
 # A CTA computes ``rows`` MMA rows — the P = rows // br block rows it owns —
@@ -123,13 +130,18 @@ class LaunchPlan:
     nb_c: int
     group: int
     experts: int = 1     # the grid's second axis (1: an unstacked pack)
-    # the body: "tc" (one block row a CTA, one contraction block a stage) or
+    # the body: "tc" (one block row a CTA, one contraction block a stage),
     # "short" (block_rows block rows a CTA, stage_blocks blocks a stage,
-    # warps_k warps sharing the k16 steps of one output tile)
+    # warps_k warps sharing the k16 steps of one output tile) or "wg" (the
+    # 128 M tile: n_chunk flattened output rows a CTA, chunks such row
+    # groups over the G·N rows; units, the most (member, block row) tiles a
+    # CTA stages; m_fast, the M tile the grid's fastest axis)
     body: str = "tc"
     block_rows: int = 1
     stage_blocks: int = 1
     warps_k: int = 1
+    units: int = 1
+    m_fast: bool = False
 
     @property
     def rows(self) -> int:
@@ -143,6 +155,8 @@ class LaunchPlan:
     @property
     def tiles(self) -> int:
         """Output tiles, every expert's: one split counter each."""
+        if self.body == "wg":
+            return self.experts * self.chunks * self.m_tiles
         return (self.experts * -(-self.nb_r // self.block_rows) * self.chunks
                 * self.m_tiles)
 
@@ -151,8 +165,9 @@ class LaunchPlan:
         """fp32 partials of a split launch (0 when unsplit)."""
         if self.splits == 1:
             return 0
-        return (self.tiles * self.splits * self.group * self.m_tile
-                * self.n_chunk)
+        # the wide body's partial: 128 rows of its 256 MMA rows' floats
+        rows = self.rows if self.body == "wg" else self.n_chunk * self.group
+        return self.tiles * self.splits * self.m_tile * rows
 
     def args(self) -> Tuple[int, ...]:
         """The order ``bcr_spmm_launch`` (or, for the short body,
@@ -161,13 +176,17 @@ class LaunchPlan:
             return (self.m_tile, self.slabs, self.warps_m, self.n_chunk,
                     self.stage_blocks, self.splits, self.stages,
                     int(self.vec), self.smem_bytes)
+        if self.body == "wg":
+            return (self.m_tile, self.n_chunk, self.chunks, self.splits,
+                    self.stages, int(self.vec), int(self.m_fast), self.units,
+                    self.smem_bytes)
         return (self.m_tile, self.slabs, self.warps_m, self.n_chunk,
                 self.chunks, self.splits, self.stages, int(self.vec),
                 self.smem_bytes)
 
 
 def smem_layout(m_tile: int, n_chunk: int, stages: int, g: int, bc: int,
-                r: int, c: int, int8_tiles: bool, vec: bool, wgmma: bool,
+                r: int, c: int, int8_tiles: bool, vec: bool,
                 blocks: int) -> int:
     """Shared-memory bytes of one CTA; the CUDA launcher computes the same
     layout (``Layout`` in the source) and refuses a plan that disagrees.
@@ -176,9 +195,9 @@ def smem_layout(m_tile: int, n_chunk: int, stages: int, g: int, bc: int,
     TMA copies them, each member's tile 128-byte aligned as TMA needs, or
     padded to ``Cp + 8`` elements on the plain-load path, ``Cp`` = C_keep
     rounded up to 16; int8 codes flat, 16-byte aligned per member), the x block (M tile × bc bf16), the row and column indices.
-    Then two gathered-x buffers (G × M tile rows of ``Cp + 8`` elements, or
-    of 128 swizzled bytes for the wgmma tile), two widened int8 tile
-    buffers (int8 form), the fp32 epilogue tile (aliasing the ring), two
+    Then two gathered-x buffers (G × M tile rows of ``Cp + 8`` elements),
+    two widened int8 tile buffers (int8 form), the fp32 epilogue tile
+    (aliasing the ring), two
     inverse row maps, a zero row, a flag, one mbarrier per stage, the int8
     tile scales of the CTA's ``blocks`` contraction blocks and 1024 bytes of
     alignment slack."""
@@ -190,13 +209,100 @@ def smem_layout(m_tile: int, n_chunk: int, stages: int, g: int, bc: int,
     off_cidx = (_up(g * member, 128) + _up(m_tile * bc * 2, 128)
                 + _up(g * r * 4, 16))
     slot = _up(off_cidx + _up(g * c * 4, 16), 1024)
-    main = stages * slot + 2 * g * m_tile * (128 if wgmma else row)
+    main = stages * slot + 2 * g * m_tile * row
     if int8_tiles:
         main += 2 * g * r * row
     red = g * m_tile * (n_chunk + 4) * 4
     scales = _up(blocks * g * 4, 16) if int8_tiles else 0
     return (max(main, red) + _up(2 * g * n_chunk * 4, 16) + _up(row, 16)
             + 16 + _up(stages * 8, 16) + scales + 1024)
+
+
+def wg_smem_layout(span: int, stages: int, bc: int, br: int, r: int, c: int,
+                   int8_tiles: bool, blocks: int) -> int:
+    """Shared-memory bytes of one CTA of the wide body (the 128 M tile);
+    the CUDA launcher computes the same layout (``WgLayout`` in the
+    source) and refuses a plan that disagrees.
+
+    Two rings of ``stages`` slots: x blocks (128 rows × bc bf16, as
+    64-column 128-byte-swizzled atoms) and, 128-byte aligned, for each of
+    the CTA's ``wg_units`` units (a member's block row) its kept tile
+    (16-byte aligned), row and column indices. Then two buffers of the
+    units' expanded tiles (R_keep rows of ``bc + 8`` bf16 each), the fp32
+    epilogue tile (128 × 260, aliasing the rings), two inverse row maps
+    (units × br ints), a zero row, the split flag, one mbarrier a slot of
+    each ring, the int8 tile scales of the CTA's ``blocks`` blocks and 1024
+    bytes of alignment slack."""
+    nu = wg_units(span, br)
+    elt = 1 if int8_tiles else 2
+    row = (bc + 8) * 2
+    tslot = _up(nu * _up(r * c * elt, 16) + _up(nu * r * 4, 16)
+                + _up(nu * c * 4, 16), 128)
+    main = stages * (WG_M_TILE * bc * 2 + tslot) + 2 * nu * r * row
+    red = WG_M_TILE * (WG_ROWS + 4) * 4
+    scales = _up(blocks * nu * 4, 16) if int8_tiles else 0
+    return (max(main, red) + _up(2 * nu * br * 4, 16) + _up(row, 16) + 16
+            + _up(2 * stages * 8, 16) + scales + 1024)
+
+
+def wg_span(g: int, br: int) -> int:
+    """Flattened output rows a wide-body CTA computes: its 256 MMA rows,
+    or, for a pair (G = 2, whose SwiGLU epilogue needs gate row and up row
+    in one CTA), the whole gate/up pairs of block rows they hold (0: none).
+    Row q of the G·N is row q % br of block row (q // br) // G of member
+    (q // br) % G."""
+    if g == 2:
+        return WG_ROWS // (2 * br) * 2 * br
+    return WG_ROWS
+
+
+def wg_units(span: int, br: int) -> int:
+    """The most units (block rows of one member) a window of ``span``
+    flattened rows touches: span / br where windows start on unit
+    boundaries, else two more for the ends."""
+    return span // br if span % br == 0 else span // br + 2
+
+
+def _wg_fit(m, n, k, g, block, kept, nb_r, nb_c, split, int8_tiles, aligned,
+            experts, shards, sm_count) -> Optional[LaunchPlan]:
+    """The wide body's plan (the 128 M tile), or None where it cannot run
+    the shape (blocks other than ``WG_BC`` columns, a pair of block rows over
+    256 rows, or shared memory no ring of 3 fits).
+
+    * Rows: ``wg_span`` flattened rows a CTA, ``chunks`` = ceil(G·N / span)
+      row groups.
+    * Split (``_wg_splits``), where ``split`` allows one: over every
+      expert's row groups × M tiles (the whole weight's under ``shards``).
+    * Grid order: the M tile fastest where the packed tiles outweigh x (they
+      then stream from device memory once while x stays in L2), else the
+      row groups (each x block read from device memory once).
+    * Copies (``vec``): TMA for x and bulk copies for tiles and indices on
+      16-byte aligned operands whose runs are 16-byte multiples; else plain
+      loads through the same ring.
+    * Stages: one more than the blocks a CTA walks, at least 3, at most 8,
+      and what shared memory holds."""
+    br, bc = block
+    r, c = kept
+    span = wg_span(g, br)
+    if bc != WG_BC or span == 0:
+        return None
+    elt = 1 if int8_tiles else 2
+    m_tiles = -(-m // WG_M_TILE)
+    chunks = -(-(g * n) // span)
+    tiles = experts * chunks * m_tiles
+    splits = _wg_splits(tiles * shards, nb_c, sm_count) if split else 1
+    blocks = -(-nb_c // splits)
+    vec = (aligned and k % 8 == 0 and r % 4 == 0 and c % 4 == 0
+           and (r * c * elt) % 16 == 0)
+    m_fast = g * nb_r * nb_c * r * c * elt > m * k * 2
+    for stages in range(min(MAX_STAGES, max(3, blocks + 1)), 2, -1):
+        smem = wg_smem_layout(span, stages, bc, br, r, c, int8_tiles, blocks)
+        if smem <= SMEM_LIMIT:
+            return LaunchPlan(WG_M_TILE, 2, 1, 8, span, chunks, m_tiles,
+                              splits, stages, vec, smem, nb_r, nb_c, g,
+                              experts, "wg", units=wg_units(span, br),
+                              m_fast=m_fast)
+    return None
 
 
 def short_smem_layout(m_tile: int, rows: int, br: int, j: int, slots: int,
@@ -304,14 +410,11 @@ def tile_configs(m_tile: int) -> Tuple[Tuple[int, int, int], ...]:
                  if cmt == m_tile)
 
 
-def _chunking(m_tile: int, slabs: int, wm: int, nw: int, g: int, br: int,
-              c: int) -> Optional[Tuple[int, int, int]]:
-    """``(n_chunk, chunks, wasted MMA rows)`` of one configuration for G
-    members of ``br``-row blocks keeping ``c`` columns, or None where it
-    cannot run them (the wgmma tile over C_keep > 64, or fewer rows than one
-    warp's slab a member)."""
-    if wm == WGMMA_WARPS_M and c > 64:
-        return None
+def _chunking(slabs: int, wm: int, nw: int, g: int,
+              br: int) -> Optional[Tuple[int, int, int]]:
+    """``(n_chunk, chunks, wasted MMA rows)`` of one mma.sync
+    configuration for G members of ``br``-row blocks, or None where it
+    cannot run them (fewer rows than one warp's slab a member)."""
     rows = 16 * slabs * (nw // wm)
     q = 16 * slabs
     n_chunk = min(_up(br, q), (rows // g) // q * q)
@@ -327,6 +430,25 @@ def _rule_splits(tiles: int, nb_c: int, sm_count: int) -> int:
     return 1 if 2 * tiles > sm_count else min(nb_c, -(-sm_count // tiles))
 
 
+WG_CTA_BLOCKS = 2            # a CTA's prologue and epilogue, in blocks
+WG_SPLIT_BLOCKS = 2          # a split's partials round trip, in blocks
+
+
+def _wg_splits(tiles: int, nb_c: int, sm_count: int) -> int:
+    """The wide body's split: the count whose launch takes the fewest
+    rounds — waves of one CTA an SM, each as long as the contraction blocks
+    a CTA walks plus its prologue and epilogue (``WG_CTA_BLOCKS``) and,
+    split, its partials (``WG_SPLIT_BLOCKS``) — the smallest on a tie.
+    pixtral's ``wq`` at M = 512 (64 tiles of 40 blocks): 2 splits, 128 CTAs
+    of 20 blocks, where the decode rule's 3 leave a second wave."""
+    def rounds(sp: int) -> int:
+        per = -(-nb_c // sp) + WG_CTA_BLOCKS + (WG_SPLIT_BLOCKS if sp > 1
+                                                else 0)
+        return -(-tiles * sp // sm_count) * per
+
+    return min(range(1, nb_c + 1), key=lambda sp: (rounds(sp), sp))
+
+
 def _fit(mt, slabs, wm, nw, n_chunk, chunks, m, g, bc, r, c, nb_r, nb_c,
          splits, int8_tiles, vec, experts) -> Optional[LaunchPlan]:
     """The plan with the deepest ring shared memory holds, or None."""
@@ -334,7 +456,7 @@ def _fit(mt, slabs, wm, nw, n_chunk, chunks, m, g, bc, r, c, nb_r, nb_c,
     blocks = -(-nb_c // splits)
     for stages in range(min(MAX_STAGES, max(3, blocks + 1)), 2, -1):
         smem = smem_layout(mt, n_chunk, stages, g, bc, r, c, int8_tiles,
-                           vec, wm == WGMMA_WARPS_M, blocks)
+                           vec, blocks)
         if smem <= SMEM_LIMIT:
             return LaunchPlan(mt, slabs, wm, nw, n_chunk, chunks, m_tiles,
                               splits, stages, vec, smem, nb_r, nb_c, g,
@@ -356,7 +478,11 @@ def launch_plan(m: int, n: int, k: int, g: int, block: Tuple[int, int],
     With ``genome=None`` one rule decides:
 
     * M tile: the smallest of 8, 16, 32, 64 that holds M, else 128.
-    * Configuration: of those compiled for the M tile, the one that wastes
+    * At the 128 tile, the wide body (``_wg_fit``): 256 MMA rows a CTA over
+      the flattened (block row, member) rows, whatever G; the 64 tile when
+      it cannot run the shape.
+    * Configuration (M tiles up to 64): of those compiled for the M tile,
+      the one that wastes
       the fewest MMA rows on G × block rows (rows past a block row, or past
       G members, point at a zero row), then the most slabs per warp. Its
       row chunk ``n_chunk`` is a multiple of the warp's 16·slabs rows, so a
@@ -422,8 +548,17 @@ def launch_plan(m: int, n: int, k: int, g: int, block: Tuple[int, int],
         if not 0 <= config < len(cfgs):
             raise ValueError(f"genome {genome}: M tile {mt} has "
                              f"{len(cfgs)} configurations")
+        if mt == WG_M_TILE:
+            plan = _wg_fit(m, n, k, g, block, kept, nb_r, nb_c, split,
+                           int8_tiles, aligned, experts, shards, sm_count)
+            if plan is None:
+                raise ValueError(f"genome {genome}: the 128 tile cannot run "
+                                 f"G={g} members of {br}x{bc} blocks keeping "
+                                 f"{r}x{c} (blocks of {WG_BC} columns, pairs "
+                                 f"of at most {WG_ROWS} rows, shared memory)")
+            return plan
         slabs, wm, nw = cfgs[config]
-        chunking = _chunking(mt, slabs, wm, nw, g, br, c)
+        chunking = _chunking(slabs, wm, nw, g, br)
         if chunking is None:
             raise ValueError(f"genome {genome}: configuration {cfgs[config]} "
                              f"cannot run G={g} members of {br}-row blocks "
@@ -441,9 +576,15 @@ def launch_plan(m: int, n: int, k: int, g: int, block: Tuple[int, int],
         return plan
     first = next(mt for mt in M_TILES if m <= mt or mt == M_TILES[-1])
     for mt in reversed([t for t in M_TILES if t <= first]):
+        if mt == WG_M_TILE:
+            plan = _wg_fit(m, n, k, g, block, kept, nb_r, nb_c, True,
+                           int8_tiles, aligned, experts, shards, sm_count)
+            if plan is not None:
+                return plan
+            continue
         best = None
         for slabs, wm, nw in tile_configs(mt):
-            chunking = _chunking(mt, slabs, wm, nw, g, br, c)
+            chunking = _chunking(slabs, wm, nw, g, br)
             if chunking is None:
                 continue
             n_chunk, chunks, waste = chunking

@@ -19,26 +19,22 @@
 // plan.block_scales), whose scale multiplies the block's fp32 partial, as
 // the reference's _block_update does.
 //
-// Three bodies: the CUDA-core body under fp32 x; under bf16 x, the
-// short-block body for blocks shorter than one m16 slab (G = 1), else the
-// tensor-core body.
+// Four bodies: the CUDA-core body under fp32 x; under bf16 x, the
+// short-block body for blocks shorter than one m16 slab (G = 1), the wide
+// body at the 128-row M tile (prefill), else the tensor-core body (M tiles
+// of 8..64: decode, verify, short prefill).
 //
-// bf16 x (the serving path; fp and int8 tiles) — namespace tc, tensor
-// cores. What bounds it on this card: at decode (M = 1..8) the bytes of the
-// packed tiles (keep_frac of the dense weight, read once; half as many
-// under int8) and, at 1 to 16 contraction blocks a CTA, the latency of
-// each block's short chain of copies and shared-memory steps; at prefill
-// (M in the thousands) the shared-memory pipe, which every block's x
-// staging, column gather and operand reads go through, ahead of the
-// tensor cores. What the design does:
+// bf16 x at M tiles of 8..64 (the serving path's decode and verify; fp
+// and int8 tiles) — namespace tc, tensor cores. What bounds it on this
+// card: at decode (M = 1..8) the bytes of the packed tiles (keep_frac of
+// the dense weight, read once; half as many under int8) and, at 1 to 16
+// contraction blocks a CTA, the latency of each block's short chain of
+// copies and shared-memory steps. What the design does:
 //   * y^T = W_tile · x_g^T per block, the weight as the wide operand: the
-//     output rows are the MMA's M side and the M tile its N side, so one
-//     form serves M = 1 and M = 4096. M tiles of 8..64 (decode, short
-//     prefill) run mma.sync.aligned.m16n8k16 bf16 → fp32 with both operands
-//     by ldmatrix; the 128-row M tile (prefill) runs wgmma.mma_async
-//     m64n128k16 with A (the weight rows) in registers by ldmatrix and B
-//     (the gathered x, K-major, 128-byte swizzled) read by descriptor, its
-//     products overlapping the preparation of the next block. int8 codes
+//     output rows are the MMA's M side and the M tile its N side.
+//     mma.sync.aligned.m16n8k16 bf16 → fp32 with both operands by
+//     ldmatrix, x's kept columns gathered into B's layout while the
+//     previous block multiplies. int8 codes
 //     are widened in shared memory with their tile's scale folded in,
 //     bf16(code × scale): one rounding of at most 2^-9 relative per weight,
 //     against the 2e-2 × output-scale tolerance. (The reference scales each
@@ -93,10 +89,68 @@
 //   * Which shapes leave this body: a G = 1 launch of one unstacked pack
 //     whose blocks are shorter than one m16 slab (br < 16) takes the
 //     short-block body below. Here one CTA owns one block row, so such a
-//     block row fills at most 16 of a CTA's 128 MMA rows (2 of them for
+//     block row fills at most 16 of a CTA's MMA rows (2 of them for
 //     whisper's (2, 128) lm_head blocks), pads C_keep 4 or 8 to the k of
 //     16, and walks its contraction blocks one block barrier each: 25933
 //     CTAs for whisper's lm_head, 128 serial blocks for the GRU's (8, 8).
+//     And the 128-row M tile takes the wide body.
+//
+// bf16 x at the 128-row M tile (prefill: whisper's encoder at M = 12000,
+// a cold admission's thousands of rows, the expert forms at M = 160..240;
+// blocks of 128 columns, any G, bias, SwiGLU, stacked experts) — the wide
+// body (tc::wg_body). What bounds it on this card: the shared-memory pipe
+// and the L2 → SM stream. Gathering x's kept columns per block row would
+// read the x block from L2 once for each block row (lm_head at M = 2048:
+// ~10 GB for 16032 CTAs) and gather it with one shared-memory instruction a
+// pair of elements; and 3 members' 64-row warpgroup slabs do not fit one
+// block row's 128-row CTA. Here a 128 x 128 block costs a CTA 48 KB of
+// copies and ~2.6K shared-memory wavefronts (wgmma's B reads, A's
+// ldmatrix, the expansion, the copies' writes) against 2K cycles of
+// tensor-core work. What the design does:
+//   * The tile is expanded, not x: each staged kept tile is written across
+//     its block's 128 columns (zero but at its C_keep kept columns; int8
+//     widened with its scale folded in, as above), and B is x's dense block
+//     exactly as TMA copies it (two 128-byte-swizzled atoms of 64 columns,
+//     K-major), read by wgmma's descriptor: no gather of x at all. A warp
+//     zeroes its rows with 16-byte stores and writes each kept value once,
+//     a lane a pair of kept columns (their indices read once a unit). The
+//     MMA then does br/R_keep × bc/C_keep = 4× the kept work at the
+//     serving block (dense-equivalent), at the tensor cores' rate.
+//   * One CTA computes 256 MMA rows over the flattened output rows (row q
+//     of the G·N is row q % br of block row (q / br) / G of member
+//     (q / br) % G), so whatever G, a CTA's rows are two 128-row units
+//     (members of one block row, or adjacent block rows; SwiGLU: whole
+//     gate/up pairs) sharing one staged x block: the L2 → SM bytes of x
+//     per MMA fall 2× against one block row a CTA, and 3 members never
+//     mean 4 row chunks. Two warpgroups own 128 rows each as two m64 slabs
+//     by all 128 columns: wgmma.mma_async m64n128k16, A (each output row's
+//     expanded kept row, or a zero row: the inverse row map tagged with the
+//     block, as above) in registers by ldmatrix, B by descriptor.
+//   * Two rings of 3 slots, one mbarrier a slot: x blocks (two TMA copies a
+//     block; rows past M arrive as zeros or the next expert's rows, feeding
+//     only columns never written), read by the block's products, and each
+//     unit's tile and indices (bulk copies), read one block earlier by the
+//     expansion; each refilled two blocks ahead of its reader. A stage's
+//     copies go out from lane 0 of all 8 warps, a copy each (one warp
+//     issuing them all held its warpgroup back), once one thread has armed
+//     the slot's barrier (right after its previous phase completed); plain
+//     loads where operands are not 16-byte aligned. One block barrier a
+//     block; a block's products (two commit groups, one per 64-column
+//     atom) run while the warps expand the next block into the other
+//     buffer (straight-line code for the serving tiles, C_keep = 64: the
+//     general loop's branches cost far more than the shared-memory
+//     instructions it issues).
+//   * Grid: (row group, M tile), the M tile fastest where the packed tiles
+//     outweigh x (lm_head: its 131 MB stream from device memory once while
+//     x stays in L2), else the row groups (whisper: each x block read from
+//     device memory once); experts on the grid's second axis; the split
+//     over contraction blocks (workspace, counters, split-order sum) as
+//     above, its count the one with the fewest rounds of blocks (waves
+//     times blocks a CTA, plus a CTA's and a split's fixed cost); the last
+//     split adds its own partial from shared memory, in split order.
+//   * Tried on the card and dropped, both slower (PERF.md §6): persistent
+//     CTAs over a stream of tiles (the item state spilled at 255
+//     registers), issuing a block's refills behind its products.
 //
 // bf16 x, blocks shorter than one m16 slab (G = 1, unstacked) — the
 // short-block body (tc::bcr_spmm_short_tc), the reference's planes form
@@ -664,7 +718,7 @@ inline Layout make_layout(const Shape& s) {
   l.off_cidx = l.off_ridx + up16(s.G * s.R * 4);
   l.slot = up(l.off_cidx + up16(s.G * s.C * 4), 1024);
   l.off_bs = s.p.stages * l.slot;
-  l.bs_row = s.p.mt == 128 ? 128 : row;   // wgmma's swizzled B rows
+  l.bs_row = row;
   l.off_aconv = l.off_bs + 2 * s.G * s.p.mt * l.bs_row;
   const int main_end = l.off_aconv + (s.int8_tiles ? 2 * s.G * s.R * row : 0);
   const int red = s.G * s.p.mt * (s.p.n_chunk + 4) * 4;
@@ -861,12 +915,8 @@ __device__ __forceinline__ void prepare(const Shape& s, unsigned char* smem,
 #pragma unroll
         for (int u = 0; u < kU; ++u) {
           const int m = warp + (u0 + u) * NW;
-          // MT = 128 (wgmma): 128-byte rows, 16-byte chunks XOR (m & 7)
-          const int off = MT == 128
-                              ? (((q >> 2) ^ (m & 7)) << 4) | ((q & 3) << 2)
-                              : 4 * q;
           *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)m * l.bs_row +
-                                             off) = v[u];
+                                             4 * q) = v[u];
         }
       }
     }
@@ -899,8 +949,6 @@ __device__ __forceinline__ void prepare(const Shape& s, unsigned char* smem,
       }
     }
   }
-  // wgmma reads the gathered x through the async proxy
-  if (MT == 128) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 __device__ __forceinline__ float silu(float v) { return v / (1.f + expf(-v)); }
@@ -989,12 +1037,11 @@ __device__ __forceinline__ void mma_block(float (&acc)[SLABS][NI][4],
 }
 
 // One CTA: output rows [nc0, nc0 + n_chunk) of block row i for all G
-// members (MMA rows) by x rows [m0, m0 + MT) (MMA columns), over the
-// contraction blocks of split sp. mma.sync (M tiles up to 64): warp (wr,
-// wc) owns SLABS m16 row slabs of one member by NI n8 column tiles. wgmma
-// (the 128 tile, WM = 4): warpgroup wr owns 64 rows of one member by all
-// 128 columns, warp wc of it 16 of those rows. Warp NW is the producer.
-// STACKED: the expert is blockIdx.y; else there is one (a plain pack).
+// members (MMA rows) by x rows [m0, m0 + MT) (MMA columns, MT up to 64),
+// over the contraction blocks of split sp, on mma.sync: warp (wr, wc) owns
+// SLABS m16 row slabs of one member by NI n8 column tiles. Warp NW is the
+// producer. STACKED: the expert is blockIdx.y; else there is one (a plain
+// pack).
 template <bool INT8, int MT, int SLABS, int WM, int NW, bool STACKED>
 __device__ __forceinline__ void tc_body(
     const CUtensorMap* xmap, const CUtensorMap* wmap,
@@ -1004,9 +1051,8 @@ __device__ __forceinline__ void tc_body(
     bf16* __restrict__ y, float* __restrict__ ws, int* __restrict__ counters,
     const Shape& s) {
   constexpr int NI = MT / (WM * 8);
-  constexpr bool WG = MT == 128;   // wgmma m64n128k16, else mma.sync
-  static_assert(NI >= 1 && MT % (WM * 8) == 0, "M tile / warp layout");
-  static_assert(!WG || (SLABS == 4 && NI == 4), "wgmma fragment layout");
+  static_assert(MT <= 64 && NI >= 1 && MT % (WM * 8) == 0,
+                "M tile / warp layout");
   static_assert(NI == 1 || NI % 2 == 0, "n8 tiles load in pairs");
   extern __shared__ __align__(128) unsigned char smem_tc[];
   unsigned char* smem = smem_tc + ((1024 - (smem_u32(smem_tc) & 1023)) & 1023);
@@ -1062,7 +1108,7 @@ __device__ __forceinline__ void tc_body(
   const int pad = l.cp - s.C;
   if (pad > 0) {
     const int stage_rows = INT8 || l.ts != l.as * 2 ? 0 : ST * s.G * s.R;
-    const int bs_rows = MT == 128 ? 0 : 2 * s.G * MT;
+    const int bs_rows = 2 * s.G * MT;
     const int ac_rows = INT8 ? 2 * s.G * s.R : 0;
     for (int e = tid; e < (stage_rows + bs_rows + ac_rows) * pad;
          e += nt) {
@@ -1094,10 +1140,6 @@ __device__ __forceinline__ void tc_body(
       if (off < (g + 1 == s.G ? l.off_x : (g + 1) * l.tile_member))
         smem[st * l.slot + off] = 0;
     }
-  }
-  if (MT == 128 && s.C < 64) {   // swizzled B rows: zero columns C..63
-    uint4* b4 = reinterpret_cast<uint4*>(smem + l.off_bs);
-    for (int e = tid; e < 2 * s.G * MT * 8; e += nt) b4[e] = make_uint4(0, 0, 0, 0);
   }
   int* inv_all = reinterpret_cast<int*>(smem + l.off_inv);
   for (int e = tid; e < 2 * s.G * NC; e += nt) inv_all[e] = -1;
@@ -1159,56 +1201,29 @@ __device__ __forceinline__ void tc_body(
                : smem + (jl % ST) * l.slot + (size_t)gw * l.tile_member;
       const int a_stride = INT8 ? l.as * 2 : l.ts;
       const bool swz = !INT8 && l.swz;
-      uint32_t a_row[WG ? 1 : SLABS];
-      int a_xor[WG ? 1 : SLABS];
+      uint32_t a_row[SLABS];
+      int a_xor[SLABS];
 #pragma unroll
-      for (int a = 0; a < (WG ? 1 : SLABS); ++a) {
-        // wgmma: the warp's 16 rows of its warpgroup's 64
-        const int e = inv[row0 - gw * NC + (WG ? wc : a) * 16 + a_lane_row];
+      for (int a = 0; a < SLABS; ++a) {
+        const int e = inv[row0 - gw * NC + a * 16 + a_lane_row];
         const bool kept = (e >> kTagShift) == jl;
         const int r = e & ((1 << kTagShift) - 1);
         a_row[a] = kept ? smem_u32(abase) + r * a_stride : smem_u32(zrow);
         a_xor[a] = kept && swz ? (r & 7) : 0;
       }
-      if constexpr (WG) {
-        // the block's wgmmas run on the tensor cores while the warps
-        // prepare the next block
-        const uint64_t desc = desc_sw128(smem_u32(
-            smem + l.off_bs + (size_t)(buf * s.G + gw) * MT * l.bs_row));
-        uint32_t af[4][4];
-#pragma unroll
-        for (int ks = 0; ks < 4; ++ks)
-          if (ks < ks_n)
-            ldsm_x4(af[ks], a_row[0] + (((ks * 2 + a_kc) ^ a_xor[0]) << 4));
-        wgmma_fence();
-#pragma unroll
-        for (int ks = 0; ks < 4; ++ks)
-          if (ks < ks_n) {
-            wgmma128(acc, af[ks], desc + 2 * ks, 1);
-          }
-        wgmma_commit();
-      } else {
-        if (next)
-          prepare<INT8, MT, NW>(s, smem, smem + ((jl + 1) % ST) * l.slot,
-                                jl + 1, buf ^ 1, nc0);
-        mma_block<SLABS, NI>(
-            acc, a_row, a_xor, a_kc,
-            smem_u32(smem + l.off_bs +
-                     (size_t)(buf * s.G + gw) * MT * l.bs_row) +
-                (wc * NI * 8 + b_lane_row) * l.bs_row + b_kc * 16,
-            l.bs_row, ks_n);
-      }
-    } else if (!WG && next) {
-      prepare<INT8, MT, NW>(s, smem, smem + ((jl + 1) % ST) * l.slot, jl + 1,
-                            buf ^ 1, nc0);
-    }
-    if constexpr (WG) {
       if (next)
         prepare<INT8, MT, NW>(s, smem, smem + ((jl + 1) % ST) * l.slot,
                               jl + 1, buf ^ 1, nc0);
-      if (gw < s.G) wgmma_wait();
+      mma_block<SLABS, NI>(
+          acc, a_row, a_xor, a_kc,
+          smem_u32(smem + l.off_bs +
+                   (size_t)(buf * s.G + gw) * MT * l.bs_row) +
+              (wc * NI * 8 + b_lane_row) * l.bs_row + b_kc * 16,
+          l.bs_row, ks_n);
+    } else if (next) {
+      prepare<INT8, MT, NW>(s, smem, smem + ((jl + 1) % ST) * l.slot, jl + 1,
+                            buf ^ 1, nc0);
     }
-    if constexpr (WG) fence_operands(acc);
   }
 
   // fp32 tile → shared memory as [g][m][n] (row stride NC + 4), over the
@@ -1223,12 +1238,9 @@ __device__ __forceinline__ void tc_body(
       for (int b = 0; b < NI; ++b)
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
-          // mma.sync: slab a, n8 tile b of warp (wr, wc); wgmma (MT = 128):
-          // n8 group 4a + b of the warp's 16 rows
-          const int n = row0 - gw * NC + (WG ? wc : a) * 16 + (lane >> 2) +
-                        (q >> 1) * 8;
-          const int m = (WG ? (4 * a + b) * 8 : wc * NI * 8 + b * 8) +
-                        (lane & 3) * 2 + (q & 1);
+          // slab a, n8 tile b of warp (wr, wc)
+          const int n = row0 - gw * NC + a * 16 + (lane >> 2) + (q >> 1) * 8;
+          const int m = wc * NI * 8 + b * 8 + (lane & 3) * 2 + (q & 1);
           red[((size_t)gw * MT + m) * rs + n] = acc[a][b][q];
         }
   }
@@ -1362,9 +1374,784 @@ int dispatch(const Shape& s, cudaStream_t st, void** args) {
   BCR_CFG(32, 1, 1, 8)
   BCR_CFG(32, 2, 1, 8)
   BCR_CFG(64, 2, 2, 8)
-  BCR_CFG(128, 4, 4, 8)
 #undef BCR_CFG
   return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// The 128-row M tile (prefill): the wide body. bf16 x, fp or int8 tiles,
+// any G, bias and SwiGLU, stacked experts; blocks of 128 columns. Design
+// notes at the head of the file.
+// ---------------------------------------------------------------------------
+
+constexpr int kWgThreads = 256;   // two consumer warpgroups, no producer warp
+constexpr int kWgMT = 128;        // x rows a CTA: the wgmma's N
+constexpr int kWgRows = 256;      // MMA rows a CTA: 2 warpgroups x 2 m64 slabs
+constexpr int kWgBC = 128;        // block columns: two 64-column swizzled atoms
+
+// The plan kernels/bcr_spmm.py:launch_plan chose, in the order of its
+// LaunchPlan.args() for the wide body.
+struct WgPlan {
+  int mt, span, groups, splits, stages, vec, mfast, units, smem;
+};
+
+// Byte offsets of shared memory, as kernels/bcr_spmm.py:wg_smem_layout
+// computes them (the launcher refuses a plan whose total disagrees). Two
+// rings of `stages` slots: x blocks (1024-byte aligned: two
+// 128-byte-swizzled atoms of 64 columns, TMA's layout and wgmma's B), read
+// by a block's products, and tiles (128-byte aligned: each of the CTA's
+// units' — a member's block row — kept tile, row and column indices), read
+// one block earlier by the expansion; each ring refills two blocks ahead of
+// its reader. Then two buffers of expanded tiles (each unit's R_keep kept
+// rows widened to the block's bc columns, rows bc + 8 elements apart), the
+// fp32 epilogue tile (128 x 260, aliasing the rings), two inverse row maps,
+// a zero row, the split flag, one mbarrier a slot of each ring, the int8
+// tile scales and 1024 bytes of alignment slack.
+struct WgLayout {
+  int as, tsz;                   // expanded row (elements); one unit's tile
+  int xslot, off_tr, tslot;      // x ring slot; tile ring offset and slot
+  int off_t, off_r, off_c;       // within a tile slot
+  int off_e, ebuf;               // expanded tiles: two buffers of ebuf bytes
+  int off_inv, off_zero, off_flag, off_bar, off_scales, total;
+};
+
+struct WgShape {
+  int M, K, N, G, nb_r, nb_c, br, bc, R, C, m_tiles, E;
+  int Q;                          // G·N output rows, flattened (i, g, r)
+  int int8_tiles, swiglu, grouped;
+  WgPlan p;
+  WgLayout l;
+};
+
+inline WgLayout make_wg_layout(const WgShape& s) {
+  WgLayout l;
+  const int nu = s.p.units, elt = s.int8_tiles ? 1 : 2;
+  l.as = s.bc + 8;
+  l.tsz = up16(s.R * s.C * elt);
+  l.xslot = kWgMT * s.bc * 2;
+  l.off_tr = s.p.stages * l.xslot;
+  l.off_t = 0;
+  l.off_r = nu * l.tsz;
+  l.off_c = l.off_r + up16(nu * s.R * 4);
+  l.tslot = up(l.off_c + up16(nu * s.C * 4), 128);
+  l.off_e = l.off_tr + s.p.stages * l.tslot;
+  l.ebuf = nu * s.R * l.as * 2;
+  const int main_end = l.off_e + 2 * l.ebuf;
+  const int red = kWgMT * (kWgRows + 4) * 4;
+  l.off_inv = main_end > red ? main_end : red;
+  l.off_zero = l.off_inv + up16(2 * nu * s.br * 4);
+  l.off_flag = l.off_zero + up16(l.as * 2);
+  l.off_bar = l.off_flag + 16;
+  l.off_scales = l.off_bar + up16(2 * s.p.stages * 8);
+  const int blocks = (s.nb_c + s.p.splits - 1) / s.p.splits;
+  l.total = l.off_scales + (s.int8_tiles ? up16(blocks * nu * 4) : 0) + 1024;
+  return l;
+}
+
+// Units a CTA of `span` flattened rows can touch: span / br when the
+// windows start on block-row boundaries, else two more for the ends.
+inline int wg_units(int span, int br) {
+  return span % br == 0 ? span / br : span / br + 2;
+}
+
+// Unit u (output rows [u·br, (u+1)·br) of the flattened G·N: block row
+// u / G of member u % G) of expert ex: its tile (j) in vals' (E, G, nb_r,
+// nb_c) grid.
+__device__ __forceinline__ size_t wg_tile_id(const WgShape& s, int ex, int u,
+                                             int j) {
+  const int i = u / s.G, g = u - i * s.G;
+  return (((size_t)ex * s.G + g) * s.nb_r + i) * s.nb_c + j;
+}
+
+// A stage's copies: its x block's 64-column atoms by TMA (rows past the
+// expert's M are the next expert's rows, or zeros past the last; they feed
+// only MMA columns the epilogue never writes) and each unit's tile, row and
+// column indices by bulk copies. Copy k goes out from lane 0 of warp k mod
+// 8, so no one warp issues a stage alone; the stage's mbarriers are armed
+// beforehand by one thread (wg_arm), once their previous phase has
+// completed, so every copy lands in the phase that waits for it.
+__device__ __forceinline__ void wg_arm(const WgShape& s, uint32_t xbar,
+                                       uint32_t tbar, int nu) {
+  if (xbar) bar_expect(xbar, kWgMT * s.bc * 2);
+  if (tbar)
+    bar_expect(tbar, nu * (s.R * s.C * (s.int8_tiles ? 1 : 2) +
+                           (s.R + s.C) * 4));
+}
+
+// Copy k of x block j into x slot xs (k < bc / 64; kx of them in all), else
+// copy k - kx of tile block jt's: unit (k - kx) / 3's tile, row or column
+// indices into tile slot ts.
+template <bool INT8>
+__device__ __forceinline__ void wg_copy(
+    const WgShape& s, int k, int kx, unsigned char* xs, uint32_t xbar,
+    const CUtensorMap* xmap, int j, int m0, unsigned char* ts, uint32_t tbar,
+    const void* __restrict__ vals, const int* __restrict__ row_idx,
+    const int* __restrict__ col_idx, int ex, int u0, int jt) {
+  if (k < kx) {
+    tma2d(smem_u32(xs + k * kWgMT * 128), xmap, j * s.bc + k * 64,
+          ex * s.M + m0, xbar);
+    return;
+  }
+  const WgLayout& l = s.l;
+  const int tb = s.R * s.C * (INT8 ? 1 : 2);
+  const int ul = (k - kx) / 3, kind = k - kx - 3 * ul;
+  const size_t t = wg_tile_id(s, ex, u0 + ul, jt);
+  const unsigned char* src =
+      kind == 0 ? static_cast<const unsigned char*>(vals) + t * tb
+      : kind == 1 ? reinterpret_cast<const unsigned char*>(row_idx + t * s.R)
+                  : reinterpret_cast<const unsigned char*>(col_idx + t * s.C);
+  const int bytes = kind == 0 ? tb : kind == 1 ? s.R * 4 : s.C * 4;
+  const int dst = kind == 0   ? l.off_t + ul * l.tsz
+                  : kind == 1 ? l.off_r + ul * s.R * 4
+                              : l.off_c + ul * s.C * 4;
+  bulk(smem_u32(ts + dst), src, bytes, tbar);
+}
+
+// The same by plain loads from every thread, for operands the copies cannot
+// take (unaligned x or tiles, runs that are not 16-byte multiples): the x
+// block written in TMA's swizzled layout (zeros past M), then a fence so
+// wgmma's async proxy sees it; thread 0 arrives on the mbarrier without
+// bytes, and the next block barrier publishes the stores.
+__device__ __forceinline__ void wg_plain_x(const WgShape& s, unsigned char* xs,
+                                           uint32_t bar,
+                                           const bf16* __restrict__ x,
+                                           int ex, int j, int m0, int mt) {
+  const int tid = threadIdx.x;
+  bf16* xb = reinterpret_cast<bf16*>(xs);
+  for (int e = tid; e < kWgMT * s.bc; e += kWgThreads) {
+    const int m = e / s.bc, k = e - m * s.bc, c = k & 63;
+    xb[(k >> 6) * kWgMT * 64 + m * 64 + ((((c >> 3) ^ (m & 7)) << 3) | (c & 7))] =
+        m < mt ? x[(size_t)(ex * s.M + m0 + m) * s.K + (size_t)j * s.bc + k]
+               : __float2bfloat16(0.f);
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  if (tid == 0) bar_arrive(bar);
+}
+
+template <bool INT8>
+__device__ __forceinline__ void wg_plain_tiles(
+    const WgShape& s, unsigned char* ts, uint32_t bar,
+    const void* __restrict__ vals, const int* __restrict__ row_idx,
+    const int* __restrict__ col_idx, int ex, int u0, int nu, int j) {
+  const int tid = threadIdx.x;
+  const WgLayout& l = s.l;
+  const int tb = s.R * s.C * (INT8 ? 1 : 2);
+  for (int e = tid; e < nu * tb; e += kWgThreads) {
+    const int ul = e / tb, b = e - ul * tb;
+    ts[l.off_t + ul * l.tsz + b] = static_cast<const unsigned char*>(
+        vals)[wg_tile_id(s, ex, u0 + ul, j) * tb + b];
+  }
+  int* ri = reinterpret_cast<int*>(ts + l.off_r);
+  int* ci = reinterpret_cast<int*>(ts + l.off_c);
+  for (int e = tid; e < nu * s.R; e += kWgThreads) {
+    const int ul = e / s.R;
+    ri[e] = row_idx[wg_tile_id(s, ex, u0 + ul, j) * s.R + e - ul * s.R];
+  }
+  for (int e = tid; e < nu * s.C; e += kWgThreads) {
+    const int ul = e / s.C;
+    ci[e] = col_idx[wg_tile_id(s, ex, u0 + ul, j) * s.C + e - ul * s.C];
+  }
+  if (tid == 0) bar_arrive(bar);
+}
+
+// Two kept values of tile row kr at columns c0, c0 + 1 (the second only
+// where `two`), as bf16; int8 codes times the tile's scale.
+template <bool INT8>
+__device__ __forceinline__ __nv_bfloat162 wg_pair(const unsigned char* tb,
+                                                  int C, int kr, int c0,
+                                                  bool two, bool even,
+                                                  float scv) {
+  if (INT8) {
+    const int8_t* t = reinterpret_cast<const int8_t*>(tb) + kr * C + c0;
+    int8_t t0, t1 = 0;
+    if (even) {
+      const char2 p = *reinterpret_cast<const char2*>(t);
+      t0 = p.x;
+      t1 = p.y;
+    } else {
+      t0 = t[0];
+      if (two) t1 = t[1];
+    }
+    return __floats2bfloat162_rn((float)t0 * scv, (float)t1 * scv);
+  }
+  const bf16* t = reinterpret_cast<const bf16*>(tb) + kr * C + c0;
+  if (even) return *reinterpret_cast<const __nv_bfloat162*>(t);
+  __nv_bfloat162 p;
+  p.x = t[0];
+  p.y = two ? t[1] : t[0];
+  return p;
+}
+
+// Ready block jl (staged in slot sl) for the tensor cores, into the buffers
+// of parity buf: each unit's inverse row map (output row → kept row,
+// tagged with jl) and its tile expanded across the block's columns: kept
+// row kr of unit ul becomes a bc-wide row, zero but at the kept columns
+// (int8 codes widened with the tile's scale folded in, bf16(code × scale)).
+// Warp w owns rows {2w, 2w+1} + 16k of every unit: it zeroes them with
+// 16-byte stores, then a lane keeps one pair of kept columns (indices read
+// once a unit) and writes that pair into each of the warp's rows, eight
+// rows' loads in flight before their stores (the pass is latency-bound:
+// one row's load, then its stores, serialises on shared memory's latency).
+template <bool INT8>
+__device__ __forceinline__ void wg_expand(const WgShape& s,
+                                          unsigned char* smem,
+                                          const unsigned char* sl, int jl,
+                                          int buf, int nu, const float* sc) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const WgLayout& l = s.l;
+  int* inv = reinterpret_cast<int*>(smem + l.off_inv) + buf * s.p.units * s.br;
+  const int* ridx = reinterpret_cast<const int*>(sl + l.off_r);
+  const int* cidx = reinterpret_cast<const int*>(sl + l.off_c);
+  for (int ul = 0; ul < nu; ++ul)
+    for (int r = tid; r < s.R; r += kWgThreads)
+      inv[ul * s.br + ridx[ul * s.R + r]] = (jl << kTagShift) | r;
+  const int rb = l.as * 2;                     // expanded row bytes
+  unsigned char* eb = smem + l.off_e + (size_t)buf * l.ebuf;
+  if (s.C == 64 && s.R % 16 == 0) {
+    // the serving tiles (keep 0.25 of 128 x 128): straight-line code, no
+    // branch a row (the general loop below costs ~4x the shared-memory
+    // instructions it issues)
+    for (int ul = 0; ul < nu; ++ul) {
+      unsigned char* eu = eb + ul * s.R * rb + (lane & 15) * 16;
+      for (int kr = warp * 2 + (lane >> 4); kr < s.R; kr += 16)
+        *reinterpret_cast<uint4*>(eu + kr * rb) = make_uint4(0, 0, 0, 0);
+    }
+    __syncwarp();
+    for (int ul = 0; ul < nu; ++ul) {
+      const int2 d = *reinterpret_cast<const int2*>(cidx + ul * 64 + 2 * lane);
+      const unsigned char* tb = sl + l.off_t + ul * l.tsz;
+      unsigned char* eu = eb + ul * s.R * rb;
+      const float scv = INT8 ? sc[ul] : 0.f;
+      for (int kb = warp * 2; kb < s.R; kb += 64) {
+        __nv_bfloat162 v[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int kr = kb + (u & 1) + 16 * (u >> 1);
+          if (kr < s.R) {
+            if (INT8) {
+              const char2 p =
+                  *reinterpret_cast<const char2*>(tb + kr * 64 + 2 * lane);
+              v[u] = __floats2bfloat162_rn((float)p.x * scv, (float)p.y * scv);
+            } else {
+              v[u] = *reinterpret_cast<const __nv_bfloat162*>(tb + kr * 128 +
+                                                             4 * lane);
+            }
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int kr = kb + (u & 1) + 16 * (u >> 1);
+          if (kr < s.R) {
+            bf16* row = reinterpret_cast<bf16*>(eu + kr * rb);
+            row[d.x] = v[u].x;
+            row[d.y] = v[u].y;
+          }
+        }
+      }
+    }
+    return;
+  }
+  const int chunks = s.bc / 8, half = lane >> 4;
+  for (int ul = 0; ul < nu; ++ul) {
+    unsigned char* eu = eb + ul * s.R * rb;
+    for (int kr = warp * 2 + half; kr < s.R; kr += 16)
+#pragma unroll
+      for (int c = lane & 15; c < kWgBC / 8; c += 16)
+        if (c < chunks)
+          *reinterpret_cast<uint4*>(eu + kr * rb + c * 16) =
+              make_uint4(0, 0, 0, 0);
+  }
+  __syncwarp();
+  const int hc = (s.C + 1) / 2;
+  const bool even = (s.C & 1) == 0;
+  constexpr int kRows = 8;                     // rows a batch, a lane
+  for (int ul = 0; ul < nu; ++ul) {
+    const int* cg = cidx + ul * s.C;
+    const unsigned char* tb = sl + l.off_t + ul * l.tsz;
+    unsigned char* eu = eb + ul * s.R * rb;
+    const float scv = INT8 ? sc[ul] : 0.f;
+    for (int q = lane; q < hc; q += 32) {
+      const int c0 = 2 * q;
+      const bool two = c0 + 1 < s.C;
+      const int d0 = cg[c0], d1 = two ? cg[c0 + 1] : d0;
+      for (int kb = warp * 2; kb < s.R; kb += 16 * (kRows / 2)) {
+        __nv_bfloat162 v[kRows];
+#pragma unroll
+        for (int u = 0; u < kRows; ++u) {
+          const int kr = kb + (u & 1) + 16 * (u >> 1);
+          if (kr < s.R)
+            v[u] = wg_pair<INT8>(tb, s.C, kr, c0, two, even, scv);
+        }
+#pragma unroll
+        for (int u = 0; u < kRows; ++u) {
+          const int kr = kb + (u & 1) + 16 * (u >> 1);
+          if (kr < s.R) {
+            bf16* row = reinterpret_cast<bf16*>(eu + kr * rb);
+            row[d0] = v[u].x;
+            if (two) row[d1] = v[u].y;
+          }
+        }
+      }
+    }
+  }
+}
+
+// Eight consecutive outputs (x row m, CTA rows n .. n+7) of this tile: from
+// the shared fp32 tile (one split) or the sum of the S partials in split
+// order — split sp's (this CTA's) from the shared tile, the others' from the
+// workspace, four splits' loads in flight at once.
+__device__ __forceinline__ void wg_sum8(const float* red, int rs,
+                                        const float* wt, int per, int S,
+                                        int sp, int m, int n, float4& a0,
+                                        float4& a1) {
+  const float* own = red + (size_t)m * rs + n;
+  if (S == 1) {
+    a0 = *reinterpret_cast<const float4*>(own);
+    a1 = *reinterpret_cast<const float4*>(own + 4);
+    return;
+  }
+  const float* p = wt + (size_t)m * kWgRows + n;
+  float4 b[4][2];
+  for (int q0 = 0; q0 < S; q0 += 4) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int q = q0 + u;
+      if (q >= S) break;
+      const float* pq = q == sp ? own : p + (size_t)q * per;
+      b[u][0] = q == sp ? *reinterpret_cast<const float4*>(pq)
+                        : __ldcg(reinterpret_cast<const float4*>(pq));
+      b[u][1] = q == sp ? *reinterpret_cast<const float4*>(pq + 4)
+                        : __ldcg(reinterpret_cast<const float4*>(pq + 4));
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int q = q0 + u;
+      if (q >= S) break;
+      if (q == 0) {
+        a0 = b[u][0];
+        a1 = b[u][1];
+      } else {
+        add4(a0, b[u][0]);
+        add4(a1, b[u][1]);
+      }
+    }
+  }
+}
+
+// Bias of eight consecutive outputs added to (a0, a1).
+__device__ __forceinline__ void wg_bias8(const float* bb, bool vec,
+                                         float4& a0, float4& a1) {
+  if (vec) {
+    add4(a0, __ldg(reinterpret_cast<const float4*>(bb)));
+    add4(a1, __ldg(reinterpret_cast<const float4*>(bb) + 1));
+  } else {
+    add4(a0, make_float4(bb[0], bb[1], bb[2], bb[3]));
+    add4(a1, make_float4(bb[4], bb[5], bb[6], bb[7]));
+  }
+}
+
+__device__ __forceinline__ float wg_sum1(const float* red, int rs,
+                                         const float* wt, int per, int S,
+                                         int sp, int m, int n) {
+  const float own = red[(size_t)m * rs + n];
+  if (S == 1) return own;
+  const size_t o = (size_t)m * kWgRows + n;
+  float v = sp == 0 ? own : __ldcg(wt + o);
+  for (int q = 1; q < S; ++q)
+    v += q == sp ? own : __ldcg(wt + (size_t)q * per + o);
+  return v;
+}
+
+// One CTA: flattened output rows [q0, q0 + span) — row q is row q % br of
+// block row (q / br) / G of member (q / br) % G, so a CTA's 256 MMA rows
+// cover whole block rows of several members or block rows (SwiGLU: whole
+// gate/up pairs) — by x rows [m0, m0 + 128), over the contraction blocks of
+// split sp. Warpgroup wg owns rows [128 wg, 128 wg + 128) as two m64 slabs
+// by all 128 columns (wgmma m64n128k16: A, the expanded weight rows, in
+// registers by ldmatrix from each row's kept row or the zero row; B, the x
+// block, by descriptor straight from the TMA-filled ring). STACKED: the
+// expert is blockIdx.y.
+template <bool INT8, bool STACKED>
+__device__ __forceinline__ void wg_body(
+    const CUtensorMap* xmap, const bf16* __restrict__ x,
+    const void* __restrict__ vals, const float* __restrict__ scales,
+    const int* __restrict__ row_idx, const int* __restrict__ col_idx,
+    const float* __restrict__ bias, bf16* __restrict__ y,
+    float* __restrict__ ws, int* __restrict__ counters, const WgShape& s) {
+  extern __shared__ __align__(128) unsigned char smem_wg[];
+  unsigned char* smem = smem_wg + ((1024 - (smem_u32(smem_wg) & 1023)) & 1023);
+  const WgLayout& l = s.l;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int S = s.p.splits, ST = s.p.stages, span = s.p.span;
+  const int sp = blockIdx.x % S, tile = blockIdx.x / S;
+  // the M tile fastest where the weight outweighs x (lm_head: its tiles
+  // stream from device memory once, x stays in L2), else the row groups
+  // (whisper at M = 12000: each x block is read from device memory once)
+  const int mtile = s.p.mfast ? tile % s.m_tiles : tile / s.p.groups;
+  const int rg = s.p.mfast ? tile / s.m_tiles : tile % s.p.groups;
+  const int m0 = mtile * kWgMT, mt = min(kWgMT, s.M - m0);
+  const int ex = STACKED ? (int)blockIdx.y : 0;
+  const size_t gtile = (size_t)ex * s.p.groups * s.m_tiles + tile;
+  const int q0 = rg * span, qn = min(span, s.Q - q0);
+  const int u0 = q0 / s.br, nu = (q0 + qn - 1) / s.br - u0 + 1;
+  const int j0 = (int)((long long)sp * s.nb_c / S);
+  const int nblk = (int)((long long)(sp + 1) * s.nb_c / S) - j0;
+  const bool vec = s.p.vec != 0;
+  const uint32_t xbar0 = smem_u32(smem + l.off_bar);   // x ring's mbarriers
+  const uint32_t tbar0 = xbar0 + ST * 8;               // the tile ring's
+  unsigned char* xring = smem;
+  unsigned char* tring = smem + l.off_tr;
+  float* sc_all = reinterpret_cast<float*>(smem + l.off_scales);
+
+  // prologue: x blocks 0 .. ST-2 and tiles 0 .. ST-1 in flight, slot ST-1
+  // armed for x block ST-1 (iteration 0's refill)
+  const int kx = s.bc / 64, kc = kx + 3 * nu;   // a stage's copies
+  if (tid == 0) {
+    for (int st = 0; st < 2 * ST; ++st) bar_init(xbar0 + st * 8, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (vec)
+      for (int p = 0; p < ST && p < nblk; ++p)
+        wg_arm(s, p < ST - 1 ? xbar0 + p * 8 : 0u, tbar0 + p * 8, nu);
+    if (vec && ST - 1 < nblk) wg_arm(s, xbar0 + (ST - 1) * 8, 0u, nu);
+  }
+  __syncthreads();
+  if (vec && lane == 0)
+    for (int p = 0; p < ST && p < nblk; ++p) {
+      const int kp = p < ST - 1 ? kx : 0;   // the last tile stage has no x
+      for (int k = warp; k < kp + 3 * nu; k += kWgThreads / 32)
+        wg_copy<INT8>(s, k + kx - kp, kx, xring + p * l.xslot, xbar0 + p * 8,
+                      xmap, j0 + p, m0, tring + p * l.tslot, tbar0 + p * 8,
+                      vals, row_idx, col_idx, ex, u0, j0 + p);
+    }
+  bf16* zrow = reinterpret_cast<bf16*>(smem + l.off_zero);
+  for (int c = tid; c < l.as; c += kWgThreads) zrow[c] = __float2bfloat16(0.f);
+  int* inv_all = reinterpret_cast<int*>(smem + l.off_inv);
+  for (int e = tid; e < 2 * s.p.units * s.br; e += kWgThreads) inv_all[e] = -1;
+  if (INT8)   // this CTA's tile scales, all in flight at once
+    for (int e = tid; e < nblk * nu; e += kWgThreads) {
+      const int b = e / nu;
+      sc_all[e] = __ldg(scales + wg_tile_id(s, ex, u0 + e - b * nu, j0 + b));
+    }
+  __syncthreads();
+  if (!vec)
+    for (int p = 0; p < ST && p < nblk; ++p) {
+      if (p < ST - 1)
+        wg_plain_x(s, xring + p * l.xslot, xbar0 + p * 8, x, ex, j0 + p, m0,
+                   mt);
+      wg_plain_tiles<INT8>(s, tring + p * l.tslot, tbar0 + p * 8, vals,
+                           row_idx, col_idx, ex, u0, nu, j0 + p);
+    }
+  bar_wait(tbar0, 0);
+  __syncthreads();
+  // tile slot 0's phase done: arm it for tiles ST (iteration 0's refill)
+  if (vec && tid == 0 && ST < nblk) wg_arm(s, 0u, tbar0, nu);
+  wg_expand<INT8>(s, smem, tring, 0, 0, nu, sc_all);
+
+  // the lane's A rows: its ldmatrix row of each of the warp's two m16
+  // slabs (16 rows of each of its warpgroup's two m64 slabs): the unit and
+  // row's inverse-map entry, or -1 past the CTA's rows
+  const int wg = warp >> 2, wq = warp & 3;
+  const int a_lane_row = (lane & 7) + ((lane >> 3) & 1) * 8, a_kc = lane >> 4;
+  int a_inv[2], a_eu[2];
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    const int n = wg * 128 + a * 64 + wq * 16 + a_lane_row;
+    a_inv[a] = -1;
+    a_eu[a] = 0;
+    if (n < qn) {
+      const int u = (q0 + n) / s.br;
+      a_inv[a] = (u - u0) * s.br + q0 + n - u * s.br;
+      a_eu[a] = (u - u0) * s.R;
+    }
+  }
+  float acc[2][4][4][4];
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[a][b][c][q] = 0.f;
+  const int rb = l.as * 2;
+
+  for (int jl = 0; jl < nblk; ++jl) {
+    // block jl expanded; block jl-1's products done (its x slot free) and
+    // block jl's tiles expanded (its tile slot free)
+    __syncthreads();
+    const int nx = jl + ST - 1, nt = jl + ST;
+    if (!vec) {
+      if (nx < nblk)
+        wg_plain_x(s, xring + (nx % ST) * l.xslot, xbar0 + (nx % ST) * 8, x,
+                   ex, j0 + nx, m0, mt);
+      if (nt < nblk)
+        wg_plain_tiles<INT8>(s, tring + (nt % ST) * l.tslot,
+                             tbar0 + (nt % ST) * 8, vals, row_idx, col_idx,
+                             ex, u0, nu, j0 + nt);
+    } else if (lane == 0) {   // copy k from warp k mod 8 (armed before)
+      const int kxs = nx < nblk ? kx : 0, kts = nt < nblk ? kc - kx : 0;
+      for (int k = warp; k < kxs + kts; k += kWgThreads / 32)
+        wg_copy<INT8>(s, k + kx - kxs, kx, xring + (nx % ST) * l.xslot,
+                      xbar0 + (nx % ST) * 8, xmap, j0 + nx, m0,
+                      tring + (nt % ST) * l.tslot, tbar0 + (nt % ST) * 8,
+                      vals, row_idx, col_idx, ex, u0, j0 + nt);
+    }
+    const int buf = jl & 1;
+    const int* inv = inv_all + buf * s.p.units * s.br;
+    const unsigned char* eb = smem + l.off_e + (size_t)buf * l.ebuf;
+    uint32_t arow[2];
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      arow[a] = smem_u32(zrow);
+      if (a_inv[a] >= 0) {
+        const int e = inv[a_inv[a]];
+        if ((e >> kTagShift) == jl)
+          arow[a] = smem_u32(eb + (a_eu[a] + (e & ((1 << kTagShift) - 1))) *
+                                      rb);
+      }
+      arow[a] += a_kc * 16;
+    }
+    bar_wait(xbar0 + (jl % ST) * 8, (jl / ST) & 1);
+    const unsigned char* xb = xring + (jl % ST) * l.xslot;
+    // one commit group a 64-column atom of B: 4 k16 steps by both slabs
+    // (the second atom's A loads overlap the first atom's products)
+    uint32_t af[2][2][4][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+          ldsm_x4(af[h][a][ks], arow[a] + (h * 4 + ks) * 32);
+      wgmma_fence();
+      const uint64_t desc = desc_sw128(smem_u32(xb + h * kWgMT * 128));
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+        for (int a = 0; a < 2; ++a)
+          wgmma128(acc[a], af[h][a][ks], desc + 2 * ks, 1);
+      wgmma_commit();
+    }
+    // the block's products run on the tensor cores while the warps expand
+    // the next block
+    if (jl + 1 < nblk) {
+      bar_wait(tbar0 + ((jl + 1) % ST) * 8, ((jl + 1) / ST) & 1);
+      wg_expand<INT8>(s, smem, tring + ((jl + 1) % ST) * l.tslot, jl + 1,
+                      buf ^ 1, nu, sc_all + (jl + 1) * nu);
+    }
+    wgmma_wait<0>();
+    fence_operands(acc[0]);
+    fence_operands(acc[1]);
+    // arm the next iteration's refills: x slot jl % ST (block jl's phase
+    // done) for x block jl + ST, tile slot (jl+1) % ST (tiles jl+1's phase
+    // done) for tiles jl + 1 + ST
+    if (vec && tid == 0)
+      wg_arm(s, jl + ST < nblk ? xbar0 + (jl % ST) * 8 : 0u,
+             jl + 1 + ST < nblk ? tbar0 + ((jl + 1) % ST) * 8 : 0u, nu);
+  }
+
+  // fp32 tile → shared memory as [m][n] (row stride kWgRows + 4, so the
+  // stores' offsets are constants), over the rings (every copy has
+  // landed: each block was waited on)
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(smem);
+  constexpr int rs = kWgRows + 4;
+  {
+    float* rt = red + ((lane & 3) * 2) * rs + wg * 128 + wq * 16 + (lane >> 2);
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            // slab a's n8 group 4b + c of the warp's 16 rows
+            rt[((4 * b + c) * 8 + (q & 1)) * rs + a * 64 + (q >> 1) * 8] =
+                acc[a][b][c][q];
+  }
+  __syncthreads();
+
+  // a split's partial: 128 rows of kWgRows floats (span of them written)
+  constexpr int per = kWgMT * kWgRows;
+  if (S > 1) {
+    // this split's partial to the workspace; the last split to arrive sums
+    // all of them in split order, so y does not depend on arrival order
+    float4* wp = reinterpret_cast<float4*>(ws + (gtile * S + sp) * per);
+    for (int e = tid; e < kWgMT * kWgRows / 4; e += kWgThreads) {
+      const int m = e / (kWgRows / 4), n = (e % (kWgRows / 4)) * 4;
+      if (n < span)
+        wp[e] = *reinterpret_cast<const float4*>(red + m * rs + n);
+    }
+    __threadfence();
+    __syncthreads();
+    int* flag = reinterpret_cast<int*>(smem + l.off_flag);
+    if (tid == 0) *flag = atomicAdd(counters + gtile, 1) == S - 1;
+    __syncthreads();
+    if (!*flag) return;
+    __threadfence();
+  }
+
+  // emit: bias, SwiGLU (gate row q, up row q + br of each pair of units),
+  // x's dtype. Where rows allow, a thread keeps one chunk of 8 consecutive
+  // outputs (its member, column and bias fixed) and walks the x rows: two
+  // float4 reads of the tile, one 16-byte store.
+  const float* wt = ws + gtile * S * per;
+  const int gy = s.swiglu ? 1 : s.G;
+  const int outs = s.swiglu ? qn / 2 : qn;     // output rows of this CTA
+  if (s.br % 8 == 0 && s.N % 8 == 0) {
+    const int nq = outs / 8, rpp = kWgThreads / nq;
+    if (tid < rpp * nq) {
+      const int o = (tid % nq) * 8;
+      int n, g, col;
+      if (s.swiglu) {
+        const int pr = o / s.br, r = o - pr * s.br;
+        n = pr * 2 * s.br + r;
+        g = 0;
+        col = (u0 / 2 + pr) * s.br + r;
+      } else {
+        n = o;
+        const int q = q0 + o, u = q / s.br, i = u / s.G;
+        g = u - i * s.G;
+        col = i * s.br + q - u * s.br;
+      }
+      // col and N are multiples of 8: 16-byte bias loads where the base is
+      float4 bg0 = make_float4(0.f, 0.f, 0.f, 0.f), bg1 = bg0, bu0 = bg0,
+             bu1 = bg0;
+      if (bias != nullptr) {
+        const bool bvec = ((uintptr_t)bias & 15) == 0;
+        wg_bias8(bias + ((size_t)ex * s.G + g) * s.N + col, bvec, bg0, bg1);
+        if (s.swiglu)
+          wg_bias8(bias + ((size_t)ex * s.G + 1) * s.N + col, bvec, bu0, bu1);
+      }
+      bf16* yp = y + (((size_t)ex * gy + g) * s.M + m0) * s.N + col;
+      for (int m = tid / nq; m < mt; m += rpp) {
+        float4 a0, a1;
+        wg_sum8(red, rs, wt, per, S, sp, m, n, a0, a1);
+        add4(a0, bg0);
+        add4(a1, bg1);
+        if (s.swiglu) {
+          float4 b0, b1;
+          wg_sum8(red, rs, wt, per, S, sp, m, n + s.br, b0, b1);
+          add4(b0, bu0);
+          add4(b1, bu1);
+          a0 = make_float4(silu(a0.x) * b0.x, silu(a0.y) * b0.y,
+                           silu(a0.z) * b0.z, silu(a0.w) * b0.w);
+          a1 = make_float4(silu(a1.x) * b1.x, silu(a1.y) * b1.y,
+                           silu(a1.z) * b1.z, silu(a1.w) * b1.w);
+        }
+        *reinterpret_cast<uint4*>(yp + (size_t)m * s.N) =
+            make_uint4(pack_bf16(a0.x, a0.y), pack_bf16(a0.z, a0.w),
+                       pack_bf16(a1.x, a1.y), pack_bf16(a1.z, a1.w));
+      }
+    }
+  } else {
+    for (int e = tid; e < mt * outs; e += kWgThreads) {
+      const int m = e / outs, o = e - m * outs;
+      int n, g, col;
+      if (s.swiglu) {
+        const int pr = o / s.br, r = o - pr * s.br;
+        n = pr * 2 * s.br + r;
+        g = 0;
+        col = (u0 / 2 + pr) * s.br + r;
+      } else {
+        n = o;
+        const int q = q0 + o, u = q / s.br, i = u / s.G;
+        g = u - i * s.G;
+        col = i * s.br + q - u * s.br;
+      }
+      float v = wg_sum1(red, rs, wt, per, S, sp, m, n);
+      if (bias != nullptr) v += bias[((size_t)ex * s.G + g) * s.N + col];
+      if (s.swiglu) {
+        float up = wg_sum1(red, rs, wt, per, S, sp, m, n + s.br);
+        if (bias != nullptr) up += bias[((size_t)ex * s.G + 1) * s.N + col];
+        v = silu(v) * up;
+      }
+      y[(((size_t)ex * gy + g) * s.M + m0 + m) * s.N + col] =
+          __float2bfloat16(v);
+    }
+  }
+  if (S > 1 && tid == 0) counters[gtile] = 0;   // ready for the next call
+}
+
+// One body under two names, so a profile tells bcr_spmm's launches from
+// bcr_spmm_grouped's.
+#define BCR_WG_KERNEL(NAME)                                                  \
+  template <bool INT8, bool STACKED>                                         \
+  __global__ void __launch_bounds__(kWgThreads, 1)                           \
+  NAME(const __grid_constant__ CUtensorMap xmap, const bf16* x,              \
+       const void* vals, const float* scales, const int* row_idx,            \
+       const int* col_idx, const float* bias, bf16* y, float* ws,            \
+       int* counters, const WgShape s) {                                     \
+    wg_body<INT8, STACKED>(&xmap, x, vals, scales, row_idx, col_idx, bias,   \
+                           y, ws, counters, s);                              \
+  }
+BCR_WG_KERNEL(bcr_spmm_wg)
+BCR_WG_KERNEL(bcr_spmm_grouped_wg)
+#undef BCR_WG_KERNEL
+
+template <bool INT8, bool STACKED>
+int wg_launch_cfg(const WgShape& s, cudaStream_t stream, void** args) {
+  auto kernel = s.grouped ? bcr_spmm_grouped_wg<INT8, STACKED>
+                          : bcr_spmm_wg<INT8, STACKED>;
+  static int smem_set[2] = {0, 0};   // per kernel: raise the limit once
+  if (s.p.smem > smem_set[s.grouped]) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, s.p.smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set[s.grouped] = s.p.smem;
+  }
+  const int grid = s.p.groups * s.m_tiles * s.p.splits;
+  cudaError_t err = cudaLaunchKernel((const void*)kernel, dim3(grid, s.E),
+                                     dim3(kWgThreads), args, s.p.smem,
+                                     stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// One launch of the wide body (plan[0] == 128): operands as for
+// bcr_spmm_launch.
+inline int wg_launch(int int8_tiles, int swiglu, int grouped, const void* x,
+                     const void* vals, const float* scales,
+                     const int* row_idx, const int* col_idx,
+                     const float* bias, void* y, float* ws, int* counters,
+                     int M, int K, int N, int G, int nb_r, int nb_c, int br,
+                     int bc, int R, int C, int E, const int* plan,
+                     cudaStream_t st) {
+  WgShape s;
+  s.M = M; s.K = K; s.N = N; s.G = G; s.nb_r = nb_r; s.nb_c = nb_c;
+  s.br = br; s.bc = bc; s.R = R; s.C = C; s.E = E; s.Q = G * N;
+  s.int8_tiles = int8_tiles; s.swiglu = swiglu; s.grouped = grouped != 0;
+  s.p = WgPlan{plan[0], plan[1], plan[2], plan[3], plan[4], plan[5],
+               plan[6], plan[7], plan[8]};
+  const WgPlan& p = s.p;
+  s.m_tiles = (M + kWgMT - 1) / kWgMT;
+  if (bc != kWgBC || br < 1 || R < 1 || C < 1 || R >= (1 << kTagShift) ||
+      p.span < 8 || p.span > kWgRows || p.span % 8 || p.stages < 3 ||
+      p.splits < 1 || p.splits > nb_c ||
+      p.groups != (s.Q + p.span - 1) / p.span ||
+      p.units != wg_units(p.span, br) ||
+      (swiglu && (G != 2 || p.span % (2 * br))))
+    return (int)cudaErrorInvalidValue;
+  s.l = make_wg_layout(s);
+  if (s.l.total != p.smem) return -1;   // plan and layout disagree
+  CUtensorMap xmap;
+  memset(&xmap, 0, sizeof(xmap));
+  if (p.vec) {   // the plan's copies need 16-byte aligned operands
+    if ((uintptr_t)x % 16 || (uintptr_t)vals % 16 || (uintptr_t)row_idx % 16 ||
+        (uintptr_t)col_idx % 16)
+      return -2;
+    if (!hopper::make_map(&xmap, x, (uint64_t)E * M, K, kWgMT, 64, true))
+      return -3;
+  }
+  void* args[] = {(void*)&xmap, (void*)&x, (void*)&vals, (void*)&scales,
+                  (void*)&row_idx, (void*)&col_idx, (void*)&bias, (void*)&y,
+                  (void*)&ws, (void*)&counters, (void*)&s};
+  if (int8_tiles)
+    return E > 1 ? wg_launch_cfg<true, true>(s, st, args)
+                 : wg_launch_cfg<true, false>(s, st, args);
+  return E > 1 ? wg_launch_cfg<false, true>(s, st, args)
+               : wg_launch_cfg<false, false>(s, st, args);
 }
 
 // ---------------------------------------------------------------------------
@@ -1829,6 +2616,10 @@ int bcr_spmm_launch(int dtype, int grouped, int int8_tiles, int swiglu,
                            st, gargs);
   }
   if (dtype != 1 || plan == nullptr) return (int)cudaErrorInvalidValue;
+  if (plan[0] == tc::kWgMT)
+    return tc::wg_launch(int8_tiles, swiglu, grouped, x, vals, scales, row_idx,
+                         col_idx, bias, y, ws, counters, M, K, N, G, nb_r,
+                         nb_c, br, bc, R, C, E, plan, st);
   tc::Shape s;
   s.M = M; s.K = K; s.N = N; s.G = G; s.nb_r = nb_r; s.nb_c = nb_c;
   s.br = br; s.bc = bc; s.R = R; s.C = C; s.E = E;

@@ -59,6 +59,25 @@ def _legal_short(plan, g, block, kept, int8):
                                      * plan.n_chunk)
 
 
+def _legal_wg(plan, g, block, kept, int8):
+    """A wide-body plan (the 128 M tile): 256 MMA rows over ``wg_span``
+    flattened rows a CTA, row groups covering the G·N rows, the units such a
+    window touches, and the Python mirror's shared-memory bytes."""
+    br, bc = block
+    assert (plan.m_tile, plan.slabs, plan.warps_m, plan.warps) in K.CONFIGS
+    assert plan.m_tile == K.WG_M_TILE and plan.rows == K.WG_ROWS
+    assert bc == K.WG_BC
+    assert plan.n_chunk == K.wg_span(g, br) > 0
+    q = g * plan.nb_r * br
+    assert plan.chunks * plan.n_chunk >= q > (plan.chunks - 1) * plan.n_chunk
+    assert plan.units == K.wg_units(plan.n_chunk, br)
+    assert 3 <= plan.stages <= K.MAX_STAGES
+    assert plan.smem_bytes == K.wg_smem_layout(
+        plan.n_chunk, plan.stages, bc, br, kept[0], kept[1], int8,
+        -(-plan.nb_c // plan.splits))
+    assert plan.tiles == plan.experts * plan.chunks * plan.m_tiles
+
+
 def _legal(plan, m, n, k, g, block, kept, int8):
     br, bc = block
     assert plan.m_tiles * plan.m_tile >= m > (plan.m_tiles - 1) * plan.m_tile
@@ -68,7 +87,10 @@ def _legal(plan, m, n, k, g, block, kept, int8):
     if plan.body == "short":
         _legal_short(plan, g, block, kept, int8)
         return
-    assert plan.body == "tc"
+    if plan.body == "wg":
+        _legal_wg(plan, g, block, kept, int8)
+        return
+    assert plan.body == "tc" and plan.m_tile <= 64
     assert (plan.m_tile, plan.slabs, plan.warps_m, plan.warps) in K.CONFIGS
     assert plan.m_tiles * plan.m_tile >= m > (plan.m_tiles - 1) * plan.m_tile
     q = 16 * plan.slabs
@@ -80,8 +102,7 @@ def _legal(plan, m, n, k, g, block, kept, int8):
     assert plan.smem_bytes <= K.SMEM_LIMIT
     assert plan.smem_bytes == K.smem_layout(
         plan.m_tile, plan.n_chunk, plan.stages, g, bc, kept[0], kept[1],
-        int8, plan.vec, plan.warps_m == K.WGMMA_WARPS_M,
-        -(-plan.nb_c // plan.splits))
+        int8, plan.vec, -(-plan.nb_c // plan.splits))
     assert len(plan.args()) == 9
 
 
@@ -105,12 +126,17 @@ def test_splits_cover_the_contraction(name, n, k, g, m, int8):
     assert 1 <= s <= nb_c
     sizes = [(i + 1) * nb_c // s - i * nb_c // s for i in range(s)]
     assert sum(sizes) == nb_c and min(sizes) >= 1     # no empty split
-    if s > 1:                       # split only a grid under half the SMs
+    if plan.body == "wg":           # the wide body's wave-aware split
+        assert s == K._wg_splits(plan.tiles, nb_c, SMS)
+        assert s == 1 or 2 * plan.tiles <= SMS
+    elif s > 1:                     # split only a grid under half the SMs
         assert 2 * plan.tiles <= SMS
     else:
         assert 2 * plan.tiles > SMS or nb_c == 1
-    assert plan.workspace_floats == (0 if s == 1 else plan.tiles * s * g
-                                     * plan.m_tile * plan.n_chunk)
+    # the wide body's partial: 128 rows of its 256 MMA rows' floats
+    rows = plan.rows if plan.body == "wg" else plan.n_chunk * g
+    assert plan.workspace_floats == (0 if s == 1 else plan.tiles * s
+                                     * plan.m_tile * rows)
 
 
 @pytest.mark.parametrize("int8", [False, True])
@@ -141,9 +167,9 @@ def test_serving_choices():
     """The configurations the main path launches: decode keeps the whole
     M = 8 in one n8 step; a 2048-row projection splits its 16 (or 64)
     contraction blocks; the gate/up pair covers both 128-row members in one
-    CTA; prefill takes the 128-column wgmma tile (three members, whose
-    64-row warpgroup slabs do not fit it, the 64 tile); lm_head fills the
-    card alone."""
+    CTA; prefill takes the wide body's 128-column wgmma tile, two 128-row
+    units (block rows of a member) a CTA whatever G, three members
+    included; lm_head fills the card alone."""
     lm = K.launch_plan(8, 128256, 2048, 1, BLOCK, KEPT, SMS)
     assert (lm.m_tile, lm.slabs, lm.splits, lm.n_chunk) == (8, 1, 1, 128)
     wq = K.launch_plan(8, 2048, 2048, 1, BLOCK, KEPT, SMS)
@@ -153,12 +179,15 @@ def test_serving_choices():
     wgi = K.launch_plan(8, 8192, 2048, 2, BLOCK, KEPT, SMS)
     assert (wgi.slabs, wgi.n_chunk, wgi.chunks, wgi.splits) == (2, 128, 1, 3)
     pre = K.launch_plan(2048, 8192, 2048, 2, BLOCK, KEPT, SMS)
-    assert (pre.m_tile, pre.slabs, pre.warps_m, pre.warps) == (128, 4, 4, 8)
-    assert (pre.n_chunk, pre.chunks, pre.splits) == (64, 2, 1)
+    assert (pre.m_tile, pre.slabs, pre.warps_m, pre.warps) == (128, 2, 1, 8)
+    assert (pre.body, pre.n_chunk, pre.chunks, pre.splits) == ("wg", 256, 64,
+                                                               1)
     head = K.launch_plan(2048, 128256, 2048, 1, BLOCK, KEPT, SMS)
-    assert (head.m_tile, head.warps_m, head.n_chunk) == (128, 4, 128)
+    assert (head.m_tile, head.body, head.n_chunk, head.units) == (128, "wg",
+                                                                  256, 2)
+    assert head.m_fast            # 131 MB of tiles stream once; x in L2
     qkv = K.launch_plan(2048, 2048, 2048, 3, BLOCK, KEPT, SMS)
-    assert qkv.m_tile == 64 and 3 * qkv.n_chunk <= qkv.rows
+    assert (qkv.m_tile, qkv.body, qkv.chunks) == (128, "wg", 24)
 
 
 def test_plan_is_pure():
@@ -256,17 +285,47 @@ def _old_rule(m, n, k, g, block, kept, sms, int8_tiles):
     raise ValueError("no plan")
 
 
+# the wide body's plans at the llama3.2-1b prefill shapes: (name, M) → for
+# (bf16, int8) tiles (row groups, M tiles, splits, stages, M tile fastest,
+# shared-memory bytes); every one 256 flattened rows a CTA, 2 units; the
+# split is the wave-aware rule's (``_wg_splits``)
+WG_PINS = {
+    ("wq", 300): [(8, 3, 4, 3, 1, 223568), (8, 3, 4, 3, 0, 199024)],
+    ("wq", 2048): [(8, 16, 1, 3, 0, 223568), (8, 16, 1, 3, 0, 199120)],
+    ("wkv", 300): [(4, 3, 8, 3, 0, 223568), (4, 3, 8, 3, 0, 199008)],
+    ("wkv", 2048): [(4, 16, 2, 3, 0, 223568), (4, 16, 2, 3, 0, 199056)],
+    ("wo", 300): [(8, 3, 4, 3, 1, 223568), (8, 3, 4, 3, 0, 199024)],
+    ("wo", 2048): [(8, 16, 1, 3, 0, 223568), (8, 16, 1, 3, 0, 199120)],
+    ("wgi", 300): [(64, 3, 1, 3, 1, 223568), (64, 3, 1, 3, 1, 199120)],
+    ("wgi", 2048): [(64, 16, 1, 3, 1, 223568), (64, 16, 1, 3, 0, 199120)],
+    ("mlp_wo", 300): [(8, 3, 5, 3, 1, 223568), (8, 3, 5, 3, 0, 199104)],
+    ("mlp_wo", 2048): [(8, 16, 1, 3, 0, 223568), (8, 16, 1, 3, 0, 199504)],
+    ("lm_head", 300): [(501, 3, 1, 3, 1, 223568), (501, 3, 1, 3, 1, 199120)],
+    ("lm_head", 2048): [(501, 16, 1, 3, 1, 223568),
+                        (501, 16, 1, 3, 1, 199120)],
+}
+
+
 @pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("m", MS)
 @pytest.mark.parametrize("name,n,k,g", FULL)
 def test_square_block_plans_are_unchanged(name, n, k, g, m, int8):
-    """Every 128 x 128 plan of the llama3.2-1b main path is, field for
-    field, the plan of the rule before the short-block body, and runs the
-    tensor-core body."""
+    """Every 128 x 128 decode and verify plan (M up to 64) of the llama3.2-1b
+    main path is, field for field, the plan of the rule before the
+    short-block body and the wide body, and runs the tensor-core body; the
+    prefill plans (M = 300, 2048) are the wide body's, pinned in
+    ``WG_PINS``."""
     plan = K.launch_plan(m, n, k, g, BLOCK, KEPT, SMS, int8)
-    assert plan == _old_rule(m, n, k, g, BLOCK, KEPT, SMS, int8)
-    assert plan.body == "tc" and plan.args() == _old_rule(
-        m, n, k, g, BLOCK, KEPT, SMS, int8).args()
+    if m <= 64:
+        assert plan == _old_rule(m, n, k, g, BLOCK, KEPT, SMS, int8)
+        assert plan.body == "tc" and plan.args() == _old_rule(
+            m, n, k, g, BLOCK, KEPT, SMS, int8).args()
+        return
+    assert (plan.body, plan.m_tile, plan.n_chunk, plan.units) == (
+        "wg", 128, 256, 2)
+    assert (plan.chunks, plan.m_tiles, plan.splits, plan.stages,
+            int(plan.m_fast), plan.smem_bytes) == WG_PINS[name, m][int8]
+    _legal(plan, m, n, k, g, BLOCK, KEPT, int8)
 
 
 # the paper's blocks and whisper's lm_head blocks at the shapes of PERF.md's
@@ -318,13 +377,15 @@ SHORT_SHAPES = [((2, 128), (1, 64), 51866, 1280), ((8, 8), (2, 4), 1024, 1024),
 def test_short_body_routing(block, kept, n, k, m, g):
     """Exactly the G = 1, unstacked launches of blocks under 16 rows take
     the short body; grouped and expert-batched launches keep the tensor-core
-    body (``bcr_spmm_grouped`` and the MoE forms are out of its scope)."""
+    bodies (mma.sync, or the wide body at the 128 M tile;
+    ``bcr_spmm_grouped`` and the MoE forms are out of the short body's
+    scope)."""
     plan = K.launch_plan(m, n, k, g, block, kept, SMS)
     assert (plan.body == "short") == (block[0] < 16 and g == 1)
     _legal(plan, m, n, k, g, block, kept, False)
     if g == 1 and n * k <= 1 << 22:
         stacked = K.launch_plan(m, n, k, 1, block, kept, SMS, experts=2)
-        assert stacked.body == "tc"
+        assert stacked.body in ("tc", "wg")
 
 
 def test_short_genomes_index_the_short_configurations():
@@ -338,3 +399,125 @@ def test_short_genomes_index_the_short_configurations():
     with pytest.raises(ValueError, match="short-body configurations"):
         K.launch_plan(8, 51866, 1280, 1, (2, 128), (1, 64), SMS,
                       genome=(8, 3, False))
+
+
+# -- the wide body (the 128 M tile) at every served prefill shape ----------
+
+# (label, M, N, K, G, block, kept, experts) of phases 3, 12, 14 and 15:
+# llama3.2-1b, whisper-large-v3 at M = 12000 (8 utterances × 1500 frames),
+# pixtral-12b and rwkv6-3b at M = 512, jamba (x_proj on 144 x 128 blocks),
+# the expert forms at M = 240 (deepseek) and 160 (jamba) a expert
+K25 = (64, 64)
+PREFILL = [
+    ("llama wgi", 2048, 8192, 2048, 2, BLOCK, K25, 1),
+    ("llama lm_head", 2048, 128256, 2048, 1, BLOCK, K25, 1),
+    ("whisper wqkv", 12000, 1280, 1280, 3, BLOCK, K25, 1),
+    ("whisper cross wkv", 12000, 1280, 1280, 2, BLOCK, K25, 1),
+    ("whisper wo", 12000, 1280, 1280, 1, BLOCK, K25, 1),
+    ("whisper mlp wi", 12000, 5120, 1280, 1, BLOCK, K25, 1),
+    ("whisper mlp wo", 12000, 1280, 5120, 1, BLOCK, K25, 1),
+    ("pixtral wq", 512, 4096, 5120, 1, BLOCK, K25, 1),
+    ("pixtral wkv", 512, 1024, 5120, 2, BLOCK, K25, 1),
+    ("pixtral wgi", 512, 14336, 5120, 2, BLOCK, K25, 1),
+    ("pixtral mlp_wo", 512, 5120, 14336, 1, BLOCK, K25, 1),
+    ("rwkv6 wr", 512, 2560, 2560, 1, BLOCK, K25, 1),
+    ("rwkv6 cm_wk", 512, 8960, 2560, 1, BLOCK, K25, 1),
+    ("rwkv6 cm_wv", 512, 2560, 8960, 1, BLOCK, K25, 1),
+    ("jamba in_proj", 512, 16384, 4096, 1, BLOCK, K25, 1),
+    ("jamba x_proj", 1024, 288, 8192, 1, (144, 128), (72, 64), 1),
+    ("jamba dt_proj", 512, 8192, 256, 1, BLOCK, K25, 1),
+    ("jamba out_proj", 512, 4096, 8192, 1, BLOCK, K25, 1),
+    ("deepseek experts wgi", 240, 1408, 2048, 2, BLOCK, K25, 64),
+    ("deepseek experts wo", 240, 2048, 1408, 1, BLOCK, K25, 64),
+    ("jamba experts wgi", 160, 14336, 4096, 2, BLOCK, K25, 16),
+    ("jamba experts wo", 160, 4096, 14336, 1, BLOCK, K25, 16),
+]
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("label,m,n,k,g,block,kept,e", PREFILL)
+def test_served_prefill_shapes_fit_a_cta(label, m, n, k, g, block, kept, e,
+                                         int8):
+    """Every served prefill shape gets a plan a CTA holds, its shared memory
+    the Python mirror's layout; every 128 x 128 one runs the wide body (the
+    128 M tile on wgmma), whatever G (x_proj's 144-row blocks, whose three
+    units a window do not fit with a ring of 3, keep the 64 tile)."""
+    plan = K.launch_plan(m, n, k, g, block, kept, SMS, int8, experts=e)
+    _legal(plan, m, n, k, g, block, kept, int8)
+    assert plan.experts == e and plan.vec
+    if block == BLOCK:
+        assert plan.body == "wg" and plan.m_tile == 128
+    else:
+        assert plan.body == "tc" and plan.m_tile == 64
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("g,chunks", [(3, 15), (2, 10)])
+def test_whisper_groups_reach_the_wgmma_tile(g, chunks, int8):
+    """whisper's self-attention ``wqkv`` (G = 3) and cross ``wkv`` (G = 2)
+    at M = 12000 run the 128 tile: 256 flattened rows a CTA (two 128-row
+    units: for G = 3 members of a block row and the next block row's), one
+    x block staged for both; 94 M tiles, the last of 96 rows; the row
+    groups the grid's fastest axis (2.4 MB of tiles against 30.7 MB of x)."""
+    plan = K.launch_plan(12000, 1280, 1280, g, BLOCK, K25, SMS, int8)
+    assert (plan.body, plan.m_tile, plan.n_chunk, plan.units) == (
+        "wg", 128, 256, 2)
+    assert (plan.chunks, plan.m_tiles, plan.splits, plan.stages) == (
+        chunks, 94, 1, 3)
+    assert not plan.m_fast
+    assert plan.grid == chunks * 94
+
+
+def _wg_cover(plan, m, n, g, br, swiglu):
+    """The output elements (expert, member, x row, column) the wide body's
+    CTAs write, in the kernel's decode (``wg_body``: tile → row group and M
+    tile by ``m_fast``; rows [q0, q0 + span) of the flattened G·N, row q
+    being row q % br of block row (q // br) // G of member (q // br) % G;
+    SwiGLU: gate row q and up row q + br of each pair of units); counted."""
+    from collections import Counter
+    span, qtot = plan.n_chunk, g * n
+    seen = Counter()
+    for ex in range(plan.experts):
+        for tile in range(plan.chunks * plan.m_tiles):
+            if plan.m_fast:
+                mtile, rg = tile % plan.m_tiles, tile // plan.m_tiles
+            else:
+                mtile, rg = tile // plan.chunks, tile % plan.chunks
+            m0 = mtile * plan.m_tile
+            mt = min(plan.m_tile, m - m0)
+            q0 = rg * span
+            qn = min(span, qtot - q0)
+            u0 = q0 // br
+            outs = qn // 2 if swiglu else qn
+            for o in range(outs):
+                if swiglu:
+                    pr, r = divmod(o, br)
+                    mem, col = 0, (u0 // 2 + pr) * br + r
+                else:
+                    u, r = divmod(q0 + o, br)
+                    i, mem = divmod(u, g)
+                    col = i * br + r
+                for mm in range(m0, m0 + mt):
+                    seen[ex, mem, mm, col] += 1
+    return seen
+
+
+@pytest.mark.parametrize("m,n,g,e,swiglu", [
+    (12000, 1280, 3, 1, False),      # whisper wqkv: the last M tile 96 rows
+    (240, 1408, 2, 2, True),         # deepseek's experts: 112 rows an expert
+    (300, 512, 2, 1, False),         # llama wkv under a split
+    (300, 2048, 1, 1, False),
+    (130, 384, 3, 1, False)])        # 1152 rows: a last row group of 128
+def test_ragged_m_covers_every_output_once(m, n, g, e, swiglu):
+    """Ragged M (a last M tile of 96, 112 or 44 rows) and a last row group
+    under 256 rows: the wide body's CTAs write every output element exactly
+    once, every unit a CTA touches within its plan's ``units``."""
+    plan = K.launch_plan(m, n, 1280, g, BLOCK, K25, SMS, experts=e)
+    assert plan.body == "wg"
+    seen = _wg_cover(plan, m, n, g, BLOCK[0], swiglu)
+    gy = 1 if swiglu else g
+    assert len(seen) == e * gy * m * n and set(seen.values()) == {1}
+    for rg in range(plan.chunks):
+        q0 = rg * plan.n_chunk
+        qn = min(plan.n_chunk, g * n - q0)
+        assert (q0 + qn - 1) // BLOCK[0] - q0 // BLOCK[0] + 1 <= plan.units

@@ -237,6 +237,98 @@ def test_int8_bcr_spmm_grouped_matches_plain(cuda, dtype, g, epilogue, bias,
     _close(got, want, dtype)
 
 
+# the wide body (the 128 M tile): (N, K, G, epilogue, bias, experts, M) at
+# the serving block (128 x 128, keep 0.25): G = 1, 2, 3 with bias and with
+# SwiGLU, stacked experts, ragged last M tiles (300 = 2 x 128 + 44, 240 =
+# 128 + 112), and a split (3 x 3 blocks at M = 130: 6 output tiles)
+WG_CASES = [
+    (384, 384, 1, None, False, 0, 300),
+    (384, 384, 1, None, False, 0, 130),
+    (256, 384, 2, None, True, 0, 300),
+    (384, 384, 2, "swiglu", True, 0, 300),
+    (384, 384, 3, None, True, 0, 300),
+    (384, 256, 1, None, False, 3, 240),
+    (256, 384, 2, "swiglu", False, 3, 240),
+    (256, 256, 3, None, True, 3, 240),
+]
+
+
+def _wg_case(rng, dev, n, k, g, epilogue, bias, e, m, int8):
+    lead = (e,) if e else ()
+    members = []
+    for _ in range(g):
+        w = torch.as_tensor(rng.normal(size=lead + (n, k)),
+                            dtype=torch.float32, device=dev)
+        members.append(tbcrc_pack(w, BCRSpec(block_shape=(128, 128),
+                                             keep_frac=0.25, align=8)))
+    fp = members[0] if g == 1 else pack_group(members)
+    w = ((quantize_packed(fp) if g == 1 else quantize_grouped(fp)) if int8
+         else dataclasses.replace(fp, vals=fp.vals.to(torch.bfloat16)))
+    x = torch.as_tensor(rng.normal(size=lead + (m, k)),
+                        dtype=torch.bfloat16, device=dev)
+    b = (torch.as_tensor(rng.normal(size=lead + (g, n)), dtype=torch.float32,
+                         device=dev) if bias else None)
+
+    def run(x=x):
+        if g == 1:
+            return K.bcr_spmm(x, w)
+        return K.bcr_spmm_grouped(x, w, bias=b, epilogue=epilogue)
+
+    def plain(x=x):
+        if g == 1:
+            return ref.bcr_spmm_packed_ref(x, w)
+        y = ref.bcr_spmm_grouped_ref(x, w, bias=b, epilogue=epilogue)
+        return y if epilogue else y.transpose(-3, -2)
+
+    plan = K.launch_plan(m, n, k, g, (128, 128), tuple(w.vals.shape[-2:]),
+                         torch.cuda.get_device_properties(
+                             dev).multi_processor_count, int8,
+                         experts=max(e, 1))
+    return plan, x, run, plain
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("n,k,g,epilogue,bias,e,m", WG_CASES)
+def test_wide_body_matches_plain(cuda, n, k, g, epilogue, bias, e, m, int8):
+    """The 128 M tile's wide body against its plain version, then twice
+    more over freed NaN-filled output and workspace blocks: bit-equal
+    launches, the split counters back at 0."""
+    plan, x, run, plain = _wg_case(np.random.default_rng(20), cuda, n, k, g,
+                                   epilogue, bias, e, m, int8)
+    assert plan.body == "wg" and plan.m_tile == 128
+    want = plain()
+    got = run()
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    _close(got, want, torch.bfloat16)
+    ws = torch.full((max(plan.workspace_floats, 1),), float("nan"),
+                    device=cuda)
+    y = torch.full(tuple(got.shape), float("nan"), dtype=torch.bfloat16,
+                   device=cuda)
+    del ws, y
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(first).all()) and torch.equal(first, second)
+    assert torch.equal(first, got)
+    counters = K.split_counters(cuda, plan.tiles)[:plan.tiles]
+    assert int(torch.count_nonzero(counters)) == 0
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_wide_body_unaligned_x(cuda, int8):
+    """x one element off 16-byte alignment: the wide body's plain loads."""
+    rng = np.random.default_rng(21)
+    plan, x, run, plain = _wg_case(rng, cuda, 384, 384, 3, None, True, 0,
+                                   300, int8)
+    xs = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)[1:]
+    xs = xs.view(x.shape)
+    xs.copy_(x)
+    got = run(xs)
+    torch.cuda.synchronize()
+    _close(got, plain(xs), torch.bfloat16)
+    _close(got, run(), torch.bfloat16)
+
+
 def _split_case(rng, dev, form):
     """A (2048 x 8192) weight at M = 8 (MLP wo at decode: a split launch),
     or the gate/up pair (2 x 8192 x 2048, SwiGLU), fp or int8 tiles."""

@@ -332,7 +332,7 @@ def test_every_genome_fits_a_cta_or_scores_inf(shape, int8):
             assert plan.smem_bytes == K.smem_layout(
                 plan.m_tile, plan.n_chunk, plan.stages, genome["group_size"],
                 block[1], kept[0], kept[1], int8, plan.vec,
-                plan.warps_m == K.WGMMA_WARPS_M, -(-plan.nb_c // plan.splits))
+                -(-plan.nb_c // plan.splits))
         assert genome["group_size"] * plan.n_chunk <= plan.rows
     assert finite >= 2
 
