@@ -39,11 +39,12 @@ Phases, in order (any failed check raises and the script exits non-zero):
    instantiations of the 128 tile's wide body), the bf16
    ``bcr_spmm_skip`` kernels by M tile likewise, the bf16 flash kernels
    HGMMA at head_dim 64 and HMMA at the others; none in any fp32
-   (CUDA-core) body; HMMA in every instantiation of the short-block body,
-   fp and int8 tiles. The expert-batched BCR forms are the same bodies with
-   the expert on a grid axis: every BCR kernel's SASS must read it
-   (``SR_CTAID.Y`` on the tensor cores, ``SR_CTAID.Z`` on the CUDA cores),
-   and the short-block kernels (one unstacked pack) read no such axis.
+   (CUDA-core) body, the 12 kernels of ``bcr_spmm``'s fp32 body among them;
+   HMMA in every instantiation of the short-block body, fp and int8 tiles.
+   The expert-batched BCR forms are the same bodies with the expert on a
+   grid axis: every stacked BCR kernel's SASS must read it
+   (``SR_CTAID.Y``), and the short-block kernels (one unstacked pack) read
+   no such axis.
 3. Kernels against their plain PyTorch versions on the card, bf16 at the
    llama3.2-1b full-width shapes (d_model 2048, 32/8 heads, head_dim 64,
    d_ff 8192, vocab 128256, BCR block 128 at keep 0.25, so R_keep = C_keep =
@@ -63,7 +64,13 @@ Phases, in order (any failed check raises and the script exits non-zero):
    block rows no CTA's P divides, M in {1, 5, 33}, the split at M = 1 and
    5, each launch counted under ``bcr_spmm_short`` / ``_int8_short``, two
    launches bit-equal over freed NaN-filled buffers with the counters back
-   at 0, and x off 16-byte alignment) and paged attention (decode over lengths 1..512 and 1024..4096,
+   at 0, and x off 16-byte alignment; and the fp32 body under fp32 x, fp32
+   and int8 tiles, at ``FP32_CHECKS``: GRIM's (8, 8) and (8, 16), whisper's
+   (2, 128), the 128 blocks at G = 1, 2 (bias + SwiGLU) and 3 (bias), 4
+   stacked experts, jamba's 144 x 128 x_proj and a (3, 16) block, ragged M
+   up to 300, the splits, each checked as the split is at 1e-4, then x and
+   the tiles off 16-byte alignment) and paged attention (decode over
+   lengths 1..512 and 1024..4096,
    prefill-append of 16 rows over 100 and of 64 rows over 384 (phase 9a's
    append admission); plus its one-launch split over pages at
    decode and prefill-append, fp and int8 pages, checked as the BCR split
@@ -845,10 +852,11 @@ def bcr_instruction_check(lib_path: Path) -> None:
     every tensor-core kernel (bf16 x) of an M tile up to 64 issues
     ``mma.sync`` (HMMA) and every instantiation of the 128 tile's wide body
     (fp and int8 tiles, stacked or not, either name) ``wgmma`` (HGMMA) and
-    no HMMA; the fp32-x kernels issue neither (CUDA cores)."""
+    no HMMA; the fp32 body's 12 kernels (fp32 x) issue neither (CUDA
+    cores)."""
     ops = sass_tensor_ops(lib_path)
     rows = {}
-    wide = 0
+    wide = fp32 = 0
     for name, (hmma, hgmma) in ops.items():
         m = re.search(r"bcr_spmm(_grouped)?_tcILb([01])ELi(\d+)ELi\d+ELi(\d+)E",
                       name)
@@ -876,9 +884,14 @@ def bcr_instruction_check(lib_path: Path) -> None:
             wide += bool(wg)
             rows.setdefault(form, set()).add(
                 f"M tile {m.group(3) if m else 128}: {want}")
-        elif "cuda_core" in name and (hmma or hgmma):
-            raise AssertionError(f"{name}: the fp32 body issued tensor-core "
-                                 f"instructions")
+        elif re.search(r"bcr_spmm(_grouped)?_fp32I", name):
+            # the fp32 body: CUDA-core FMAs only
+            if hmma or hgmma:
+                raise AssertionError(f"{name}: the fp32 body issued "
+                                     f"tensor-core instructions")
+            fp32 += 1
+    if fp32 != 12:     # {bcr_spmm, grouped} x 6 (T, U) configurations
+        raise AssertionError(f"{fp32} fp32-body instantiations, want 12")
     if not ({"bcr_spmm_short", "bcr_spmm_int8_short"} <= set(rows)):
         raise AssertionError(f"short-block body instantiations missing: "
                              f"{sorted(rows)}")
@@ -892,13 +905,14 @@ def bcr_instruction_check(lib_path: Path) -> None:
             continue
         log(f"  {form} (bf16 x): "
             + ", ".join(sorted(rows[form], key=lambda t: int(t.split()[2][:-1]))))
-    log("  fp32 x (every form): CUDA-core FMAs, no HMMA/HGMMA")
+    log(f"  fp32 x (every form, the fp32 body's {fp32} kernels): CUDA-core "
+        f"FMAs, no HMMA/HGMMA")
     # the expert-batched forms are these kernels with the expert on a grid
-    # axis: every stacked tensor-core instantiation (STACKED = 1) reads
-    # blockIdx.y and every CUDA-core body blockIdx.z, so one launch covers E
-    # experts; the unstacked tensor-core instantiations read no expert axis
-    # at all (no expert arithmetic on the dense family's path)
-    axes = {"Y": 0, "Z": 0, "none": 0, "short": 0}
+    # axis: every stacked tensor-core instantiation (STACKED = 1) and every
+    # fp32-body kernel reads blockIdx.y, so one launch covers E experts; the
+    # unstacked tensor-core instantiations read no expert axis at all (no
+    # expert arithmetic on the dense family's path)
+    axes = {"Y": 0, "fp32": 0, "none": 0, "short": 0}
     for name, lines in sass_functions(lib_path).items():
         if "bcr_spmm" not in name:
             continue
@@ -911,26 +925,25 @@ def bcr_instruction_check(lib_path: Path) -> None:
             continue
         tc = re.search(r"_tcILb[01]ELi\d+ELi\d+ELi\d+ELi\d+ELb([01])E"
                        r"|_wgILb[01]ELb([01])E", name)
-        axis = "Z" if "cuda_core" in name else "Y"
-        reads = any(f"SR_CTAID.{axis}" in ln for ln in lines)
+        reads = any("SR_CTAID.Y" in ln for ln in lines)
         if tc and "0" in (tc.group(1), tc.group(2)):
             if reads:
                 raise AssertionError(f"{name}: the unstacked instantiation "
                                      f"reads SR_CTAID.Y")
             axes["none"] += 1
         elif not reads:
-            raise AssertionError(f"{name}: no SR_CTAID.{axis} (the expert "
-                                 f"grid axis) in its SASS")
+            raise AssertionError(f"{name}: no SR_CTAID.Y (the expert grid "
+                                 f"axis) in its SASS")
         else:
-            axes[axis] += 1
+            axes["fp32" if "_fp32I" in name else "Y"] += 1
     if not (axes["Y"] and axes["Y"] == axes["none"]):
         raise AssertionError(f"stacked / unstacked tensor-core kernels "
                              f"{axes}: want one of each per configuration")
     log(f"  expert-batched forms: the same bodies, expert index read from "
         f"SR_CTAID.Y in {axes['Y']} stacked tensor-core kernels (HMMA / "
         f"HGMMA as above; their {axes['none']} unstacked twins read no "
-        f"expert axis) and SR_CTAID.Z in {axes['Z']} CUDA-core kernels; "
-        f"the {axes['short']} short-block kernels read none")
+        f"expert axis) and in the {axes['fp32']} fp32-body kernels; the "
+        f"{axes['short']} short-block kernels read none")
 
 
 def tc_instruction_check(skip_lib: Path, flash_lib: Path,
@@ -979,18 +992,20 @@ def tc_instruction_check(skip_lib: Path, flash_lib: Path,
         "blocks, head dims and page sizes): no HMMA/HGMMA")
 
 
-def check_split(torch, form, plan, run, want, out_shape) -> None:
+def check_split(torch, form, plan, run, want, out_shape, dtype=None,
+                tol=BF16_TOL) -> None:
     """One split launch form: two launches give bit-equal y (the last split
     sums the partials in split order); the output and the workspace land
-    in freed NaN-filled blocks and the result is still right; the split
-    counters are back at zero after the calls. (An unsplit plan is held to
-    the same, with no workspace.)"""
+    in freed NaN-filled blocks and the result is still right (within
+    ``tol``; y in ``dtype``, bf16 unless given); the split counters are back
+    at zero after the calls. (An unsplit plan is held to the same, with no
+    workspace.)"""
     from repro_torch.kernels import bcr_spmm as K
 
     poison = (torch.full((plan.workspace_floats,), float("nan"),
                          device="cuda"),
-              torch.full(out_shape, float("nan"), dtype=torch.bfloat16,
-                         device="cuda"))
+              torch.full(out_shape, float("nan"),
+                         dtype=dtype or torch.bfloat16, device="cuda"))
     del poison           # the allocator hands these blocks back next
     first = run()
     second = run()
@@ -1001,7 +1016,7 @@ def check_split(torch, form, plan, run, want, out_shape) -> None:
     if not torch.equal(first, second):
         raise AssertionError(f"split {form}: two launches differ")
     check_close(f"split {form} (S={plan.splits}, grid {plan.grid}, "
-                f"NaN-filled workspace and output)", first, want, BF16_TOL)
+                f"NaN-filled workspace and output)", first, want, tol)
     left = int(torch.count_nonzero(
         K.split_counters(first.device, plan.tiles)[:plan.tiles]))
     if left:
@@ -1256,6 +1271,170 @@ def short_cases(torch, timer, gen, record):
         torch.cuda.empty_cache()
 
 
+# phase 3's fp32-body checks (label, N, K, G, epilogue, bias, block, keep,
+# align, experts, Ms): GRIM's (8, 8) and (8, 16) blocks, whisper's (2, 128),
+# the 128 blocks at G = 1, 2 (bias + SwiGLU) and 3 (bias), stacked experts,
+# jamba's 144 x 128 x_proj and an odd block; block-row counts no CTA's units
+# divide (masked last groups), ragged M (5, 33, 300 = 2 x 128 + 44), the
+# splits at M = 1, 5 and 8
+FP32_CHECKS = (
+    ("GRU-like 1000x1024 (8, 8) keep 0.1", 1000, 1024, 1, None, False,
+     (8, 8), 0.1, 2, 0, (1, 5, 33, 300)),
+    ("CNN 200x2304 (8, 16) keep 0.25", 200, 2304, 1, None, False, (8, 16),
+     0.25, 2, 0, (1, 5, 33, 300)),
+    ("whisper-like 2002x1280 (2, 128) keep 0.25", 2002, 1280, 1, None, False,
+     (2, 128), 0.25, 1, 0, (1, 5, 33)),
+    ("G=2 wkv 2x1280x1280", 1280, 1280, 2, None, False, (128, 128), 0.25, 8,
+     0, (1, 33)),
+    ("G=2 wgi+bias+SwiGLU 2x1408x2048", 1408, 2048, 2, "swiglu", True,
+     (128, 128), 0.25, 8, 0, (1, 5, 33, 300)),
+    ("G=3 wqkv+bias 3x1280x1280", 1280, 1280, 3, None, True, (128, 128),
+     0.25, 8, 0, (1, 5, 300)),
+    ("experts wo 4x2048x1408", 2048, 1408, 1, None, False, (128, 128), 0.25,
+     8, 4, (4, 33, 228)),
+    ("experts wgi+SwiGLU 4x2x1408x2048", 1408, 2048, 2, "swiglu", False,
+     (128, 128), 0.25, 8, 4, (4, 228)),
+    ("x_proj 288x8192 (144, 128)", 288, 8192, 1, None, False, (144, 128),
+     0.25, 8, 0, (8, 33)),
+    ("odd 111x144 (3, 16) keep 0.5", 111, 144, 1, None, False, (3, 16), 0.5,
+     1, 0, (1, 5, 33)))
+
+
+def fp32_checks(torch, gen) -> dict:
+    """The fp32 body against its plain version on the card, fp32 and int8
+    tiles under fp32 x, at ``FP32_CHECKS``: every launch takes the fp32 body
+    (``fp32_plan``) and runs twice bit-equal over freed NaN-filled output
+    (and workspace) blocks with the split counters back at 0
+    (:func:`check_split`, 1e-4); then each shape once more at its first M
+    with x and the tiles one element off 16-byte alignment (4-byte tile
+    copies; int8 runs at any byte). Returns the largest error per form."""
+    from repro_torch.core.bcr import BCRSpec
+    from repro_torch.core.bcrc import tbcrc_pack
+    from repro_torch.kernels import bcr_spmm as K
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.plan import (pack_group, quantize_grouped,
+                                          quantize_packed)
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    fp32 = torch.float32
+    errs = {"fp32": 0.0, "int8": 0.0}
+    splits = 0
+    for label, n, k, g, epi, has_bias, block, keep, align, e, ms in \
+            FP32_CHECKS:
+        spec = BCRSpec(block_shape=block, keep_frac=keep, align=align)
+        lead = (e,) if e else ()
+        members = [tbcrc_pack(torch.randn(lead + (n, k), generator=gen,
+                                          device="cuda") * k ** -0.5, spec)
+                   for _ in range(g)]
+        fp = members[0] if g == 1 else pack_group(members)
+        bias = (torch.randn(lead + (g, n), generator=gen, device="cuda")
+                if has_bias else None)
+        for int8 in (False, True):
+            w = ((quantize_packed(fp) if g == 1 else quantize_grouped(fp))
+                 if int8 else fp)
+
+            def run(x, w=w):
+                if g == 1:
+                    return K.bcr_spmm(x, w)
+                return K.bcr_spmm_grouped(x, w, bias=bias, epilogue=epi)
+
+            def plain(x, w=w):
+                if g == 1:
+                    return ref.bcr_spmm_packed_ref(x, w)
+                y = ref.bcr_spmm_grouped_ref(x, w, bias=bias, epilogue=epi)
+                return y if epi else y.transpose(-3, -2)
+
+            key = "int8" if int8 else "fp32"
+            for m in ms:
+                x = torch.randn(lead + (m, k), generator=gen, device="cuda")
+                plan = K.fp32_plan(m, n, k, g, block, w.kept_counts, sms,
+                                   int8, True, max(e, 1))
+                want = plain(x)
+                out = lead + ((m, n) if g == 1 or epi else (g, m, n))
+                form = (f"fp32 {'int8 ' if int8 else ''}{label} M={m} "
+                        f"(units {plan.units}, J {plan.stage_blocks})")
+                check_split(torch, form, plan, lambda: run(x), want, out,
+                            fp32, FP32_TOL)
+                splits += plan.splits > 1
+                errs[key] = max(errs[key], check_close(
+                    form, run(x), want, FP32_TOL, quiet=True))
+            m = ms[0]
+            x = torch.randn(lead + (m, k), generator=gen, device="cuda")
+            xs = torch.empty(x.numel() + 1, device="cuda")[1:].view(x.shape)
+            xs.copy_(x)
+            vs = torch.empty(w.vals.numel() + 1, dtype=w.vals.dtype,
+                             device="cuda")[1:].view(w.vals.shape)
+            vs.copy_(w.vals)
+            wu = dataclasses.replace(w, vals=vs)
+            errs[key] = max(errs[key], check_close(
+                f"fp32 {'int8 ' if int8 else ''}{label} M={m}, x and tiles "
+                f"off 16-byte alignment", run(xs, wu), plain(xs, wu),
+                FP32_TOL))
+            del w, x, xs, vs, wu
+        del members, fp, bias
+        torch.cuda.empty_cache()
+    if not splits:
+        raise AssertionError("fp32_checks: no launch split")
+    return errs
+
+
+def fp32_cases(torch, timer, gen, record):
+    """The fp32 body's timed rows (fp32 x and tiles; PERF.md rows 1g, 1f, 1e
+    and 2e): the paper's GRU ``uz`` (1024 x 1024, (8, 8) blocks keeping 2 x
+    4) at M = 1 and 32, the ``cnn_im2col`` example's conv2 and a VGG-16
+    conv3 GEMM ((8, 16) blocks keeping 4 x 8) at phase 13b's M, jamba's
+    ``x_proj`` (288 x 8192, 144 x 128 blocks) at M = 8, pixtral-12b's
+    ``wq``, ``wkv``, ``wgi`` + SwiGLU and ``lm_head`` at M = 8 and ``wgi``
+    at M = 512, deepseek-moe-16b's 64 experts' ``wo`` and ``wgi`` + SwiGLU
+    at M = 228 a expert. Random weights at the served blocks and keep. Only
+    the wrappers' public calls, so ``--bcr-ab`` runs them on each tree."""
+    from repro_torch.core.bcr import BCRSpec
+    from repro_torch.core.bcrc import tbcrc_pack, tbcrc_unpack
+    from repro_torch.kernels import bcr_spmm as K
+    from repro_torch.kernels import ref
+
+    fp32 = torch.float32
+    log("fp32 body rows (rows 1g, 1f, 1e, 2e): fp32 x and tiles")
+    gru = f"fp32 GRU uz {GRU_D}x{GRU_D} (8,8) keep 0.1 M={{}}"
+    cases = [(gru, GRU_D, GRU_D, (8, 8), 0.1, 2, (1, 32))]
+    for name, b, hh, ww, cin, cout in CONVS:
+        cases.append((f"fp32 {name} B={b} M={{}} K={9 * cin} N={cout} (8, 16) "
+                      f"keep 0.25", cout, 9 * cin, (8, 16), 0.25, 2,
+                      (b * hh * ww,)))
+    for shape, n, k, block, keep, align, ms in cases:
+        w = torch.randn((n, k), generator=gen, device="cuda") * k ** -0.5
+        p = tbcrc_pack(w, BCRSpec(block_shape=block, keep_frac=keep,
+                                  align=align))
+        w_dense = tbcrc_unpack(p)
+        for m in ms:
+            x = torch.randn((m, k), generator=gen, device="cuda")
+            got, want = K.bcr_spmm(x, p), ref.bcr_spmm_packed_ref(x, p)
+            torch.cuda.synchronize()
+            err = check_close(shape.format(m), got, want, FP32_TOL)
+            byts = (p.vals.numel() * 4
+                    + (p.row_idx.numel() + p.col_idx.numel()) * 4
+                    + (m * k + m * n) * 4)
+            record("bcr_spmm", shape.format(m), err,
+                   timer.ms(lambda: K.bcr_spmm(x, p)),
+                   timer.ms(lambda: ref.bcr_spmm_packed_ref(x, p),
+                            reps=5 if m > 4096 else 20),
+                   byts, 2 * m * p.vals.numel(), fp32,
+                   timer.ms(lambda: _library_dense_matmul(x, w_dense)))
+            del x, got, want
+        del w, p, w_dense
+        torch.cuda.empty_cache()
+    projection_cases(torch, timer, gen, record, [
+        ("jamba", "x_proj", 288, 8192, 1, None, (8,), fp32, False, False),
+        ("pixtral", "wq", 4096, 5120, 1, None, (8,), fp32, False, False),
+        ("pixtral", "wkv", 1024, 5120, 2, None, (8,), fp32, False, False),
+        ("pixtral", "wgi", 14336, 5120, 2, "swiglu", (8, 512), fp32, False,
+         False),
+        ("pixtral", "lm_head", 131072, 5120, 1, None, (8,), fp32, False,
+         False)])
+    expert_cases(torch, timer, gen, record, variants=(
+        (False, fp32, (EXPERT_FP32_MS[-1],), FP32_TOL, "fp32 "),))
+
+
 def phase_kernels(torch, timer):
     from repro_torch.core.bcr import BCRSpec
     from repro_torch.core.bcrc import tbcrc_pack, tbcrc_unpack
@@ -1295,6 +1474,13 @@ def phase_kernels(torch, timer):
     short_errs = short_checks(torch, gen)
     log(f"short-block checks: {time.perf_counter() - t0:.1f} s, largest "
         f"errors {json.dumps(short_errs)}")
+    log("bcr_spmm fp32 body (fp32 x: GRIM's blocks, the 128 blocks at G = 1, "
+        "2, 3, bias, SwiGLU, stacked experts, the split, ragged M, NaN-filled "
+        "buffers, unaligned x and tiles)")
+    t0 = time.perf_counter()
+    fp32_errs = fp32_checks(torch, gen)
+    log(f"fp32-body checks: {time.perf_counter() - t0:.1f} s, largest "
+        f"errors {json.dumps(fp32_errs)}")
     p = pack(256, 384, torch.float32)
     x = randn(5, 384, dtype=torch.float32)
     err = check_close("fp32 256x384 M=5", K.bcr_spmm(x, p),
@@ -1986,7 +2172,7 @@ def expert_cases(torch, timer, gen, record, variants=None):
     """Phase 3's expert-batched ``bcr_spmm`` (``wo``) and
     ``bcr_spmm_grouped`` (``wgi`` with the SwiGLU epilogue) at
     deepseek-moe-16b's 64 experts: bf16 and int8 tiles under bf16 x at M =
-    4 and 240 a expert, and fp32 tiles under fp32 x (the CUDA-core body
+    4 and 240 a expert, and fp32 tiles under fp32 x (the fp32 body
     that phase 12b serves) at its decode and 300-token prefill M = 4 and
     228. Each is one launch for all 64 (the counters say so), held to the
     plain version's loop over the experts and timed beside it and beside
@@ -2523,7 +2709,8 @@ def kernel_family(name: str) -> str:
     """A profiler kernel name → its launch-counter key (or "other"); the
     int8 forms are the instantiations on int8 (``signed char``) tiles or
     pages, or the tensor-core BCR kernels' ``<true, ...>`` (the wide
-    body's too)."""
+    body's too). The BCR fp32 body's one kernel per form serves fp32 and
+    int8 tiles alike, so its int8-tile launches fall under the fp form."""
     int8 = ("_int8" if "signed char" in name or "_tc<true" in name
             or "_wg<true" in name else "")
     if "flash_attention" in name:
@@ -3857,7 +4044,7 @@ def phase_moe_engine_vs_naive(torch, np):
     capacity_factor 8.0 (no token dropped, so batch composition cannot move
     a token), 4 requests: the engine's greedy tokens against the naive
     ``generate`` under phase 6's 1e-4 near-tie rule; the fp32 expert forms
-    (CUDA-core body, expert on blockIdx.z) launched."""
+    (the fp32 body, expert on blockIdx.y) launched."""
     from repro_torch.launch.serve import build_params
     from repro_torch.serving import EngineConfig, InferenceEngine
 
@@ -4270,7 +4457,7 @@ def phase_gru(torch, np, timer, record):
             with plain_bcr():
                 plain = gru_apply(packed, toks)
             # bf16: every launch through the short-block body ((8, 8)
-            # blocks); fp32 runs the CUDA-core body
+            # blocks); fp32 runs the fp32 body
             want_short = launches if dt == torch.bfloat16 else 0
             if launches != 2 * GRU_S * 6 or short != want_short or not bool(
                     torch.isfinite(got).all()) or got.shape != (
@@ -4616,7 +4803,7 @@ def family_cases(torch, timer, gen, record):
     64 tiles), dt_proj (8192 x 256), out_proj and lm_head; at M = 8 (a
     decode step) and 512 (one prompt's prefill), x_proj also at M = 1024;
     jamba's 16 experts (``wo`` 4096 x 14336, ``wgi`` 2 x 14336 x 4096) at M
-    = 4 and 160 a expert; fp32 x and tiles (phase 14d's CUDA-core bodies)
+    = 4 and 160 a expert; fp32 x and tiles (phase 14d's fp32 bodies)
     at every pixtral and rwkv6-3b shape above and jamba's x_proj; paged
     decode and prefill-append at 32/8 heads, head_dim 128 (pixtral and
     jamba), bf16 and fp32 pages. Each against its plain version (bf16 at
@@ -4643,7 +4830,7 @@ def family_cases(torch, timer, gen, record):
             ("rwkv6", "cm_wk", 8960, 2560, 1, None, (8, 512), bf16),
             ("rwkv6", "cm_wv", 2560, 8960, 1, None, (8, 512), bf16),
             ("rwkv6", "lm_head", 65536, 2560, 1, None, (8,), bf16),
-            # fp32 x and tiles: phase 14d's CUDA-core bodies at full width
+            # fp32 x and tiles: phase 14d's fp32 bodies at full width
             ("pixtral", "wq", 4096, 5120, 1, None, (8, 512), fp32),
             ("pixtral", "wkv", 1024, 5120, 2, None, (8, 512), fp32),
             ("pixtral", "wgi", 14336, 5120, 2, "swiglu", (8, 512), fp32),
@@ -5429,7 +5616,7 @@ def phase_encdec_serve(torch, cfg, params, frac, label, frames, prompt,
 def encdec_exactness(torch, np):
     """Phase 15c, fp32 on the card: whisper-large-v3 at full width, the
     depth cut to 2 + 2 layers, 4 utterances of 1500 frames, packed at keep
-    0.25 (fp32 tiles: the CUDA-core bodies). ``prefill``'s logits equal
+    0.25 (fp32 tiles: the fp32 bodies). ``prefill``'s logits equal
     ``decode_train``'s last row; the greedy tokens of stepwise
     ``decode_step`` equal the teacher-forced argmax of ``decode_train``
     over the same sequence under phase 6's 1e-4 near-tie rule; the packed
@@ -7371,7 +7558,8 @@ def prefill_profiles(torch, np) -> dict:
 
 def bcr_worker(tree: str) -> int:
     """``--bcr-worker TREE``: :func:`bcr_cases`, :func:`prefill_cases`,
-    :func:`short_cases`, :func:`paged_cases`, :func:`skip_cases` and
+    :func:`short_cases`, :func:`fp32_cases`, :func:`paged_cases`,
+    :func:`skip_cases` and
     :func:`flash_cases` against TREE's own ``repro_torch`` (built into
     TREE's build directory), then :func:`prefill_profiles`; the rows come
     out as one ``bcr rows:`` JSON line, the profiles as one ``bcr
@@ -7395,6 +7583,7 @@ def bcr_worker(tree: str) -> int:
     bcr_cases(torch, timer, gen, record)
     prefill_cases(torch, timer, gen, record)
     short_cases(torch, timer, gen, record)
+    fp32_cases(torch, timer, gen, record)
     paged_cases(torch, timer, gen, record)
     skip_cases(torch, timer, gen, record)
     flash_cases(torch, timer, gen, record)

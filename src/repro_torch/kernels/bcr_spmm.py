@@ -34,8 +34,15 @@ expanded across its block's 128 columns against x's dense block as TMA
 stages it. A pack whose plan carries a tuned genome (``kernels/plan.py``,
 GRIM §4.5) fixes the M tile, the configuration and the split for every call
 of at most the decode batch it was tuned for; an illegal genome raises.
-Under fp32 x the kernel keeps its CUDA-core body (fp32 products, the 1e-4
-tolerance) and sizes its own M tile.
+
+Under fp32 x (fp32 tiles, or int8 tiles; GRIM's GRU and CNN, the 1e-4
+checks) both forms run the fp32 body on the CUDA cores (``body ==
+"fp32"``), planned by :func:`fp32_plan` (pure, pinned by
+``tests/test_torch_bcr_plan.py``; a tuned genome is not read): a CTA owns
+whole units (one member's block row) × an M tile, warps own T output rows
+by a slice of the M tile with the accumulators in registers, each stage's
+J blocks arrive by cp.async one or two stages ahead, and at small M the
+stages are split over CTAs.
 
 A CUDA tensor goes through the kernel (or the wrapper raises); a CPU tensor
 goes through the plain version in :mod:`repro_torch.kernels.ref`. Each
@@ -102,6 +109,11 @@ SHORT_CONFIGS = ((8, 1, 1, 16), (8, 1, 1, 64), (8, 1, 1, 128),
                  (128, 1, 2, 16), (128, 2, 2, 64), (128, 2, 2, 128))
 SHORT_SLOTS = 3              # ring slots: two stages in flight ahead of one
 SHORT_DEPTH = 256            # the most x columns (J·bc) a stage takes
+# The fp32 body (fp32 x, CUDA cores): (T output rows a warp item, U x rows
+# a lane) of each compiled configuration; at most FP32_WARPS warps a CTA.
+FP32_CONFIGS = ((2, 1), (2, 4), (8, 1), (8, 4), (16, 1), (16, 4))
+FP32_WARPS = 16
+FP32_DEPTH = 256             # the most x columns (J·bc) a stage takes
 
 
 def _up(v: int, q: int) -> int:
@@ -142,6 +154,15 @@ class LaunchPlan:
     warps_k: int = 1
     units: int = 1
     m_fast: bool = False
+    # the fp32 body ("fp32"): T output rows a warp item (warp_rows), U x
+    # rows a lane (lane_rows), lanes across the M tile (lanes_m), row chunks
+    # of T rows a CTA takes of each of its ``units`` units (row_chunks; a
+    # unit is one member's block row, ``chunks`` such chunk groups cover a
+    # block row, ``n_chunk`` the rows of a unit a CTA emits)
+    warp_rows: int = 0
+    lane_rows: int = 1
+    lanes_m: int = 32
+    row_chunks: int = 1
 
     @property
     def rows(self) -> int:
@@ -155,6 +176,9 @@ class LaunchPlan:
     @property
     def tiles(self) -> int:
         """Output tiles, every expert's: one split counter each."""
+        if self.body == "fp32":
+            return (self.experts * -(-self.nb_r * self.group // self.units)
+                    * self.chunks * self.m_tiles)
         if self.body == "wg":
             return self.experts * self.chunks * self.m_tiles
         return (self.experts * -(-self.nb_r // self.block_rows) * self.chunks
@@ -165,6 +189,9 @@ class LaunchPlan:
         """fp32 partials of a split launch (0 when unsplit)."""
         if self.splits == 1:
             return 0
+        if self.body == "fp32":
+            return (self.tiles * self.splits * self.m_tile * self.units
+                    * self.n_chunk)
         # the wide body's partial: 128 rows of its 256 MMA rows' floats
         rows = self.rows if self.body == "wg" else self.n_chunk * self.group
         return self.tiles * self.splits * self.m_tile * rows
@@ -172,6 +199,11 @@ class LaunchPlan:
     def args(self) -> Tuple[int, ...]:
         """The order ``bcr_spmm_launch`` (or, for the short body,
         ``bcr_spmm_short_launch``) reads its plan array in."""
+        if self.body == "fp32":
+            return (self.m_tile, self.warp_rows, self.lane_rows, self.lanes_m,
+                    self.warps_m, self.units, self.row_chunks,
+                    self.stage_blocks, self.splits, self.stages,
+                    int(self.vec), self.smem_bytes)
         if self.body == "short":
             return (self.m_tile, self.slabs, self.warps_m, self.n_chunk,
                     self.stage_blocks, self.splits, self.stages,
@@ -401,6 +433,177 @@ def _short_fit(m: int, k: int, br: int, bc: int, r: int, c: int, nb_r: int,
                               splits, slots, vec, smem, nb_r, nb_c, 1, 1,
                               "short", p, j, wk)
     return None
+
+
+def fp32_rows(br: int) -> int:
+    """T, the output rows of one warp item of the fp32 body: 16 rows of a
+    block of 16 or more, 8 of GRIM's (8, 8) / (8, 16), 2 of shorter ones
+    (whisper's (2, 128))."""
+    return 2 if br < 8 else 8 if br < 16 else 16
+
+
+def fp32_smem_layout(m_tile: int, units: int, row_chunks: int, t: int,
+                     u: int, j: int, slots: int, br: int, bc: int, r: int,
+                     c: int, int8_tiles: bool) -> int:
+    """Shared-memory bytes of one CTA of the fp32 body; the CUDA launcher
+    computes the same layout (``f32::Layout`` in the source) and refuses a
+    plan that disagrees.
+
+    A ring slot holds one stage of ``j`` contraction blocks: the x block
+    transposed (J·bc + 1 columns, the last zeros, each of the M tile's rows
+    padded to xstride floats: at U = ``u`` = 4 an odd multiple of 4, else
+    odd; 16-byte aligned), then for each of the CTA's units its tiles (fp32
+    rows of Cp = C_keep rounded up to 4 floats; int8 codes as the 16-byte
+    chunks that cover their run at any alignment: n + 15 bytes rounded up
+    to 16), its row-index run, column-index run (and int8 scales), each
+    with that room; the slot is 128-byte aligned. Then
+    two inverse row maps (units × J × ceil(br / T)·T ushorts each, rounded
+    up to 16 bytes), two column-offset tables (units × J × Cp ints) and,
+    under int8 tiles, two widened fp32 tile buffers. The epilogue's fp32
+    tile (M tile × (units · rows + 1) floats, rows = min(br, row_chunks ·
+    T)) aliases them; 16 bytes for the split flag follow, 16-byte
+    aligned."""
+    def cover(n: int) -> int:
+        return _up(n + 15, 16)
+
+    ks = j * bc
+    xstride = (-(-m_tile // 4) | 1) * 4 if u == 4 else m_tile | 1
+    cp = _up(c, 4)
+    brp = -(-br // t) * t
+    tile = j * r * cp * 4
+    raw = cover(j * r * c) if int8_tiles else tile
+    runs = (raw + cover(j * r * 4) + cover(j * c * 4)
+            + (cover(j * 4) if int8_tiles else 0))
+    slot = _up(_up((ks + 1) * xstride * 4, 16) + units * runs, 128)
+    main = (slots * slot + 2 * _up(units * j * brp * 2, 16)
+            + 2 * units * j * cp * 4 + (2 * units * tile if int8_tiles else 0))
+    rows = min(br, row_chunks * t)
+    red = m_tile * (units * rows + 1) * 4
+    return _up(max(main, red), 16) + 16
+
+
+@functools.lru_cache(maxsize=1024)
+def fp32_plan(m: int, n: int, k: int, g: int, block: Tuple[int, int],
+              kept: Tuple[int, int], sm_count: int,
+              int8_tiles: bool = False, aligned: bool = True,
+              experts: int = 1, shards: int = 1) -> LaunchPlan:
+    """The fp32 body's launch (fp32 x; fp32 tiles, or int8 tiles) for ``x
+    (m, k)`` against G packed ``(n, k)`` weights of ``block`` blocks keeping
+    ``kept``, for each of ``experts`` stacked experts. One rule:
+
+    * Rows: T = :func:`fp32_rows` (br) output rows a warp item; a unit (one
+      member's block row) is ceil(br / T) items.
+    * x rows: M up to 32 four rows a lane (``lanes_m`` the power of two
+      that holds M / 4; the other lanes of a warp share the contraction)
+      where those lanes all fit one block's 4-column chunks (128 blocks at
+      M = 5..32), else one row a lane (``lanes_m`` the power of two that
+      holds M: GRIM's (8, 8) blocks, decode at M up to 4); M up
+      to 64 two warps of 32 lanes across the M tile; else U = 4 rows a lane
+      over 32 lanes, an M tile of 128 (an M tile of 64, one row a lane,
+      where M is at most 512 and the 128 tile's grid fills under half the
+      SMs: conv2 at M = 256).
+    * A CTA: as many whole units as its warps hold (``FP32_WARPS`` / (items
+      a unit × warps across M), at most 8 warps for blocks
+      of one item at M up to 32: the GRU's CTAs each stream little, and
+      small ones, several to an SM, finish sooner); G = 2 in whole gate/up
+      pairs (the SwiGLU epilogue reads both); where a unit (a pair) does not
+      fit, the chunks of one unit (pair) that do.
+    * Stage depth J: the most blocks whose x columns (J·bc) stay within
+      ``FP32_DEPTH`` and, split, at most nb_c / (the CTAs each output tile
+      needs to fill the card), so the split has stages to share; the deepest
+      J that a ring of two slots holds (one stage in flight ahead of the
+      one computed), in three slots where they fit (two ahead).
+    * Split: the rule's count (``_rule_splits``, the tiles of every shard
+      counted) over the nb_c / J stages; none where K is under two full
+      stages (2 · ``FP32_DEPTH``: conv2's K = 144). Where even the full
+      split leaves the grid short of the SM count, a CTA takes half the
+      rows (units, then chunks) and the rule runs again (jamba's x_proj at
+      M = 8: 2 units of 144 rows → 4 row groups).
+
+    Raises ``ValueError`` where the shape is not whole blocks, the kept
+    counts do not fit the block, or no CTA holds a stage of one block."""
+    br, bc = block
+    r, c = kept
+    if n % br or k % bc:
+        raise ValueError(f"({n}, {k}) is not a whole number of {br}x{bc} "
+                         f"blocks")
+    if not (1 <= r <= br and 1 <= c <= bc):
+        raise ValueError(f"kept counts {kept} do not fit a {br}x{bc} block")
+    if (r - 1) * _up(c, 4) * 4 + 16 > 0xFFFF:
+        raise ValueError(f"kept tile {kept} is too large for the fp32 "
+                         f"body's 16-bit row offsets")
+    nb_r, nb_c = n // br, k // bc
+    units = nb_r * g
+    t = fp32_rows(br)
+    chunks = -(-br // t)
+    pair = 2 if g == 2 else 1
+
+    def rows_a_cta(wm):
+        # small blocks at small M: small CTAs
+        most = 8 if m <= 32 and chunks == 1 else FP32_WARPS
+        if pair * chunks * wm <= most:
+            return chunks, min(units, most // (chunks * wm) // pair * pair)
+        return most // (pair * wm), pair
+
+    nch = -(-c // 4)
+    if m <= 32:
+        # 4 rows a lane where the lanes left over share a block's chunks
+        # (no lane on another block: the row branches stay warp-uniform)
+        lm4 = 1 << max(0, (-(-m // 4) - 1).bit_length())
+        if 32 // lm4 <= 1 << max(0, (nch - 1).bit_length()):
+            u, lm, wm = 4, lm4, 1
+        else:
+            u, lm, wm = 1, 1 << max(0, (m - 1).bit_length()), 1
+    elif m <= 64:
+        u, lm, wm = 1, 32, 2
+    else:
+        u, lm, wm = 4, 32, 1
+        cr, nu = rows_a_cta(wm)
+        if (m <= 512 and 2 * experts * -(-units // nu) * -(-chunks // cr)
+                * -(-m // 128) * shards < sm_count):
+            u, wm = 1, 2       # more, smaller CTAs where the grid is short
+    mt = wm * lm * u
+    m_tiles = -(-m // mt)
+    cr, nu = rows_a_cta(wm)
+    # a split pays off only over two full stages (conv2, K = 144, never)
+    split = k >= 2 * FP32_DEPTH
+    vec = aligned and c % 4 == 0 and not int8_tiles
+    while True:
+        ncg = -(-chunks // cr)
+        tiles = experts * -(-units // nu) * ncg * m_tiles
+        need = (1 if not split or 2 * tiles * shards > sm_count
+                else -(-sm_count // (tiles * shards)))
+        jmax = max(1, min(nb_c, FP32_DEPTH // bc))
+        if need > 1:
+            jmax = max(1, min(jmax, nb_c // need))
+        n_st = -(-nb_c // jmax)
+        splits = (_rule_splits(tiles * shards, n_st, sm_count) if split
+                  else 1)
+        short = (need > 1 and splits == n_st
+                 and tiles * shards * splits < sm_count)
+        if not short or (nu == pair and cr == 1):
+            break
+        if nu > pair:          # half the rows a CTA, and the rule again
+            nu = max(pair, nu // 2 // pair * pair)
+        else:
+            cr = -(-cr // 2)
+    rows = min(br, cr * t)
+    for j in range(jmax, 0, -1):
+        for slots in (3, 2):
+            n_st = -(-nb_c // j)
+            splits = (_rule_splits(tiles * shards, n_st, sm_count) if split
+                      else 1)
+            ring = min(slots, -(-n_st // splits))
+            smem = fp32_smem_layout(mt, nu, cr, t, u, j, ring, br, bc, r,
+                                    c, int8_tiles)
+            if smem <= SMEM_LIMIT:
+                return LaunchPlan(mt, 1, wm, nu * cr * wm, rows, ncg,
+                                  m_tiles, splits, ring, vec, smem, nb_r,
+                                  nb_c, g, experts, "fp32", 1, j, 1, nu,
+                                  warp_rows=t, lane_rows=u, lanes_m=lm,
+                                  row_chunks=cr)
+    raise ValueError(f"BCR block {br}x{bc} keeping {r}x{c} (G={g}) needs "
+                     f"more shared memory than a CTA has (fp32 x)")
 
 
 def tile_configs(m_tile: int) -> Tuple[Tuple[int, int, int], ...]:
@@ -733,15 +936,16 @@ def _check(x: torch.Tensor, packed, e: int) -> Optional[torch.Tensor]:
 
 
 def _launch(x, packed, scales, g, e, grouped, bias, swiglu, y,
-            what) -> Optional[LaunchPlan]:
+            what) -> LaunchPlan:
     """One launch of ``bcr_spmm_launch`` (or ``bcr_spmm_short_launch``) for
     a checked (grouped) pack over ``e`` stacked experts (0: unstacked);
-    returns the tensor-core plan (None under fp32 x)."""
+    returns its plan: the tensor-core plan under bf16 x, the fp32 body's
+    (:func:`fp32_plan`; a tuned genome is not read) under fp32 x."""
     m, k = x.shape[-2:]
     n = packed.shape[0]
     nb_r, nb_c, r, c = packed.vals.shape[-4:]
     br, bc = packed.block_shape
-    plan, plan_arr, ws, counters = None, None, None, None
+    ws, counters = None, None
     if x.dtype == torch.bfloat16:
         aligned = all(t.data_ptr() % 16 == 0 for t in (
             x, packed.vals, packed.row_idx, packed.col_idx))
@@ -749,12 +953,18 @@ def _launch(x, packed, scales, g, e, grouped, bias, swiglu, y,
                            scales is not None, aligned, max(e, 1),
                            launch_genome(packed.plan, m),
                            plan_shards(packed.plan))
-        plan_arr = (ctypes.c_int * 9)(*plan.args())
-        if plan.splits > 1:
-            ws = torch.empty(plan.workspace_floats, dtype=torch.float32,
-                             device=x.device)
-            counters = split_counters(x.device, plan.tiles)
-    if plan is not None and plan.body == "short":
+    else:
+        plan = fp32_plan(m, n, k, g, (br, bc), (r, c), _sm_count(x.device),
+                         scales is not None,
+                         packed.vals.data_ptr() % 16 == 0, max(e, 1),
+                         plan_shards(packed.plan))
+    args = plan.args()
+    plan_arr = (ctypes.c_int * len(args))(*args)
+    if plan.splits > 1:
+        ws = torch.empty(plan.workspace_floats, dtype=torch.float32,
+                         device=x.device)
+        counters = split_counters(x.device, plan.tiles)
+    if plan.body == "short":
         err = library().bcr_spmm_short_launch(
             int(scales is not None), x.data_ptr(), packed.vals.data_ptr(),
             scales.data_ptr() if scales is not None else None,

@@ -19,7 +19,7 @@
 // plan.block_scales), whose scale multiplies the block's fp32 partial, as
 // the reference's _block_update does.
 //
-// Four bodies: the CUDA-core body under fp32 x; under bf16 x, the
+// Four bodies: the fp32 body under fp32 x (CUDA cores); under bf16 x, the
 // short-block body for blocks shorter than one m16 slab (G = 1), the wide
 // body at the 128-row M tile (prefill), else the tensor-core body (M tiles
 // of 8..64: decode, verify, short prefill).
@@ -200,461 +200,78 @@
 //     copy latency; launch_plan picks 16 rows at decode and, at the 128 M
 //     tile, the most rows whose grid fills over half the SMs unsplit.
 //
-// fp32 x (fp32 tiles, or int8 tiles under fp32 x; only the cross-package
-// fp32 configurations, never the bf16 serving path) — namespace cuda_core,
-// unchanged from the first port: its 1e-4 tolerance rules out bf16 or TF32
-// operands, so it multiplies on the CUDA cores. One CTA owns one output
-// block row and one M tile and walks the contraction blocks itself, JB at a
-// time, staging tiles (widened to fp32), x columns and indices in shared
-// memory through a two-stage register prefetch; a gather pass makes each
-// member's kept x columns a dense tile; each block's partial is added into
-// an fp32 shared accumulator at its kept rows, with a barrier between
-// blocks. Bounded by fp32 FMA throughput at large M and by grid under-fill
-// (nb_r × M tiles CTAs) at small M.
+// fp32 x (fp32 tiles, or int8 tiles under fp32 x: GRIM's own GRU and im2col
+// CNN, whose examples and reference default to fp32, and every fp32 check of
+// the port) — the fp32 body (namespace f32, bcr_spmm_fp32 /
+// bcr_spmm_grouped_fp32). Its 1e-4 tolerance rules out bf16 operands and
+// plain TF32 (about 3 decimal digits). 3xTF32 (a big and a small TF32 part,
+// three MMAs) keeps fp32's accuracy, but the MMA needs each tile expanded to
+// its block, br/R_keep × bc/C_keep the kept work (8× at the GRU's (8, 8)
+// keeping 2 x 4, 4× at VGG's (8, 16) keeping 4 x 8 and at the 128 blocks);
+// at 495 / 3 = 165 TFLOP/s that loses to kept-only FFMA at 67 TFLOP/s
+// wherever the expansion is 2.5× or more, every served block. So the body
+// does kept work only, on the CUDA cores. What bounds it on this card: at
+// decode the bytes of the kept tiles (read once) and each CTA's latency from
+// its first copy to its output; at prefill the shared-memory wavefronts of
+// the gather of x's kept columns (C_keep loads feed R_keep kept rows' FMAs,
+// so at R_keep = 4 one wavefront a clock per SM matches the FMA pipe) and
+// the fp32 FMAs. What the design does:
+//   * A CTA owns nu units (a unit: one member's block row; u = i·G + g, so a
+//     gate/up pair is two adjacent units) × cr chunks of T output rows of
+//     each × one M tile: P·br output rows, so every thread has work at
+//     GRIM's (8, 8) and (8, 16) blocks, and x's staged block serves every
+//     unit (its L2 → SM bytes fall nu× against a CTA a block row).
+//   * Register blocking: a warp item is T output rows of one unit (T = 2, 8
+//     or 16) by the warp's slice of the M tile; a lane holds T × U fp32
+//     accumulators. Lanes split as LM across x rows (U rows each) × LK = 32
+//     / LM sharing the contraction (LC over a block's 4-column chunks, LB
+//     over the stage's blocks), reduced by shuffles in a fixed order at the
+//     end; so at M = 1..32 the lanes share the contraction where a lane
+//     holds 4 x rows or a block spans few chunks, at prefill they all take
+//     x rows. x is staged transposed (a column's M tile rows contiguous), so
+//     per 4-column chunk a lane reads its rows of each kept column as one
+//     16-byte load at U = 4 (column offsets from one int4; conflict-free),
+//     then for each of its T rows whose block keeps it one float4 of the
+//     kept row (a broadcast), issued for a group of rows before their FMAs.
+//     The row map is inverse: output row → 16 + its kept row's byte offset
+//     in the block's tile (0: not kept), ushorts read as one or two 16-byte
+//     loads a block. A row the block does not keep is a branch over its load
+//     and products, warp-uniform when the lanes share a block (LB = 1), not
+//     a product with a zero row (br/R_keep = 2× the FMAs at the served
+//     blocks). No shared-memory scatter, no barrier per block.
+//   * Stages of J contraction blocks (J·bc up to 256 columns) for all nu
+//     units, in a ring of three slots filled two stages ahead of the one
+//     computed (two slots, one ahead, where that allows a deeper stage:
+//     VGG's prefill, the 128 blocks at decode and prefill; all of a split's
+//     stages at once where the ring holds them) by cp.async from every
+//     thread: x by 4-byte copies (transposing it), fp32 tile runs by
+//     16-byte copies (where vals is
+//     16-byte aligned and C_keep a multiple of 4, the run of J tiles is the
+//     staged layout itself; else 4-byte copies into zero-padded rows), int8
+//     codes, indices and scales as the 16-byte chunks that cover each run.
+//     Two barriers a stage: one after its copies land, then one after a
+//     pass builds the stage's inverse row maps and column offsets
+//     (double-buffered: the other buffer is cleared in the same pass) and,
+//     under int8 tiles, widens the codes with their tile's scale folded in,
+//     fp32(code × scale): one rounding of at most 2^-24 relative, far inside
+//     1e-4 (the reference scales each block's partial instead).
+//   * Where the output tiles fill at most half the SMs, the stages are
+//     split over S CTAs of the same launch (workspace, counters and the last
+//     arriver's split-order sum, as above; the last split reads the
+//     partials eight at a time): the GRU at M = 1 (16 CTAs of 8 block rows,
+//     split 9 ways: 144), jamba's x_proj at M = 8 (its 2 block rows of 144
+//     cut into 4 row groups of 80 and 64 rows, split 33 ways).
+//   * Stacked experts on the grid's second axis (blockIdx.y), the operands
+//     offset by the expert; bias and SwiGLU in the epilogue, which reads the
+//     CTA's fp32 tile from shared memory (aliasing the ring).
+//   * The M tile, T, U, the lanes and warps across it, nu, cr, J, S, the
+//     ring and the shared-memory bytes come from kernels/bcr_spmm.py:
+//     fp32_plan; the launcher checks the plan's shared-memory total against
+//     its own layout (Layout below) and refuses a plan that disagrees.
 
 #include <string.h>
 
 #include "hopper.cuh"
-
-#include <type_traits>
-
-namespace cuda_core {
-
-constexpr int kThreads = 256;
-constexpr int kRowsPerThread = 4;   // M rows one work item accumulates
-constexpr int kTileVecs = 8;        // 16-byte tile vectors a thread prefetches
-constexpr int kXVecs = 4;           // 16-byte x vectors a thread prefetches
-constexpr int kIdx = 2;             // indices a thread prefetches
-constexpr int kMaxJB = 4;           // contraction blocks per phase
-constexpr size_t kSmemLimit = 200 * 1024;
-
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<int8_t>(int8_t v) {
-  return (float)v;
-}
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-
-struct SpmmShape {
-  int M, K, N, G, nb_r, nb_c, br, bc, R, C, m_tile, E;
-  int jb;    // contraction blocks staged per phase (divides nb_c)
-  int vec;   // 1: register-pipelined 16-byte loads; 0: plain loads
-};
-
-// Row stride, in floats, of the kept tiles and gathered x tiles: a whole
-// number of float4s, odd, so 8 lanes reading float4s of 8 rows hit 8
-// distinct bank quads.
-__host__ __device__ inline int padded_c(int C) {
-  int cp = (C + 3) / 4 * 4;
-  if ((cp / 4) % 2 == 0) cp += 4;
-  return cp;
-}
-
-// Shared-memory layout, in 4-byte words, float4-aligned parts first: kept
-// tiles, gathered x tiles, accumulator, raw x columns, indices, tile scales.
-__host__ __device__ inline size_t smem_words(const SpmmShape& s) {
-  const size_t cp = padded_c(s.C);
-  return (size_t)s.jb * s.G * s.R * cp + (size_t)s.jb * s.G * s.m_tile * cp +
-         (size_t)s.G * s.m_tile * s.br +
-         (size_t)s.m_tile * (s.jb * s.bc + 1) +
-         (size_t)s.jb * s.G * (s.C + s.R) + (size_t)s.jb * s.G;
-}
-
-struct Stage {   // one phase's loads, held in registers between phases
-  uint4 tile[kTileVecs];
-  uint4 x[kXVecs];
-  int idx[kIdx];
-  float sc;      // int8 form: one tile scale (thread g·jb + jj)
-};
-
-// Index of member g's tile (i, j) in vals' leading (G, nb_r, nb_c) grid,
-// which block_scales shares.
-__device__ __forceinline__ size_t tile_id(const SpmmShape& s, int g, int i,
-                                          int j) {
-  return ((size_t)g * s.nb_r + i) * s.nb_c + j;
-}
-
-// Loads of phase j0 .. j0+jb-1. For member g the jb tiles (and index rows)
-// of block-row i are contiguous in memory, as are the x columns of a row.
-template <typename T, typename TW>
-__device__ __forceinline__ void prefetch(Stage& st, const T* __restrict__ x,
-                                         const TW* __restrict__ vals,
-                                         const float* __restrict__ scales,
-                                         const int* __restrict__ row_idx,
-                                         const int* __restrict__ col_idx,
-                                         const SpmmShape& s, int i, int j0,
-                                         int m0, int mt) {
-  const int tid = threadIdx.x;
-  constexpr int kEPV = 16 / sizeof(T);           // x elements per vector
-  constexpr int kEPW = 16 / sizeof(TW);          // tile elements per vector
-  const int per_g = s.jb * s.R * s.C / kEPW;     // vectors per member
-#pragma unroll
-  for (int u = 0; u < kTileVecs; ++u) {
-    const int v = tid + u * kThreads;
-    if (v < s.G * per_g) {
-      const int g = v / per_g, w = v - g * per_g;
-      const TW* base = vals + tile_id(s, g, i, j0) * (size_t)(s.R * s.C);
-      st.tile[u] = __ldg(reinterpret_cast<const uint4*>(base) + w);
-    }
-  }
-  if (std::is_same<TW, int8_t>::value && tid < s.jb * s.G)
-    st.sc = __ldg(scales + tile_id(s, tid / s.jb, i, j0 + tid % s.jb));
-  const int xr = s.jb * s.bc / kEPV;             // vectors per x row
-#pragma unroll
-  for (int u = 0; u < kXVecs; ++u) {
-    const int v = tid + u * kThreads;
-    if (v < s.m_tile * xr) {
-      const int m = v / xr, w = v - m * xr;
-      st.x[u] = m < mt ? __ldg(reinterpret_cast<const uint4*>(
-                             x + (size_t)(m0 + m) * s.K + (size_t)j0 * s.bc) + w)
-                       : make_uint4(0, 0, 0, 0);
-    }
-  }
-  const int nc = s.jb * s.C, nr = s.jb * s.R;
-#pragma unroll
-  for (int u = 0; u < kIdx; ++u) {
-    const int e = tid + u * kThreads;
-    if (e < s.G * nc) {
-      const int g = e / nc, off = e - g * nc;
-      st.idx[u] = __ldg(col_idx + (((size_t)g * s.nb_r + i) * s.nb_c + j0) * s.C + off);
-    } else if (e < s.G * (nc + nr)) {
-      const int f = e - s.G * nc;
-      const int g = f / nr, off = f - g * nr;
-      st.idx[u] = __ldg(row_idx + (((size_t)g * s.nb_r + i) * s.nb_c + j0) * s.R + off);
-    }
-  }
-}
-
-// Registers → shared memory: kept tile rows at ((jj·G + g)·R + r)·Cp, raw x
-// columns at m·(jb·bc + 1), indices as loaded (cols, then rows), tile
-// scales at g·jb + jj.
-template <typename T, typename TW>
-__device__ __forceinline__ void commit(const Stage& st, float* xs,
-                                       float* ws, int* idx, float* bsc,
-                                       const SpmmShape& s, int cp) {
-  const int tid = threadIdx.x;
-  constexpr int kEPV = 16 / sizeof(T);
-  constexpr int kEPW = 16 / sizeof(TW);
-  const int vpt = s.R * s.C / kEPW, per_g = s.jb * vpt;
-#pragma unroll
-  for (int u = 0; u < kTileVecs; ++u) {
-    const int v = tid + u * kThreads;
-    if (v < s.G * per_g) {
-      const int g = v / per_g, v2 = v - g * per_g;
-      const int jj = v2 / vpt, w = v2 - jj * vpt;
-      const int e0 = w * kEPW;                     // C_keep % kEPW == 0:
-      const int r = e0 / s.C, c0 = e0 - r * s.C;   // a vector is in one row
-      float* dst = ws + ((jj * s.G + g) * s.R + r) * cp + c0;
-      const TW* e = reinterpret_cast<const TW*>(&st.tile[u]);
-#pragma unroll
-      for (int q = 0; q < kEPW; ++q) dst[q] = to_f(e[q]);
-    }
-  }
-  if (std::is_same<TW, int8_t>::value && tid < s.jb * s.G) bsc[tid] = st.sc;
-  const int xr = s.jb * s.bc / kEPV;
-#pragma unroll
-  for (int u = 0; u < kXVecs; ++u) {
-    const int v = tid + u * kThreads;
-    if (v < s.m_tile * xr) {
-      const int m = v / xr, w = v - m * xr;
-      float* dst = xs + m * (s.jb * s.bc + 1) + w * kEPV;
-      const T* e = reinterpret_cast<const T*>(&st.x[u]);
-#pragma unroll
-      for (int q = 0; q < kEPV; ++q) dst[q] = to_f(e[q]);
-    }
-  }
-#pragma unroll
-  for (int u = 0; u < kIdx; ++u) {
-    const int e = tid + u * kThreads;
-    if (e < s.jb * s.G * (s.C + s.R)) idx[e] = st.idx[u];
-  }
-}
-
-// Plain loads straight into shared memory (one block per phase), for shapes
-// the register pipeline skips.
-template <typename T, typename TW>
-__device__ void load_plain(const T* __restrict__ x, const TW* __restrict__ vals,
-                           const float* __restrict__ scales,
-                           const int* __restrict__ row_idx,
-                           const int* __restrict__ col_idx, float* xs,
-                           float* ws, int* idx, float* bsc, const SpmmShape& s,
-                           int cp, int i, int j, int m0, int mt) {
-  const int tid = threadIdx.x;
-  for (int v = tid; v < s.m_tile * s.bc; v += kThreads) {
-    const int m = v / s.bc, c = v - m * s.bc;
-    xs[m * (s.bc + 1) + c] =
-        m < mt ? to_f(x[(size_t)(m0 + m) * s.K + (size_t)j * s.bc + c]) : 0.f;
-  }
-  const int tile = s.R * s.C;
-  for (int v = tid; v < s.G * tile; v += kThreads) {
-    const int g = v / tile, rc = v - g * tile;
-    const int r = rc / s.C, c = rc - r * s.C;
-    ws[(g * s.R + r) * cp + c] = to_f(vals[tile_id(s, g, i, j) * tile + rc]);
-  }
-  if (std::is_same<TW, int8_t>::value)
-    for (int g = tid; g < s.G; g += kThreads)
-      bsc[g] = scales[tile_id(s, g, i, j)];
-  for (int e = tid; e < s.G * (s.C + s.R); e += kThreads) {
-    if (e < s.G * s.C) {
-      const int g = e / s.C, c = e - g * s.C;
-      idx[e] = col_idx[(((size_t)g * s.nb_r + i) * s.nb_c + j) * s.C + c];
-    } else {
-      const int f = e - s.G * s.C;
-      const int g = f / s.R, r = f - g * s.R;
-      idx[e] = row_idx[(((size_t)g * s.nb_r + i) * s.nb_c + j) * s.R + r];
-    }
-  }
-}
-
-__device__ __forceinline__ float dot4(const float4 a, const float4 b) {
-  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
-}
-
-template <typename T, typename TW, bool SWIGLU>
-__device__ void spmm_body(const T* __restrict__ x, const TW* __restrict__ vals,
-                          const float* __restrict__ scales,
-                          const int* __restrict__ row_idx,
-                          const int* __restrict__ col_idx,
-                          const float* __restrict__ bias, T* __restrict__ y,
-                          const SpmmShape s) {
-  extern __shared__ __align__(16) float smem[];
-  const int i = blockIdx.x;
-  const int m0 = blockIdx.y * s.m_tile;
-  const int mt = min(s.m_tile, s.M - m0);
-  const int tid = threadIdx.x;
-  const int cp = padded_c(s.C);
-  const int GR = s.G * s.R;
-  const int xs_stride = s.jb * s.bc + 1;
-
-  float* ws = smem;                                        // kept tiles
-  float* xg = ws + (size_t)s.jb * GR * cp;                 // gathered x
-  float* acc = xg + (size_t)s.jb * s.G * s.m_tile * cp;
-  float* xs = acc + (size_t)s.G * s.m_tile * s.br;         // raw x columns
-  int* cols = reinterpret_cast<int*>(xs + (size_t)s.m_tile * xs_stride);
-  int* rows = cols + s.jb * s.G * s.C;
-  float* bsc = reinterpret_cast<float*>(rows + s.jb * s.G * s.R);
-
-  for (int v = tid; v < s.G * s.m_tile * s.br; v += kThreads) acc[v] = 0.f;
-  // the pad columns C..cp of the tile and gathered rows stay zero: the
-  // float4 product loop reads them
-  const int npad = cp - s.C;
-  const int nrows = s.jb * (GR + s.G * s.m_tile);
-  for (int v = tid; v < nrows * npad; v += kThreads) {
-    const int row = v / npad;
-    ws[row * cp + s.C + (v - row * npad)] = 0.f;
-  }
-
-  // work split: items = (member row gr, group of kRowsPerThread M rows);
-  // S lanes share one item's sum over the C_keep float4 chunks
-  const int nq = (s.C + 3) / 4;
-  const int mq = (mt + kRowsPerThread - 1) / kRowsPerThread;
-  const int items = GR * mq;
-  int S = 1;
-  while (S < 4 && items * S * 2 <= kThreads && S * 2 <= nq) S *= 2;
-
-  Stage st;
-  const int n_phase = s.nb_c / s.jb;
-  if (s.vec) prefetch(st, x, vals, scales, row_idx, col_idx, s, i, 0, m0, mt);
-  for (int ph = 0; ph < n_phase; ++ph) {
-    const int j0 = ph * s.jb;
-    if (s.vec) {
-      commit<T, TW>(st, xs, ws, cols, bsc, s, cp);
-    } else {
-      load_plain(x, vals, scales, row_idx, col_idx, xs, ws, cols, bsc, s, cp,
-                 i, j0, m0, mt);
-    }
-    __syncthreads();
-    if (s.vec && ph + 1 < n_phase)   // in flight while this phase multiplies
-      prefetch(st, x, vals, scales, row_idx, col_idx, s, i, j0 + s.jb, m0,
-               mt);
-
-    // gather each member's kept x columns into dense (M_t, C_keep) tiles
-    const int ng = s.jb * s.G * s.m_tile * s.C;
-    for (int v = tid; v < ng; v += kThreads) {
-      const int c = v % s.C;
-      int t = v / s.C;
-      const int m = t % s.m_tile;
-      t /= s.m_tile;                                   // t = jj·G + g
-      const int g = t % s.G, jj = t / s.G;
-      xg[(t * s.m_tile + m) * cp + c] =
-          xs[m * xs_stride + jj * s.bc + cols[(g * s.jb + jj) * s.C + c]];
-    }
-    __syncthreads();
-
-    for (int jj = 0; jj < s.jb; ++jj) {
-      for (int base = 0; base < items * S; base += kThreads) {
-        const int v = base + tid;
-        const int item = v / S, part = v - item * S;
-        float a[kRowsPerThread];
-#pragma unroll
-        for (int u = 0; u < kRowsPerThread; ++u) a[u] = 0.f;
-        const bool valid = item < items;
-        int gr = 0, ma = 0;
-        if (valid) {
-          gr = item % GR;
-          ma = (item / GR) * kRowsPerThread;
-          const int g = gr / s.R;
-          const float4* wrow = reinterpret_cast<const float4*>(
-              ws + (size_t)(jj * GR + gr) * cp);
-          const float* xt = xg + (size_t)((jj * s.G + g) * s.m_tile) * cp;
-          for (int q = part; q < nq; q += S) {
-            const float4 w = wrow[q];
-#pragma unroll
-            for (int u = 0; u < kRowsPerThread; ++u) {
-              // rows past m_tile would read outside the tile: clamp the
-              // address, the product is dropped below
-              const int m = min(ma + u, s.m_tile - 1);
-              a[u] += dot4(w, reinterpret_cast<const float4*>(
-                                  xt + (size_t)m * cp)[q]);
-            }
-          }
-        }
-        for (int o = 1; o < S; o <<= 1) {
-#pragma unroll
-          for (int u = 0; u < kRowsPerThread; ++u)
-            a[u] += __shfl_xor_sync(0xffffffffu, a[u], o);
-        }
-        if (valid && part == 0) {
-          const int g = gr / s.R, r = gr - g * s.R;
-          float* ac = acc + ((size_t)g * s.m_tile) * s.br +
-                      rows[(g * s.jb + jj) * s.R + r];
-          if (std::is_same<TW, int8_t>::value) {
-            // int8 tile: its scale multiplies the fp32 partial before the
-            // scatter-add (the reference's _block_update)
-            const float sc = bsc[g * s.jb + jj];
-#pragma unroll
-            for (int u = 0; u < kRowsPerThread; ++u) a[u] *= sc;
-          }
-#pragma unroll
-          for (int u = 0; u < kRowsPerThread; ++u)
-            if (ma + u < mt) ac[(ma + u) * s.br] += a[u];
-        }
-      }
-      // the next block's kept rows may coincide with this one's; after the
-      // last block, the next phase's commit overwrites the staged data
-      __syncthreads();
-    }
-  }
-
-  // emit: fp32 accumulator (+ bias) → x's dtype, each output element once
-  const int n0 = i * s.br;
-  if (SWIGLU) {
-    for (int v = tid; v < mt * s.br; v += kThreads) {
-      const int m = v / s.br, n = v - m * s.br;
-      float gate = acc[m * s.br + n];
-      float up = acc[((size_t)s.m_tile + m) * s.br + n];
-      if (bias != nullptr) {
-        gate += bias[n0 + n];
-        up += bias[(size_t)s.N + n0 + n];
-      }
-      const float silu = gate / (1.f + expf(-gate));
-      y[(size_t)(m0 + m) * s.N + n0 + n] = from_f<T>(silu * up);
-    }
-  } else {
-    for (int v = tid; v < s.G * mt * s.br; v += kThreads) {
-      const int g = v / (mt * s.br);
-      const int rem = v - g * mt * s.br;
-      const int m = rem / s.br, n = rem - m * s.br;
-      float val = acc[((size_t)g * s.m_tile + m) * s.br + n];
-      if (bias != nullptr) val += bias[(size_t)g * s.N + n0 + n];
-      y[((size_t)g * s.M + m0 + m) * s.N + n0 + n] = from_f<T>(val);
-    }
-  }
-}
-
-// Expert blockIdx.z's operands: every array is E equal slices, expert-major.
-template <typename T, typename TW, bool SWIGLU>
-__device__ __forceinline__ void expert_body(
-    const T* x, const TW* vals, const float* scales, const int* row_idx,
-    const int* col_idx, const float* bias, T* y, const SpmmShape& s) {
-  const size_t e = blockIdx.z, tiles = (size_t)s.G * s.nb_r * s.nb_c;
-  spmm_body<T, TW, SWIGLU>(
-      x + e * s.M * s.K, vals + e * tiles * s.R * s.C,
-      scales != nullptr ? scales + e * tiles : nullptr,
-      row_idx + e * tiles * s.R, col_idx + e * tiles * s.C,
-      bias != nullptr ? bias + e * s.G * s.N : nullptr,
-      y + e * (SWIGLU ? 1 : s.G) * s.M * s.N, s);
-}
-
-template <typename T, typename TW>
-__global__ void __launch_bounds__(kThreads)
-bcr_spmm_kernel(const T* x, const TW* vals, const float* scales,
-                const int* row_idx, const int* col_idx, T* y, SpmmShape s) {
-  expert_body<T, TW, false>(x, vals, scales, row_idx, col_idx, nullptr, y, s);
-}
-
-
-template <typename T, typename TW, bool SWIGLU>
-__global__ void __launch_bounds__(kThreads)
-bcr_spmm_grouped_kernel(const T* x, const TW* vals, const float* scales,
-                        const int* row_idx, const int* col_idx,
-                        const float* bias, T* y, SpmmShape s) {
-  expert_body<T, TW, SWIGLU>(x, vals, scales, row_idx, col_idx, bias, y, s);
-}
-
-// Blocks per phase: the register pipeline needs 16-byte rows (a vector
-// never straddles a kept row) and a phase small enough for the per-thread
-// prefetch registers and for shared memory; else one block, plain loads.
-void plan_phases(SpmmShape& s, int elem_x, int elem_w, const void* x,
-                 const void* vals) {
-  const int epv = 16 / elem_x, epw = 16 / elem_w;
-  const bool aligned = ((uintptr_t)x % 16 == 0) && ((uintptr_t)vals % 16 == 0);
-  s.vec = 0;
-  s.jb = 1;
-  if (!(aligned && s.C % epw == 0 && s.bc % epv == 0 && s.K % epv == 0))
-    return;
-  for (int jb = kMaxJB; jb >= 1; jb /= 2) {
-    SpmmShape t = s;
-    t.jb = jb;
-    if (s.nb_c % jb == 0 &&
-        s.G * jb * s.R * s.C / epw <= kTileVecs * kThreads &&
-        s.m_tile * jb * s.bc / epv <= kXVecs * kThreads &&
-        s.G * jb * (s.C + s.R) <= kIdx * kThreads && s.G * jb <= kThreads &&
-        smem_words(t) * 4 <= kSmemLimit) {
-      s.vec = 1;
-      s.jb = jb;
-      return;
-    }
-  }
-}
-
-template <typename Kernel>
-int launch(Kernel kernel, const SpmmShape& s, cudaStream_t stream,
-           void** args) {
-  const size_t smem = smem_words(s) * 4;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(s.nb_r, (s.M + s.m_tile - 1) / s.m_tile, s.E);
-  err = cudaLaunchKernel((const void*)kernel, grid, dim3(kThreads), args,
-                         smem, stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
-}
-
-SpmmShape make_shape(int M, int K, int N, int G, int nb_r, int nb_c, int br,
-                     int bc, int R, int C, int m_tile, int E) {
-  SpmmShape s;
-  s.M = M; s.K = K; s.N = N; s.G = G; s.nb_r = nb_r; s.nb_c = nb_c;
-  s.br = br; s.bc = bc; s.R = R; s.C = C; s.m_tile = m_tile; s.E = E;
-  s.jb = 1; s.vec = 0;
-  return s;
-}
-
-// Rows of x per CTA: the whole (4-aligned) M at decode sizes, else 32,
-// halved until the CTA's shared memory fits.
-int m_tile_for(SpmmShape s) {
-  s.m_tile = s.M <= 16 ? (s.M + 3) / 4 * 4 : 32;
-  if (s.m_tile < 4) s.m_tile = 4;
-  while (smem_words(s) * 4 > kSmemLimit) {
-    if (s.m_tile == 4) return 0;
-    s.m_tile /= 2;
-  }
-  return s.m_tile;
-}
-
-}  // namespace cuda_core
 
 // ===========================================================================
 // bf16-activation forms: tensor cores
@@ -2569,6 +2186,650 @@ int short_dispatch(const ShortShape& s, cudaStream_t st, void** args) {
 
 }  // namespace tc
 
+// ===========================================================================
+// fp32-activation forms: the CUDA cores
+// ===========================================================================
+
+namespace f32 {
+
+using namespace hopper;
+using tc::cover16;
+using tc::fast_div;
+using tc::fdiv;
+using tc::FastDiv;
+using tc::run_copy;
+using tc::up;
+using tc::up16;
+
+// The plan kernels/bcr_spmm.py:fp32_plan chose, in the order of its
+// LaunchPlan.args() for the fp32 body.
+struct Plan {
+  int mt;        // M tile: warps_m · lanes_m · U x rows
+  int T, U;      // output rows of one warp item; x rows of one lane
+  int lm, wm;    // lanes across the M tile; warps across the M tile
+  int nu, cr;    // units (one member's block row) a CTA; row chunks of each
+  int J;         // contraction blocks a stage
+  int splits, slots, vec, smem;
+};
+
+// Byte offsets of shared memory, as kernels/bcr_spmm.py:fp32_smem_layout
+// computes them (the launcher refuses a plan whose total disagrees). A ring
+// slot holds one stage: the x block transposed (J·bc + 1 columns of the M
+// tile's rows, columns xstride floats apart: at U = 4 an odd multiple of 4,
+// so a lane reads its 4 rows of a column as one 16-byte load, else odd; the
+// last column zeros, which padded column offsets read), then for each of the
+// CTA's units its tiles (fp32
+// rows of Cp = C_keep rounded up to 4 floats, zero-padded; or the raw int8
+// codes), its runs of row and column indices (and int8 scales), each with
+// room for the 16-byte chunks that cover it at any alignment. Then two
+// inverse row maps, two column-offset tables and, under int8 tiles, two
+// widened fp32 tile buffers. The epilogue's fp32 tile aliases the ring;
+// the split flag follows everything.
+struct Layout {
+  int xstride, cp, brp;            // x column (floats), kept row, map row
+  int x_bytes, tile, raw, seg_r, seg_c, seg_s;
+  int off_raw, off_r, off_c, off_s, slot;
+  int off_inv, inv_buf, off_colx, colx_buf, off_wide, main;
+  int ru, red_stride, off_flag, total;
+};
+
+struct Shape {
+  int M, K, N, G, nb_r, nb_c, br, bc, R, C, E;
+  int int8_tiles, swiglu;
+  int chunks, ncg, units, ugroups, groups, m_tiles, n_st, nch;
+  int log_lm, log_lc, nlb;         // lane = (lb · LC + lc) · LM + lm
+  FastDiv f_jr, f_r, f_jc, f_cp, f_jrc, f_c, f_per;
+  Plan q;
+  Layout l;
+};
+
+inline Layout make_layout(const Shape& s) {
+  Layout l;
+  const Plan& q = s.q;
+  const int J = q.J, ks = J * s.bc;
+  l.xstride = q.U == 4 ? ((q.mt + 3) / 4 | 1) * 4 : q.mt | 1;
+  l.cp = (s.C + 3) / 4 * 4;
+  l.brp = s.chunks * q.T;
+  l.x_bytes = up16((ks + 1) * l.xstride * 4);
+  l.tile = J * s.R * l.cp * 4;
+  l.raw = s.int8_tiles ? cover16(J * s.R * s.C) : l.tile;
+  l.seg_r = cover16(J * s.R * 4);
+  l.seg_c = cover16(J * s.C * 4);
+  l.seg_s = s.int8_tiles ? cover16(J * 4) : 0;
+  l.off_raw = l.x_bytes;
+  l.off_r = l.off_raw + q.nu * l.raw;
+  l.off_c = l.off_r + q.nu * l.seg_r;
+  l.off_s = l.off_c + q.nu * l.seg_c;
+  l.slot = up(l.off_s + q.nu * l.seg_s, 128);
+  l.off_inv = q.slots * l.slot;
+  l.inv_buf = up16(q.nu * J * l.brp * 2);
+  l.off_colx = l.off_inv + 2 * l.inv_buf;
+  l.colx_buf = q.nu * J * l.cp * 4;
+  l.off_wide = l.off_colx + 2 * l.colx_buf;
+  l.main = l.off_wide + (s.int8_tiles ? 2 * q.nu * l.tile : 0);
+  l.ru = q.cr * q.T < s.br ? q.cr * q.T : s.br;
+  l.red_stride = q.nu * l.ru + 1;
+  const int red = q.mt * l.red_stride * 4;
+  l.off_flag = up16(l.main > red ? l.main : red);
+  l.total = l.off_flag + 16;
+  return l;
+}
+
+// Unit u (member g's block row i, u = i·G + g) → its first tile's index in
+// the (G, nb_r, nb_c) grid of tiles, the block of stage column j0.
+__device__ __forceinline__ size_t unit_block(const Shape& s, int u, int j0) {
+  const int i = s.G == 1 ? u : u / s.G, g = u - i * s.G;
+  return ((size_t)g * s.nb_r + i) * s.nb_c + j0;
+}
+
+// Stage st (contraction blocks [st·J, st·J + nb)) of units [u0, u0 + nu)
+// into slot sl, asynchronously: the x block by 4-byte cp.async, transposed
+// (a warp an x row, its lanes along the row's columns; rows past M and
+// columns past the stage never copied), each
+// unit's fp32 tile rows by 16-byte cp.async where vals is 16-byte aligned
+// and C_keep a multiple of 4 (the run of J tiles is then the staged layout
+// itself), else by 4-byte cp.async into the zero-padded rows; int8 codes,
+// indices and scales as the 16-byte chunks that cover each run.
+__device__ __forceinline__ void issue(const Shape& s, unsigned char* sl,
+                                      const float* __restrict__ x,
+                                      const void* __restrict__ vals,
+                                      const float* __restrict__ scales,
+                                      const int* __restrict__ row_idx,
+                                      const int* __restrict__ col_idx, int u0,
+                                      int m0, int mt, int st) {
+  const int tid = threadIdx.x, nthr = blockDim.x, lane = tid & 31;
+  const int warp = tid >> 5, nw = nthr >> 5;
+  const Layout& l = s.l;
+  const int J = s.q.J, nu = s.q.nu, j0 = st * J, nb = min(J, s.nb_c - j0);
+  const int cols = nb * s.bc, RC = s.R * s.C;
+  const float* xb = x + (size_t)m0 * s.K + (size_t)j0 * s.bc;
+  const uint32_t xs = smem_u32(sl);
+  for (int m = warp; m < mt; m += nw)
+    for (int c = lane; c < cols; c += 32)
+      cp4(xs + (c * l.xstride + m) * 4, xb + (size_t)m * s.K + c, true);
+  const int nun = min(nu, s.units - u0);
+  if (!s.int8_tiles && s.q.vec) {
+    const int per = J * RC / 4, live = nb * RC / 4;
+    for (int e = tid; e < nun * per; e += nthr) {
+      const int un = fdiv(e, s.f_per), c = e - un * per;
+      if (c >= live) continue;
+      const float* src = static_cast<const float*>(vals) +
+                         unit_block(s, u0 + un, j0) * RC + c * 4;
+      cp16(smem_u32(sl + l.off_raw + un * l.raw + c * 16), src, true);
+    }
+  } else if (!s.int8_tiles) {
+    for (int un = 0; un < nun; ++un) {
+      const float* src =
+          static_cast<const float*>(vals) + unit_block(s, u0 + un, j0) * RC;
+      const uint32_t dst = smem_u32(sl + l.off_raw + un * l.raw);
+      for (int e = tid; e < nb * RC; e += nthr) {
+        const int row = fdiv(e, s.f_c), c = e - row * s.C;
+        cp4(dst + (row * l.cp + c) * 4, src + e, true);
+      }
+    }
+  }
+  for (int un = warp; un < nun; un += nw) {
+    const size_t blk = unit_block(s, u0 + un, j0);
+    if (s.int8_tiles) {
+      run_copy(sl + l.off_raw + un * l.raw,
+               static_cast<const int8_t*>(vals) + blk * RC, nb * RC, lane);
+      run_copy(sl + l.off_s + un * l.seg_s, scales + blk, nb * 4, lane);
+    }
+    run_copy(sl + l.off_r + un * l.seg_r, row_idx + blk * s.R, nb * s.R * 4,
+             lane);
+    run_copy(sl + l.off_c + un * l.seg_c, col_idx + blk * s.C, nb * s.C * 4,
+             lane);
+  }
+}
+
+// Stage st, landed in slot sl, made ready for the products in buffer b:
+// the other buffer's inverse row maps cleared (the products of stage st-1
+// read them; they are done); for each unit and block, output row row_idx[r]
+// → 16 + the byte offset of kept row r in the block's tile (0: not kept);
+// each kept column → the byte offset of its x column ((jj·bc + col_idx) ·
+// xstride · 4; the pad columns up to Cp → the zero column's); int8 codes
+// widened with their tile's scale folded in, fp32(code × scale).
+__device__ __forceinline__ void prepare(const Shape& s,
+                                        const unsigned char* sl,
+                                        unsigned char* smem, const void* vals,
+                                        const float* scales,
+                                        const int* row_idx,
+                                        const int* col_idx, int u0, int st,
+                                        int b) {
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const Layout& l = s.l;
+  const int J = s.q.J, j0 = st * J, nb = min(J, s.nb_c - j0);
+  const int nun = min(s.q.nu, s.units - u0);
+  uint4* other =
+      reinterpret_cast<uint4*>(smem + l.off_inv + (b ^ 1) * l.inv_buf);
+  for (int e = tid; e < l.inv_buf / 16; e += nthr)
+    other[e] = make_uint4(0, 0, 0, 0);
+  // the low address bits of each array: a run's offset mod 16 in its slot
+  const uint32_t lo_r = (uint32_t)reinterpret_cast<uintptr_t>(row_idx);
+  const uint32_t lo_c = (uint32_t)reinterpret_cast<uintptr_t>(col_idx);
+  uint16_t* inv = reinterpret_cast<uint16_t*>(smem + l.off_inv + b * l.inv_buf);
+  for (int e = tid; e < nun * J * s.R; e += nthr) {
+    const int un = fdiv(e, s.f_jr), rem = e - un * J * s.R;
+    const int jj = fdiv(rem, s.f_r), r = rem - jj * s.R;
+    if (jj >= nb) continue;
+    const uint32_t blk = (uint32_t)unit_block(s, u0 + un, j0);
+    const int* rs = reinterpret_cast<const int*>(
+        sl + l.off_r + un * l.seg_r + ((lo_r + blk * (uint32_t)s.R * 4) & 15));
+    inv[(un * J + jj) * l.brp + rs[jj * s.R + r]] =
+        (uint16_t)(r * l.cp * 4 + 16);
+  }
+  int* colx = reinterpret_cast<int*>(smem + l.off_colx + b * l.colx_buf);
+  for (int e = tid; e < nun * J * l.cp; e += nthr) {
+    const int un = fdiv(e, s.f_jc), rem = e - un * J * l.cp;
+    const int jj = fdiv(rem, s.f_cp), c = rem - jj * l.cp;
+    if (jj >= nb) continue;
+    int v = J * s.bc * l.xstride * 4;
+    if (c < s.C) {
+      const uint32_t blk = (uint32_t)unit_block(s, u0 + un, j0);
+      const int* cs = reinterpret_cast<const int*>(
+          sl + l.off_c + un * l.seg_c +
+          ((lo_c + blk * (uint32_t)s.C * 4) & 15));
+      v = (jj * s.bc + cs[jj * s.C + c]) * l.xstride * 4;
+    }
+    colx[(un * J + jj) * l.cp + c] = v;
+  }
+  if (s.int8_tiles) {
+    const uint32_t lo_v = (uint32_t)reinterpret_cast<uintptr_t>(vals);
+    const uint32_t lo_s = (uint32_t)reinterpret_cast<uintptr_t>(scales);
+    const int RC = s.R * s.C;
+    float* wide =
+        reinterpret_cast<float*>(smem + l.off_wide + b * s.q.nu * l.tile);
+    for (int e = tid; e < nun * J * RC; e += nthr) {
+      const int un = fdiv(e, s.f_jrc), rem = e - un * J * RC;
+      const int jr = fdiv(rem, s.f_c), c = rem - jr * s.C;
+      const int jj = fdiv(jr, s.f_r);
+      if (jj >= nb) continue;
+      const uint32_t blk = (uint32_t)unit_block(s, u0 + un, j0);
+      const int8_t* vs = reinterpret_cast<const int8_t*>(
+          sl + l.off_raw + un * l.raw + ((lo_v + blk * (uint32_t)RC) & 15));
+      const float* ss = reinterpret_cast<const float*>(
+          sl + l.off_s + un * l.seg_s + ((lo_s + blk * 4u) & 15));
+      wide[(un * J * s.R + jr) * l.cp + c] = (float)vs[rem] * ss[jj];
+    }
+  }
+}
+
+// One 4-column chunk ch of one block for one thread: its U rows of each of
+// the chunk's kept x columns (one 16-byte load a column at U = 4), then,
+// its T rows in groups of G, the kept rows' float4 loads (issued together)
+// before their FMAs. A row the block does not keep is a branch over its
+// load and products. xm: the thread's first x row in the stage's x block;
+// wb: the block's tile + 16 · (ch - 1) bytes, so a row's inverse-map entry
+// is its load's offset.
+template <int T, int U>
+__device__ __forceinline__ void chunk(const char* xm, const char* wb,
+                                      const int* cj, int ch,
+                                      const uint32_t (&rr)[(T + 1) / 2],
+                                      float (&acc)[T][U]) {
+  constexpr int G = T * U >= 64 ? 4 : T < 8 ? T : 8;
+  const int4 co = reinterpret_cast<const int4*>(cj)[ch];
+  const int cs[4] = {co.x, co.y, co.z, co.w};
+  float xg[U][4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    if constexpr (U == 4) {
+      const float4 v = *reinterpret_cast<const float4*>(xm + cs[e]);
+      xg[0][e] = v.x;
+      xg[1][e] = v.y;
+      xg[2][e] = v.z;
+      xg[3][e] = v.w;
+    } else {
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        xg[u][e] = reinterpret_cast<const float*>(xm + cs[e])[u];
+    }
+  }
+#pragma unroll
+  for (int o0 = 0; o0 < T; o0 += G) {
+    uint32_t r[G];
+    float4 w[G];
+#pragma unroll
+    for (int o = 0; o < G; ++o) {
+      const int q = o0 + o;
+      r[o] = (q & 1) ? rr[q >> 1] >> 16 : rr[q >> 1] & 0xffffu;
+      if (r[o]) w[o] = *reinterpret_cast<const float4*>(wb + r[o]);
+    }
+#pragma unroll
+    for (int o = 0; o < G; ++o) {
+      if (r[o]) {
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          float& a = acc[o0 + o][u];
+          a = fmaf(w[o].x, xg[u][0], a);
+          a = fmaf(w[o].y, xg[u][1], a);
+          a = fmaf(w[o].z, xg[u][2], a);
+          a = fmaf(w[o].w, xg[u][3], a);
+        }
+      }
+    }
+  }
+}
+
+// One stage's products for one thread: its warp item's T output rows (rows
+// [t0, t0 + T) of unit un) by its U x rows (mbase, mbase + 1, ...), over the
+// stage's nb blocks. Lanes share the contraction: lane (lb, lc, lm) takes
+// blocks lb, lb + LB, ... and of each the 4-column chunks lc, lc + LC, ...
+// The row branches are warp-uniform when LB = 1.
+template <int T, int U>
+__device__ __forceinline__ void products(const Shape& s, const float* xs,
+                                         const float* W, const int* colx,
+                                         const uint16_t* inv, int nb, int un,
+                                         int t0, int mbase, int lc, int lb,
+                                         float (&acc)[T][U]) {
+  const Layout& l = s.l;
+  const int J = s.q.J, LC = 1 << s.log_lc;
+  const char* xm = reinterpret_cast<const char*>(xs + mbase);
+  for (int jj = lb; jj < nb; jj += s.nlb) {
+    const int blk = un * J + jj;
+    // for each of the item's rows 16 + its kept row's byte offset in the
+    // block's tile (0: not kept), two a word
+    uint32_t rr[(T + 1) / 2];
+    const uint16_t* ip = inv + blk * l.brp + t0;
+    if constexpr (T % 8 == 0) {
+#pragma unroll
+      for (int v = 0; v < T / 8; ++v) {
+        const uint4 a = reinterpret_cast<const uint4*>(ip)[v];
+        rr[4 * v] = a.x;
+        rr[4 * v + 1] = a.y;
+        rr[4 * v + 2] = a.z;
+        rr[4 * v + 3] = a.w;
+      }
+    } else {
+#pragma unroll
+      for (int w = 0; w < (T + 1) / 2; ++w)
+        rr[w] = reinterpret_cast<const uint32_t*>(ip)[w];
+    }
+    const char* wj = reinterpret_cast<const char*>(
+        W + (size_t)blk * s.R * l.cp) - 16;
+    const int* cj = colx + blk * l.cp;
+    for (int ch = lc; ch < s.nch; ch += LC)
+      chunk<T, U>(xm, wj + 16 * ch, cj, ch, rr, acc);
+  }
+}
+
+// One CTA: units [u0, u0 + nu) (rows [c0·T, c0·T + cr·T) of each) by x rows
+// [m0, m0 + M tile), over the stages of split sp; expert blockIdx.y of a
+// stacked pack. Warp (item, wm) owns unit item / cr's rows of chunk c0 +
+// item % cr by the wm-th slice of the M tile.
+template <int T, int U>
+__device__ __forceinline__ void body(const float* __restrict__ x,
+                                     const void* __restrict__ vals,
+                                     const float* __restrict__ scales,
+                                     const int* __restrict__ row_idx,
+                                     const int* __restrict__ col_idx,
+                                     const float* __restrict__ bias,
+                                     float* __restrict__ y,
+                                     float* __restrict__ ws,
+                                     int* __restrict__ counters,
+                                     const Shape& s) {
+  extern __shared__ __align__(128) unsigned char smem_f32[];
+  unsigned char* smem = smem_f32;
+  const Layout& l = s.l;
+  const Plan& q = s.q;
+  const int tid = threadIdx.x, nthr = blockDim.x, lane = tid & 31;
+  const int warp = tid >> 5;
+  const int S = q.splits, sp = blockIdx.x % S, tile = blockIdx.x / S;
+  // the row groups of one M tile run side by side: its x block is read
+  // from device memory once and from L2 by the others
+  const int rg = tile % s.groups, mtile = tile / s.groups;
+  const int ug = rg / s.ncg, c0 = (rg - ug * s.ncg) * q.cr;
+  const int u0 = ug * q.nu, m0 = mtile * q.mt, mt = min(q.mt, s.M - m0);
+  const int st0 = (int)((long long)sp * s.n_st / S);
+  const int n_loc = (int)((long long)(sp + 1) * s.n_st / S) - st0;
+  // a stacked pack: every operand holds E equal slices, expert-major
+  const size_t ex = blockIdx.y, tiles_e = (size_t)s.G * s.nb_r * s.nb_c;
+  x += ex * s.M * s.K;
+  vals = static_cast<const unsigned char*>(vals) +
+         ex * tiles_e * s.R * s.C * (s.int8_tiles ? 1 : 4);
+  if (s.int8_tiles) scales += ex * tiles_e;
+  row_idx += ex * tiles_e * s.R;
+  col_idx += ex * tiles_e * s.C;
+  if (bias != nullptr) bias += ex * s.G * s.N;
+  y += ex * (s.swiglu ? 1 : s.G) * s.M * s.N;
+  const int tile_g = (int)ex * s.groups * s.m_tiles + tile;
+
+  // zeros everywhere first: x rows past M, the x rows' zero column, the
+  // tiles' pad columns, both inverse maps
+  for (int e = tid; e < l.main / 16; e += nthr)
+    reinterpret_cast<uint4*>(smem)[e] = make_uint4(0, 0, 0, 0);
+  __syncthreads();
+  // slots - 1 stages in flight ahead of the one being computed (two in a
+  // ring of three), or all of a split's stages at once where the ring holds
+  // them
+  const bool all = n_loc <= q.slots;
+  const int ahead = all ? n_loc : q.slots - 1;
+  for (int p = 0; p < ahead; ++p) {
+    if (p < n_loc)
+      issue(s, smem + p * l.slot, x, vals, scales, row_idx, col_idx, u0, m0,
+            mt, st0 + p);
+    cp_commit();
+  }
+
+  const int item = warp / q.wm, wm = warp - item * q.wm;
+  const int un = item / q.cr, t0 = (c0 + item - un * q.cr) * q.T;
+  const int lm = lane & ((1 << s.log_lm) - 1), lk = lane >> s.log_lm;
+  const int lc = lk & ((1 << s.log_lc) - 1), lb = lk >> s.log_lc;
+  const int mbase = wm * (U << s.log_lm) + lm * U;
+  float acc[T][U];
+#pragma unroll
+  for (int o = 0; o < T; ++o)
+#pragma unroll
+    for (int u = 0; u < U; ++u) acc[o][u] = 0.f;
+
+  for (int it = 0; it < n_loc; ++it) {
+    if (all) {
+      if (it == 0) cp_wait<0>();
+    } else if (ahead == 2) {
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    // stage it landed (every thread's copies); stage it-1's products done,
+    // so its slot and the other buffers are free
+    __syncthreads();
+    if (!all) {
+      if (it + ahead < n_loc)
+        issue(s, smem + ((it + ahead) % q.slots) * l.slot, x, vals, scales,
+              row_idx, col_idx, u0, m0, mt, st0 + it + ahead);
+      cp_commit();
+    }
+    unsigned char* slot = smem + (it % q.slots) * l.slot;
+    const int b = it & 1;
+    prepare(s, slot, smem, vals, scales, row_idx, col_idx, u0, st0 + it, b);
+    __syncthreads();
+    const float* W = reinterpret_cast<const float*>(
+        s.int8_tiles ? smem + l.off_wide + b * q.nu * l.tile
+                     : slot + l.off_raw);
+    const int nb = min(q.J, s.nb_c - (st0 + it) * q.J);
+    if (u0 + un < s.units && t0 < s.br)
+      products<T, U>(s, reinterpret_cast<const float*>(slot), W,
+                     reinterpret_cast<const int*>(smem + l.off_colx +
+                                                  b * l.colx_buf),
+                     reinterpret_cast<const uint16_t*>(smem + l.off_inv +
+                                                       b * l.inv_buf),
+                     nb, un, t0, mbase, lc, lb, acc);
+  }
+  cp_wait<0>();
+  __syncthreads();
+
+  // the lanes sharing the contraction summed in a fixed order; the fp32
+  // tile → shared memory as [m][unit rows] (over the ring)
+  for (int o = 32 >> (5 - s.log_lm); o < 32; o <<= 1)
+#pragma unroll
+    for (int t = 0; t < T; ++t)
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        acc[t][u] += __shfl_xor_sync(0xffffffffu, acc[t][u], o);
+  float* red = reinterpret_cast<float*>(smem);
+  if (lk == 0) {
+    const int lr = t0 - c0 * q.T;   // the item's first row within its unit
+#pragma unroll
+    for (int o = 0; o < T; ++o)
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (lr + o < l.ru && t0 + o < s.br)
+          red[(mbase + u) * l.red_stride + un * l.ru + lr + o] = acc[o][u];
+  }
+  __syncthreads();
+  const int rows = q.nu * l.ru, per = q.mt * rows;
+  if (S > 1) {
+    // this split's partial to the workspace; the last split to arrive sums
+    // all of them in split order, so y does not depend on arrival order
+    float* wp = ws + ((size_t)tile_g * S + sp) * per;
+    for (int e = tid; e < mt * rows; e += nthr) {
+      const int m = e / rows, n = e - m * rows;
+      wp[e] = red[m * l.red_stride + n];
+    }
+    __threadfence();
+    __syncthreads();
+    int* flag = reinterpret_cast<int*>(smem + l.off_flag);
+    if (tid == 0) *flag = atomicAdd(counters + tile_g, 1) == S - 1;
+    __syncthreads();
+    if (!*flag) return;
+    __threadfence();
+  }
+  const float* parts = ws + (size_t)tile_g * S * per;
+  auto value = [&](int m, int n) {
+    if (S == 1) return red[m * l.red_stride + n];
+    // the S partials in split order, eight loads in flight at a time
+    const float* pp = parts + (size_t)m * rows + n;
+    float v = __ldcg(pp);
+    for (int k0 = 1; k0 < S; k0 += 8) {
+      float b[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        b[i] = k0 + i < S ? __ldcg(pp + (size_t)(k0 + i) * per) : 0.f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        if (k0 + i < S) v += b[i];
+    }
+    return v;
+  };
+  const int r0 = c0 * q.T;
+  if (s.swiglu) {
+    // units in gate/up pairs (2k, 2k + 1) = member 0 and 1 of block row i
+    const int half = rows / 2;
+    for (int e = tid; e < mt * half; e += nthr) {
+      const int m = e / half, h = e - m * half;
+      const int k = h / l.ru, lr = h - k * l.ru;
+      const int u = u0 + 2 * k, row = r0 + lr;
+      if (u >= s.units || row >= s.br) continue;
+      const int n = (u / 2) * s.br + row;
+      float gate = value(m, 2 * k * l.ru + lr);
+      float upv = value(m, (2 * k + 1) * l.ru + lr);
+      if (bias != nullptr) {
+        gate += bias[n];
+        upv += bias[(size_t)s.N + n];
+      }
+      y[(size_t)(m0 + m) * s.N + n] = gate / (1.f + expf(-gate)) * upv;
+    }
+  } else {
+    for (int e = tid; e < mt * rows; e += nthr) {
+      const int m = e / rows, qr = e - m * rows;
+      const int k = qr / l.ru, lr = qr - k * l.ru;
+      const int u = u0 + k, row = r0 + lr;
+      if (u >= s.units || row >= s.br) continue;
+      const int i = s.G == 1 ? u : u / s.G, g = u - i * s.G;
+      const int n = i * s.br + row;
+      float v = value(m, qr);
+      if (bias != nullptr) v += bias[(size_t)g * s.N + n];
+      y[((size_t)g * s.M + m0 + m) * s.N + n] = v;
+    }
+  }
+  if (S > 1 && tid == 0) counters[tile_g] = 0;   // ready for the next call
+}
+
+// The compiled configurations (T output rows a warp item, U x rows a lane):
+// kernels/bcr_spmm.py:FP32_CONFIGS; at most kWarps warps a CTA
+// (FP32_WARPS).
+constexpr int kWarps = 16;
+
+#define BCR_F32_KERNELS(NAME)                                                \
+  template <int T, int U>                                                    \
+  __global__ void __launch_bounds__(kWarps * 32, 1)                          \
+      NAME(const float* x, const void* vals, const float* scales,            \
+           const int* row_idx, const int* col_idx, const float* bias,        \
+           float* y, float* ws, int* counters, const Shape s) {              \
+    body<T, U>(x, vals, scales, row_idx, col_idx, bias, y, ws, counters, s); \
+  }
+BCR_F32_KERNELS(bcr_spmm_fp32)
+BCR_F32_KERNELS(bcr_spmm_grouped_fp32)
+#undef BCR_F32_KERNELS
+
+template <typename Kernel>
+int launch_kernel(Kernel kernel, int& smem_set, const Shape& s, int warps,
+                  cudaStream_t stream, void** args) {
+  if (s.q.smem > smem_set) {   // raise the limit once
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, s.q.smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = s.q.smem;
+  }
+  const dim3 grid(s.groups * s.m_tiles * s.q.splits, s.E);
+  cudaError_t err = cudaLaunchKernel((const void*)kernel, grid,
+                                     dim3(warps * 32), args, s.q.smem, stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <int T, int U>
+int launch_cfg(const Shape& s, int grouped, int warps, cudaStream_t st,
+               void** args) {
+  if (warps > kWarps) return (int)cudaErrorInvalidValue;
+  static int set_plain = 0, set_grouped = 0;
+  return grouped ? launch_kernel(bcr_spmm_grouped_fp32<T, U>, set_grouped, s,
+                                 warps, st, args)
+                 : launch_kernel(bcr_spmm_fp32<T, U>, set_plain, s, warps, st,
+                                 args);
+}
+
+inline int dispatch(const Shape& s, int grouped, int warps, cudaStream_t st,
+                    void** args) {
+#define BCR_F32(A, B)                 \
+  if (s.q.T == A && s.q.U == B)       \
+    return launch_cfg<A, B>(s, grouped, warps, st, args);
+  BCR_F32(2, 1)
+  BCR_F32(2, 4)
+  BCR_F32(8, 1)
+  BCR_F32(8, 4)
+  BCR_F32(16, 1)
+  BCR_F32(16, 4)
+#undef BCR_F32
+  return (int)cudaErrorInvalidValue;
+}
+
+inline int log2i(int v) {
+  int k = 0;
+  while ((1 << k) < v) ++k;
+  return (1 << k) == v ? k : -1;
+}
+
+inline int launch(int grouped, int int8_tiles, int swiglu, const void* x,
+                  const void* vals, const float* scales, const int* row_idx,
+                  const int* col_idx, const float* bias, void* y, float* ws,
+                  int* counters, int M, int K, int N, int G, int nb_r,
+                  int nb_c, int br, int bc, int R, int C, int E,
+                  const int* plan, cudaStream_t st) {
+  Shape s;
+  s.M = M; s.K = K; s.N = N; s.G = G; s.nb_r = nb_r; s.nb_c = nb_c;
+  s.br = br; s.bc = bc; s.R = R; s.C = C; s.E = E;
+  s.int8_tiles = int8_tiles; s.swiglu = swiglu;
+  s.q = Plan{plan[0], plan[1], plan[2], plan[3], plan[4], plan[5],
+             plan[6], plan[7], plan[8], plan[9], plan[10], plan[11]};
+  const Plan& q = s.q;
+  s.log_lm = log2i(q.lm);
+  // the inverse map's 16-bit entries hold 16 + a kept row's byte offset
+  if (br < 1 || R < 1 || C < 1 ||
+      (R - 1) * ((C + 3) / 4 * 4) * 4 + 16 > 65535 ||
+      q.T < 1 || q.U < 1 ||
+      s.log_lm < 0 || q.lm > 32 || q.wm < 1 || q.nu < 1 || q.cr < 1 ||
+      q.J < 1 || q.splits < 1 || q.slots < 1 || q.slots > 3 ||
+      q.mt != q.wm * q.lm * q.U || (swiglu && (G != 2 || q.nu % 2)))
+    return (int)cudaErrorInvalidValue;
+  s.chunks = (br + q.T - 1) / q.T;
+  if (q.cr > s.chunks) return (int)cudaErrorInvalidValue;
+  s.ncg = (s.chunks + q.cr - 1) / q.cr;
+  s.units = nb_r * G;
+  s.ugroups = (s.units + q.nu - 1) / q.nu;
+  s.groups = s.ugroups * s.ncg;
+  s.m_tiles = (M + q.mt - 1) / q.mt;
+  s.n_st = (nb_c + q.J - 1) / q.J;
+  // a ring of one slot holds one stage: every split walks one
+  if (q.splits > s.n_st ||
+      (q.slots == 1 && (s.n_st + q.splits - 1) / q.splits > 1))
+    return (int)cudaErrorInvalidValue;
+  s.nch = (C + 3) / 4;
+  // lanes sharing the contraction: LC of them over a block's 4-column
+  // chunks, LB over the stage's blocks
+  const int lk = 32 / q.lm;
+  int lc = 1;
+  while (lc < lk && lc < s.nch) lc *= 2;
+  s.log_lc = log2i(lc);
+  s.nlb = lk / lc;
+  s.l = make_layout(s);
+  if (s.l.total != q.smem) return -1;   // plan and layout disagree
+  if (q.vec && (int8_tiles || (uintptr_t)vals % 16 || C % 4)) return -2;
+  s.f_jr = fast_div(q.J * R);
+  s.f_r = fast_div(R);
+  s.f_jc = fast_div(q.J * s.l.cp);
+  s.f_cp = fast_div(s.l.cp);
+  s.f_jrc = fast_div(q.J * R * C);
+  s.f_c = fast_div(C);
+  s.f_per = fast_div(q.J * R * C / 4 > 0 ? q.J * R * C / 4 : 1);
+  const int warps = q.nu * q.cr * q.wm;
+  void* args[] = {(void*)&x, (void*)&vals, (void*)&scales, (void*)&row_idx,
+                  (void*)&col_idx, (void*)&bias, (void*)&y, (void*)&ws,
+                  (void*)&counters, (void*)&s};
+  return dispatch(s, grouped, warps, st, args);
+}
+
+}  // namespace f32
+
 extern "C" {
 
 // One launch of either body. dtype: 0 = float32, 1 = bfloat16 (x and y
@@ -2577,9 +2838,9 @@ extern "C" {
 // with ([G,] nb_r, nb_c) fp32 scales. bias: (G, N) fp32 or null; swiglu: G
 // = 2, y (M, N), else y (G, M, N). E: stacked experts (1 for a plain pack),
 // each operand above then E of those, expert-major. plan:
-// kernels/bcr_spmm.py:LaunchPlan.args() under bf16 (ws: its fp32 workspace,
+// kernels/bcr_spmm.py:LaunchPlan.args() (ws: its fp32 workspace,
 // counters: its zeroed split counters, both null when unsplit, both sized
-// for every expert); ignored under fp32.
+// for every expert): a tensor-core plan under bf16, fp32_plan's under fp32.
 int bcr_spmm_launch(int dtype, int grouped, int int8_tiles, int swiglu,
                     const void* x,
                     const void* vals, const float* scales, const int* row_idx,
@@ -2589,33 +2850,12 @@ int bcr_spmm_launch(int dtype, int grouped, int int8_tiles, int swiglu,
                     const int* plan, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (E < 1 || E > 65535) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) {
-    using namespace cuda_core;
-    SpmmShape s = make_shape(M, K, N, G, nb_r, nb_c, br, bc, R, C, 4, E);
-    s.m_tile = m_tile_for(s);
-    if (s.m_tile == 0) return (int)cudaErrorInvalidValue;
-    plan_phases(s, 4, int8_tiles ? 1 : 4, x, vals);
-    void* args[] = {(void*)&x, (void*)&vals, (void*)&scales, (void*)&row_idx,
-                    (void*)&col_idx, (void*)&y, (void*)&s};
-    if (!grouped)
-      return int8_tiles
-                 ? launch(bcr_spmm_kernel<float, int8_t>, s, st, args)
-                 : launch(bcr_spmm_kernel<float, float>, s, st, args);
-    void* gargs[] = {(void*)&x, (void*)&vals, (void*)&scales,
-                     (void*)&row_idx, (void*)&col_idx, (void*)&bias,
-                     (void*)&y, (void*)&s};
-    if (int8_tiles)
-      return swiglu
-                 ? launch(bcr_spmm_grouped_kernel<float, int8_t, true>, s, st,
-                          gargs)
-                 : launch(bcr_spmm_grouped_kernel<float, int8_t, false>, s,
-                          st, gargs);
-    return swiglu ? launch(bcr_spmm_grouped_kernel<float, float, true>, s, st,
-                           gargs)
-                  : launch(bcr_spmm_grouped_kernel<float, float, false>, s,
-                           st, gargs);
-  }
-  if (dtype != 1 || plan == nullptr) return (int)cudaErrorInvalidValue;
+  if (plan == nullptr) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return f32::launch(grouped, int8_tiles, swiglu, x, vals, scales, row_idx,
+                       col_idx, bias, y, ws, counters, M, K, N, G, nb_r, nb_c,
+                       br, bc, R, C, E, plan, st);
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
   if (plan[0] == tc::kWgMT)
     return tc::wg_launch(int8_tiles, swiglu, grouped, x, vals, scales, row_idx,
                          col_idx, bias, y, ws, counters, M, K, N, G, nb_r,

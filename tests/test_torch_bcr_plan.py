@@ -521,3 +521,194 @@ def test_ragged_m_covers_every_output_once(m, n, g, e, swiglu):
         q0 = rg * plan.n_chunk
         qn = min(plan.n_chunk, g * n - q0)
         assert (q0 + qn - 1) // BLOCK[0] - q0 // BLOCK[0] + 1 <= plan.units
+
+
+# -- the fp32 body (fp32 x, CUDA cores) -------------------------------------
+
+# (label, M, N, K, G, block, kept, experts): every fp32 row of PERF.md's
+# rows 1g, 1f, 1e, 2e and the shapes phase 3's fp32 checks and the fp32
+# phases give the body (whisper's (2, 128) lm_head, G = 2 and 3, stacked
+# experts)
+FP32_SHAPES = [
+    ("GRU uz", 1, 1024, 1024, 1, (8, 8), (2, 4), 1),
+    ("GRU uz", 32, 1024, 1024, 1, (8, 8), (2, 4), 1),
+    ("conv2", 256, 32, 144, 1, (8, 16), (4, 8), 1),
+    ("VGG conv3", 3136, 256, 2304, 1, (8, 16), (4, 8), 1),
+    ("VGG conv3", 25088, 256, 2304, 1, (8, 16), (4, 8), 1),
+    ("jamba x_proj", 8, 288, 8192, 1, (144, 128), (72, 64), 1),
+    ("pixtral wq", 8, 4096, 5120, 1, BLOCK, K25, 1),
+    ("pixtral wkv", 8, 1024, 5120, 2, BLOCK, K25, 1),
+    ("pixtral wgi", 8, 14336, 5120, 2, BLOCK, K25, 1),
+    ("pixtral lm_head", 8, 131072, 5120, 1, BLOCK, K25, 1),
+    ("pixtral wgi", 512, 14336, 5120, 2, BLOCK, K25, 1),
+    ("rwkv6 cm_wv", 8, 2560, 8960, 1, BLOCK, K25, 1),
+    ("experts wo", 4, 2048, 1408, 1, BLOCK, K25, 64),
+    ("experts wo", 228, 2048, 1408, 1, BLOCK, K25, 64),
+    ("experts wgi", 228, 1408, 2048, 2, BLOCK, K25, 64),
+    ("whisper lm_head", 8, 51866, 1280, 1, (2, 128), (1, 64), 1),
+    ("whisper wqkv", 300, 1280, 1280, 3, BLOCK, K25, 1),
+    ("smoke wgi", 5, 128, 64, 2, SMOKE_BLOCK, SMOKE_KEPT, 1),
+    ("odd", 5, 111, 144, 1, (3, 16), (2, 8), 1),
+]
+
+
+def _legal_fp32(plan, m, n, k, g, block, kept, int8, e):
+    """An fp32-body plan: a compiled configuration, warps within its most,
+    the M tile its lanes and warps, whole gate/up pairs, whole stages per
+    split, and the Python mirror's shared-memory bytes within a CTA's."""
+    br, bc = block
+    t, u, lm = plan.warp_rows, plan.lane_rows, plan.lanes_m
+    assert plan.body == "fp32" and t == K.fp32_rows(br)
+    assert (t, u) in K.FP32_CONFIGS
+    chunks = -(-br // t)
+    assert (plan.warps == plan.units * plan.row_chunks * plan.warps_m
+            <= K.FP32_WARPS)
+    assert plan.m_tile == plan.warps_m * lm * u and 32 % lm == 0
+    assert m <= plan.m_tile * plan.m_tiles < m + plan.m_tile
+    assert 1 <= plan.row_chunks <= chunks
+    assert plan.chunks == -(-chunks // plan.row_chunks)
+    assert plan.n_chunk == min(br, plan.row_chunks * t)
+    if g == 2:
+        assert plan.units % 2 == 0
+    n_st = -(-plan.nb_c // plan.stage_blocks)
+    assert 1 <= plan.stage_blocks <= plan.nb_c and 1 <= plan.splits <= n_st
+    assert 1 <= plan.stages <= min(3, -(-n_st // plan.splits))
+    for sp in range(plan.splits):       # every split walks a whole stage
+        assert (sp + 1) * n_st // plan.splits - sp * n_st // plan.splits >= 1
+    assert plan.smem_bytes == K.fp32_smem_layout(
+        plan.m_tile, plan.units, plan.row_chunks, t, u, plan.stage_blocks,
+        plan.stages, br, bc, kept[0], kept[1], int8) <= K.SMEM_LIMIT
+    assert plan.tiles == (e * -(-plan.nb_r * g // plan.units) * plan.chunks
+                          * plan.m_tiles)
+    assert plan.vec == (kept[1] % 4 == 0 and not int8)
+    assert len(plan.args()) == 12
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("label,m,n,k,g,block,kept,e", FP32_SHAPES)
+def test_fp32_plans_fit_a_cta(label, m, n, k, g, block, kept, e, int8):
+    """Every served fp32 shape gets a legal fp32-body plan within 227 KB of
+    shared memory, fp32 and int8 tiles; the grid fills the card (split)
+    wherever its output tiles fill under half of it."""
+    plan = K.fp32_plan(m, n, k, g, block, kept, SMS, int8, True, e)
+    _legal_fp32(plan, m, n, k, g, block, kept, int8, e)
+    if 2 * plan.tiles <= SMS and plan.splits == 1:
+        assert -(-plan.nb_c // plan.stage_blocks) == 1
+
+
+@pytest.mark.parametrize("m,n,k,block,kept", [
+    (1, 1024, 1024, (8, 8), (2, 4)), (32, 1024, 1024, (8, 8), (2, 4)),
+    (8, 288, 8192, (144, 128), (72, 64)), (8, 4096, 5120, BLOCK, K25)])
+def test_fp32_split_fills_the_card(m, n, k, block, kept):
+    """The GRU at M = 1 and 32, jamba's x_proj and pixtral's wq at M = 8:
+    too few output tiles for the card, so the stages are split over CTAs
+    until the grid reaches the SM count."""
+    plan = K.fp32_plan(m, n, k, 1, block, kept, SMS)
+    assert plan.splits > 1 and plan.grid >= SMS
+    assert 2 * plan.tiles <= SMS
+
+
+def _fp32_cover(plan, m, n, g, br, swiglu):
+    """The output elements (expert, member, x row, column) the fp32 body's
+    CTAs write, in the kernel's decode (``f32::body``: tile → row group rg
+    and M tile; rg → unit group and chunk group; warp item → unit and row
+    chunk; the epilogue's rows of each unit; SwiGLU: gate unit 2k and up
+    unit 2k + 1), counted."""
+    from collections import Counter
+    seen = Counter()
+    units = plan.nb_r * g
+    t, cr = plan.warp_rows, plan.row_chunks
+    ugroups = -(-units // plan.units)
+    groups = ugroups * plan.chunks
+    for ex in range(plan.experts):
+        for tile in range(groups * plan.m_tiles):
+            rg, mtile = tile % groups, tile // groups
+            ug, c0 = rg // plan.chunks, (rg % plan.chunks) * cr
+            u0, m0 = ug * plan.units, mtile * plan.m_tile
+            mt = min(plan.m_tile, m - m0)
+            ru = plan.n_chunk
+            for kk in range(plan.units // 2 if swiglu else plan.units):
+                for lr in range(ru):
+                    row = c0 * t + lr
+                    u = u0 + (2 * kk if swiglu else kk)
+                    if u >= units or row >= br:
+                        continue
+                    i, mem = (u // 2, 0) if swiglu else divmod(u, g)
+                    for mm in range(m0, m0 + mt):
+                        seen[ex, mem, mm, i * br + row] += 1
+    return seen
+
+
+@pytest.mark.parametrize("m,n,g,block,kept,e,swiglu", [
+    (300, 1280, 3, BLOCK, K25, 1, False),    # a last M tile of 44 rows
+    (5, 1408, 2, BLOCK, K25, 2, True),       # SwiGLU pairs, stacked experts
+    (8, 288, 1, (144, 128), (72, 64), 1, False),   # chunk groups of 80 + 64
+    (33, 1000, 1, (8, 8), (2, 4), 1, False),  # a last group of 13 units
+    (5, 111, 1, (3, 16), (2, 8), 1, False),   # T = 2 over 3-row blocks
+    (1, 2002, 1, (2, 128), (1, 64), 1, False)])
+def test_fp32_ragged_outputs_written_once(m, n, g, block, kept, e, swiglu):
+    """Ragged M, a last unit group, chunk groups and SwiGLU pairs: the fp32
+    body's CTAs write every output element exactly once."""
+    k = 8 * block[1]
+    plan = K.fp32_plan(m, n, k, g, block, kept, SMS, experts=e)
+    seen = _fp32_cover(plan, m, n, g, block[0], swiglu)
+    gy = 1 if swiglu else g
+    assert len(seen) == e * gy * m * n and set(seen.values()) == {1}
+
+
+def test_fp32_plan_raises_on_bad_shapes():
+    with pytest.raises(ValueError, match="whole number"):
+        K.fp32_plan(8, 100, 128, 1, (8, 8), (2, 4), SMS)
+    with pytest.raises(ValueError, match="do not fit"):
+        K.fp32_plan(8, 128, 128, 1, (8, 8), (9, 4), SMS)
+    assert K.fp32_plan(8, 128, 128, 1, (8, 8), (2, 4), SMS) is \
+        K.fp32_plan(8, 128, 128, 1, (8, 8), (2, 4), SMS)
+
+
+# the fp32 body's plans at PERF.md's fp32 rows (rows 1g, 1f, 1e, 2e): (label,
+# M) → fp32 tiles' (M tile, T, U, lanes across M, warps across M, units,
+# row chunks, J, splits, ring slots), then the shared-memory bytes of (fp32,
+# int8) tiles: the Python mirror's, which the CUDA launcher's own layout
+# must equal (it refuses a plan that disagrees, returning -1) on the card
+FP32_PINS = {
+    ("GRU uz", 1): ((1, 8, 1, 1, 1, 8, 1, 14, 9, 2), (21264, 24592)),
+    ("GRU uz", 32): ((32, 8, 1, 32, 1, 8, 1, 14, 9, 2), (50192, 53520)),
+    ("conv2", 256): ((64, 8, 1, 32, 2, 4, 1, 9, 1, 1), (47760, 53776)),
+    ("VGG conv3", 3136): ((128, 8, 4, 32, 1, 16, 1, 9, 3, 2),
+                          (218896, 230672)),
+    ("VGG conv3", 25088): ((128, 8, 4, 32, 1, 16, 1, 9, 1, 2),
+                           (218896, 230672)),
+    ("jamba x_proj", 8): ((8, 16, 4, 2, 1, 1, 5, 1, 33, 2), (51536, 61008)),
+    ("pixtral wq", 8): ((8, 16, 4, 2, 1, 2, 8, 2, 9, 2), (164112, 228112)),
+    ("pixtral wkv", 8): ((8, 16, 4, 2, 1, 2, 8, 2, 17, 2),
+                         (164112, 197136)),
+    ("pixtral wgi", 8): ((8, 16, 4, 2, 1, 2, 8, 2, 1, 2), (164112, 228112)),
+    ("pixtral lm_head", 8): ((8, 16, 4, 2, 1, 2, 8, 2, 1, 2),
+                             (164112, 228112)),
+    ("pixtral wgi", 512): ((128, 16, 4, 32, 1, 2, 8, 1, 1, 2),
+                           (206096, 222736)),
+    ("experts wo", 228): ((128, 16, 4, 32, 1, 2, 8, 1, 1, 2),
+                          (206096, 222736)),
+    ("experts wgi", 228): ((128, 16, 4, 32, 1, 2, 8, 1, 1, 2),
+                           (206096, 222736)),
+}
+FP32_ROWS = [row for row in FP32_SHAPES if (row[0], row[1]) in FP32_PINS]
+
+
+@pytest.mark.parametrize("label,m,n,k,g,block,kept,e", FP32_ROWS)
+def test_fp32_row_plans_are_pinned(label, m, n, k, g, block, kept, e):
+    """The fp32 rule at the timed fp32 rows: the GRU splits 9 ways over 16
+    CTAs of 8 block rows, VGG conv3 takes 16 block rows a CTA at the 128 M
+    tile (2 slots of 9 blocks), conv2 never splits, x_proj cuts its block
+    rows into chunk groups, pixtral's decode takes 4 x rows a lane, and the
+    shared-memory bytes are the layout mirror's."""
+    want, smem = FP32_PINS[label, m]
+    assert len(FP32_ROWS) == len(FP32_PINS)
+    for int8, want_bytes in zip((False, True), smem):
+        plan = K.fp32_plan(m, n, k, g, block, kept, SMS, int8, True, e)
+        _legal_fp32(plan, m, n, k, g, block, kept, int8, e)
+        assert plan.smem_bytes == want_bytes
+        if not int8:
+            assert (plan.m_tile, plan.warp_rows, plan.lane_rows,
+                    plan.lanes_m, plan.warps_m, plan.units, plan.row_chunks,
+                    plan.stage_blocks, plan.splits, plan.stages) == want

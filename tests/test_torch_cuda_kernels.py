@@ -329,26 +329,110 @@ def test_wide_body_unaligned_x(cuda, int8):
     _close(got, run(), torch.bfloat16)
 
 
+# the fp32 body's split forms: (N, K, G, block, keep, align, M)
+FP32_SPLITS = {"gru_fp32": (1024, 1024, 1, (8, 8), 0.1, 2, 1),
+               "xproj_fp32": (288, 8192, 1, (144, 128), 0.25, 8, 8),
+               "wo_fp32": (2048, 8192, 1, (128, 128), 0.25, 8, 8),
+               "wgi_fp32": (8192, 2048, 2, (128, 128), 0.25, 8, 8)}
+
+
+# the fp32 body (fp32 x) at GRIM's blocks and the 128 blocks: (N, K, block,
+# keep, align); block-row counts no CTA's units divide
+FP32_CASES = [
+    (1000, 1024, (8, 8), 0.1, 2),        # the GRU's blocks, 2 x 4 tiles
+    (200, 2304, (8, 16), 0.25, 2),       # VGG conv3's, 4 x 8 tiles
+    (384, 640, (128, 128), 0.25, 8),     # the serving block, 64 x 64 tiles
+    (288, 1024, (144, 128), 0.25, 8),    # jamba's x_proj blocks
+    (130, 256, (2, 128), 0.25, 1),       # whisper's lm_head blocks
+    (111, 144, (3, 16), 0.5, 1),         # an odd block, 2 x 8 tiles
+]
+# (G, epilogue, bias): bcr_spmm, a pair, a triple with bias, SwiGLU + bias
+FP32_FORMS = [(1, None, False), (2, None, False), (3, None, True),
+              (2, "swiglu", True)]
+
+
+@pytest.mark.parametrize("variant", ["fp32", "int8", "experts", "unaligned"])
+@pytest.mark.parametrize("form", FP32_FORMS)
+@pytest.mark.parametrize("m", [1, 5, 33, 300])
+@pytest.mark.parametrize("case", FP32_CASES)
+def test_fp32_body_matches_plain(cuda, case, m, form, variant):
+    """The fp32 body against its plain version at 1e-4: ragged M (1, 5, 33,
+    300), G = 1, 2, 3 with bias and SwiGLU; fp32 tiles, int8 tiles, 3
+    stacked experts (one launch), and x and the tiles one element off
+    16-byte alignment (4-byte tile copies)."""
+    rng = np.random.default_rng(12)
+    n, k, block, keep, align = case
+    g, epilogue, bias = form
+    e = 3 if variant == "experts" else 0
+    lead = (e,) if e else ()
+    spec = BCRSpec(block_shape=block, keep_frac=keep, align=align)
+    members = [tbcrc_pack(torch.as_tensor(
+        rng.normal(size=lead + (n, k)) * k ** -0.5, dtype=torch.float32,
+        device=cuda), spec) for _ in range(g)]
+    w = members[0] if g == 1 else pack_group(members)
+    if variant == "int8":
+        w = quantize_packed(w) if g == 1 else quantize_grouped(w)
+    x = torch.as_tensor(rng.normal(size=lead + (m, k)), dtype=torch.float32,
+                        device=cuda)
+    if variant == "unaligned":
+        xs = torch.empty(x.numel() + 1, device=cuda)[1:].view(x.shape)
+        xs.copy_(x)
+        vs = torch.empty(w.vals.numel() + 1, device=cuda)[1:].view(
+            w.vals.shape)
+        vs.copy_(w.vals)
+        x, w = xs, dataclasses.replace(w, vals=vs)
+    b = (torch.as_tensor(rng.normal(size=lead + (g, n)), dtype=torch.float32,
+                         device=cuda) if bias else None)
+    key = "bcr_spmm" + ("_grouped" if g > 1 else "") + (
+        "_int8" if variant == "int8" else "")
+    before = dict(K.LAUNCHES)
+    if g == 1:
+        got = K.bcr_spmm(x, w)
+        want = ref.bcr_spmm_packed_ref(x, w)
+    else:
+        got = K.bcr_spmm_grouped(x, w, bias=b, epilogue=epilogue)
+        want = ref.bcr_spmm_grouped_ref(x, w, bias=b, epilogue=epilogue)
+        if epilogue is None:
+            want = want.transpose(-3, -2)
+    torch.cuda.synchronize()
+    moved = {kk: v - before[kk] for kk, v in K.LAUNCHES.items()
+             if v != before[kk]}
+    assert moved == ({key: 1, key + "_experts": 1} if e else {key: 1})
+    assert got.shape == want.shape
+    _close(got, want, torch.float32)
+
+
 def _split_case(rng, dev, form):
     """A (2048 x 8192) weight at M = 8 (MLP wo at decode: a split launch),
-    or the gate/up pair (2 x 8192 x 2048, SwiGLU), fp or int8 tiles."""
-    n, k = (8192, 2048) if form.startswith("wgi") else (2048, 8192)
+    or the gate/up pair (2 x 8192 x 2048, SwiGLU), fp or int8 tiles under
+    bf16 x; under fp32 x (the fp32 body: ``FP32_SPLITS``, fp32 or int8
+    tiles) the same two, the GRU's (8, 8) blocks at M = 1 and jamba's
+    x_proj at M = 8. Returns the plan, the launch, its plain version and x's
+    dtype."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     int8 = form.endswith("int8")
-    dtype = torch.float32 if int8 else torch.bfloat16
-    packs = [_packed(rng, n, k, (128, 128), 0.25, dtype, dev)
-             for _ in range(2 if form.startswith("wgi") else 1)]
-    if form.startswith("wgi"):
+    if "fp32" in form:
+        n, k, g, block, keep, align, m = FP32_SPLITS[form.replace("_int8",
+                                                                  "")]
+        dtype = torch.float32
+    else:
+        n, k = (8192, 2048) if form.startswith("wgi") else (2048, 8192)
+        g, block, keep, align, m = (2 if form.startswith("wgi") else 1,
+                                    (128, 128), 0.25, 8, 8)
+        dtype = torch.bfloat16
+    tiles = torch.float32 if int8 or dtype == torch.float32 else dtype
+    packs = [_packed(rng, n, k, block, keep, tiles, dev, align)
+             for _ in range(g)]
+    if g == 2:
         w = pack_group(packs)
         w = quantize_grouped(w) if int8 else w
     else:
         w = quantize_packed(packs[0]) if int8 else packs[0]
-    x = torch.as_tensor(rng.normal(size=(8, k)), dtype=torch.bfloat16,
-                        device=dev)
-    g = 2 if form.startswith("wgi") else 1
+    x = torch.as_tensor(rng.normal(size=(m, k)), dtype=dtype, device=dev)
     r, c = w.vals.shape[-2:]
-    plan = K.launch_plan(8, n, k, g, (128, 128), (r, c),
-                         torch.cuda.get_device_properties(
-                             dev).multi_processor_count, int8)
+    plan = (K.fp32_plan(m, n, k, g, block, (r, c), sms, int8)
+            if dtype == torch.float32
+            else K.launch_plan(m, n, k, g, block, (r, c), sms, int8))
 
     def run():
         if g == 2:
@@ -360,45 +444,49 @@ def _split_case(rng, dev, form):
             return ref.bcr_spmm_grouped_ref(x, w, epilogue="swiglu")
         return ref.bcr_spmm_packed_ref(x, w)
 
-    return plan, run, plain
+    return plan, run, plain, dtype
 
 
-SPLIT_FORMS = ["wo", "wo_int8", "wgi", "wgi_int8"]
+SPLIT_FORMS = ["wo", "wo_int8", "wgi", "wgi_int8", "gru_fp32",
+               "gru_fp32_int8", "xproj_fp32", "wo_fp32", "wo_fp32_int8",
+               "wgi_fp32", "wgi_fp32_int8"]
 
 
 @pytest.mark.parametrize("form", SPLIT_FORMS)
 def test_bcr_split_path_is_deterministic(cuda, form):
-    plan, run, plain = _split_case(np.random.default_rng(9), cuda, form)
+    plan, run, plain, dtype = _split_case(np.random.default_rng(9), cuda,
+                                          form)
     assert plan.splits > 1
     first, second = run(), run()
     torch.cuda.synchronize()
     # the last split sums the partials in split order: bit-equal launches
     assert torch.equal(first, second)
-    _close(first, plain(), torch.bfloat16)
-    if form.startswith("wo"):     # a 2048-row projection fills the card
+    _close(first, plain(), dtype)
+    if form.startswith(("wo", "gru", "xproj")):   # these fill the card
         assert plan.grid >= torch.cuda.get_device_properties(
             cuda).multi_processor_count
 
 
 @pytest.mark.parametrize("form", SPLIT_FORMS)
 def test_bcr_split_path_over_nan_buffers(cuda, form):
-    plan, run, plain = _split_case(np.random.default_rng(10), cuda, form)
+    plan, run, plain, dtype = _split_case(np.random.default_rng(10), cuda,
+                                          form)
+    want = plain()
     # freed NaN-filled blocks of the workspace's and the output's sizes: the
     # allocator hands them back to the call
     ws = torch.full((plan.workspace_floats,), float("nan"),
                     dtype=torch.float32, device=cuda)
-    y = torch.full((8, 2048 if form.startswith("wo") else 8192),
-                   float("nan"), dtype=torch.bfloat16, device=cuda)
+    y = torch.full(tuple(want.shape), float("nan"), dtype=dtype, device=cuda)
     del ws, y
     got = run()
     torch.cuda.synchronize()
     assert bool(torch.isfinite(got).all())
-    _close(got, plain(), torch.bfloat16)
+    _close(got, want, dtype)
 
 
 @pytest.mark.parametrize("form", SPLIT_FORMS)
 def test_bcr_split_counters_back_at_zero(cuda, form):
-    plan, run, _ = _split_case(np.random.default_rng(11), cuda, form)
+    plan, run, _, _ = _split_case(np.random.default_rng(11), cuda, form)
     run()
     run()
     torch.cuda.synchronize()
