@@ -39,7 +39,8 @@ Phases, in order (any failed check raises and the script exits non-zero):
    instantiations of the 128 tile's wide body), the bf16
    ``bcr_spmm_skip`` kernels by M tile likewise, the bf16 flash kernels
    HGMMA at head_dim 64 and HMMA at the others; none in any fp32
-   (CUDA-core) body, the 12 kernels of ``bcr_spmm``'s fp32 body among them;
+   (CUDA-core) body, the 12 kernels of ``bcr_spmm``'s fp32 body and the 24
+   of paged attention's fp32 body among them;
    HMMA in every instantiation of the short-block body, fp and int8 tiles.
    The expert-batched BCR forms are the same bodies with the expert on a
    grid axis: every stacked BCR kernel's SASS must read it
@@ -72,9 +73,11 @@ Phases, in order (any failed check raises and the script exits non-zero):
    the tiles off 16-byte alignment) and paged attention (decode over
    lengths 1..512 and 1024..4096,
    prefill-append of 16 rows over 100 and of 64 rows over 384 (phase 9a's
-   append admission); plus its one-launch split over pages at
-   decode and prefill-append, fp and int8 pages, checked as the BCR split
-   is, with an empty slot giving exact zeros), and the
+   append admission); the fp32 body's rows under fp32 q, fp32 and int8
+   pages, at 1e-4: those shapes and verify's at head_dim 64, row 3f's
+   decode and prefill-append at head_dim 128; plus its one-launch split
+   over pages at decode and prefill-append, fp and int8 pages, checked as
+   the BCR split is, with an empty slot giving exact zeros), and the
    fused flash attention (B·H = 8·32, S in {128, 512}, causal, non-causal
    and a ``q_offset`` case; the heaviest-first CTA order bit-equal to the
    B·H-major one), and the block-skipping ``bcr_spmm_skip`` over
@@ -448,7 +451,12 @@ short-block body's counters, ``bcr_spmm_short`` and
 ``bcr_spmm_int8_short``, timed at whisper's lm_head M = 8 (phase 15d),
 their launches over 15a's and 15b's runs, the bf16 one's
 ``gru_launches`` and ``gru_ms`` from one packed bf16 GRU step, and their
-errors the larger of phase 3's short-block checks and that row), and the
+errors the larger of phase 3's short-block checks and that row; one entry
+for paged attention's fp32 body, ``paged_attention_f32``, timed at row
+3f's fp32 prefill-append (phase 3's ``F32_PAGED_CASES``), its launches the
+sum over the fp32 phases, each read between a zero and a read of the
+counters, ``f32_phase_launches`` by phase (6, 9b, 10a fp32, 12b, 14d; the
+run fails if one is 0), and ``decode_ms`` at row 3f's decode), and the
 contract line.
 """
 
@@ -527,10 +535,21 @@ KERNELS = {
     **{k: (f"{PORT}/bcr_spmm.cu", f"{REPO}/kernels/bcr_spmm.py:158",
            "whisper lm_head 51866x1280 M=8") for k in ("bcr_spmm_short",
                                                        "bcr_spmm_int8_short")},
+    # paged attention's fp32 body: row 3f's prefill-append (phase 3)
+    "paged_attention_f32": (f"{PORT}/paged_attention.cu",
+                            f"{REPO}/kernels/paged_decode_attention.py:126",
+                            "fp32 q prefill-append B=8 S=16 prefix 0..496 "
+                            "32/8 heads hd128"),
 }
 # the counter key of each short-body entry → the form whose rows time it
 SHORT_FORMS = {"bcr_spmm_short": "bcr_spmm",
                "bcr_spmm_int8_short": "bcr_spmm_int8"}
+# paged attention's fp32 body (fp32 q over fp32 or int8 pages), counted
+# apart: its row is timed under its form's name; its launches come from the
+# fp32 engine phases (6, 9b, 10a fp32, 12b, 14d), each read between a zero
+# and a read of the counters
+F32_FORMS = {"paged_attention_f32": "paged_attention"}
+F32_PHASES = ("6", "9b", "10a fp32", "12b", "14d")
 # phase 3's paged case at phase 9a's append admission
 APPEND_SHAPE = "prefill-append B=8 S=64 prefix 384"
 # phase 10a's verify dispatch: 8 slots x (spec_k + 1) = 4 rows, ragged
@@ -952,7 +971,8 @@ def tc_instruction_check(skip_lib: Path, flash_lib: Path,
     for M tiles 8..64, wgmma = HGMMA for the 128 tile),
     ``flash_attention_fused`` (HGMMA at head_dim 64, HMMA at the others)
     and paged attention (HMMA over bf16 and over int8 pages, every head_dim
-    and row tile); their CUDA-core bodies run neither."""
+    and row tile); their CUDA-core bodies run neither, nor do the 24
+    kernels of paged attention's fp32 body."""
     kinds = (
         (skip_lib, r"bcr_spmm_skip_tcILi(\d+)ELi(\d+)ELb([01])E",
          lambda m: (f"bcr_spmm_skip M tile {m.group(1)}",
@@ -966,10 +986,17 @@ def tc_instruction_check(skip_lib: Path, flash_lib: Path,
                     False)),
     )
     seen = {}
+    f32 = 0
     for lib, pat, kind_of in kinds:
         for name, (hmma, hgmma) in sass_tensor_ops(lib).items():
             m = re.search(pat, name)
-            if m:
+            if "paged_attention_f32" in name:
+                # paged attention's fp32 body: CUDA-core FMAs only
+                if hmma or hgmma:
+                    raise AssertionError(f"{name}: the fp32 body issued "
+                                         f"{hmma} HMMA, {hgmma} HGMMA")
+                f32 += 1
+            elif m:
                 kind, wg = kind_of(m)
                 want = "wgmma" if wg else "mma.sync"
                 got = ("wgmma" if hgmma and not hmma
@@ -986,8 +1013,12 @@ def tc_instruction_check(skip_lib: Path, flash_lib: Path,
         if not any(k.startswith(prefix) for k in seen):
             raise AssertionError(f"tensor-core kernels missing ({prefix}): "
                                  f"{sorted(seen)}")
+    if f32 != 24:    # {fp32, int8 pages} x 4 head dims x 3 row tiles
+        raise AssertionError(f"{f32} paged fp32-body kernels, want 24")
     log("  " + "; ".join(f"{k}: {'/'.join(sorted(v))}"
                          for k, v in sorted(seen.items())))
+    log(f"  paged attention's fp32 body ({f32} kernels: fp32 and int8 "
+        f"pages, head_dim 16/32/64/128, 4/16/64-row tiles): no HMMA/HGMMA")
     log("  bcr_spmm_skip, flash and paged CUDA-core bodies (fp32, other "
         "blocks, head dims and page sizes): no HMMA/HGMMA")
 
@@ -1536,8 +1567,9 @@ def paged_cases(torch, timer, gen, record):
     a 384-token prefix (phase 9a's append admission) and of 4 ragged rows
     over lengths 1..512 (phase 10a's verify), each checked against its
     plain version and timed beside it and a gathered SDPA; plus small
-    fp32 cases. It uses only the wrappers' public calls, so ``--bcr-ab``
-    runs it against an older tree's package too."""
+    fp32 cases, then :func:`paged_f32_cases`. It uses only the wrappers'
+    public calls, so ``--bcr-ab`` runs it against an older tree's package
+    too."""
     from repro_torch.kernels import paged_decode_attention as PA
     from repro_torch.kernels import ref
     from repro_torch.kernels.quant import dequantize_rows, quantize_rows
@@ -1826,6 +1858,129 @@ def paged_cases(torch, timer, gen, record):
                                              k_scale=ks, v_scale=vs),
                 FP32_TOL)
     del kc, vc, ks, vs, deq
+    paged_f32_cases(torch, timer, gen, record)
+
+
+# the fp32 body's timed rows (fp32 q; PERF.md row 3): (label, head_dim,
+# S, prefix or cache lengths, real rows a slot or None for all, page
+# dtypes). llama3.2-1b's 32/8 heads at head_dim 64 (phase 3's shapes: phase
+# 6's and 9b's path at fp32), pixtral's and jamba's at head_dim 128 (row
+# 3f, phase 14d's path)
+F32_PAGED_CASES = (
+    ("decode B=8 lens 1..512", 64, 1, (1, 37, 128, 200, 333, 511, 512, 0),
+     None, ("float32", "int8")),
+    ("prefill-append B=8 S=16 prefix 100", 64, 16, (100,) * 8, None,
+     ("float32", "int8")),
+    ("prefill-append B=8 S=64 prefix 384", 64, 64, (384,) * 8, None,
+     ("float32", "int8")),
+    ("verify B=8 S=4 lens 1..512", 64, 4, (0, 36, 125, 197, 330, 508, 509,
+                                           0), (1, 2, 3, 4, 4, 4, 3, 0),
+     ("float32", "int8")),
+    ("decode B=8 lens 1..512 32/8 heads hd128", 128, 1,
+     (1, 37, 128, 200, 333, 511, 512, 0), None, ("float32",)),
+    ("prefill-append B=8 S=16 prefix 0..496 32/8 heads hd128", 128, 16,
+     (0, 16, 112, 127, 208, 300, 480, 496), None, ("float32",)),
+)
+
+
+def paged_f32_cases(torch, timer, gen, record):
+    """The fp32 body's rows (``F32_PAGED_CASES``): fp32 q over fp32 and over
+    int8 pages, each checked against its plain version at ``FP32_TOL``
+    (an inactive slot finite zeros, two launches bit-equal, the launch
+    counted under ``paged_attention_f32``) and timed beside it and one
+    SDPA over the gathered (dequantized) fp32 pages."""
+    from repro_torch.kernels import paged_decode_attention as PA
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.quant import dequantize_rows, quantize_rows
+
+    h, hkv, ps, fp32 = 32, 8, 16, torch.float32
+    log("paged attention fp32 q (the fp32 body), 32/8 heads, page 16")
+    for label, d, s, lens, real, page_dtypes in F32_PAGED_CASES:
+        lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        if s == 1:
+            tl, pl = lens_t, None
+        elif real is None:
+            pl, tl = lens_t, lens_t + s
+        else:
+            pl = lens_t
+            tl = lens_t + torch.tensor(real, dtype=torch.int32,
+                                       device="cuda")
+        nreal = (torch.full((8, s), True, device="cuda") if real is None
+                 else torch.arange(s, device="cuda")[None]
+                 < torch.tensor(real, device="cuda")[:, None])
+        qpos = ((tl - 1)[:, None] if s == 1
+                else pl[:, None] + torch.arange(s, device="cuda")[None])
+        pairs = int(((qpos + 1) * nreal).sum())
+        per = [max(1, -(-int(t) // ps)) for t in tl.tolist()]
+        n_pages = 1 + sum(per) + 8
+        kf, vf = (torch.randn((n_pages, ps, hkv, d), generator=gen,
+                              device="cuda") for _ in range(2))
+        perm = torch.randperm(n_pages - 1, generator=gen,
+                              device="cuda").cpu() + 1
+        bt = torch.zeros((8, max(per)), dtype=torch.int32)
+        nxt = 0
+        for i, npg in enumerate(per):
+            bt[i, :npg] = perm[nxt:nxt + npg]
+            nxt += npg
+        bt = bt.cuda()
+        q = torch.randn((8, s, h, d), generator=gen, device="cuda")
+        for pdt in page_dtypes:
+            if pdt == "int8":
+                (kp, ks), (vp, vs) = quantize_rows(kf), quantize_rows(vf)
+                sc = dict(k_scale=ks, v_scale=vs)
+                kd, vd = (dequantize_rows(kp, ks, fp32),
+                          dequantize_rows(vp, vs, fp32))
+                kv_bytes = PA.paged_kv_bytes(tl.cpu().numpy(), ps, hkv, d,
+                                             1, 4)
+            else:
+                kp, vp, sc, kd, vd = kf, vf, {}, kf, vf
+                kv_bytes = PA.paged_kv_bytes(tl.cpu().numpy(), ps, hkv, d, 4)
+
+            def run():
+                if s == 1:
+                    return PA.paged_decode_attention(q, kp, vp, bt, tl, **sc)
+                return PA.paged_prefill_append_attention(q, kp, vp, bt, pl,
+                                                         tl, **sc)
+
+            def plain():
+                if s == 1:
+                    return ref.paged_decode_attention_ref(q, kp, vp, bt, tl,
+                                                          **sc)
+                return ref.paged_prefill_append_ref(q, kp, vp, bt, pl, tl,
+                                                    **sc)
+
+            # a tree from before the fp32 body (``--bcr-ab``) has no count
+            before = PA.LAUNCHES.get("paged_attention_f32")
+            got, again, want = run(), run(), plain()
+            torch.cuda.synchronize()
+            if before is not None \
+                    and PA.LAUNCHES["paged_attention_f32"] != before + 2:
+                raise AssertionError(f"fp32 q {label}: the fp32 body did "
+                                     f"not run")
+            if not torch.equal(got, again):
+                raise AssertionError(f"fp32 q {label}: two launches differ")
+            live = (tl > 0)[:, None] & nreal
+            err = check_close(f"paged fp32 q {label} over {pdt} pages",
+                              got[live], want[live], FP32_TOL)
+            if not (bool(torch.isfinite(got).all())
+                    and int(torch.count_nonzero(got[tl == 0])) == 0):
+                raise AssertionError("inactive slot output is not finite "
+                                     "zeros")
+            l_max = bt.shape[1] * ps
+            kk, vv = (p[bt.long()].reshape(8, l_max, hkv, d)
+                      .repeat_interleave(h // hkv, 2).transpose(1, 2)
+                      for p in (kd, vd))
+            mask = (torch.arange(l_max, device="cuda")[None, None, :]
+                    <= qpos[:, :, None])[:, None]
+            qt = q.transpose(1, 2)
+            record("paged_attention" + ("_int8" if pdt == "int8" else ""),
+                   f"fp32 q {label}", err, timer.ms(run), timer.ms(plain),
+                   kv_bytes + 2 * int(nreal.sum()) * h * d * 4
+                   + bt.numel() * 4, 4 * pairs * h * d, fp32,
+                   timer.ms(lambda: _library_sdpa(torch, qt, kk, vv, mask)))
+            del got, again, want, kk, vv
+        del kf, vf, kp, vp, kd, vd
+    torch.cuda.empty_cache()
 
 
 def paged_split_checks(torch, gen) -> None:
@@ -1958,6 +2113,32 @@ def flash_cases(torch, timer, gen, record):
     check_close("flash fp32 BH=4 S=77 causal",
                 FA.flash_attention_fused(q, k, v, q_chunk=77, kv_chunk=77),
                 ref.flash_attention_ref(q, k, v), FP32_TOL)
+    # fp32 rows of the CUDA-core body (timed only): phase 3's causal shape
+    # and whisper's encoder self-attention (20 heads x 8 utterances, 1500
+    # frames, non-causal), against fp32 SDPA
+    log("flash_attention_fused fp32 (the CUDA-core body), head_dim 64")
+    for name, bh, sq, causal in (("fp32 causal BH=256 S=512", 256, 512, True),
+                                 ("fp32 non-causal BH=160 S=1500", 160, 1500,
+                                  False)):
+        q, k, v = (randn(bh, sq, d, dtype=torch.float32) for _ in range(3))
+        kw = dict(causal=causal, q_chunk=sq, kv_chunk=sq)
+        got = FA.flash_attention_fused(q, k, v, **kw)
+        want = ref.flash_attention_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        err = check_close(f"flash {name}", got, want, FP32_TOL)
+        del got, want
+        pairs = sq * (sq + 1) // 2 if causal else sq * sq
+        record("flash_attention_fused", name, err,
+               timer.ms(lambda: FA.flash_attention_fused(q, k, v, **kw),
+                        reps=5),
+               timer.ms(lambda: ref.flash_attention_ref(q, k, v,
+                                                        causal=causal),
+                        reps=5),
+               4 * bh * sq * d * 4, 4 * bh * pairs * d, torch.float32,
+               timer.ms(lambda: _library_sdpa(torch, q, k, v, None,
+                                              is_causal=causal), reps=5))
+        del q, k, v
+    torch.cuda.empty_cache()
 
 
 def flash_order_check(torch, gen):
@@ -2083,6 +2264,25 @@ def skip_cases(torch, timer, gen, record):
     check_close(f"skip fp32 256x512 block 32 keep 0.05 (share {share:.3f}, "
                 f"empty block rows {empty})", SK.bcr_spmm_skip(x, p),
                 ref.bcr_spmm_skip_ref(x, p), FP32_TOL)
+    # fp32 rows of the CUDA-core body (timed only): MLP wo and lm_head at
+    # M = 8, fp32 x and tiles, against a dense fp32 matmul (no TF32)
+    log("bcr_spmm_skip fp32 x (the CUDA-core body), block 128, M=8")
+    for wname, n, k in (("mlp_wo", 2048, 8192), ("lm_head", 128256, 2048)):
+        p, share, _ = skip_pack(torch, weight(n, k))
+        w_dense = ref.skip_unpack(p)
+        x = x_of(8, k, torch.float32)
+        got, want = SK.bcr_spmm_skip(x, p), ref.bcr_spmm_skip_ref(x, p)
+        torch.cuda.synchronize()
+        err = check_close(f"skip fp32 {wname} {n}x{k} M=8 (share "
+                          f"{share:.4f})", got, want, FP32_TOL)
+        byts, ops = skip_bytes_ops(p, 8, elt=4)
+        record("bcr_spmm_skip", f"fp32 {wname} {n}x{k} M=8", err,
+               timer.ms(lambda: SK.bcr_spmm_skip(x, p)),
+               timer.ms(lambda: ref.bcr_spmm_skip_ref(x, p)), byts, ops,
+               torch.float32,
+               timer.ms(lambda: _library_dense_matmul(x, w_dense)))
+        del p, w_dense, got, want
+    torch.cuda.empty_cache()
 
 
 def skip_split_checks(torch, gen) -> None:
@@ -3319,14 +3519,15 @@ def phase_speculative(torch, np, cfg, params, draft, quantized):
 
 def phase_speculative_fp32(torch, np):
     """Phase 10a's exactness check: fp32, full width, 2 layers (phase 6's
-    configuration), 4 requests, the packed ``build_draft`` drafter and the
-    oracle against the naive ``generate`` oracle under phase 6's 1e-4
-    near-tie rule; the oracle's acceptance 1.0 when no tie moved a
+    configuration with fp32 KV pages, so the verify and decode attention
+    run the fp32 paged body), 4 requests, the packed ``build_draft`` drafter
+    and the oracle against the naive ``generate`` oracle under phase 6's
+    1e-4 near-tie rule; the oracle's acceptance 1.0 when no tie moved a
     token."""
     from repro_torch.launch.serve import build_draft, build_params
     from repro_torch.serving import EngineConfig, InferenceEngine, OracleDraft
 
-    cfg = fp32_cfg()
+    cfg = fp32_cfg(cache_dtype="float32")
     params = build_params(cfg, seed=1, device="cuda")
     dcfg, dparams = build_draft(cfg, bcr_keep=0.25, device="cuda",
                                 log=lambda *_: None)
@@ -4040,15 +4241,17 @@ def phase_moe_serving(torch, np, cfg, params, frac, quantized):
 
 
 def phase_moe_engine_vs_naive(torch, np):
-    """Phase 12b: fp32, full width, 2 layers (1 dense + 1 MoE),
-    capacity_factor 8.0 (no token dropped, so batch composition cannot move
-    a token), 4 requests: the engine's greedy tokens against the naive
-    ``generate`` under phase 6's 1e-4 near-tie rule; the fp32 expert forms
-    (the fp32 body, expert on blockIdx.y) launched."""
+    """Phase 12b: fp32 with fp32 KV pages (the fp32 paged body), full width,
+    2 layers (1 dense + 1 MoE), capacity_factor 8.0 (no token dropped, so
+    batch composition cannot move a token), 4 requests: the engine's greedy
+    tokens against the naive ``generate`` under phase 6's 1e-4 near-tie
+    rule; the fp32 expert forms (the fp32 body, expert on blockIdx.y)
+    launched."""
     from repro_torch.launch.serve import build_params
     from repro_torch.serving import EngineConfig, InferenceEngine
 
-    cfg = moe_cfg(num_layers=2, dtype="float32", capacity_factor=8.0)
+    cfg = moe_cfg(num_layers=2, dtype="float32", cache_dtype="float32",
+                  capacity_factor=8.0)
     params = build_params(cfg, seed=1, device="cuda", log=log)
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
@@ -5281,7 +5484,8 @@ def phase_block_vs_step(torch, np):
 def phase_families(torch, np):
     """Phase 14: (a) pixtral-12b, (b) rwkv6-3b, (c) jamba-v0.1-52b served at
     full width, then (d) the fp32 exactness checks. Returns each kernel's
-    launches over the three serving runs (a)-(c)."""
+    launches over the three serving runs (a)-(c), and the fp32 paged
+    body's over (d)."""
     t0 = time.perf_counter()
     total, summaries, times = {}, {}, {}
     for arch in ("pixtral-12b", "rwkv6-3b", "jamba-v0.1-52b"):
@@ -5297,7 +5501,9 @@ def phase_families(torch, np):
         torch.cuda.empty_cache()
         times[arch] = time.perf_counter() - ts
     ts = time.perf_counter()
+    zero_counters()
     phase_family_exactness(torch, np)
+    f32_launches = read_counters()["paged_attention_f32"]
     torch.cuda.empty_cache()
     times["d"] = time.perf_counter() - ts
     ts = time.perf_counter()
@@ -5306,7 +5512,7 @@ def phase_families(torch, np):
         f"{times['rwkv6-3b']:.1f} s, (c) {times['jamba-v0.1-52b']:.1f} s, "
         f"(d) {times['d']:.1f} s, (e) {time.perf_counter() - ts:.1f} s; "
         f"{time.perf_counter() - t0:.1f} s in all")
-    return total
+    return total, f32_launches
 
 
 # phase 15: whisper-large-v3 at full width, 8 utterances of its 1500 frames,
@@ -7717,8 +7923,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         log(f"phase 14 kernel shapes: {time.perf_counter() - t0:.1f} s")
         log("phase 14, the vlm, ssm and hybrid families")
-        family_launches = phase_families(torch, np)
-        log(f"phase 14 launches: {json.dumps(family_launches)}")
+        family_launches, f32_14d = phase_families(torch, np)
+        log(f"phase 14 launches: {json.dumps(family_launches)}; fp32 paged "
+            f"body over 14d: {f32_14d}")
         log(smi)
         return 0
     if encdec_only:
@@ -7776,8 +7983,11 @@ def main() -> int:
 
     log("phase 6, engines against naive generate")
     t0 = time.perf_counter()
+    f32_launches = {}     # the fp32 paged body's launches by fp32 phase
+    zero_counters()
     phase_engine_vs_naive(torch, np)
     phase_engine_vs_naive(torch, np, quantized=True)
+    f32_launches["6"] = read_counters()["paged_attention_f32"]
     torch.cuda.empty_cache()
     log(f"phase 6: {time.perf_counter() - t0:.1f} s")
 
@@ -7805,9 +8015,11 @@ def main() -> int:
                                                    quantized=True)
     del params, params_q
     torch.cuda.empty_cache()
+    zero_counters()
     for kv_dtype in ("", "int8"):
         phase_prefix_correctness(torch, np, kv_dtype)
     phase_lifecycle(torch, np)
+    f32_launches["9b"] = read_counters()["paged_attention_f32"]
     torch.cuda.empty_cache()
     log(f"phase 9: {time.perf_counter() - t0:.1f} s")
 
@@ -7825,7 +8037,9 @@ def main() -> int:
     phase_unpaged(torch, np, cfg, params, traj)
     del draft
     torch.cuda.empty_cache()
+    zero_counters()
     phase_speculative_fp32(torch, np)
+    f32_launches["10a fp32"] = read_counters()["paged_attention_f32"]
     phase_admission(torch, np)
     torch.cuda.empty_cache()
     log(f"phase 10: {time.perf_counter() - t0:.1f} s")
@@ -7849,7 +8063,9 @@ def main() -> int:
                                              fracs[1], quantized=True)
     del params, params_q
     torch.cuda.empty_cache()
+    zero_counters()
     phase_moe_engine_vs_naive(torch, np)
+    f32_launches["12b"] = read_counters()["paged_attention_f32"]
     torch.cuda.empty_cache()
     log(f"phase 12: {time.perf_counter() - t0:.1f} s")
 
@@ -7862,7 +8078,7 @@ def main() -> int:
     log("phase 14, the vlm, ssm and hybrid families (pixtral-12b, rwkv6-3b, "
         "jamba-v0.1-52b)")
     t0 = time.perf_counter()
-    family_launches = phase_families(torch, np)
+    family_launches, f32_launches["14d"] = phase_families(torch, np)
     log(f"phase 14: {time.perf_counter() - t0:.1f} s")
 
     encdec_launches, encdec_rows = run_phase_encdec(torch, np)
@@ -7886,16 +8102,26 @@ def main() -> int:
                             else moe_launches)[k] for k in EXPERT_FORMS},
                      # the short-block body: whisper's lm_head on phase 15's
                      # path (15a's run bf16, 15b's int8)
-                     **{k: encdec_launches[k] for k in SHORT_FORMS}}
+                     **{k: encdec_launches[k] for k in SHORT_FORMS},
+                     # the fp32 paged body: the fp32 engine phases
+                     "paged_attention_f32": sum(f32_launches.values())}
+    idle = [p for p in F32_PHASES if not f32_launches.get(p)]
+    if idle:
+        raise AssertionError(f"the fp32 paged body ran no launch in phase "
+                             f"{idle}: {f32_launches}")
     kernels = []
     for name, (source, replaces, shape) in KERNELS.items():
-        form = SHORT_FORMS.get(name, name)
+        form = SHORT_FORMS.get(name, F32_FORMS.get(name, name))
         pool = encdec_rows if name in SHORT_FORMS else rows
         row = next(r for r in pool if r["kernel"] == form
                    and r["shape"] == shape)
         errs = [r["max_abs_err"] for r in rows if r["kernel"] == name]
         if name in SHORT_FORMS:
             errs = [short_errs[name], row["max_abs_err"]]
+        if name in F32_FORMS:      # every fp32 q row, fp32 and int8 pages
+            errs = [r["max_abs_err"] for r in rows
+                    if r["kernel"].startswith("paged_attention")
+                    and r["shape"].startswith("fp32 q ")]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=path_launches[name], max_abs_err=max(errs),
@@ -7935,6 +8161,13 @@ def main() -> int:
         if name == "bcr_spmm_short":
             # phase 13a's path: one packed bf16 GRU step at batch 1
             kernels[-1].update(gru_launches=gru_short, gru_ms=gru_short_ms)
+        if name in F32_FORMS:
+            # the fp32 phases' launches one by one; row 3f's decode time
+            kernels[-1].update(
+                f32_phase_launches=f32_launches,
+                decode_ms=next(r["ms"] for r in rows if r["kernel"] == form
+                               and r["shape"] == "fp32 q decode B=8 lens "
+                               "1..512 32/8 heads hd128"))
         if name in ("paged_attention", "paged_attention_int8"):
             # the prefill-append form: its launches on phase 9a's shared
             # run, its time at phase 9a's append admission (phase 3)

@@ -47,6 +47,8 @@
 //     partials in split order, writes `out` and puts the counter back to 0
 //     (the scheme of bcr_spmm.cu's split): launches are bit-equal and a
 //     CUDA graph can replay one.
+// Three bodies, chosen on the host by kernels/paged_decode_attention.py:
+// paged_body from dtypes and shapes:
 //   * bf16 q over bf16 or int8 pages (namespace tc): both products on the
 //     tensor cores, mma.sync m16n8k16 — S = Q·K^T with Q's fragments in
 //     registers and K by ldmatrix, O += P·V with P repacked in registers
@@ -74,20 +76,49 @@
 //     columns; v_scale multiplies P before the bf16 repack, which adds one
 //     bf16 rounding of P·v_scale (relative 2^-9), within the bf16
 //     tolerance.
-//   * Every other shape — fp32 q or pages, head dims other than 16, 32, 64
-//     and 128, page sizes that are not multiples of 16, unaligned tensors —
+//   * fp32 q over fp32 or int8 pages (namespace f32), head_dim 16, 32, 64
+//     or 128, any page size, 16-byte aligned q and pages: both products as
+//     FFMA on the CUDA cores in full fp32 (no TF32: the 1e-4 gate). The
+//     shape of the tc body: a CTA walks its split in rounds of 32 keys,
+//     each round's K and V rows gathered by 16-byte cp.async into a 2-3
+//     stage ring (one barrier a round, the next rounds in flight), int8
+//     codes widened to fp32 tiles once a round. The logits are a register
+//     tile a lane, 4 rows x 4 keys read as 16-byte shared loads: K (and Q)
+//     rows sit key-major at a stride padded to head_dim + 4 floats, so the
+//     8 keys a quarter-warp reads fall in 8 distinct bank groups (padding,
+//     not a transposed staging). The online softmax stays in registers,
+//     its row max and sum by shuffles over the lanes holding the row's
+//     keys, exp2 with log2(e) folded into the scale; P goes through the
+//     warp's own shared tile (rows x (keys + 4) floats) to P·V, where a
+//     lane owns its rows x 4 d of the accumulator across rounds. Three
+//     configurations by the query rows of a (slot, kv-head) (the plan in
+//     kernels/paged_decode_attention.py:launch_plan, pinned by
+//     tests/test_torch_paged_plan.py): decode's G <= 4 rows (4 warps, each
+//     its own 8 keys of a round, the warps' (m, l, acc) merged in warp
+//     order at the end: flash-decoding inside the CTA), up to 16 rows
+//     (verify; a warp each 4 rows over the round's 32 keys) and 64 rows
+//     (prefill-append; 8 warps of 8 rows, two lanes a dot). Its split
+//     fills four CTAs an SM with splits of at least 64 positions and caps
+//     a CTA at 256 (the heaviest CTA's products set the time).
+//   * What bounds the fp32 body after the chip run (NVIDIA H100 80GB HBM3,
+//     700 W; PERF.md §6): issue and shared-memory latency on the
+//     CUDA cores, not bytes nor the FFMA peak — row 3f's prefill-append
+//     (32/8 heads, head_dim 128, 16 rows over prefixes 0..496) runs at
+//     about 17% of the fp32 FFMA rate, decode at about 20% of the HBM rate.
+//   * Every other shape — head dims other than 16, 32, 64 and 128 (bf16 q
+//     also at page sizes that are not multiples of 16), unaligned tensors —
 //     runs the CUDA-core body (namespace cuda_core) under the same split:
 //     per page, K and V of the kv-head staged in fp32 shared memory (the
 //     next page's rows prefetched into registers), the masked logits, one
 //     warp per row for the softmax statistics, scalar P·V.
-//   * What still bounds it after the chip run (H100, PERF.md §6): at the
-//     short shapes a launch's chain of memory latencies — the length and
-//     table entries, then the pages, then, when split, the partials' round
-//     trip (fence, counter, merge) — 0.011-0.016 ms at the phase-3
-//     shapes of chip_smoke.py; over 1024..4096 positions the bytes: 44.6
-//     MB in 0.031 ms, level with a plain sum over the same pool, under a
-//     timer whose flush leaves the L2 dirty (each line read first evicts
-//     one to write back).
+//   * What still bounds the tc body after the chip run (H100, PERF.md §6):
+//     at the short shapes a launch's chain of memory latencies — the
+//     length and table entries, then the pages, then, when split, the
+//     partials' round trip (fence, counter, merge) — 0.011-0.016 ms at the
+//     phase-3 shapes of chip_smoke.py; over 1024..4096 positions the
+//     bytes: 44.6 MB in 0.031 ms, level with a plain sum over the same
+//     pool, under a timer whose flush leaves the L2 dirty (each line read
+//     first evicts one to write back).
 
 #include "hopper.cuh"
 
@@ -194,8 +225,9 @@ __device__ __forceinline__ float weight(float m, float mx) {
 // arrival order) and puts the unit's counter back to 0. V = 4 moves rows
 // as float4 (D % 4 == 0). The merge is one online pass over the splits
 // (running max, rescaled sum and acc), each thread two V-wide groups at a
-// time and four splits' L2 reads in flight together.
-template <bool kLog2, int V, typename T>
+// time and four splits' L2 reads in flight together. NT is the CTA's
+// thread count.
+template <bool kLog2, int V, int NT = kThreads, typename T>
 __device__ void finish(const float* acc, int lda, const float* m,
                        const float* l, T* __restrict__ out,
                        float* __restrict__ ws, int* __restrict__ counters,
@@ -203,7 +235,7 @@ __device__ void finish(const float* acc, int lda, const float* m,
   constexpr int kGroups = 2;   // V-wide groups a thread merges at once
   const int D = s.D, DV = D / V, tid = threadIdx.x, n = u.nr * DV;
   if (u.live_splits <= 1) {
-    for (int e = tid; e < n; e += kThreads) {
+    for (int e = tid; e < n; e += NT) {
       const int rr = e / DV, d = (e - rr * DV) * V;
       st_out<V>(out_row(out, s, u, rr) + d, acc + rr * lda + d,
                 1.f / fmaxf(l[rr], 1e-30f));
@@ -216,11 +248,11 @@ __device__ void finish(const float* acc, int lda, const float* m,
   float* wml = ws + (size_t)s.units * s.splits * RT * D;   // [..][RT][2]
   float* pa = wacc + (first + blockIdx.y) * RT * D;
   float* pm = wml + (first + blockIdx.y) * RT * 2;
-  for (int e = tid; e < n; e += kThreads) {
+  for (int e = tid; e < n; e += NT) {
     const int rr = e / DV, d = (e - rr * DV) * V;
     st_vec<V>(pa + rr * D + d, acc + rr * lda + d);
   }
-  for (int rr = tid; rr < u.nr; rr += kThreads) {
+  for (int rr = tid; rr < u.nr; rr += NT) {
     pm[2 * rr] = m[rr];
     pm[2 * rr + 1] = l[rr];
   }
@@ -233,12 +265,12 @@ __device__ void finish(const float* acc, int lda, const float* m,
   const float* ma = wacc + first * RT * D;
   const float* mm = wml + first * RT * 2;
   const int ls = u.live_splits;
-  for (int e0 = tid; e0 < n; e0 += kGroups * kThreads) {
+  for (int e0 = tid; e0 < n; e0 += kGroups * NT) {
     float a[kGroups][V] = {}, mx[kGroups], lsum[kGroups] = {};
     int rows[kGroups], cols[kGroups];
 #pragma unroll
     for (int j = 0; j < kGroups; ++j) {
-      const int e = min(e0 + j * kThreads, n - 1);
+      const int e = min(e0 + j * NT, n - 1);
       rows[j] = e / DV;
       cols[j] = (e - rows[j] * DV) * V;
       mx[j] = kNegInf;
@@ -261,7 +293,7 @@ __device__ void finish(const float* acc, int lda, const float* m,
     }
 #pragma unroll
     for (int j = 0; j < kGroups; ++j)
-      if (e0 + j * kThreads < n)
+      if (e0 + j * NT < n)
         st_out<V>(out_row(out, s, u, rows[j]) + cols[j], a[j],
                   1.f / fmaxf(lsum[j], 1e-30f));
   }
@@ -899,20 +931,503 @@ int launch_d(const AttnShape& s, void** args, cudaStream_t stream) {
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// fp32 body: fp32 q over fp32 or int8 pages, on the CUDA cores
+// ---------------------------------------------------------------------------
+
+namespace f32 {
+
+using namespace hopper;
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// One configuration of the body (kernels/paged_decode_attention.py:
+// F32_CONFIGS mirrors the table below): RT query rows a CTA, NW warps, WK of
+// them over each row's keys (warp w takes keys [w·KW, (w+1)·KW) of every
+// round, KW = KEYS / WK; their (m, l, acc) merged in warp order at the end),
+// the other NW / WK over the rows; KEYS keys a round; LR x LK lanes of a warp
+// over its rows x keys for the logits, the remaining LS = 32 / (LR·LK) lanes
+// splitting head_dim (summed by shuffles); ST ring stages; CTAS CTAs an SM
+// the register budget is set for.
+template <int RT_, int NW_, int WK_, int KEYS_, int LR_, int LK_, int ST_,
+          int CTAS_>
+struct Cfg {
+  static constexpr int RT = RT_, NW = NW_, WK = WK_, KEYS = KEYS_;
+  static constexpr int LR = LR_, LK = LK_, ST = ST_, CTAS = CTAS_;
+};
+
+template <typename TP, int D, typename C>
+struct Layout {
+  static constexpr bool Q8 = std::is_same<TP, int8_t>::value;
+  static constexpr int RT = C::RT, NW = C::NW, WK = C::WK, KEYS = C::KEYS;
+  static constexpr int LR = C::LR, LK = C::LK, ST = C::ST;
+  static constexpr int THREADS = NW * 32;
+  static constexpr int WR = NW / WK;          // warps over the rows
+  static constexpr int RW = RT / WR;          // rows a warp
+  static constexpr int KW = KEYS / WK;        // keys a warp takes a round
+  static constexpr int LS = 32 / (LR * LK);   // lanes sharing one dot
+  static constexpr int TR = RW / LR;          // rows a lane (logits)
+  static constexpr int TK = KW / LK;          // keys a lane (logits)
+  static constexpr int DC = D / 4;            // float4 chunks of a row
+  static constexpr int DCL = DC / LS;         // chunks a lane sums a dot over
+  static constexpr int LDK = D + 4;           // Q and K row stride (floats)
+  static constexpr int LDP = KW + 4;          // P row stride (floats)
+  static constexpr int PD = DC < 32 ? DC : 32;             // P·V lanes over d
+  static constexpr int PR = 32 / PD < RW ? 32 / PD : RW;   // ... over rows
+  static constexpr int OR = RW / PR;          // rows a lane (P·V)
+  static_assert(NW % WK == 0 && RT % WR == 0 && KEYS % WK == 0, "warps");
+  static_assert(32 % (LR * LK) == 0 && RW % LR == 0 && KW % LK == 0, "lanes");
+  static_assert(DC % LS == 0 && DC <= 32 && KW % 4 == 0 && RW % PR == 0,
+                "tile");
+  // bytes: the Q tile; a ring stage (fp32: K rows padded to LDK, V rows;
+  // int8: the K and V codes, then their KEYS K and KEYS V scales); int8: the
+  // round's K and V widened to fp32 tiles; after the loop the ring holds
+  // the warps' (acc, m, l, weight) for the merge; then each warp's P tile
+  // and its rows' rescale factors, the split's block-table entries and the
+  // arrival flag
+  static constexpr int QB = RT * LDK * 4;
+  static constexpr int KT = KEYS * LDK * 4;
+  static constexpr int VT = KEYS * D * 4;
+  static constexpr int STAGE = Q8 ? 2 * KEYS * D + 2 * KEYS * 4 : KT + VT;
+  static constexpr int RING = ST * STAGE + (Q8 ? KT + VT : 0);
+  static constexpr int MERGE = (WK * RT * LDK + 3 * WK * RT) * 4;
+  static constexpr int ring = QB;
+  static constexpr int pbuf = ring + (RING > MERGE ? RING : MERGE);
+  static constexpr int abuf = pbuf + NW * RW * LDP * 4;
+  static constexpr int table = abuf + NW * RW * 4;
+};
+
+template <typename TP, int D, typename C>
+__global__ void __launch_bounds__(C::NW * 32, C::CTAS)
+paged_attention_f32(const float* __restrict__ q,
+                    const TP* __restrict__ k_pages,
+                    const TP* __restrict__ v_pages,
+                    const float* __restrict__ k_scale,
+                    const float* __restrict__ v_scale,
+                    const int* __restrict__ block_tables,
+                    const int* __restrict__ prefix_len,
+                    const int* __restrict__ total_len,
+                    float* __restrict__ out, float* __restrict__ ws,
+                    int* __restrict__ counters, const AttnShape s) {
+  using L = Layout<TP, D, C>;
+  constexpr int NT = L::THREADS, KEYS = L::KEYS, DC = L::DC, LDK = L::LDK;
+  constexpr int RW = L::RW, KW = L::KW, LS = L::LS, LK = L::LK, LR = L::LR;
+  constexpr int TR = L::TR, TK = L::TK, OR = L::OR, PR = L::PR, PD = L::PD;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t sbase = smem_u32(smem);
+  const float* qs = reinterpret_cast<const float*>(smem);
+  int* bts = reinterpret_cast<int*>(smem + L::table);
+  int* flag = bts + s.pps;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  // prologue: the length and the split's block-table entries together
+  const int b_ = (blockIdx.x / s.row_tiles) / s.Hkv;
+  const int pg0 = blockIdx.y * s.pps;
+  const int bt0 = tid < s.pps && pg0 + tid < s.n_cols
+                      ? block_tables[(size_t)b_ * s.n_cols + pg0 + tid] : 0;
+  const int tlen = total_len[b_];
+  const Unit u = unit_of(s, tlen);
+  if (blockIdx.y > 0 && (int)blockIdx.y >= u.live_splits) return;
+  const int b = u.b, h = u.h, G = u.G, r0 = u.r0, nr = u.nr;
+  if (u.live == 0) {   // nothing cached: exact zeros
+    for (int idx = tid; idx < nr * D; idx += NT)
+      out_row(out, s, u, idx / D)[idx % D] = 0.f;
+    return;
+  }
+  if (tid < s.pps) bts[tid] = bt0;
+  for (int i = tid + NT; i < s.pps; i += NT)
+    bts[i] = pg0 + i < s.n_cols
+                 ? block_tables[(size_t)b * s.n_cols + pg0 + i] : 0;
+
+  // Q rows, padded to LDK (rows past the block arrive as zeros)
+  for (int e = tid; e < L::RT * DC; e += NT) {
+    const int rr = e / DC, c = e - rr * DC;
+    const bool ok = rr < nr;
+    const int r = r0 + (ok ? rr : 0), si = r / G, g = r - si * G;
+    cp16(sbase + (rr * LDK + 4 * c) * 4,
+         q + (((size_t)b * s.S + si) * s.H + h * G + g) * D + 4 * c, ok);
+  }
+  cp_commit();
+  const int plen = prefix_len != nullptr ? prefix_len[b] : tlen - s.S;
+  const int PS = s.page_size;
+  const int kbeg = pg0 * PS;                                 // split's keys
+  const int kend = min(tlen, min(pg0 + s.pps, u.live) * PS);
+  const int n_rounds = (kend - kbeg + KEYS - 1) / KEYS;
+  __syncthreads();   // the table entries
+
+  // one round's K and V rows (and int8 scales) into ring stage t % ST;
+  // positions past the split's end or total_len arrive as zeros
+  auto load_round = [&](int t) {
+    const uint32_t st = sbase + L::ring + (t % L::ST) * L::STAGE;
+    const int k0 = kbeg + t * KEYS;
+    auto row_of = [&](int i, bool& ok) -> size_t {
+      const int kpos = k0 + i;
+      ok = kpos < kend;
+      if (!ok) return 0;
+      const int lp = kpos / PS;
+      return ((size_t)bts[lp - pg0] * PS + (kpos - lp * PS)) * s.Hkv + h;
+    };
+    if constexpr (!L::Q8) {
+      for (int e = tid; e < KEYS * DC; e += NT) {
+        const int i = e / DC, c = e - i * DC;
+        bool ok;
+        const size_t row = row_of(i, ok);
+        cp16(st + (i * LDK + 4 * c) * 4, k_pages + row * D + 4 * c, ok);
+        cp16(st + L::KT + (i * D + 4 * c) * 4, v_pages + row * D + 4 * c,
+             ok);
+      }
+    } else {
+      constexpr int C8 = D / 16;   // 16-byte chunks of an int8 row
+      for (int e = tid; e < KEYS * C8; e += NT) {
+        const int i = e / C8, c = e - i * C8;
+        bool ok;
+        const size_t row = row_of(i, ok);
+        cp16(st + i * D + c * 16, k_pages + row * D + c * 16, ok);
+        cp16(st + KEYS * D + i * D + c * 16, v_pages + row * D + c * 16, ok);
+      }
+      for (int e = tid; e < 2 * KEYS; e += NT) {   // K, then V scales
+        const int which = e / KEYS, i = e - which * KEYS;
+        bool ok;
+        const size_t row = row_of(i, ok);
+        cp4(st + 2 * KEYS * D + e * 4, (which ? v_scale : k_scale) + row, ok);
+      }
+    }
+  };
+
+  // one commit group per round (empty past the last): rounds 0 .. ST-2 in
+  // flight; the first wait of the loop also covers the Q tile
+#pragma unroll
+  for (int t = 0; t < L::ST - 1; ++t) {
+    if (t < n_rounds) load_round(t);
+    cp_commit();
+  }
+
+  // warp (wr, wk): rows [wr·RW, +RW), keys [wk·KW, +KW) of each round.
+  // Logits lane (lr, lk, ls): rows lr + i·LR, keys lk + j·LK, the d chunks
+  // ls + c·LS. P·V lane (pr, pd): rows pr + i·PR, d chunk pd.
+  const int wk = warp % L::WK, wr = warp / L::WK;
+  const int ls = lane % LS, lk = (lane / LS) % LK, lr = lane / (LS * LK);
+  const int pd = lane % PD, pr = lane / PD;
+  const float sl2 = s.scale * kLog2e;
+  int qlim[TR];   // last key each of the lane's rows may see
+#pragma unroll
+  for (int i = 0; i < TR; ++i) {
+    const int r = r0 + wr * RW + lr + i * LR;
+    qlim[i] = min(r < s.S * G ? plen + r / G : kend - 1, kend - 1);
+  }
+  float m[TR], l[TR];
+#pragma unroll
+  for (int i = 0; i < TR; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+  }
+  float4 o[OR];
+#pragma unroll
+  for (int i = 0; i < OR; ++i) o[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  float* pw = reinterpret_cast<float*>(smem + L::pbuf) + warp * RW * L::LDP;
+  float* aw = reinterpret_cast<float*>(smem + L::abuf) + warp * RW;
+
+  for (int t = 0; t < n_rounds; ++t) {
+    cp_wait<L::ST - 2>();
+    __syncthreads();   // round t landed; every warp is done with round t - 1
+    if (t + L::ST - 1 < n_rounds) load_round(t + L::ST - 1);
+    cp_commit();
+    const unsigned char* st = smem + L::ring + (t % L::ST) * L::STAGE;
+    const float* kt = reinterpret_cast<const float*>(st);
+    const float* vt = reinterpret_cast<const float*>(st + L::KT);
+    const float* ksc = nullptr;
+    const float* vsc = nullptr;
+    if constexpr (L::Q8) {
+      // widen the round's codes to fp32 tiles (exact)
+      constexpr int C8 = D / 16;
+      float* kw = reinterpret_cast<float*>(smem + L::ring +
+                                           L::ST * L::STAGE);
+      float* vw = kw + KEYS * LDK;
+      for (int e = tid; e < 2 * KEYS * C8; e += NT) {
+        const int which = e / (KEYS * C8), e2 = e - which * KEYS * C8;
+        const int i = e2 / C8, c = e2 - i * C8;
+        const uint4 raw = *reinterpret_cast<const uint4*>(
+            st + which * KEYS * D + i * D + c * 16);
+        const int8_t* cs = reinterpret_cast<const int8_t*>(&raw);
+        float* dst = (which ? vw + i * D : kw + i * LDK) + c * 16;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          *reinterpret_cast<float4*>(dst + 4 * j) =
+              make_float4((float)cs[4 * j], (float)cs[4 * j + 1],
+                          (float)cs[4 * j + 2], (float)cs[4 * j + 3]);
+      }
+      kt = kw;
+      vt = vw;
+      ksc = reinterpret_cast<const float*>(st + 2 * KEYS * D);
+      vsc = ksc + KEYS;
+      __syncthreads();
+    }
+
+    // S = Q·K^T: the lane's TR x TK dots over its d chunks, 16-byte reads
+    float sa[TR][TK];
+#pragma unroll
+    for (int i = 0; i < TR; ++i)
+#pragma unroll
+      for (int j = 0; j < TK; ++j) sa[i][j] = 0.f;
+    const float* qp = qs + (wr * RW + lr) * LDK + 4 * ls;
+    const float* kp = kt + (wk * KW + lk) * LDK + 4 * ls;
+#pragma unroll
+    for (int c = 0; c < L::DCL; ++c) {
+      float4 a[TR], bk[TK];
+#pragma unroll
+      for (int i = 0; i < TR; ++i)
+        a[i] = *reinterpret_cast<const float4*>(qp + i * LR * LDK +
+                                                4 * LS * c);
+#pragma unroll
+      for (int j = 0; j < TK; ++j)
+        bk[j] = *reinterpret_cast<const float4*>(kp + j * LK * LDK +
+                                                 4 * LS * c);
+#pragma unroll
+      for (int i = 0; i < TR; ++i)
+#pragma unroll
+        for (int j = 0; j < TK; ++j) {
+          float x = sa[i][j];
+          x = fmaf(a[i].x, bk[j].x, x);
+          x = fmaf(a[i].y, bk[j].y, x);
+          x = fmaf(a[i].z, bk[j].z, x);
+          sa[i][j] = fmaf(a[i].w, bk[j].w, x);
+        }
+    }
+#pragma unroll
+    for (int off = 1; off < LS; off <<= 1)
+#pragma unroll
+      for (int i = 0; i < TR; ++i)
+#pragma unroll
+        for (int j = 0; j < TK; ++j)
+          sa[i][j] += __shfl_xor_sync(0xffffffffu, sa[i][j], off);
+
+    // scale into log2 units (int8: times the column's K scale), mask keys
+    // past each row's position, the split's end or total_len; the online
+    // softmax over the lanes that hold a row's keys
+    const int k0 = kbeg + t * KEYS;
+    float al[TR];
+#pragma unroll
+    for (int i = 0; i < TR; ++i) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < TK; ++j) {
+        const int kl = wk * KW + lk + j * LK;
+        float x = sa[i][j] * sl2;
+        if constexpr (L::Q8) x *= ksc[kl];
+        sa[i][j] = k0 + kl <= qlim[i] ? x : kNegInf;
+        mx = fmaxf(mx, sa[i][j]);
+      }
+#pragma unroll
+      for (int off = LS; off < LS * LK; off <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float mn = fmaxf(m[i], mx);
+      al[i] = ex2(m[i] - mn);
+      m[i] = mn;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < TK; ++j) {
+        sa[i][j] = ex2(sa[i][j] - mn);
+        sum += sa[i][j];
+      }
+#pragma unroll
+      for (int off = LS; off < LS * LK; off <<= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      l[i] = l[i] * al[i] + sum;
+      if constexpr (L::Q8) {   // V scale into P's columns, after the sum
+#pragma unroll
+        for (int j = 0; j < TK; ++j) sa[i][j] *= vsc[wk * KW + lk + j * LK];
+      }
+    }
+
+    // P and the rows' rescale factors through the warp's own buffer
+    if (ls == 0) {
+#pragma unroll
+      for (int i = 0; i < TR; ++i) {
+#pragma unroll
+        for (int j = 0; j < TK; ++j)
+          pw[(lr + i * LR) * L::LDP + lk + j * LK] = sa[i][j];
+        if (lk == 0) aw[lr + i * LR] = al[i];
+      }
+    }
+    __syncwarp();
+
+    // O += P·V: the lane's OR rows x 4 d, over the warp's KW keys
+    if (pr < PR) {
+#pragma unroll
+      for (int i = 0; i < OR; ++i) {
+        const float a = aw[pr + i * PR];
+        o[i].x *= a;
+        o[i].y *= a;
+        o[i].z *= a;
+        o[i].w *= a;
+      }
+      const float* vp = vt + (size_t)wk * KW * D + 4 * pd;
+#pragma unroll 2
+      for (int k = 0; k < KW; k += 4) {
+        float4 p4[OR];
+#pragma unroll
+        for (int i = 0; i < OR; ++i)
+          p4[i] = *reinterpret_cast<const float4*>(
+              pw + (pr + i * PR) * L::LDP + k);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const float4 v = *reinterpret_cast<const float4*>(vp + (k + kk) * D);
+#pragma unroll
+          for (int i = 0; i < OR; ++i) {
+            const float p = kk == 0 ? p4[i].x : kk == 1 ? p4[i].y
+                          : kk == 2 ? p4[i].z : p4[i].w;
+            o[i].x = fmaf(p, v.x, o[i].x);
+            o[i].y = fmaf(p, v.y, o[i].y);
+            o[i].z = fmaf(p, v.z, o[i].z);
+            o[i].w = fmaf(p, v.w, o[i].w);
+          }
+        }
+      }
+    }
+  }
+  cp_wait<0>();
+  __syncthreads();   // the ring is free
+
+  // the warps' (acc, m, l): co[wk][row][LDK], cm[wk][row], cl[wk][row]
+  float* co = reinterpret_cast<float*>(smem + L::ring);
+  float* cm = co + L::WK * L::RT * LDK;
+  float* cl = cm + L::WK * L::RT;
+  float* cw = cl + L::WK * L::RT;
+  if (pr < PR) {
+#pragma unroll
+    for (int i = 0; i < OR; ++i)
+      *reinterpret_cast<float4*>(
+          co + ((size_t)wk * L::RT + wr * RW + pr + i * PR) * LDK + 4 * pd) =
+          o[i];
+  }
+  if (ls == 0 && lk == 0) {
+#pragma unroll
+    for (int i = 0; i < TR; ++i) {
+      cm[wk * L::RT + wr * RW + lr + i * LR] = m[i];
+      cl[wk * L::RT + wr * RW + lr + i * LR] = l[i];
+    }
+  }
+  __syncthreads();
+  if constexpr (L::WK > 1) {   // merge the key warps, in warp order
+    for (int rr = tid; rr < L::RT; rr += NT) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int k = 0; k < L::WK; ++k) mx = fmaxf(mx, cm[k * L::RT + rr]);
+      float lsum = 0.f;
+#pragma unroll
+      for (int k = 0; k < L::WK; ++k) {
+        const float mk = cm[k * L::RT + rr];
+        const float w = mk <= 0.5f * kNegInf ? 0.f : ex2(mk - mx);
+        cw[k * L::RT + rr] = w;
+        lsum += w * cl[k * L::RT + rr];
+      }
+      cm[rr] = mx;
+      cl[rr] = lsum;
+    }
+    __syncthreads();
+    for (int idx = tid; idx < L::RT * D; idx += NT) {
+      const int rr = idx / D, d = idx - rr * D;
+      float a = 0.f;
+#pragma unroll
+      for (int k = 0; k < L::WK; ++k)
+        a += cw[k * L::RT + rr] * co[((size_t)k * L::RT + rr) * LDK + d];
+      co[rr * LDK + d] = a;
+    }
+    __syncthreads();
+  }
+  finish<true, 4, NT>(co, LDK, cm, cl, out, ws, counters, flag, s, u);
+}
+
+template <typename TP, int D, typename C>
+int launch(const AttnShape& s, int keys, int stages, int warps,
+           int smem_bytes, void** args, cudaStream_t stream) {
+  using L = Layout<TP, D, C>;
+  static_assert(L::table + 8 <= kSmemMax, "fp32 paged tile does not fit");
+  const size_t smem = L::table + 4 * ((size_t)s.pps + 1);
+  // the plan's shared memory must be this configuration's
+  if (smem > (size_t)kSmemMax || (size_t)smem_bytes != smem) return -1;
+  static bool smem_set = false;
+  if (!smem_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        paged_attention_f32<TP, D, C>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = true;
+  }
+  cudaError_t err =
+      cudaLaunchKernel((const void*)paged_attention_f32<TP, D, C>,
+                       dim3(s.units, s.splits), dim3(C::NW * 32), args, smem,
+                       stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The configurations, by the plan's row tile: decode (G rows of one
+// kv-head, up to 4: the 4 warps split each round's 32 keys), verify and
+// short suffixes (up to 16 rows: a warp each 4 rows over all 32 keys), and
+// prefill-append (64 rows: 8 warps of 8 rows over 32 keys a round, two
+// lanes a dot, two CTAs an SM at head_dim 128); every lane 4 x 4 logits
+// but decode's (4 x 1: the warps split the keys)
+using Decode = Cfg<4, 4, 4, 32, 1, 8, 3, 2>;
+using Short = Cfg<16, 4, 1, 32, 1, 8, 3, 2>;
+using Rows = Cfg<64, 8, 1, 32, 2, 8, 2, 2>;
+
+// the configuration whose (row tile, keys, stages, warps) the plan names
+template <typename TP, int D, typename C, typename... More>
+int launch_any(const AttnShape& s, int keys, int stages, int warps,
+               int smem_bytes, void** args, cudaStream_t stream) {
+  if (s.row_tile == C::RT && keys == C::KEYS && stages == C::ST &&
+      warps == C::NW)
+    return launch<TP, D, C>(s, keys, stages, warps, smem_bytes, args,
+                            stream);
+  if constexpr (sizeof...(More) > 0)
+    return launch_any<TP, D, More...>(s, keys, stages, warps, smem_bytes,
+                                      args, stream);
+  else
+    return -1;
+}
+
+template <typename TP, int D>
+int launch_rows(const AttnShape& s, int keys, int stages, int warps,
+                int smem_bytes, void** args, cudaStream_t stream) {
+  return launch_any<TP, D, Decode, Short, Rows>(s, keys, stages, warps,
+                                                smem_bytes, args, stream);
+}
+
+template <typename TP>
+int launch_d(const AttnShape& s, int keys, int stages, int warps,
+             int smem_bytes, void** args, cudaStream_t stream) {
+  switch (s.D) {
+    case 16: return launch_rows<TP, 16>(s, keys, stages, warps, smem_bytes,
+                                        args, stream);
+    case 32: return launch_rows<TP, 32>(s, keys, stages, warps, smem_bytes,
+                                        args, stream);
+    case 64: return launch_rows<TP, 64>(s, keys, stages, warps, smem_bytes,
+                                        args, stream);
+    case 128: return launch_rows<TP, 128>(s, keys, stages, warps, smem_bytes,
+                                          args, stream);
+    default: return -1;
+  }
+}
+
+}  // namespace f32
+
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (q and out share it). int8_pages = 0:
 // pages in q's dtype, scales unused; 1: int8 pages with (n_pages,
-// page_size, Hkv) fp32 k_scale / v_scale pools. tensor_core = 1 runs the
-// MMA body (bf16 q, head_dim 16/32/64/128, page_size a multiple of 16,
-// row_tile 16/32/64); 0 the CUDA-core body. The plan (row_tile, row_tiles,
-// pages_per_split, splits) is kernels/paged_decode_attention.py:paged_plan;
-// with splits > 1, ws holds units·splits·row_tile·(D + 2) floats and
-// counters units zeroed ints (the last split of a unit puts its counter
-// back to 0). prefix_len may be null: each slot's S rows are then its last
-// S positions (prefix_len = total_len - S; decode, with no kernel launched
-// to form it).
-int paged_attention_launch(int dtype, int int8_pages, int tensor_core,
+// page_size, Hkv) fp32 k_scale / v_scale pools. body: 0 the CUDA-core
+// body; 1 the tensor-core body (bf16 q, head_dim 16/32/64/128, page_size a
+// multiple of 16, row_tile 16/32/64); 2 the fp32 body (fp32 q, head_dim
+// 16/32/64/128, row_tile 4/16/64, with the plan's keys a round, ring
+// stages, warps and shared-memory bytes, which must be the configuration's:
+// else -1). The plan (row_tile, row_tiles, pages_per_split, splits) is
+// kernels/paged_decode_attention.py:launch_plan; with splits > 1, ws holds
+// units·splits·row_tile·(D + 2) floats and counters units zeroed ints (the
+// last split of a unit puts its counter back to 0). prefix_len may be null:
+// each slot's S rows are then its last S positions (prefix_len = total_len
+// - S; decode, with no kernel launched to form it).
+int paged_attention_launch(int dtype, int int8_pages, int body,
                            const void* q, const void* k_pages,
                            const void* v_pages, const float* k_scale,
                            const float* v_scale, const int* block_tables,
@@ -920,6 +1435,7 @@ int paged_attention_launch(int dtype, int int8_pages, int tensor_core,
                            void* out, float* ws, int* counters, int B, int S,
                            int H, int Hkv, int D, int page_size, int n_cols,
                            int row_tile, int row_tiles, int pps, int splits,
+                           int keys, int stages, int warps, int smem_bytes,
                            float scale, void* stream) {
   AttnShape s;
   s.B = B; s.S = S; s.H = H; s.Hkv = Hkv; s.D = D; s.page_size = page_size;
@@ -934,11 +1450,20 @@ int paged_attention_launch(int dtype, int int8_pages, int tensor_core,
                   (void*)&prefix_len, (void*)&total_len, (void*)&out,
                   (void*)&ws, (void*)&counters, (void*)&s};
   cudaStream_t st = (cudaStream_t)stream;
-  if (tensor_core) {
+  if (body == 1) {
     if (dtype != 1) return (int)cudaErrorInvalidValue;
     return int8_pages ? tc::launch_d<int8_t>(s, args, st)
                       : tc::launch_d<__nv_bfloat16>(s, args, st);
   }
+  if (body == 2) {
+    if (dtype != 0) return (int)cudaErrorInvalidValue;
+    return int8_pages
+               ? f32::launch_d<int8_t>(s, keys, stages, warps, smem_bytes,
+                                       args, st)
+               : f32::launch_d<float>(s, keys, stages, warps, smem_bytes,
+                                      args, st);
+  }
+  if (body != 0) return (int)cudaErrorInvalidValue;
   s.vec = cuda_core::pipelined(s, int8_pages ? 1 : (dtype == 0 ? 4 : 2),
                                k_pages, v_pages);
   if (dtype == 0 && !int8_pages)

@@ -19,20 +19,23 @@ the plain version does), and int8 pages with per-row, per-kv-head fp32
 ``k_scale``/``v_scale`` pools ``(n_pages, page_size, Hkv)``, where q stays
 in its own floating dtype, as in the reference's kernel.
 
-Which body runs (:func:`tensor_core_body`): bf16 q over bf16 or int8 pages
-at head_dim 16, 32, 64 or 128 and page sizes that are multiples of 16 runs
-on the tensor cores; every other shape runs the CUDA-core body. Both take
-the launch of :func:`paged_plan` (pure, pinned by
-``tests/test_torch_paged_plan.py``): the query rows a CTA owns and a split
-of each slot's pages over CTAs, merged in split order inside the one
-launch.
+Which body runs (:func:`paged_body`, one of three): bf16 q over bf16 or
+int8 pages at head_dim 16, 32, 64 or 128 and page sizes that are multiples
+of 16 runs on the tensor cores; fp32 q over fp32 or int8 pages at those
+head dims runs the fp32 body (FFMA on the CUDA cores, rounds of 32 keys,
+register-tiled logits; its configurations in ``F32_CONFIGS``); every other
+shape runs the CUDA-core body of the first port. Each takes the launch of
+:func:`launch_plan` (pure, pinned by ``tests/test_torch_paged_plan.py``):
+the query rows a CTA owns and a split of each slot's pages over CTAs
+(:func:`paged_plan`), merged in split order inside the one launch.
 
 A CUDA tensor goes through the kernel (or the wrapper raises); a CPU tensor
 goes through the plain version in :mod:`repro_torch.kernels.ref`. Each
 launch adds one to ``LAUNCHES["paged_attention"]`` (fp pages) or
 ``LAUNCHES["paged_attention_int8"]``; a launch through the prefill-append
 entry point also adds one to ``LAUNCHES["paged_attention_append"]`` or
-``LAUNCHES["paged_attention_int8_append"]``, which count that form apart.
+``LAUNCHES["paged_attention_int8_append"]``, and a launch of the fp32 body
+one to ``LAUNCHES["paged_attention_f32"]``, which count those apart.
 """
 
 from __future__ import annotations
@@ -47,16 +50,23 @@ from repro_torch.kernels import build, ref
 from repro_torch.kernels.bcr_spmm import _sm_count, split_counters
 
 LAUNCHES = {"paged_attention": 0, "paged_attention_int8": 0,
-            "paged_attention_append": 0, "paged_attention_int8_append": 0}
+            "paged_attention_append": 0, "paged_attention_int8_append": 0,
+            "paged_attention_f32": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_BODY_CODE = {"cuda_core": 0, "tc": 1, "f32": 2}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 SMEM_LIMIT = 232448          # bytes of shared memory a Hopper CTA may take
 TC_HEAD_DIMS = (16, 32, 64, 128)
 TC_ROW_TILES = (16, 32, 64)  # 1, 2 or 4 slabs of 16 query rows
+F32_HEAD_DIMS = (16, 32, 64, 128)
 SPLIT_KEYS = 1024            # most cached positions one CTA walks
 MIN_SPLIT_KEYS = 128         # fewest a split made to fill the card takes
+# the fp32 body's split: enough CTAs to fill F32_FILL_PER_SM an SM, none
+# over fewer than F32_MIN_SPLIT_KEYS positions nor more than F32_SPLIT_KEYS
+# (there the heaviest CTA's products set the time)
+F32_SPLIT_KEYS, F32_MIN_SPLIT_KEYS, F32_FILL_PER_SM = 256, 64, 4
 
 
 def tensor_core_body(q_dtype: torch.dtype, page_dtype: torch.dtype,
@@ -66,10 +76,78 @@ def tensor_core_body(q_dtype: torch.dtype, page_dtype: torch.dtype,
     pool's dtype first) over bf16 or int8 pages, a head_dim of
     ``TC_HEAD_DIMS`` (k16 steps and 16-byte rows), a page size that is a
     multiple of 16 (a 16-key chunk never crosses a page), and 16-byte
-    aligned q and pages. Anything else runs the CUDA-core body."""
+    aligned q and pages."""
     return (q_dtype == torch.bfloat16
             and page_dtype in (torch.bfloat16, torch.int8)
             and head_dim in TC_HEAD_DIMS and page_size % 16 == 0 and aligned)
+
+
+def paged_body(q_dtype: torch.dtype, page_dtype: torch.dtype, head_dim: int,
+               page_size: int, aligned: bool = True) -> str:
+    """Which of the three bodies runs a launch: ``"tc"`` where
+    :func:`tensor_core_body` holds; ``"f32"`` for fp32 q over fp32 or int8
+    pages at a head_dim of ``F32_HEAD_DIMS`` (16-byte rows of both), any
+    page size (each round gathers its keys row by row) and 16-byte aligned
+    q and pages; ``"cuda_core"`` for everything else (odd head dims,
+    unaligned tensors, bf16 q at head dims or page sizes the tensor-core
+    body does not take)."""
+    if tensor_core_body(q_dtype, page_dtype, head_dim, page_size, aligned):
+        return "tc"
+    if (q_dtype == torch.float32
+            and page_dtype in (torch.float32, torch.int8)
+            and head_dim in F32_HEAD_DIMS and aligned):
+        return "f32"
+    return "cuda_core"
+
+
+@dataclasses.dataclass(frozen=True)
+class F32Config:
+    """One configuration of the fp32 body (``f32::Cfg`` in the source):
+    ``row_tile`` query rows a CTA, ``warps`` warps of which ``key_warps``
+    split each round's ``keys`` keys (each warp its own chunk, merged in
+    warp order at the end) and the rest the rows; ``lane_rows`` x
+    ``lane_keys`` lanes of a warp over its rows x keys for the logits (the
+    other lanes split head_dim); ``stages`` ring stages."""
+    row_tile: int
+    warps: int
+    key_warps: int
+    keys: int
+    lane_rows: int
+    lane_keys: int
+    stages: int
+
+    def smem_bytes(self, head_dim: int, int8: bool, pps: int) -> int:
+        """``f32::Layout``'s bytes plus the split's table and flag: the Q
+        tile and each round's K rows padded to head_dim + 4 floats; the ring
+        (fp32: K and V rows; int8: codes and scales, plus the round widened
+        to fp32 K and V tiles), or the warps' merge if larger; each warp's
+        P tile (rows x (keys + 4)) and its rows' rescale factors."""
+        d, keys, rt = head_dim, self.keys, self.row_tile
+        ldk = d + 4
+        rows_w = rt * self.key_warps // self.warps
+        kt, vt = keys * ldk * 4, keys * d * 4
+        stage = 2 * keys * d + 8 * keys if int8 else kt + vt
+        ring = self.stages * stage + (kt + vt if int8 else 0)
+        merge = (self.key_warps * rt * ldk + 3 * self.key_warps * rt) * 4
+        warp_bufs = self.warps * rows_w * (keys // self.key_warps + 4 + 1) * 4
+        return rt * ldk * 4 + max(ring, merge) + warp_bufs + 4 * (pps + 1)
+
+
+# decode (up to 4 rows: G of one kv-head; the 4 warps split each round's
+# keys), verify and short suffixes (up to 16 rows), prefill-append (64 rows,
+# two lanes a dot; two CTAs an SM at head_dim 128); 4 x 4 logits a lane but
+# at decode; the source's f32::Decode, Short and Rows
+F32_CONFIGS = (F32Config(4, 4, 4, 32, 1, 8, 3),
+               F32Config(16, 4, 1, 32, 1, 8, 3),
+               F32Config(64, 8, 1, 32, 2, 8, 2))
+
+
+def f32_config(rows: int) -> F32Config:
+    """The fp32 body's configuration for ``rows`` = S·G query rows of a
+    (slot, kv-head): the smallest row tile that holds them, else the
+    largest (several row tiles)."""
+    return next((c for c in F32_CONFIGS if c.row_tile >= rows),
+                F32_CONFIGS[-1])
 
 
 def cuda_core_smem_bytes(d: int, page_size: int, row_tile: int) -> int:
@@ -119,26 +197,32 @@ class PagedPlan:
 
 def paged_plan(b: int, hkv: int, rows: int, n_cols: int, page_size: int,
                sm_count: int, row_tile: int | None = None,
-               head_shards: int = 1) -> PagedPlan:
+               head_shards: int = 1, split_keys: int = SPLIT_KEYS,
+               min_split_keys: int = MIN_SPLIT_KEYS,
+               fill_ctas: int | None = None) -> PagedPlan:
     """The launch for ``b`` slots of ``hkv`` kv-heads, ``rows`` = S·G query
     rows each, over block tables ``n_cols`` pages wide. It reads only what
     the host has — never the device lengths — so it depends on the table
     width and not on the slots' lengths.
 
     * Row tile: ``row_tile`` when given (the CUDA-core body's, from
-      :func:`cuda_core_row_tile`); else the tensor-core body's: of 16, 32
+      :func:`cuda_core_row_tile`, or the fp32 body's, from
+      :func:`f32_config`); else the tensor-core body's: of 16, 32
       and 64 rows (up to ``rows`` rounded up to 16), the largest whose
       units (slot × kv-head × row tile) still reach the SM count, else 16.
       Fewer rows a CTA re-read the pages from L2 more often; more CTAs keep
       more SMs streaming.
-    * Split: where the units number at most half the card's SMs, the pages
-      of each unit are shared by enough CTAs to reach the SM count (the
-      rule of ``bcr_spmm.launch_plan``: a split that would not at least
-      double the grid gains less than the partials' round trip costs), but
-      no split gets fewer than ``MIN_SPLIT_KEYS`` positions of the table;
-      and wherever the table holds more than ``SPLIT_KEYS`` positions,
-      enough splits that no CTA walks more than about that many (a CTA's
-      walk is a chain of memory latencies). At most ``n_cols`` splits, so
+    * Split: where the units number at most half of ``fill_ctas`` (the
+      SM count unless given), the pages of each unit are shared by enough
+      CTAs to reach it (the rule of ``bcr_spmm.launch_plan``: a split that
+      would not at least double the grid gains less than the partials'
+      round trip costs), but no split gets fewer than ``min_split_keys``
+      positions of the table; and wherever the table holds more than
+      ``split_keys`` positions, enough splits that no CTA walks more than
+      about that many (a CTA's walk is a chain of memory latencies). The
+      fp32 body gives its own three numbers (``F32_*``): there the
+      heaviest CTA's products set the time, so it fills several CTAs an
+      SM over shorter splits. At most ``n_cols`` splits, so
       none is empty by construction; splits past a short slot's live pages
       return at once on the card.
 
@@ -158,10 +242,11 @@ def paged_plan(b: int, hkv: int, rows: int, n_cols: int, page_size: int,
     units = b * hkv * row_tiles
     whole_units = whole * row_tiles
     keys = n_cols * page_size
-    fill = (1 if 2 * whole_units > sm_count
-            else min(-(-sm_count // whole_units),
-                     max(1, keys // MIN_SPLIT_KEYS)))
-    want = max(1, min(n_cols, max(fill, -(-keys // SPLIT_KEYS))))
+    target = sm_count if fill_ctas is None else fill_ctas
+    fill = (1 if 2 * whole_units > target
+            else min(-(-target // whole_units),
+                     max(1, keys // min_split_keys)))
+    want = max(1, min(n_cols, max(fill, -(-keys // split_keys))))
     pps = max(1, -(-n_cols // want))
     while pps > 1 and -(-n_cols // pps) < want:   # at least `want` splits
         pps -= 1
@@ -169,8 +254,46 @@ def paged_plan(b: int, hkv: int, rows: int, n_cols: int, page_size: int,
                      max(1, -(-n_cols // pps)))
 
 
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """A launch: its body (:func:`paged_body`), the grid (:class:`PagedPlan`)
+    and, for the fp32 body, its configuration and shared-memory bytes."""
+    body: str
+    plan: PagedPlan
+    f32: F32Config | None = None
+    smem_bytes: int = 0
+
+
+def launch_plan(q_dtype: torch.dtype, page_dtype: torch.dtype, b: int,
+                hkv: int, rows: int, n_cols: int, page_size: int,
+                head_dim: int, sm_count: int, aligned: bool = True,
+                head_shards: int = 1) -> LaunchPlan:
+    """The body and the launch of one call (pure: shapes and dtypes only):
+    the tensor-core body's row tile from :func:`paged_plan`, the CUDA-core
+    body's from :func:`cuda_core_row_tile`, the fp32 body's from
+    :func:`f32_config` with the fp32 body's split."""
+    body = paged_body(q_dtype, page_dtype, head_dim, page_size, aligned)
+    if body == "tc":
+        return LaunchPlan(body, paged_plan(b, hkv, rows, n_cols, page_size,
+                                           sm_count,
+                                           head_shards=head_shards))
+    if body == "cuda_core":
+        return LaunchPlan(body, paged_plan(
+            b, hkv, rows, n_cols, page_size, sm_count,
+            row_tile=cuda_core_row_tile(rows, head_dim, page_size),
+            head_shards=head_shards))
+    cfg = f32_config(rows)
+    plan = paged_plan(b, hkv, rows, n_cols, page_size, sm_count,
+                      row_tile=cfg.row_tile, head_shards=head_shards,
+                      split_keys=F32_SPLIT_KEYS,
+                      min_split_keys=F32_MIN_SPLIT_KEYS,
+                      fill_ctas=F32_FILL_PER_SM * sm_count)
+    return LaunchPlan(body, plan, cfg, cfg.smem_bytes(
+        head_dim, page_dtype == torch.int8, plan.pages_per_split))
+
+
 def _declare(lib: ctypes.CDLL) -> None:
-    lib.paged_attention_launch.argtypes = ([_I] * 3 + [_P] * 11 + [_I] * 11
+    lib.paged_attention_launch.argtypes = ([_I] * 3 + [_P] * 11 + [_I] * 15
                                            + [ctypes.c_float, _P])
     lib.paged_attention_launch.restype = _I
 
@@ -237,20 +360,20 @@ def _paged_attention(q, k_pages, v_pages, block_tables, prefix_len,
         return out.to(q.dtype)
     n_cols = block_tables.shape[1]
     rows = s * (h // hkv)
-    tc = tensor_core_body(qc.dtype, k_pages.dtype, d, page_size, aligned=all(
-        t.data_ptr() % 16 == 0 for t in (qc, k_pages, v_pages)))
-    plan = paged_plan(b, hkv, rows, n_cols, page_size, _sm_count(q.device),
-                      row_tile=None if tc
-                      else cuda_core_row_tile(rows, d, page_size),
-                      head_shards=head_shards)
+    lp = launch_plan(qc.dtype, k_pages.dtype, b, hkv, rows, n_cols,
+                     page_size, d, _sm_count(q.device), aligned=all(
+                         t.data_ptr() % 16 == 0
+                         for t in (qc, k_pages, v_pages)),
+                     head_shards=head_shards)
+    plan, cfg = lp.plan, lp.f32
     ws = counters = None
     if plan.splits > 1:
         ws = torch.empty(plan.workspace_floats(d), dtype=torch.float32,
                          device=q.device)
         counters = split_counters(q.device, plan.units)
     err = library().paged_attention_launch(
-        _DTYPE_CODE[qc.dtype], int(quant), int(tc), qc.data_ptr(),
-        k_pages.data_ptr(), v_pages.data_ptr(),
+        _DTYPE_CODE[qc.dtype], int(quant), _BODY_CODE[lp.body],
+        qc.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         k_scale.data_ptr() if quant else None,
         v_scale.data_ptr() if quant else None, block_tables.data_ptr(),
         plen.data_ptr() if plen is not None else None, tlen.data_ptr(),
@@ -258,13 +381,16 @@ def _paged_attention(q, k_pages, v_pages, block_tables, prefix_len,
         ws.data_ptr() if ws is not None else None,
         counters.data_ptr() if counters is not None else None, b, s, h, hkv,
         d, page_size, n_cols, plan.row_tile, plan.row_tiles,
-        plan.pages_per_split, plan.splits, float(d ** -0.5),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(err, "paged_attention launch")
+        plan.pages_per_split, plan.splits, cfg.keys if cfg else 0,
+        cfg.stages if cfg else 0, cfg.warps if cfg else 0, lp.smem_bytes,
+        float(d ** -0.5), torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, f"paged_attention launch ({lp.body} body)")
     key = "paged_attention_int8" if quant else "paged_attention"
     LAUNCHES[key] += 1
     if append:
         LAUNCHES[key + "_append"] += 1
+    if lp.body == "f32":
+        LAUNCHES["paged_attention_f32"] += 1
     return out.to(q.dtype)
 
 

@@ -799,12 +799,10 @@ def _paged_split_inputs(rng, dev, dtype, ps, d, g, int8, s=1, hkv=2,
                         dtype=dtype, device=dev)
     tl = torch.as_tensor(lens, dtype=torch.int32, device=dev)
     pl = torch.clamp(tl - s, min=0)
-    plan = PA.paged_plan(
-        len(lens), hkv, s * g, bt.shape[1], ps,
-        torch.cuda.get_device_properties(dev).multi_processor_count,
-        row_tile=None if PA.tensor_core_body(
-            dtype if int8 else kp.dtype, kp.dtype, d, ps)
-        else PA.cuda_core_row_tile(s * g, d, ps))
+    plan = PA.launch_plan(
+        dtype if int8 else kp.dtype, kp.dtype, len(lens), hkv, s * g,
+        bt.shape[1], ps, d,
+        torch.cuda.get_device_properties(dev).multi_processor_count).plan
     return q, kp, vp, bt, pl, tl, scales, plan
 
 
@@ -841,6 +839,32 @@ def test_paged_split_prefill_append_matches_plain(cuda, int8, s):
     torch.cuda.synchronize()
     want = ref.paged_prefill_append_ref(q, kp, vp, bt, pl, tl, **sc)
     _close(got, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("s", [16, 40])
+@pytest.mark.parametrize("d", [64, 128])
+def test_paged_split_prefill_append_fp32_matches_plain(cuda, int8, s, d):
+    """fp32 q over fp32 and over int8 pages: the fp32 body, split over
+    pages (one slot at 4096 positions), each launch counted under
+    ``paged_attention_f32`` as well as its form's keys."""
+    q, kp, vp, bt, pl, tl, sc, plan = _paged_split_inputs(
+        np.random.default_rng(24), cuda, torch.float32, 16, d, 4, int8,
+        s=s, lens=[4096, 100 + s, s, 2053])
+    assert plan.splits > 1
+    assert PA.paged_body(torch.float32, kp.dtype, d, 16) == "f32"
+    key = "paged_attention_int8" if int8 else "paged_attention"
+    before = dict(PA.LAUNCHES)
+    got = PA.paged_prefill_append_attention(q, kp, vp, bt, pl, tl, **sc)
+    again = PA.paged_prefill_append_attention(q, kp, vp, bt, pl, tl, **sc)
+    torch.cuda.synchronize()
+    want = dict(before)
+    for k in (key, key + "_append", "paged_attention_f32"):
+        want[k] += 2
+    assert PA.LAUNCHES == want
+    assert torch.equal(got, again)
+    _close(got, ref.paged_prefill_append_ref(q, kp, vp, bt, pl, tl, **sc),
+           torch.float32)
 
 
 @pytest.mark.parametrize("int8", [False, True])
